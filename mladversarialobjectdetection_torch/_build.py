@@ -1,0 +1,62 @@
+"""Build the port's CUDA kernels with nvcc at first use and load them with ctypes.
+
+Each `csrc/<name>.cu` becomes its own shared library with a plain C
+interface, `_build/<name>-<hash>.so`, where the hash covers the source and
+the flags; an existing library is reused. The compiler's `-Xptxas -v` report
+(registers, shared memory, spills) is kept beside each library as
+`<name>-<hash>.log`.
+
+Nothing here runs at import: the CPU tests import every module of the port
+on machines that have no nvcc.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+PACKAGE_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+def library_path(name: str) -> Path:
+    """Where `csrc/<name>.cu` builds to, keyed by its source and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest.update((CSRC_DIR / f"{name}.cu").read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every `csrc/*.cu` whose library is missing; return all libraries."""
+    targets = {src.stem: library_path(src.stem)
+               for src in sorted(CSRC_DIR.glob("*.cu"))}
+    for name, out in targets.items():
+        if out.exists():
+            continue
+        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        out.with_suffix(".log").write_text(proc.stdout)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"CUDA build of {name}.cu failed (nvcc exit "
+                               f"{proc.returncode}):\n{proc.stdout}")
+        os.replace(tmp, out)  # atomic: a reader never sees half a file
+    return targets
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    return ctypes.CDLL(str(build_all()[name]))

@@ -1,0 +1,86 @@
+"""Weight bridge: Flax `{'params', 'batch_stats'}` variables -> torch state_dict.
+
+Reads the nested mapping of arrays that the JAX package's detector holds, or
+that `mladversarialobjectdetection_tpu/ckpt/io.py:load_pytree` restores, as
+plain arrays (anything `np.asarray` accepts), so this module needs no JAX.
+
+The port's module names mirror Flax's, so the mapping is a rename:
+
+- path segments join with `.`;
+- conv `kernel` HWIO -> `weight` OIHW (a depthwise `[k, k, 1, C]` becomes
+  `[C, 1, k, k]`);
+- BatchNorm `scale`/`bias` (params) and `mean`/`var` (batch_stats) ->
+  `weight`/`bias`/`running_mean`/`running_var`; the Flax wrapper nests
+  `nn.BatchNorm` as an inner `bn`, which the port's `BatchNorm` does not, so
+  that segment is dropped;
+- `WSM` fusion weights and conv `bias` keep their names.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+_BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+              "var": "running_var"}
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
+    for key, value in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(value, Mapping):
+            yield from _flatten(value, path)
+        else:
+            yield path, value
+
+
+def _torch_key(collection: str, path: Tuple[str, ...]) -> str:
+    *mods, leaf = path
+    if mods and mods[-1] == "bn" and leaf in _BN_LEAVES:
+        return ".".join(mods[:-1] + [_BN_LEAVES[leaf]])
+    if collection == "params" and leaf == "kernel":
+        return ".".join(mods + ["weight"])
+    if collection == "params" and leaf in ("bias", "WSM"):
+        return ".".join(mods + [leaf])
+    raise KeyError(f"unknown Flax variable {collection}/{'/'.join(path)}")
+
+
+def flax_to_torch(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """Convert Flax detector variables into a torch state_dict (CPU, fp32)."""
+    unknown = set(variables) - {"params", "batch_stats"}
+    if unknown:
+        raise KeyError(f"unknown Flax collections {sorted(unknown)}")
+    state = {}
+    for collection in ("params", "batch_stats"):
+        for path, leaf in _flatten(variables.get(collection, {})):
+            key = _torch_key(collection, path)
+            arr = np.array(leaf, dtype=np.float32)  # a writable copy
+            if path[-1] == "kernel":
+                if arr.ndim != 4:
+                    raise ValueError(f"{key}: expected an HWIO kernel, "
+                                     f"got shape {arr.shape}")
+                arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+            if key in state:
+                raise KeyError(f"two Flax variables map to {key}")
+            state[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    return state
+
+
+def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
+    """Load Flax variables into `module`; raise on any unmatched key or shape."""
+    state = flax_to_torch(variables)
+    expected = module.state_dict()
+    missing = sorted(set(expected) - set(state))
+    unused = sorted(set(state) - set(expected))
+    if missing or unused:
+        raise KeyError(f"Flax variables do not match the module: "
+                       f"missing {missing[:8]} ({len(missing)}), "
+                       f"unused {unused[:8]} ({len(unused)})")
+    for key, value in state.items():
+        if tuple(value.shape) != tuple(expected[key].shape):
+            raise ValueError(f"{key}: Flax shape {tuple(value.shape)} vs "
+                             f"module shape {tuple(expected[key].shape)}")
+    module.load_state_dict(state, strict=True)
+    return module

@@ -1,0 +1,149 @@
+"""EfficientDet detector assembly in PyTorch (eval mode).
+
+Port of `mladversarialobjectdetection_tpu/models/efficientdet.py`: backbone
+-> extra `ResampleFeatureMap` for levels 6..max_level -> FPN cells ->
+ClassNet / BoxNet. A static `DetSpec` resolves every architectural decision
+before the modules are built.
+
+The public forward keeps the JAX layouts: NHWC images in, per-level NHWC
+head outputs out (fp32). NCHW is used only inside.
+"""
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..utils.image import get_feat_sizes, parse_image_size
+from . import bifpn, heads
+from .efficientnet import BackboneSpec, EfficientNet, get_backbone_spec
+
+
+class DetSpec(NamedTuple):
+    """Static, hashable description of one EfficientDet variant."""
+    backbone: BackboneSpec
+    min_level: int
+    max_level: int
+    num_classes: int
+    num_anchors: int
+    fpn_num_filters: int
+    fpn_cell_repeats: int
+    box_class_repeats: int
+    fpn_nodes: Tuple[bifpn.FpnNode, ...]
+    fpn_weight_method: str
+    act_type: str
+    separable_conv: bool
+    apply_bn_for_resampling: bool
+    conv_after_downsample: bool
+    conv_bn_act_pattern: bool
+    level_hw: Tuple[Tuple[int, int], ...]  # (h, w) per absolute level 0..max
+    image_size: Tuple[int, int]
+    survival_prob: Optional[float]
+    grad_checkpoint: bool
+    mixed_precision: bool
+    heads: Tuple[str, ...] = ("object_detection",)
+    seg_num_classes: int = 3
+
+
+def spec_from_config(config) -> DetSpec:
+    """Resolve a Config (config.py) into a static DetSpec."""
+    image_size = parse_image_size(config.image_size)
+    feat_sizes = get_feat_sizes(image_size, config.max_level)
+    level_hw = tuple((f["height"], f["width"]) for f in feat_sizes)
+    weight_method = config.fpn_weight_method or "fastattn"
+    nodes = bifpn.get_topology(config.fpn_name, config.min_level,
+                               config.max_level)
+    backbone = get_backbone_spec(config.backbone_name,
+                                 survival_prob=config.survival_prob)
+    # the detector's act_type overrides the backbone default
+    # (efficientdet_keras.py:884-906 passes utils.activation_fn w/ config act)
+    backbone = backbone._replace(act_type=config.act_type)
+    return DetSpec(
+        backbone=backbone,
+        min_level=config.min_level,
+        max_level=config.max_level,
+        num_classes=config.num_classes,
+        num_anchors=config.num_scales * len(config.aspect_ratios),
+        fpn_num_filters=config.fpn_num_filters,
+        fpn_cell_repeats=config.fpn_cell_repeats,
+        box_class_repeats=config.box_class_repeats,
+        fpn_nodes=nodes,
+        fpn_weight_method=weight_method,
+        act_type=config.act_type,
+        separable_conv=config.separable_conv,
+        apply_bn_for_resampling=config.apply_bn_for_resampling,
+        conv_after_downsample=config.conv_after_downsample,
+        conv_bn_act_pattern=config.conv_bn_act_pattern,
+        level_hw=level_hw,
+        image_size=image_size,
+        survival_prob=config.survival_prob,
+        grad_checkpoint=bool(config.grad_checkpoint),
+        mixed_precision=bool(config.mixed_precision),
+        heads=tuple(config.get("heads", ["object_detection"])),
+        seg_num_classes=int(config.get("seg_num_classes", 3) or 3),
+    )
+
+
+class EfficientDetNet(nn.Module):
+    """Backbone -> resample 6..max -> BiFPN -> heads (no pre/post).
+
+    Raises on what the port does not run yet, rather than ignoring it: the
+    lane-packed backbone entry (`packed_entry`), bf16 `mixed_precision` and
+    the segmentation head. Gradient checkpointing changes no eval output
+    and is ignored.
+    """
+
+    def __init__(self, spec: DetSpec, packed_entry: int = 0):
+        super().__init__()
+        if packed_entry:
+            raise NotImplementedError("packed_entry is not ported yet")
+        if spec.mixed_precision:
+            raise NotImplementedError("mixed_precision (bf16) is not ported yet")
+        if tuple(spec.heads) != ("object_detection",):
+            raise NotImplementedError(
+                f"heads {spec.heads}: only object_detection is ported")
+        self.spec = spec
+        self.backbone = EfficientNet(spec.backbone)
+        # endpoints[i] == reduction_{i+1}; levels min..5 come from the backbone
+        self._backbone_levels = range(spec.min_level, min(spec.max_level, 5) + 1)
+        channels = [self.backbone.endpoint_channels[level - 1]
+                    for level in self._backbone_levels]
+        # extra downsample levels 6..max_level (efficientdet_keras.py:814-828)
+        for level in range(6, spec.max_level + 1):
+            self.add_module(f"resample_p{level}", bifpn.ResampleFeatureMap(
+                channels[-1], spec.level_hw[level - 1], spec.fpn_num_filters,
+                spec.level_hw[level], apply_bn=spec.apply_bn_for_resampling,
+                conv_after_downsample=spec.conv_after_downsample))
+            channels.append(spec.fpn_num_filters)
+        self.fpn_cells = bifpn.FPNCells(
+            spec.fpn_nodes, spec.min_level, spec.max_level,
+            spec.fpn_cell_repeats, spec.fpn_num_filters, spec.level_hw,
+            channels, spec.fpn_weight_method, spec.act_type,
+            spec.separable_conv, spec.apply_bn_for_resampling,
+            spec.conv_after_downsample, spec.conv_bn_act_pattern)
+        num_levels = spec.max_level - spec.min_level + 1
+        self.class_net = heads.class_net(
+            spec.num_classes, spec.num_anchors, spec.fpn_num_filters,
+            num_levels, spec.box_class_repeats, spec.act_type,
+            spec.separable_conv, spec.survival_prob)
+        self.box_net = heads.box_net(
+            spec.num_anchors, spec.fpn_num_filters, num_levels,
+            spec.box_class_repeats, spec.act_type, spec.separable_conv,
+            spec.survival_prob)
+
+    def pyramid(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """NCHW images -> NCHW features of levels min..max, before the BiFPN."""
+        endpoints = self.backbone(x)
+        feats = [endpoints[level - 1] for level in self._backbone_levels]
+        for level in range(6, self.spec.max_level + 1):
+            feats.append(getattr(self, f"resample_p{level}")(feats[-1]))
+        return feats
+
+    def forward(self, images: torch.Tensor
+                ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """[B, H, W, 3] images -> (class, box) outputs, per level [B, h, w, C]."""
+        x = images.permute(0, 3, 1, 2)
+        fpn_feats = self.fpn_cells(self.pyramid(x))
+        nhwc = lambda outs: [o.permute(0, 2, 3, 1).contiguous() for o in outs]
+        return nhwc(self.class_net(fpn_feats)), nhwc(self.box_net(fpn_feats))

@@ -1,0 +1,326 @@
+"""EfficientNet / EfficientNet-lite backbone in PyTorch (eval mode).
+
+Port of `mladversarialobjectdetection_tpu/models/efficientnet.py`. The
+block-string decoding, width/depth rounding and lite rules are copies of
+the JAX module's; the layers are `nn.Module`s whose names mirror the Flax
+module names (`stem_conv`, `blocks_3.depthwise_conv`, `blocks_3.bn1`, ...),
+so `ckpt/bridge.py` maps a Flax variable tree onto them by a rename.
+
+Tensors are NCHW inside this module. Two behaviours of the Flax layers are
+reproduced explicitly, because PyTorch's defaults differ:
+
+- Flax `"SAME"` padding is asymmetric for stride 2: `same_pads`.
+- Flax `BatchNorm` in eval mode computes
+  `(x - mean) * (rsqrt(var + eps) * scale) + bias` with eps 1e-3: `BatchNorm`.
+"""
+from __future__ import annotations
+
+import math
+import re
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class BlockArgs(NamedTuple):
+    kernel_size: int
+    num_repeat: int
+    input_filters: int
+    output_filters: int
+    expand_ratio: int
+    id_skip: bool
+    se_ratio: Optional[float]
+    strides: Tuple[int, int]
+
+
+class BackboneSpec(NamedTuple):
+    """Fully-resolved static backbone description (hashable)."""
+    blocks: Tuple[BlockArgs, ...]  # repeats already expanded
+    stem_filters: int
+    act_type: str
+    use_se: bool
+    bn_momentum: float
+    bn_epsilon: float
+    survival_prob: Optional[float]
+
+
+# (width_coefficient, depth_coefficient, resolution, dropout_rate) — parity
+# with the reference's backbone tables (backbone/efficientnet_*.py).
+PARAMS = {
+    "efficientnet-b0": (1.0, 1.0, 224, 0.2),
+    "efficientnet-b1": (1.0, 1.1, 240, 0.2),
+    "efficientnet-b2": (1.1, 1.2, 260, 0.3),
+    "efficientnet-b3": (1.2, 1.4, 300, 0.3),
+    "efficientnet-b4": (1.4, 1.8, 380, 0.4),
+    "efficientnet-b5": (1.6, 2.2, 456, 0.4),
+    "efficientnet-b6": (1.8, 2.6, 528, 0.5),
+    "efficientnet-b7": (2.0, 3.1, 600, 0.5),
+    "efficientnet-lite0": (1.0, 1.0, 224, 0.2),
+    "efficientnet-lite1": (1.0, 1.1, 240, 0.2),
+    "efficientnet-lite2": (1.1, 1.2, 260, 0.3),
+    "efficientnet-lite3": (1.2, 1.4, 280, 0.3),
+    "efficientnet-lite4": (1.4, 1.8, 300, 0.3),
+}
+
+# the reference's default block strings (backbone/efficientnet_*.py)
+DEFAULT_BLOCK_STRINGS = (
+    "r1_k3_s11_e1_i32_o16_se0.25",
+    "r2_k3_s22_e6_i16_o24_se0.25",
+    "r2_k5_s22_e6_i24_o40_se0.25",
+    "r3_k3_s22_e6_i40_o80_se0.25",
+    "r3_k5_s11_e6_i80_o112_se0.25",
+    "r4_k5_s22_e6_i112_o192_se0.25",
+    "r1_k3_s11_e6_i192_o320_se0.25",
+)
+
+BN_EPSILON = 1e-3  # efficientnet.py:164 and the BatchNorm defaults at 180-181
+
+
+def decode_block_string(s: str) -> BlockArgs:
+    """Decode a block string such as 'r1_k3_s11_e1_i32_o16_se0.25'."""
+    options = {}
+    for op in s.split("_"):
+        splits = re.split(r"(\d.*)", op)
+        if len(splits) >= 2:
+            options[splits[0]] = splits[1]
+    return BlockArgs(
+        kernel_size=int(options["k"]),
+        num_repeat=int(options["r"]),
+        input_filters=int(options["i"]),
+        output_filters=int(options["o"]),
+        expand_ratio=int(options["e"]),
+        id_skip="noskip" not in s,
+        se_ratio=float(options["se"]) if "se" in options else None,
+        strides=(int(options["s"][0]), int(options["s"][1])),
+    )
+
+
+def round_filters(filters: int, width_coefficient: float,
+                  divisor: int = 8, skip: bool = False) -> int:
+    """Parity with efficientnet_model.py:129-143."""
+    if skip or not width_coefficient:
+        return int(filters)
+    filters *= width_coefficient
+    new_filters = max(divisor, int(filters + divisor / 2) // divisor * divisor)
+    if new_filters < 0.9 * filters:
+        new_filters += divisor
+    return int(new_filters)
+
+
+def round_repeats(repeats: int, depth_coefficient: float) -> int:
+    if not depth_coefficient:
+        return repeats
+    return int(math.ceil(depth_coefficient * repeats))
+
+
+def activation(x: torch.Tensor, act_type: str) -> torch.Tensor:
+    """Parity with automl utils.py:36-53 activation_fn."""
+    if act_type in ("swish", "silu"):
+        return F.silu(x)
+    if act_type == "swish_native":
+        return x * torch.sigmoid(x)
+    if act_type == "relu":
+        return F.relu(x)
+    if act_type == "relu6":
+        return F.relu6(x)
+    if act_type == "hswish":
+        return x * F.relu6(x + 3) / 6
+    if act_type == "mish":
+        return x * torch.tanh(F.softplus(x))
+    raise ValueError(f"Unsupported act_type {act_type}")
+
+
+def get_backbone_spec(backbone_name: str, survival_prob: Optional[float] = None
+                      ) -> BackboneSpec:
+    """Resolve a backbone name into a static spec (reference parity)."""
+    if backbone_name not in PARAMS:
+        raise ValueError(f"Unknown backbone {backbone_name}")
+    width, depth, _, _ = PARAMS[backbone_name]
+    is_lite = "lite" in backbone_name
+    fix_head_stem = is_lite  # lite: don't scale stem/head
+    use_se = not is_lite
+    act_type = "relu6" if is_lite else "swish"
+
+    raw_blocks = [decode_block_string(s) for s in DEFAULT_BLOCK_STRINGS]
+    expanded: list[BlockArgs] = []
+    n = len(raw_blocks)
+    for i, ba in enumerate(raw_blocks):
+        in_f = round_filters(ba.input_filters, width)
+        out_f = round_filters(ba.output_filters, width)
+        if fix_head_stem and (i == 0 or i == n - 1):
+            repeats = ba.num_repeat
+        else:
+            repeats = round_repeats(ba.num_repeat, depth)
+        first = ba._replace(input_filters=in_f, output_filters=out_f,
+                            num_repeat=1)
+        expanded.append(first)
+        for _ in range(repeats - 1):
+            expanded.append(first._replace(input_filters=out_f,
+                                           strides=(1, 1)))
+    stem_filters = round_filters(raw_blocks[0].input_filters, width,
+                                 skip=fix_head_stem)
+    return BackboneSpec(tuple(expanded), stem_filters, act_type, use_se,
+                        bn_momentum=0.99, bn_epsilon=BN_EPSILON,
+                        survival_prob=survival_prob)
+
+
+def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """(low, high) padding of one spatial dim under Flax/XLA `"SAME"`.
+
+    Hazard: XLA pads `total = max((ceil(size/stride) - 1) * stride + kernel
+    - size, 0)` with `total // 2` before and the rest after. For stride 2 at
+    an even size that is (0, 1) for k3 and (1, 2) for k5, so PyTorch's
+    symmetric `padding=k//2` shifts the sampling grid by one pixel.
+    """
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def pad_same(x: torch.Tensor, kernel: Sequence[int], stride: Sequence[int],
+             value: float = 0.0) -> torch.Tensor:
+    """Pad an NCHW tensor as Flax `"SAME"` would, before a `padding=0` op."""
+    top, bottom = same_pads(x.shape[2], kernel[0], stride[0])
+    left, right = same_pads(x.shape[3], kernel[1], stride[1])
+    if top == bottom == left == right == 0:
+        return x
+    return F.pad(x, (left, right, top, bottom), value=value)
+
+
+class Conv2d(nn.Conv2d):
+    """`nn.Conv` with Flax `"SAME"` padding (explicit `F.pad` + `padding=0`).
+
+    `init` names the Flax initializer family of the matching Flax conv,
+    which `models/init.py` applies; `bias_value` is its constant bias.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, groups: int = 1, bias: bool = True, *,
+                 init: str, bias_value: float = 0.0):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding=0, groups=groups, bias=bias)
+        self.init = init
+        self.bias_value = bias_value
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(pad_same(x, self.kernel_size, self.stride))
+
+
+class BatchNorm(nn.Module):
+    """Frozen (eval-mode) batch norm in Flax's order of operations.
+
+    Hazard: `F.batch_norm` computes `(x - mean) / sqrt(var + eps) * w + b`;
+    Flax computes `(x - mean) * (rsqrt(var + eps) * scale) + bias`
+    (flax.linen.normalization._normalize). The port uses Flax's order and
+    eps 1e-3 (efficientnet.py:164), so fp32 results match to rounding.
+    The Flax wrapper nests `nn.BatchNorm` as `bn`; this module holds the
+    parameters directly (the bridge drops that segment).
+    """
+
+    def __init__(self, num_features: int, eps: float = BN_EPSILON):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return ((x - self.running_mean.view(shape)) * mul.view(shape)
+                + self.bias.view(shape))
+
+
+class SqueezeExcite(nn.Module):
+    """efficientnet.py:203-217; only the non-lite backbones use it."""
+
+    def __init__(self, channels: int, se_filters: int, act_type: str):
+        super().__init__()
+        self.act_type = act_type
+        self.reduce = Conv2d(channels, se_filters, 1, init="fan_out_normal")
+        self.expand = Conv2d(se_filters, channels, 1, init="fan_out_normal")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pooled = torch.mean(x, dim=(2, 3), keepdim=True)
+        s = activation(self.reduce(pooled), self.act_type)
+        return torch.sigmoid(self.expand(s)) * x
+
+
+class MBConvBlock(nn.Module):
+    """Mobile inverted residual bottleneck (efficientnet.py:220-267).
+
+    `in_channels` is the actual input width: the lite stem is unscaled while
+    the block args are width-rounded, so block 0 of a lite backbone sees
+    fewer channels than `args.input_filters`.
+    """
+
+    def __init__(self, args: BlockArgs, spec: BackboneSpec, in_channels: int):
+        super().__init__()
+        self.args = args
+        self.act_type = spec.act_type
+        eps = spec.bn_epsilon
+        if args.expand_ratio != 1:
+            filters = args.input_filters * args.expand_ratio
+            self.expand_conv = Conv2d(in_channels, filters, 1, bias=False,
+                                      init="fan_out_normal")
+            self.bn0 = BatchNorm(filters, eps)
+        else:
+            filters = in_channels
+        self.depthwise_conv = Conv2d(filters, filters, args.kernel_size,
+                                     args.strides[0], groups=filters,
+                                     bias=False, init="fan_out_normal")
+        self.bn1 = BatchNorm(filters, eps)
+        self.se = None
+        if spec.use_se and args.se_ratio:
+            se_filters = max(1, int(args.input_filters * args.se_ratio))
+            self.se = SqueezeExcite(filters, se_filters, spec.act_type)
+        self.project_conv = Conv2d(filters, args.output_filters, 1, bias=False,
+                                   init="fan_out_normal")
+        self.bn2 = BatchNorm(args.output_filters, eps)
+        self.residual = (args.id_skip and args.strides == (1, 1)
+                         and args.input_filters == args.output_filters)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inputs = x
+        if self.args.expand_ratio != 1:
+            x = activation(self.bn0(self.expand_conv(x)), self.act_type)
+        x = activation(self.bn1(self.depthwise_conv(x)), self.act_type)
+        if self.se is not None:
+            x = self.se(x)
+        x = self.bn2(self.project_conv(x))
+        if self.residual:  # drop-connect is a training-only op
+            x = x + inputs
+        return x
+
+
+class EfficientNet(nn.Module):
+    """Backbone returning the reduction_1..5 endpoints (efficientnet.py:270-301)."""
+
+    def __init__(self, spec: BackboneSpec, in_channels: int = 3):
+        super().__init__()
+        self.spec = spec
+        self.stem_conv = Conv2d(in_channels, spec.stem_filters, 3, 2,
+                                bias=False, init="fan_out_normal")
+        self.stem_bn = BatchNorm(spec.stem_filters, spec.bn_epsilon)
+        channels = spec.stem_filters
+        for idx, ba in enumerate(spec.blocks):
+            self.add_module(f"blocks_{idx}", MBConvBlock(ba, spec, channels))
+            channels = ba.output_filters
+        n_blocks = len(spec.blocks)
+        self._reductions = tuple(
+            idx for idx in range(n_blocks)
+            if idx == n_blocks - 1 or spec.blocks[idx + 1].strides[0] > 1)
+        self.endpoint_channels: List[int] = [
+            spec.blocks[idx].output_filters for idx in self._reductions]
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        x = activation(self.stem_bn(self.stem_conv(x)), self.spec.act_type)
+        endpoints = []
+        for idx in range(len(self.spec.blocks)):
+            x = getattr(self, f"blocks_{idx}")(x)
+            if idx in self._reductions:
+                endpoints.append(x)
+        return endpoints  # [reduction_1 .. reduction_5]

@@ -1,0 +1,112 @@
+"""Guards of the PyTorch port: no JAX inside, no silent CPU fallback, a strict bridge."""
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from mladversarialobjectdetection_torch.ckpt import bridge
+from mladversarialobjectdetection_torch.inference import detector as pdetector
+from mladversarialobjectdetection_torch.models import efficientdet as pdet
+from mladversarialobjectdetection_torch import config as pconfig
+from mladversarialobjectdetection_torch.ops import nms as pnms
+from mladversarialobjectdetection_torch.ops import nms_cuda
+
+REPO = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import mladversarialobjectdetection_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke  # noqa: F401
+leaked = sorted(m for m in sys.modules if m.startswith("mladversarialobjectdetection_tpu"))
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 15  # every module of the port
+
+
+def test_detector_refuses_cpu_fallback(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda", "cuda:0"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            pdetector.Detector("efficientdet-lite0", device=device)
+
+
+def test_nms_refuses_other_devices():
+    boxes = torch.zeros((1, 8, 4), device="meta")
+    scores = torch.zeros((1, 8), device="meta")
+    with pytest.raises(ValueError):
+        pnms.batched_nms_auto(boxes, scores)
+    with pytest.raises(ValueError):
+        nms_cuda.batched_nms_cuda(boxes, scores)
+
+
+def test_nms_kernel_takes_float32_only():
+    """Checked first, before the device and before any build step."""
+    before = nms_cuda.LAUNCHES
+    with pytest.raises(TypeError, match="float32 only"):
+        nms_cuda.batched_nms_cuda(torch.zeros((1, 8, 4), dtype=torch.float64),
+                                  torch.zeros((1, 8), dtype=torch.float64))
+    assert nms_cuda.LAUNCHES == before
+
+
+@pytest.fixture(scope="module")
+def tiny_pair(tiny_detector):
+    cfg, _, _, variables = tiny_detector
+    net = pdet.EfficientDetNet(pdet.spec_from_config(
+        pconfig.Config(cfg.as_dict())))
+    flat = jax.tree_util.tree_map(np.asarray, variables)
+    return net, flat
+
+
+def test_bridge_loads_tiny_detector(tiny_pair):
+    net, variables = tiny_pair
+    bridge.load_flax_variables(net, variables)
+    assert torch.equal(net.fpn_cells.cell_0.fnode0.bn.running_var, torch.tensor(
+        variables["batch_stats"]["fpn_cells"]["cell_0"]["fnode0"]["bn"]["bn"]["var"]))
+
+
+def _copy(tree):
+    return {k: _copy(v) if isinstance(v, dict) else v for k, v in tree.items()}
+
+
+def test_bridge_raises_on_missing_key(tiny_pair):
+    net, variables = tiny_pair
+    broken = _copy(variables)
+    del broken["params"]["class_net"]["predict"]["pw"]["bias"]
+    with pytest.raises(KeyError, match="missing"):
+        bridge.load_flax_variables(net, broken)
+
+
+def test_bridge_raises_on_extra_key(tiny_pair):
+    net, variables = tiny_pair
+    broken = _copy(variables)
+    broken["params"]["box_net"]["conv_9"] = {"dw": {"kernel": np.zeros((3, 3, 1, 16))}}
+    with pytest.raises(KeyError, match="unused"):
+        bridge.load_flax_variables(net, broken)
+
+
+def test_bridge_raises_on_unknown_leaf_and_shape(tiny_pair):
+    net, variables = tiny_pair
+    broken = _copy(variables)
+    broken["params"]["box_net"]["predict"]["pw"]["gamma"] = np.zeros(4)
+    with pytest.raises(KeyError, match="unknown Flax variable"):
+        bridge.load_flax_variables(net, broken)
+    broken = _copy(variables)
+    broken["params"]["box_net"]["predict"]["pw"]["bias"] = np.zeros(5)
+    with pytest.raises(ValueError, match="shape"):
+        bridge.load_flax_variables(net, broken)
