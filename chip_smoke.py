@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check its kernels.
+"""Drive the PyTorch port's serving and attack paths on one CUDA card and
+check its kernels.
 
     python3 chip_smoke.py
 
@@ -7,16 +8,34 @@ Needs one NVIDIA Hopper card (the kernels are built for sm_90a) and the
 CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
 
 1. build: compile every kernel of `mladversarialobjectdetection_torch/csrc`
-   with nvcc (`_build.build_all`);
-2. kernel vs plain: the NMS kernel against its plain PyTorch version on the
-   card, at B=8, N=1024, M=100 (hard and gaussian) and on edge cases:
+   with nvcc, one process per source, all at once (`_build.build_all`), and
+   print each kernel's ptxas line;
+2. NMS kernel vs plain: the NMS kernel against its plain PyTorch version on
+   the card, at B=8, N=1024, M=100 (hard and gaussian) and on edge cases:
    indices, valid, valid_len and boxes exactly equal, scores within 1e-6;
 3. serve: `Detector("efficientdet-lite4")` at full width with seeded random
    weights serves synthetic 720x1280 frames at batch 1 and 8; the outputs are
    checked, the NMS kernel must have launched once per `serve`, the kernel is
    held against the plain version on the served candidates, and `serve`, the
    device part of it and the kernel alone are timed;
-4. card: the `nvidia-smi` name and power limit, and one JSON line with each
+4. warp kernels vs plain: the four EOT warp kernels (two forward passes and
+   both transposes) against their plain versions on the card, on the
+   lite4 window and on edge cases, within WARP_TOL of the output's scale;
+   two launches of each kernel must be bit-equal;
+5. attack step: `PatchAttacker.train_step` on efficientdet-lite4 at 640,
+   full width and depth, seeded weights, fp32 (TF32 off), batch 24, window
+   320, 256 NMS candidates, in the benchmark's "live" regime (1-5 person
+   boxes per image through `boxes_override`, 70 windows per step). The
+   counts are set to 0 before the counted steps and read after: the NMS
+   kernel must launch once per step (twice with the ASR pass) and each warp
+   kernel once per step over 70 windows; loss, patch and scale are checked;
+   the step is timed, profiled and its peak memory read;
+6. warp kernels in the step: each kernel on the inputs a step gave it,
+   against its plain version, timed beside its bound and the plain time;
+7. driver: `attack.train.train` for 3 steps at batch 12 with a score
+   threshold the random victim passes, so the warp runs on its detections;
+   its metrics log and patch artifacts must be written;
+8. card: the `nvidia-smi` name and power limit, and one JSON line with each
    kernel's launches, error, times and bound.
 
 The last line is `{"ok": true, "device": {...}}`. Without a card, or without
@@ -49,6 +68,26 @@ FP32_FLOP_PER_S = 67e12
 NMS_AREA_OPS = 5
 NMS_SCAN_OPS = 2
 NMS_SUPPRESS_OPS = {"gaussian": 14 + 4, "hard": 14 + 2}
+# warp kernels vs plain: the same float32 weights, sums in another order
+WARP_TOL = 1e-5
+# fp32 operations of the warp functions (csrc/warp.cu): per non-zero tap the
+# hat (sub, abs, div, sub, max), three FMAs and the normaliser's add; per
+# output of a forward pass the affine index (2 mul, 2 add) and the
+# normalisation (max, div, 3 mul); per element a transpose divides (the
+# affine index, max, 3 div)
+WARP_TAP_OPS = 5 + 6 + 1
+WARP_FWD_OUT_OPS = 4 + 5
+WARP_BWD_OUT_OPS = 4 + 1 + 3
+WARP_KERNELS = ("pass1_fwd", "pass2_fwd", "pass2_bwd", "pass1_bwd")
+WARP_REPLACES = {  # the Pallas kernels of v1; v2's are listed in PERF.md
+    "pass1_fwd": "tools/experiments/pallas_warp.py:73",
+    "pass2_fwd": "tools/experiments/pallas_warp.py:120",
+    "pass2_bwd": "tools/experiments/pallas_warp.py:139",
+    "pass1_bwd": "tools/experiments/pallas_warp.py:89",
+}
+ATTACK_BATCH = 24
+ATTACK_WINDOW = 320
+ATTACK_STEPS = 3
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
@@ -144,8 +183,10 @@ def host_p50_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def profile_device(fn, label: str) -> None:
-    """One traced call of fn: device busy share of the wall time, top kernels."""
+def profile_device(fn, label: str, top: int = 6):
+    """One traced call of fn: device busy share of the wall time, top kernels.
+
+    Returns (wall ms, device busy ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -163,20 +204,285 @@ def profile_device(fn, label: str) -> None:
     print(f"  profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%, idle "
           f"{100 - 100 * busy_us / wall_us:.1f}%), {launches} kernel launches")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x "
               f"{e.key[:90]}")
+    return wall_us / 1e3, busy_us / 1e3
+
+
+def kernel_device_ms(fn, kernel: str, iters: int = 10) -> float:
+    """Mean device ms per launch of the CUDA kernel whose name contains
+    `kernel`, from torch.profiler over `iters` calls of fn (the host work
+    around each launch is left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and kernel in e.key]
+    total_us = sum(e.self_device_time_total for e in hits)
+    count = sum(e.count for e in hits)
+    if not count or total_us <= 0:
+        fail(f"the profiler saw no device time of kernel {kernel}")
+    return total_us / 1e3 / count
+
+
+def kernel_name(mangled: str) -> str:
+    """The `*_kernel` component of an Itanium-mangled entry name."""
+    names, i = [], 0
+    while i < len(mangled):
+        digits = len(mangled[i:]) - len(mangled[i:].lstrip("0123456789"))
+        if digits:
+            n = int(mangled[i:i + digits])
+            names.append(mangled[i + digits:i + digits + n])
+            i += digits + n
+        else:
+            i += 1
+    hits = [x for x in names if x.endswith("_kernel")]
+    return hits[-1] if hits else mangled
+
+
+def print_ptxas(libs) -> None:
+    """Each kernel's registers, shared memory and spills from nvcc's log."""
+    import re
+
+    for lib, path in libs.items():
+        kernel = "?"
+        for line in path.with_suffix(".log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                kernel = kernel_name(m.group(1))
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {lib}/{kernel}: {line.strip()}")
+
+
+def nms_numbers(boxes, scores, kw, label: str):
+    """(kernel ms, plain ms, bound ms, bound_by, max error) of the NMS kernel
+    on these candidates, which must match the plain version."""
+    import torch
+    from mladversarialobjectdetection_torch.ops import nms, nms_cuda
+
+    kern = nms_cuda.batched_nms_cuda(boxes, scores, **kw)
+    plain = nms.batched_nms(boxes, scores, **kw)
+    err = compare_nms(label, kern, plain)
+    kern_ms = cuda_ms(lambda: nms_cuda.batched_nms_cuda(boxes, scores, **kw),
+                      iters=50)
+    plain_ms = cuda_ms(lambda: nms.batched_nms(boxes, scores, **kw), iters=5)
+    # the serial chain alone: the same launch with every candidate masked
+    # runs the M dependent block-wide argmax steps and skips every IoU row
+    masked = torch.full_like(scores, NEG_INF)
+    chain_ms = cuda_ms(lambda: nms_cuda.batched_nms_cuda(boxes, masked, **kw),
+                       iters=50)
+    b, n = scores.shape
+    m = kw["max_output_size"]
+    nbytes = b * n * 20 + b * m * (16 + 4 + 4 + 1) + b * 4
+    # the kernel skips the IoU row on steps without a valid winner, so the
+    # work is counted from this run's valid steps
+    ops = n * (b * NMS_AREA_OPS + b * m * NMS_SCAN_OPS
+               + int(kern.valid_len.sum()) * NMS_SUPPRESS_OPS[kw["method"]])
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOP_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"  nms {label} [{b},{n}] -> {m}: kernel {kern_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
+          f"{nbytes} B, {ops} fp32 ops); serial chain of {m} argmax steps "
+          f"(all candidates masked) {chain_ms:.4f} ms, "
+          f"{chain_ms * 1e3 / m:.3f} us per step, "
+          f"{100 * chain_ms / kern_ms:.1f}% of the kernel; max error {err}")
+    return kern_ms, plain_ms, bound_ms, bound_by, err
+
+
+def make_live_slot_boxes(batch: int, image_hw, max_boxes: int = 16,
+                         lives=(1, 2, 3, 4, 5), seed: int = 0):
+    """Pinned person boxes: image i gets lives[i % len] valid slots.
+
+    A copy of bench.py:48-70 (its "live" regime): heights 150-400 px, aspect
+    0.3-0.5, placed in bounds, from a seeded numpy generator; at batch 24,
+    70 live slots and a batch maximum of 5."""
+    h, w = image_hw
+    rng = np.random.default_rng(seed)
+    boxes = np.zeros((batch, max_boxes, 4), np.float32)
+    valid = np.zeros((batch, max_boxes), bool)
+    for i in range(batch):
+        for j in range(lives[i % len(lives)]):
+            bh = rng.uniform(150.0, 400.0)
+            bw = bh * rng.uniform(0.3, 0.5)
+            y0 = rng.uniform(0.0, h - bh)
+            x0 = rng.uniform(0.0, w - bw)
+            boxes[i, j] = (y0, x0, y0 + bh, x0 + bw)
+            valid[i, j] = True
+    return boxes, valid
+
+
+def warp_case(rng, n_images, n, p0, w, *, angle_deg=None, size=None,
+              shift=0.0):
+    """(canvases [B, p0, p0, 3] on the card, host window table [n, 8]) of
+    random windows; each region lies in its window unless `shift` moves it."""
+    import torch
+    from mladversarialobjectdetection_torch.ops import eot
+
+    size = np.full(n, size) if size is not None else rng.uniform(40, 200, n)
+    diag = np.minimum(np.sqrt(2.0) * size, w)
+    ymin = rng.uniform(0, np.maximum(w - diag, 1e-3)) + shift
+    xmin = rng.uniform(0, np.maximum(w - diag, 1e-3)) + shift
+    angle = (np.full(n, angle_deg) if angle_deg is not None
+             else rng.uniform(-20, 20, n)) * np.pi / 180
+    f = lambda v: torch.tensor(v, dtype=torch.float32)
+    zero = f(np.zeros(n))
+    table = eot.window_table(p0, zero, zero, f(ymin), f(xmin), f(size),
+                             f(diag), f(angle),
+                             torch.from_numpy(rng.integers(0, n_images, n)))
+    canvases = torch.from_numpy(rng.uniform(
+        -1, 1, (n_images, p0, p0, 3)).astype(np.float32)).cuda()
+    return canvases, table
+
+
+def warp_cases(rng):
+    """(name, w, canvases, table): the lite4 window and the edge cases."""
+    yield ("p96 w320 rot -20", 320, *warp_case(rng, 2, 3, 96, 320, angle_deg=-20))
+    yield ("p96 w320 rot 0 rho<1", 320, *warp_case(rng, 2, 3, 96, 320,
+                                                   angle_deg=0, size=150.0))
+    yield ("p96 w320 rot +20 rho 1.6", 320, *warp_case(rng, 2, 3, 96, 320,
+                                                       angle_deg=20, size=60.0))
+    yield ("partly outside", 320, *warp_case(rng, 2, 3, 96, 320, shift=150.0))
+    yield ("wholly outside", 320, *warp_case(rng, 2, 3, 96, 320, shift=5000.0))
+    yield ("size 1", 160, *warp_case(rng, 1, 2, 96, 160, size=1.0))
+    yield ("w160", 160, *warp_case(rng, 2, 4, 96, 160))
+    yield ("w200", 200, *warp_case(rng, 2, 4, 96, 200))
+    yield ("w384", 384, *warp_case(rng, 2, 4, 96, 384))
+    yield ("p32 w200", 200, *warp_case(rng, 3, 5, 32, 200))
+    yield ("b24 70 windows", 320, *warp_case(rng, 24, 70, 96, 320))
+
+
+def warp_err(name, kern, plain) -> float:
+    """Max abs error of a warp kernel, within WARP_TOL of the output's scale."""
+    err = float((kern - plain).abs().max())
+    scale = max(1.0, float(plain.abs().max()))
+    if not err <= WARP_TOL * scale:
+        fail(f"warp {name}: kernel and plain differ by {err} > "
+             f"{WARP_TOL} * {scale}")
+    return err
+
+
+def check_warp(name, canvases, table, w, g=None):
+    """The four warp kernels against the plain passes on the same CUDA
+    tensors, and each kernel launched twice bit-equal. Returns the max error
+    per kernel and whether the forward output was all zero."""
+    import torch
+    from mladversarialobjectdetection_torch.ops import eot, warp_cuda
+
+    n_img, p0 = canvases.shape[0], canvases.shape[1]
+    t = warp_cuda.pass1_fwd(canvases, table, w)
+    out = warp_cuda.pass2_fwd(t, table)
+    if g is None:
+        g = torch.randn(out.shape, generator=torch.Generator("cuda").manual_seed(0),
+                        device="cuda")
+    dt = warp_cuda.pass2_bwd(g, table, p0)
+    dc = warp_cuda.pass1_bwd(dt, table, n_img)
+    errs = {"pass1_fwd": warp_err(name + " pass1_fwd", t,
+                                  eot.pass1_fwd(canvases, table, w)),
+            "pass2_fwd": warp_err(name + " pass2_fwd", out, eot.pass2_fwd(t, table)),
+            "pass2_bwd": warp_err(name + " pass2_bwd", dt, eot.pass2_bwd(g, table, p0)),
+            "pass1_bwd": warp_err(name + " pass1_bwd", dc,
+                                  eot.pass1_bwd(dt, table, n_img))}
+    again = (warp_cuda.pass1_fwd(canvases, table, w), warp_cuda.pass2_fwd(t, table),
+             warp_cuda.pass2_bwd(g, table, p0), warp_cuda.pass1_bwd(dt, table, n_img))
+    torch.cuda.synchronize()
+    for k, a, b in zip(WARP_KERNELS, again, (t, out, dt, dc)):
+        if not torch.equal(a, b):
+            fail(f"warp {name} {k}: two launches differ")
+    return errs, float(out.abs().max()) == 0.0
+
+
+def warp_taps(table, p0: int, w: int):
+    """(T1, T2): the (window, i, x, j) and (window, y, x, i) taps whose hat
+    weight is non-zero for these windows, counted with the plain version's
+    weights (`eot._pass1_weights`, `eot._pass2_weights`)."""
+    from mladversarialobjectdetection_torch.ops import eot
+
+    t1 = t2 = 0
+    for start in range(0, table.shape[0], 8):
+        part = table[start:start + 8].cuda()
+        t1 += int((eot._pass1_weights(part, p0, w) > 0).sum())
+        t2 += int((eot._pass2_weights(part, p0, w) > 0).sum())
+    return t1, t2
+
+
+def warp_bounds(n_img: int, n_win: int, p0: int, w: int, taps):
+    """{kernel: (bound ms, bound_by, bytes, ops)}: each input read once and
+    each output written once, over the HBM rate; the operations of the
+    non-zero taps and of each output, over the fp32 rate."""
+    t1, t2 = taps
+    f = 4  # bytes per float32
+    canvas, table = n_img * p0 * p0 * 3 * f, n_win * 8 * f
+    t_sz, out_sz = n_win * p0 * w * 3 * f, n_win * w * w * 3 * f
+    work = {
+        "pass1_fwd": (canvas + table + t_sz,
+                      t1 * WARP_TAP_OPS + n_win * p0 * w * WARP_FWD_OUT_OPS),
+        "pass2_fwd": (t_sz + table + out_sz,
+                      t2 * WARP_TAP_OPS + n_win * w * w * WARP_FWD_OUT_OPS),
+        "pass2_bwd": (out_sz + table + t_sz,
+                      t2 * WARP_TAP_OPS + n_win * w * w * WARP_BWD_OUT_OPS),
+        "pass1_bwd": (t_sz + table + canvas,
+                      t1 * WARP_TAP_OPS + n_win * p0 * w * WARP_BWD_OUT_OPS),
+    }
+    out = {}
+    for k, (nbytes, ops) in work.items():
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FP32_FLOP_PER_S * 1e3
+        out[k] = (max(bytes_ms, ops_ms),
+                  "bytes" if bytes_ms >= ops_ms else "operations", nbytes, ops)
+    return out
+
+
+class Capture:
+    """Records the arguments the step hands the warp and NMS wrappers (the
+    plain and dispatching code looks each wrapper up at call time)."""
+
+    def __init__(self):
+        from mladversarialobjectdetection_torch.ops import nms_cuda, warp_cuda
+        self.targets = [(warp_cuda, k) for k in WARP_KERNELS] + [
+            (nms_cuda, "batched_nms_cuda")]
+        self.args = {}
+
+    def __enter__(self):
+        self.originals = [getattr(m, k) for m, k in self.targets]
+        for (mod, name), orig in zip(self.targets, self.originals):
+            def rec(*a, _name=name, _orig=orig, **kw):
+                self.args[_name] = (a, kw)
+                return _orig(*a, **kw)
+            setattr(mod, name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), orig in zip(self.targets, self.originals):
+            setattr(mod, name, orig)
+
 
 
 def main() -> int:
+    import tempfile
+    from pathlib import Path
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from mladversarialobjectdetection_torch import _build
+    from mladversarialobjectdetection_torch import config as config_lib
+    from mladversarialobjectdetection_torch.attack.attacker import PatchAttacker
+    from mladversarialobjectdetection_torch.attack.train import get_victim, train
     from mladversarialobjectdetection_torch.inference.detector import Detector
-    from mladversarialobjectdetection_torch.ops import nms, nms_cuda, postprocess
+    from mladversarialobjectdetection_torch.ops import eot, nms, nms_cuda, postprocess
+    from mladversarialobjectdetection_torch.ops import warp_cuda
 
     # fp32 everywhere: the port is held to the fp32 JAX reference, and cuDNN
     # runs fp32 convs in TF32 unless told not to
@@ -191,10 +497,7 @@ def main() -> int:
     libs = _build.build_all()
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s, "
           f"{sorted(p.name for p in libs.values())}")
-    for name, path in libs.items():
-        for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+    print_ptxas(libs)
 
     # phase 2: kernel vs plain on the card
     rng = np.random.default_rng(0)
@@ -229,6 +532,8 @@ def main() -> int:
     launches = nms_cuda.LAUNCHES
     if launches != len(batches):
         fail(f"NMS kernel launched {launches} times in {len(batches)} serve calls")
+    if sum(warp_cuda.LAUNCHES.values()):
+        fail("a warp kernel launched while serving")
     m = det.config.nms_configs.max_output_size
     for b, res in results.items():
         shapes = {f: getattr(res, f).shape for f in res._fields}
@@ -256,12 +561,7 @@ def main() -> int:
             det._params_dict, cls_out, box_out)
     cand_boxes, cand_scores = cand_boxes.contiguous(), cand_scores.contiguous()
     kw = postprocess.nms_kwargs_from_config(det.config.nms_configs)
-    kern = nms_cuda.batched_nms_cuda(cand_boxes, cand_scores, **kw)
-    plain = nms.batched_nms(cand_boxes, cand_scores, **kw)
-    max_err = max(max_err, compare_nms("served candidates", kern, plain))
-    print(f"  served candidates {tuple(cand_boxes.shape)} {kw}: kernel == plain")
 
-    timings = {}
     for tf32 in (False, True):
         torch.backends.cudnn.allow_tf32 = tf32
         torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -269,7 +569,6 @@ def main() -> int:
             serve_ms = host_p50_ms(lambda: det.serve(batch), iters=10)
             dev_ms = host_p50_ms(lambda: det.serve_tensors(
                 images_d[:b], scales_d[:b]), iters=10)
-            timings[(tf32, b)] = (serve_ms, dev_ms)
             print(f"  serve b{b} cudnn.allow_tf32={tf32} "
                   f"matmul.allow_tf32={tf32}: p50 {serve_ms:.3f} ms/batch "
                   f"({b * 1e3 / serve_ms:.2f} images/s); device part "
@@ -281,46 +580,182 @@ def main() -> int:
         print(f"  host preprocess b{b} (720x1280 -> 640): p50 {pre_ms:.3f} ms")
         profile_device(lambda: det.serve_tensors(images_d[:b], scales_d[:b]),
                        f"device part b{b}")
+    *_, err = nms_numbers(cand_boxes, cand_scores, kw, "served candidates")
+    max_err = max(max_err, err)
+    del det, images_d, scales_d, cls_out, box_out
 
-    kern_ms = cuda_ms(lambda: nms_cuda.batched_nms_cuda(
-        cand_boxes, cand_scores, **kw), iters=50)
-    plain_ms = cuda_ms(lambda: nms.batched_nms(
-        cand_boxes, cand_scores, **kw), iters=5)
-    # the serial chain alone: the same launch with every candidate masked
-    # runs the M dependent block-wide argmax steps and skips every IoU row
-    masked = torch.full_like(cand_scores, NEG_INF)
-    chain_ms = cuda_ms(lambda: nms_cuda.batched_nms_cuda(
-        cand_boxes, masked, **kw), iters=50)
-    b, n = cand_scores.shape
-    m = kw["max_output_size"]
-    nbytes = b * n * 20 + b * m * (16 + 4 + 4 + 1) + b * 4
-    # the kernel skips the IoU row on steps without a valid winner, so the
-    # work is counted from this run's valid steps
-    ops = n * (b * NMS_AREA_OPS + b * m * NMS_SCAN_OPS
-               + int(kern.valid_len.sum()) * NMS_SUPPRESS_OPS[kw["method"]])
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_FLOP_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"  nms [{b},{n}] -> {m}: kernel {kern_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
-          f"{nbytes} B, {ops} fp32 ops); serial chain of {m} argmax steps "
-          f"(all candidates masked) {chain_ms:.4f} ms, "
-          f"{chain_ms * 1e3 / m:.3f} us per step, "
-          f"{100 * chain_ms / kern_ms:.1f}% of the kernel")
 
-    # phase 4: card
+    # phase 4: warp kernels vs plain on the card
+    warp_errs = dict.fromkeys(WARP_KERNELS, 0.0)
+    n_cases = 0
+    for name, w, canvases, table in warp_cases(rng):
+        errs, zero = check_warp(name, canvases, table, w)
+        if name == "wholly outside" and not zero:
+            fail("a window wholly outside the canvas support sampled non-zero")
+        warp_errs = {k: max(warp_errs[k], errs[k]) for k in WARP_KERNELS}
+        n_cases += 1
+        print(f"  warp {name}: {table.shape[0]} windows, p0 {canvases.shape[1]}, "
+              f"w {w}: max errors " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    print(f"phase 4 warp kernels vs plain: {n_cases} cases within {WARP_TOL} "
+          f"of scale, two launches bit-equal; max errors {warp_errs}")
+
+    # phase 5: the attack step, lite4@640, b24, fp32, live regime
+    t0 = time.perf_counter()
+    cfg = config_lib.get_efficientdet_config("efficientdet-lite4")
+    cfg.nms_configs.update({"iou_thresh": 0.5, "score_thresh": 0.5,
+                            "pre_nms_topk": 256})
+    atk = PatchAttacker(cfg, get_victim(cfg, seed=0, device=dev),
+                        window=ATTACK_WINDOW, device=dev)
+    state = atk.init_state(1)
+    images = torch.rand((ATTACK_BATCH, *atk.image_hw, 3), device=dev,
+                        generator=torch.Generator(dev).manual_seed(2)) * 2 - 1
+    boxes, valid = make_live_slot_boxes(ATTACK_BATCH, atk.image_hw, atk.max_boxes)
+    override = (torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev))
+    n_windows = int(valid.sum())
+    step = lambda asr=False: atk.train_step(state, images, with_asr=asr,
+                                            boxes_override=override)
+    step()  # warm-up outside the counted run
+    torch.cuda.synchronize()
+    print(f"  attacker efficientdet-lite4 {atk.image_hw}, batch {ATTACK_BATCH}, "
+          f"window {ATTACK_WINDOW}, {n_windows} live windows (batch max "
+          f"{int(valid.sum(1).max())}), built and warmed up in "
+          f"{time.perf_counter() - t0:.2f} s")
+    patch0 = state.patch.detach().clone()
+    torch.cuda.reset_peak_memory_stats(dev)
+    nms_cuda.LAUNCHES = 0
+    warp_cuda.reset_counts()
+    for _ in range(ATTACK_STEPS):
+        _, metrics = step()
+    torch.cuda.synchronize()
+    attack_launches = dict(warp_cuda.LAUNCHES, nms=nms_cuda.LAUNCHES)
+    windows_seen = warp_cuda.WINDOWS
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if attack_launches != dict.fromkeys(attack_launches, ATTACK_STEPS):
+        fail(f"{ATTACK_STEPS} attack steps launched {attack_launches}; want "
+             f"one launch of each kernel per step")
+    if windows_seen != ATTACK_STEPS * n_windows:
+        fail(f"the warp saw {windows_seen} windows in {ATTACK_STEPS} steps, "
+             f"want {ATTACK_STEPS * n_windows}")
+    patch = state.patch.detach()
+    scale = float(state.scale.detach())
+    if not np.isfinite(float(metrics.loss)):
+        fail(f"attack loss {float(metrics.loss)}")
+    if torch.equal(patch, patch0) or float(patch.abs().max()) > 1.0:
+        fail("the patch did not move, or left [-1, 1]")
+    if not 0.0 <= scale <= 1.0:
+        fail(f"scale {scale} outside [0, 1]")
+    nms_cuda.LAUNCHES = 0
+    _, m_asr = step(asr=True)
+    torch.cuda.synchronize()
+    if nms_cuda.LAUNCHES != 2:
+        fail(f"a step with the ASR pass launched NMS {nms_cuda.LAUNCHES} times")
+    print(f"phase 5 attack step: launches in {ATTACK_STEPS} steps "
+          f"{attack_launches}, {windows_seen} windows warped; loss "
+          f"{float(metrics.loss):.6f}, scale {scale:.6f}, asr with the ASR "
+          f"pass {float(m_asr.asr):.4f}; peak memory {peak_gb:.3f} GB")
+    step_ms = host_p50_ms(step, iters=5, warmup=1)
+    print(f"  attack step b{ATTACK_BATCH} p50 {step_ms:.3f} ms "
+          f"({ATTACK_BATCH * 1e3 / step_ms:.2f} images/s)")
+    wall_ms, busy_ms = profile_device(step, f"attack step b{ATTACK_BATCH}",
+                                      top=10)
+
+    # phase 6: each kernel on the inputs a step gave it
+    with Capture() as cap:
+        step()
+    torch.cuda.synchronize()
+    torch.set_grad_enabled(False)  # the comparisons and timings build no graph
+    (canvases, table, w), _ = cap.args["pass1_fwd"]
+    (t_in, _), _ = cap.args["pass2_fwd"]
+    (g_in, _, p0), _ = cap.args["pass2_bwd"]
+    (dt_in, _, n_img), _ = cap.args["pass1_bwd"]
+    errs, _ = check_warp("step inputs", canvases, table, w, g=g_in)
+    warp_errs = {k: max(warp_errs[k], errs[k]) for k in WARP_KERNELS}
+    taps = warp_taps(table, p0, w)
+    bounds = warp_bounds(n_img, table.shape[0], p0, w, taps)
+    calls = {
+        "pass1_fwd": (lambda: warp_cuda.pass1_fwd(canvases, table, w),
+                      lambda: eot.pass1_fwd(canvases, table, w)),
+        "pass2_fwd": (lambda: warp_cuda.pass2_fwd(t_in, table),
+                      lambda: eot.pass2_fwd(t_in, table)),
+        "pass2_bwd": (lambda: warp_cuda.pass2_bwd(g_in, table, p0),
+                      lambda: eot.pass2_bwd(g_in, table, p0)),
+        "pass1_bwd": (lambda: warp_cuda.pass1_bwd(dt_in, table, n_img),
+                      lambda: eot.pass1_bwd(dt_in, table, n_img)),
+    }
+    warp_times = {}
+    for k, (kern_fn, plain_fn) in calls.items():
+        kern_ms = kernel_device_ms(kern_fn, f"{k}_kernel")
+        wrapper_ms = cuda_ms(kern_fn, iters=20)
+        plain_ms = cuda_ms(plain_fn, iters=3, warmup=1)
+        bound_ms, bound_by, nbytes, ops = bounds[k]
+        warp_times[k] = (kern_ms, plain_ms, bound_ms, bound_by)
+        print(f"  warp {k} at the step's {table.shape[0]} windows (p0 {p0}, w "
+              f"{w}, {n_img} canvases): kernel {kern_ms:.4f} ms on the card "
+              f"(wrapper with its host checks {wrapper_ms:.4f} ms per call), "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
+              f"{nbytes} B, {ops} fp32 ops), {bound_ms / kern_ms:.1%} of the "
+              f"bound; {attack_launches[k] // ATTACK_STEPS} launch per step")
+    print(f"phase 6 warp kernels at the step's inputs: non-zero taps pass 1 "
+          f"{taps[0]}, pass 2 {taps[1]}; max errors {warp_errs}")
+    (nms_boxes, nms_scores), nms_kw = cap.args["batched_nms_cuda"]
+    nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by, err = nms_numbers(
+        nms_boxes, nms_scores, nms_kw, "attack first pass")
+    max_err = max(max_err, err)
+    del cap, canvases, t_in, g_in, dt_in, atk, state, images, patch, patch0
+    torch.set_grad_enabled(True)
+
+    # phase 7: the driver entry point, 3 steps at batch 12; a score threshold
+    # below the random victim's scores (about 0.01) gives it live slots
+    with tempfile.TemporaryDirectory() as tmp:
+        nms_cuda.LAUNCHES = 0
+        warp_cuda.reset_counts()
+        t0 = time.perf_counter()
+        final = train("efficientdet-lite4", synthetic=True, mixed_precision=False,
+                      batch_size=12, epochs=1, steps_per_epoch=3,
+                      visualize_freq=0, save_dir=tmp, device=dev,
+                      config_override={"nms_configs": {"score_thresh": 0.0099}})
+        torch.cuda.synchronize()
+        driver_s = time.perf_counter() - t0
+        driver_launches = dict(warp_cuda.LAUNCHES, nms=nms_cuda.LAUNCHES)
+        logs = Path(tmp) / "logs" / "metrics.jsonl"
+        records = [json.loads(line) for line in logs.read_text().splitlines()]
+        dirs = sorted(p.name for p in Path(tmp).glob("patch_00_*"))
+        if final.step != 3 or not any("val/loss" in r for r in records):
+            fail(f"driver: step {final.step}, log records {records}")
+        if len(dirs) != 1 or not {"patch.npy", "scale.txt"} <= {
+                p.name for p in (Path(tmp) / dirs[0]).iterdir()}:
+            fail(f"driver: patch artifacts {dirs}")
+        # each of the 3 train steps runs all four kernels; the 5 validation
+        # batches run the forward passes where they find live slots
+        if (driver_launches["pass1_bwd"] != 3 or driver_launches["pass2_bwd"] != 3
+                or driver_launches["pass1_fwd"] < 3):
+            fail(f"driver: kernel launches {driver_launches}")
+    print(f"phase 7 driver: train(efficientdet-lite4, batch 12, 3 steps) "
+          f"in {driver_s:.2f} s, launches {driver_launches}, "
+          f"{warp_cuda.WINDOWS} windows warped, artifacts {dirs}, "
+          f"{len(records)} log records")
+
+    # phase 8: card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {smi.splitlines()[0]}")
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "nms", "route": "cuda",
         "source": "mladversarialobjectdetection_torch/csrc/nms.cu",
         "replaces": "mladversarialobjectdetection_tpu/ops/pallas_nms.py:34",
-        "launches": launches, "max_abs_err": max_err, "ms": kern_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+        "launches": attack_launches["nms"], "max_abs_err": max_err,
+        "ms": nms_ms, "plain_ms": nms_plain_ms, "bound_ms": nms_bound_ms,
+        "bound_by": nms_bound_by, "library_ms": None}]
+    for k in WARP_KERNELS:
+        kern_ms, plain_ms, bound_ms, bound_by = warp_times[k]
+        kernels.append({
+            "name": f"warp_{k}", "route": "cuda",
+            "source": "mladversarialobjectdetection_torch/csrc/warp.cu",
+            "replaces": WARP_REPLACES[k], "launches": attack_launches[k],
+            "max_abs_err": warp_errs[k], "ms": kern_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,7 +7,10 @@ NCHW is internal to the models. The port imports `torch` and numpy, never
 JAX or anything of the JAX package.
 
 Ported so far: the serving path, `inference.detector.Detector.serve`, with
-the NMS suppression loop as a hand-written CUDA kernel (`csrc/nms.cu`).
+the NMS suppression loop as a hand-written CUDA kernel (`csrc/nms.cu`); the
+attack train step, `attack.attacker.PatchAttacker.train_step`, and its
+driver `attack.train.train`, with the EOT compositor's two-pass warp as
+four hand-written CUDA kernels (`csrc/warp.cu`).
 """
 
 __version__ = "0.1.0"

@@ -35,24 +35,33 @@ def library_path(name: str) -> Path:
 
 
 def build_all() -> Dict[str, Path]:
-    """Compile every `csrc/*.cu` whose library is missing; return all libraries."""
+    """Compile every `csrc/*.cu` whose library is missing, one nvcc process
+    per source, all started together; return all libraries."""
     targets = {src.stem: library_path(src.stem)
                for src in sorted(CSRC_DIR.glob("*.cu"))}
-    for name, out in targets.items():
-        if out.exists():
-            continue
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    missing = {name: out for name, out in targets.items() if not out.exists()}
+    if not missing:
+        return targets
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, out in missing.items():
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
+        procs[name] = (tmp, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        out.with_suffix(".log").write_text(proc.stdout)
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        out = missing[name]
+        out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"CUDA build of {name}.cu failed (nvcc exit "
-                               f"{proc.returncode}):\n{proc.stdout}")
-        os.replace(tmp, out)  # atomic: a reader never sees half a file
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)  # atomic: a reader never sees half a file
+    if failed:
+        raise RuntimeError("CUDA build failed: " + "\n".join(failed))
     return targets
 
 

@@ -1,0 +1,242 @@
+"""Attack training driver (PyTorch entry point).
+
+Port of `mladversarialobjectdetection_tpu/attack/train.py` (reference
+attacker_train.py:20-76): victim efficientdet-lite4, attack-time NMS iou .5 /
+score .5 with 256 candidates, Adam lr 1e-2, batch 12, per-epoch artifacts
+in `patch_{epoch}_{val_asr_to_scale:.4f}` directories,
+ReduceLROnPlateau(.5, min 1e-4, patience 50) on the validation loss.
+
+`train` keeps the JAX driver's signature and defaults, and adds `device`
+(CUDA unless "cpu" is asked for) and `victim_variables` (Flax variables of
+the victim, loaded through `ckpt/bridge.py`; without them the victim's
+weights are drawn from a seed by `models/init.py`). Not ported yet, and
+raising `NotImplementedError`: bf16 `mixed_precision` (so the default
+`mixed_precision=True` raises: pass False, the JAX driver's `--fp32`),
+`img_dir`, `victim_ckpt`, `resume`, `spatial > 1` and `packed_entry`. The
+data are synthetic.
+
+Usage:
+    python -m mladversarialobjectdetection_torch.attack.train --synthetic \\
+        --fp32 --epochs 1 --steps-per-epoch 3
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+from .. import config as config_lib
+from ..ckpt import bridge
+from ..data import pipeline
+from ..models.efficientdet import EfficientDetNet, spec_from_config
+from ..models.init import init_weights
+from ..utils.device import resolve_device
+from ..utils.log import get_logger
+from ..utils.train_loop import MetricLogger, ReduceLROnPlateau, Throughput
+from . import artifacts
+from .attacker import PatchAttacker
+
+logger = get_logger(__name__)
+
+
+def get_victim(config, *, seed: int = 0, variables=None,
+               device=None) -> EfficientDetNet:
+    """The frozen victim detector of `config` on `device`.
+
+    Weights: the JAX package's Flax `{'params', 'batch_stats'}` variables
+    through `ckpt/bridge.py` when given, else drawn from `seed`."""
+    net = EfficientDetNet(spec_from_config(config)).eval()
+    if variables is not None:
+        bridge.load_flax_variables(net, variables)
+    else:
+        init_weights(net, torch.Generator().manual_seed(seed))
+    for p in net.parameters():
+        p.requires_grad_(False)
+    return net.to(resolve_device(device))
+
+
+def _not_ported(option: str, item: str):
+    return NotImplementedError(f"{option} is not ported yet (ROADMAP {item})")
+
+
+def train(model_name: str = "efficientdet-lite4", *,
+          img_dir: str | None = None, label_dir: str | None = None,
+          victim_ckpt: str | None = None, save_dir: str = "save_dir",
+          batch_size: int = 12, epochs: int = 500, lr: float = 1e-2,
+          steps_per_epoch: int | None = None, initial_patch: str | None = None,
+          synthetic: bool = False, image_size=None, seed: int = 42,
+          visualize_freq: int = 200, config_override=None,
+          patch_size: int = 640, mixed_precision: bool = True,
+          pre_nms_topk: int = 256, window: int | None = 320,
+          grad_accum: int = 1, spatial: int = 1, resume: bool = False,
+          packed_entry: int = 0, victim_variables=None, device=None):
+    """Train an adversarial patch; returns the final `AttackState`."""
+    if mixed_precision:
+        raise _not_ported("mixed_precision (bf16); pass mixed_precision="
+                          "False", "Queue 1 item 4")
+    if img_dir is not None:
+        raise _not_ported("img_dir (ImageFolderSource, partition)",
+                          "Queue 1 item 1")
+    if victim_ckpt is not None:
+        raise _not_ported("victim_ckpt (checkpoint files)", "Queue 1 item 5")
+    if resume:
+        raise _not_ported("resume (save_loop_state / load_loop_state)",
+                          "Queue 1 item 1")
+    if spatial > 1:
+        raise _not_ported("spatial > 1", "Queue 1 item 7")
+    if packed_entry:
+        raise _not_ported("packed_entry", "Queue 1 item 4")
+    del label_dir, synthetic  # only synthetic data is ported
+    device = resolve_device(device)
+
+    config = config_lib.get_efficientdet_config(model_name)
+    # attack-time NMS override (attacker_train.py:31); with score_thresh .5
+    # there are never 256 above-threshold person anchors in an image, so the
+    # smaller static candidate set is lossless
+    config.nms_configs.update({"iou_thresh": 0.5, "score_thresh": 0.5,
+                               "pre_nms_topk": pre_nms_topk})
+    config.mixed_precision = mixed_precision
+    if image_size is not None:
+        config.image_size = image_size
+    if config_override:
+        config.update(config_override)
+
+    victim = get_victim(config, variables=victim_variables, device=device)
+    attacker = PatchAttacker(config, victim, learning_rate=lr,
+                             patch_size=patch_size, window=window or None,
+                             grad_accum=grad_accum, device=device)
+    if initial_patch:
+        patch_np, scale0 = artifacts.load_patch_dir(
+            initial_patch, config.mean_rgb, config.stddev_rgb)
+        state = attacker.init_state(seed, initial_patch=patch_np,
+                                    initial_scale=scale0)
+    else:
+        state = attacker.init_state(seed)
+
+    plateau = ReduceLROnPlateau(factor=0.5, patience=50, min_lr=1e-4)
+    best_val_loss = float("inf")
+    aug_gen = torch.Generator(device=device).manual_seed(seed + 2)
+    put = lambda b: torch.from_numpy(b).to(device)
+    logger.info("using synthetic data")
+    train_iter = pipeline.prefetch(pipeline.synthetic_batches(
+        batch_size, config.image_size, seed=seed), device_put_fn=put)
+    val_iter = pipeline.prefetch(pipeline.synthetic_batches(
+        batch_size, config.image_size, seed=seed + 1), device_put_fn=put)
+    spe = steps_per_epoch or 50
+    val_steps = 5
+
+    os.makedirs(save_dir, exist_ok=True)
+    mlog = MetricLogger(os.path.join(save_dir, "logs"))
+    thr = Throughput()
+    step = 0
+    for epoch in range(epochs):
+        thr.start()
+        for _ in range(spe):
+            batch = pipeline.augment_batch(next(train_iter), aug_gen)
+            # the ASR pass (a second NMS) runs only on logged steps
+            logged = (step + 1) % 50 == 0
+            state, metrics = attacker.train_step(state, batch, with_asr=logged)
+            thr.count(batch_size)
+            step += 1
+            if logged:
+                mlog.log(step, metrics._asdict(), prefix="train/")
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        ips = thr.rate()
+
+        val_metrics = [attacker.eval_step(state, next(val_iter), vi)
+                       for vi in range(val_steps)]
+        val = {k: float(np.mean([float(getattr(m, k)) for m in val_metrics]))
+               for k in val_metrics[0]._fields}
+        mlog.log(step, val, prefix="val/")
+        mlog.log(step, {"images_per_sec": ips, "epoch": epoch})
+        logger.info(
+            f"epoch {epoch}: val_loss={val['loss']:.4f} "
+            f"asr={val['asr']:.3f} scale={val['scale']:.3f} "
+            f"asr_to_scale={val['asr_to_scale']:.4f} {ips:.1f} img/s")
+        if val.get("eot_clamp_frac", 0.0) > 0.01:
+            logger.warning(
+                f"epoch {epoch}: {val['eot_clamp_frac']:.1%} of patch slots "
+                f"hit the EOT window clamp (window={window}); raise --window")
+
+        # ASR-vs-threshold curve every visualize_freq steps; the `try`
+        # guards only the plot, never the device path
+        if visualize_freq and epoch % max(1, visualize_freq // spe) == 0:
+            thresholds = np.arange(
+                float(config.nms_configs.score_thresh or 0.5), 0.805, 0.01,
+                dtype=np.float32)
+            curve = attacker.asr_curve(state, next(val_iter), thresholds)
+            curve = curve.cpu().numpy()
+            try:
+                from ..utils import visualize
+                from PIL import Image
+                img = visualize.plot_asr_curve(thresholds, curve)
+                Image.fromarray(img).save(
+                    os.path.join(save_dir, "logs", f"asr_{epoch:03d}.png"))
+            except Exception as e:  # a plot must never stop training
+                logger.warning(f"asr-curve plot failed: {e}")
+
+        dirname = os.path.join(save_dir,
+                               f"patch_{epoch:02d}_{val['asr_to_scale']:.4f}")
+        if val["loss"] < best_val_loss:
+            best_val_loss = val["loss"]
+            artifacts.save_patch_dir(dirname, state.patch.detach().cpu().numpy(),
+                                     float(state.scale.detach()), config.mean_rgb,
+                                     config.stddev_rgb)
+        plateau.update(val["loss"], state.optimizer)
+    mlog.close()
+    return state
+
+
+def main():
+    p = argparse.ArgumentParser(description="adversarial patch attack training")
+    p.add_argument("--model", default="efficientdet-lite4")
+    p.add_argument("--img-dir", default=None)
+    p.add_argument("--label-dir", default=None)
+    p.add_argument("--victim-ckpt", default=None)
+    p.add_argument("--save-dir", default="save_dir")
+    p.add_argument("--batch-size", type=int, default=12)
+    p.add_argument("--epochs", type=int, default=500)
+    p.add_argument("--lr", type=float, default=1e-2)
+    p.add_argument("--steps-per-epoch", type=int, default=None)
+    p.add_argument("--initial-patch", default=None)
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--image-size", type=int, default=None)
+    p.add_argument("--fp32", action="store_true",
+                   help="disable bf16 mixed precision (required: bf16 is not "
+                        "ported yet)")
+    p.add_argument("--pre-nms-topk", type=int, default=256,
+                   help="static NMS candidate cap (256 is lossless at "
+                        "score_thresh .5 and faster)")
+    p.add_argument("--hparams", default=None,
+                   help="config override string 'a.b=1,c=2' or YAML path")
+    p.add_argument("--window", type=int, default=320,
+                   help="static EOT composite window (0 -> model default)")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="split each step's batch into this many sequential "
+                        "microbatches with one summed-gradient update")
+    p.add_argument("--spatial", type=int, default=1,
+                   help="spatial model parallelism (not ported yet)")
+    p.add_argument("--packed-entry", type=int, default=0,
+                   help="space-to-depth packed victim entry (not ported yet)")
+    p.add_argument("--resume", action="store_true",
+                   help="full-state resume (not ported yet)")
+    p.add_argument("--device", default=None,
+                   help="cuda (the default) or cpu")
+    args = p.parse_args()
+    train(args.model, img_dir=args.img_dir, label_dir=args.label_dir,
+          victim_ckpt=args.victim_ckpt, save_dir=args.save_dir,
+          batch_size=args.batch_size, epochs=args.epochs, lr=args.lr,
+          steps_per_epoch=args.steps_per_epoch,
+          initial_patch=args.initial_patch, synthetic=args.synthetic,
+          image_size=args.image_size, mixed_precision=not args.fp32,
+          pre_nms_topk=args.pre_nms_topk, window=args.window,
+          config_override=args.hparams, grad_accum=args.grad_accum,
+          spatial=args.spatial, resume=args.resume,
+          packed_entry=args.packed_entry, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

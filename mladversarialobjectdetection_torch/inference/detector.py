@@ -22,24 +22,10 @@ from ..models.efficientdet import EfficientDetNet, spec_from_config
 from ..models.init import init_weights
 from ..ops import postprocess
 from ..ops.preprocess import preprocess_host
+from ..utils.device import resolve_device
 from ..utils.log import get_logger
 
 logger = get_logger(__name__)
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller asks for CPU.
-
-    Raises when CUDA is requested (or implied) and no card is present; the
-    port never falls back to the CPU on its own.
-    """
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device available; pass device='cpu' to "
-                           "run on the CPU")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    return device
 
 
 class Detector:

@@ -1,17 +1,36 @@
 """Host input preprocessing: aspect-preserving resize, normalize, zero-pad.
 
-A numpy copy of `preprocess_host` and its resize taps from
+A numpy copy of `preprocess_host`, its resize taps and the dense
+`linear_resize_matrix` from
 `mladversarialobjectdetection_tpu/ops/preprocess.py:28-111`, so that both
-packages feed their networks bit-identical images. The device-side variant
-(`preprocess_jax`) is not ported yet.
+packages feed their networks (and the EOT canvas resize) bit-identical
+values. The device-side variant (`preprocess_jax`) is not ported yet.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
 
 from ..utils.image import parse_image_size
+
+
+@functools.lru_cache(maxsize=64)
+def linear_resize_matrix(n_out: int, n_in: int) -> np.ndarray:
+    """[n_out, n_in] antialiased linear-resize matrix (half-pixel centers).
+
+    The dense form of `_resize_taps`: a triangle filter whose support widens
+    with the downscale ratio, weights normalized per output pixel. Callers
+    must not write into the cached array.
+    """
+    ratio = n_in / n_out
+    radius = max(ratio, 1.0)
+    out_centers = (np.arange(n_out) + 0.5) * ratio - 0.5
+    dist = np.abs(out_centers[:, None] - np.arange(n_in)[None, :])
+    w = np.maximum(0.0, 1.0 - dist / radius)
+    w /= np.maximum(w.sum(axis=1, keepdims=True), 1e-8)
+    return w.astype(np.float32)
 
 
 def _resize_taps(n_out: int, n_in: int):

@@ -1,0 +1,468 @@
+"""The port's attack path against the JAX package's, on the CPU.
+
+A tiny lite0@64 victim (the conftest's `tiny_detector`) goes through the
+bridge into the port, so both packages attack the same weights. The victim
+detects nothing at score_thresh .5, so the train-step tests place patches
+with `boxes_override` (live slots), feed the port the JAX package's EOT
+draws (replayed from the step's key splits, attacker.py:273 / eot.py:527-534)
+and pin noise, brightness and the print transform through the JAX package's
+own hook (`eot_overrides`, attacker.py:126-129); rotation stays on.
+Tolerances:
+
+- loss 1e-4 relative, the patch gradient at cosine >= 0.9999: the JAX warp
+  rounds canvas and weights to bf16 (eot.py:265-278), the port's is float32;
+  the part of it that flows through the warp and the detector (the whole
+  gradient less the TV term's, which is the larger at random weights) at
+  cosine >= 0.99;
+- scale gradient 1e-4 relative (it is 2 * sum(scale - max_score), dominated
+  by the scale);
+- Adam against optax on the same gradients: 1e-6 of the parameters' scale
+  of 1 (the same formula in another order of operations; the final add
+  rounds to the parameter's ulp);
+- two full steps against JAX: the scale within 1e-6. Adam's first step
+  moves every patch pixel by +-lr whatever its gradient's size, and its
+  second by lr times a function of the ratio of the pixel's two gradients,
+  which the bf16 warp perturbs where the detector's gradient reaches: every
+  pixel within lr (a pixel moved the other way in either step would be 2 lr
+  off), and at least 75% of the patch (the pixels only the TV term moves)
+  within 1e-6;
+- grad_accum=2 against grad_accum=1 (port only): 1e-5 relative.
+"""
+import contextlib
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from mladversarialobjectdetection_tpu.attack import artifacts as jartifacts
+from mladversarialobjectdetection_tpu.attack.attacker import PatchAttacker as JAttacker
+from mladversarialobjectdetection_tpu.attack.attacker import filter_valid_boxes as jfilter
+from mladversarialobjectdetection_tpu.data import pipeline as jpipeline
+from mladversarialobjectdetection_tpu.utils import train_loop as jtrain_loop
+from mladversarialobjectdetection_torch import config as pconfig
+from mladversarialobjectdetection_torch.attack import artifacts as partifacts
+from mladversarialobjectdetection_torch.attack import train as ptrain
+from mladversarialobjectdetection_torch.attack.attacker import PatchAttacker
+from mladversarialobjectdetection_torch.attack.attacker import filter_valid_boxes
+from mladversarialobjectdetection_torch.data import pipeline as ppipeline
+from mladversarialobjectdetection_torch.ops import eot as peot
+from mladversarialobjectdetection_torch.ops import nms_cuda, warp_cuda
+from mladversarialobjectdetection_torch.utils import train_loop as ptrain_loop
+from test_torch_eot import jax_draws
+
+PINNED = dict(noise_mag=0.0, brightness_mag=0.0, print_jitter=False)
+LR = 1e-2
+
+
+def t(x):
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def port_config(jcfg):
+    return pconfig.Config(jcfg.as_dict())
+
+
+@contextlib.contextmanager
+def counted_warps():
+    """The windows of each `eot.warp_windows` call: on the CPU no kernel
+    count rises, so this shows that a run reached the warp."""
+    calls, orig = [], peot.warp_windows
+
+    def spy(canvases, table, w):
+        calls.append(table.shape[0])
+        return orig(canvases, table, w)
+
+    peot.warp_windows = spy
+    try:
+        yield calls
+    finally:
+        peot.warp_windows = orig
+
+
+@pytest.fixture(scope="module")
+def live_boxes():
+    """Two images, 3 live slots of 4, slot 1 of image 0 over slot 0."""
+    boxes = np.zeros((2, 4, 4), np.float32)
+    valid = np.zeros((2, 4), bool)
+    boxes[0, 0] = (4, 4, 60, 60)
+    boxes[0, 1] = (10, 20, 50, 44)
+    boxes[1, 0] = (8, 6, 56, 40)
+    valid[0, :2] = valid[1, 0] = True
+    return boxes, valid
+
+
+@pytest.fixture(scope="module")
+def pair(tiny_detector):
+    """(JAX attacker, port attacker) on the same weights, EOT pinned."""
+    cfg, _, _, variables = tiny_detector
+    jatk = JAttacker(cfg, variables, patch_size=32, eot_overrides=PINNED)
+    victim = ptrain.get_victim(port_config(cfg), variables=jax.tree_util.tree_map(
+        np.asarray, variables), device="cpu")
+    patk = PatchAttacker(port_config(cfg), victim, patch_size=32,
+                         eot_overrides=PINNED, device="cpu")
+    return jatk, patk
+
+
+@pytest.fixture(scope="module")
+def images(rand_images):
+    return np.asarray(rand_images)
+
+
+def step_draws(key, b, k):
+    """The EOT draws of JAX's train_step for state key `key`, and the next key."""
+    _, k_eot, k_next = jax.random.split(key, 3)
+    return jax_draws(k_eot, b, k), k_next
+
+
+@pytest.fixture(scope="module")
+def two_steps(pair, images, live_boxes):
+    """Two train steps of both packages from the same state."""
+    jatk, patk = pair
+    boxes, valid = live_boxes
+    override = (jnp.asarray(boxes), jnp.asarray(valid))
+    jstep = jax.jit(jatk.train_step, static_argnames=("with_asr",))
+    jst = jatk.init_state(jax.random.PRNGKey(0))
+    pst = patk.init_state(0, initial_patch=np.asarray(jst.patch))
+    key = jst.key
+    out = []
+    with counted_warps() as warps:
+        for _ in range(2):
+            draws, key = step_draws(key, 2, 4)
+            jst, jm = jstep(jst, jnp.asarray(images), boxes_override=override)
+            pst, pm = patk.train_step(pst, t(images), boxes_override=(
+                t(boxes), torch.from_numpy(valid)), eot_draws=draws)
+            out.append((jst, jm, pst, pm))
+    assert warps == [3, 3]  # every live slot of both steps was warped
+    return out
+
+
+def test_train_step_loss_and_metrics_match_jax(two_steps):
+    for i, (_, jm, _, pm) in enumerate(two_steps):
+        assert float(pm.loss) == pytest.approx(float(jm.loss), rel=1e-4), i
+        for f in ("scale_loss", "mean_max_score", "asr", "eot_clamp_frac"):
+            assert float(getattr(pm, f)) == pytest.approx(
+                float(getattr(jm, f)), rel=1e-4, abs=1e-7), (i, f)
+        assert float(pm.tv_loss) == pytest.approx(float(jm.tv_loss), rel=1e-5)
+
+
+def test_two_adam_steps_match_jax(two_steps):
+    jst, _, pst, _ = two_steps[-1]
+    assert pst.step == int(jst.step) == 2
+    assert float(pst.scale.detach()) == pytest.approx(float(jst.scale), abs=1e-6)
+    diff = np.abs(pst.patch.detach().numpy() - np.asarray(jst.patch))
+    assert float(diff.max()) <= LR
+    assert float(np.mean(diff <= 1e-6)) >= 0.75
+    p0 = two_steps[0][2].patch  # the same tensor, updated in place
+    assert float(pst.patch.detach().abs().max()) <= 1
+    assert p0 is pst.patch
+
+
+def test_patch_gradient_matches_jax(pair, images, live_boxes):
+    jatk, patk = pair
+    boxes, valid = live_boxes
+    jst = jatk.init_state(jax.random.PRNGKey(0))
+    _, k_eot, _ = jax.random.split(jst.key, 3)
+
+    def jloss(trainables):
+        scale, patch = trainables
+        return jatk._loss_from_images(patch, scale, jnp.asarray(images),
+                                      jnp.asarray(boxes), jnp.asarray(valid),
+                                      k_eot)[0]
+
+    jl, (jg_scale, jg_patch) = jax.jit(jax.value_and_grad(jloss))(
+        (jst.scale, jst.patch))
+    pst = patk.init_state(0, initial_patch=np.asarray(jst.patch))
+    before = dict(warp_cuda.LAUNCHES)
+    with counted_warps() as warps:
+        loss, _ = patk._loss_from_images(pst.patch, pst.scale, t(images),
+                                         t(boxes), torch.from_numpy(valid),
+                                         None, jax_draws(k_eot, 2, 4))
+    loss.backward()
+    assert warps == [3]
+    assert warp_cuda.LAUNCHES == before  # plain passes on the CPU
+    assert float(loss.detach()) == pytest.approx(float(jl), rel=1e-4)
+    assert float(pst.scale.grad) == pytest.approx(float(jg_scale), rel=1e-4)
+    cos = lambda a, b: float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+    a, b = pst.patch.grad.numpy().ravel(), np.asarray(jg_patch).ravel()
+    assert cos(a, b) >= 0.9999
+    # at random weights the 1e-5 TV term's gradient (the same on both
+    # sides) outweighs the detector's; what flows through the warp alone
+    # carries the bf16 rounding of the reference's canvas and weights twice
+    # (forward and transpose) into a near-tied max over anchors
+    tv = torch.autograd.functional.jacobian(
+        lambda p: 1e-5 * peot.total_variation(p), pst.patch.detach()).numpy()
+    assert cos(a - tv.ravel(), b - tv.ravel()) >= 0.99
+
+
+def test_adam_matches_optax():
+    rng = np.random.default_rng(0)
+    params = (np.float32(0.4), rng.uniform(-1, 1, (8, 8, 3)).astype(np.float32))
+    grads = [(np.float32(g), rng.normal(size=(8, 8, 3)).astype(np.float32))
+             for g in (0.3, -0.7)]
+    tx = optax.adam(LR)
+    jp = tuple(jnp.asarray(p) for p in params)
+    js = tx.init(jp)
+    tp = [torch.tensor(p).requires_grad_(True) for p in params]
+    opt = torch.optim.Adam(tp, lr=LR, betas=(0.9, 0.999), eps=1e-8)
+    for g in grads:
+        upd, js = tx.update(tuple(jnp.asarray(x) for x in g), js, jp)
+        jp = optax.apply_updates(jp, upd)
+        for p, x in zip(tp, g):
+            p.grad = torch.tensor(x)
+        opt.step()
+    for p, q in zip(tp, jp):
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(q), rtol=1e-6,
+                                   atol=1e-6)
+
+
+def test_freeze_scale_pins_scale_bit_exact(tiny_detector, images, live_boxes):
+    cfg, _, _, variables = tiny_detector
+    victim = ptrain.get_victim(port_config(cfg), seed=1, device="cpu")
+    atk = PatchAttacker(port_config(cfg), victim, patch_size=32,
+                        freeze_scale=True, device="cpu")
+    st = atk.init_state(0, initial_scale=0.37)
+    p0 = st.patch.detach().clone()
+    override = (t(live_boxes[0]), torch.from_numpy(live_boxes[1]))
+    for _ in range(2):
+        st, m = atk.train_step(st, t(images), boxes_override=override)
+    assert float(st.scale) == float(np.float32(0.37))
+    assert float(m.scale) == float(np.float32(0.37))
+    assert not torch.equal(st.patch.detach(), p0)
+    assert float(m.loss) < 0.5 * images.shape[0] * 0.37 ** 2
+
+
+def test_grad_accum_matches_single_batch(pair, images, live_boxes):
+    _, patk = pair
+    boxes, valid = live_boxes
+    draws = jax_draws(jax.random.PRNGKey(4), 2, 4)
+    results = []
+    for k in (1, 2):
+        atk = PatchAttacker(patk.config, patk.net, patch_size=32,
+                            eot_overrides=PINNED, grad_accum=k, device="cpu")
+        st = atk.init_state(0)
+        st, m = atk.train_step(st, t(images), boxes_override=(
+            t(boxes), torch.from_numpy(valid)), eot_draws=draws)
+        results.append((st, m))
+    (s1, m1), (s2, m2) = results
+    for f in ("loss", "scale", "scale_loss", "tv_loss", "mean_max_score",
+              "asr", "eot_clamp_frac"):
+        assert float(getattr(m2, f)) == pytest.approx(
+            float(getattr(m1, f)), rel=1e-5, abs=1e-9), f
+    for a, b in ((s1.patch.grad, s2.patch.grad), (s1.scale.grad, s2.scale.grad)):
+        assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+    assert torch.allclose(s1.patch, s2.patch, rtol=0, atol=1e-5)
+
+
+def test_grad_accum_rejects_ragged_batch(pair, images):
+    _, patk = pair
+    atk = PatchAttacker(patk.config, patk.net, patch_size=32, grad_accum=3,
+                        device="cpu")
+    with pytest.raises(ValueError, match="divisible"):
+        atk.train_step(atk.init_state(0), t(images))
+
+
+def test_no_live_slot_step_is_a_zero_gradient_update(pair, images):
+    """The victim finds nobody: no warp, and Adam sees a zero patch gradient
+    (optax's behaviour), so the patch moves only by the TV term's gradient."""
+    _, patk = pair
+    st = patk.init_state(0)
+    before = dict(warp_cuda.LAUNCHES)
+    st, m = patk.train_step(st, t(images))
+    assert warp_cuda.LAUNCHES == before
+    assert np.isfinite(float(m.loss)) and st.patch.grad is not None
+
+
+@pytest.fixture(scope="module")
+def low_thresh_pair(tiny_detector):
+    """Both attackers with score_thresh .0099: the random victim's ~0.01
+    scores pass, so eval places patches on the first pass's boxes."""
+    cfg, _, _, variables = tiny_detector
+    cfg = cfg.as_dict()
+    cfg["nms_configs"]["score_thresh"] = 0.0099
+    import mladversarialobjectdetection_tpu.config as jconfig
+    jcfg = jconfig.Config(cfg)
+    jatk = JAttacker(jcfg, variables, patch_size=32, eot_overrides=PINNED)
+    victim = ptrain.get_victim(pconfig.Config(cfg), variables=jax.tree_util.tree_map(
+        np.asarray, variables), device="cpu")
+    return jatk, PatchAttacker(pconfig.Config(cfg), victim, patch_size=32,
+                               eot_overrides=PINNED, device="cpu")
+
+
+def test_eval_step_and_asr_curve_match_jax(low_thresh_pair, images):
+    jatk, patk = low_thresh_pair
+    jst = jatk.init_state(jax.random.PRNGKey(0))
+    pst = patk.init_state(0, initial_patch=np.asarray(jst.patch))
+    draws = jax_draws(jax.random.fold_in(jst.key, 1), 2, 4)
+    jm = jax.jit(jatk.eval_step)(jst, jnp.asarray(images), 1)
+    with counted_warps() as warps:
+        pm = patk.eval_step(pst, t(images), 1, eot_draws=draws)
+    assert warps and warps[0] > 0  # the first pass's boxes got patches
+    for f in StepFields:
+        assert float(getattr(pm, f)) == pytest.approx(
+            float(getattr(jm, f)), rel=1e-4, abs=1e-7), f
+    thresholds = np.array([0.005, 0.0099, 0.0101, 0.5], np.float32)
+    jc = jax.jit(jatk.asr_curve)(jst, jnp.asarray(images), thresholds, 1)
+    pc = patk.asr_curve(pst, t(images), thresholds, 1, eot_draws=draws)
+    np.testing.assert_allclose(pc.numpy(), np.asarray(jc), rtol=1e-6, atol=1e-6)
+
+
+StepFields = ("loss", "scale", "scale_loss", "tv_loss", "mean_max_score",
+              "std_max_score", "asr", "asr_to_scale", "eot_clamp_frac")
+
+
+def test_calc_asr_and_filter_match_jax():
+    rng = np.random.default_rng(1)
+    clean = rng.uniform(0, 1, (3, 10)).astype(np.float32)
+    adv = rng.uniform(0, 1, (3, 10)).astype(np.float32)
+    cv, av = rng.uniform(size=(2, 3, 10)) < 0.7
+    for thr in (0.3, 0.5, 0.9):
+        ref = JAttacker.calc_asr(jnp.asarray(clean), jnp.asarray(cv),
+                                 jnp.asarray(adv), jnp.asarray(av), thr)
+        out = PatchAttacker.calc_asr(t(clean), torch.from_numpy(cv), t(adv),
+                                     torch.from_numpy(av), thr)
+        assert float(out) == pytest.approx(float(ref), abs=1e-6)
+    boxes = np.sort(rng.uniform(0, 80, (2, 50, 4)).astype(np.float32), axis=-1)
+    boxes = boxes[..., [0, 1, 2, 3]]
+    scores = rng.uniform(0, 1, (2, 50)).astype(np.float32)
+    classes = rng.integers(0, 3, (2, 50)).astype(np.int32)
+    for thr in (None, 0.5):
+        ref = jfilter(jnp.asarray(scores), jnp.asarray(boxes), jnp.asarray(classes),
+                      (64, 64), thr)
+        out = filter_valid_boxes(t(scores), t(boxes), torch.from_numpy(classes),
+                                 (64, 64), thr)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def test_plateau_matches_jax():
+    metrics = [1.0, 0.9, 0.95, 0.96, 0.97, 0.8, 0.85, 0.86, 0.87, 0.88, 0.89,
+               0.9, 0.91]
+    jp = jtrain_loop.ReduceLROnPlateau(factor=0.5, patience=2, min_lr=2e-3)
+    pp = ptrain_loop.ReduceLROnPlateau(factor=0.5, patience=2, min_lr=2e-3)
+    tx = optax.inject_hyperparams(optax.adam)(learning_rate=LR)
+    js = tx.init((jnp.zeros(()), jnp.zeros((2, 2, 3))))
+    opt = torch.optim.Adam([torch.zeros((), requires_grad=True)], lr=LR)
+    for m in metrics:
+        js = jp.update(m, js)
+        pp.update(m, opt)
+        assert opt.param_groups[0]["lr"] == pytest.approx(
+            float(js.hyperparams["learning_rate"]), rel=1e-6)
+        assert (pp.best, pp.wait) == (jp.best, jp.wait)
+    assert opt.param_groups[0]["lr"] == pytest.approx(2e-3)
+
+
+def test_artifacts_round_trip_and_read_jax_dirs(tmp_path):
+    patch = np.random.default_rng(0).uniform(-1, 1, (16, 16, 3)).astype(np.float32)
+    partifacts.save_patch_dir(str(tmp_path / "port"), patch, 0.37)
+    jartifacts.save_patch_dir(str(tmp_path / "jax"), patch, 0.37)
+    for d in ("port", "jax"):
+        loaded, scale = partifacts.load_patch_dir(str(tmp_path / d))
+        assert np.array_equal(loaded, patch) and scale == pytest.approx(0.37)
+        assert sorted(os.listdir(tmp_path / d)) == ["patch.npy", "patch.png",
+                                                    "scale.txt"]
+
+
+def test_synthetic_batches_and_augment_match_jax():
+    pi = ppipeline.synthetic_batches(2, 32, seed=3)
+    ji = jpipeline.synthetic_batches(2, 32, seed=3)
+    ppipeline.skip_batches(pi, 1)
+    jpipeline.skip_batches(ji, 1)
+    batch = next(pi)
+    assert np.array_equal(batch, next(ji))
+    key = jax.random.PRNGKey(9)
+    ref = jpipeline.augment_batch(key, jnp.asarray(batch))
+    k_flip, k_con, k_bri = jax.random.split(key, 3)
+    flip = np.array(jax.random.bernoulli(k_flip, 0.5, (2,)))
+    factor = np.asarray(jax.random.uniform(k_con, (2, 1, 1, 1), minval=0.8,
+                                           maxval=1.2)).reshape(2)
+    delta = np.asarray(jax.random.uniform(k_bri, (2, 1, 1, 1), minval=-0.2,
+                                          maxval=0.2)).reshape(2)
+    out = ppipeline.augment_batch(t(batch), flip=torch.from_numpy(flip),
+                                  factor=t(factor), delta=t(delta))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-6)
+    drawn = ppipeline.augment_batch(t(batch), torch.Generator().manual_seed(0))
+    assert drawn.shape == batch.shape and float(drawn.abs().max()) <= 1.0
+
+
+def test_prefetch_hands_on_items_and_errors():
+    def items():
+        yield 1
+        yield 2
+        raise KeyError("boom")
+
+    it = ppipeline.prefetch(items(), device_put_fn=lambda x: x * 10)
+    assert next(it) == 10 and next(it) == 20
+    with pytest.raises(KeyError, match="boom"):
+        next(it)
+
+
+def test_metric_logger_writes_null_for_non_finite(tmp_path):
+    log = ptrain_loop.MetricLogger(str(tmp_path))
+    log.log(3, {"a": torch.tensor(1.5), "b": float("nan")}, prefix="x/")
+    log.close()
+    rec = json.loads((tmp_path / "metrics.jsonl").read_text())
+    assert rec["step"] == 3 and rec["x/a"] == 1.5 and rec["x/b"] is None
+
+
+TINY_OVERRIDE = {"fpn_num_filters": 16, "fpn_cell_repeats": 1,
+                 "box_class_repeats": 1, "max_boxes_per_image": 4}
+
+
+def test_train_driver_on_cpu(tmp_path, tiny_detector):
+    """The driver with the JAX package's victim weights (through the bridge);
+    a score threshold under the random victim's (about 0.01) scores gives
+    it live slots, so its steps reach the warp."""
+    variables = jax.tree_util.tree_map(np.asarray, tiny_detector[3])
+    before = nms_cuda.LAUNCHES
+    override = dict(TINY_OVERRIDE, nms_configs={"score_thresh": 0.0099})
+    with counted_warps() as warps:
+        state = ptrain.train("efficientdet-lite0", synthetic=True, image_size=64,
+                             batch_size=2, epochs=1, steps_per_epoch=2,
+                             visualize_freq=0, patch_size=32,
+                             mixed_precision=False, config_override=override,
+                             victim_variables=variables,
+                             save_dir=str(tmp_path), device="cpu")
+    assert nms_cuda.LAUNCHES == before and state.step == 2
+    assert len(warps) >= 2 and min(warps) > 0
+    recs = [json.loads(line) for line in
+            (tmp_path / "logs" / "metrics.jsonl").read_text().splitlines()]
+    assert any("val/loss" in r for r in recs)
+    assert any("images_per_sec" in r for r in recs)
+    dirs = [d for d in os.listdir(tmp_path) if d.startswith("patch_00_")]
+    assert len(dirs) == 1
+    assert {"patch.npy", "scale.txt"} <= set(os.listdir(tmp_path / dirs[0]))
+    patch, scale = partifacts.load_patch_dir(str(tmp_path / dirs[0]))
+    assert patch.shape == (32, 32, 3) and 0.0 <= scale <= 1.0
+
+
+@pytest.mark.parametrize("option", [
+    dict(mixed_precision=True), dict(img_dir="x"), dict(victim_ckpt="x"),
+    dict(resume=True), dict(spatial=2), dict(packed_entry=1)])
+def test_train_driver_refuses_unported_options(tmp_path, option):
+    """Each option raises before any work; the default mixed_precision=True
+    (bf16) is one of them."""
+    kw = dict(mixed_precision=False, device="cpu", save_dir=str(tmp_path))
+    kw.update(option)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ptrain.train("efficientdet-lite0", **kw)
+    assert not os.listdir(tmp_path)
+
+
+def test_attacker_refuses_unported_options(pair):
+    _, patk = pair
+    for kw in (dict(bn_axis_name="batch"), dict(packed_entry=1)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            PatchAttacker(patk.config, patk.net, device="cpu", **kw)
+
+
+def test_window_table_of_a_step_lists_live_windows_slot_major(live_boxes):
+    boxes, valid = live_boxes
+    geom = peot.make_patch_geometry(t(boxes), torch.from_numpy(valid), 0.5,
+                                    (64, 64), max_region=48.0)
+    live = peot._live_windows(geom, 64, 64, 48)
+    assert live.slot.tolist() == [0, 0, 1] and live.image.tolist() == [0, 1, 0]
+    assert bool((live.geom[:, :2] >= 0).all() and (live.geom[:, :2] <= 16).all())

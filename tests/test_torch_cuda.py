@@ -9,20 +9,28 @@ nor the JAX package, so on a machine with a card and no JAX it runs as
 
 (`--noconftest`: `tests/conftest.py` sets up JAX). The NMS input sets of
 `CASES` are also the ones `test_torch_nms.py` holds the plain version to
-JAX with. Kernel vs plain: indices, valid, valid_len and boxes exactly
-equal, scores within 1e-6.
+JAX with. NMS kernel vs plain: indices, valid, valid_len and boxes exactly
+equal, scores within 1e-6. Warp kernels vs plain: within WARP_TOL of the
+output's scale, since the weights are the same float32 values and only the
+order of the sums differs; two launches bit-equal (no atomics).
 """
 import numpy as np
 import pytest
 import torch
 
+from mladversarialobjectdetection_torch.attack.attacker import PatchAttacker
+from mladversarialobjectdetection_torch.attack.train import get_victim
+from mladversarialobjectdetection_torch import config as pconfig
 from mladversarialobjectdetection_torch.inference.detector import Detector
+from mladversarialobjectdetection_torch.ops import eot as peot
 from mladversarialobjectdetection_torch.ops import nms as pnms
 from mladversarialobjectdetection_torch.ops import nms_cuda, postprocess
+from mladversarialobjectdetection_torch.ops import warp_cuda
 
 pytestmark = pytest.mark.cuda
 
 SCORE_TOL = 1e-6
+WARP_TOL = 1e-5
 HARD = dict(method="hard", iou_thresh=0.5, score_thresh=0.3, max_output_size=24)
 GAUSS = dict(method="gaussian", sigma=0.5, score_thresh=0.001, max_output_size=24)
 
@@ -169,3 +177,148 @@ def test_serve_on_card_goes_through_kernel(cuda):
     assert_kernel_equals_plain(
         boxes.contiguous(), scores.contiguous(),
         postprocess.nms_kwargs_from_config(det.config.nms_configs))
+
+
+def warp_windows_case(rng, n_images, n, p0, w, *, angle_deg=None, size=None,
+                      shift=0.0):
+    """(canvases [B, p0, p0, 3], host window table [n, 8]) of random windows.
+
+    Each region lies in the window (origin 0, 0) unless `shift` moves it."""
+    size = np.full(n, size) if size is not None else rng.uniform(40, 200, n)
+    diag = np.minimum(np.sqrt(2.0) * size, w)
+    ymin = rng.uniform(0, np.maximum(w - diag, 1e-3)) + shift
+    xmin = rng.uniform(0, np.maximum(w - diag, 1e-3)) + shift
+    angle = (np.full(n, angle_deg) if angle_deg is not None
+             else rng.uniform(-20, 20, n)) * np.pi / 180
+    zero = np.zeros(n)
+    f = lambda v: torch.tensor(v, dtype=torch.float32)
+    table = peot.window_table(p0, f(zero), f(zero), f(ymin), f(xmin), f(size),
+                              f(diag), f(angle),
+                              torch.from_numpy(rng.integers(0, n_images, n)))
+    canvases = rng.uniform(-1, 1, (n_images, p0, p0, 3)).astype(np.float32)
+    return torch.from_numpy(canvases), table
+
+
+def _warp_cases():
+    """(id, w, (canvases, table)): the lite4 window and the edge cases."""
+    r = np.random.default_rng(3)
+    return [
+        ("p96_w320_rot-20", 320, warp_windows_case(r, 2, 3, 96, 320, angle_deg=-20)),
+        ("p96_w320_rot0_upscale", 320, warp_windows_case(
+            r, 2, 3, 96, 320, angle_deg=0, size=150.0)),
+        ("p96_w320_rot20_downscale", 320, warp_windows_case(
+            r, 2, 3, 96, 320, angle_deg=20, size=60.0)),
+        ("partly_outside", 160, warp_windows_case(r, 1, 2, 96, 160, shift=100.0)),
+        ("wholly_outside", 160, warp_windows_case(r, 1, 2, 96, 160, shift=5000.0)),
+        ("size_1", 160, warp_windows_case(r, 1, 2, 96, 160, size=1.0)),
+        ("w200_p32", 200, warp_windows_case(r, 3, 5, 32, 200)),
+        ("w384", 384, warp_windows_case(r, 2, 2, 96, 384)),
+        ("b24_70_windows", 320, warp_windows_case(r, 24, 70, 96, 320)),
+    ]
+
+
+WARP_CASES = _warp_cases()
+
+
+def _close(kern, plain, what):
+    scale = max(1.0, float(plain.abs().max()))
+    err = float((kern - plain).abs().max())
+    assert err <= WARP_TOL * scale, f"{what}: {err} > {WARP_TOL} * {scale}"
+
+
+@pytest.mark.parametrize("name,w,case", WARP_CASES, ids=[c[0] for c in WARP_CASES])
+def test_warp_kernels_match_plain(cuda, name, w, case):
+    canvases, table = case
+    canvases = canvases.to(cuda)
+    n_img, p0 = canvases.shape[0], canvases.shape[1]
+    n = table.shape[0]
+    before = dict(warp_cuda.LAUNCHES)
+    t = warp_cuda.pass1_fwd(canvases, table, w)
+    _close(t, peot.pass1_fwd(canvases, table, w), "pass1_fwd")
+    out = warp_cuda.pass2_fwd(t, table)
+    _close(out, peot.pass2_fwd(t, table), "pass2_fwd")
+    g = torch.randn((n, w, w, 3), generator=torch.Generator(cuda).manual_seed(0),
+                    device=cuda)
+    dt = warp_cuda.pass2_bwd(g, table, p0)
+    _close(dt, peot.pass2_bwd(g, table, p0), "pass2_bwd")
+    dc = warp_cuda.pass1_bwd(dt, table, n_img)
+    _close(dc, peot.pass1_bwd(dt, table, n_img), "pass1_bwd")
+    torch.cuda.synchronize()
+    assert all(warp_cuda.LAUNCHES[k] == before[k] + 1 for k in before)
+    if name == "wholly_outside":
+        assert float(out.abs().max()) == 0.0
+    # gathers in a fixed order: a second launch repeats bit for bit
+    assert torch.equal(warp_cuda.pass1_fwd(canvases, table, w), t)
+    assert torch.equal(warp_cuda.pass2_fwd(t, table), out)
+    assert torch.equal(warp_cuda.pass2_bwd(g, table, p0), dt)
+    assert torch.equal(warp_cuda.pass1_bwd(dt, table, n_img), dc)
+
+
+def test_warp_autograd_on_card_matches_plain(cuda):
+    canvases, table = warp_windows_case(np.random.default_rng(5), 3, 6, 32, 96)
+    g = torch.randn((6, 96, 96, 3), generator=torch.Generator().manual_seed(1))
+    grads = []
+    for dev in (torch.device("cpu"), cuda):
+        c = canvases.to(dev).clone().requires_grad_(True)
+        (peot.warp_windows(c, table, 96) * g.to(dev)).sum().backward()
+        grads.append(c.grad.cpu())
+    _close(grads[1], grads[0], "dcanvas")
+
+
+def test_warp_wrapper_rejects_bad_inputs(cuda):
+    canvases, table = warp_windows_case(np.random.default_rng(6), 2, 3, 32, 64)
+    canvases = canvases.to(cuda)
+    before = dict(warp_cuda.LAUNCHES)
+    with pytest.raises(TypeError):
+        warp_cuda.pass1_fwd(canvases.double(), table, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        warp_cuda.pass1_fwd(canvases.transpose(1, 2), table, 64)
+    with pytest.raises(ValueError, match="host"):
+        warp_cuda.pass1_fwd(canvases, table.to(cuda), 64)
+    bad = table.clone()
+    bad[0, 7] = 2.0  # image index past B = 2
+    with pytest.raises(ValueError, match="image index"):
+        warp_cuda.pass1_fwd(canvases, bad, 64)
+    bad = table.clone()
+    bad[1, 0] = float("nan")
+    with pytest.raises(ValueError, match="non-finite"):
+        warp_cuda.pass1_fwd(canvases, bad, 64)
+    with pytest.raises(ValueError, match="windows"):
+        warp_cuda.pass2_fwd(torch.zeros((2, 32, 64, 3), device=cuda), table)
+    with pytest.raises(RuntimeError, match="cudaError_t 1 "):
+        warp_cuda.pass1_fwd(canvases, table, 0)
+    assert warp_cuda.LAUNCHES == before
+    t = warp_cuda.pass1_fwd(canvases, table, 64)  # the context still works
+    _close(t, peot.pass1_fwd(canvases, table, 64), "pass1_fwd")
+
+
+def test_attack_step_on_card_goes_through_kernels(cuda):
+    """A tiny lite0 attack step on the card: 4 warp launches, 1 NMS launch."""
+    cfg = pconfig.get_efficientdet_config("efficientdet-lite0")
+    cfg.override({"image_size": 64, "fpn_num_filters": 16,
+                  "fpn_cell_repeats": 1, "box_class_repeats": 1,
+                  "nms_configs": {"iou_thresh": 0.5, "score_thresh": 0.5,
+                                  "pre_nms_topk": 64, "max_output_size": 16},
+                  "max_boxes_per_image": 4})
+    victim = get_victim(cfg, seed=0, device=cuda)
+    atk = PatchAttacker(cfg, victim, patch_size=32, device=cuda)
+    state = atk.init_state(seed=0)
+    images = torch.rand((2, 64, 64, 3), generator=torch.Generator().manual_seed(2)
+                        ).to(cuda) * 2 - 1
+    boxes = torch.zeros((2, 4, 4))
+    boxes[:, 0] = torch.tensor([4.0, 4.0, 60.0, 60.0])
+    boxes[1, 1] = torch.tensor([10.0, 20.0, 50.0, 44.0])
+    valid = torch.zeros((2, 4), dtype=torch.bool)
+    valid[:, 0] = True
+    valid[1, 1] = True
+    patch0 = state.patch.detach().clone()
+    warp_cuda.reset_counts()
+    nms_before = nms_cuda.LAUNCHES
+    state, m = atk.train_step(state, images, with_asr=False,
+                              boxes_override=(boxes.to(cuda), valid.to(cuda)))
+    torch.cuda.synchronize()
+    assert warp_cuda.LAUNCHES == {k: 1 for k in warp_cuda.LAUNCHES}
+    assert warp_cuda.WINDOWS == 3
+    assert nms_cuda.LAUNCHES == nms_before + 1
+    assert np.isfinite(float(m.loss))
+    assert not torch.equal(state.patch.detach(), patch0)

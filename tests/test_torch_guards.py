@@ -12,8 +12,11 @@ from mladversarialobjectdetection_torch.ckpt import bridge
 from mladversarialobjectdetection_torch.inference import detector as pdetector
 from mladversarialobjectdetection_torch.models import efficientdet as pdet
 from mladversarialobjectdetection_torch import config as pconfig
+from mladversarialobjectdetection_torch.attack import attacker as pattacker
+from mladversarialobjectdetection_torch.attack import train as ptrain
+from mladversarialobjectdetection_torch.ops import eot as peot
 from mladversarialobjectdetection_torch.ops import nms as pnms
-from mladversarialobjectdetection_torch.ops import nms_cuda
+from mladversarialobjectdetection_torch.ops import nms_cuda, warp_cuda
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -36,7 +39,8 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 15  # every module of the port
+    # every module of the port, attack/ and data/ included
+    assert int(proc.stdout.split()[-1]) >= 33
 
 
 def test_detector_refuses_cpu_fallback(monkeypatch):
@@ -44,6 +48,42 @@ def test_detector_refuses_cpu_fallback(monkeypatch):
     for device in (None, "cuda", "cuda:0"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pdetector.Detector("efficientdet-lite0", device=device)
+
+
+def test_attack_entry_points_refuse_cpu_fallback(monkeypatch, tiny_cfg):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = pconfig.Config(tiny_cfg.as_dict())
+    net = pdet.EfficientDetNet(pdet.spec_from_config(cfg))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pattacker.PatchAttacker(cfg, net)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ptrain.get_victim(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ptrain.train("efficientdet-lite0", mixed_precision=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        peot.apply_patches(torch.zeros((1, 8, 8, 3)), torch.zeros((1, 1, 4)),
+                           torch.zeros((1, 1), dtype=torch.bool),
+                           torch.zeros((4, 4, 3)), 0.5)
+
+
+def test_warp_kernels_refuse_before_any_build():
+    """dtype, device and the host window table are checked first."""
+    before = dict(warp_cuda.LAUNCHES)
+    table = torch.tensor([[0.0, 1.0, 0.0, 1.0, 0.0, 0.0, 1.0, 0.0]])
+    with pytest.raises(TypeError, match="float32 only"):
+        warp_cuda.pass1_fwd(torch.zeros((1, 4, 4, 3), dtype=torch.float64), table, 8)
+    for fn, x, arg in ((warp_cuda.pass1_fwd, torch.zeros((1, 4, 4, 3)), 8),
+                       (warp_cuda.pass2_fwd, torch.zeros((1, 4, 8, 3)), None),
+                       (warp_cuda.pass2_bwd, torch.zeros((1, 8, 8, 3)), 4),
+                       (warp_cuda.pass1_bwd, torch.zeros((1, 4, 8, 3)), 1)):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fn(x, table) if arg is None else fn(x, table, arg)
+    with pytest.raises(ValueError, match="image index"):
+        warp_cuda.check_table(table, 0)
+    with pytest.raises(ValueError, match="radius"):
+        warp_cuda.check_table(table * torch.tensor([1.0] * 6 + [0.0, 1.0]))
+    warp_cuda.check_table(table, 1)
+    assert warp_cuda.LAUNCHES == before
 
 
 def test_nms_refuses_other_devices():
