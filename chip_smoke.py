@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and attack paths on one CUDA card and
-check its kernels.
+"""Drive the PyTorch port's serving, attack and defense paths on one CUDA
+card and check its kernels.
 
     python3 chip_smoke.py
 
@@ -35,7 +35,28 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
 7. driver: `attack.train.train` for 3 steps at batch 12 with a score
    threshold the random victim passes, so the warp runs on its detections;
    its metrics log and patch artifacts must be written;
-8. card: the `nvidia-smi` name and power limit, and one JSON line with each
+8. cmconv kernel vs plain: the channel-major 3x3 conv kernel against its
+   plain version at every shape of the defender's path at full size (batch
+   24 at 640x640 and 320x320, forward with bias and input gradient), within
+   WARP_TOL of the output's scale; two launches bit-equal;
+9. defender step: `PatchAttackDefender.train_step` against efficientdet-lite4
+   at 640 (full width and depth, seeded weights, fp32, TF32 off), U-Net
+   n_filters 8, batch 24, score threshold .0099 so that the random victim's
+   detections get patches. The counts are set to 0 before the counted steps
+   and read after: 15 cmconv launches per step (8 forward, 7 input
+   gradients), the two forward warp passes once per step and no transpose,
+   NMS once per step; loss and metrics are checked; the step is timed,
+   profiled and its peak memory read;
+10. `eval_step` (8 cmconv and 3 NMS launches) and `recover` (8 cmconv),
+   checked and timed;
+11. kernels in the defender step: cmconv on the 15 inputs a step gave it,
+   against its plain version, timed beside its bound, the plain time and
+   `F.conv2d` (cuDNN) on the same tensors; the two forward warp kernels
+   (the masker's windows) and NMS (the victim pass) on the inputs the same
+   step gave them, against their plain versions;
+12. driver: `defense.train.train` for 3 steps at batch 12 with score
+   threshold .0099; its metrics log and `antipatch.pkl` must be written;
+13. card: the `nvidia-smi` name and power limit, and one JSON line with each
    kernel's launches, error, times and bound.
 
 The last line is `{"ok": true, "device": {...}}`. Without a card, or without
@@ -68,7 +89,8 @@ FP32_FLOP_PER_S = 67e12
 NMS_AREA_OPS = 5
 NMS_SCAN_OPS = 2
 NMS_SUPPRESS_OPS = {"gaussian": 14 + 4, "hard": 14 + 2}
-# warp kernels vs plain: the same float32 weights, sums in another order
+# warp and cmconv kernels vs plain: the same float32 arithmetic, the warp's
+# sums in another order
 WARP_TOL = 1e-5
 # fp32 operations of the warp functions (csrc/warp.cu): per non-zero tap the
 # hat (sub, abs, div, sub, max), three FMAs and the normaliser's add; per
@@ -88,6 +110,22 @@ WARP_REPLACES = {  # the Pallas kernels of v1; v2's are listed in PERF.md
 ATTACK_BATCH = 24
 ATTACK_WINDOW = 320
 ATTACK_STEPS = 3
+DEFEND_BATCH = 24
+DEFEND_STEPS = 2
+DEFEND_THRESH = 0.0099  # under the random victim's scores (about 0.01)
+CMCONV_PER_STEP = 15    # 8 forward + 7 input gradients
+# (role, C, Co, side) of every cmconv launch of a defender step at 640x640,
+# n_filters 8: the forward convs of conv0, conv1, deconv2.convblock and
+# deconv3.convblock, then their input gradients (C and Co swapped), all but
+# that of conv0.cnv1, whose input is the image
+CMCONV_SHAPES = (
+    [("fwd", 3, 8, 640), ("fwd", 8, 8, 640), ("fwd", 8, 16, 320),
+     ("fwd", 16, 16, 320), ("fwd", 32, 16, 320), ("fwd", 16, 16, 320),
+     ("fwd", 16, 8, 640), ("fwd", 8, 8, 640)]
+    + [("dx", 8, 8, 640), ("dx", 8, 16, 640), ("dx", 16, 16, 320),
+       ("dx", 16, 32, 320), ("dx", 16, 16, 320), ("dx", 16, 8, 320),
+       ("dx", 8, 8, 640)])
+
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
@@ -183,23 +221,31 @@ def host_p50_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def profile_device(fn, label: str, top: int = 6):
+def profile_device(fn, label: str, top: int = 6, sessions: int = 3) -> None:
     """One traced call of fn: device busy share of the wall time, top kernels.
-
-    Returns (wall ms, device busy ms)."""
+    A session that records no device activity is tried again, up to
+    `sessions` times, and then reported as not measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        if busy_us > 0:
+            break
+    else:
+        print(f"  profile {label}: wall {wall_us / 1e3:.3f} ms, device busy not "
+              f"measured (the profiler saw no device activity in {sessions} "
+              f"sessions)")
+        return
     launches = sum(e.count for e in kernels)
     print(f"  profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%, idle "
@@ -207,30 +253,39 @@ def profile_device(fn, label: str, top: int = 6):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x "
               f"{e.key[:90]}")
-    return wall_us / 1e3, busy_us / 1e3
 
 
-def kernel_device_ms(fn, kernel: str, iters: int = 10) -> float:
+def kernel_device_ms(fn, kernel: str, iters: int = 10, sessions: int = 3) -> float:
     """Mean device ms per launch of the CUDA kernel whose name contains
     `kernel`, from torch.profiler over `iters` calls of fn (the host work
-    around each launch is left out)."""
+    around each launch is left out).
+
+    A profiler session now and then records no device activity at all. Such a
+    session is tried again; after `sessions` empty ones the time is taken by
+    CUDA events instead, which include the host work between launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and kernel in e.key]
-    total_us = sum(e.self_device_time_total for e in hits)
-    count = sum(e.count for e in hits)
-    if not count or total_us <= 0:
-        fail(f"the profiler saw no device time of kernel {kernel}")
-    return total_us / 1e3 / count
+    for attempt in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and kernel in e.key]
+        total_us = sum(e.self_device_time_total for e in hits)
+        count = sum(e.count for e in hits)
+        if count and total_us > 0:
+            return total_us / 1e3 / count
+        print(f"  profiler session {attempt} of {sessions} saw no device time "
+              f"of kernel {kernel}")
+    ms = cuda_ms(fn, iters=max(iters, 10))
+    print(f"  {kernel}: timed by CUDA events instead, {ms:.4f} ms per call "
+          f"(host work between launches included)")
+    return ms
 
 
 def kernel_name(mangled: str) -> str:
@@ -361,13 +416,13 @@ def warp_cases(rng):
     yield ("b24 70 windows", 320, *warp_case(rng, 24, 70, 96, 320))
 
 
-def warp_err(name, kern, plain) -> float:
-    """Max abs error of a warp kernel, within WARP_TOL of the output's scale."""
+def kernel_err(name, kern, plain) -> float:
+    """Max abs error of a warp or cmconv kernel, within WARP_TOL of the
+    output's scale."""
     err = float((kern - plain).abs().max())
     scale = max(1.0, float(plain.abs().max()))
     if not err <= WARP_TOL * scale:
-        fail(f"warp {name}: kernel and plain differ by {err} > "
-             f"{WARP_TOL} * {scale}")
+        fail(f"{name}: kernel and plain differ by {err} > {WARP_TOL} * {scale}")
     return err
 
 
@@ -386,12 +441,14 @@ def check_warp(name, canvases, table, w, g=None):
                         device="cuda")
     dt = warp_cuda.pass2_bwd(g, table, p0)
     dc = warp_cuda.pass1_bwd(dt, table, n_img)
-    errs = {"pass1_fwd": warp_err(name + " pass1_fwd", t,
-                                  eot.pass1_fwd(canvases, table, w)),
-            "pass2_fwd": warp_err(name + " pass2_fwd", out, eot.pass2_fwd(t, table)),
-            "pass2_bwd": warp_err(name + " pass2_bwd", dt, eot.pass2_bwd(g, table, p0)),
-            "pass1_bwd": warp_err(name + " pass1_bwd", dc,
-                                  eot.pass1_bwd(dt, table, n_img))}
+    errs = {"pass1_fwd": kernel_err(f"warp {name} pass1_fwd", t,
+                                    eot.pass1_fwd(canvases, table, w)),
+            "pass2_fwd": kernel_err(f"warp {name} pass2_fwd", out,
+                                    eot.pass2_fwd(t, table)),
+            "pass2_bwd": kernel_err(f"warp {name} pass2_bwd", dt,
+                                    eot.pass2_bwd(g, table, p0)),
+            "pass1_bwd": kernel_err(f"warp {name} pass1_bwd", dc,
+                                    eot.pass1_bwd(dt, table, n_img))}
     again = (warp_cuda.pass1_fwd(canvases, table, w), warp_cuda.pass2_fwd(t, table),
              warp_cuda.pass2_bwd(g, table, p0), warp_cuda.pass1_bwd(dt, table, n_img))
     torch.cuda.synchronize()
@@ -399,6 +456,28 @@ def check_warp(name, canvases, table, w, g=None):
         if not torch.equal(a, b):
             fail(f"warp {name} {k}: two launches differ")
     return errs, float(out.abs().max()) == 0.0
+
+
+def check_warp_fwd(name, canvases, table, w, t_in, chunk: int = 16):
+    """The two forward warp kernels against the plain passes on the same
+    CUDA tensors, the plain version `chunk` windows at a time (its hat
+    weights are [N, p0, w, p0] and [N, w, w, p0]); each kernel launched twice
+    bit-equal. Returns the max error per kernel."""
+    import torch
+    from mladversarialobjectdetection_torch.ops import eot, warp_cuda
+
+    t = warp_cuda.pass1_fwd(canvases, table, w)
+    out = warp_cuda.pass2_fwd(t_in, table)
+    parts = [(table[s:s + chunk], t_in[s:s + chunk])
+             for s in range(0, table.shape[0], chunk)]
+    errs = {"pass1_fwd": kernel_err(f"warp {name} pass1_fwd", t, torch.cat(
+                [eot.pass1_fwd(canvases, tab, w) for tab, _ in parts])),
+            "pass2_fwd": kernel_err(f"warp {name} pass2_fwd", out, torch.cat(
+                [eot.pass2_fwd(ti, tab) for tab, ti in parts]))}
+    if not (torch.equal(warp_cuda.pass1_fwd(canvases, table, w), t)
+            and torch.equal(warp_cuda.pass2_fwd(t_in, table), out)):
+        fail(f"warp {name}: two launches of a forward kernel differ")
+    return errs
 
 
 def warp_taps(table, p0: int, w: int):
@@ -443,20 +522,19 @@ def warp_bounds(n_img: int, n_win: int, p0: int, w: int, taps):
 
 
 class Capture:
-    """Records the arguments the step hands the warp and NMS wrappers (the
-    plain and dispatching code looks each wrapper up at call time)."""
+    """Records the arguments of every call of the named wrappers in its block
+    (the dispatching code looks each wrapper up at call time): `args[name]`
+    is the list of (positional, keyword) arguments, in call order."""
 
-    def __init__(self):
-        from mladversarialobjectdetection_torch.ops import nms_cuda, warp_cuda
-        self.targets = [(warp_cuda, k) for k in WARP_KERNELS] + [
-            (nms_cuda, "batched_nms_cuda")]
-        self.args = {}
+    def __init__(self, targets):
+        self.targets = targets  # [(module, wrapper name)]
+        self.args = {name: [] for _, name in targets}
 
     def __enter__(self):
         self.originals = [getattr(m, k) for m, k in self.targets]
         for (mod, name), orig in zip(self.targets, self.originals):
             def rec(*a, _name=name, _orig=orig, **kw):
-                self.args[_name] = (a, kw)
+                self.args[_name].append((a, kw))
                 return _orig(*a, **kw)
             setattr(mod, name, rec)
         return self
@@ -465,6 +543,19 @@ class Capture:
         for (mod, name), orig in zip(self.targets, self.originals):
             setattr(mod, name, orig)
 
+
+def cmconv_bound(x, co: int, has_bias: bool):
+    """(bound ms, bound_by, bytes, ops) of one cmconv call on x [B, C, H, W]:
+    x, the weights and the bias read once and the output written once, over
+    the HBM rate; 2 * 9 * C * Co operations per output pixel over the fp32
+    rate."""
+    b, c, h, w = x.shape
+    nbytes = 4 * (b * c * h * w + 9 * c * co + co * has_bias + b * co * h * w)
+    ops = 2 * 9 * c * co * b * h * w
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOP_PER_S * 1e3
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
+            nbytes, ops)
 
 
 def main() -> int:
@@ -483,6 +574,9 @@ def main() -> int:
     from mladversarialobjectdetection_torch.inference.detector import Detector
     from mladversarialobjectdetection_torch.ops import eot, nms, nms_cuda, postprocess
     from mladversarialobjectdetection_torch.ops import warp_cuda
+    from mladversarialobjectdetection_torch.ops import cmconv, cmconv_cuda
+    from mladversarialobjectdetection_torch.defense.defender import PatchAttackDefender
+    from mladversarialobjectdetection_torch.defense.train import train as defense_train
 
     # fp32 everywhere: the port is held to the fp32 JAX reference, and cuDNN
     # runs fp32 convs in TF32 unless told not to
@@ -656,18 +750,18 @@ def main() -> int:
     step_ms = host_p50_ms(step, iters=5, warmup=1)
     print(f"  attack step b{ATTACK_BATCH} p50 {step_ms:.3f} ms "
           f"({ATTACK_BATCH * 1e3 / step_ms:.2f} images/s)")
-    wall_ms, busy_ms = profile_device(step, f"attack step b{ATTACK_BATCH}",
-                                      top=10)
+    profile_device(step, f"attack step b{ATTACK_BATCH}", top=10)
 
     # phase 6: each kernel on the inputs a step gave it
-    with Capture() as cap:
+    with Capture([(warp_cuda, k) for k in WARP_KERNELS]
+                 + [(nms_cuda, "batched_nms_cuda")]) as cap:
         step()
     torch.cuda.synchronize()
     torch.set_grad_enabled(False)  # the comparisons and timings build no graph
-    (canvases, table, w), _ = cap.args["pass1_fwd"]
-    (t_in, _), _ = cap.args["pass2_fwd"]
-    (g_in, _, p0), _ = cap.args["pass2_bwd"]
-    (dt_in, _, n_img), _ = cap.args["pass1_bwd"]
+    (canvases, table, w), _ = cap.args["pass1_fwd"][0]
+    (t_in, _), _ = cap.args["pass2_fwd"][0]
+    (g_in, _, p0), _ = cap.args["pass2_bwd"][0]
+    (dt_in, _, n_img), _ = cap.args["pass1_bwd"][0]
     errs, _ = check_warp("step inputs", canvases, table, w, g=g_in)
     warp_errs = {k: max(warp_errs[k], errs[k]) for k in WARP_KERNELS}
     taps = warp_taps(table, p0, w)
@@ -697,7 +791,7 @@ def main() -> int:
               f"bound; {attack_launches[k] // ATTACK_STEPS} launch per step")
     print(f"phase 6 warp kernels at the step's inputs: non-zero taps pass 1 "
           f"{taps[0]}, pass 2 {taps[1]}; max errors {warp_errs}")
-    (nms_boxes, nms_scores), nms_kw = cap.args["batched_nms_cuda"]
+    (nms_boxes, nms_scores), nms_kw = cap.args["batched_nms_cuda"][0]
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by, err = nms_numbers(
         nms_boxes, nms_scores, nms_kw, "attack first pass")
     max_err = max(max_err, err)
@@ -735,7 +829,211 @@ def main() -> int:
           f"{warp_cuda.WINDOWS} windows warped, artifacts {dirs}, "
           f"{len(records)} log records")
 
-    # phase 8: card
+    # phase 8: cmconv kernel vs plain at the path's shapes, full size
+    torch.set_grad_enabled(False)
+    cm_err = 0.0
+    gen = torch.Generator(dev).manual_seed(5)
+    for role, c, co, side in CMCONV_SHAPES:
+        x = torch.randn((DEFEND_BATCH, c, side, side), device=dev, generator=gen)
+        w = torch.randn((3, 3, c, co), device=dev, generator=gen) * 0.3
+        bias = torch.randn((co,), device=dev, generator=gen) if role == "fwd" else None
+        kern = cmconv_cuda.cmconv3x3_cuda(x, w, bias)
+        err = kernel_err(f"cmconv {role} {c}->{co} at {side}", kern,
+                         cmconv.cmconv_plain(x, w, bias))
+        if not torch.equal(cmconv_cuda.cmconv3x3_cuda(x, w, bias), kern):
+            fail(f"cmconv {role} {c}->{co} at {side}: two launches differ")
+        cm_err = max(cm_err, err)
+        print(f"  cmconv {role} {c}->{co} b{DEFEND_BATCH} {side}x{side}: max "
+              f"error {err}, two launches bit-equal")
+    del x, w, bias, kern
+    torch.set_grad_enabled(True)
+    print(f"phase 8 cmconv kernel vs plain: {len(CMCONV_SHAPES)} shapes within "
+          f"{WARP_TOL} of scale, max error {cm_err}")
+
+    # phase 9: the defender step, lite4@640, b24, fp32
+    t0 = time.perf_counter()
+    dcfg = config_lib.get_efficientdet_config("efficientdet-lite4")
+    dcfg.nms_configs.update({"iou_thresh": 0.5, "score_thresh": DEFEND_THRESH})
+    eval_patch = np.random.default_rng(0).uniform(-1, 1, (640, 640, 3)).astype(
+        np.float32)
+    dfd = PatchAttackDefender(dcfg, get_victim(dcfg, seed=0, device=dev),
+                              eval_patch=eval_patch, eval_scale=0.4, device=dev)
+    dstate = dfd.init_state(3)
+    n_unet = sum(p.numel() for p in dstate.unet.parameters())
+    dimages = torch.rand((DEFEND_BATCH, *dfd.image_hw, 3), device=dev,
+                         generator=torch.Generator(dev).manual_seed(4)) * 2 - 1
+    dstep = lambda: dfd.train_step(dstate, dimages)
+    dstep()  # warm-up outside the counted run
+    torch.cuda.synchronize()
+    print(f"  defender efficientdet-lite4 {dfd.image_hw}, U-Net n_filters "
+          f"{dfd.n_filters} ({n_unet} parameters), batch {DEFEND_BATCH}, "
+          f"built and warmed up in {time.perf_counter() - t0:.2f} s")
+    params0 = [p.detach().clone() for p in dstate.unet.parameters()]
+    torch.cuda.reset_peak_memory_stats(dev)
+    nms_cuda.LAUNCHES = 0
+    warp_cuda.reset_counts()
+    cmconv_cuda.LAUNCHES = 0
+    for _ in range(DEFEND_STEPS):
+        _, dm = dstep()
+    torch.cuda.synchronize()
+    defend_launches = dict(warp_cuda.LAUNCHES, nms=nms_cuda.LAUNCHES,
+                           cmconv=cmconv_cuda.LAUNCHES)
+    defend_windows = warp_cuda.WINDOWS
+    dpeak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    want = dict(pass1_fwd=DEFEND_STEPS, pass2_fwd=DEFEND_STEPS, pass2_bwd=0,
+                pass1_bwd=0, nms=DEFEND_STEPS,
+                cmconv=CMCONV_PER_STEP * DEFEND_STEPS)
+    if defend_launches != want:
+        fail(f"{DEFEND_STEPS} defender steps launched {defend_launches}; want {want}")
+    if not defend_windows:
+        fail("the masker planted no patch")
+    if not (np.isfinite(float(dm.loss)) and 0 < float(dm.mean_clean_score) < 1):
+        fail(f"defender metrics {dm}")
+    if all(torch.equal(p, q) for p, q in zip(dstate.unet.parameters(), params0)):
+        fail("the U-Net did not move")
+    print(f"phase 9 defender step: launches in {DEFEND_STEPS} steps "
+          f"{defend_launches}, {defend_windows // DEFEND_STEPS} windows planted "
+          f"per step; loss {float(dm.loss):.6f}, mean clean score "
+          f"{float(dm.mean_clean_score):.6f}; peak memory {dpeak_gb:.3f} GB")
+    dstep_ms = host_p50_ms(dstep, iters=5, warmup=1)
+    print(f"  defender step b{DEFEND_BATCH} p50 {dstep_ms:.3f} ms "
+          f"({DEFEND_BATCH * 1e3 / dstep_ms:.2f} images/s)")
+    profile_device(dstep, f"defender step b{DEFEND_BATCH}", top=10)
+
+    # phase 10: eval_step and recover
+    nms_cuda.LAUNCHES = 0
+    cmconv_cuda.LAUNCHES = 0
+    em = dfd.eval_step(dstate, dimages, 1)
+    torch.cuda.synchronize()
+    if (cmconv_cuda.LAUNCHES, nms_cuda.LAUNCHES) != (8, 3):
+        fail(f"eval_step launched cmconv {cmconv_cuda.LAUNCHES}, NMS "
+             f"{nms_cuda.LAUNCHES} times; want 8, 3")
+    if not (np.isfinite(float(em.loss)) and np.isfinite(float(em.recovery_psnr))):
+        fail(f"eval metrics {em}")
+    cmconv_cuda.LAUNCHES = 0
+    rec = dfd.recover(dstate, dimages)
+    torch.cuda.synchronize()
+    if cmconv_cuda.LAUNCHES != 8 or rec.shape != dimages.shape or not (
+            float(rec.abs().max()) <= 1.0):
+        fail(f"recover: {cmconv_cuda.LAUNCHES} cmconv launches, shape "
+             f"{tuple(rec.shape)}")
+    eval_ms = host_p50_ms(lambda: dfd.eval_step(dstate, dimages, 1), iters=3,
+                          warmup=1)
+    recover_ms = host_p50_ms(lambda: dfd.recover(dstate, dimages), iters=5)
+    print(f"phase 10 eval_step: loss {float(em.loss):.6f}, recovery PSNR "
+          f"{float(em.recovery_psnr):.4f} dB, ADR {float(em.adr)} (NaN: no "
+          f"clean score above .55 at random weights), p50 {eval_ms:.3f} ms; "
+          f"recover b{DEFEND_BATCH} p50 {recover_ms:.3f} ms "
+          f"({DEFEND_BATCH * 1e3 / recover_ms:.2f} images/s)")
+    del rec
+
+    # phase 11: cmconv, the warp forward passes and NMS on the inputs a step
+    # gave them
+    with Capture([(cmconv_cuda, "cmconv3x3_cuda"), (warp_cuda, "pass1_fwd"),
+                  (warp_cuda, "pass2_fwd"),
+                  (nms_cuda, "batched_nms_cuda")]) as cap:
+        dstep()
+    torch.cuda.synchronize()
+    calls = [a for a, _ in cap.args["cmconv3x3_cuda"]]  # (x, w, bias)
+    if len(calls) != CMCONV_PER_STEP:
+        fail(f"captured {len(calls)} cmconv calls in a step")
+    torch.set_grad_enabled(False)
+    cm_tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                  bytes_ms=0.0, ops_ms=0.0)
+    for i, (x, w, bias) in enumerate(calls):
+        role = "fwd" if i < 8 else "dx"
+        c, co = w.shape[2], w.shape[3]
+        kern = cmconv_cuda.cmconv3x3_cuda(x, w, bias)
+        cm_err = max(cm_err, kernel_err(f"cmconv step call {i}", kern,
+                                        cmconv.cmconv_plain(x, w, bias)))
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        lib = torch.nn.functional.conv2d(x, w_oihw, bias, padding=1)
+        lib_err = float((lib - kern).abs().max())
+        kern_ms = kernel_device_ms(lambda: cmconv_cuda.cmconv3x3_cuda(x, w, bias),
+                                   "cmconv3x3_kernel", iters=5)
+        plain_ms = cuda_ms(lambda: cmconv.cmconv_plain(x, w, bias), iters=2,
+                           warmup=1)
+        lib_ms = cuda_ms(lambda: torch.nn.functional.conv2d(
+            x, w_oihw, bias, padding=1), iters=10)
+        bound_ms, bound_by, nbytes, ops = cmconv_bound(x, co, bias is not None)
+        cm_tot["ms"] += kern_ms
+        cm_tot["plain_ms"] += plain_ms
+        cm_tot["bound_ms"] += bound_ms
+        cm_tot["library_ms"] += lib_ms
+        cm_tot["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+        cm_tot["ops_ms"] += ops / FP32_FLOP_PER_S * 1e3
+        print(f"  cmconv step call {i:2d} {role} {c}->{co} "
+              f"{tuple(x.shape)}{' +bias' if bias is not None else ''}: kernel "
+              f"{kern_ms:.4f} ms, plain {plain_ms:.4f} ms, F.conv2d "
+              f"{lib_ms:.4f} ms (differs by {lib_err:.3g}), bound "
+              f"{bound_ms:.6f} ms ({bound_by}: {nbytes} B, {ops} fp32 ops), "
+              f"{bound_ms / kern_ms:.1%} of the bound")
+    # the weight gradients of these convs stay with cuDNN (conv2d_weight):
+    # forward call 7 - j and input-gradient call 8 + j belong to one conv
+    wgrad_ms = 0.0
+    for j in range(CMCONV_PER_STEP - 8):
+        (x, w, _), (g, _, _) = calls[7 - j], calls[8 + j]
+        wgrad_ms += cuda_ms(lambda: torch.nn.grad.conv2d_weight(
+            x, (w.shape[3], w.shape[2], 3, 3), g, padding=1), iters=5)
+    print(f"  cuDNN weight gradient (conv2d_weight) of the {CMCONV_PER_STEP - 8} "
+          f"cmconv convs that get an input gradient: {wgrad_ms:.4f} ms per step")
+    cm_bound_by = "bytes" if cm_tot["bytes_ms"] >= cm_tot["ops_ms"] else "operations"
+    print(f"phase 11 cmconv at the step's inputs, per step ({CMCONV_PER_STEP} "
+          f"launches): kernel {cm_tot['ms']:.4f} ms, plain "
+          f"{cm_tot['plain_ms']:.4f} ms, F.conv2d {cm_tot['library_ms']:.4f} "
+          f"ms, bound {cm_tot['bound_ms']:.6f} ms (bytes {cm_tot['bytes_ms']:.6f}"
+          f", operations {cm_tot['ops_ms']:.6f}); max error {cm_err}")
+    (canvases, table, win_w), _ = cap.args["pass1_fwd"][0]
+    (t_in, _), _ = cap.args["pass2_fwd"][0]
+    errs = check_warp_fwd("defender step inputs", canvases, table, win_w, t_in)
+    warp_errs = {k: max(warp_errs[k], errs.get(k, 0.0)) for k in WARP_KERNELS}
+    dwarp_ms = {k: kernel_device_ms(fn, f"{k}_kernel", iters=5) for k, fn in (
+        ("pass1_fwd", lambda: warp_cuda.pass1_fwd(canvases, table, win_w)),
+        ("pass2_fwd", lambda: warp_cuda.pass2_fwd(t_in, table)))}
+    print(f"  warp forward kernels at the defender step's {table.shape[0]} "
+          f"windows (p0 {canvases.shape[1]}, w {win_w}, {canvases.shape[0]} "
+          f"canvases): max errors {errs}, two launches bit-equal; kernel "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in dwarp_ms.items()))
+    (nms_boxes, nms_scores), nms_kw = cap.args["batched_nms_cuda"][0]
+    *_, err = nms_numbers(nms_boxes, nms_scores, nms_kw, "defender victim pass")
+    max_err = max(max_err, err)
+    del cap, calls, x, w, g, bias, kern, lib, dfd, dstate, dimages, params0
+    del canvases, table, t_in, nms_boxes, nms_scores
+    torch.set_grad_enabled(True)
+    torch.cuda.empty_cache()
+
+    # phase 12: the defense driver, 3 steps at batch 12
+    with tempfile.TemporaryDirectory() as tmp:
+        nms_cuda.LAUNCHES = 0
+        warp_cuda.reset_counts()
+        cmconv_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        dfinal = defense_train("efficientdet-lite4", synthetic=True, batch_size=12,
+                               epochs=1, steps_per_epoch=3, save_dir=tmp,
+                               device=dev, config_override={
+                                   "nms_configs": {"score_thresh": DEFEND_THRESH}})
+        torch.cuda.synchronize()
+        ddriver_s = time.perf_counter() - t0
+        ddriver_launches = dict(warp_cuda.LAUNCHES, nms=nms_cuda.LAUNCHES,
+                                cmconv=cmconv_cuda.LAUNCHES)
+        records = [json.loads(line) for line in
+                   (Path(tmp) / "logs" / "metrics.jsonl").read_text().splitlines()]
+        arts = sorted(str(p.relative_to(tmp)) for p in Path(tmp).glob(
+            "patch_00_*/antipatch.pkl"))
+        if dfinal.step != 3 or not any("val/loss" in r for r in records):
+            fail(f"defense driver: step {dfinal.step}, log records {records}")
+        if len(arts) != 1:
+            fail(f"defense driver: artifacts {arts}")
+        # 3 train steps (15 each) and 5 validation batches (8 each)
+        if ddriver_launches["cmconv"] != 3 * CMCONV_PER_STEP + 5 * 8 or \
+                ddriver_launches["pass1_fwd"] < 3:
+            fail(f"defense driver: kernel launches {ddriver_launches}")
+    print(f"phase 12 defense driver: train(efficientdet-lite4, batch 12, 3 "
+          f"steps) in {ddriver_s:.2f} s, launches {ddriver_launches}, artifact "
+          f"{arts}, {len(records)} log records")
+    del dfinal
+
+    # phase 13: card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -755,6 +1053,14 @@ def main() -> int:
             "replaces": WARP_REPLACES[k], "launches": attack_launches[k],
             "max_abs_err": warp_errs[k], "ms": kern_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    kernels.append({
+        "name": "cmconv", "route": "cuda",
+        "source": "mladversarialobjectdetection_torch/csrc/cmconv.cu",
+        "replaces": "tools/proto_cmconv.py:28",
+        "launches": defend_launches["cmconv"], "max_abs_err": cm_err,
+        "ms": cm_tot["ms"], "plain_ms": cm_tot["plain_ms"],
+        "bound_ms": cm_tot["bound_ms"], "bound_by": cm_bound_by,
+        "library_ms": cm_tot["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

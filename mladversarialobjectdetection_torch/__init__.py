@@ -10,7 +10,10 @@ Ported so far: the serving path, `inference.detector.Detector.serve`, with
 the NMS suppression loop as a hand-written CUDA kernel (`csrc/nms.cu`); the
 attack train step, `attack.attacker.PatchAttacker.train_step`, and its
 driver `attack.train.train`, with the EOT compositor's two-pass warp as
-four hand-written CUDA kernels (`csrc/warp.cu`).
+four hand-written CUDA kernels (`csrc/warp.cu`); the defender,
+`defense.defender.PatchAttackDefender` and its driver
+`defense.train.train`, with the U-Net's small-channel 3x3 convs as a
+hand-written CUDA kernel (`csrc/cmconv.cu`).
 """
 
 __version__ = "0.1.0"

@@ -1,18 +1,21 @@
-"""Weight bridge: Flax `{'params', 'batch_stats'}` variables -> torch state_dict.
+"""Weight bridge: Flax `{'params', 'batch_stats'}` variables <-> torch state_dict.
 
-Reads the nested mapping of arrays that the JAX package's detector holds, or
-that `mladversarialobjectdetection_tpu/ckpt/io.py:load_pytree` restores, as
-plain arrays (anything `np.asarray` accepts), so this module needs no JAX.
+Reads the nested mapping of arrays that the JAX package's detector or U-Net
+holds, or that `mladversarialobjectdetection_tpu/ckpt/io.py:load_pytree`
+restores, as plain arrays (anything `np.asarray` accepts), so this module
+needs no JAX; `torch_to_flax` writes such a mapping of numpy arrays back.
 
 The port's module names mirror Flax's, so the mapping is a rename:
 
 - path segments join with `.`;
 - conv `kernel` HWIO -> `weight` OIHW (a depthwise `[k, k, 1, C]` becomes
-  `[C, 1, k, k]`);
+  `[C, 1, k, k]`; a Flax `ConvTranspose` kernel `[3, 3, in, out]` too, which
+  `models/unet.ConvTranspose` turns into torch's transposed form itself);
 - BatchNorm `scale`/`bias` (params) and `mean`/`var` (batch_stats) ->
-  `weight`/`bias`/`running_mean`/`running_var`; the Flax wrapper nests
-  `nn.BatchNorm` as an inner `bn`, which the port's `BatchNorm` does not, so
-  that segment is dropped;
+  `weight`/`bias`/`running_mean`/`running_var`. The detector's Flax wrapper
+  nests `nn.BatchNorm` as an inner `bn`, which the port's `BatchNorm` does
+  not, so that segment is dropped; the U-Net's `bn1`..`bn3` are bare
+  `nn.BatchNorm`s;
 - `WSM` fusion weights and conv `bias` keep their names.
 """
 from __future__ import annotations
@@ -23,8 +26,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.efficientnet import BatchNorm
+
 _BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
               "var": "running_var"}
+_BN_FLAX = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+            "running_mean": ("batch_stats", "mean"),
+            "running_var": ("batch_stats", "var")}
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -40,6 +48,9 @@ def _torch_key(collection: str, path: Tuple[str, ...]) -> str:
     *mods, leaf = path
     if mods and mods[-1] == "bn" and leaf in _BN_LEAVES:
         return ".".join(mods[:-1] + [_BN_LEAVES[leaf]])
+    if (collection, leaf) in (("params", "scale"), ("batch_stats", "mean"),
+                              ("batch_stats", "var")):
+        return ".".join(mods + [_BN_LEAVES[leaf]])
     if collection == "params" and leaf == "kernel":
         return ".".join(mods + ["weight"])
     if collection == "params" and leaf in ("bias", "WSM"):
@@ -48,7 +59,7 @@ def _torch_key(collection: str, path: Tuple[str, ...]) -> str:
 
 
 def flax_to_torch(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """Convert Flax detector variables into a torch state_dict (CPU, fp32)."""
+    """Convert Flax variables into a torch state_dict (CPU, fp32)."""
     unknown = set(variables) - {"params", "batch_stats"}
     if unknown:
         raise KeyError(f"unknown Flax collections {sorted(unknown)}")
@@ -84,3 +95,32 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
                              f"module shape {tuple(expected[key].shape)}")
     module.load_state_dict(state, strict=True)
     return module
+
+
+def torch_to_flax(module: nn.Module) -> Dict[str, Dict]:
+    """The inverse of `load_flax_variables`: `module`'s weights as Flax
+    `{'params', 'batch_stats'}` variables, nested dicts of float32 numpy
+    arrays (what `ckpt/io.save_pytree` writes and the JAX package reads)."""
+    out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    subs = dict(module.named_modules())
+    for key, tensor in module.state_dict().items():
+        owner, _, leaf = key.rpartition(".")
+        sub = subs[owner]
+        path = owner.split(".") if owner else []
+        arr = tensor.detach().to("cpu", torch.float32).numpy()
+        if isinstance(sub, BatchNorm) and leaf in _BN_FLAX:
+            collection, name = _BN_FLAX[leaf]
+            if getattr(sub, "FLAX_INNER_BN", True):
+                path = path + ["bn"]
+        elif leaf == "weight" and arr.ndim == 4:
+            collection, name = "params", "kernel"
+            arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        elif leaf in ("bias", "WSM"):
+            collection, name = "params", leaf
+        else:
+            raise KeyError(f"no Flax name for {key}")
+        node = out[collection]
+        for seg in path:
+            node = node.setdefault(seg, {})
+        node[name] = np.array(arr, order="C")  # a copy: never the live tensor
+    return out

@@ -1,0 +1,335 @@
+"""Self-supervised patch-attack defender training core (PyTorch).
+
+Port of `mladversarialobjectdetection_tpu/defense/defender.py` (reference
+attack_detection.py:30-318, `PatchAttackDefender`):
+
+- a clean pass through the frozen victim detector finds person boxes;
+- the masker plants patches on them and emits recovery targets;
+- updates = 2 * unet(patched); loss = sum over images of the per-image mean
+  of (targets - updates)^2;
+- eval plants the learned adversarial patch, runs the victim on the patched
+  and on the recovered images (score threshold 0), and reports the recovery
+  PSNR over the patched region and the attack-detection rate.
+
+The U-Net (`models/unet.PatchNeutralizer`) is the only trainable: its
+parameters take a torch Adam step (optax's adam: b1 .9, b2 .999, eps 1e-8),
+and its BatchNorm statistics move in place in train mode. On the card the
+victim's NMS runs the CUDA NMS kernel, the masker's warp the CUDA warp
+kernels, and the U-Net's small-channel 3x3 convs the CUDA cmconv kernel.
+Where the JAX package threads PRNG keys, the port draws from the state's
+`torch.Generator`; the parity tests pass JAX's draws in (`masker_draws`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..attack.attacker import NEG_INF, filter_valid_boxes
+from ..ckpt import bridge
+from ..models.efficientdet import DetSpec, spec_from_config
+from ..models.init import init_weights
+from ..models.unet import PatchNeutralizer
+from ..ops import nms as nms_ops
+from ..ops import postprocess
+from ..utils.device import resolve_device
+from . import masker as masker_lib
+
+
+@dataclasses.dataclass
+class DefenderState:
+    """The U-Net and its optimizer; `train_step` updates it in place and
+    returns it."""
+    unet: PatchNeutralizer            # parameters and BatchNorm statistics
+    optimizer: torch.optim.Optimizer  # Adam over unet.parameters()
+    step: int
+    generator: torch.Generator        # masker and dropout draws of the train steps
+    seed: int
+
+
+class DefenderMetrics(NamedTuple):
+    loss: torch.Tensor
+    mean_clean_score: torch.Tensor
+    mean_adv_score: torch.Tensor
+    # eval only (NaN on train steps): PSNR (dB) of the recovered image
+    # against the clean one over the patched region, and the
+    # attack-detection rate (reference demo_v2.py:115-148)
+    recovery_psnr: torch.Tensor
+    adr: torch.Tensor
+
+
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    m = mask.to(x.dtype)
+    return torch.sum(x * m) / (torch.sum(m) + 1e-7)
+
+
+class PatchAttackDefender:
+    """Defender train / eval steps against a frozen victim detector."""
+
+    def __init__(self, config, victim: torch.nn.Module, *, eval_patch=None,
+                 eval_scale: float = 0.4, learning_rate: float = 1e-2,
+                 n_filters: int = 8, grad_accum: int = 1, packed=False,
+                 packed_entry: int = 0, device=None):
+        """
+        Args:
+          config: detector config (`config.get_efficientdet_config`).
+          victim: the detector, an `EfficientDetNet` of `config`
+            (`attack.train.get_victim`); frozen and moved to `device`.
+          eval_patch, eval_scale, learning_rate, n_filters, grad_accum: as
+            in the JAX package.
+          packed, packed_entry, and bf16 `config.mixed_precision`: not
+            ported yet; anything but the default raises.
+          device: "cuda" (the default) or "cpu".
+        """
+        if packed:
+            raise NotImplementedError(
+                "packed (models/unet_packed.py) is not ported yet "
+                "(ROADMAP Queue 1 item 2)")
+        if packed_entry:
+            raise NotImplementedError(
+                "packed_entry is not ported yet (ROADMAP Queue 1 item 4)")
+        if config.get("mixed_precision"):
+            raise NotImplementedError(
+                "mixed_precision (bf16) is not ported yet (ROADMAP Queue 1 "
+                "item 4)")
+        self.device = resolve_device(device)
+        self.config = config
+        self.spec: DetSpec = spec_from_config(config)
+        self.net = victim.to(self.device).eval()
+        for p in self.net.parameters():
+            p.requires_grad_(False)
+        self.n_filters = n_filters
+        self.learning_rate = learning_rate
+        self.max_boxes = int(config.get("max_boxes_per_image", 16) or 16)
+        self.image_hw = self.spec.image_size
+        nms_cfg = config.nms_configs
+        self.nms_kwargs = postprocess.nms_kwargs_from_config(nms_cfg)
+        self.pre_nms_topk = int(nms_cfg.get("pre_nms_topk") or 1024)
+        self.score_thresh = float(nms_cfg.get("score_thresh") or 0.0)
+        self._params_dict = config.as_dict()
+        self.eval_patch = (None if eval_patch is None else torch.tensor(
+            np.asarray(eval_patch, np.float32), device=self.device))
+        self.eval_scale = eval_scale
+        self.grad_accum = int(grad_accum)
+        if self.grad_accum < 1:
+            raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+
+    # -- state -------------------------------------------------------------
+    def init_state(self, seed: int = 0, variables=None) -> DefenderState:
+        """A U-Net drawn from `seed` (Flax's initializer families, not its
+        draws) or loaded from Flax `variables` through `ckpt/bridge.py`;
+        Adam at the learning rate; the train steps' generator seeded with
+        `seed`."""
+        unet = PatchNeutralizer(self.n_filters)
+        if variables is None:
+            init_weights(unet, torch.Generator().manual_seed(seed))
+        else:
+            bridge.load_flax_variables(unet, variables)
+        unet.to(self.device)
+        opt = torch.optim.Adam(unet.parameters(), lr=self.learning_rate,
+                               betas=(0.9, 0.999), eps=1e-8)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return DefenderState(unet, opt, 0, gen, int(seed))
+
+    # -- detector pass (attack_detection.py:94-127) -------------------------
+    @torch.no_grad()
+    def odet_boxes(self, images: torch.Tensor, score_thresh=None):
+        """Person boxes after NMS: (boxes [B, M, 4], scores [B, M], valid)."""
+        cls_out, box_out = self.net(images)
+        boxes, scores, classes = postprocess.pre_nms(self._params_dict,
+                                                     cls_out, box_out)
+        masked = torch.where(classes == 0, scores, NEG_INF)
+        k = min(self.pre_nms_topk, masked.shape[1])
+        top_scores, top_idx = postprocess.top_k_stable(masked, k)
+        top_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(-1, -1, 4))
+        kw = dict(self.nms_kwargs)
+        if score_thresh is not None:
+            kw["score_thresh"] = score_thresh
+        res = nms_ops.batched_nms_auto(top_boxes.contiguous(),
+                                       top_scores.contiguous(), **kw)
+        nms_boxes = postprocess.clip_boxes(res.boxes, self.image_hw)
+        # post-NMS validity filter (attack_detection.py:123-127)
+        cond = filter_valid_boxes(
+            res.scores, nms_boxes, torch.zeros_like(res.scores, dtype=torch.int32),
+            self.image_hw,
+            self.score_thresh if score_thresh is None else score_thresh)
+        return nms_boxes, res.scores, res.valid & cond
+
+    # -- loss ----------------------------------------------------------------
+    @staticmethod
+    def _loss(unet: PatchNeutralizer, patched, targets, training: bool,
+              generator=None):
+        """sum over images of mean((targets - 2 * unet(patched))^2); returns
+        (loss, updates)."""
+        updates = unet(patched, training=training, generator=generator)
+        b = patched.shape[0]
+        diff = targets.reshape(b, -1) - (2.0 * updates).reshape(b, -1)
+        return torch.sum(torch.mean(diff ** 2, dim=1)), updates
+
+    def _mask(self, state, images, boxes, valid, draws):
+        return masker_lib.apply_masker(
+            images, boxes[:, :self.max_boxes], valid[:, :self.max_boxes],
+            training=True, generator=state.generator, draws=draws,
+            device=self.device)
+
+    @staticmethod
+    def _update(state: DefenderState) -> None:
+        """One Adam step; a parameter without a gradient sees a zero one,
+        as in optax."""
+        with torch.no_grad():
+            for p in state.unet.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            state.optimizer.step()
+
+    def _nan(self) -> torch.Tensor:
+        return torch.full((), float("nan"), device=self.device)
+
+    # -- steps -----------------------------------------------------------------
+    def train_step(self, state: DefenderState, images: torch.Tensor,
+                   with_adv_scores: bool = False,
+                   masker_draws: masker_lib.MaskerDraws
+                   | Sequence[masker_lib.MaskerDraws] | None = None
+                   ) -> Tuple[DefenderState, DefenderMetrics]:
+        """One train step (defender.py:159-204); updates `state` in place.
+
+        with_adv_scores also runs the victim over the patched images at
+        score threshold 0 for the logged mean adversarial score (a full
+        extra detector pass). masker_draws feeds in the masker's draws (with
+        grad_accum > 1, one `MaskerDraws` per microbatch)."""
+        images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
+        if self.grad_accum > 1:
+            return self._train_step_accum(state, images, with_adv_scores,
+                                          masker_draws)
+        boxes, clean_scores, clean_valid = self.odet_boxes(images)
+        patched, targets = self._mask(state, images, boxes, clean_valid,
+                                      masker_draws)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, _ = self._loss(state.unet, patched, targets, True, state.generator)
+        loss.backward()
+        self._update(state)
+        if with_adv_scores:
+            _, adv_scores, adv_valid = self.odet_boxes(patched, score_thresh=0.0)
+            mean_adv = _masked_mean(adv_scores, adv_valid)
+        else:
+            mean_adv = torch.zeros((), device=self.device)
+        state.step += 1
+        return state, DefenderMetrics(loss.detach(),
+                                      _masked_mean(clean_scores, clean_valid),
+                                      mean_adv, self._nan(), self._nan())
+
+    def _train_step_accum(self, state: DefenderState, images, with_adv_scores,
+                          masker_draws) -> Tuple[DefenderState, DefenderMetrics]:
+        """Gradient accumulation (defender.py:206-272): `grad_accum`
+        sequential microbatches, each with its own detector pass, masker and
+        dropout draws, the BatchNorm statistics moving through them in turn;
+        gradients summed (the loss is a sum over images), one Adam update.
+        Score means accumulate as numerator / denominator pairs."""
+        k = self.grad_accum
+        b = images.shape[0]
+        if b % k != 0:
+            raise ValueError(f"batch {b} not divisible by grad_accum={k}")
+        mb = b // k
+        state.optimizer.zero_grad(set_to_none=True)
+        zero = lambda: torch.zeros((), dtype=torch.float32, device=self.device)
+        lsum, num_c, den_c, num_a, den_a = (zero() for _ in range(5))
+        for i in range(k):
+            imgs = images[i * mb:(i + 1) * mb]
+            boxes, clean_scores, clean_valid = self.odet_boxes(imgs)
+            patched, targets = self._mask(
+                state, imgs, boxes, clean_valid,
+                None if masker_draws is None else masker_draws[i])
+            loss, _ = self._loss(state.unet, patched, targets, True,
+                                 state.generator)
+            loss.backward()
+            lsum = lsum + loss.detach()
+            cm = clean_valid.to(clean_scores.dtype)
+            num_c = num_c + torch.sum(clean_scores * cm)
+            den_c = den_c + torch.sum(cm)
+            if with_adv_scores:
+                _, adv_scores, adv_valid = self.odet_boxes(patched,
+                                                           score_thresh=0.0)
+                am = adv_valid.to(adv_scores.dtype)
+                num_a = num_a + torch.sum(adv_scores * am)
+                den_a = den_a + torch.sum(am)
+        self._update(state)
+        state.step += 1
+        mean_adv = num_a / (den_a + 1e-7) if with_adv_scores else zero()
+        return state, DefenderMetrics(lsum, num_c / (den_c + 1e-7), mean_adv,
+                                      self._nan(), self._nan())
+
+    def _eval_generator(self, state: DefenderState, batch_idx: int):
+        """Masker draws of an eval batch: seeded from the state's seed, its
+        step and the batch index, so evaluation never advances the train
+        steps' generator and the val batches of an epoch are decorrelated."""
+        seed = (state.seed * 1_000_003 + state.step * 7_919 + int(batch_idx))
+        return torch.Generator(device=self.device).manual_seed(seed % 2 ** 63)
+
+    @torch.no_grad()
+    def eval_step(self, state: DefenderState, images: torch.Tensor,
+                  batch_idx: int = 0,
+                  masker_draws: masker_lib.MaskerDraws | None = None
+                  ) -> DefenderMetrics:
+        """One validation batch (defender.py:274-349): plant the learned
+        adversarial patch, measure the recovery loss, PSNR and ADR."""
+        if self.eval_patch is None:
+            raise ValueError("eval_step needs the defender's eval_patch")
+        images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
+        boxes, clean_scores, valid = self.odet_boxes(images)
+        patched, targets, region = masker_lib.apply_masker(
+            images, boxes[:, :self.max_boxes], valid[:, :self.max_boxes],
+            training=False, adv_patch=self.eval_patch,
+            adv_scale=self.eval_scale, return_region=True,
+            generator=self._eval_generator(state, batch_idx),
+            draws=masker_draws, device=self.device)
+        # second detector pass at score_thresh 0 (attack_detection.py:186-187)
+        _, adv_scores, adv_valid = self.odet_boxes(patched, score_thresh=0.0)
+        loss, updates = self._loss(state.unet, patched, targets, False)
+
+        # recover() = clip(patched + 2 * updates) (demo_v2.py:151-169)
+        recovered = torch.clamp(patched + 2.0 * updates, -1.0, 1.0)
+        _, rec_scores, rec_valid = self.odet_boxes(recovered, score_thresh=0.0)
+
+        # PSNR over the patched region; images span [-1, 1] (range 2)
+        reg = region.to(torch.float32)[..., None]
+        se = torch.sum(((recovered - images) ** 2) * reg, dim=(1, 2, 3))
+        n_px = torch.sum(reg, dim=(1, 2, 3)) * 3.0
+        has_region = n_px > 0
+        mse = se / torch.clamp_min(n_px, 1.0)
+        psnr_i = 10.0 * torch.log10(4.0 / torch.clamp_min(mse, 1e-12))
+        n_reg = torch.sum(has_region).to(torch.float32)
+        recovery_psnr = torch.where(
+            n_reg > 0,
+            torch.sum(torch.where(has_region, psnr_i, 0.0))
+            / torch.clamp_min(n_reg, 1.0), self._nan())
+
+        # attack-detection rate, the demo's rule (demo_v2.py:28, 48-55,
+        # 136-141): per image the max score above .55 (0 if none); detected
+        # when the clean image was confidently detected and the defender
+        # lifts the score by more than 10 points
+        def max_above(scores, ok, thresh=0.55):
+            return torch.amax(torch.where(ok & (scores >= thresh), scores, 0.0),
+                              dim=1)
+
+        clean_i = max_above(clean_scores, valid)
+        adv_i = max_above(adv_scores, adv_valid)
+        rec_i = max_above(rec_scores, rec_valid)
+        eligible = (clean_i > 0.55) & has_region
+        detected = (rec_i - adv_i) > 0.10
+        n_elig = torch.sum(eligible).to(torch.float32)
+        adr = torch.where(
+            n_elig > 0,
+            torch.sum(torch.where(eligible, detected.to(torch.float32), 0.0))
+            / torch.clamp_min(n_elig, 1.0), self._nan())
+        return DefenderMetrics(loss, _masked_mean(clean_scores, valid),
+                               _masked_mean(adv_scores, adv_valid),
+                               recovery_psnr, adr)
+
+    @torch.no_grad()
+    def recover(self, state: DefenderState, images: torch.Tensor) -> torch.Tensor:
+        """Neutralize patches: clip(image + 2 * unet(image)) (demo_v2.py:151-169)."""
+        images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
+        updates = state.unet(images, training=False)
+        return torch.clamp(images + 2.0 * updates, -1.0, 1.0)

@@ -1,0 +1,224 @@
+"""Defender training driver (PyTorch entry point).
+
+Port of `mladversarialobjectdetection_tpu/defense/train.py` (reference
+defender_train.py:20-74): victim efficientdet-lite4 with NMS iou .5 / score
+.5, eval patch from an attack artifact directory (or a random one), Adam
+1e-2, 200 epochs, batch 24, ReduceLROnPlateau(.5, patience 50, min 1e-4) on
+the validation loss, a metric log every 50 steps with the adversarial
+scores, validation with recovery PSNR and ADR, a score violin every 10
+epochs, and the best-validation weights in
+`patch_{epoch:02d}_{val_loss:.4f}/antipatch.pkl`: the Flax-layout
+`{'params', 'batch_stats'}` dict of numpy arrays in the JAX package's pickle
+format (`ckpt/io.py`), which its `ckpt/io.load_pytree` reads.
+
+`train` keeps the JAX driver's signature and defaults, and adds `device`
+(CUDA unless "cpu" is asked for) and `victim_variables` (Flax variables of
+the victim; without them its weights are drawn from a seed). The data are
+synthetic. Not ported yet, and raising `NotImplementedError`: `img_dir`,
+`victim_ckpt`, `initial_weights`, `resume`, `spatial > 1`, `packed` and
+`bf16`; the reference-format `antipatch.h5` mirror is not written (no h5py
+on the card).
+
+An untrained victim at score threshold .5 finds nobody, so the masker
+plants nothing: pass `config_override={"nms_configs": {"score_thresh":
+0.0099}}` to train on its detections.
+
+Usage:
+    python -m mladversarialobjectdetection_torch.defense.train --synthetic \\
+        --epochs 1 --steps-per-epoch 3
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+from .. import config as config_lib
+from ..attack import artifacts
+from ..attack.train import get_victim
+from ..ckpt import bridge
+from ..ckpt import io as ckpt_io
+from ..data import pipeline
+from ..utils.device import resolve_device
+from ..utils.log import get_logger
+from ..utils.train_loop import MetricLogger, ReduceLROnPlateau, Throughput
+from .defender import PatchAttackDefender
+
+logger = get_logger(__name__)
+
+
+def _not_ported(option: str, item: str):
+    return NotImplementedError(f"{option} is not ported yet (ROADMAP {item})")
+
+
+def _nanmean(xs):
+    xs = [x for x in xs if not np.isnan(x)]
+    return float(np.mean(xs)) if xs else float("nan")
+
+
+def train(model_name: str = "efficientdet-lite4", *,
+          img_dir: str | None = None, label_dir: str | None = None,
+          victim_ckpt: str | None = None, eval_patch: str | None = None,
+          save_dir: str = "save_dir_def", batch_size: int = 24,
+          epochs: int = 200, lr: float = 1e-2,
+          steps_per_epoch: int | None = None,
+          initial_weights: str | None = None, synthetic: bool = False,
+          image_size=None, seed: int = 43, config_override=None,
+          bf16: bool = False, grad_accum: int = 1, spatial: int = 1,
+          resume: bool = False, packed: int = 0, victim_variables=None,
+          device=None):
+    """Train the defender U-Net; returns the final `DefenderState`."""
+    if img_dir is not None:
+        raise _not_ported("img_dir (ImageFolderSource, partition)",
+                          "Queue 1 item 1")
+    if victim_ckpt is not None:
+        raise _not_ported("victim_ckpt (checkpoint files)", "Queue 1 item 5")
+    if initial_weights is not None:
+        raise _not_ported("initial_weights (ckpt/convert_defense.py)",
+                          "Queue 1 item 2")
+    if resume:
+        raise _not_ported("resume (save_loop_state / load_loop_state)",
+                          "Queue 1 item 1")
+    if spatial > 1:
+        raise _not_ported("spatial > 1", "Queue 1 item 7")
+    if packed:
+        raise _not_ported("packed (models/unet_packed.py)", "Queue 1 item 2")
+    if bf16:
+        raise _not_ported("bf16", "Queue 1 item 4")
+    del label_dir, synthetic  # only synthetic data is ported
+    device = resolve_device(device)
+
+    config = config_lib.get_efficientdet_config(model_name)
+    config.nms_configs.update({"iou_thresh": 0.5, "score_thresh": 0.5})
+    if image_size is not None:
+        config.image_size = image_size
+    if config_override:
+        config.update(config_override)
+
+    if eval_patch:
+        patch_np, scale = artifacts.load_patch_dir(
+            eval_patch, config.mean_rgb, config.stddev_rgb)
+    else:
+        logger.warning("no eval_patch given; using a random patch for eval")
+        patch_np = np.random.default_rng(0).uniform(
+            -1, 1, size=(640, 640, 3)).astype(np.float32)
+        scale = 0.4
+
+    victim = get_victim(config, variables=victim_variables, device=device)
+    defender = PatchAttackDefender(config, victim, eval_patch=patch_np,
+                                   eval_scale=scale, learning_rate=lr,
+                                   grad_accum=grad_accum, device=device)
+    state = defender.init_state(seed)
+
+    plateau = ReduceLROnPlateau(factor=0.5, patience=50, min_lr=1e-4)
+    best_val = float("inf")
+    aug_gen = torch.Generator(device=device).manual_seed(seed + 2)
+    put = lambda b: torch.from_numpy(b).to(device)
+    logger.info("using synthetic data")
+    train_iter = pipeline.prefetch(pipeline.synthetic_batches(
+        batch_size, config.image_size, seed=seed), device_put_fn=put)
+    val_iter = pipeline.prefetch(pipeline.synthetic_batches(
+        batch_size, config.image_size, seed=seed + 1), device_put_fn=put)
+    spe = steps_per_epoch or 50
+    val_steps = 5
+
+    os.makedirs(save_dir, exist_ok=True)
+    mlog = MetricLogger(os.path.join(save_dir, "logs"))
+    thr = Throughput()
+    step = 0
+    for epoch in range(epochs):
+        thr.start()
+        for _ in range(spe):
+            batch = pipeline.augment_batch(next(train_iter), aug_gen)
+            # real adversarial scores on logged steps only (an extra
+            # detector pass), as the reference logs them
+            logged = (step + 1) % 50 == 0
+            state, metrics = defender.train_step(state, batch,
+                                                 with_adv_scores=logged)
+            thr.count(batch_size)
+            step += 1
+            if logged:
+                mlog.log(step, metrics._asdict(), prefix="train/")
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        ips = thr.rate()
+
+        vals = [defender.eval_step(state, next(val_iter), vi)
+                for vi in range(val_steps)]
+        val_loss = float(np.mean([float(v.loss) for v in vals]))
+        # NaN-mean skips val batches where the victim found nobody to patch
+        val_psnr = _nanmean([float(v.recovery_psnr) for v in vals])
+        val_adr = _nanmean([float(v.adr) for v in vals])
+        mlog.log(step, {"loss": val_loss, "recovery_psnr": val_psnr,
+                        "adr": val_adr, "images_per_sec": ips,
+                        "epoch": epoch}, prefix="val/")
+        logger.info(f"epoch {epoch}: val_loss={val_loss:.4f} "
+                    f"psnr={val_psnr:.1f}dB adr={val_adr:.2f} "
+                    f"{ips:.1f} img/s")
+
+        if epoch % 10 == 0:
+            clean = [float(v.mean_clean_score) for v in vals]
+            adv = [float(v.mean_adv_score) for v in vals]
+            try:
+                from ..utils import visualize
+                from PIL import Image
+                Image.fromarray(visualize.plot_score_violin(clean, adv)).save(
+                    os.path.join(save_dir, "logs", f"scores_{epoch:03d}.png"))
+            except Exception as e:  # a plot must never stop training
+                logger.warning(f"violin plot failed: {e}")
+
+        if val_loss < best_val:
+            best_val = val_loss
+            art_dir = os.path.join(save_dir, f"patch_{epoch:02d}_{val_loss:.4f}")
+            ckpt_io.save_pytree(os.path.join(art_dir, "antipatch"),
+                                bridge.torch_to_flax(state.unet))
+        plateau.update(val_loss, state.optimizer)
+    mlog.close()
+    return state
+
+
+def main():
+    p = argparse.ArgumentParser(description="patch-attack defender training")
+    p.add_argument("--model", default="efficientdet-lite4")
+    p.add_argument("--img-dir", default=None)
+    p.add_argument("--label-dir", default=None)
+    p.add_argument("--victim-ckpt", default=None)
+    p.add_argument("--eval-patch", default=None,
+                   help="attack artifact dir with patch.npy + scale.txt")
+    p.add_argument("--save-dir", default="save_dir_def")
+    p.add_argument("--batch-size", type=int, default=24)
+    p.add_argument("--epochs", type=int, default=200)
+    p.add_argument("--lr", type=float, default=1e-2)
+    p.add_argument("--steps-per-epoch", type=int, default=None)
+    p.add_argument("--initial-weights", default=None,
+                   help="not ported yet")
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--image-size", type=int, default=None)
+    p.add_argument("--hparams", default=None,
+                   help="config override string 'a.b=1,c=2' or YAML path")
+    p.add_argument("--bf16", action="store_true", help="not ported yet")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="split each step's batch into this many sequential "
+                        "microbatches with one summed-gradient update")
+    p.add_argument("--spatial", type=int, default=1, help="not ported yet")
+    p.add_argument("--packed", type=int, nargs="?", const=3, default=0,
+                   help="not ported yet")
+    p.add_argument("--resume", action="store_true", help="not ported yet")
+    p.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    args = p.parse_args()
+    train(args.model, img_dir=args.img_dir, label_dir=args.label_dir,
+          victim_ckpt=args.victim_ckpt, eval_patch=args.eval_patch,
+          save_dir=args.save_dir, batch_size=args.batch_size,
+          epochs=args.epochs, lr=args.lr,
+          steps_per_epoch=args.steps_per_epoch,
+          initial_weights=args.initial_weights, synthetic=args.synthetic,
+          image_size=args.image_size, bf16=args.bf16,
+          config_override=args.hparams, grad_accum=args.grad_accum,
+          spatial=args.spatial, resume=args.resume, packed=args.packed,
+          device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,253 @@
+"""Attention U-Net defender (patch detection and background recovery) in PyTorch.
+
+Port of `mladversarialobjectdetection_tpu/models/unet.py` (reference
+generator.py:17-261): four encoder ConvBlocks of n_filters * 2^i filters, a
+bottleneck block, four decoder blocks (transposed conv, attention-gated skip,
+ConvBlock), leaky ReLU, BatchNorm, dropout, and a 1x1 tanh head giving a
+3-channel "update". The module names are Flax's, so `ckpt/bridge.py` maps a
+Flax variable tree onto them by a rename.
+
+Tensors are NCHW inside; `PatchNeutralizer` takes and returns NHWC images,
+the JAX layout. Where Flax and PyTorch differ, the port follows Flax:
+
+- BatchNorm (`batch_norm`): eps 1e-3 and momentum 0.99 (Keras'); in train
+  mode it normalizes by the batch statistics, with the variance as
+  E[x^2] - E[x]^2 clipped at 0 (Flax's `use_fast_variance`), and the running
+  variance moves by that biased variance (torch's `BatchNorm2d` moves by the
+  unbiased one, and its momentum 0.1 is Flax's 0.9);
+- leaky ReLU slope 0.2 (torch's default is 0.01);
+- `ConvTranspose` is Flax's `nn.ConvTranspose(3, strides=2, padding="SAME")`
+  with `transpose_kernel=False`: the input zero-dilated, padded (2, 1) and
+  cross-correlated with the unflipped kernel. `F.conv_transpose2d` pads
+  (2, 2) and flips, so the port hands it the flipped kernel and drops the
+  last row and column;
+- dropout (`dropout`) draws its keep mask from an explicit generator.
+
+The ConvBlocks of at most `CMCONV_MAX_FILTERS` filters (the 640x640 and
+320x320 stages at n_filters 8) run their 3x3 convs through `ops/cmconv.py`:
+on the card the hand-written CUDA kernel `csrc/cmconv.cu`, forward and input
+gradient. The choice is static, by channel count, made when the block is
+built. `remat` (a memory knob of the JAX package) has no counterpart.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.cmconv import cmconv
+from .efficientnet import BatchNorm as _FrozenBatchNorm
+from .efficientnet import Conv2d
+
+LEAKY_SLOPE = 0.2
+BN_EPS = 1e-3
+BN_MOMENTUM = 0.99
+CMCONV_MAX_FILTERS = 16
+HE_INIT = "he_truncated"       # variance_scaling(2.0, fan_in, truncated_normal)
+LECUN_INIT = "fan_in_truncated"  # Flax's default lecun_normal
+
+
+def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               mean: torch.Tensor, var: torch.Tensor, *, training: bool,
+               momentum: float = BN_MOMENTUM, eps: float = BN_EPS):
+    """Flax `nn.BatchNorm` over NCHW x; returns (y, new mean, new var).
+
+    Train mode normalizes by the batch statistics and returns the running
+    statistics moved toward them (Flax's `mutable=["batch_stats"]`); eval
+    mode normalizes by `mean` / `var` and returns them unchanged."""
+    if training:
+        mu = x.mean(dim=(0, 2, 3))
+        batch_var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mu * mu, 0.0)
+        new_mean = momentum * mean + (1.0 - momentum) * mu.detach()
+        new_var = momentum * var + (1.0 - momentum) * batch_var.detach()
+    else:
+        mu, batch_var, new_mean, new_var = mean, var, mean, var
+    shape = (1, -1, 1, 1)
+    mul = torch.rsqrt(batch_var + eps) * weight
+    y = (x - mu.view(shape)) * mul.view(shape) + bias.view(shape)
+    return y, new_mean, new_var
+
+
+class BatchNorm(_FrozenBatchNorm):
+    """Trainable Flax BatchNorm; in train mode its running statistics are
+    updated in place. Flax names it `bn1`..`bn3` directly, with no inner
+    `bn` wrapper."""
+
+    FLAX_INNER_BN = False
+
+    def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+        y, new_mean, new_var = batch_norm(x, self.weight, self.bias,
+                                          self.running_mean, self.running_var,
+                                          training=training, eps=self.eps)
+        if training:
+            with torch.no_grad():
+                self.running_mean.copy_(new_mean)
+                self.running_var.copy_(new_var)
+        return y
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Flax `nn.Dropout` in train mode: keep each unit with probability
+    1 - rate and scale it by 1 / (1 - rate)."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, LEAKY_SLOPE)
+
+
+class CMConv2d(Conv2d):
+    """A 3x3 stride-1 SAME conv run by `ops/cmconv.cmconv` (the CUDA kernel
+    on the card); the weight stays OIHW like every other conv of the port."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return cmconv(x.contiguous(), self.weight.permute(2, 3, 1, 0), self.bias)
+
+
+class ConvTranspose(Conv2d):
+    """Flax `nn.ConvTranspose(out, (3, 3), strides=(2, 2))`, padding SAME.
+
+    `weight` is [out, in, 3, 3], the Flax kernel [3, 3, in, out] in OIHW like
+    every conv of the port; forward flips it in both spatial axes and swaps
+    its channel axes into the [in, out, 3, 3] form `F.conv_transpose2d`
+    takes."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 3, init=HE_INIT)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = x.shape[-2:]
+        weight = self.weight.flip(2, 3).transpose(0, 1)
+        y = F.conv_transpose2d(x, weight, self.bias, stride=2)
+        return y[..., :2 * h, :2 * w]
+
+
+class ConvBlock(nn.Module):
+    """Two 3x3 conv + BN + leaky ReLU (generator.py:153-214)."""
+
+    def __init__(self, in_channels: int, n_filters: int, *,
+                 batchnorm: bool = True, dropout: Optional[float] = None,
+                 maxpool: bool = True):
+        super().__init__()
+        conv = CMConv2d if n_filters <= CMCONV_MAX_FILTERS else Conv2d
+        self.cnv1 = conv(in_channels, n_filters, 3, init=HE_INIT)
+        self.cnv2 = conv(n_filters, n_filters, 3, init=HE_INIT)
+        if batchnorm:
+            self.bn1 = BatchNorm(n_filters, eps=BN_EPS)
+            self.bn2 = BatchNorm(n_filters, eps=BN_EPS)
+        self.batchnorm = batchnorm
+        self.dropout = dropout
+        self.maxpool = maxpool
+
+    def forward(self, x: torch.Tensor, training: bool = False,
+                generator: torch.Generator | None = None):
+        for j in (1, 2):
+            x = getattr(self, f"cnv{j}")(x)
+            if self.batchnorm:
+                x = getattr(self, f"bn{j}")(x, training)
+            x = leaky_relu(x)
+        drop = self.dropout and training
+        if self.maxpool:
+            f = F.max_pool2d(x, 2, 2)
+            if drop:
+                f = dropout(f, self.dropout, generator)
+            return x, f  # (skip, downsampled)
+        return dropout(x, self.dropout, generator) if drop else x
+
+
+class AttentionBlock(nn.Module):
+    """Convolutional attention gating (generator.py:99-150)."""
+
+    def __init__(self, n_filters: int):
+        super().__init__()
+        self.cnv1 = Conv2d(n_filters, n_filters, 1, init=LECUN_INIT)
+        self.bn1 = BatchNorm(n_filters, eps=BN_EPS)
+        self.cnv2 = Conv2d(n_filters, n_filters, 1, init=LECUN_INIT)
+        self.bn2 = BatchNorm(n_filters, eps=BN_EPS)
+        self.conv3 = Conv2d(n_filters, 1, 1, init=LECUN_INIT)
+        self.bn3 = BatchNorm(1, eps=BN_EPS)
+
+    def forward(self, up_in: torch.Tensor, skip_in: torch.Tensor,
+                training: bool = False) -> torch.Tensor:
+        g = self.bn1(self.cnv1(up_in), training)
+        x = self.bn2(self.cnv2(skip_in), training)
+        x = leaky_relu(g + x)
+        x = torch.sigmoid(self.bn3(self.conv3(x), training))
+        return skip_in * x
+
+
+class DeconvBlock(nn.Module):
+    """Transposed-conv upsample, attention-gated skip concat, ConvBlock
+    (generator.py:217-261)."""
+
+    def __init__(self, in_channels: int, n_filters: int, *,
+                 dropout: Optional[float] = None, batchnorm: bool = True,
+                 attention: bool = True):
+        super().__init__()
+        self.cnv = ConvTranspose(in_channels, n_filters)
+        if attention:
+            self.attention = AttentionBlock(n_filters)
+        self.use_attention = attention
+        self.dropout = dropout
+        self.convblock = ConvBlock(2 * n_filters, n_filters, maxpool=False,
+                                   batchnorm=batchnorm)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor,
+                training: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        x = self.cnv(x)
+        if self.use_attention:
+            skip = self.attention(x, skip, training)
+        x = torch.cat([x, skip], dim=1)
+        if self.dropout and training:
+            x = dropout(x, self.dropout, generator)
+        return self.convblock(x, training)
+
+
+class PatchNeutralizer(nn.Module):
+    """Attention U-Net + 1x1 tanh head (generator.py:17-96).
+
+    The output is the defender's "update": 2 * output added to the input
+    image neutralizes the patches it finds (attack_detection.py:190)."""
+
+    def __init__(self, n_filters: int = 8, dropout: float = 0.2,
+                 batchnorm: bool = True, remat: bool = False):
+        super().__init__()
+        if remat:
+            raise NotImplementedError(
+                "remat (recompute blocks in the backward pass) has no "
+                "counterpart in the port (ROADMAP Queue 1 item 2)")
+        nf = n_filters
+        chans = 3
+        for i in range(4):
+            self.add_module(f"conv{i}", ConvBlock(
+                chans, nf * 2 ** i, batchnorm=batchnorm, dropout=dropout))
+            chans = nf * 2 ** i
+        self.conv4 = ConvBlock(chans, nf * 16, batchnorm=batchnorm,
+                               maxpool=False)
+        chans = nf * 16
+        for i, m in enumerate((8, 4, 2, 1)):
+            self.add_module(f"deconv{i}", DeconvBlock(
+                chans, nf * m, dropout=dropout, batchnorm=batchnorm))
+            chans = nf * m
+        self.output = Conv2d(chans, 3, 1, init=HE_INIT)
+
+    def forward(self, images: torch.Tensor, training: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """[B, H, W, 3] -> update [B, H, W, 3] in (-1, 1); H, W divisible by 16.
+
+        `generator` draws the dropout masks in train mode."""
+        x = images.permute(0, 3, 1, 2).contiguous()
+        skips = []
+        for i in range(4):
+            skip, x = getattr(self, f"conv{i}")(x, training, generator)
+            skips.append(skip)
+        x = self.conv4(x, training, generator)
+        for i, skip in enumerate(reversed(skips)):
+            x = getattr(self, f"deconv{i}")(x, skip, training, generator)
+        return torch.tanh(self.output(x)).permute(0, 2, 3, 1)

@@ -12,7 +12,10 @@ nor the JAX package, so on a machine with a card and no JAX it runs as
 JAX with. NMS kernel vs plain: indices, valid, valid_len and boxes exactly
 equal, scores within 1e-6. Warp kernels vs plain: within WARP_TOL of the
 output's scale, since the weights are the same float32 values and only the
-order of the sums differs; two launches bit-equal (no atomics).
+order of the sums differs; two launches bit-equal (no atomics). cmconv
+kernel vs plain: within CMCONV_TOL of the output's scale (both sum in the
+same order with separate multiplies and adds, so they are expected to be
+bit-equal); two launches bit-equal.
 """
 import numpy as np
 import pytest
@@ -21,16 +24,19 @@ import torch
 from mladversarialobjectdetection_torch.attack.attacker import PatchAttacker
 from mladversarialobjectdetection_torch.attack.train import get_victim
 from mladversarialobjectdetection_torch import config as pconfig
+from mladversarialobjectdetection_torch.defense.defender import PatchAttackDefender
 from mladversarialobjectdetection_torch.inference.detector import Detector
 from mladversarialobjectdetection_torch.ops import eot as peot
 from mladversarialobjectdetection_torch.ops import nms as pnms
 from mladversarialobjectdetection_torch.ops import nms_cuda, postprocess
-from mladversarialobjectdetection_torch.ops import warp_cuda
+from mladversarialobjectdetection_torch.ops import cmconv as pcmconv
+from mladversarialobjectdetection_torch.ops import cmconv_cuda, warp_cuda
 
 pytestmark = pytest.mark.cuda
 
 SCORE_TOL = 1e-6
 WARP_TOL = 1e-5
+CMCONV_TOL = 1e-5
 HARD = dict(method="hard", iou_thresh=0.5, score_thresh=0.3, max_output_size=24)
 GAUSS = dict(method="gaussian", sigma=0.5, score_thresh=0.001, max_output_size=24)
 
@@ -220,10 +226,10 @@ def _warp_cases():
 WARP_CASES = _warp_cases()
 
 
-def _close(kern, plain, what):
+def _close(kern, plain, what, tol=WARP_TOL):
     scale = max(1.0, float(plain.abs().max()))
     err = float((kern - plain).abs().max())
-    assert err <= WARP_TOL * scale, f"{what}: {err} > {WARP_TOL} * {scale}"
+    assert err <= tol * scale, f"{what}: {err} > {tol} * {scale}"
 
 
 @pytest.mark.parametrize("name,w,case", WARP_CASES, ids=[c[0] for c in WARP_CASES])
@@ -322,3 +328,138 @@ def test_attack_step_on_card_goes_through_kernels(cuda):
     assert nms_cuda.LAUNCHES == nms_before + 1
     assert np.isfinite(float(m.loss))
     assert not torch.equal(state.patch.detach(), patch0)
+
+
+# ---------------------------------------------------------------------------
+# cmconv
+# ---------------------------------------------------------------------------
+
+# (C, Co) of the defender's small-channel 3x3 convs: forward 3->8, 8->8,
+# 8->16, 16->16, 32->16, 16->16, 16->8, 8->8; input gradients the same
+# convs with C and Co swapped (16->32 and 16->8 are new)
+CMCONV_PATH = [(3, 8), (8, 8), (8, 16), (16, 16), (32, 16), (16, 8), (16, 32)]
+# (id, B, C, Co, H, W): sizes off the 32x8 tile, 1x1 images, one image, one
+# channel, the 32-channel limit, output widths off the compiled ones
+CMCONV_EDGES = [("ragged_13x37", 2, 8, 8, 13, 37), ("1x1", 3, 8, 16, 1, 1),
+                ("b1", 1, 16, 16, 24, 40), ("c1", 2, 1, 8, 20, 20),
+                ("c32_co32", 1, 32, 32, 17, 33), ("co1", 2, 8, 1, 9, 9),
+                ("co3", 2, 5, 3, 10, 11), ("co20", 1, 12, 20, 8, 70)]
+
+
+def _cmconv_case(cuda, b, c, co, h, w, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, c, h, w), generator=g).to(cuda)
+    wt = (torch.randn((3, 3, c, co), generator=g) * 0.3).to(cuda)
+    bias = torch.randn((co,), generator=g).to(cuda)
+    return x, wt, bias
+
+
+def _assert_cmconv(cuda, x, wt, bias):
+    before = cmconv_cuda.LAUNCHES
+    out = cmconv_cuda.cmconv3x3_cuda(x, wt, bias)
+    plain = pcmconv.cmconv_plain(x, wt, bias)
+    torch.cuda.synchronize()
+    assert cmconv_cuda.LAUNCHES == before + 1
+    _close(out, plain, "cmconv", CMCONV_TOL)
+    assert torch.equal(cmconv_cuda.cmconv3x3_cuda(x, wt, bias), out)
+
+
+@pytest.mark.parametrize("c,co", CMCONV_PATH, ids=[f"{c}to{co}" for c, co in CMCONV_PATH])
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "nobias"])
+def test_cmconv_kernel_matches_plain_at_path_shapes(cuda, c, co, with_bias):
+    x, wt, bias = _cmconv_case(cuda, 4, c, co, 48, 64, seed=c * 100 + co)
+    _assert_cmconv(cuda, x, wt, bias if with_bias else None)
+
+
+@pytest.mark.parametrize("name,b,c,co,h,w", CMCONV_EDGES, ids=[e[0] for e in CMCONV_EDGES])
+def test_cmconv_kernel_edge_cases(cuda, name, b, c, co, h, w):
+    _assert_cmconv(cuda, *_cmconv_case(cuda, b, c, co, h, w, seed=7))
+
+
+def test_cmconv_autograd_on_card_matches_cpu(cuda):
+    """Forward and input gradient through the kernel, weight gradient by
+    conv2d_weight: the same as the plain version on the CPU."""
+    x, wt, bias = _cmconv_case(torch.device("cpu"), 2, 16, 8, 20, 36, seed=3)
+    g = torch.randn((2, 8, 20, 36), generator=torch.Generator().manual_seed(4))
+    grads = []
+    for dev in (torch.device("cpu"), cuda):
+        args = [a.to(dev).clone().requires_grad_(True) for a in (x, wt, bias)]
+        before = cmconv_cuda.LAUNCHES
+        (pcmconv.cmconv(*args) * g.to(dev)).sum().backward()
+        assert cmconv_cuda.LAUNCHES == before + (2 if dev.type == "cuda" else 0)
+        grads.append([a.grad.cpu() for a in args])
+    for name, a, b in zip(("dx", "dw", "db"), grads[1], grads[0]):
+        _close(a, b, name, 1e-5)
+
+
+def test_cmconv_wrapper_rejects_bad_inputs(cuda):
+    x, wt, bias = _cmconv_case(cuda, 1, 8, 8, 16, 16)
+    before = cmconv_cuda.LAUNCHES
+    with pytest.raises(TypeError, match="float32 only"):
+        cmconv_cuda.cmconv3x3_cuda(x.double(), wt.double())
+    with pytest.raises(TypeError, match="float32 only"):
+        cmconv_cuda.cmconv3x3_cuda(x, wt, bias.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        cmconv_cuda.cmconv3x3_cuda(x.to(memory_format=torch.channels_last), wt)
+    with pytest.raises(ValueError, match="contiguous"):
+        cmconv_cuda.cmconv3x3_cuda(x, wt.transpose(2, 3))
+    big, wbig, _ = _cmconv_case(cuda, 1, 33, 8, 8, 8)
+    with pytest.raises(ValueError, match="outside 1..32"):
+        cmconv_cuda.cmconv3x3_cuda(big, wbig)
+    with pytest.raises(ValueError, match="outside 1..32"):
+        cmconv_cuda.cmconv3x3_cuda(x, torch.zeros((3, 3, 8, 33), device=cuda))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cmconv_cuda.cmconv3x3_cuda(x.cpu(), wt.cpu())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cmconv_cuda.cmconv3x3_cuda(x, wt.cpu())
+    with pytest.raises(ValueError, match="want x"):
+        cmconv_cuda.cmconv3x3_cuda(x, torch.zeros((5, 5, 8, 8), device=cuda))
+    with pytest.raises(ValueError, match="empty"):
+        cmconv_cuda.cmconv3x3_cuda(x[:0], wt)
+    with pytest.raises(RuntimeError, match="cudaError_t 1 "):
+        cmconv_cuda.cmconv3x3_cuda(torch.zeros((70000, 1, 1, 1), device=cuda),
+                                   torch.zeros((3, 3, 1, 1), device=cuda))
+    assert cmconv_cuda.LAUNCHES == before
+    _assert_cmconv(cuda, x, wt, bias)  # the context still works
+
+
+def test_defender_step_on_card_goes_through_kernels(cuda):
+    """A tiny lite0 defender step on the card (n_filters 8, score threshold
+    .0099 so the random victim's detections get patches): 15 cmconv
+    launches (8 forward, 7 input gradients), the two forward warp passes
+    once each and no transpose (the images need no gradient), NMS once; then
+    eval_step (8 cmconv, 3 NMS) and recover (8 cmconv)."""
+    cfg = pconfig.get_efficientdet_config("efficientdet-lite0")
+    cfg.override({"image_size": 64, "fpn_num_filters": 16,
+                  "fpn_cell_repeats": 1, "box_class_repeats": 1,
+                  "nms_configs": {"iou_thresh": 0.5, "score_thresh": 0.0099,
+                                  "pre_nms_topk": 64, "max_output_size": 16},
+                  "max_boxes_per_image": 4})
+    patch = torch.rand((32, 32, 3), generator=torch.Generator().manual_seed(1)) * 2 - 1
+    d = PatchAttackDefender(cfg, get_victim(cfg, seed=0, device=cuda),
+                            eval_patch=patch.numpy(), device=cuda)
+    state = d.init_state(0)
+    images = torch.rand((2, 64, 64, 3), generator=torch.Generator().manual_seed(2)
+                        ).to(cuda) * 2 - 1
+    params0 = [p.detach().clone() for p in state.unet.parameters()]
+    warp_cuda.reset_counts()
+    cm0, nms0 = cmconv_cuda.LAUNCHES, nms_cuda.LAUNCHES
+    state, m = d.train_step(state, images)
+    torch.cuda.synchronize()
+    assert cmconv_cuda.LAUNCHES - cm0 == 15
+    assert warp_cuda.LAUNCHES == {"pass1_fwd": 1, "pass2_fwd": 1,
+                                  "pass2_bwd": 0, "pass1_bwd": 0}
+    assert warp_cuda.WINDOWS > 0
+    assert nms_cuda.LAUNCHES - nms0 == 1
+    assert np.isfinite(float(m.loss)) and float(m.mean_clean_score) > 0
+    assert any(not torch.equal(p, q) for p, q in zip(state.unet.parameters(), params0))
+    cm0, nms0 = cmconv_cuda.LAUNCHES, nms_cuda.LAUNCHES
+    em = d.eval_step(state, images)
+    torch.cuda.synchronize()
+    assert (cmconv_cuda.LAUNCHES - cm0, nms_cuda.LAUNCHES - nms0) == (8, 3)
+    assert np.isfinite(float(em.loss)) and np.isfinite(float(em.recovery_psnr))
+    cm0 = cmconv_cuda.LAUNCHES
+    rec = d.recover(state, images)
+    torch.cuda.synchronize()
+    assert cmconv_cuda.LAUNCHES - cm0 == 8
+    assert rec.shape == images.shape and float(rec.abs().max()) <= 1.0

@@ -124,6 +124,17 @@ def _copy(tree):
     return {k: _copy(v) if isinstance(v, dict) else v for k, v in tree.items()}
 
 
+def test_bridge_round_trip_of_the_detector_is_exact(tiny_pair):
+    """torch_to_flax puts the detector's BatchNorm back under its inner
+    `bn` and every kernel back in HWIO."""
+    net, variables = tiny_pair
+    bridge.load_flax_variables(net, variables)
+    back = bridge.torch_to_flax(net)
+    assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(variables)
+    for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(variables)):
+        assert np.array_equal(a, np.asarray(b))
+
+
 def test_bridge_raises_on_missing_key(tiny_pair):
     net, variables = tiny_pair
     broken = _copy(variables)
