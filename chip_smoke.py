@@ -10,14 +10,26 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
 1. build: compile every kernel of `mladversarialobjectdetection_torch/csrc`
    with nvcc, one process per source, all at once (`_build.build_all`), and
    print each kernel's ptxas line;
+1a. fused MBConv kernels vs plain on odd shapes: 1x1 and 13x37 maps, C not
+   a multiple of 4, Co > C, relu / relu6 / swish, k3 / k5; forward within
+   MBCONV_FWD_TOL of max(1, max|plain|), dx within MBCONV_DX_TOL of
+   max|plain|; two launches bit-equal;
 2. NMS kernel vs plain: the NMS kernel against its plain PyTorch version on
    the card, at B=8, N=1024, M=100 (hard and gaussian) and on edge cases:
    indices, valid, valid_len and boxes exactly equal, scores within 1e-6;
 3. serve: `Detector("efficientdet-lite4")` at full width with seeded random
    weights serves synthetic 720x1280 frames at batch 1 and 8; the outputs are
-   checked, the NMS kernel must have launched once per `serve`, the kernel is
-   held against the plain version on the served candidates, and `serve`, the
-   device part of it and the kernel alone are timed;
+   checked, the NMS kernel must have launched once per `serve` and the fused
+   MBConv forward kernel 25 times (once per fuseable block; only the 5 other
+   blocks run unfused), the NMS kernel is held against the plain version on
+   the served candidates, and `serve`, the device part of it and the kernel
+   alone are timed;
+3a. the rest of serving at batch 8: the post modes per_class, combined and
+   tflite, and `pre_nms_approx_topk`, each against the same network outputs
+   with the plain NMS; `serve(device_preprocess=True)` against the host
+   path; `serve_streams` over three in-memory sources of unequal length and
+   `serve_pipelined` with a partial last batch (host and device
+   preprocessing), each against `serve` of the same batches;
 4. warp kernels vs plain: the four EOT warp kernels (two forward passes and
    both transposes) against their plain versions on the card, on the
    lite4 window and on edge cases, within WARP_TOL of the output's scale;
@@ -27,11 +39,19 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    320, 256 NMS candidates, in the benchmark's "live" regime (1-5 person
    boxes per image through `boxes_override`, 70 windows per step). The
    counts are set to 0 before the counted steps and read after: the NMS
-   kernel must launch once per step (twice with the ASR pass) and each warp
-   kernel once per step over 70 windows; loss, patch and scale are checked;
-   the step is timed, profiled and its peak memory read;
+   kernel must launch once per step (twice with the ASR pass), each warp
+   kernel once per step over 70 windows, the fused MBConv forward 50 times
+   and its dx 25 times per step; loss, patch and scale are checked; the
+   step is timed, profiled and its peak memory read;
+5a. the fused victim against the unfused one (every block through
+   `_forward_unfused`, cuDNN, TF32 off) on one attack loss with fixed draws:
+   logits within 2e-4 * max(1, max|ref|), patch gradient cosine >= 0.9999;
 6. warp kernels in the step: each kernel on the inputs a step gave it,
    against its plain version, timed beside its bound and the plain time;
+6a. fused MBConv kernels in the step: the forward of the 25 blocks of the
+   gradient-carrying pass and their 25 dx launches, on the inputs the step
+   gave them, against the plain versions, timed beside the bound, the plain
+   time and the unfused block (cuDNN, TF32 off);
 7. driver: `attack.train.train` for 3 steps at batch 12 with a score
    threshold the random victim passes, so the warp runs on its detections;
    its metrics log and patch artifacts must be written;
@@ -45,10 +65,11 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    detections get patches. The counts are set to 0 before the counted steps
    and read after: 15 cmconv launches per step (8 forward, 7 input
    gradients), the two forward warp passes once per step and no transpose,
-   NMS once per step; loss and metrics are checked; the step is timed,
-   profiled and its peak memory read;
-10. `eval_step` (8 cmconv and 3 NMS launches) and `recover` (8 cmconv),
-   checked and timed;
+   NMS once per step, the fused MBConv forward 25 times and no dx; loss and
+   metrics are checked; the step is timed, profiled and its peak memory
+   read;
+10. `eval_step` (8 cmconv, 3 NMS and 75 fused MBConv forward launches) and
+   `recover` (8 cmconv, no MBConv), checked and timed;
 11. kernels in the defender step: cmconv on the 15 inputs a step gave it,
    against its plain version, timed beside its bound, the plain time and
    `F.conv2d` (cuDNN) on the same tensors; the two forward warp kernels
@@ -107,6 +128,21 @@ WARP_REPLACES = {  # the Pallas kernels of v1; v2's are listed in PERF.md
     "pass2_bwd": "tools/experiments/pallas_warp.py:139",
     "pass1_bwd": "tools/experiments/pallas_warp.py:89",
 }
+# fused MBConv kernels vs plain: the forward's 1x1 products sum in another
+# order (of max(1, max|plain|)); dx within MBCONV_DX_TOL of max|plain|, its
+# relu masks bit-equal because z0 and z1 are
+MBCONV_FWD_TOL = 1e-5
+MBCONV_DX_TOL = 1e-4
+MBCONV_PER_PASS = 25   # lite4's fuseable blocks: all but 0 (e1), 1, 5, 9, 21
+UNFUSED_PER_PASS = 5
+MBCONV_REPLACES = {"fwd": "tools/experiments/fused_mbconv.py:212",
+                   "dx": "tools/experiments/fused_mbconv.py:282"}
+# (name, B, H, W, C, E, Co, k, residual, act): shapes off the path's
+MBCONV_ODD = [("1x1 b3 k5", 3, 1, 1, 8, 48, 8, 5, True, "relu6"),
+              ("13x37 k3", 1, 13, 37, 16, 96, 24, 3, False, "relu6"),
+              ("C13 -> 20 relu", 3, 12, 10, 13, 78, 20, 3, False, "relu"),
+              ("k5 swish", 2, 18, 22, 16, 96, 24, 5, False, "swish"),
+              ("272 -> 448 at 20x20", 8, 20, 20, 272, 1632, 448, 3, False, "relu6")]
 ATTACK_BATCH = 24
 ATTACK_WINDOW = 320
 ATTACK_STEPS = 3
@@ -558,6 +594,150 @@ def cmconv_bound(x, co: int, has_bias: bool):
             nbytes, ops)
 
 
+def mbconv_case(dev, b, h, w, c, e, co, k, seed):
+    """x [B, H, W, C] and a FoldedBlock with fan-in scaled random weights."""
+    import torch
+    from mladversarialobjectdetection_torch.ops.mbconv import FoldedBlock
+
+    g = torch.Generator(dev).manual_seed(seed)
+    r = lambda *shape, s=1.0: torch.randn(shape, generator=g, device=dev) * s
+    fb = FoldedBlock(we=r(c, e, s=2 / c ** 0.5), be=r(e, s=0.5), wd=r(k, k, e, s=2 / k),
+                     bd=r(e, s=0.5), wp=r(e, co, s=2 / e ** 0.5), bp=r(co, s=0.5))
+    return r(b, h, w, c), fb
+
+
+def check_mbconv(name, x, g, fb, act_type, residual):
+    """Both fused MBConv kernels against the plain versions on the same CUDA
+    tensors, each launched twice bit-equal. Returns (fwd error, dx error)."""
+    import torch
+    from mladversarialobjectdetection_torch.ops import mbconv, mbconv_cuda
+
+    kw = dict(act_type=act_type, residual=residual)
+    y = mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw)
+    dx = mbconv_cuda.mbconv_dx_cuda(x, g, fb, **kw)
+    plain_y = mbconv.mbconv_plain(x, fb, **kw)
+    plain_dx = mbconv.mbconv_dx_plain(x, g, fb, **kw)
+    errs = (float((y - plain_y).abs().max()), float((dx - plain_dx).abs().max()))
+    limits = (MBCONV_FWD_TOL * max(1.0, float(plain_y.abs().max())),
+              MBCONV_DX_TOL * float(plain_dx.abs().max()))
+    for what, err, limit in zip(("fwd", "dx"), errs, limits):
+        if not err <= limit:
+            fail(f"mbconv {what} {name}: kernel and plain differ by {err} > {limit}")
+    if not (torch.equal(mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw), y)
+            and torch.equal(mbconv_cuda.mbconv_dx_cuda(x, g, fb, **kw), dx)):
+        fail(f"mbconv {name}: two launches differ")
+    return errs
+
+
+def mbconv_bound(x_shape, e: int, co: int, k: int, residual: bool, dx: bool):
+    """(bound ms, bound_by, bytes, ops) of one fused MBConv launch on x
+    [B, H, W, C]: x, g and the output read or written once and the folded
+    weights read once, over the HBM rate; the multiply-adds and bias adds
+    per output pixel (the activations not counted), over the fp32 rate.
+    Forward: expand 2CE + E, depthwise 2k^2E + E, project 2ECo + Co (+ Co
+    residual). dx: the recomputed expand and depthwise, g . Wp^T 2ECo,
+    act'(z1) E, the depthwise transpose 2k^2E, act'(z0) E, . We^T 2EC (+ C)."""
+    b, h, w, c = x_shape
+    pixels = b * h * w
+    weights = c * e + e + k * k * e + e + e * co + (0 if dx else co)
+    if dx:
+        per_pixel = (2 * c * e + e + 2 * k * k * e + e + 2 * e * co + e
+                     + 2 * k * k * e + e + 2 * e * c + (c if residual else 0))
+        nbytes = 4 * (pixels * (2 * c + co) + weights)
+    else:
+        per_pixel = (2 * c * e + e + 2 * k * k * e + e + 2 * e * co + co
+                     + (co if residual else 0))
+        nbytes = 4 * (pixels * (c + co) + weights)
+    ops = pixels * per_pixel
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOP_PER_S * 1e3
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
+            nbytes, ops)
+
+
+def same_detections(name, a, b, exact_scores: bool = True) -> float:
+    """Detections a and b (numpy or torch) with equal valid, valid_len,
+    classes and boxes; scores equal or within SCORE_TOL. Returns the score
+    error."""
+    a = [np.asarray(t.cpu() if hasattr(t, "cpu") else t) for t in a]
+    b = [np.asarray(t.cpu() if hasattr(t, "cpu") else t) for t in b]
+    for field, x, y in zip(("boxes", "scores", "classes", "valid", "valid_len"), a, b):
+        if field != "scores" and not np.array_equal(x, y):
+            fail(f"{name}: {field} differ")
+    err = float(np.abs(a[1] - b[1]).max()) if a[1].size else 0.0
+    if err > (0.0 if exact_scores else SCORE_TOL):
+        fail(f"{name}: scores differ by {err}")
+    return err
+
+
+class PlainNMS:
+    """Runs the plain NMS version wherever `nms.batched_nms_auto` is called."""
+
+    def __enter__(self):
+        from mladversarialobjectdetection_torch.ops import nms
+        self.nms, self.orig = nms, nms.batched_nms_auto
+        nms.batched_nms_auto = nms.batched_nms
+        return self
+
+    def __exit__(self, *exc):
+        self.nms.batched_nms_auto = self.orig
+
+
+class UnfusedRoute:
+    """Records, for each block that runs `MBConvBlock._forward_unfused` in
+    its block, whether that block is fuseable (it holds no tensor)."""
+
+    def __enter__(self):
+        from mladversarialobjectdetection_torch.models.efficientnet import MBConvBlock
+        self.cls, self.orig, self.calls = MBConvBlock, MBConvBlock._forward_unfused, []
+
+        def spy(block, x, _orig=self.orig):
+            self.calls.append(block.fuseable)
+            return _orig(block, x)
+
+        MBConvBlock._forward_unfused = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._forward_unfused = self.orig
+
+
+class AllUnfused:
+    """Every MBConv block runs `_forward_unfused` (cuDNN) in its block: the
+    reference the fused victim is held against."""
+
+    def __enter__(self):
+        from mladversarialobjectdetection_torch.models.efficientnet import MBConvBlock
+        self.cls, self.orig = MBConvBlock, MBConvBlock.forward
+        MBConvBlock.forward = MBConvBlock._forward_unfused
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.forward = self.orig
+
+
+def check_fused_route(label, launches, route, fwd, dx, passes):
+    """Fail unless the fused kernels launched fwd / dx times and only the
+    UNFUSED_PER_PASS other blocks of each of `passes` victim passes ran
+    unfused."""
+    want = {"mbconv_fwd": fwd, "mbconv_dx": dx}
+    if launches != want:
+        fail(f"{label}: fused MBConv launches {launches}, want {want}")
+    if len(route.calls) != passes * UNFUSED_PER_PASS or any(route.calls):
+        fail(f"{label}: {len(route.calls)} blocks ran unfused "
+             f"({sum(route.calls)} of them fuseable) in {passes} passes")
+
+
+class InMemorySource:
+    """A frame source for `serve_streams`: what `MultiStream` asks of a Stream."""
+
+    def __init__(self, frames):
+        self.frames = frames
+
+    def play(self):
+        yield from self.frames
+
+
 def main() -> int:
     import tempfile
     from pathlib import Path
@@ -577,6 +757,8 @@ def main() -> int:
     from mladversarialobjectdetection_torch.ops import cmconv, cmconv_cuda
     from mladversarialobjectdetection_torch.defense.defender import PatchAttackDefender
     from mladversarialobjectdetection_torch.defense.train import train as defense_train
+    from mladversarialobjectdetection_torch.models.efficientnet import MBConvBlock
+    from mladversarialobjectdetection_torch.ops import mbconv, mbconv_cuda, preprocess
 
     # fp32 everywhere: the port is held to the fp32 JAX reference, and cuDNN
     # runs fp32 convs in TF32 unless told not to
@@ -592,6 +774,21 @@ def main() -> int:
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s, "
           f"{sorted(p.name for p in libs.values())}")
     print_ptxas(libs)
+
+    # phase 1a: the fused MBConv kernels vs plain on odd shapes
+    mb_errs = {"fwd": 0.0, "dx": 0.0}
+    for i, (name, b, h, w, c, e, co, k, res, act) in enumerate(MBCONV_ODD):
+        x, fb = mbconv_case(dev, b, h, w, c, e, co, k, seed=10 + i)
+        g = torch.randn((b, h, w, co), device=dev,
+                        generator=torch.Generator(dev).manual_seed(i))
+        errs = check_mbconv(name, x, g, fb, act, res)
+        mb_errs = {"fwd": max(mb_errs["fwd"], errs[0]), "dx": max(mb_errs["dx"], errs[1])}
+        print(f"  mbconv {name} (b{b} {h}x{w}, C {c}, E {e}, Co {co}, k{k}, "
+              f"{act}{', residual' if res else ''}): max errors fwd {errs[0]:.3g}, "
+              f"dx {errs[1]:.3g}, two launches bit-equal")
+    print(f"phase 1a mbconv kernels vs plain: {len(MBCONV_ODD)} odd shapes, max "
+          f"errors {mb_errs}")
+    del x, g, fb
 
     # phase 2: kernel vs plain on the card
     rng = np.random.default_rng(0)
@@ -622,10 +819,16 @@ def main() -> int:
     torch.cuda.synchronize()
 
     nms_cuda.LAUNCHES = 0
-    results = {b: det.serve(batch) for b, batch in batches.items()}
+    mbconv_cuda.reset_counts()
+    copies0 = mbconv.LAYOUT_COPIES
+    with UnfusedRoute() as unfused:
+        results = {b: det.serve(batch) for b, batch in batches.items()}
     launches = nms_cuda.LAUNCHES
+    serve_mb = dict(mbconv_cuda.LAUNCHES)
     if launches != len(batches):
         fail(f"NMS kernel launched {launches} times in {len(batches)} serve calls")
+    check_fused_route("serve", serve_mb, unfused, len(batches) * MBCONV_PER_PASS, 0,
+                      passes=len(batches))
     if sum(warp_cuda.LAUNCHES.values()):
         fail("a warp kernel launched while serving")
     m = det.config.nms_configs.max_output_size
@@ -642,9 +845,11 @@ def main() -> int:
             fail(f"b{b}: valid_len {res.valid_len}")
         if not np.array_equal(res.valid.sum(1), res.valid_len):
             fail(f"b{b}: valid_len disagrees with valid")
-    print(f"phase 3 serve: NMS kernel launches {launches} in {len(batches)} "
-          f"serve calls; valid_len b1 {results[1].valid_len.tolist()} "
-          f"b8 {results[8].valid_len.tolist()}")
+    print(f"phase 3 serve: NMS kernel launches {launches}, fused MBConv "
+          f"launches {serve_mb}, NHWC layout copies "
+          f"{mbconv.LAYOUT_COPIES - copies0}, in "
+          f"{len(batches)} serve calls; valid_len b1 "
+          f"{results[1].valid_len.tolist()} b8 {results[8].valid_len.tolist()}")
 
     images, scales = det.preprocess(frames)
     images_d = torch.from_numpy(images).to(dev)
@@ -676,7 +881,94 @@ def main() -> int:
                        f"device part b{b}")
     *_, err = nms_numbers(cand_boxes, cand_scores, kw, "served candidates")
     max_err = max(max_err, err)
-    del det, images_d, scales_d, cls_out, box_out
+
+    # phase 3a: the other post modes, approximate top-k, device
+    # preprocessing, several streams and the pipelined server, at batch 8
+    params = det._params_dict
+    approx = dict(params, nms_configs=dict(params["nms_configs"],
+                                           pre_nms_approx_topk=True))
+    modes = {"per_class": lambda p: postprocess.postprocess_per_class(
+                 p, cls_out, box_out, image_scales=scales_d),
+             "combined": lambda p: postprocess.postprocess_combined(
+                 p, cls_out, box_out, image_scales=scales_d),
+             "tflite": lambda p: postprocess.postprocess_tflite(p, cls_out, box_out),
+             "global approx top-k": lambda p: postprocess.postprocess_global(
+                 approx, cls_out, box_out, image_scales=scales_d)}
+    with torch.no_grad():
+        for mode, post in modes.items():
+            nms_cuda.LAUNCHES = 0
+            kern = post(params)
+            if nms_cuda.LAUNCHES != 1:
+                fail(f"post mode {mode}: {nms_cuda.LAUNCHES} NMS kernel launches")
+            with PlainNMS():
+                plain = post(params)
+            err = same_detections(f"post mode {mode}", kern, plain, exact_scores=False)
+            max_err = max(max_err, err)
+            print(f"  post mode {mode} b8: valid_len {kern.valid_len.tolist()}, "
+                  f"equal to the plain NMS's (score error {err})")
+        exact = postprocess.postprocess_global(params, cls_out, box_out,
+                                               image_scales=scales_d)
+        same_detections("approximate top-k", modes["global approx top-k"](params), exact)
+    for mode in ("per_class", "combined", "tflite"):
+        det.post_mode = mode
+        res = det.serve(frames)
+        if res.boxes.shape != (8, m, 4) or not np.all(np.isfinite(res.boxes)):
+            fail(f"serve post_mode {mode}: boxes {res.boxes.shape}")
+        print(f"  serve post_mode {mode} b8: p50 "
+              f"{host_p50_ms(lambda: det.serve(frames), iters=3, warmup=1):.3f} ms")
+    det.post_mode = "global"
+    raw_d = torch.from_numpy(np.stack(frames)).to(dev)
+    dev_images, dev_scales = preprocess.preprocess_device(
+        raw_d, det.config.image_size, det.config.mean_rgb, det.config.stddev_rgb)
+    pre_err = float((dev_images - images_d).abs().max())
+    if not pre_err <= 1e-4 or not torch.equal(dev_scales, scales_d):
+        fail(f"preprocess_device differs from the host path by {pre_err}")
+    mbconv_cuda.reset_counts()
+    res = det.serve(frames, device_preprocess=True)
+    if mbconv_cuda.LAUNCHES["mbconv_fwd"] != MBCONV_PER_PASS or \
+            res.boxes.shape != (8, m, 4) or not np.all(res.valid_len > 0):
+        fail(f"serve(device_preprocess=True): {mbconv_cuda.LAUNCHES}, "
+             f"valid_len {res.valid_len}")
+    for b, batch in batches.items():
+        ms = host_p50_ms(lambda: det.serve(batch, device_preprocess=True), iters=10)
+        print(f"  serve b{b} device_preprocess=True: p50 {ms:.3f} ms/batch "
+              f"({b * 1e3 / ms:.2f} images/s)")
+    print(f"  preprocess_device vs host: max difference {pre_err:.3g} (normalized "
+          f"units); detections with device preprocessing: valid_len "
+          f"{res.valid_len.tolist()} (host {results[8].valid_len.tolist()})")
+    sources = [frames[0:3], frames[3:5], frames[5:6]]
+    ticks = list(det.serve_streams([InMemorySource(f) for f in sources]))
+    for t, tick in enumerate(ticks):
+        alive = [i for i in range(3) if t < len(sources[i])]
+        if [i for i, r in enumerate(tick) if r is not None] != alive:
+            fail(f"serve_streams tick {t}: {[r is None for r in tick]}")
+        batch = [sources[i][t] if i in alive else sources[0][0] for i in range(3)]
+        ref = det.serve(batch)
+        for i in alive:
+            same_detections(f"serve_streams tick {t} source {i}", tick[i],
+                            [a[i] for a in ref])
+    stream_frames = frames + frames[:4]  # 12 frames: batches of 8 and 4 + 4 pads
+    for device_pre in (False, True):
+        out = list(det.serve_pipelined(iter(stream_frames), batch_size=8,
+                                       device_preprocess=device_pre))
+        if len(out) != len(stream_frames):
+            fail(f"serve_pipelined yielded {len(out)} of {len(stream_frames)}")
+        for start in (0, 8):
+            part = stream_frames[start:start + 8]
+            ref = det.serve(part + [part[-1]] * (8 - len(part)),
+                            device_preprocess=device_pre)
+            for i in range(len(part)):
+                same_detections(f"serve_pipelined frame {start + i}", out[start + i],
+                                [a[i] for a in ref])
+        ms = host_p50_ms(lambda: list(det.serve_pipelined(
+            iter(stream_frames), batch_size=8, device_preprocess=device_pre)), iters=3)
+        print(f"  serve_pipelined b8 device_preprocess={device_pre}: "
+              f"{len(stream_frames)} frames in {ms:.3f} ms p50")
+    print(f"phase 3a serving: post modes per_class, combined, tflite and "
+          f"approximate top-k equal to the plain NMS's; device preprocessing "
+          f"within {pre_err:.3g}; serve_streams over {len(ticks)} ticks and "
+          f"serve_pipelined equal to serve of the same batches")
+    del det, images_d, scales_d, cls_out, box_out, raw_d, dev_images
 
 
     # phase 4: warp kernels vs plain on the card
@@ -718,10 +1010,15 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     nms_cuda.LAUNCHES = 0
     warp_cuda.reset_counts()
-    for _ in range(ATTACK_STEPS):
-        _, metrics = step()
+    mbconv_cuda.reset_counts()
+    copies0 = mbconv.LAYOUT_COPIES
+    with UnfusedRoute() as unfused:
+        for _ in range(ATTACK_STEPS):
+            _, metrics = step()
     torch.cuda.synchronize()
     attack_launches = dict(warp_cuda.LAUNCHES, nms=nms_cuda.LAUNCHES)
+    attack_mb = dict(mbconv_cuda.LAUNCHES)
+    attack_copies = mbconv.LAYOUT_COPIES - copies0
     windows_seen = warp_cuda.WINDOWS
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     if attack_launches != dict.fromkeys(attack_launches, ATTACK_STEPS):
@@ -730,6 +1027,11 @@ def main() -> int:
     if windows_seen != ATTACK_STEPS * n_windows:
         fail(f"the warp saw {windows_seen} windows in {ATTACK_STEPS} steps, "
              f"want {ATTACK_STEPS * n_windows}")
+    # two victim passes a step (the no-grad first pass and the patched one)
+    # and the patched pass's input gradient
+    check_fused_route("attack step", attack_mb, unfused,
+                      2 * MBCONV_PER_PASS * ATTACK_STEPS,
+                      MBCONV_PER_PASS * ATTACK_STEPS, passes=2 * ATTACK_STEPS)
     patch = state.patch.detach()
     scale = float(state.scale.detach())
     if not np.isfinite(float(metrics.loss)):
@@ -744,7 +1046,8 @@ def main() -> int:
     if nms_cuda.LAUNCHES != 2:
         fail(f"a step with the ASR pass launched NMS {nms_cuda.LAUNCHES} times")
     print(f"phase 5 attack step: launches in {ATTACK_STEPS} steps "
-          f"{attack_launches}, {windows_seen} windows warped; loss "
+          f"{attack_launches}, fused MBConv {attack_mb}, NHWC layout copies "
+          f"{attack_copies}, {windows_seen} windows warped; loss "
           f"{float(metrics.loss):.6f}, scale {scale:.6f}, asr with the ASR "
           f"pass {float(m_asr.asr):.4f}; peak memory {peak_gb:.3f} GB")
     step_ms = host_p50_ms(step, iters=5, warmup=1)
@@ -752,9 +1055,45 @@ def main() -> int:
           f"({ATTACK_BATCH * 1e3 / step_ms:.2f} images/s)")
     profile_device(step, f"attack step b{ATTACK_BATCH}", top=10)
 
+    # phase 5a: the fused victim against the unfused one, on one attack
+    # loss with fixed draws (the step's boxes, a fresh seeded generator)
+    def attack_grad(tv_weight):
+        patch_v = state.patch.detach().clone().requires_grad_(True)
+        scale_v = state.scale.detach().clone().requires_grad_(True)
+        loss, _ = atk._loss_from_images(patch_v, scale_v, images, *override,
+                                        torch.Generator(dev).manual_seed(7),
+                                        tv_weight=tv_weight)
+        loss.backward()
+        return float(loss.detach()), patch_v.grad
+
+    def cosine(a, b):
+        a, b = a.double().flatten(), b.double().flatten()
+        return float(a @ b / (a.norm() * b.norm()))
+
+    with torch.no_grad():
+        logits = [t for outs in atk.net(images) for t in outs]
+    grads = (attack_grad(1e-5), attack_grad(0.0))
+    with AllUnfused():
+        with torch.no_grad():
+            ref_logits = [t for outs in atk.net(images) for t in outs]
+        ref_grads = (attack_grad(1e-5), attack_grad(0.0))
+    logit_err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                    for a, b in zip(logits, ref_logits))
+    cos, cos_det = (cosine(g[1], r[1]) for g, r in zip(grads, ref_grads))
+    if not logit_err <= 2e-4 or not cos >= 0.9999:
+        fail(f"fused vs unfused victim: logits differ by {logit_err} of scale, "
+             f"patch gradient cosine {cos}")
+    print(f"phase 5a fused vs unfused victim: logits within {logit_err:.3g} of "
+          f"max(1, max|ref|); loss {grads[0][0]:.6f} vs {ref_grads[0][0]:.6f}; "
+          f"patch gradient cosine {cos:.8f} (without the TV term, the part "
+          f"through the warp and the detector: {cos_det:.8f})")
+    del logits, ref_logits, grads, ref_grads
+
     # phase 6: each kernel on the inputs a step gave it
     with Capture([(warp_cuda, k) for k in WARP_KERNELS]
-                 + [(nms_cuda, "batched_nms_cuda")]) as cap:
+                 + [(nms_cuda, "batched_nms_cuda"),
+                    (mbconv_cuda, "mbconv_fwd_cuda"),
+                    (mbconv_cuda, "mbconv_dx_cuda")]) as cap:
         step()
     torch.cuda.synchronize()
     torch.set_grad_enabled(False)  # the comparisons and timings build no graph
@@ -795,7 +1134,69 @@ def main() -> int:
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by, err = nms_numbers(
         nms_boxes, nms_scores, nms_kw, "attack first pass")
     max_err = max(max_err, err)
+
+    # phase 6a: the fused MBConv kernels on the inputs the step gave them
+    fwd_calls = cap.args["mbconv_fwd_cuda"]  # the first pass, then the second
+    dx_calls = cap.args["mbconv_dx_cuda"]    # the last block first
+    if (len(fwd_calls), len(dx_calls)) != (2 * MBCONV_PER_PASS, MBCONV_PER_PASS):
+        fail(f"captured {len(fwd_calls)} fused forward and {len(dx_calls)} dx calls")
+    blocks = [(i, b) for i, b in enumerate(
+        getattr(atk.net.backbone, f"blocks_{i}")
+        for i in range(len(atk.net.backbone.spec.blocks))) if b.fuseable]
+    mb_tot = {k: dict.fromkeys(("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms",
+                                "unfused_ms"), 0.0) for k in ("fwd", "dx")}
+    for j, (idx, blk) in enumerate(blocks):
+        (x, fb), kw = fwd_calls[MBCONV_PER_PASS + j]
+        (xd, g, _), _ = dx_calls[MBCONV_PER_PASS - 1 - j]
+        if xd.data_ptr() != x.data_ptr():
+            fail(f"block {idx}: the dx call's x is not the forward's")
+        errs = check_mbconv(f"block {idx} step inputs", x, g, fb, **kw)
+        mb_errs = {"fwd": max(mb_errs["fwd"], errs[0]), "dx": max(mb_errs["dx"], errs[1])}
+        xr = x.permute(0, 3, 1, 2)
+        xg = xr.detach().requires_grad_(True)
+        gr = g.permute(0, 3, 1, 2)
+
+        def unfused_fwd_dx():
+            with torch.enable_grad():
+                torch.autograd.grad(blk._forward_unfused(xg), xg, gr)
+
+        e, co = fb.wp.shape
+        k = fb.wd.shape[0]
+        times = {
+            "fwd": (cuda_ms(lambda: mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw), iters=5),
+                    cuda_ms(lambda: mbconv.mbconv_plain(x, fb, **kw), iters=1, warmup=1),
+                    cuda_ms(lambda: blk._forward_unfused(xr), iters=5)),
+            "dx": (cuda_ms(lambda: mbconv_cuda.mbconv_dx_cuda(x, g, fb, **kw), iters=5),
+                   cuda_ms(lambda: mbconv.mbconv_dx_plain(x, g, fb, **kw), iters=1,
+                           warmup=1),
+                   cuda_ms(unfused_fwd_dx, iters=3))}
+        line = []
+        for kind, (kern_ms, plain_ms, unf_ms) in times.items():
+            bound_ms, bound_by, nbytes, ops = mbconv_bound(
+                tuple(x.shape), e, co, k, kw["residual"], kind == "dx")
+            tot = mb_tot[kind]
+            tot["ms"] += kern_ms
+            tot["plain_ms"] += plain_ms
+            tot["bound_ms"] += bound_ms
+            tot["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+            tot["ops_ms"] += ops / FP32_FLOP_PER_S * 1e3
+            tot["unfused_ms"] += unf_ms
+            line.append(f"{kind} kernel {kern_ms:.4f} ms, plain {plain_ms:.4f}, "
+                        f"unfused {'fwd+dx ' if kind == 'dx' else ''}{unf_ms:.4f}, "
+                        f"bound {bound_ms:.6f} ({bound_by}: {nbytes} B, {ops} ops), "
+                        f"{bound_ms / kern_ms:.1%} of it, error {errs[kind == 'dx']:.3g}")
+        print(f"  mbconv block {idx:2d} {tuple(x.shape)} E {e} Co {co} k{k}"
+              f"{' res' if kw['residual'] else ''}: " + "; ".join(line))
+    for kind, tot in mb_tot.items():
+        tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
+        print(f"  mbconv {kind} per pass ({MBCONV_PER_PASS} launches): kernel "
+              f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, unfused "
+              f"{'forward + input gradient ' if kind == 'dx' else ''}(cuDNN) "
+              f"{tot['unfused_ms']:.4f} ms, bound {tot['bound_ms']:.6f} ms "
+              f"({tot['bound_by']}), {tot['bound_ms'] / tot['ms']:.1%} of the bound")
+    print(f"phase 6a mbconv kernels at the step's inputs: max errors {mb_errs}")
     del cap, canvases, t_in, g_in, dt_in, atk, state, images, patch, patch0
+    del fwd_calls, dx_calls, x, xd, g, fb, xr, xg, gr, blocks, blk
     torch.set_grad_enabled(True)
 
     # phase 7: the driver entry point, 3 steps at batch 12; a score threshold
@@ -803,6 +1204,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         nms_cuda.LAUNCHES = 0
         warp_cuda.reset_counts()
+        mbconv_cuda.reset_counts()
         t0 = time.perf_counter()
         final = train("efficientdet-lite4", synthetic=True, mixed_precision=False,
                       batch_size=12, epochs=1, steps_per_epoch=3,
@@ -810,7 +1212,8 @@ def main() -> int:
                       config_override={"nms_configs": {"score_thresh": 0.0099}})
         torch.cuda.synchronize()
         driver_s = time.perf_counter() - t0
-        driver_launches = dict(warp_cuda.LAUNCHES, nms=nms_cuda.LAUNCHES)
+        driver_launches = dict(warp_cuda.LAUNCHES, nms=nms_cuda.LAUNCHES,
+                               **mbconv_cuda.LAUNCHES)
         logs = Path(tmp) / "logs" / "metrics.jsonl"
         records = [json.loads(line) for line in logs.read_text().splitlines()]
         dirs = sorted(p.name for p in Path(tmp).glob("patch_00_*"))
@@ -822,7 +1225,9 @@ def main() -> int:
         # each of the 3 train steps runs all four kernels; the 5 validation
         # batches run the forward passes where they find live slots
         if (driver_launches["pass1_bwd"] != 3 or driver_launches["pass2_bwd"] != 3
-                or driver_launches["pass1_fwd"] < 3):
+                or driver_launches["pass1_fwd"] < 3
+                or driver_launches["mbconv_dx"] != 3 * MBCONV_PER_PASS
+                or driver_launches["mbconv_fwd"] < 3 * 2 * MBCONV_PER_PASS):
             fail(f"driver: kernel launches {driver_launches}")
     print(f"phase 7 driver: train(efficientdet-lite4, batch 12, 3 steps) "
           f"in {driver_s:.2f} s, launches {driver_launches}, "
@@ -873,11 +1278,15 @@ def main() -> int:
     nms_cuda.LAUNCHES = 0
     warp_cuda.reset_counts()
     cmconv_cuda.LAUNCHES = 0
-    for _ in range(DEFEND_STEPS):
-        _, dm = dstep()
+    mbconv_cuda.reset_counts()
+    with UnfusedRoute() as unfused:
+        for _ in range(DEFEND_STEPS):
+            _, dm = dstep()
     torch.cuda.synchronize()
     defend_launches = dict(warp_cuda.LAUNCHES, nms=nms_cuda.LAUNCHES,
                            cmconv=cmconv_cuda.LAUNCHES)
+    check_fused_route("defender step", dict(mbconv_cuda.LAUNCHES), unfused,
+                      MBCONV_PER_PASS * DEFEND_STEPS, 0, passes=DEFEND_STEPS)
     defend_windows = warp_cuda.WINDOWS
     dpeak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     want = dict(pass1_fwd=DEFEND_STEPS, pass2_fwd=DEFEND_STEPS, pass2_bwd=0,
@@ -892,7 +1301,8 @@ def main() -> int:
     if all(torch.equal(p, q) for p, q in zip(dstate.unet.parameters(), params0)):
         fail("the U-Net did not move")
     print(f"phase 9 defender step: launches in {DEFEND_STEPS} steps "
-          f"{defend_launches}, {defend_windows // DEFEND_STEPS} windows planted "
+          f"{defend_launches}, fused MBConv {mbconv_cuda.LAUNCHES}, "
+          f"{defend_windows // DEFEND_STEPS} windows planted "
           f"per step; loss {float(dm.loss):.6f}, mean clean score "
           f"{float(dm.mean_clean_score):.6f}; peak memory {dpeak_gb:.3f} GB")
     dstep_ms = host_p50_ms(dstep, iters=5, warmup=1)
@@ -903,16 +1313,23 @@ def main() -> int:
     # phase 10: eval_step and recover
     nms_cuda.LAUNCHES = 0
     cmconv_cuda.LAUNCHES = 0
-    em = dfd.eval_step(dstate, dimages, 1)
+    mbconv_cuda.reset_counts()
+    with UnfusedRoute() as unfused:
+        em = dfd.eval_step(dstate, dimages, 1)
     torch.cuda.synchronize()
+    check_fused_route("eval_step", dict(mbconv_cuda.LAUNCHES), unfused,
+                      3 * MBCONV_PER_PASS, 0, passes=3)
     if (cmconv_cuda.LAUNCHES, nms_cuda.LAUNCHES) != (8, 3):
         fail(f"eval_step launched cmconv {cmconv_cuda.LAUNCHES}, NMS "
              f"{nms_cuda.LAUNCHES} times; want 8, 3")
     if not (np.isfinite(float(em.loss)) and np.isfinite(float(em.recovery_psnr))):
         fail(f"eval metrics {em}")
     cmconv_cuda.LAUNCHES = 0
+    mbconv_cuda.reset_counts()
     rec = dfd.recover(dstate, dimages)
     torch.cuda.synchronize()
+    if sum(mbconv_cuda.LAUNCHES.values()):
+        fail(f"recover ran the victim: {mbconv_cuda.LAUNCHES}")
     if cmconv_cuda.LAUNCHES != 8 or rec.shape != dimages.shape or not (
             float(rec.abs().max()) <= 1.0):
         fail(f"recover: {cmconv_cuda.LAUNCHES} cmconv launches, shape "
@@ -1007,6 +1424,7 @@ def main() -> int:
         nms_cuda.LAUNCHES = 0
         warp_cuda.reset_counts()
         cmconv_cuda.LAUNCHES = 0
+        mbconv_cuda.reset_counts()
         t0 = time.perf_counter()
         dfinal = defense_train("efficientdet-lite4", synthetic=True, batch_size=12,
                                epochs=1, steps_per_epoch=3, save_dir=tmp,
@@ -1015,7 +1433,7 @@ def main() -> int:
         torch.cuda.synchronize()
         ddriver_s = time.perf_counter() - t0
         ddriver_launches = dict(warp_cuda.LAUNCHES, nms=nms_cuda.LAUNCHES,
-                                cmconv=cmconv_cuda.LAUNCHES)
+                                cmconv=cmconv_cuda.LAUNCHES, **mbconv_cuda.LAUNCHES)
         records = [json.loads(line) for line in
                    (Path(tmp) / "logs" / "metrics.jsonl").read_text().splitlines()]
         arts = sorted(str(p.relative_to(tmp)) for p in Path(tmp).glob(
@@ -1026,7 +1444,8 @@ def main() -> int:
             fail(f"defense driver: artifacts {arts}")
         # 3 train steps (15 each) and 5 validation batches (8 each)
         if ddriver_launches["cmconv"] != 3 * CMCONV_PER_STEP + 5 * 8 or \
-                ddriver_launches["pass1_fwd"] < 3:
+                ddriver_launches["pass1_fwd"] < 3 or ddriver_launches["mbconv_dx"] or \
+                ddriver_launches["mbconv_fwd"] < 3 * MBCONV_PER_PASS:
             fail(f"defense driver: kernel launches {ddriver_launches}")
     print(f"phase 12 defense driver: train(efficientdet-lite4, batch 12, 3 "
           f"steps) in {ddriver_s:.2f} s, launches {ddriver_launches}, artifact "
@@ -1061,6 +1480,15 @@ def main() -> int:
         "ms": cm_tot["ms"], "plain_ms": cm_tot["plain_ms"],
         "bound_ms": cm_tot["bound_ms"], "bound_by": cm_bound_by,
         "library_ms": cm_tot["library_ms"]})
+    for kind in ("fwd", "dx"):  # per pass of the 25 fuseable blocks
+        tot = mb_tot[kind]
+        kernels.append({
+            "name": f"mbconv_{kind}", "route": "cuda",
+            "source": "mladversarialobjectdetection_torch/csrc/mbconv.cu",
+            "replaces": MBCONV_REPLACES[kind],
+            "launches": attack_mb[f"mbconv_{kind}"], "max_abs_err": mb_errs[kind],
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": tot["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

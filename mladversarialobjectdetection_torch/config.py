@@ -9,7 +9,8 @@ tiiuae/MLAdversarialObjectDetection): a recursive attribute-dict `Config` with
 the EfficientDet d0-d7x and lite0-lite4 families.
 
 Keys marked "TPU-specific" keep their names so a config moves between the
-two packages unchanged; `pre_nms_approx_topk` is rejected by the port.
+two packages unchanged; `pre_nms_approx_topk` selects the exact top-k in
+the port (`ops/postprocess.top_k_stable`).
 """
 from __future__ import annotations
 

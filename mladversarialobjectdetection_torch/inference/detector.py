@@ -1,13 +1,15 @@
-"""Single-frame serving detector (PyTorch).
+"""Serving detector (PyTorch).
 
-Port of `mladversarialobjectdetection_tpu/inference/detector.py:30-120,
-187-210,313-352`: raw RGB frames in, padded person detections out, with the
-host preprocessing, the EfficientDet forward and the global postprocess
-(whose NMS is the CUDA kernel on the card).
+Port of `mladversarialobjectdetection_tpu/inference/detector.py`: raw RGB
+frames in, padded person detections out. Host preprocessing (or, with
+`device_preprocess`, `preprocess_device` on the card), the EfficientDet
+forward (whose fuseable backbone blocks run the fused MBConv kernels) and
+the post mode `global`, `per_class`, `combined` or `tflite` (whose NMS is
+the CUDA kernel); `serve_streams` batches several frame sources,
+`serve_pipelined` overlaps the host side of the next batch with the card.
 
-`serve_streams`, `serve_pipelined`, device preprocessing, `quantize_int8`,
-`export`, checkpoint paths and meshes are not ported yet; the post modes
-other than "global" raise.
+`quantize_int8`, `export`, checkpoint paths, meshes and `packed_entry` are
+not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -21,11 +23,25 @@ from ..ckpt import bridge
 from ..models.efficientdet import EfficientDetNet, spec_from_config
 from ..models.init import init_weights
 from ..ops import postprocess
-from ..ops.preprocess import preprocess_host
+from ..ops.preprocess import preprocess_device, preprocess_host
 from ..utils.device import resolve_device
 from ..utils.log import get_logger
 
 logger = get_logger(__name__)
+
+POST_MODES = ("global", "per_class", "combined", "tflite")
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1)")
+
+
+def _numpy(det: postprocess.Detections) -> postprocess.Detections:
+    return postprocess.Detections(*(t.cpu().numpy() for t in det))
+
+
+def _row(det: postprocess.Detections, i: int) -> postprocess.Detections:
+    return postprocess.Detections(*(a[i] for a in det))
 
 
 class Detector:
@@ -33,7 +49,8 @@ class Detector:
 
     def __init__(self, model_name: str = "efficientdet-lite4", *,
                  params=None, seed: int = 0, device=None,
-                 post_mode: str = "global"):
+                 post_mode: str = "global", ckpt_path: str | None = None,
+                 mesh=None, packed_entry: int = 0):
         """
         Args:
           model_name: efficientdet variant.
@@ -41,10 +58,19 @@ class Detector:
           seed: seed of the random initial weights (`models/init.py`); load
             trained weights with `load_flax_variables`.
           device: "cuda" (the default) or "cpu".
-          post_mode: only "global" is ported.
+          post_mode: "global", "per_class", "combined" or "tflite"
+            (normalized boxes, 0-based classes, no scale-back).
+          ckpt_path, mesh, packed_entry: not ported yet; anything but the
+            default raises.
         """
-        if post_mode != "global":
-            raise NotImplementedError(f"post_mode {post_mode!r} is not ported yet")
+        if post_mode not in POST_MODES:
+            raise ValueError(f"post_mode {post_mode!r}: want one of {POST_MODES}")
+        if ckpt_path is not None:
+            raise _not_ported("ckpt_path (checkpoint files)")
+        if mesh is not None:
+            raise _not_ported("mesh (distribution)")
+        if packed_entry:
+            raise _not_ported("packed_entry")
         self.device = resolve_device(device)
         self.post_mode = post_mode
         self.config = config_lib.get_efficientdet_config(model_name)
@@ -67,8 +93,22 @@ class Detector:
                       ) -> postprocess.Detections:
         """Preprocessed [B, H, W, 3] images and scales -> Detections on device."""
         cls_out, box_out = self.net(images)
-        return postprocess.postprocess_global(self._params_dict, cls_out,
-                                              box_out, image_scales=scales)
+        if self.post_mode == "tflite":  # normalized boxes, no scale-back
+            return postprocess.postprocess_tflite(self._params_dict, cls_out,
+                                                  box_out)
+        post = {"global": postprocess.postprocess_global,
+                "per_class": postprocess.postprocess_per_class,
+                "combined": postprocess.postprocess_combined}[self.post_mode]
+        return post(self._params_dict, cls_out, box_out, image_scales=scales)
+
+    @torch.no_grad()
+    def serve_raw(self, raw: torch.Tensor) -> postprocess.Detections:
+        """[B, H, W, 3] uint8 frames of one shape, on the device ->
+        Detections on the device, the preprocessing on the device too."""
+        images, scales = preprocess_device(raw, self.config.image_size,
+                                           self.config.mean_rgb,
+                                           self.config.stddev_rgb)
+        return self.serve_tensors(images, scales)
 
     def preprocess(self, raw_frames) -> Tuple[np.ndarray, np.ndarray]:
         """Host preprocessing of raw frames: (images [B, H, W, 3], scales [B])."""
@@ -78,12 +118,20 @@ class Detector:
             for f in raw_frames])
         return np.stack(imgs), np.asarray(scales, np.float32)
 
-    def serve(self, raw_frames) -> postprocess.Detections:
-        """Batch of raw RGB frames -> padded Detections (numpy) in original coords."""
+    def serve(self, raw_frames, *, device_preprocess: bool = False
+              ) -> postprocess.Detections:
+        """Batch of raw RGB frames -> padded Detections (numpy) in original coords.
+
+        device_preprocess=True ships the raw uint8 frames, which must share
+        one shape, and resizes, normalizes and pads them on the device."""
+        if device_preprocess:
+            raw = np.stack([np.asarray(f) for f in raw_frames])
+            if raw.dtype != np.uint8:
+                raise ValueError("device_preprocess expects uint8 frames")
+            return _numpy(self.serve_raw(torch.from_numpy(raw).to(self.device)))
         images, scales = self.preprocess(raw_frames)
-        det = self.serve_tensors(torch.from_numpy(images).to(self.device),
-                                 torch.from_numpy(scales).to(self.device))
-        return postprocess.Detections(*(t.cpu().numpy() for t in det))
+        return _numpy(self.serve_tensors(torch.from_numpy(images).to(self.device),
+                                         torch.from_numpy(scales).to(self.device)))
 
     def infer(self, frame: np.ndarray, max_boxes: int = 200
               ) -> Tuple[List[tuple], List[float]]:
@@ -99,3 +147,78 @@ class Detector:
                 bb.append(tuple(boxes[i].tolist()))
                 sc.append(float(scores[i]))
         return bb, sc
+
+    def serve_streams(self, streams):
+        """Serve several frame sources through one batched call per tick
+        (detector.py:362-386). The batch is pinned to len(streams): a source
+        that has ended is padded with the first frame served and its result
+        dropped. Yields per tick a list of per-source Detections (numpy,
+        leading dim stripped), None for the sources that have ended."""
+        from .streaming import MultiStream
+        n = len(streams)
+        pad = None
+        for indices, frames in MultiStream(streams).play():
+            pad = frames[0] if pad is None else pad
+            batch = [pad] * n
+            for i, f in zip(indices, frames):
+                batch[i] = f
+            det = self.serve(batch)  # host preprocess: mixed sizes are fine
+            out = [None] * n
+            for i in indices:
+                out[i] = _row(det, i)
+            yield out
+
+    def serve_pipelined(self, frames_iter, *, batch_size: int = 1,
+                        device_preprocess: bool = False):
+        """Serve a frame iterator in batches with host/device overlap
+        (detector.py:388-457): a background thread (`data/pipeline.prefetch`)
+        preprocesses and uploads batch t+1 while the device runs batch t. The
+        last partial batch is padded with its last frame to `batch_size` and
+        the padding's results dropped. Yields one Detections per frame, in
+        order. device_preprocess=True uploads raw uint8 frames of one shape
+        and preprocesses them on the device."""
+        from ..data.pipeline import prefetch
+
+        end = object()  # a None from the caller's iterator is an error
+
+        def host_batches():
+            buf, pad_count = [], 0
+            it = iter(frames_iter)
+            while True:
+                frame = next(it, end)
+                if frame is end:
+                    if not buf:
+                        return
+                    pad_count = batch_size - len(buf)
+                    buf.extend([buf[-1]] * pad_count)
+                else:
+                    if frame is None:
+                        raise ValueError("frames_iter yielded None mid-stream")
+                    buf.append(np.asarray(frame))
+                if len(buf) == batch_size:
+                    if device_preprocess:
+                        yield np.stack(buf), None, batch_size - pad_count
+                    else:
+                        images, scales = self.preprocess(buf)
+                        yield images, scales, batch_size - pad_count
+                    if pad_count:
+                        return
+                    buf = []
+
+        def put(item):
+            images, scales, n = item
+            return (torch.from_numpy(images).to(self.device),
+                    None if scales is None
+                    else torch.from_numpy(scales).to(self.device), n)
+
+        for images, scales, n in prefetch(host_batches(), device_put_fn=put):
+            det = _numpy(self.serve_raw(images) if device_preprocess
+                         else self.serve_tensors(images, scales))
+            for i in range(n):
+                yield _row(det, i)
+
+    def quantize_int8(self, *args, **kwargs):
+        raise _not_ported("quantize_int8")
+
+    def export(self, *args, **kwargs):
+        raise _not_ported("export")

@@ -6,8 +6,11 @@ the JAX module's; the layers are `nn.Module`s whose names mirror the Flax
 module names (`stem_conv`, `blocks_3.depthwise_conv`, `blocks_3.bn1`, ...),
 so `ckpt/bridge.py` maps a Flax variable tree onto them by a rename.
 
-Tensors are NCHW inside this module. Two behaviours of the Flax layers are
-reproduced explicitly, because PyTorch's defaults differ:
+Tensors are NCHW inside this module; a fused block (`MBConvBlock`) hands
+its kernel the NHWC view of the same memory, which the activations already
+have, since the detector enters the backbone as a permute of NHWC images.
+Two behaviours of the Flax layers are reproduced explicitly, because
+PyTorch's defaults differ:
 
 - Flax `"SAME"` padding is asymmetric for stride 2: `same_pads`.
 - Flax `BatchNorm` in eval mode computes
@@ -22,6 +25,8 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops import mbconv as mbconv_ops
 
 
 class BlockArgs(NamedTuple):
@@ -255,6 +260,16 @@ class MBConvBlock(nn.Module):
     `in_channels` is the actual input width: the lite stem is unscaled while
     the block args are width-rounded, so block 0 of a lite backbone sees
     fewer channels than `args.input_filters`.
+
+    A block that `ops/mbconv.fuseable` accepts (expansion, stride 1, no
+    squeeze-excite; 25 of lite4's 30 blocks) runs as the fused frozen MBConv
+    (`ops/mbconv.mbconv`): the CUDA kernels for CUDA tensors, the plain
+    version on the CPU, its BatchNorms folded into its convs. The folded
+    weights are cached and refolded when a parameter or statistic changes
+    (its storage or version). Where gradients are on and a weight requires
+    one, the fold is recomputed with autograd so that a backward that needs
+    the weights' gradient reaches the op's refusal instead of a silent zero.
+    The other blocks, and the tests' reference, run `_forward_unfused`.
     """
 
     def __init__(self, args: BlockArgs, spec: BackboneSpec, in_channels: int):
@@ -282,8 +297,36 @@ class MBConvBlock(nn.Module):
         self.bn2 = BatchNorm(args.output_filters, eps)
         self.residual = (args.id_skip and args.strides == (1, 1)
                          and args.input_filters == args.output_filters)
+        self.fuseable = mbconv_ops.fuseable(args, spec.use_se, spec.act_type)
+        self._folded = None  # (key of the source tensors, FoldedBlock)
+
+    def _fold_sources(self) -> Tuple[torch.Tensor, ...]:
+        bns = (self.bn0, self.bn1, self.bn2)
+        return ((self.expand_conv.weight, self.depthwise_conv.weight,
+                 self.project_conv.weight)
+                + tuple(t for bn in bns for t in (bn.weight, bn.bias,
+                                                  bn.running_mean, bn.running_var)))
+
+    def folded(self) -> mbconv_ops.FoldedBlock:
+        """The block's BN-folded weights (cached; see the class docstring)."""
+        sources = self._fold_sources()
+        if torch.is_grad_enabled() and any(t.requires_grad for t in sources):
+            return mbconv_ops.fold_block(self)
+        key = tuple((t.data_ptr(), t._version, t.device) for t in sources)
+        if self._folded is None or self._folded[0] != key:
+            with torch.no_grad():
+                self._folded = (key, mbconv_ops.fold_block(self))
+        return self._folded[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.fuseable:
+            return self._forward_unfused(x)
+        y = mbconv_ops.mbconv(mbconv_ops.nhwc(x.permute(0, 2, 3, 1)),
+                              self.folded(), act_type=self.act_type,
+                              residual=self.residual)
+        return y.permute(0, 3, 1, 2)
+
+    def _forward_unfused(self, x: torch.Tensor) -> torch.Tensor:
         inputs = x
         if self.args.expand_ratio != 1:
             x = activation(self.bn0(self.expand_conv(x)), self.act_type)

@@ -1,0 +1,209 @@
+"""Fused frozen (eval-mode) MBConv block: BN fold, plain versions, autograd.
+
+Port of `tools/experiments/fused_mbconv.py` (`fold_block_params`,
+`mbconv_eval_xla`, `mbconv_eval` with its `custom_vjp`, `fuseable`), whose
+Pallas kernels `_fwd_kernel` and `_bwd_kernel` are the CUDA kernels of
+`csrc/mbconv.cu` (`ops/mbconv_cuda.py`). One block in eval mode:
+
+    e = act(BN0(x . We));  d = act(BN1(dwconv_k(e)));  y = BN2(d . Wp) [+ x]
+
+With frozen BatchNorm statistics each BN is an affine map folded into its
+conv (`fold_bn`), which gives `FoldedBlock`. x and y are NHWC, the TPU
+kernel's layout.
+
+- `mbconv_plain` / `mbconv_dx_plain`: the forward and the input gradient in
+  plain PyTorch, with the kernels' structure (the dx version recomputes e
+  and z1, then applies the transposes). They run on any device. The dx
+  version sums z0 = x . We + be and the depthwise pre-activation z1 in the
+  kernels' order (C ascending, then be; bd, then the taps row by row) with
+  a separate multiply and add, so the kernel reproduces them bit for bit
+  and the relu6 / relu masks of dx agree exactly: with another order an
+  element within a ulp of a kink flips its mask and moves dx by a whole
+  term. The forward has no such mask (act is continuous), so its expand is
+  one matmul, which keeps the CPU path as fast as the unfused blocks.
+- `FusedMBConv` / `mbconv`: the op. Forward: the CUDA kernel for CUDA
+  tensors (which launches or raises), the plain version for CPU tensors.
+  Backward: the dx kernel or `mbconv_dx_plain`; it saves x and the folded
+  weights, no activation. A gradient for the folded weights is refused with
+  an error, as the JAX op refuses one: never silently zero.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+SUPPORTED_ACTS = ("relu6", "relu", "swish", "silu", "swish_native")
+LAYOUT_COPIES = 0  # NHWC copies the fused blocks made of inputs or gradients
+
+
+class FoldedBlock(NamedTuple):
+    """BN-folded weights of one MBConv block (float32)."""
+    we: torch.Tensor  # [C, E]
+    be: torch.Tensor  # [E]
+    wd: torch.Tensor  # [k, k, E]
+    bd: torch.Tensor  # [E]
+    wp: torch.Tensor  # [E, Co]
+    bp: torch.Tensor  # [Co]
+
+
+def fold_bn(scale, bias, mean, var, eps: float):
+    """(s, b) with BN(z) = z * s + b: s = scale * rsqrt(var + eps), b = bias
+    - mean * s (fused_mbconv.py:79-81)."""
+    s = scale * torch.rsqrt(var + eps)
+    return s, bias - mean * s
+
+
+def fold_block(block) -> FoldedBlock:
+    """Fold the three BatchNorms of a port `models.efficientnet.MBConvBlock`
+    into its convs (fused_mbconv.py:84-104); the convs hold OIHW weights."""
+    s0, b0 = fold_bn(block.bn0.weight, block.bn0.bias, block.bn0.running_mean,
+                     block.bn0.running_var, block.bn0.eps)
+    s1, b1 = fold_bn(block.bn1.weight, block.bn1.bias, block.bn1.running_mean,
+                     block.bn1.running_var, block.bn1.eps)
+    s2, b2 = fold_bn(block.bn2.weight, block.bn2.bias, block.bn2.running_mean,
+                     block.bn2.running_var, block.bn2.eps)
+    we = block.expand_conv.weight[:, :, 0, 0].t() * s0[None, :]
+    wd = block.depthwise_conv.weight[:, 0].permute(1, 2, 0) * s1[None, None, :]
+    wp = block.project_conv.weight[:, :, 0, 0].t() * s2[None, :]
+    return FoldedBlock(*(t.contiguous() for t in (we, b0, wd, b1, wp, b2)))
+
+
+def fuseable(args, use_se: bool, act_type: str) -> bool:
+    """Can this block take the fused path? (fused_mbconv.py:436-441)"""
+    return (args.expand_ratio != 1 and tuple(args.strides) == (1, 1)
+            and not (use_se and args.se_ratio) and act_type in SUPPORTED_ACTS)
+
+
+def act(z: torch.Tensor, act_type: str) -> torch.Tensor:
+    if act_type == "relu6":
+        return torch.clamp(z, 0.0, 6.0)
+    if act_type == "relu":
+        return torch.clamp_min(z, 0.0)
+    if act_type in ("swish", "silu", "swish_native"):
+        return z * torch.sigmoid(z)
+    raise ValueError(f"fused MBConv: unsupported act {act_type}")
+
+
+def dact(z: torch.Tensor, act_type: str) -> torch.Tensor:
+    """d act / d z, from the pre-activation z."""
+    if act_type == "relu6":
+        return ((z > 0.0) & (z < 6.0)).to(z.dtype)
+    if act_type == "relu":
+        return (z > 0.0).to(z.dtype)
+    if act_type in ("swish", "silu", "swish_native"):
+        s = torch.sigmoid(z)
+        return s * (1.0 + z * (1.0 - s))
+    raise ValueError(f"fused MBConv: unsupported act {act_type}")
+
+
+def expand_z0(x: torch.Tensor, fb: FoldedBlock) -> torch.Tensor:
+    """z0 = x . We + be over C in ascending order, multiply and add apart."""
+    z = torch.zeros((*x.shape[:-1], fb.we.shape[1]), dtype=x.dtype,
+                    device=x.device)
+    for c in range(x.shape[-1]):
+        z += x[..., c:c + 1] * fb.we[c]
+    return z + fb.be
+
+
+def depthwise_z1(e: torch.Tensor, fb: FoldedBlock) -> torch.Tensor:
+    """z1 = bd + the k x k SAME depthwise of e (zero-padded), taps row by row."""
+    k = fb.wd.shape[0]
+    h = k // 2
+    height, width = e.shape[1], e.shape[2]
+    ep = F.pad(e, (0, 0, h, h, h, h))
+    z = torch.zeros_like(e) + fb.bd
+    for i in range(k):
+        for j in range(k):
+            z += ep[:, i:i + height, j:j + width, :] * fb.wd[i, j]
+    return z
+
+
+def mbconv_plain(x: torch.Tensor, fb: FoldedBlock, *, act_type: str,
+                 residual: bool) -> torch.Tensor:
+    """x [B, H, W, C] -> y [B, H, W, Co] (as `mbconv_eval_xla`, fp32)."""
+    e = act(torch.matmul(x, fb.we) + fb.be, act_type)
+    d = act(depthwise_z1(e, fb), act_type)
+    y = torch.matmul(d, fb.wp) + fb.bp
+    return y + x if residual else y
+
+
+def mbconv_dx_plain(x: torch.Tensor, g: torch.Tensor, fb: FoldedBlock, *,
+                    act_type: str, residual: bool) -> torch.Tensor:
+    """dL/dx from x [B, H, W, C] and g = dL/dy [B, H, W, Co]: recompute z0 and
+    z1, then Wp^T, act'(z1), the depthwise transpose, act'(z0), We^T."""
+    k = fb.wd.shape[0]
+    h = k // 2
+    height, width = x.shape[1], x.shape[2]
+    z0 = expand_z0(x, fb)
+    z1 = depthwise_z1(act(z0, act_type), fb)
+    gd = torch.matmul(g, fb.wp.t()) * dact(z1, act_type)
+    gp = F.pad(gd, (0, 0, h, h, h, h))
+    ge = torch.zeros_like(gd)
+    for i in range(k):
+        for j in range(k):
+            ge += (gp[:, 2 * h - i:2 * h - i + height, 2 * h - j:2 * h - j + width, :]
+                   * fb.wd[i, j])
+    gx = torch.matmul(ge * dact(z0, act_type), fb.we.t())
+    return gx + g if residual else gx
+
+
+def _forward(x, fb: FoldedBlock, act_type: str, residual: bool):
+    if x.is_cuda:
+        from . import mbconv_cuda
+        return mbconv_cuda.mbconv_fwd_cuda(x, fb, act_type=act_type,
+                                           residual=residual)
+    if x.device.type == "cpu":
+        return mbconv_plain(x, fb, act_type=act_type, residual=residual)
+    raise ValueError(f"no fused MBConv for device {x.device}")
+
+
+def _dx(x, g, fb: FoldedBlock, act_type: str, residual: bool):
+    if x.is_cuda:
+        from . import mbconv_cuda
+        return mbconv_cuda.mbconv_dx_cuda(x, g, fb, act_type=act_type,
+                                          residual=residual)
+    if x.device.type == "cpu":
+        return mbconv_dx_plain(x, g, fb, act_type=act_type, residual=residual)
+    raise ValueError(f"no fused MBConv for device {x.device}")
+
+
+def nhwc(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous NHWC tensor of t; copied (and counted) only where t's
+    strides are not already NHWC-contiguous."""
+    global LAYOUT_COPIES
+    if not t.is_contiguous():
+        LAYOUT_COPIES += 1
+        t = t.contiguous()
+    return t
+
+
+class FusedMBConv(torch.autograd.Function):
+    """Frozen MBConv whose forward and input gradient run the kernels."""
+
+    @staticmethod
+    def forward(ctx, x, we, be, wd, bd, wp, bp, act_type, residual):
+        fb = FoldedBlock(we, be, wd, bd, wp, bp)
+        ctx.save_for_backward(x, *fb)
+        ctx.act_type, ctx.residual = act_type, residual
+        return _forward(x, fb, act_type, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        if any(ctx.needs_input_grad[1:7]):
+            raise RuntimeError(
+                "fused MBConv: the folded weights are frozen and have no "
+                "gradient; a block whose weights train cannot take this op")
+        x, *weights = ctx.saved_tensors
+        dx = _dx(x, nhwc(g), FoldedBlock(*weights), ctx.act_type, ctx.residual)
+        return (dx,) + (None,) * 8
+
+
+def mbconv(x: torch.Tensor, fb: FoldedBlock, *, act_type: str,
+           residual: bool) -> torch.Tensor:
+    """The frozen MBConv on x [B, H, W, C] (contiguous NHWC), differentiable
+    in x only (`mbconv_eval`, fused_mbconv.py:405-433)."""
+    if act_type not in SUPPORTED_ACTS:
+        raise ValueError(f"fused MBConv: unsupported act {act_type}")
+    return FusedMBConv.apply(x, *fb, act_type, residual)

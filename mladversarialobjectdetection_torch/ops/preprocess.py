@@ -1,10 +1,11 @@
-"""Host input preprocessing: aspect-preserving resize, normalize, zero-pad.
+"""Input preprocessing: aspect-preserving resize, normalize, zero-pad.
 
 A numpy copy of `preprocess_host`, its resize taps and the dense
 `linear_resize_matrix` from
 `mladversarialobjectdetection_tpu/ops/preprocess.py:28-111`, so that both
 packages feed their networks (and the EOT canvas resize) bit-identical
-values. The device-side variant (`preprocess_jax`) is not ported yet.
+values; and `preprocess_device`, the port of `preprocess_jax` (:114-129)
+for a batch of frames of one shape on the card.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import functools
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from ..utils.image import parse_image_size
 
@@ -94,3 +96,34 @@ def preprocess_host(image: np.ndarray, output_size, mean_rgb, stddev_rgb
     out = np.zeros((*output_size, 3), np.float32)
     out[:scaled_h, :scaled_w, :] = scaled
     return out, 1.0 / scale
+
+
+@functools.lru_cache(maxsize=16)
+def _resize_matrix_on(n_out: int, n_in: int, device: str) -> torch.Tensor:
+    return torch.from_numpy(linear_resize_matrix(n_out, n_in)).to(device)
+
+
+def preprocess_device(images: torch.Tensor, output_size, mean_rgb, stddev_rgb
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`preprocess_jax` over a batch: [B, H, W, 3] frames of one shape (uint8
+    or float) on any device -> (padded [B, h, w, 3] float32, scales [B]).
+
+    Normalize, then the antialiased bilinear resize of
+    `jax.image.resize(..., "bilinear", antialias=True)` as two products with
+    `linear_resize_matrix` (its triangle filter with half-pixel centers; the
+    tests hold it to `preprocess_jax`), then zero-pad bottom and right."""
+    output_size = parse_image_size(output_size)
+    b, h, w = images.shape[:3]
+    dev = images.device
+    x = images.to(torch.float32)
+    x = ((x - torch.as_tensor(mean_rgb, dtype=torch.float32, device=dev))
+         / torch.as_tensor(stddev_rgb, dtype=torch.float32, device=dev))
+    scale = min(output_size[1] / w, output_size[0] / h)
+    scaled_h, scaled_w = int(h * scale), int(w * scale)
+    rows = _resize_matrix_on(scaled_h, h, str(dev))
+    cols = _resize_matrix_on(scaled_w, w, str(dev))
+    scaled = torch.einsum("pw,bowc->bopc", cols,
+                          torch.einsum("oh,bhwc->bowc", rows, x))
+    out = torch.zeros((b, *output_size, 3), dtype=torch.float32, device=dev)
+    out[:, :scaled_h, :scaled_w] = scaled
+    return out, torch.full((b,), 1.0 / scale, dtype=torch.float32, device=dev)

@@ -15,7 +15,11 @@ output's scale, since the weights are the same float32 values and only the
 order of the sums differs; two launches bit-equal (no atomics). cmconv
 kernel vs plain: within CMCONV_TOL of the output's scale (both sum in the
 same order with separate multiplies and adds, so they are expected to be
-bit-equal); two launches bit-equal.
+bit-equal); two launches bit-equal. Fused MBConv kernels vs plain: forward
+within MBCONV_FWD_TOL of max(1, max|plain|) (the 1x1 products sum in
+another order), dx within MBCONV_DX_TOL of max|plain| (z0 and z1, and so
+the relu masks, are bit-equal); two launches bit-equal; and the backbone's
+dispatch counts on the card.
 """
 import numpy as np
 import pytest
@@ -463,3 +467,162 @@ def test_defender_step_on_card_goes_through_kernels(cuda):
     torch.cuda.synchronize()
     assert cmconv_cuda.LAUNCHES - cm0 == 8
     assert rec.shape == images.shape and float(rec.abs().max()) <= 1.0
+
+
+# ---------------------------------------------------------------------------
+# fused frozen MBConv
+# ---------------------------------------------------------------------------
+
+MBCONV_FWD_TOL = 1e-5  # of max(1, max|plain|): the 1x1 products sum in another order
+MBCONV_DX_TOL = 1e-4   # of max|plain|; z0 and z1, and so the relu masks, are bit-equal
+# (id, B, H, W, C, E, Co, k, residual, act)
+MBCONV_CASES = [
+    ("k3_res_relu6", 2, 16, 16, 24, 144, 24, 3, True, "relu6"),
+    ("k5_res_relu6", 2, 20, 20, 40, 240, 40, 5, True, "relu6"),
+    ("k3_c13_co20_relu", 3, 12, 10, 13, 78, 20, 3, False, "relu"),
+    ("k5_swish", 1, 18, 22, 16, 96, 24, 5, False, "swish"),
+    ("k3_res_swish", 2, 9, 9, 32, 192, 32, 3, True, "swish"),
+    ("co_gt_c_272to448", 1, 20, 20, 272, 1632, 448, 3, False, "relu6"),
+    ("1x1_b3_k5", 3, 1, 1, 8, 48, 8, 5, True, "relu6"),
+    ("ragged_13x37", 1, 13, 37, 16, 96, 24, 3, False, "relu6"),
+    ("b1_k5_relu", 1, 10, 12, 24, 144, 24, 5, True, "relu"),
+]
+
+
+def _mbconv_case(cuda, b, h, w, c, e, co, k, seed=0):
+    """x [B, H, W, C] and a FoldedBlock with fan-in scaled random weights."""
+    from mladversarialobjectdetection_torch.ops.mbconv import FoldedBlock
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *shape, s=1.0: (torch.randn(shape, generator=g) * s).to(cuda)
+    fb = FoldedBlock(we=r(c, e, s=2 / c ** 0.5), be=r(e, s=0.5), wd=r(k, k, e, s=2 / k),
+                     bd=r(e, s=0.5), wp=r(e, co, s=2 / e ** 0.5), bp=r(co, s=0.5))
+    return r(b, h, w, c), fb
+
+
+@pytest.mark.parametrize("name,b,h,w,c,e,co,k,residual,act", MBCONV_CASES,
+                         ids=[m[0] for m in MBCONV_CASES])
+def test_mbconv_kernels_match_plain(cuda, name, b, h, w, c, e, co, k, residual, act):
+    from mladversarialobjectdetection_torch.ops import mbconv as pmb
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, fb = _mbconv_case(cuda, b, h, w, c, e, co, k, seed=b * 1000 + c)
+    gy = torch.randn((b, h, w, co), generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = dict(mbconv_cuda.LAUNCHES)
+    kw = dict(act_type=act, residual=residual)
+    y = mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw)
+    dx = mbconv_cuda.mbconv_dx_cuda(x, gy, fb, **kw)
+    y_plain = pmb.mbconv_plain(x, fb, **kw)
+    dx_plain = pmb.mbconv_dx_plain(x, gy, fb, **kw)
+    torch.cuda.synchronize()
+    assert mbconv_cuda.LAUNCHES == {k_: v + 1 for k_, v in before.items()}
+    _close(y, y_plain, "mbconv fwd", MBCONV_FWD_TOL)
+    err = float((dx - dx_plain).abs().max())
+    assert err <= MBCONV_DX_TOL * float(dx_plain.abs().max()), err
+    # no atomics: a second launch repeats bit for bit
+    assert torch.equal(mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw), y)
+    assert torch.equal(mbconv_cuda.mbconv_dx_cuda(x, gy, fb, **kw), dx)
+
+
+def test_mbconv_autograd_on_card_matches_cpu(cuda):
+    from mladversarialobjectdetection_torch.ops import mbconv as pmb
+    x, fb = _mbconv_case(torch.device("cpu"), 2, 12, 14, 16, 96, 16, 5, seed=3)
+    gy = torch.randn((2, 12, 14, 16), generator=torch.Generator().manual_seed(4))
+    grads = []
+    for dev in (torch.device("cpu"), cuda):
+        xx = x.to(dev).clone().requires_grad_(True)
+        fbd = pmb.FoldedBlock(*(t.to(dev) for t in fb))
+        (pmb.mbconv(xx, fbd, act_type="relu6", residual=True) * gy.to(dev)).sum().backward()
+        grads.append(xx.grad.cpu())
+    scale = float(grads[0].abs().max())
+    assert float((grads[1] - grads[0]).abs().max()) <= MBCONV_DX_TOL * scale
+
+
+def test_mbconv_wrapper_rejects_bad_inputs(cuda):
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
+    x, fb = _mbconv_case(cuda, 1, 8, 8, 8, 48, 8, 3)
+    kw = dict(act_type="relu6", residual=True)
+    before = dict(mbconv_cuda.LAUNCHES)
+    with pytest.raises(TypeError, match="float32 only"):
+        mbconv_cuda.mbconv_fwd_cuda(x.double(), fb, **kw)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mbconv_cuda.mbconv_fwd_cuda(x.cpu(), fb, **kw)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mbconv_cuda.mbconv_dx_cuda(x, x.cpu(), fb, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        mbconv_cuda.mbconv_fwd_cuda(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1),
+                                    fb, **kw)
+    with pytest.raises(ValueError, match="k 3 or 5"):
+        x7, fb7 = _mbconv_case(cuda, 1, 8, 8, 8, 48, 8, 7)
+        mbconv_cuda.mbconv_fwd_cuda(x7, fb7, **kw)
+    with pytest.raises(ValueError, match="C == Co"):
+        x2, fb2 = _mbconv_case(cuda, 1, 8, 8, 8, 48, 12, 3)
+        mbconv_cuda.mbconv_fwd_cuda(x2, fb2, **kw)
+    with pytest.raises(ValueError, match="unsupported act"):
+        mbconv_cuda.mbconv_fwd_cuda(x, fb, act_type="hswish", residual=True)
+    # past the 227 KB of shared memory a block may use: the C entry refuses
+    xw, fbw = _mbconv_case(cuda, 1, 8, 8, 8, 48, 1024, 3)
+    with pytest.raises(RuntimeError, match="cudaError_t 1 "):
+        mbconv_cuda.mbconv_fwd_cuda(xw, fbw, act_type="relu6", residual=False)
+    assert mbconv_cuda.LAUNCHES == before
+    y = mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw)  # the context still works
+    assert torch.isfinite(y).all()
+
+
+def _lite0_cfg():
+    cfg = pconfig.get_efficientdet_config("efficientdet-lite0")
+    cfg.override({"image_size": 64, "fpn_num_filters": 16,
+                  "fpn_cell_repeats": 1, "box_class_repeats": 1,
+                  "nms_configs": {"iou_thresh": 0.5, "score_thresh": 0.0099,
+                                  "pre_nms_topk": 64, "max_output_size": 16},
+                  "max_boxes_per_image": 4})
+    return cfg
+
+
+def test_backbone_dispatches_fuseable_blocks_to_kernels(cuda):
+    """lite0 has 11 fuseable blocks of 16: a serve launches the forward
+    kernel 11 times, an attack step 22 forward and 11 dx, a defender step 11
+    forward, eval_step 33; no fuseable block runs unfused on the card."""
+    from mladversarialobjectdetection_torch.models.efficientnet import MBConvBlock
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
+    cfg = _lite0_cfg()
+    unfused = []
+    orig = MBConvBlock._forward_unfused
+
+    def spy(self, x):
+        unfused.append(self.fuseable)
+        return orig(self, x)
+
+    MBConvBlock._forward_unfused = spy
+    try:
+        victim = get_victim(cfg, seed=0, device=cuda)
+        det = Detector("efficientdet-lite0", params={
+            "image_size": 64, "fpn_num_filters": 16, "fpn_cell_repeats": 1,
+            "box_class_repeats": 1}, device=cuda)
+        mbconv_cuda.reset_counts()
+        det.serve([np.zeros((48, 80, 3), np.uint8)])
+        assert mbconv_cuda.LAUNCHES == {"mbconv_fwd": 11, "mbconv_dx": 0}
+        atk = PatchAttacker(cfg, victim, patch_size=32, device=cuda)
+        state = atk.init_state(seed=0)
+        images = torch.rand((2, 64, 64, 3), generator=torch.Generator().manual_seed(2)
+                            ).to(cuda) * 2 - 1
+        boxes = torch.zeros((2, 4, 4))
+        boxes[:, 0] = torch.tensor([4.0, 4.0, 60.0, 60.0])
+        valid = torch.zeros((2, 4), dtype=torch.bool)
+        valid[:, 0] = True
+        mbconv_cuda.reset_counts()
+        atk.train_step(state, images, with_asr=False,
+                       boxes_override=(boxes.to(cuda), valid.to(cuda)))
+        torch.cuda.synchronize()
+        assert mbconv_cuda.LAUNCHES == {"mbconv_fwd": 22, "mbconv_dx": 11}
+        patch = torch.rand((32, 32, 3), generator=torch.Generator().manual_seed(1)) * 2 - 1
+        d = PatchAttackDefender(cfg, victim, eval_patch=patch.numpy(), device=cuda)
+        dstate = d.init_state(0)
+        mbconv_cuda.reset_counts()
+        d.train_step(dstate, images)
+        assert mbconv_cuda.LAUNCHES == {"mbconv_fwd": 11, "mbconv_dx": 0}
+        mbconv_cuda.reset_counts()
+        d.eval_step(dstate, images)
+        assert mbconv_cuda.LAUNCHES == {"mbconv_fwd": 33, "mbconv_dx": 0}
+    finally:
+        MBConvBlock._forward_unfused = orig
+    assert unfused and not any(unfused)  # only e1 and strided blocks ran unfused

@@ -80,9 +80,18 @@ def test_weights_loaded_through_bridge(detectors):
 
 
 def test_unported_post_modes_raise():
-    with pytest.raises(NotImplementedError):
+    """Every post mode of the JAX package is ported; an unknown one raises,
+    and so do the serving options not ported yet."""
+    with pytest.raises(ValueError, match="post_mode"):
         Detector("efficientdet-lite0", params=PARAMS, device="cpu",
-                 post_mode="per_class")
+                 post_mode="per_anchor")
+    for kw in ({"ckpt_path": "ckpt"}, {"mesh": object()}, {"packed_entry": 2}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Detector("efficientdet-lite0", params=PARAMS, device="cpu", **kw)
+    det = Detector("efficientdet-lite0", params=PARAMS, device="cpu")
+    for method in (det.quantize_int8, det.export):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            method()
 
 
 def test_seeded_detectors_repeat():

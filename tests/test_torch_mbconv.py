@@ -1,0 +1,287 @@
+"""The fused frozen MBConv of the port (`ops/mbconv.py`) against the JAX package.
+
+The same numpy-seeded inputs go through the archived JAX module
+`tools/experiments/fused_mbconv.py` and the port:
+- the BatchNorm fold against `fold_block_params` (1e-6 relative: rsqrt may
+  differ by an ulp between XLA and ATen);
+- `mbconv_plain` against `mbconv_eval_xla` and against the Pallas forward
+  kernel in interpret mode, on the JAX test's `CASES` at relu6 and swish,
+  within 1e-5 (the JAX test's bound);
+- the op's autograd input gradient (`mbconv_dx_plain` on the CPU) against
+  `jax.grad` of `mbconv_eval(impl="pallas", interpret=True)`, whose backward
+  is the Pallas dx kernel, within 1e-4 of the gradient's scale;
+- a port `MBConvBlock` against the JAX `MBConvBlock` in eval, 2e-4;
+- a lite0 backbone at 64 px, endpoints within 2e-4 * max(1, max|ref|) and the
+  input gradient at cosine >= 0.9999;
+- the refusal of a weight gradient, the fold cache and the layout copies.
+"""
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mladversarialobjectdetection_tpu.models import efficientnet as jeff
+from mladversarialobjectdetection_torch.ckpt.bridge import load_flax_variables
+from mladversarialobjectdetection_torch.models import efficientnet as peff
+from mladversarialobjectdetection_torch.ops import mbconv as pmb
+from mladversarialobjectdetection_torch.ops import mbconv_cuda
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools" / "experiments"))
+import fused_mbconv as fm  # noqa: E402  the archived TPU kernels
+
+# (C, Co, k, expand, H, W, residual): tools/experiments/test_fused_mbconv.py:45-50
+CASES = [(8, 8, 3, 6, 16, 16, True), (8, 12, 3, 6, 16, 16, False),
+         (8, 8, 5, 6, 20, 20, True)]
+CASE_IDS = ["k3_res", "k3_8to12", "k5_res"]
+ACTS = ["relu6", "swish"]
+
+
+def _folded(rng, c, co, k, e):
+    """A random FoldedBlock as float32 numpy arrays (scale .3, as the JAX test)."""
+    draw = lambda *shape: (rng.normal(size=shape) * 0.3).astype(np.float32)
+    return fm.FoldedBlock(we=draw(c, e), be=draw(e), wd=draw(k, k, e), bd=draw(e),
+                          wp=draw(e, co), bp=draw(co))
+
+
+def _torch_fb(fb):
+    return pmb.FoldedBlock(*(torch.from_numpy(np.asarray(a)) for a in fb))
+
+
+def _jax_fb(fb):
+    return fm.FoldedBlock(*(jnp.asarray(a) for a in fb))
+
+
+def _case(case, seed):
+    c, co, k, expand, h, w, residual = case
+    rng = np.random.RandomState(seed)
+    fb = _folded(rng, c, c if residual else co, k, c * expand)
+    x = rng.normal(size=(2, h, w, c)).astype(np.float32)
+    return fb, x, residual
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_plain_matches_xla_and_pallas(case, act):
+    fb, x, residual = _case(case, 1)
+    out = pmb.mbconv_plain(torch.from_numpy(x), _torch_fb(fb), act_type=act,
+                           residual=residual).numpy()
+    ref = fm.mbconv_eval_xla(jnp.asarray(x), _jax_fb(fb), act_type=act,
+                             residual=residual)
+    kern = fm._mbconv_fwd_pallas(jnp.asarray(x), _jax_fb(fb), act_type=act,
+                                 residual=residual, interpret=True)
+    np.testing.assert_allclose(out, np.asarray(ref), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out, np.asarray(kern), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_autograd_dx_matches_pallas_grad(case, act):
+    fb, x, residual = _case(case, 2)
+    co = fb.wp.shape[1]
+    w = np.random.RandomState(3).normal(size=x.shape[:3] + (co,)).astype(np.float32)
+
+    def loss(xx):
+        y = fm.mbconv_eval(xx, _jax_fb(fb), act_type=act, residual=residual,
+                           impl="pallas", interpret=True)
+        return jnp.sum(y * w)
+
+    ref = np.asarray(jax.grad(loss)(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    (pmb.mbconv(xt, _torch_fb(fb), act_type=act, residual=residual)
+     * torch.from_numpy(w)).sum().backward()
+    scale = float(np.abs(ref).max())
+    np.testing.assert_allclose(xt.grad.numpy() / scale, ref / scale,
+                               rtol=0, atol=1e-4)
+    direct = pmb.mbconv_dx_plain(torch.from_numpy(x), torch.from_numpy(w),
+                                 _torch_fb(fb), act_type=act, residual=residual)
+    np.testing.assert_allclose(direct.numpy() / scale, ref / scale,
+                               rtol=0, atol=1e-4)
+
+
+def _block_pair(case, act="relu6", seed=0):
+    """(JAX block, its variables with redrawn BN, port block, x NHWC)."""
+    c, co, k, expand, h, w, _ = case
+    ba = jeff.BlockArgs(kernel_size=k, num_repeat=1, input_filters=c,
+                        output_filters=co, expand_ratio=expand, id_skip=True,
+                        se_ratio=None, strides=(1, 1))
+    spec = jeff.BackboneSpec(blocks=(), stem_filters=32, act_type=act,
+                             use_se=False, bn_momentum=0.99, bn_epsilon=1e-3,
+                             survival_prob=None)
+    rng = np.random.RandomState(seed)
+    x = rng.normal(size=(2, h, w, c)).astype(np.float32)
+    blk = jeff.MBConvBlock(ba, spec)
+    variables = blk.init({"params": jax.random.PRNGKey(seed)}, jnp.asarray(x),
+                         training=False)
+    p = jax.tree.map(np.asarray, variables["params"])
+    s = jax.tree.map(np.asarray, variables["batch_stats"])
+    for bn in ("bn0", "bn1", "bn2"):
+        n = p[bn]["bn"]["scale"].shape
+        p[bn]["bn"]["scale"] = (np.abs(rng.normal(1.0, 0.3, n)) + 0.1).astype(np.float32)
+        p[bn]["bn"]["bias"] = rng.normal(0.0, 0.5, n).astype(np.float32)
+        s[bn]["bn"]["mean"] = rng.normal(0.0, 0.5, n).astype(np.float32)
+        s[bn]["bn"]["var"] = (np.abs(rng.normal(1.0, 0.3, n)) + 0.1).astype(np.float32)
+    variables = {"params": p, "batch_stats": s}
+    pblk = peff.MBConvBlock(peff.BlockArgs(*ba), peff.BackboneSpec(*spec), c).eval()
+    load_flax_variables(pblk, variables)
+    return blk, variables, pblk, x
+
+
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_fold_matches_fold_block_params(case):
+    _, variables, pblk, _ = _block_pair(case)
+    ref = fm.fold_block_params(variables["params"], variables["batch_stats"], 1e-3)
+    with torch.no_grad():
+        folded = pblk.folded()
+    for name, out, want in zip(pmb.FoldedBlock._fields, folded, ref):
+        np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-7, err_msg=name)
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_block_matches_jax_block(case, act):
+    blk, variables, pblk, x = _block_pair(case, act, seed=4)
+    ref = np.asarray(blk.apply(variables, jnp.asarray(x), training=False))
+    assert pblk.fuseable
+    with torch.no_grad():
+        xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+        fused = pblk(xt).permute(0, 2, 3, 1).numpy()
+        unfused = pblk._forward_unfused(xt).permute(0, 2, 3, 1).numpy()
+    tol = 2e-4 * max(1.0, float(np.abs(ref).max()))
+    np.testing.assert_allclose(fused, ref, rtol=0, atol=tol)
+    np.testing.assert_allclose(unfused, ref, rtol=0, atol=tol)
+
+
+@pytest.fixture(scope="module")
+def lite0_backbone():
+    """(JAX EfficientNet, variables with redrawn BN, port EfficientNet, x)."""
+    spec = jeff.get_backbone_spec("efficientnet-lite0")
+    rng = np.random.RandomState(5)
+    x = rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
+    net = jeff.EfficientNet(spec)
+    variables = jax.jit(net.init, static_argnames=("training",))(
+        {"params": jax.random.PRNGKey(6)}, jnp.asarray(x), training=False)
+
+    def draw(path, leaf):
+        name = path[-1].key
+        if name in ("var", "scale"):
+            return jnp.asarray(rng.uniform(0.5, 1.5, np.shape(leaf)).astype(np.float32))
+        if name in ("mean", "bias"):
+            return jnp.asarray(rng.uniform(-0.3, 0.3, np.shape(leaf)).astype(np.float32))
+        return leaf
+
+    variables = jax.tree_util.tree_map_with_path(draw, variables)
+    pnet = peff.EfficientNet(peff.get_backbone_spec("efficientnet-lite0")).eval()
+    load_flax_variables(pnet, variables)
+    for p in pnet.parameters():
+        p.requires_grad_(False)
+    return net, variables, pnet, x
+
+
+def test_lite0_backbone_matches_jax(lite0_backbone):
+    net, variables, pnet, x = lite0_backbone
+    blocks = [getattr(pnet, f"blocks_{i}") for i in range(len(pnet.spec.blocks))]
+    # lite0: block 0 is e1; blocks 1, 3, 5 and 11 have stride 2
+    assert [i for i, b in enumerate(blocks) if not b.fuseable] == [0, 1, 3, 5, 11]
+    rng = np.random.RandomState(7)
+    refs = net.apply(variables, jnp.asarray(x), training=False)
+    ws = [rng.normal(size=np.shape(r)).astype(np.float32) for r in refs]
+
+    def loss(xx):
+        outs = net.apply(variables, xx, training=False)
+        return sum(jnp.sum(o * w) for o, w in zip(outs, ws))
+
+    ref_grad = np.asarray(jax.grad(loss)(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    outs = pnet(xt.permute(0, 3, 1, 2))
+    assert len(outs) == len(refs)
+    for out, ref in zip(outs, refs):
+        ref = np.asarray(ref)
+        got = out.detach().permute(0, 2, 3, 1).numpy()
+        tol = 2e-4 * max(1.0, float(np.abs(ref).max()))
+        np.testing.assert_allclose(got, ref, rtol=0, atol=tol)
+    sum((o.permute(0, 2, 3, 1) * torch.from_numpy(w)).sum()
+        for o, w in zip(outs, ws)).backward()
+    g, r = xt.grad.numpy().ravel(), ref_grad.ravel()
+    cosine = float(g @ r / (np.linalg.norm(g) * np.linalg.norm(r)))
+    assert cosine >= 0.9999, cosine
+
+
+def test_lite4_has_25_fuseable_blocks():
+    spec = peff.get_backbone_spec("efficientnet-lite4")
+    unfused = [i for i, ba in enumerate(spec.blocks)
+               if not pmb.fuseable(ba, spec.use_se, spec.act_type)]
+    assert len(spec.blocks) == 30 and unfused == [0, 1, 5, 9, 21]
+    # the non-lite backbones have squeeze-excite: nothing fuses
+    b0 = peff.get_backbone_spec("efficientnet-b0")
+    assert not any(pmb.fuseable(ba, b0.use_se, b0.act_type) for ba in b0.blocks)
+
+
+def test_weight_gradient_raises():
+    """A backward that would need the folded weights' gradient refuses, as
+    the JAX op does (test_fused_mbconv.py:143-161): never a silent zero."""
+    _, _, pblk, x = _block_pair(CASES[0])
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_(True)
+    y = pblk(xt)  # trainable-flagged weights: the forward still runs
+    with pytest.raises(RuntimeError, match="frozen"):
+        y.sum().backward()
+    fb = _torch_fb(_case(CASES[0], 8)[0])
+    we = fb.we.clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="frozen"):
+        pmb.mbconv(torch.from_numpy(x), fb._replace(we=we), act_type="relu6",
+                   residual=True).sum().backward()
+    for p in pblk.parameters():
+        p.requires_grad_(False)
+    xt.grad = None
+    pblk(xt).sum().backward()  # frozen weights: the input gradient only
+    assert xt.grad is not None and torch.isfinite(xt.grad).all()
+
+
+def test_fold_cache_follows_the_weights():
+    _, variables, pblk, _ = _block_pair(CASES[1])
+    with torch.no_grad():
+        first = pblk.folded()
+        assert pblk.folded() is first  # cached: no refold per call
+        pblk.bn1.running_var.mul_(2.0)
+        second = pblk.folded()
+        assert second is not first and not torch.equal(second.wd, first.wd)
+        load_flax_variables(pblk, variables)
+        third = pblk.folded()
+        assert third is not second and torch.equal(third.wd, first.wd)
+
+
+def test_layout_copies_only_where_strides_demand():
+    _, _, pblk, x = _block_pair(CASES[0])
+    before = pmb.LAYOUT_COPIES
+    with torch.no_grad():
+        pblk(torch.from_numpy(x).permute(0, 3, 1, 2))  # NHWC memory: no copy
+        assert pmb.LAYOUT_COPIES == before
+        pblk(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous())
+        assert pmb.LAYOUT_COPIES == before + 1
+
+
+def test_op_refuses_unsupported_act_and_device():
+    fb = _torch_fb(_case(CASES[0], 9)[0])
+    with pytest.raises(ValueError, match="unsupported act"):
+        pmb.mbconv(torch.zeros((1, 4, 4, 8)), fb, act_type="hswish", residual=True)
+    with pytest.raises(ValueError, match="device"):
+        pmb.mbconv(torch.zeros((1, 4, 4, 8), device="meta"), fb,
+                   act_type="relu6", residual=True)
+
+
+def test_cuda_wrappers_refuse_before_any_build():
+    """dtype, device and layout are checked before the kernel is built."""
+    fb = _torch_fb(_case(CASES[0], 10)[0])
+    x = torch.zeros((1, 4, 4, 8))
+    before = dict(mbconv_cuda.LAUNCHES)
+    with pytest.raises(TypeError, match="float32 only"):
+        mbconv_cuda.mbconv_fwd_cuda(x.double(), fb, act_type="relu6", residual=True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mbconv_cuda.mbconv_fwd_cuda(x, fb, act_type="relu6", residual=True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mbconv_cuda.mbconv_dx_cuda(x, x, fb, act_type="relu6", residual=True)
+    assert mbconv_cuda.LAUNCHES == before

@@ -110,12 +110,21 @@ def test_pre_nms_select_candidate_order(tied):
     np.testing.assert_allclose(out[0].numpy(), np.asarray(ref[0]), rtol=0, atol=1e-3)
 
 
-def test_pre_nms_approx_topk_raises():
-    params = _params(pre_nms_approx_topk=True)
-    cls, box = _head_outputs(params, np.random.RandomState(3))
-    with pytest.raises(NotImplementedError):
-        ppost._pre_nms_select(params, [torch.from_numpy(c) for c in cls],
-                              [torch.from_numpy(b) for b in box])
+@pytest.mark.parametrize("approx", [True, 0.9], ids=["recall_default", "recall_0.9"])
+def test_pre_nms_approx_topk_raises(approx):
+    """`pre_nms_approx_topk` no longer raises: the port's exact top-k picks
+    the candidates that JAX's `lax.approx_max_k` picks off the TPU, in the
+    same order, ties included."""
+    params = _params(pre_nms_approx_topk=approx, pre_nms_topk=64)
+    values = np.asarray([-4.0, -1.5, 0.25, 1.0], np.float32)
+    cls, box = _head_outputs(params, np.random.RandomState(3), values=values)
+    ref = jpost._pre_nms_select(params, [jnp.asarray(c) for c in cls],
+                                [jnp.asarray(b) for b in box])
+    out = ppost._pre_nms_select(params, [torch.from_numpy(c) for c in cls],
+                                [torch.from_numpy(b) for b in box])
+    np.testing.assert_array_equal(out[1].numpy(), np.asarray(ref[1]))
+    np.testing.assert_array_equal(out[2].numpy(), np.asarray(ref[2]))
+    np.testing.assert_allclose(out[0].numpy(), np.asarray(ref[0]), rtol=0, atol=1e-3)
 
 
 @pytest.mark.parametrize("nms", [
