@@ -9,11 +9,17 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
 
 1. build: compile every kernel of `mladversarialobjectdetection_torch/csrc`
    with nvcc, one process per source, all at once (`_build.build_all`), and
-   print each kernel's ptxas line;
-1a. fused MBConv kernels vs plain on odd shapes: 1x1 and 13x37 maps, C not
-   a multiple of 4, Co > C, relu / relu6 / swish, k3 / k5; forward within
+   print each kernel's ptxas line (each template instance of the fused
+   MBConv kernels: registers, shared memory, spills); a spill in a
+   main-path kernel fails;
+1a. fused MBConv kernels vs plain on odd shapes and on one shape per regime
+   of the tile plan: 1x1 and 13x37 maps, C not a multiple of 4, Co > C,
+   relu / relu6 / swish, k3 / k5, a split of E at 20x20 with B = 1, the
+   16x16 tile, W under the tile, Co and C of 700; forward within
    MBCONV_FWD_TOL of max(1, max|plain|), dx within MBCONV_DX_TOL of
-   max|plain|; two launches bit-equal;
+   max|plain| of the plain dx fed the kernel's own relu masks, each mask
+   that differs from the plain version's within MBCONV_KINK_TOL of its kink;
+   two launches bit-equal;
 2. NMS kernel vs plain: the NMS kernel against its plain PyTorch version on
    the card, at B=8, N=1024, M=100 (hard and gaussian) and on edge cases:
    indices, valid, valid_len and boxes exactly equal, scores within 1e-6;
@@ -50,8 +56,9 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    against its plain version, timed beside its bound and the plain time;
 6a. fused MBConv kernels in the step: the forward of the 25 blocks of the
    gradient-carrying pass and their 25 dx launches, on the inputs the step
-   gave them, against the plain versions, timed beside the bound, the plain
-   time and the unfused block (cuDNN, TF32 off);
+   gave them, against the plain versions (as in 1a, the mask flips counted),
+   timed beside the fp32 and 3xTF32 bounds, the plain time, the unfused
+   block (cuDNN, TF32 off) and the kernels' SIMT ablation on the same plan;
 7. driver: `attack.train.train` for 3 steps at batch 12 with a score
    threshold the random victim passes, so the warp runs on its detections;
    its metrics log and patch artifacts must be written;
@@ -128,21 +135,32 @@ WARP_REPLACES = {  # the Pallas kernels of v1; v2's are listed in PERF.md
     "pass2_bwd": "tools/experiments/pallas_warp.py:139",
     "pass1_bwd": "tools/experiments/pallas_warp.py:89",
 }
-# fused MBConv kernels vs plain: the forward's 1x1 products sum in another
-# order (of max(1, max|plain|)); dx within MBCONV_DX_TOL of max|plain|, its
-# relu masks bit-equal because z0 and z1 are
+# fused MBConv kernels vs plain: the kernels' 1x1 products are 3xTF32 on the
+# tensor cores, summed in another order (forward within MBCONV_FWD_TOL of
+# max(1, max|plain|)); dx within MBCONV_DX_TOL of max|plain| of the plain dx
+# fed the kernel's own relu masks, and every element whose mask differs from
+# the plain version's within MBCONV_KINK_TOL * max(1, max|z|) of its kink
 MBCONV_FWD_TOL = 1e-5
 MBCONV_DX_TOL = 1e-4
+MBCONV_KINK_TOL = 1e-5
+# the 1x1 products at the 3xTF32 rate: three TF32 tensor-core products each
+TC3_FLOP_PER_S = 495e12 / 3
 MBCONV_PER_PASS = 25   # lite4's fuseable blocks: all but 0 (e1), 1, 5, 9, 21
 UNFUSED_PER_PASS = 5
 MBCONV_REPLACES = {"fwd": "tools/experiments/fused_mbconv.py:212",
                    "dx": "tools/experiments/fused_mbconv.py:282"}
 # (name, B, H, W, C, E, Co, k, residual, act): shapes off the path's
+# and one per regime of the tile plan (ops/mbconv_cuda.plan_fwd / plan_dx)
 MBCONV_ODD = [("1x1 b3 k5", 3, 1, 1, 8, 48, 8, 5, True, "relu6"),
               ("13x37 k3", 1, 13, 37, 16, 96, 24, 3, False, "relu6"),
               ("C13 -> 20 relu", 3, 12, 10, 13, 78, 20, 3, False, "relu"),
               ("k5 swish", 2, 18, 22, 16, 96, 24, 5, False, "swish"),
-              ("272 -> 448 at 20x20", 8, 20, 20, 272, 1632, 448, 3, False, "relu6")]
+              ("272 -> 448 at 20x20", 8, 20, 20, 272, 1632, 448, 3, False, "relu6"),
+              ("split E at 20x20 b1 k5", 1, 20, 20, 272, 1632, 272, 5, True, "relu6"),
+              ("16x16 tile at 96x96", 2, 96, 96, 32, 192, 32, 3, True, "relu6"),
+              ("W < tile 24x5 k5", 2, 24, 5, 56, 336, 56, 5, True, "relu"),
+              ("Co 700 > C, C 30", 1, 12, 12, 30, 180, 700, 3, False, "relu6"),
+              ("C 700 in dx", 1, 10, 10, 700, 1400, 700, 3, True, "relu6")]
 ATTACK_BATCH = 24
 ATTACK_WINDOW = 320
 ATTACK_STEPS = 3
@@ -325,24 +343,39 @@ def kernel_device_ms(fn, kernel: str, iters: int = 10, sessions: int = 3) -> flo
 
 
 def kernel_name(mangled: str) -> str:
-    """The `*_kernel` component of an Itanium-mangled entry name."""
+    """The `*_kernel` component of an Itanium-mangled entry name, with its
+    integer and bool template arguments: `mbconv_fwd_kernel<3,8,8,8,1,1>`."""
+    import re
+
     names, i = [], 0
     while i < len(mangled):
         digits = len(mangled[i:]) - len(mangled[i:].lstrip("0123456789"))
         if digits:
             n = int(mangled[i:i + digits])
-            names.append(mangled[i + digits:i + digits + n])
+            names.append((mangled[i + digits:i + digits + n], i + digits + n))
             i += digits + n
         else:
             i += 1
-    hits = [x for x in names if x.endswith("_kernel")]
-    return hits[-1] if hits else mangled
+    hits = [(x, end) for x, end in names if x.endswith("_kernel")]
+    if not hits:
+        return mangled
+    name, end = hits[-1]
+    args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[end:])
+    if args:
+        name += "<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">"
+    return name
+
+
+# libraries on the main path: a spill in their kernels fails phase 1
+MAIN_PATH_LIBS = ("nms", "warp", "cmconv", "mbconv", "mbconv_dx")
 
 
 def print_ptxas(libs) -> None:
-    """Each kernel's registers, shared memory and spills from nvcc's log."""
+    """Each kernel's registers, shared memory and spills from nvcc's log;
+    fail on a spill in a main-path library."""
     import re
 
+    spills = []
     for lib, path in libs.items():
         kernel = "?"
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -351,6 +384,11 @@ def print_ptxas(libs) -> None:
                 kernel = kernel_name(m.group(1))
             elif "registers" in line or "spill" in line:
                 print(f"  ptxas {lib}/{kernel}: {line.strip()}")
+                m = re.search(r"(\d+) bytes spill stores", line)
+                if m and int(m.group(1)) and lib in MAIN_PATH_LIBS:
+                    spills.append(f"{lib}/{kernel}")
+    if spills:
+        fail(f"register spills in main-path kernels: {spills}")
 
 
 def nms_numbers(boxes, scores, kw, label: str):
@@ -608,7 +646,11 @@ def mbconv_case(dev, b, h, w, c, e, co, k, seed):
 
 def check_mbconv(name, x, g, fb, act_type, residual):
     """Both fused MBConv kernels against the plain versions on the same CUDA
-    tensors, each launched twice bit-equal. Returns (fwd error, dx error)."""
+    tensors, each launched twice bit-equal. For relu6 / relu, dx is held to
+    the plain dx fed the masks the kernel's masks instance wrote, and every
+    mask that differs from the plain version's must lie within
+    MBCONV_KINK_TOL of its kink. Returns (fwd error, dx error, (z0 flips,
+    z1 flips, worst flip distance of scale))."""
     import torch
     from mladversarialobjectdetection_torch.ops import mbconv, mbconv_cuda
 
@@ -616,7 +658,21 @@ def check_mbconv(name, x, g, fb, act_type, residual):
     y = mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw)
     dx = mbconv_cuda.mbconv_dx_cuda(x, g, fb, **kw)
     plain_y = mbconv.mbconv_plain(x, fb, **kw)
-    plain_dx = mbconv.mbconv_dx_plain(x, g, fb, **kw)
+    flips = (0, 0, 0.0)
+    if act_type in ("relu6", "relu"):
+        b, h, w, _ = x.shape
+        masks = torch.empty((2, b, h, w, fb.we.shape[1]), dtype=torch.uint8, device=x.device)
+        mbconv_cuda.mbconv_dx_cuda(x, g, fb, masks_out=masks, **kw)
+        plain_masks, z0, z1 = mbconv.dx_masks(x, fb, act_type=act_type)
+        flips = mbconv.kink_flips(masks, plain_masks, z0, z1, act_type)
+        del plain_masks, z0, z1
+        plain_dx = mbconv.mbconv_dx_plain(x, g, fb, masks=masks, **kw)
+        del masks
+        if not flips[2] <= MBCONV_KINK_TOL:
+            fail(f"mbconv dx {name}: a mask flip lies {flips[2]} of scale from its "
+                 f"kink (> {MBCONV_KINK_TOL}); flips z0 {flips[0]}, z1 {flips[1]}")
+    else:
+        plain_dx = mbconv.mbconv_dx_plain(x, g, fb, **kw)
     errs = (float((y - plain_y).abs().max()), float((dx - plain_dx).abs().max()))
     limits = (MBCONV_FWD_TOL * max(1.0, float(plain_y.abs().max())),
               MBCONV_DX_TOL * float(plain_dx.abs().max()))
@@ -626,33 +682,37 @@ def check_mbconv(name, x, g, fb, act_type, residual):
     if not (torch.equal(mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw), y)
             and torch.equal(mbconv_cuda.mbconv_dx_cuda(x, g, fb, **kw), dx)):
         fail(f"mbconv {name}: two launches differ")
-    return errs
+    return errs + (flips,)
 
 
 def mbconv_bound(x_shape, e: int, co: int, k: int, residual: bool, dx: bool):
-    """(bound ms, bound_by, bytes, ops) of one fused MBConv launch on x
-    [B, H, W, C]: x, g and the output read or written once and the folded
-    weights read once, over the HBM rate; the multiply-adds and bias adds
-    per output pixel (the activations not counted), over the fp32 rate.
-    Forward: expand 2CE + E, depthwise 2k^2E + E, project 2ECo + Co (+ Co
-    residual). dx: the recomputed expand and depthwise, g . Wp^T 2ECo,
-    act'(z1) E, the depthwise transpose 2k^2E, act'(z0) E, . We^T 2EC (+ C)."""
+    """(bound ms, bound_by, bytes, ops, 3xTF32 bound ms) of one fused MBConv
+    launch on x [B, H, W, C]: x, g and the output read or written once and
+    the folded weights read once, over the HBM rate; the multiply-adds and
+    bias adds per output pixel (the activations not counted), over the fp32
+    rate. Forward: expand 2CE + E, depthwise 2k^2E + E, project 2ECo + Co (+
+    Co residual). dx: the recomputed expand and depthwise, g . Wp^T 2ECo,
+    act'(z1) E, the depthwise transpose 2k^2E, act'(z0) E, . We^T 2EC (+ C).
+    The second bound takes the 1x1 products (2CE, 2ECo, and in dx 2ECo and
+    2EC) at the 3xTF32 rate of the tensor cores and the rest at the fp32
+    rate, or the bytes where they take longer."""
     b, h, w, c = x_shape
     pixels = b * h * w
     weights = c * e + e + k * k * e + e + e * co + (0 if dx else co)
     if dx:
-        per_pixel = (2 * c * e + e + 2 * k * k * e + e + 2 * e * co + e
-                     + 2 * k * k * e + e + 2 * e * c + (c if residual else 0))
+        products = 2 * c * e + 2 * e * co + 2 * e * c
+        rest = e + 2 * k * k * e + e + e + 2 * k * k * e + e + (c if residual else 0)
         nbytes = 4 * (pixels * (2 * c + co) + weights)
     else:
-        per_pixel = (2 * c * e + e + 2 * k * k * e + e + 2 * e * co + co
-                     + (co if residual else 0))
+        products = 2 * c * e + 2 * e * co
+        rest = e + 2 * k * k * e + e + co + (co if residual else 0)
         nbytes = 4 * (pixels * (c + co) + weights)
-    ops = pixels * per_pixel
+    ops = pixels * (products + rest)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_FLOP_PER_S * 1e3
+    tc_ms = (pixels * products / TC3_FLOP_PER_S + pixels * rest / FP32_FLOP_PER_S) * 1e3
     return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
-            nbytes, ops)
+            nbytes, ops, max(bytes_ms, tc_ms))
 
 
 def same_detections(name, a, b, exact_scores: bool = True) -> float:
@@ -783,10 +843,16 @@ def main() -> int:
                         generator=torch.Generator(dev).manual_seed(i))
         errs = check_mbconv(name, x, g, fb, act, res)
         mb_errs = {"fwd": max(mb_errs["fwd"], errs[0]), "dx": max(mb_errs["dx"], errs[1])}
+        pf = mbconv_cuda.plan_fwd(h, w, c, e, co, k, b)
+        pd = mbconv_cuda.plan_dx(h, w, c, e, co, k, b)
         print(f"  mbconv {name} (b{b} {h}x{w}, C {c}, E {e}, Co {co}, k{k}, "
               f"{act}{', residual' if res else ''}): max errors fwd {errs[0]:.3g}, "
-              f"dx {errs[1]:.3g}, two launches bit-equal")
-    print(f"phase 1a mbconv kernels vs plain: {len(MBCONV_ODD)} odd shapes, max "
+              f"dx {errs[1]:.3g} (mask flips z0 {errs[2][0]}, z1 {errs[2][1]}, at most "
+              f"{errs[2][2]:.3g} of scale from the kink), two launches bit-equal; "
+              f"plans fwd {pf.th}x{pf.tw} npw {pf.npw} split {pf.split} slice "
+              f"{pf.n_per_slice}, dx {pd.th}x{pd.tw} npw {pd.npw} split {pd.split} "
+              f"slice {pd.n_per_slice}")
+    print(f"phase 1a mbconv kernels vs plain: {len(MBCONV_ODD)} shapes, max "
           f"errors {mb_errs}")
     del x, g, fb
 
@@ -1144,7 +1210,9 @@ def main() -> int:
         getattr(atk.net.backbone, f"blocks_{i}")
         for i in range(len(atk.net.backbone.spec.blocks))) if b.fuseable]
     mb_tot = {k: dict.fromkeys(("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms",
-                                "unfused_ms"), 0.0) for k in ("fwd", "dx")}
+                                "unfused_ms", "simt_ms", "bound_tc_ms"), 0.0)
+              for k in ("fwd", "dx")}
+    mb_flips = [0, 0, 0.0]
     for j, (idx, blk) in enumerate(blocks):
         (x, fb), kw = fwd_calls[MBCONV_PER_PASS + j]
         (xd, g, _), _ = dx_calls[MBCONV_PER_PASS - 1 - j]
@@ -1152,6 +1220,8 @@ def main() -> int:
             fail(f"block {idx}: the dx call's x is not the forward's")
         errs = check_mbconv(f"block {idx} step inputs", x, g, fb, **kw)
         mb_errs = {"fwd": max(mb_errs["fwd"], errs[0]), "dx": max(mb_errs["dx"], errs[1])}
+        mb_flips = [mb_flips[0] + errs[2][0], mb_flips[1] + errs[2][1],
+                    max(mb_flips[2], errs[2][2])]
         xr = x.permute(0, 3, 1, 2)
         xg = xr.detach().requires_grad_(True)
         gr = g.permute(0, 3, 1, 2)
@@ -1162,38 +1232,73 @@ def main() -> int:
 
         e, co = fb.wp.shape
         k = fb.wd.shape[0]
+        b_, h_, w_, c_ = x.shape
+        plans = {"fwd": mbconv_cuda.plan_fwd(h_, w_, c_, e, co, k, b_),
+                 "dx": mbconv_cuda.plan_dx(h_, w_, c_, e, co, k, b_)}
+        # kernel, plain, unfused (cuDNN), the SIMT ablation on the same plan;
+        # the kernel and the ablation in turns: kernel, ablation, ablation, kernel
+        fns = {"fwd": (lambda: mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw),
+                       lambda: mbconv_cuda.mbconv_fwd_simt(x, fb, **kw)),
+               "dx": (lambda: mbconv_cuda.mbconv_dx_cuda(x, g, fb, **kw),
+                      lambda: mbconv_cuda.mbconv_dx_simt(x, g, fb, **kw))}
+        times, simt_err = {}, {}
+        for kind, (kern_fn, simt_fn) in fns.items():
+            ref = kern_fn()
+            simt_err[kind] = float((simt_fn() - ref).abs().max()) / max(
+                1.0, float(ref.abs().max()))
+            del ref
+            t = [cuda_ms(kern_fn, iters=5), cuda_ms(simt_fn, iters=3),
+                 cuda_ms(simt_fn, iters=3), cuda_ms(kern_fn, iters=5)]
+            times[kind] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
         times = {
-            "fwd": (cuda_ms(lambda: mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw), iters=5),
-                    cuda_ms(lambda: mbconv.mbconv_plain(x, fb, **kw), iters=1, warmup=1),
-                    cuda_ms(lambda: blk._forward_unfused(xr), iters=5)),
-            "dx": (cuda_ms(lambda: mbconv_cuda.mbconv_dx_cuda(x, g, fb, **kw), iters=5),
-                   cuda_ms(lambda: mbconv.mbconv_dx_plain(x, g, fb, **kw), iters=1,
-                           warmup=1),
-                   cuda_ms(unfused_fwd_dx, iters=3))}
+            "fwd": times["fwd"] + (
+                cuda_ms(lambda: mbconv.mbconv_plain(x, fb, **kw), iters=1, warmup=1),
+                cuda_ms(lambda: blk._forward_unfused(xr), iters=5)),
+            "dx": times["dx"] + (
+                cuda_ms(lambda: mbconv.mbconv_dx_plain(x, g, fb, **kw), iters=1, warmup=1),
+                cuda_ms(unfused_fwd_dx, iters=3))}
+        if not simt_err["fwd"] <= MBCONV_FWD_TOL:
+            fail(f"block {idx}: the SIMT ablation's forward differs from the "
+                 f"kernel's by {simt_err['fwd']} of scale")
         line = []
-        for kind, (kern_ms, plain_ms, unf_ms) in times.items():
-            bound_ms, bound_by, nbytes, ops = mbconv_bound(
+        for kind, (kern_ms, simt_ms, plain_ms, unf_ms) in times.items():
+            bound_ms, bound_by, nbytes, ops, bound_tc_ms = mbconv_bound(
                 tuple(x.shape), e, co, k, kw["residual"], kind == "dx")
             tot = mb_tot[kind]
             tot["ms"] += kern_ms
+            tot["simt_ms"] += simt_ms
             tot["plain_ms"] += plain_ms
             tot["bound_ms"] += bound_ms
+            tot["bound_tc_ms"] += bound_tc_ms
             tot["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
             tot["ops_ms"] += ops / FP32_FLOP_PER_S * 1e3
             tot["unfused_ms"] += unf_ms
-            line.append(f"{kind} kernel {kern_ms:.4f} ms, plain {plain_ms:.4f}, "
-                        f"unfused {'fwd+dx ' if kind == 'dx' else ''}{unf_ms:.4f}, "
-                        f"bound {bound_ms:.6f} ({bound_by}: {nbytes} B, {ops} ops), "
-                        f"{bound_ms / kern_ms:.1%} of it, error {errs[kind == 'dx']:.3g}")
+            p = plans[kind]
+            line.append(f"{kind} kernel {kern_ms:.4f} ms (plan {p.th}x{p.tw} npw {p.npw} "
+                        f"split {p.split} slice {p.n_per_slice}), SIMT ablation "
+                        f"{simt_ms:.4f} (off the kernel by {simt_err[kind]:.3g} of "
+                        f"scale), plain {plain_ms:.4f}, unfused "
+                        f"{'fwd+dx ' if kind == 'dx' else ''}{unf_ms:.4f} (kernel / "
+                        f"unfused {kern_ms / unf_ms:.3f}), bound {bound_ms:.6f} "
+                        f"({bound_by}: {nbytes} B, {ops} ops; {bound_ms / kern_ms:.1%}), "
+                        f"3xTF32 bound {bound_tc_ms:.6f} ({bound_tc_ms / kern_ms:.1%}), "
+                        f"error {errs[kind == 'dx']:.3g}")
         print(f"  mbconv block {idx:2d} {tuple(x.shape)} E {e} Co {co} k{k}"
-              f"{' res' if kw['residual'] else ''}: " + "; ".join(line))
+              f"{' res' if kw['residual'] else ''}: " + "; ".join(line)
+              + f"; dx mask flips z0 {errs[2][0]}, z1 {errs[2][1]} (at most "
+              f"{errs[2][2]:.3g} of scale from the kink)")
     for kind, tot in mb_tot.items():
         tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
         print(f"  mbconv {kind} per pass ({MBCONV_PER_PASS} launches): kernel "
-              f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, unfused "
+              f"{tot['ms']:.4f} ms, SIMT ablation {tot['simt_ms']:.4f} ms, plain "
+              f"{tot['plain_ms']:.4f} ms, unfused "
               f"{'forward + input gradient ' if kind == 'dx' else ''}(cuDNN) "
-              f"{tot['unfused_ms']:.4f} ms, bound {tot['bound_ms']:.6f} ms "
-              f"({tot['bound_by']}), {tot['bound_ms'] / tot['ms']:.1%} of the bound")
+              f"{tot['unfused_ms']:.4f} ms (kernel / unfused "
+              f"{tot['ms'] / tot['unfused_ms']:.3f}), bound {tot['bound_ms']:.6f} ms "
+              f"({tot['bound_by']}, {tot['bound_ms'] / tot['ms']:.1%} of it), 3xTF32 "
+              f"bound {tot['bound_tc_ms']:.6f} ms ({tot['bound_tc_ms'] / tot['ms']:.1%})")
+    print(f"  mbconv dx mask flips at the step's inputs: z0 {mb_flips[0]}, z1 "
+          f"{mb_flips[1]}, each within {mb_flips[2]:.3g} of scale of its kink")
     print(f"phase 6a mbconv kernels at the step's inputs: max errors {mb_errs}")
     del cap, canvases, t_in, g_in, dt_in, atk, state, images, patch, patch0
     del fwd_calls, dx_calls, x, xd, g, fb, xr, xg, gr, blocks, blk
@@ -1488,7 +1593,8 @@ def main() -> int:
             "replaces": MBCONV_REPLACES[kind],
             "launches": attack_mb[f"mbconv_{kind}"], "max_abs_err": mb_errs[kind],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-            "bound_by": tot["bound_by"], "library_ms": None})
+            "bound_by": tot["bound_by"], "library_ms": None,
+            "unfused_ms": tot["unfused_ms"], "bound_tc_ms": tot["bound_tc_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

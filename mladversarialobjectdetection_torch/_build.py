@@ -1,8 +1,8 @@
 """Build the port's CUDA kernels with nvcc at first use and load them with ctypes.
 
 Each `csrc/<name>.cu` becomes its own shared library with a plain C
-interface, `_build/<name>-<hash>.so`, where the hash covers the source and
-the flags; an existing library is reused. The compiler's `-Xptxas -v` report
+interface, `_build/<name>-<hash>.so`, where the hash covers the source, the
+files of `csrc/` it includes and the flags; an existing library is reused. The compiler's `-Xptxas -v` report
 (registers, shared memory, spills) is kept beside each library as
 `<name>-<hash>.log`.
 
@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -27,10 +28,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
+def _sources(path: Path):
+    """path and the files of csrc/ it includes with `#include "..."`, in order."""
+    text = path.read_bytes()
+    yield text
+    for inc in re.findall(rb'^#include "([^"]+)"', text, flags=re.M):
+        yield from _sources(CSRC_DIR / inc.decode())
+
+
 def library_path(name: str) -> Path:
-    """Where `csrc/<name>.cu` builds to, keyed by its source and the flags."""
+    """Where `csrc/<name>.cu` builds to, keyed by its sources and the flags."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    digest.update((CSRC_DIR / f"{name}.cu").read_bytes())
+    for text in _sources(CSRC_DIR / f"{name}.cu"):
+        digest.update(text)
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -14,13 +14,16 @@ kernel's layout.
 - `mbconv_plain` / `mbconv_dx_plain`: the forward and the input gradient in
   plain PyTorch, with the kernels' structure (the dx version recomputes e
   and z1, then applies the transposes). They run on any device. The dx
-  version sums z0 = x . We + be and the depthwise pre-activation z1 in the
-  kernels' order (C ascending, then be; bd, then the taps row by row) with
-  a separate multiply and add, so the kernel reproduces them bit for bit
-  and the relu6 / relu masks of dx agree exactly: with another order an
-  element within a ulp of a kink flips its mask and moves dx by a whole
-  term. The forward has no such mask (act is continuous), so its expand is
-  one matmul, which keeps the CPU path as fast as the unfused blocks.
+  version sums z0 = x . We + be (C ascending, then be) and the depthwise
+  pre-activation z1 (bd, then the taps row by row) with a separate multiply
+  and add. Its relu6 / relu masks act'(z0), act'(z1) decide whole terms of
+  dx: an element within rounding of a kink whose mask flips moves dx by a
+  term, not by a rounding. The CUDA kernels sum z0 on the tensor cores
+  (3xTF32, another order), so their masks can differ from these at such
+  elements: `mbconv_dx_plain(masks=...)` takes a kernel's own masks, and
+  `kink_flips` bounds where the two differ. The forward has no such mask
+  (act is continuous), so its expand is one matmul, which keeps the CPU
+  path as fast as the unfused blocks.
 - `FusedMBConv` / `mbconv`: the op. Forward: the CUDA kernel for CUDA
   tensors (which launches or raises), the plain version for CPU tensors.
   Backward: the dx kernel or `mbconv_dx_plain`; it saves x and the folded
@@ -130,23 +133,61 @@ def mbconv_plain(x: torch.Tensor, fb: FoldedBlock, *, act_type: str,
 
 
 def mbconv_dx_plain(x: torch.Tensor, g: torch.Tensor, fb: FoldedBlock, *,
-                    act_type: str, residual: bool) -> torch.Tensor:
+                    act_type: str, residual: bool,
+                    masks: torch.Tensor | None = None) -> torch.Tensor:
     """dL/dx from x [B, H, W, C] and g = dL/dy [B, H, W, Co]: recompute z0 and
-    z1, then Wp^T, act'(z1), the depthwise transpose, act'(z0), We^T."""
+    z1, then Wp^T, act'(z1), the depthwise transpose, act'(z0), We^T.
+
+    `masks` [2, B, H, W, E] (0 / 1, any dtype; relu6 / relu) replaces
+    act'(z0) and act'(z1): given a kernel's own masks, dx differs from the
+    kernel's by rounding only, even where z0 or z1 lies within rounding of a
+    kink and the two versions' masks differ (`kink_flips`)."""
     k = fb.wd.shape[0]
     h = k // 2
     height, width = x.shape[1], x.shape[2]
     z0 = expand_z0(x, fb)
-    z1 = depthwise_z1(act(z0, act_type), fb)
-    gd = torch.matmul(g, fb.wp.t()) * dact(z1, act_type)
+    if masks is None:
+        dz0 = dact(z0, act_type)
+        dz1 = dact(depthwise_z1(act(z0, act_type), fb), act_type)
+    else:
+        if act_type not in ("relu6", "relu"):
+            raise ValueError(f"masks replace the 0/1 act' of relu6 / relu, not {act_type}")
+        dz0, dz1 = (m.to(x.dtype) for m in masks)
+    gd = torch.matmul(g, fb.wp.t()) * dz1
     gp = F.pad(gd, (0, 0, h, h, h, h))
     ge = torch.zeros_like(gd)
     for i in range(k):
         for j in range(k):
             ge += (gp[:, 2 * h - i:2 * h - i + height, 2 * h - j:2 * h - j + width, :]
                    * fb.wd[i, j])
-    gx = torch.matmul(ge * dact(z0, act_type), fb.we.t())
+    gx = torch.matmul(ge * dz0, fb.we.t())
     return gx + g if residual else gx
+
+
+def dx_masks(x: torch.Tensor, fb: FoldedBlock, *, act_type: str):
+    """(masks [2, B, H, W, E] uint8, z0, z1) of the plain dx: act'(z0) != 0
+    and act'(z1) != 0 (relu6 / relu), with the pre-activations they come from."""
+    z0 = expand_z0(x, fb)
+    z1 = depthwise_z1(act(z0, act_type), fb)
+    masks = torch.stack([dact(z0, act_type) != 0, dact(z1, act_type) != 0])
+    return masks.to(torch.uint8), z0, z1
+
+
+def kink_flips(masks: torch.Tensor, plain_masks: torch.Tensor, z0: torch.Tensor,
+               z1: torch.Tensor, act_type: str):
+    """Where a kernel's masks differ from the plain version's: (flips of
+    act'(z0), flips of act'(z1), the largest distance of a flipped z from its
+    nearest kink over max(1, max|z|)). A flip is rounding, not a fault, when
+    that distance is a few float32 ulps."""
+    kinks = (0.0, 6.0) if act_type == "relu6" else (0.0,)
+    counts, worst = [], 0.0
+    for m, pm, z in zip(masks, plain_masks, (z0, z1)):
+        flip = m != pm
+        counts.append(int(flip.sum()))
+        if counts[-1]:
+            dist = torch.stack([(z[flip] - kink).abs() for kink in kinks]).amin(0)
+            worst = max(worst, float(dist.max()) / max(1.0, float(z.abs().max())))
+    return counts[0], counts[1], worst
 
 
 def _forward(x, fb: FoldedBlock, act_type: str, residual: bool):

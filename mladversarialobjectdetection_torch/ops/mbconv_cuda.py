@@ -1,4 +1,4 @@
-"""The CUDA fused frozen-MBConv kernels (`csrc/mbconv.cu`) and their wrappers.
+"""The CUDA fused frozen-MBConv kernels (`csrc/mbconv.cu`), their tile plans and wrappers.
 
 Replace the Pallas TPU kernels `_fwd_kernel` and `_bwd_kernel` of
 `tools/experiments/fused_mbconv.py` (launched by `_mbconv_fwd_pallas` and
@@ -6,52 +6,253 @@ Replace the Pallas TPU kernels `_fwd_kernel` and `_bwd_kernel` of
 signatures of `ops/mbconv.mbconv_plain` and `mbconv_dx_plain`: x [B, H, W, C]
 and g [B, H, W, Co] NHWC, the folded weights of `ops/mbconv.FoldedBlock`, a
 k of 3 or 5, an act of `ops/mbconv.SUPPORTED_ACTS`. They take only
-contiguous float32 CUDA tensors on one device, launch on PyTorch's current
-stream, allocate their output and nothing else, and raise on any refusal
-(the C entry refuses a width whose shared-memory sum passes 227 KB: Co in
-the forward, C in dx, about 700 channels); neither falls back to the plain
-version. `LAUNCHES` counts the launches of each kernel.
+contiguous float32 CUDA tensors on one device whose data start on a 16-byte
+boundary, launch on PyTorch's current stream, allocate their output (and,
+where the plan splits E, a workspace) and nothing else, and raise on any
+refusal; neither falls back to the plain version.
+
+`plan_fwd` / `plan_dx` choose each launch's tiling on the host (pure Python,
+tested on the CPU, cached per shape: the search takes milliseconds): the output tile, the accumulator width (a template
+instance of the kernel, `built`), a split of E across blocks whose partials
+`mbconv_reduce_kernel` adds in a fixed order, and a slice of the output
+channels per block. A launch with a split runs two kernels; `LAUNCHES`
+counts it once, as one call of the op.
+
+`mbconv_fwd_simt` / `mbconv_dx_simt` run the kernels' ablation (the 1x1
+products as SIMT FMAs instead of 3xTF32 tensor-core products, the same
+plan); the main path never calls them, and they count in
+`ABLATION_LAUNCHES`.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from .. import _build
 from .mbconv import SUPPORTED_ACTS, FoldedBlock
 
-LAUNCHES = {"mbconv_fwd": 0, "mbconv_dx": 0}  # kernel launches in this process
+LAUNCHES = {"mbconv_fwd": 0, "mbconv_dx": 0}  # op calls that launched, this process
+ABLATION_LAUNCHES = {"mbconv_fwd": 0, "mbconv_dx": 0}
 ACT_CODES = {"relu6": 0, "relu": 1, "swish": 2, "silu": 2, "swish_native": 2}
 assert set(ACT_CODES) == set(SUPPORTED_ACTS)
+
+# csrc/mbconv.cu's constants
+WARPS = 8                          # of 32 threads, a block's 256
+EC = 32                            # a split of E is a multiple of this
+MAX_SMEM = 232448                  # bytes a block may use
+MAX_REGS = 255                     # per thread under __launch_bounds__(256, 1)
+MAX_SPLIT = 8
+# (TH, TW, NPW, EC, KC) instances of MLAD_MBCONV_FWD_CONFIGS / _DX_CONFIGS:
+# the output tile, the accumulator's n-tiles per warp, E per chunk and the
+# contraction channels staged at once
+FWD_CONFIGS = ((8, 8, 8, 64, 32), (8, 8, 20, 64, 32), (8, 8, 28, 32, 32),
+               (16, 8, 8, 64, 32), (16, 8, 20, 32, 32), (16, 16, 4, 32, 32))
+DX_CONFIGS = ((8, 8, 8, 32, 32), (8, 8, 20, 32, 32), (8, 8, 28, 32, 32),
+              (16, 8, 8, 32, 16), (16, 8, 20, 32, 16), (16, 16, 4, 32, 16))
+MASKS_CONFIG = (8, 8, 8)
+# registers besides the accumulators (fragments, addresses, loop state): an
+# estimate, set from ptxas's counts on the H100 (chip_smoke.py phase 1 prints
+# them), which it matches within 20
+REG_OVERHEAD = {"fwd": 80, "dx": 110}
+# H100 SXM per-SM rates for the cost model: 3xTF32 products, fp32 FMAs
+SMS = 132
+TC_FLOP_PER_US = 495e6 / 3 / SMS
+FP_FLOP_PER_US = 67e6 / SMS
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+class Plan(NamedTuple):
+    """One launch's tiling: output tile th x tw, npw accumulator n-tiles per
+    warp, E split over `split` blocks of `e_per_split` channels, the output
+    channels in slices of `n_per_slice`; its shared memory (bytes), an
+    estimate of its registers per thread and of its time (us)."""
+    th: int
+    tw: int
+    npw: int
+    split: int
+    e_per_split: int
+    n_per_slice: int
+    smem: int
+    regs: int
+    cost_us: float
+
+
 def reset_counts() -> None:
-    """Set both launch counts to 0."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    """Set the launch counts (main path and ablation) to 0."""
+    for counts in (LAUNCHES, ABLATION_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round(a: int, b: int) -> int:
+    return _ceil(a, b) * b
+
+
+def configs(kind: str):
+    """The (TH, TW, NPW, EC, KC) instances of one kernel."""
+    return FWD_CONFIGS if kind == "fwd" else DX_CONFIGS
+
+
+def built(kind: str, k: int, th: int, tw: int, npw: int, v16: bool,
+          masks: bool = False) -> bool:
+    """Whether csrc/mbconv.cu builds this instance (its `built()`)."""
+    if not any(cfg[:3] == (th, tw, npw) for cfg in configs(kind)):
+        return False
+    if masks:
+        return kind == "dx" and (th, tw, npw) == MASKS_CONFIG
+    if not v16:
+        return (th, tw) == (8, 8) and npw in (8, 28)
+    return not (kind == "dx" and k == 5 and (th, tw) == (16, 16))
+
+
+def _config(kind: str, th: int, tw: int, npw: int):
+    return next(cfg for cfg in configs(kind) if cfg[:3] == (th, tw, npw))
+
+
+def warp_layout(th: int, tw: int):
+    """(warps per output m-tile, output m-tiles per warp) of a th x tw tile."""
+    mt = th * tw // 16
+    return (1, mt // WARPS) if mt >= WARPS else (WARPS // mt, 1)
+
+
+def smem_bytes(kind: str, k: int, th: int, tw: int, npw: int, n_cols: int) -> int:
+    """Dynamic shared memory of a block (`fwd_smem_floats` / `dx_smem_floats`)
+    whose widest output slice has n_cols channels."""
+    _, _, _, ec, kc = _config(kind, th, tw, npw)
+    ldx, ldw, lde = kc + 4, ec + 8, ec + 4
+    h = k // 2
+    tp = th * tw
+    if kind == "fwd":
+        fnh = (th + 2 * h) * (tw + 2 * h)
+        ldp = _round(_round(n_cols, 8), 32) + 8
+        nhp = _round(fnh, 16)  # the packed rows' offsets, then the rings, e, d, Wp
+        floats = nhp + 2 * nhp * ldx + 2 * kc * ldw + fnh * lde + tp * lde + ec * ldp
+    else:
+        n2 = (th + 4 * h) * (tw + 4 * h)
+        n1 = (th + 2 * h) * (tw + 2 * h)
+        region = max(2 * _round(n2, 16) * ldx + 2 * kc * ldw,
+                     2 * _round(n1, 16) * ldx + 2 * ec * ldx, _round(n_cols, 8) * lde)
+        floats = _round(n2, 16) + _round(n1, 16) + region + (n2 + n1 + tp) * lde
+    return 4 * floats
+
+
+def regs_estimate(kind: str, k: int, th: int, tw: int, npw: int) -> int:
+    """Registers per thread: the accumulators of the expand (or g . Wp^T) and
+    of the output sum, plus REG_OVERHEAD."""
+    ec = _config(kind, th, tw, npw)[3]
+    h = k // 2
+    halo = h if kind == "fwd" else 2 * h
+    units = _ceil((th + 2 * halo) * (tw + 2 * halo), 16) * (ec // 32)
+    _, mpw = warp_layout(th, tw)
+    return _ceil(units, WARPS) * 4 * 4 + mpw * npw * 4 + REG_OVERHEAD[kind]
+
+
+def _clipped(n: int, t: int, halo: int):
+    """The image-clipped extent of each tile's halo along one axis."""
+    return [min(n, y + t + halo) - max(0, y - halo) for y in range(0, n, t)]
+
+
+def _cost_us(kind, b, hgt, wid, c, e, co, k, th, tw, npw, split, eps, n_slice, n_out):
+    """A rough time model: waves of one block per SM; per block the 3xTF32
+    products over its rows and the depthwise on the FP32 pipe, plus a fixed
+    cost per staged chunk; then the reduction's bytes."""
+    h = k // 2
+    tiles = _ceil(hgt, th) * _ceil(wid, tw)
+    blocks = tiles * b * split * _ceil(n_out, n_slice)
+    n_cols = _round(min(n_slice, n_out), 8)
+    tp_rows = sum(min(th, hgt - y) for y in range(0, hgt, th)) / _ceil(hgt, th) * tw
+
+    def rows(halo):  # mean packed rows of the clipped halo, padded to 16
+        return sum(_round(ry * rx, 16) for ry in _clipped(hgt, th, halo)
+                   for rx in _clipped(wid, tw, halo)) / tiles
+
+    _, _, _, ec, kc = _config(kind, th, tw, npw)
+    if kind == "fwd":
+        tc = rows(h) * _round(c, 8) + _round(tp_rows, 16) * n_cols
+        fp = th * tw * k * k
+        stages = _ceil(c, kc) + 1
+    else:
+        tc = rows(2 * h) * _round(c, 8) + rows(h) * _round(co, 8) + _round(tp_rows, 16) * n_cols
+        fp = ((th + 2 * h) * (tw + 2 * h) + th * tw) * k * k
+        stages = _ceil(c, kc) + _ceil(co, kc) + 1
+    per_chunk = 3 * 2 * tc * ec / TC_FLOP_PER_US + 2 * fp * ec / FP_FLOP_PER_US + 0.3 * stages
+    t = _ceil(blocks, SMS) * _ceil(eps, ec) * per_chunk
+    if split > 1:
+        t += (split + 2) * b * hgt * wid * n_out * 4 / 3.0e6
+    return t
 
 
 @functools.lru_cache(maxsize=None)
-def _kernels():
-    """The two C entries of `csrc/mbconv.cu`, built on first use."""
-    lib = _build.load("mbconv")
-    fns = {}
-    for name, n_ptr in (("fwd", 7), ("dx", 7)):
-        fn = getattr(lib, f"mlad_mbconv_{name}")
-        fn.argtypes = [_P] * n_ptr + [_I] * 9 + [_P, _P]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+def _plan(kind, hgt, wid, c, e, co, k, batch, masks):
+    n_out = co if kind == "fwd" else c
+    v16 = c % 4 == 0 and e % 4 == 0 and co % 4 == 0
+    best = None
+    for th, tw, npw, _, _ in configs(kind) if k in (3, 5) else ():
+        if not built(kind, k, th, tw, npw, v16, masks):
+            continue
+        wpm, _ = warp_layout(th, tw)
+        cover = npw * wpm * 8
+        n_slices = _ceil(n_out, cover)
+        n_slice = _round(_ceil(n_out, n_slices), 8)
+        smem = smem_bytes(kind, k, th, tw, npw, min(n_slice, n_out))
+        regs = regs_estimate(kind, k, th, tw, npw)
+        if smem > MAX_SMEM or regs > MAX_REGS:
+            continue
+        for split in range(1, MAX_SPLIT + 1):
+            eps = _round(_ceil(e, split), EC)
+            if (split - 1) * eps >= e:
+                continue
+            cost = _cost_us(kind, batch, hgt, wid, c, e, co, k, th, tw, npw, split, eps,
+                            n_slice, n_out)
+            plan = Plan(th, tw, npw, split, eps, n_slice, smem, regs, cost)
+            if best is None or cost < best.cost_us:
+                best = plan
+    if best is None:
+        raise ValueError(f"no fused MBConv {kind} plan for H {hgt} W {wid} C {c} "
+                         f"E {e} Co {co} k {k}")
+    return best
+
+
+def plan_fwd(H: int, W: int, C: int, E: int, Co: int, k: int, batch: int = 1) -> Plan:
+    """The forward's tile plan for x [batch, H, W, C] (E, Co, k)."""
+    return _plan("fwd", H, W, C, E, Co, k, batch, False)
+
+
+def plan_dx(H: int, W: int, C: int, E: int, Co: int, k: int, batch: int = 1,
+            masks: bool = False) -> Plan:
+    """dx's tile plan; `masks` plans the instance that also writes the masks."""
+    return _plan("dx", H, W, C, E, Co, k, batch, masks)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(lib: str, name: str):
+    """A C entry of csrc/<lib>.cu, built on first use."""
+    fn = getattr(_build.load(lib), name)
+    tail = [_P, _P, _P] if "fwd" in name else [_P, _P, _P, _P]  # out, ws, [masks,] stream
+    fn.argtypes = [_P] * 7 + [_I] * 15 + tail
+    fn.restype = ctypes.c_int
+    return fn
+
+
+_LIBS = {("fwd", False): ("mbconv", "mlad_mbconv_fwd"),
+         ("dx", False): ("mbconv_dx", "mlad_mbconv_dx"),
+         ("fwd", True): ("mbconv_simt_fwd", "mlad_mbconv_fwd_simt"),
+         ("dx", True): ("mbconv_simt_dx", "mlad_mbconv_dx_simt")}
 
 
 def _check(tensors, fb: FoldedBlock, c: int, act_type: str, residual: bool):
     """Raise unless the tensors are contiguous float32 CUDA tensors on one
-    device and the folded weights fit x's C. Returns (E, Co, k)."""
+    device, 16-byte aligned, and the folded weights fit x's C. Returns
+    (E, Co, k)."""
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError(f"float32 only, got {[t.dtype for t in tensors]}")
     if not all(t.is_cuda for t in tensors):
@@ -62,6 +263,9 @@ def _check(tensors, fb: FoldedBlock, c: int, act_type: str, residual: bool):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("x, g and the folded weights must be contiguous (x "
                          "and g in NHWC)")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the fused MBConv kernels need each tensor's data on a "
+                         "16-byte boundary (cp.async)")
     if act_type not in ACT_CODES:
         raise ValueError(f"unsupported act {act_type}")
     e, co = fb.wp.shape
@@ -77,36 +281,45 @@ def _check(tensors, fb: FoldedBlock, c: int, act_type: str, residual: bool):
     return e, co, k
 
 
-def _launch(name, ptrs, shape, e, co, k, act_type, residual, out, device):
+def _launch(kind, simt, ptrs, shape, e, co, k, act_type, residual, out, plan,
+            masks_out=None):
     b, h, w, c = shape
     if min(b, h, w, c) < 1:
         raise ValueError(f"empty input {tuple(shape)}")
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _kernels()[name](*ptrs, b, h, w, c, e, co, k, ACT_CODES[act_type],
-                               int(residual), out.data_ptr(), stream)
+    n_out = co if kind == "fwd" else c
+    ws = None
+    if plan.split > 1:
+        ws = torch.empty((plan.split, b, h, w, n_out), dtype=torch.float32,
+                         device=out.device)
+    tail = [out.data_ptr(), ws.data_ptr() if ws is not None else None]
+    if kind == "dx":
+        tail.append(masks_out.data_ptr() if masks_out is not None else None)
+    lib, name = _LIBS[(kind, simt)]
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = _entry(lib, name)(*ptrs, b, h, w, c, e, co, k, ACT_CODES[act_type],
+                                int(residual), plan.th, plan.tw, plan.npw, plan.split,
+                                plan.e_per_split, plan.n_per_slice, *tail, stream)
     if err != 0:
-        raise RuntimeError(f"mbconv {name} kernel launch failed: cudaError_t "
-                           f"{err} (x {tuple(shape)}, E {e}, Co {co}, k {k})")
-    LAUNCHES[f"mbconv_{name}"] += 1
+        raise RuntimeError(f"mbconv {kind} kernel launch failed: cudaError_t "
+                           f"{err} (x {tuple(shape)}, E {e}, Co {co}, k {k}, {plan})")
+    (ABLATION_LAUNCHES if simt else LAUNCHES)[f"mbconv_{kind}"] += 1
     return out
 
 
-def mbconv_fwd_cuda(x: torch.Tensor, fb: FoldedBlock, *, act_type: str,
-                    residual: bool) -> torch.Tensor:
-    """`ops/mbconv.mbconv_plain` as one kernel launch: y [B, H, W, Co]."""
+def _fwd(x, fb, act_type, residual, plan, simt):
     tensors = (x, *fb)
     if x.dim() != 4:
         raise ValueError(f"want x [B, H, W, C], got {tuple(x.shape)}")
     e, co, k = _check(tensors, fb, x.shape[3], act_type, residual)
-    out = torch.empty((*x.shape[:3], co), dtype=torch.float32, device=x.device)
-    return _launch("fwd", [t.data_ptr() for t in tensors], x.shape, e, co, k,
-                   act_type, residual, out, x.device)
+    b, h, w, c = x.shape
+    plan = plan or plan_fwd(h, w, c, e, co, k, b)
+    out = torch.empty((b, h, w, co), dtype=torch.float32, device=x.device)
+    return _launch("fwd", simt, [t.data_ptr() for t in tensors], x.shape, e, co, k,
+                   act_type, residual, out, plan)
 
 
-def mbconv_dx_cuda(x: torch.Tensor, g: torch.Tensor, fb: FoldedBlock, *,
-                   act_type: str, residual: bool) -> torch.Tensor:
-    """`ops/mbconv.mbconv_dx_plain` as one kernel launch: dx [B, H, W, C]."""
+def _dx(x, g, fb, act_type, residual, masks_out, plan, simt):
     tensors = (x, g, *fb[:5])  # bp has no part in dx
     if x.dim() != 4 or g.dim() != 4 or g.shape[:3] != x.shape[:3]:
         raise ValueError(f"want x [B, H, W, C] and g [B, H, W, Co], got "
@@ -114,6 +327,43 @@ def mbconv_dx_cuda(x: torch.Tensor, g: torch.Tensor, fb: FoldedBlock, *,
     e, co, k = _check(tensors + (fb.bp,), fb, x.shape[3], act_type, residual)
     if g.shape[3] != co:
         raise ValueError(f"g has {g.shape[3]} channels, the block {co}")
+    b, h, w, c = x.shape
+    if masks_out is not None:
+        if ACT_CODES[act_type] == ACT_CODES["swish"] or simt:
+            raise ValueError("masks_out: relu6 / relu on the main kernel only")
+        if (masks_out.dtype != torch.uint8 or masks_out.shape != (2, b, h, w, e)
+                or not masks_out.is_contiguous() or masks_out.device != x.device):
+            raise ValueError(f"masks_out must be a contiguous uint8 [2, {b}, {h}, "
+                             f"{w}, {e}] tensor on {x.device}")
+    plan = plan or plan_dx(h, w, c, e, co, k, b, masks=masks_out is not None)
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    return _launch("dx", [t.data_ptr() for t in tensors], x.shape, e, co, k,
-                   act_type, residual, out, x.device)
+    return _launch("dx", simt, [t.data_ptr() for t in tensors], x.shape, e, co, k,
+                   act_type, residual, out, plan, masks_out)
+
+
+def mbconv_fwd_cuda(x: torch.Tensor, fb: FoldedBlock, *, act_type: str,
+                    residual: bool) -> torch.Tensor:
+    """`ops/mbconv.mbconv_plain` as one op call: y [B, H, W, Co]."""
+    return _fwd(x, fb, act_type, residual, None, False)
+
+
+def mbconv_dx_cuda(x: torch.Tensor, g: torch.Tensor, fb: FoldedBlock, *,
+                   act_type: str, residual: bool,
+                   masks_out: torch.Tensor | None = None) -> torch.Tensor:
+    """`ops/mbconv.mbconv_dx_plain` as one op call: dx [B, H, W, C]. Given
+    `masks_out` (uint8 [2, B, H, W, E], relu6 / relu), the masks instance also
+    writes act'(z0) != 0 and act'(z1) != 0 into it; the main path passes
+    none."""
+    return _dx(x, g, fb, act_type, residual, masks_out, None, False)
+
+
+def mbconv_fwd_simt(x: torch.Tensor, fb: FoldedBlock, *, act_type: str,
+                    residual: bool) -> torch.Tensor:
+    """The forward's ablation (SIMT 1x1 products), on the main kernel's plan."""
+    return _fwd(x, fb, act_type, residual, None, True)
+
+
+def mbconv_dx_simt(x: torch.Tensor, g: torch.Tensor, fb: FoldedBlock, *,
+                   act_type: str, residual: bool) -> torch.Tensor:
+    """dx's ablation (SIMT 1x1 products), on the main kernel's plan."""
+    return _dx(x, g, fb, act_type, residual, None, None, True)

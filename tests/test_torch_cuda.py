@@ -16,10 +16,12 @@ order of the sums differs; two launches bit-equal (no atomics). cmconv
 kernel vs plain: within CMCONV_TOL of the output's scale (both sum in the
 same order with separate multiplies and adds, so they are expected to be
 bit-equal); two launches bit-equal. Fused MBConv kernels vs plain: forward
-within MBCONV_FWD_TOL of max(1, max|plain|) (the 1x1 products sum in
-another order), dx within MBCONV_DX_TOL of max|plain| (z0 and z1, and so
-the relu masks, are bit-equal); two launches bit-equal; and the backbone's
-dispatch counts on the card.
+within MBCONV_FWD_TOL of max(1, max|plain|) (3xTF32 products summed in
+another order), dx within MBCONV_DX_TOL of max|plain| of the plain dx fed
+the kernel's own relu masks, every mask that differs from the plain
+version's within MBCONV_KINK_TOL of its kink; two launches bit-equal; the
+kernels' SIMT ablation against them; and the backbone's dispatch counts on
+the card.
 """
 import numpy as np
 import pytest
@@ -473,9 +475,12 @@ def test_defender_step_on_card_goes_through_kernels(cuda):
 # fused frozen MBConv
 # ---------------------------------------------------------------------------
 
-MBCONV_FWD_TOL = 1e-5  # of max(1, max|plain|): the 1x1 products sum in another order
-MBCONV_DX_TOL = 1e-4   # of max|plain|; z0 and z1, and so the relu masks, are bit-equal
-# (id, B, H, W, C, E, Co, k, residual, act)
+MBCONV_FWD_TOL = 1e-5  # of max(1, max|plain|): 3xTF32 products, summed in another order
+MBCONV_DX_TOL = 1e-4   # of max|plain| of the plain dx fed the kernel's own relu masks
+MBCONV_KINK_TOL = 1e-5  # of max(1, max|z|): a mask that differs lies this near its kink
+# (id, B, H, W, C, E, Co, k, residual, act); the last four reach the tile
+# plan's regimes: a split of E at 20x20, the 16x16 tile, C and Co not
+# multiples of 8
 MBCONV_CASES = [
     ("k3_res_relu6", 2, 16, 16, 24, 144, 24, 3, True, "relu6"),
     ("k5_res_relu6", 2, 20, 20, 40, 240, 40, 5, True, "relu6"),
@@ -486,6 +491,10 @@ MBCONV_CASES = [
     ("1x1_b3_k5", 3, 1, 1, 8, 48, 8, 5, True, "relu6"),
     ("ragged_13x37", 1, 13, 37, 16, 96, 24, 3, False, "relu6"),
     ("b1_k5_relu", 1, 10, 12, 24, 144, 24, 5, True, "relu"),
+    ("split_e_20x20_k5", 1, 20, 20, 272, 1632, 272, 5, True, "relu6"),
+    ("tile16x16_96x96", 2, 96, 96, 32, 192, 32, 3, True, "relu6"),
+    ("c12_co20_k5", 2, 14, 11, 12, 72, 20, 5, False, "relu6"),
+    ("c20_co12_swish", 1, 9, 17, 20, 120, 12, 3, False, "swish"),
 ]
 
 
@@ -497,6 +506,25 @@ def _mbconv_case(cuda, b, h, w, c, e, co, k, seed=0):
     fb = FoldedBlock(we=r(c, e, s=2 / c ** 0.5), be=r(e, s=0.5), wd=r(k, k, e, s=2 / k),
                      bd=r(e, s=0.5), wp=r(e, co, s=2 / e ** 0.5), bp=r(co, s=0.5))
     return r(b, h, w, c), fb
+
+
+def _plain_dx_with_kernel_masks(x, gy, fb, act, residual):
+    """(plain dx, (z0 flips, z1 flips, worst distance)): for relu6 / relu the
+    plain dx fed the masks the kernel's masks instance writes, and every
+    mask that differs from the plain version's checked against its kink."""
+    from mladversarialobjectdetection_torch.ops import mbconv as pmb
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
+    kw = dict(act_type=act, residual=residual)
+    if act not in ("relu6", "relu"):
+        return pmb.mbconv_dx_plain(x, gy, fb, **kw), (0, 0, 0.0)
+    b, h, w, _ = x.shape
+    masks = torch.full((2, b, h, w, fb.we.shape[1]), 7, dtype=torch.uint8, device=x.device)
+    mbconv_cuda.mbconv_dx_cuda(x, gy, fb, masks_out=masks, **kw)
+    assert int(masks.max()) <= 1  # every mask written
+    plain_masks, z0, z1 = pmb.dx_masks(x, fb, act_type=act)
+    flips = pmb.kink_flips(masks, plain_masks, z0, z1, act)
+    assert flips[2] <= MBCONV_KINK_TOL, flips
+    return pmb.mbconv_dx_plain(x, gy, fb, masks=masks, **kw), flips
 
 
 @pytest.mark.parametrize("name,b,h,w,c,e,co,k,residual,act", MBCONV_CASES,
@@ -511,30 +539,60 @@ def test_mbconv_kernels_match_plain(cuda, name, b, h, w, c, e, co, k, residual, 
     kw = dict(act_type=act, residual=residual)
     y = mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw)
     dx = mbconv_cuda.mbconv_dx_cuda(x, gy, fb, **kw)
-    y_plain = pmb.mbconv_plain(x, fb, **kw)
-    dx_plain = pmb.mbconv_dx_plain(x, gy, fb, **kw)
     torch.cuda.synchronize()
     assert mbconv_cuda.LAUNCHES == {k_: v + 1 for k_, v in before.items()}
+    y_plain = pmb.mbconv_plain(x, fb, **kw)
+    dx_plain, _ = _plain_dx_with_kernel_masks(x, gy, fb, act, residual)
     _close(y, y_plain, "mbconv fwd", MBCONV_FWD_TOL)
     err = float((dx - dx_plain).abs().max())
     assert err <= MBCONV_DX_TOL * float(dx_plain.abs().max()), err
-    # no atomics: a second launch repeats bit for bit
+    # no atomics, the split's partials added in a fixed order: a second
+    # launch repeats bit for bit
     assert torch.equal(mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw), y)
     assert torch.equal(mbconv_cuda.mbconv_dx_cuda(x, gy, fb, **kw), dx)
 
 
+@pytest.mark.parametrize("name,b,h,w,c,e,co,k,residual,act", MBCONV_CASES,
+                         ids=[m[0] for m in MBCONV_CASES])
+def test_mbconv_ablation_matches_kernel(cuda, name, b, h, w, c, e, co, k, residual, act):
+    """The SIMT ablation (csrc/mbconv.cu, TC = false) on the main kernel's
+    plan: the forward within MBCONV_FWD_TOL of the kernel's, dx within
+    MBCONV_DX_TOL with swish (the two sum z0 in different orders, so a relu
+    mask may flip between them)."""
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
+    if c % 4 or e % 4 or co % 4:
+        pytest.skip("the ablation is built for 16-byte shapes only")
+    x, fb = _mbconv_case(cuda, b, h, w, c, e, co, k, seed=b * 1000 + c)
+    gy = torch.randn((b, h, w, co), generator=torch.Generator().manual_seed(1)).to(cuda)
+    kw = dict(act_type=act, residual=residual)
+    before = dict(mbconv_cuda.LAUNCHES)
+    _close(mbconv_cuda.mbconv_fwd_simt(x, fb, **kw), mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw),
+           "mbconv fwd ablation", MBCONV_FWD_TOL)
+    kw["act_type"] = "swish"
+    ref = mbconv_cuda.mbconv_dx_cuda(x, gy, fb, **kw)
+    err = float((mbconv_cuda.mbconv_dx_simt(x, gy, fb, **kw) - ref).abs().max())
+    assert err <= MBCONV_DX_TOL * float(ref.abs().max()), err
+    assert mbconv_cuda.LAUNCHES == {k_: v + 1 for k_, v in before.items()}
+
+
 def test_mbconv_autograd_on_card_matches_cpu(cuda):
+    """The op's card backward against the CPU's plain dx, fed the card
+    kernel's relu masks (a mask can flip where z0 lies within rounding of a
+    kink)."""
     from mladversarialobjectdetection_torch.ops import mbconv as pmb
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
     x, fb = _mbconv_case(torch.device("cpu"), 2, 12, 14, 16, 96, 16, 5, seed=3)
     gy = torch.randn((2, 12, 14, 16), generator=torch.Generator().manual_seed(4))
-    grads = []
-    for dev in (torch.device("cpu"), cuda):
-        xx = x.to(dev).clone().requires_grad_(True)
-        fbd = pmb.FoldedBlock(*(t.to(dev) for t in fb))
-        (pmb.mbconv(xx, fbd, act_type="relu6", residual=True) * gy.to(dev)).sum().backward()
-        grads.append(xx.grad.cpu())
-    scale = float(grads[0].abs().max())
-    assert float((grads[1] - grads[0]).abs().max()) <= MBCONV_DX_TOL * scale
+    xx = x.to(cuda).clone().requires_grad_(True)
+    fbd = pmb.FoldedBlock(*(t.to(cuda) for t in fb))
+    (pmb.mbconv(xx, fbd, act_type="relu6", residual=True) * gy.to(cuda)).sum().backward()
+    masks = torch.empty((2, 2, 12, 14, 96), dtype=torch.uint8, device=cuda)
+    mbconv_cuda.mbconv_dx_cuda(x.to(cuda), gy.to(cuda), fbd, act_type="relu6",
+                               residual=True, masks_out=masks)
+    cpu = pmb.mbconv_dx_plain(x, gy, fb, act_type="relu6", residual=True,
+                              masks=masks.cpu())
+    scale = float(cpu.abs().max())
+    assert float((xx.grad.cpu() - cpu).abs().max()) <= MBCONV_DX_TOL * scale
 
 
 def test_mbconv_wrapper_rejects_bad_inputs(cuda):
@@ -559,11 +617,25 @@ def test_mbconv_wrapper_rejects_bad_inputs(cuda):
         mbconv_cuda.mbconv_fwd_cuda(x2, fb2, **kw)
     with pytest.raises(ValueError, match="unsupported act"):
         mbconv_cuda.mbconv_fwd_cuda(x, fb, act_type="hswish", residual=True)
-    # past the 227 KB of shared memory a block may use: the C entry refuses
+    with pytest.raises(ValueError, match="16-byte"):
+        xo = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape)
+        mbconv_cuda.mbconv_fwd_cuda(xo, fb, **kw)
+    with pytest.raises(ValueError, match="masks_out"):
+        mbconv_cuda.mbconv_dx_cuda(x, x, fb, masks_out=torch.empty(3, device=cuda), **kw)
+    # a plan the kernels have no instance for, or one whose slice passes its
+    # accumulators: the C entry refuses
     xw, fbw = _mbconv_case(cuda, 1, 8, 8, 8, 48, 1024, 3)
-    with pytest.raises(RuntimeError, match="cudaError_t 1 "):
-        mbconv_cuda.mbconv_fwd_cuda(xw, fbw, act_type="relu6", residual=False)
+    good = mbconv_cuda.plan_fwd(8, 8, 8, 48, 1024, 3)
+    for bad in (good._replace(npw=5), good._replace(split=9),
+                good._replace(n_per_slice=1024)):
+        with pytest.raises(RuntimeError, match="cudaError_t 1 "):
+            mbconv_cuda._fwd(xw, fbw, "relu6", False, bad, False)
     assert mbconv_cuda.LAUNCHES == before
+    # any output width: 1024 channels run in slices of the accumulator
+    from mladversarialobjectdetection_torch.ops import mbconv as pmb
+    _close(mbconv_cuda.mbconv_fwd_cuda(xw, fbw, act_type="relu6", residual=False),
+           pmb.mbconv_plain(xw, fbw, act_type="relu6", residual=False), "Co 1024",
+           MBCONV_FWD_TOL)
     y = mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw)  # the context still works
     assert torch.isfinite(y).all()
 

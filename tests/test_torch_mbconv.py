@@ -285,3 +285,181 @@ def test_cuda_wrappers_refuse_before_any_build():
     with pytest.raises(ValueError, match="CUDA tensors"):
         mbconv_cuda.mbconv_dx_cuda(x, x, fb, act_type="relu6", residual=True)
     assert mbconv_cuda.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' relu masks, tile plan and 3xTF32 arithmetic, on the CPU
+# ---------------------------------------------------------------------------
+
+MBCONV_FWD_TOL = 1e-5  # chip_smoke.py: of max(1, max|plain|)
+KINK_TOL = 1e-5        # chip_smoke.py MBCONV_KINK_TOL: of max(1, max|z|)
+
+
+def _lite4_blocks(image_size=640):
+    """(H, W, C, E, Co, k, residual) of each fuseable lite4 block, in order."""
+    spec = peff.get_backbone_spec("efficientnet-lite4")
+    side, channels, out = image_size // 2, spec.stem_filters, []  # after the stem
+    for ba in spec.blocks:
+        if pmb.fuseable(ba, spec.use_se, spec.act_type):
+            out.append((side, side, channels, ba.input_filters * ba.expand_ratio,
+                        ba.output_filters, ba.kernel_size,
+                        ba.id_skip and ba.input_filters == ba.output_filters))
+        side //= ba.strides[0]
+        channels = ba.output_filters
+    return out
+
+
+def test_lite4_block_shapes():
+    blocks = _lite4_blocks()
+    assert len(blocks) == 25
+    assert sorted(set(b[:6] for b in blocks)) == sorted([
+        (160, 160, 32, 192, 32, 3), (80, 80, 56, 336, 56, 5),
+        (40, 40, 112, 672, 112, 3), (40, 40, 112, 672, 160, 5),
+        (40, 40, 160, 960, 160, 5), (20, 20, 272, 1632, 272, 5),
+        (20, 20, 272, 1632, 448, 3)])
+
+
+def _plan_shapes():
+    """(B, H, W, C, E, Co, k) of the 25 lite4@640 blocks at the path's
+    batches, and of the card tests' and chip_smoke.py's odd shapes."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import test_torch_cuda  # noqa: E402  no JAX: the card tests' shapes
+    import chip_smoke  # noqa: E402
+    shapes = [(b, *blk[:6]) for b in (1, 8, 12, 24) for blk in _lite4_blocks()]
+    shapes += [m[1:8] for m in test_torch_cuda.MBCONV_CASES]
+    shapes += [m[1:8] for m in chip_smoke.MBCONV_ODD]
+    return sorted(set(shapes))
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dx", "dx_masks"])
+def test_tile_plans_cover_and_fit(kind):
+    """Every plan fits shared memory and registers, splits E at most 8 ways,
+    names a built instance, and covers each output pixel, each E channel and
+    each output channel exactly once."""
+    for b, h, w, c, e, co, k in _plan_shapes():
+        if kind == "fwd":
+            p = mbconv_cuda.plan_fwd(h, w, c, e, co, k, b)
+        else:
+            p = mbconv_cuda.plan_dx(h, w, c, e, co, k, b, masks=kind == "dx_masks")
+        base = kind[:3].rstrip("_")
+        shape = (b, h, w, c, e, co, k)
+        v16 = c % 4 == 0 and e % 4 == 0 and co % 4 == 0
+        assert mbconv_cuda.built(base, k, p.th, p.tw, p.npw, v16, kind == "dx_masks"), shape
+        assert p.smem <= mbconv_cuda.MAX_SMEM and p.regs <= mbconv_cuda.MAX_REGS, (shape, p)
+        assert 1 <= p.split <= mbconv_cuda.MAX_SPLIT and p.e_per_split % mbconv_cuda.EC == 0
+        n_out = co if base == "fwd" else c
+        assert p.smem == mbconv_cuda.smem_bytes(base, k, p.th, p.tw, p.npw,
+                                                min(p.n_per_slice, n_out))
+        wpm, _ = mbconv_cuda.warp_layout(p.th, p.tw)
+        assert p.n_per_slice % 8 == 0 and p.npw * wpm * 8 >= min(p.n_per_slice, n_out)
+        for n, step in ((e, p.e_per_split), (n_out, p.n_per_slice)):
+            seen = np.zeros(n, int)
+            for s in range(-(-n // step)):
+                assert s * step < n  # no empty split or slice
+                seen[s * step:(s + 1) * step] += 1
+            assert (seen == 1).all()
+            if n == e:
+                assert -(-n // step) == p.split
+        ys = np.zeros((h, w), int)
+        for y0 in range(0, h, p.th):
+            for x0 in range(0, w, p.tw):
+                ys[y0:y0 + p.th, x0:x0 + p.tw] += 1
+        assert (ys == 1).all()
+
+
+def test_plans_reach_every_regime():
+    """The path's plans split E at 20x20 and take the 16x16 tile at 160x160."""
+    assert mbconv_cuda.plan_fwd(20, 20, 272, 1632, 272, 5, 24).split > 1
+    assert mbconv_cuda.plan_fwd(20, 20, 272, 1632, 272, 5, 1).split > 1
+    assert mbconv_cuda.plan_fwd(160, 160, 32, 192, 32, 3, 24)[:2] == (16, 16)
+    assert mbconv_cuda.plan_dx(160, 160, 32, 192, 32, 3, 24)[:2] == (16, 16)
+    wide = mbconv_cuda.plan_fwd(8, 8, 8, 48, 4096, 3, 1)  # Co in slices
+    assert wide.n_per_slice < 4096
+    with pytest.raises(ValueError, match="no fused MBConv"):
+        mbconv_cuda.plan_dx(8, 8, 8, 48, 8, 7, 1)
+
+
+def _np_case(c, e, co, k, h, w, b=2, seed=0):
+    rng = np.random.RandomState(seed)
+    draw = lambda *shape, s: torch.from_numpy((rng.normal(size=shape) * s).astype(np.float32))
+    fb = pmb.FoldedBlock(we=draw(c, e, s=2 / c ** 0.5), be=draw(e, s=0.5),
+                         wd=draw(k, k, e, s=2 / k), bd=draw(e, s=0.5),
+                         wp=draw(e, co, s=2 / e ** 0.5), bp=draw(co, s=0.5))
+    return draw(b, h, w, c, s=1.0), fb, draw(b, h, w, co, s=1.0)
+
+
+@pytest.mark.parametrize("act", ["relu6", "relu"])
+@pytest.mark.parametrize("k", [3, 5])
+def test_dx_plain_given_its_own_masks_is_bit_equal(act, k):
+    x, fb, g = _np_case(16, 96, 16, k, 9, 11)
+    masks, _, _ = pmb.dx_masks(x, fb, act_type=act)
+    for residual in (True, False):
+        ref = pmb.mbconv_dx_plain(x, g, fb, act_type=act, residual=residual)
+        got = pmb.mbconv_dx_plain(x, g, fb, act_type=act, residual=residual, masks=masks)
+        assert torch.equal(got, ref)
+    with pytest.raises(ValueError, match="relu6 / relu"):
+        pmb.mbconv_dx_plain(x, g, fb, act_type="swish", residual=True, masks=masks)
+
+
+def test_flipped_mask_moves_dx_by_one_term():
+    """A relu mask flipped at one element (ROADMAP Queue 3 item 9) moves dx
+    at that pixel, and only there, by ge . We^T of that one term: ge =
+    dwconv^T(gd) at the pixel and channel, times We[:, e]."""
+    k, h = 5, 2
+    x, fb, g = _np_case(8, 48, 8, k, 7, 6, b=1, seed=3)
+    masks, _, _ = pmb.dx_masks(x, fb, act_type="relu6")
+    b, y, xx, e = 0, 3, 2, 17
+    flipped = masks.clone()
+    flipped[0, b, y, xx, e] ^= 1
+    kw = dict(act_type="relu6", residual=False)
+    diff = (pmb.mbconv_dx_plain(x, g, fb, masks=flipped, **kw)
+            - pmb.mbconv_dx_plain(x, g, fb, masks=masks, **kw)).double()
+    gd = (g.double() @ fb.wp.double().t()) * masks[1].double()
+    ge = 0.0
+    for i in range(k):
+        for j in range(k):
+            yy, xj = y + h - i, xx + h - j
+            if 0 <= yy < x.shape[1] and 0 <= xj < x.shape[2]:
+                ge += float(gd[b, yy, xj, e]) * float(fb.wd[i, j, e])
+    sign = 1.0 if flipped[0, b, y, xx, e] else -1.0
+    want = sign * ge * fb.we[:, e].double()
+    assert abs(ge) > 1e-3
+    torch.testing.assert_close(diff[b, y, xx], want, rtol=0, atol=1e-5 * float(want.abs().max()))
+    others = diff.clone()
+    others[b, y, xx] = 0
+    assert float(others.abs().max()) == 0.0
+
+
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: round to 10 mantissa bits, ties away from zero."""
+    bits = a.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a . b as the kernels take it: lo.hi + hi.lo + hi.hi, fp32 sums."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+@pytest.mark.parametrize("shape", [(32, 192, 32, 3, 16, 16, 2), (272, 1632, 272, 5, 20, 20, 1)],
+                         ids=["stage2_like", "20x20x1632"])
+def test_3xtf32_forward_within_tolerance_and_flips_near_kinks(shape):
+    """The kernels' 3xTF32 1x1 products, emulated: the forward stays within
+    MBCONV_FWD_TOL of `mbconv_plain`; the z0 masks it implies differ from
+    the plain version's only within KINK_TOL of a kink (counted)."""
+    c, e, co, k, h, w, b = shape
+    x, fb, _ = _np_case(c, e, co, k, h, w, b=b, seed=11)
+    assert float(_tf32(torch.tensor([1.0 + 2.0 ** -11])).item()) == 1.0 + 2.0 ** -10
+    z0 = _mm_3xtf32(x.reshape(-1, c), fb.we).reshape(*x.shape[:3], e) + fb.be
+    d = pmb.act(pmb.depthwise_z1(pmb.act(z0, "relu6"), fb), "relu6")
+    y = _mm_3xtf32(d.reshape(-1, e), fb.wp).reshape(*x.shape[:3], co) + fb.bp
+    ref = pmb.mbconv_plain(x, fb, act_type="relu6", residual=False)
+    assert float((y - ref).abs().max()) <= MBCONV_FWD_TOL * max(1.0, float(ref.abs().max()))
+    z0_plain = pmb.expand_z0(x, fb)
+    flips = pmb.dact(z0, "relu6") != pmb.dact(z0_plain, "relu6")
+    if flips.any():
+        dist = torch.minimum(z0_plain[flips].abs(), (z0_plain[flips] - 6.0).abs())
+        assert float(dist.max()) <= KINK_TOL * max(1.0, float(z0_plain.abs().max()))
+    print(f"{shape}: {int(flips.sum())} z0 mask flips of {z0.numel()}")
