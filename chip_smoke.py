@@ -21,8 +21,15 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    that differs from the plain version's within MBCONV_KINK_TOL of its kink;
    two launches bit-equal;
 2. NMS kernel vs plain: the NMS kernel against its plain PyTorch version on
-   the card, at B=8, N=1024, M=100 (hard and gaussian) and on edge cases:
-   indices, valid, valid_len and boxes exactly equal, scores within 1e-6;
+   the card, at B=8, N=1024, M=100 (hard and gaussian) and on edge cases
+   (NaN scores, an early exit after a few valid winners, the all-valid
+   chain, N=8192): indices, valid, valid_len and boxes exactly equal, scores
+   within 1e-6; the kernel's fast division equal to div.rn on 2^36 pairs of
+   each of its two ranges. Wherever NMS is timed (phases 3, 6, 11), the
+   kernel's device time is printed beside the chain's time per step on the
+   same boxes with seeded uniform scores and all M steps valid (hard, iou
+   1.0, no threshold), and beside the same launch with every candidate
+   masked, which stops after one step;
 3. serve: `Detector("efficientdet-lite4")` at full width with seeded random
    weights serves synthetic 720x1280 frames at batch 1 and 8; the outputs are
    checked, the NMS kernel must have launched once per `serve` and the fused
@@ -62,10 +69,11 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
 7. driver: `attack.train.train` for 3 steps at batch 12 with a score
    threshold the random victim passes, so the warp runs on its detections;
    its metrics log and patch artifacts must be written;
-8. cmconv kernel vs plain: the channel-major 3x3 conv kernel against its
-   plain version at every shape of the defender's path at full size (batch
-   24 at 640x640 and 320x320, forward with bias and input gradient), within
-   WARP_TOL of the output's scale; two launches bit-equal;
+8. cmconv kernels vs plain: both instances of the channel-major 3x3 conv
+   (`simt` and the 3xTF32 `tc`) against the plain version at every shape of
+   the defender's path at full size (batch 24 at 640x640 and 320x320,
+   forward with bias and input gradient), within WARP_TOL of the output's
+   scale; two launches bit-equal; the wrapper runs the plan's instance;
 9. defender step: `PatchAttackDefender.train_step` against efficientdet-lite4
    at 640 (full width and depth, seeded weights, fp32, TF32 off), U-Net
    n_filters 8, batch 24, score threshold .0099 so that the random victim's
@@ -78,14 +86,18 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
 10. `eval_step` (8 cmconv, 3 NMS and 75 fused MBConv forward launches) and
    `recover` (8 cmconv, no MBConv), checked and timed;
 11. kernels in the defender step: cmconv on the 15 inputs a step gave it,
-   against its plain version, timed beside its bound, the plain time and
-   `F.conv2d` (cuDNN) on the same tensors; the two forward warp kernels
+   both instances against the plain version, each instance timed beside the
+   bound at the fp32 rate and with the products at the 3xTF32 rate, the
+   plain time and `F.conv2d` (cuDNN) on the same tensors, summed per step
+   and over the 8 forward launches (`recover`'s and `eval_step`'s); the
+   cuDNN weight gradient of the same convs; the two forward warp kernels
    (the masker's windows) and NMS (the victim pass) on the inputs the same
    step gave them, against their plain versions;
 12. driver: `defense.train.train` for 3 steps at batch 12 with score
    threshold .0099; its metrics log and `antipatch.pkl` must be written;
 13. card: the `nvidia-smi` name and power limit, and one JSON line with each
-   kernel's launches, error, times and bound.
+   kernel's launches, error, times and bound (cmconv's also with its
+   ablation, the instance the plan did not pick, and its bound at 3xTF32).
 
 The last line is `{"ok": true, "device": {...}}`. Without a card, or without
 the rest of the repository beside it, the script exits non-zero and prints
@@ -109,7 +121,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 # fp32 operations the NMS function needs (csrc/nms.cu): each candidate's
 # area once per image (2 sub, 2 max0, 1 mul); per (step, candidate) the
-# argmax scan (2 compares) on every step; on a step with a valid winner also
+# argmax scan (2 compares) on every step it runs; on a step with a valid winner also
 # the IoU with the winner (2 min + 2 max + 2 sub + 2 max0 for the
 # intersection, 1 mul, 1 add + 1 sub for the union, 1 compare, 1 div,
 # 1 select) and the suppression: gaussian 1 mul (iou^2), 1 mul by -1/sigma,
@@ -117,8 +129,12 @@ FP32_FLOP_PER_S = 67e12
 NMS_AREA_OPS = 5
 NMS_SCAN_OPS = 2
 NMS_SUPPRESS_OPS = {"gaussian": 14 + 4, "hard": 14 + 2}
-# warp and cmconv kernels vs plain: the same float32 arithmetic, the warp's
-# sums in another order
+# hard NMS that suppresses nothing and has no threshold: every one of the M
+# steps is valid while candidates remain, so the whole chain runs
+ALL_VALID = dict(method="hard", iou_thresh=1.0, score_thresh=None,
+                 max_output_size=100)
+# warp and cmconv kernels vs plain: float32 sums in another order (cmconv's
+# as FMAs, or as 3xTF32 tensor-core products in its `tc` instance)
 WARP_TOL = 1e-5
 # fp32 operations of the warp functions (csrc/warp.cu): per non-zero tap the
 # hat (sub, abs, div, sub, max), three FMAs and the normaliser's add; per
@@ -168,6 +184,9 @@ DEFEND_BATCH = 24
 DEFEND_STEPS = 2
 DEFEND_THRESH = 0.0099  # under the random victim's scores (about 0.01)
 CMCONV_PER_STEP = 15    # 8 forward + 7 input gradients
+# the cmconv instances (ops/cmconv_cuda.ENTRIES) and their kernels' names
+CMCONV_INSTANCES = ("simt", "tc")
+CMCONV_KERNEL = {"simt": "cmconv3x3_kernel", "tc": "cmconv3x3_tc_kernel"}
 # (role, C, Co, side) of every cmconv launch of a defender step at 640x640,
 # n_filters 8: the forward convs of conv0, conv1, deconv2.convblock and
 # deconv3.convblock, then their input gradients (C and Co swapped), all but
@@ -226,6 +245,19 @@ def nms_cases(rng):
     yield "n3000 m50 sigma 0.3", random_boxes(rng, 2, 3000), \
         rng.uniform(0.0, 1.0, (2, 3000)).astype(np.float32), \
         dict(gauss, sigma=0.3, max_output_size=50)
+    nan = scores.copy()
+    nan[rng.uniform(size=nan.shape) < 0.02] = np.nan  # NaN wins, never valid
+    yield "NaN scores hard", boxes, nan, hard
+    yield "NaN scores gaussian", boxes, nan, gauss
+    # about 1 in 20 over .5: a few valid winners, then the early exit
+    yield "early exit hard", boxes, scores * 0.525, dict(hard, score_thresh=0.5)
+    yield "early exit gaussian", boxes, scores * 0.525, dict(gauss, score_thresh=0.5)
+    yield "all-valid chain", boxes, scores, ALL_VALID
+    big = random_boxes(rng, 2, 8192)
+    big_scores = rng.uniform(0.0, 1.0, (2, 8192)).astype(np.float32)
+    yield "n8192 gaussian", big, big_scores, gauss
+    big_scores[:, rng.uniform(size=8192) < 0.01] = np.nan
+    yield "n8192 NaN hard", big, big_scores, hard
 
 
 def compare_nms(name, kern, plain) -> float:
@@ -367,7 +399,7 @@ def kernel_name(mangled: str) -> str:
 
 
 # libraries on the main path: a spill in their kernels fails phase 1
-MAIN_PATH_LIBS = ("nms", "warp", "cmconv", "mbconv", "mbconv_dx")
+MAIN_PATH_LIBS = ("nms", "warp", "cmconv", "cmconv_tc", "mbconv", "mbconv_dx")
 
 
 def print_ptxas(libs) -> None:
@@ -393,38 +425,51 @@ def print_ptxas(libs) -> None:
 
 def nms_numbers(boxes, scores, kw, label: str):
     """(kernel ms, plain ms, bound ms, bound_by, max error) of the NMS kernel
-    on these candidates, which must match the plain version."""
+    on these candidates, which must match the plain version; beside it the
+    chain's time per step on the same boxes with every step valid."""
     import torch
     from mladversarialobjectdetection_torch.ops import nms, nms_cuda
 
     kern = nms_cuda.batched_nms_cuda(boxes, scores, **kw)
     plain = nms.batched_nms(boxes, scores, **kw)
     err = compare_nms(label, kern, plain)
-    kern_ms = cuda_ms(lambda: nms_cuda.batched_nms_cuda(boxes, scores, **kw),
-                      iters=50)
-    plain_ms = cuda_ms(lambda: nms.batched_nms(boxes, scores, **kw), iters=5)
-    # the serial chain alone: the same launch with every candidate masked
-    # runs the M dependent block-wide argmax steps and skips every IoU row
-    masked = torch.full_like(scores, NEG_INF)
-    chain_ms = cuda_ms(lambda: nms_cuda.batched_nms_cuda(boxes, masked, **kw),
-                       iters=50)
-    b, n = scores.shape
     m = kw["max_output_size"]
+    # the chain: the same boxes with seeded uniform scores (the path's own may
+    # be masked), hard, nothing suppressed, no threshold: every step valid
+    chain_kw = dict(ALL_VALID, max_output_size=m)
+    chain_scores = torch.rand(scores.shape, device=scores.device,
+                              generator=torch.Generator(scores.device).manual_seed(0))
+    chain = nms_cuda.batched_nms_cuda(boxes, chain_scores, **chain_kw)
+    compare_nms(f"{label}, all-valid chain", chain,
+                nms.batched_nms(boxes, chain_scores, **chain_kw))
+    # steps the chain runs: all M where every image has M candidates
+    chain_steps = int(torch.clamp(chain.valid_len + 1, max=m).max())
+    kern_ms, chain_ms, masked_ms = (
+        kernel_device_ms(lambda: nms_cuda.batched_nms_cuda(boxes, sc, **k),
+                         "nms_kernel", iters=20)
+        for sc, k in ((scores, kw), (chain_scores, chain_kw),
+                      (torch.full_like(scores, NEG_INF), kw)))
+    plain_ms = cuda_ms(lambda: nms.batched_nms(boxes, scores, **kw), iters=5)
+    b, n = scores.shape
     nbytes = b * n * 20 + b * m * (16 + 4 + 4 + 1) + b * 4
-    # the kernel skips the IoU row on steps without a valid winner, so the
-    # work is counted from this run's valid steps
-    ops = n * (b * NMS_AREA_OPS + b * m * NMS_SCAN_OPS
-               + int(kern.valid_len.sum()) * NMS_SUPPRESS_OPS[kw["method"]])
+    # the work is counted from this run's data: an IoU row on each valid
+    # step, and an argmax scan on each step up to the first invalid one, where
+    # the kernel stops (NaN winners aside, which these inputs do not have)
+    n_valid = int(kern.valid_len.sum())
+    steps = int(torch.clamp(kern.valid_len + 1, max=m).sum())
+    ops = n * (b * NMS_AREA_OPS + steps * NMS_SCAN_OPS
+               + n_valid * NMS_SUPPRESS_OPS[kw["method"]])
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_FLOP_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"  nms {label} [{b},{n}] -> {m}: kernel {kern_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
-          f"{nbytes} B, {ops} fp32 ops); serial chain of {m} argmax steps "
-          f"(all candidates masked) {chain_ms:.4f} ms, "
-          f"{chain_ms * 1e3 / m:.3f} us per step, "
-          f"{100 * chain_ms / kern_ms:.1f}% of the kernel; max error {err}")
+    print(f"  nms {label} [{b},{n}] -> {m}: kernel {kern_ms:.4f} ms ({n_valid} "
+          f"valid rows of {b * m}), plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.6f} ms ({bound_by}: {nbytes} B, {ops} fp32 ops); chain "
+          f"with {chain_steps} of {m} steps valid (hard, iou 1.0, no threshold) "
+          f"{chain_ms:.4f} ms, {chain_ms * 1e3 / chain_steps:.3f} us per step; every "
+          f"candidate masked (exits after one step) {masked_ms:.4f} ms; max "
+          f"error {err}")
     return kern_ms, plain_ms, bound_ms, bound_by, err
 
 
@@ -869,8 +914,13 @@ def main() -> int:
         max_err = max(max_err, compare_nms(name, kern, plain))
         n_cases += 1
         print(f"  nms {name}: ok, valid_len {kern.valid_len.tolist()}")
+    div_pairs = 1 << 36
+    div_bad = [nms_cuda.division_mismatches(div_pairs, r, dev) for r in (0, 1)]
+    if any(div_bad):
+        fail(f"the NMS kernel's fast division differs from div.rn: {div_bad}")
     print(f"phase 2 kernel vs plain: {n_cases} cases exact, "
-          f"max score error {max_err}")
+          f"max score error {max_err}; fast division equal to div.rn on "
+          f"{div_pairs} pairs of each of its two ranges")
 
     # phase 3: serve lite4@640 at full width
     t0 = time.perf_counter()
@@ -1339,7 +1389,8 @@ def main() -> int:
           f"{warp_cuda.WINDOWS} windows warped, artifacts {dirs}, "
           f"{len(records)} log records")
 
-    # phase 8: cmconv kernel vs plain at the path's shapes, full size
+    # phase 8: both cmconv instances and the plan's pick vs plain at the
+    # path's shapes, full size
     torch.set_grad_enabled(False)
     cm_err = 0.0
     gen = torch.Generator(dev).manual_seed(5)
@@ -1347,17 +1398,23 @@ def main() -> int:
         x = torch.randn((DEFEND_BATCH, c, side, side), device=dev, generator=gen)
         w = torch.randn((3, 3, c, co), device=dev, generator=gen) * 0.3
         bias = torch.randn((co,), device=dev, generator=gen) if role == "fwd" else None
-        kern = cmconv_cuda.cmconv3x3_cuda(x, w, bias)
-        err = kernel_err(f"cmconv {role} {c}->{co} at {side}", kern,
-                         cmconv.cmconv_plain(x, w, bias))
-        if not torch.equal(cmconv_cuda.cmconv3x3_cuda(x, w, bias), kern):
-            fail(f"cmconv {role} {c}->{co} at {side}: two launches differ")
-        cm_err = max(cm_err, err)
-        print(f"  cmconv {role} {c}->{co} b{DEFEND_BATCH} {side}x{side}: max "
-              f"error {err}, two launches bit-equal")
-    del x, w, bias, kern
+        plain = cmconv.cmconv_plain(x, w, bias)
+        errs = {}
+        for inst in CMCONV_INSTANCES:
+            kern = cmconv_cuda.cmconv3x3_instance(x, w, bias, inst)
+            errs[inst] = kernel_err(f"cmconv {inst} {role} {c}->{co} at {side}", kern, plain)
+            if not torch.equal(cmconv_cuda.cmconv3x3_instance(x, w, bias, inst), kern):
+                fail(f"cmconv {inst} {role} {c}->{co} at {side}: two launches differ")
+        pick = cmconv_cuda.plan(c, co, side, side).instance
+        if not torch.equal(cmconv_cuda.cmconv3x3_cuda(x, w, bias),
+                           cmconv_cuda.cmconv3x3_instance(x, w, bias, pick)):
+            fail(f"cmconv {role} {c}->{co} at {side}: the wrapper did not run {pick}")
+        cm_err = max(cm_err, *errs.values())
+        print(f"  cmconv {role} {c}->{co} b{DEFEND_BATCH} {side}x{side}: max errors "
+              f"{errs}, two launches bit-equal, plan {pick}")
+    del x, w, bias, kern, plain
     torch.set_grad_enabled(True)
-    print(f"phase 8 cmconv kernel vs plain: {len(CMCONV_SHAPES)} shapes within "
+    print(f"phase 8 cmconv instances vs plain: {len(CMCONV_SHAPES)} shapes within "
           f"{WARP_TOL} of scale, max error {cm_err}")
 
     # phase 9: the defender step, lite4@640, b24, fp32
@@ -1460,36 +1517,49 @@ def main() -> int:
     if len(calls) != CMCONV_PER_STEP:
         fail(f"captured {len(calls)} cmconv calls in a step")
     torch.set_grad_enabled(False)
-    cm_tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                  bytes_ms=0.0, ops_ms=0.0)
+    cm_tot = dict(ms=0.0, ablation_ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_tc_ms=0.0,
+                  library_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+                  **{f"{k}_ms": 0.0 for k in CMCONV_INSTANCES})
+    cm_fwd = dict(cm_tot)  # the 8 forward launches: recover's and eval_step's
     for i, (x, w, bias) in enumerate(calls):
         role = "fwd" if i < 8 else "dx"
         c, co = w.shape[2], w.shape[3]
+        pick = cmconv_cuda.plan(c, co, x.shape[2], x.shape[3]).instance
+        plain = cmconv.cmconv_plain(x, w, bias)
+        for inst in CMCONV_INSTANCES:
+            cm_err = max(cm_err, kernel_err(
+                f"cmconv {inst} step call {i}", cmconv_cuda.cmconv3x3_instance(
+                    x, w, bias, inst), plain))
         kern = cmconv_cuda.cmconv3x3_cuda(x, w, bias)
-        cm_err = max(cm_err, kernel_err(f"cmconv step call {i}", kern,
-                                        cmconv.cmconv_plain(x, w, bias)))
         w_oihw = w.permute(3, 2, 0, 1).contiguous()
         lib = torch.nn.functional.conv2d(x, w_oihw, bias, padding=1)
         lib_err = float((lib - kern).abs().max())
-        kern_ms = kernel_device_ms(lambda: cmconv_cuda.cmconv3x3_cuda(x, w, bias),
-                                   "cmconv3x3_kernel", iters=5)
-        plain_ms = cuda_ms(lambda: cmconv.cmconv_plain(x, w, bias), iters=2,
-                           warmup=1)
-        lib_ms = cuda_ms(lambda: torch.nn.functional.conv2d(
+        t = {f"{inst}_ms": kernel_device_ms(
+            lambda: cmconv_cuda.cmconv3x3_instance(x, w, bias, inst),
+            CMCONV_KERNEL[inst], iters=5) for inst in CMCONV_INSTANCES}
+        t["ms"] = t[f"{pick}_ms"]
+        # the ablation: the instance the plan did not pick
+        t["ablation_ms"] = next(t[f"{o}_ms"] for o in CMCONV_INSTANCES if o != pick)
+        t["plain_ms"] = cuda_ms(lambda: cmconv.cmconv_plain(x, w, bias), iters=2,
+                                warmup=1)
+        t["library_ms"] = cuda_ms(lambda: torch.nn.functional.conv2d(
             x, w_oihw, bias, padding=1), iters=10)
-        bound_ms, bound_by, nbytes, ops = cmconv_bound(x, co, bias is not None)
-        cm_tot["ms"] += kern_ms
-        cm_tot["plain_ms"] += plain_ms
-        cm_tot["bound_ms"] += bound_ms
-        cm_tot["library_ms"] += lib_ms
-        cm_tot["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
-        cm_tot["ops_ms"] += ops / FP32_FLOP_PER_S * 1e3
+        t["bound_ms"], bound_by, nbytes, ops = cmconv_bound(x, co, bias is not None)
+        t["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        t["ops_ms"] = ops / FP32_FLOP_PER_S * 1e3
+        t["bound_tc_ms"] = max(t["bytes_ms"], ops / TC3_FLOP_PER_S * 1e3)
+        for k in cm_tot:
+            cm_tot[k] += t[k]
+            if role == "fwd":
+                cm_fwd[k] += t[k]
         print(f"  cmconv step call {i:2d} {role} {c}->{co} "
-              f"{tuple(x.shape)}{' +bias' if bias is not None else ''}: kernel "
-              f"{kern_ms:.4f} ms, plain {plain_ms:.4f} ms, F.conv2d "
-              f"{lib_ms:.4f} ms (differs by {lib_err:.3g}), bound "
-              f"{bound_ms:.6f} ms ({bound_by}: {nbytes} B, {ops} fp32 ops), "
-              f"{bound_ms / kern_ms:.1%} of the bound")
+              f"{tuple(x.shape)}{' +bias' if bias is not None else ''}: plan {pick}, "
+              + ", ".join(f"{inst} {t[f'{inst}_ms']:.4f} ms ({t['bound_ms'] / t[f'{inst}_ms']:.1%}"
+                          f" of the fp32 bound, {t['bound_tc_ms'] / t[f'{inst}_ms']:.1%} of "
+                          f"the 3xTF32 one)" for inst in CMCONV_INSTANCES)
+              + f"; plain {t['plain_ms']:.4f} ms, F.conv2d {t['library_ms']:.4f} ms "
+              f"(differs by {lib_err:.3g}); bound {t['bound_ms']:.6f} ms ({bound_by}: "
+              f"{nbytes} B, {ops} fp32 ops), at 3xTF32 {t['bound_tc_ms']:.6f} ms")
     # the weight gradients of these convs stay with cuDNN (conv2d_weight):
     # forward call 7 - j and input-gradient call 8 + j belong to one conv
     wgrad_ms = 0.0
@@ -1500,11 +1570,16 @@ def main() -> int:
     print(f"  cuDNN weight gradient (conv2d_weight) of the {CMCONV_PER_STEP - 8} "
           f"cmconv convs that get an input gradient: {wgrad_ms:.4f} ms per step")
     cm_bound_by = "bytes" if cm_tot["bytes_ms"] >= cm_tot["ops_ms"] else "operations"
-    print(f"phase 11 cmconv at the step's inputs, per step ({CMCONV_PER_STEP} "
-          f"launches): kernel {cm_tot['ms']:.4f} ms, plain "
-          f"{cm_tot['plain_ms']:.4f} ms, F.conv2d {cm_tot['library_ms']:.4f} "
-          f"ms, bound {cm_tot['bound_ms']:.6f} ms (bytes {cm_tot['bytes_ms']:.6f}"
-          f", operations {cm_tot['ops_ms']:.6f}); max error {cm_err}")
+    for label, tot in ((f"per step ({CMCONV_PER_STEP} launches)", cm_tot),
+                       ("over the 8 forward launches (recover, eval_step)", cm_fwd)):
+        print(f"phase 11 cmconv at the step's inputs, {label}: the plan's picks "
+              f"{tot['ms']:.4f} ms, the other instance {tot['ablation_ms']:.4f} ms, "
+              + ", ".join(f"{inst} everywhere {tot[f'{inst}_ms']:.4f} ms"
+                          for inst in CMCONV_INSTANCES)
+              + f", plain {tot['plain_ms']:.4f} ms, F.conv2d {tot['library_ms']:.4f} "
+              f"ms, bound {tot['bound_ms']:.6f} ms (bytes {tot['bytes_ms']:.6f}, "
+              f"operations {tot['ops_ms']:.6f}), at 3xTF32 {tot['bound_tc_ms']:.6f} ms; "
+              f"max error {cm_err}")
     (canvases, table, win_w), _ = cap.args["pass1_fwd"][0]
     (t_in, _), _ = cap.args["pass2_fwd"][0]
     errs = check_warp_fwd("defender step inputs", canvases, table, win_w, t_in)
@@ -1584,7 +1659,8 @@ def main() -> int:
         "launches": defend_launches["cmconv"], "max_abs_err": cm_err,
         "ms": cm_tot["ms"], "plain_ms": cm_tot["plain_ms"],
         "bound_ms": cm_tot["bound_ms"], "bound_by": cm_bound_by,
-        "library_ms": cm_tot["library_ms"]})
+        "library_ms": cm_tot["library_ms"], "ablation_ms": cm_tot["ablation_ms"],
+        "bound_tc_ms": cm_tot["bound_tc_ms"]})
     for kind in ("fwd", "dx"):  # per pass of the 25 fuseable blocks
         tot = mb_tot[kind]
         kernels.append({

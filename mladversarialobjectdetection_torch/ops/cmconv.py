@@ -8,9 +8,13 @@ what Flax's `nn.Conv` adds (the TPU kernel has none).
 
 - `cmconv_plain`: the Co * C * 9 shifted multiply-adds of the TPU kernel, in
   its order (c, then dy, then dx; `proto_cmconv.py:30-37`), then the bias.
-  It runs on any device; the CUDA kernel is held against it.
+  It runs on any device; the CUDA kernels are held against it within 1e-5
+  of the output's scale: they are not bit-equal to it, since the SIMT
+  instance sums with FMAs (in the same c, dy, dx order) and the
+  tensor-core instance with 3xTF32 products.
 - `CMConv3x3` / `cmconv`: the differentiable op. Forward: the CUDA kernel
-  (`ops/cmconv_cuda.py`, `csrc/cmconv.cu`) for CUDA tensors, which launches
+  (`ops/cmconv_cuda.py`, `csrc/cmconv.cu` / `cmconv_tc.cu`, the instance
+  `cmconv_cuda.plan` picks) for CUDA tensors, which launches
   or raises, the plain version for CPU tensors. Input gradient: the same
   kernel (or plain version) on the output gradient with the weights flipped
   in both spatial axes and C / Co swapped, which is exact for a stride-1 3x3

@@ -5,9 +5,15 @@ Replaces the Pallas TPU kernel `_nms_kernel` of
 `batched_nms_pallas`). The kernel runs the whole greedy loop for one image
 in one CTA and recomputes the winner's IoU row each step instead of forming
 the Pallas kernel's [N, N] matrix, which does not fit a block's shared
-memory on Hopper. Its bound on an H100 (bytes, operations and the serial
-chain of M block-wide argmax steps) is worked out in `csrc/nms.cu` and
-PERF.md.
+memory on Hopper. Its launch configuration, chosen by the C entry from N:
+ceil(N / 4) threads rounded up to a warp (at most 1024, N <= 4096), else
+ceil(N / 16) (at most 512, N <= 8192); each thread holds its candidates'
+live scores in registers; 16 bytes of dynamic shared memory per candidate
+(the boxes, read-only after the load), two 32-entry slots and one barrier
+per step. It stops at the first invalid step whose winner is not NaN and
+writes the remaining rows as pad rows, which the plain version would
+produce too. Its bound on an H100 (bytes, operations and the serial chain
+of M block-wide argmax steps) is worked out in `csrc/nms.cu` and PERF.md.
 
 `batched_nms_cuda` takes only CUDA float32 tensors and launches the kernel
 or raises; it never falls back to the plain version (`ops/nms.batched_nms`).
@@ -38,6 +44,31 @@ def _kernel():
                    ctypes.c_float, _P, _P, _P, _P, _P, _P]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _div_check():
+    """The division check's C entry in `csrc/nms.cu`, built on first use."""
+    fn = _build.load("nms").mlad_nms_div_check
+    fn.argtypes = [ctypes.c_ulonglong, ctypes.c_int, _P, _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def division_mismatches(pairs: int, pair_range: int,
+                        device: torch.device | str = "cuda") -> int:
+    """Pairs of `pair_range` (0: both operands in [2^-40, 2^41); 1: the
+    iou's, a <= d in [1e-3, 1e6]) on which the kernel's fast division
+    differs from div.rn; `csrc/nms.cu`'s exactness rests on it being 0."""
+    if pair_range not in (0, 1):
+        raise ValueError(f"pair_range {pair_range}: want 0 or 1")
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(bad.device):
+        err = _div_check()(int(pairs), pair_range, bad.data_ptr(),
+                           torch.cuda.current_stream(bad.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"division check launch failed: cudaError_t {err}")
+    return int(bad.item())
 
 
 def batched_nms_cuda(boxes: torch.Tensor, scores: torch.Tensor, *,

@@ -13,9 +13,10 @@ JAX with. NMS kernel vs plain: indices, valid, valid_len and boxes exactly
 equal, scores within 1e-6. Warp kernels vs plain: within WARP_TOL of the
 output's scale, since the weights are the same float32 values and only the
 order of the sums differs; two launches bit-equal (no atomics). cmconv
-kernel vs plain: within CMCONV_TOL of the output's scale (both sum in the
-same order with separate multiplies and adds, so they are expected to be
-bit-equal); two launches bit-equal. Fused MBConv kernels vs plain: forward
+kernels (both instances, `simt` and `tc`, and the plan's pick) vs plain:
+within CMCONV_TOL of the output's scale (the SIMT instance sums with FMAs,
+the tensor-core one with 3xTF32 products, each in one fixed order, where
+the plain version multiplies and adds apart); two launches bit-equal. Fused MBConv kernels vs plain: forward
 within MBCONV_FWD_TOL of max(1, max|plain|) (3xTF32 products summed in
 another order), dx within MBCONV_DX_TOL of max|plain| of the plain dx fed
 the kernel's own relu masks, every mask that differs from the plain
@@ -66,6 +67,9 @@ def _cases():
     flat = boxes.copy()
     flat[:, ::3, 2] = flat[:, ::3, 0]           # zero height
     flat[:, 1::3, 3] = flat[:, 1::3, 1] - 5.0   # negative width
+    nan = scores.copy()
+    nan[rng.uniform(size=nan.shape) < 0.05] = np.nan  # NaN wins, is never valid
+    few = scores * 0.6  # about 1 in 6 over .5: a few valid winners, then none
     return [
         ("hard", boxes, scores, HARD),
         ("gaussian", boxes, scores, GAUSS),
@@ -84,6 +88,12 @@ def _cases():
         ("score_thresh_0_iou_0_hard", boxes, scores,
          dict(HARD, score_thresh=0.0, iou_thresh=0.0)),
         ("defaults_gaussian", boxes, scores, dict(max_output_size=24)),
+        ("nan_scores_hard", boxes, nan, HARD),
+        ("nan_scores_gaussian", boxes, nan, GAUSS),
+        ("early_exit_hard", boxes, few, dict(HARD, score_thresh=0.5)),
+        ("early_exit_gaussian", boxes, few, dict(GAUSS, score_thresh=0.5)),
+        # hard, nothing suppressed, no threshold: all M steps valid
+        ("all_valid_chain", boxes, scores, dict(HARD, score_thresh=None, iou_thresh=1.0)),
     ]
 
 
@@ -98,6 +108,24 @@ def _serve_shape_cases():
     scores = rng.uniform(0.0, 1.0, (8, 1024)).astype(np.float32)
     return [("serve_hard", boxes, scores, dict(HARD, max_output_size=100)),
             ("serve_gaussian", boxes, scores, dict(GAUSS, max_output_size=100))]
+
+
+def _large_cases():
+    """Near 48 KB of shared memory (N = 3000 with the static slots and row
+    ring), past the kernel's 4096-candidate instance, up to kMaxCandidates."""
+    rng = np.random.RandomState(3)
+    out = []
+    for n in (3000, 4097, 8192):
+        boxes = random_boxes(rng, 2, n, hi=600.0, size=(10.0, 160.0))
+        scores = rng.uniform(0.0, 1.0, (2, n)).astype(np.float32)
+        nan = scores.copy()
+        nan[rng.uniform(size=nan.shape) < 0.01] = np.nan
+        out += [(f"n{n}_gaussian", boxes, scores, dict(GAUSS, max_output_size=100)),
+                (f"n{n}_nan_hard", boxes, nan, dict(HARD, max_output_size=100))]
+    return out
+
+
+LARGE_CASES = _large_cases()
 
 
 @pytest.fixture
@@ -125,6 +153,28 @@ def assert_kernel_equals_plain(boxes, scores, kw):
 def test_cuda_kernel_matches_plain(cuda, name, boxes, scores, kw):
     assert_kernel_equals_plain(torch.from_numpy(boxes).to(cuda),
                                torch.from_numpy(scores).to(cuda), kw)
+
+
+@pytest.mark.parametrize("name,boxes,scores,kw", LARGE_CASES, ids=[c[0] for c in LARGE_CASES])
+def test_cuda_kernel_matches_plain_large(cuda, name, boxes, scores, kw):
+    assert_kernel_equals_plain(torch.from_numpy(boxes).to(cuda),
+                               torch.from_numpy(scores).to(cuda), kw)
+
+
+def test_cuda_kernel_early_exit_rows(cuda):
+    """A pool where every score is under the threshold: the kernel stops at
+    step 0 and writes all M pad rows (boxes[0] * 0), as the plain version."""
+    _, boxes, scores, kw = CASES[0]
+    kern = assert_kernel_equals_plain(torch.from_numpy(boxes).to(cuda),
+                                      torch.from_numpy(scores * 0.1).to(cuda),
+                                      dict(kw, score_thresh=0.5))
+    assert not kern.valid.any() and not kern.indices.any()
+
+
+@pytest.mark.parametrize("pair_range", [0, 1])
+def test_nms_fast_division_is_div_rn(cuda, pair_range):
+    """The kernel's branch-free division equals div.rn over its range."""
+    assert nms_cuda.division_mismatches(1 << 30, pair_range, cuda) == 0
 
 
 def test_auto_dispatches_cuda_tensors_to_kernel(cuda):
@@ -344,7 +394,7 @@ def test_attack_step_on_card_goes_through_kernels(cuda):
 # 8->16, 16->16, 32->16, 16->16, 16->8, 8->8; input gradients the same
 # convs with C and Co swapped (16->32 and 16->8 are new)
 CMCONV_PATH = [(3, 8), (8, 8), (8, 16), (16, 16), (32, 16), (16, 8), (16, 32)]
-# (id, B, C, Co, H, W): sizes off the 32x8 tile, 1x1 images, one image, one
+# (id, B, C, Co, H, W): sizes off the instances' 64-wide tiles, 1x1 images, one image, one
 # channel, the 32-channel limit, output widths off the compiled ones
 CMCONV_EDGES = [("ragged_13x37", 2, 8, 8, 13, 37), ("1x1", 3, 8, 16, 1, 1),
                 ("b1", 1, 16, 16, 24, 40), ("c1", 2, 1, 8, 20, 20),
@@ -360,14 +410,21 @@ def _cmconv_case(cuda, b, c, co, h, w, seed=0):
     return x, wt, bias
 
 
-def _assert_cmconv(cuda, x, wt, bias):
-    before = cmconv_cuda.LAUNCHES
-    out = cmconv_cuda.cmconv3x3_cuda(x, wt, bias)
+def _assert_cmconv(cuda, x, wt, bias, instance=None):
+    """The plan's pick (instance None) or a named instance against plain."""
+    if instance is None:
+        before, count = cmconv_cuda.LAUNCHES, lambda: cmconv_cuda.LAUNCHES
+        run = lambda: cmconv_cuda.cmconv3x3_cuda(x, wt, bias)
+    else:
+        before = cmconv_cuda.INSTANCE_LAUNCHES[instance]
+        count = lambda: cmconv_cuda.INSTANCE_LAUNCHES[instance]
+        run = lambda: cmconv_cuda.cmconv3x3_instance(x, wt, bias, instance)
+    out = run()
     plain = pcmconv.cmconv_plain(x, wt, bias)
     torch.cuda.synchronize()
-    assert cmconv_cuda.LAUNCHES == before + 1
-    _close(out, plain, "cmconv", CMCONV_TOL)
-    assert torch.equal(cmconv_cuda.cmconv3x3_cuda(x, wt, bias), out)
+    assert count() == before + 1
+    _close(out, plain, f"cmconv {instance or 'plan'}", CMCONV_TOL)
+    assert torch.equal(run(), out)
 
 
 @pytest.mark.parametrize("c,co", CMCONV_PATH, ids=[f"{c}to{co}" for c, co in CMCONV_PATH])
@@ -380,6 +437,28 @@ def test_cmconv_kernel_matches_plain_at_path_shapes(cuda, c, co, with_bias):
 @pytest.mark.parametrize("name,b,c,co,h,w", CMCONV_EDGES, ids=[e[0] for e in CMCONV_EDGES])
 def test_cmconv_kernel_edge_cases(cuda, name, b, c, co, h, w):
     _assert_cmconv(cuda, *_cmconv_case(cuda, b, c, co, h, w, seed=7))
+
+
+@pytest.mark.parametrize("instance", sorted(cmconv_cuda.ENTRIES))
+@pytest.mark.parametrize("c,co", CMCONV_PATH, ids=[f"{c}to{co}" for c, co in CMCONV_PATH])
+def test_cmconv_instances_match_plain_at_path_shapes(cuda, c, co, instance):
+    x, wt, bias = _cmconv_case(cuda, 4, c, co, 48, 64, seed=c * 100 + co)
+    _assert_cmconv(cuda, x, wt, bias, instance)
+
+
+@pytest.mark.parametrize("instance", sorted(cmconv_cuda.ENTRIES))
+@pytest.mark.parametrize("name,b,c,co,h,w", CMCONV_EDGES, ids=[e[0] for e in CMCONV_EDGES])
+def test_cmconv_instances_edge_cases(cuda, name, b, c, co, h, w, instance):
+    _assert_cmconv(cuda, *_cmconv_case(cuda, b, c, co, h, w, seed=7), instance)
+
+
+@pytest.mark.parametrize("c,co", CMCONV_PATH, ids=[f"{c}to{co}" for c, co in CMCONV_PATH])
+def test_cmconv_launches_the_plans_instance(cuda, c, co):
+    """cmconv3x3_cuda is bit-equal to the instance its plan names."""
+    x, wt, bias = _cmconv_case(cuda, 2, c, co, 24, 72, seed=c + co)
+    inst = cmconv_cuda.plan(c, co, 24, 72).instance
+    assert torch.equal(cmconv_cuda.cmconv3x3_cuda(x, wt, bias),
+                       cmconv_cuda.cmconv3x3_instance(x, wt, bias, inst))
 
 
 def test_cmconv_autograd_on_card_matches_cpu(cuda):

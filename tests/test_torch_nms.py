@@ -3,8 +3,11 @@
 The plain torch version is held against `ops/nms.batched_nms` and against
 the Pallas kernel `pallas_nms.batched_nms_pallas` in interpret mode, on the
 same numpy inputs: indices, valid and valid_len exact, scores within 1e-6,
-boxes within 1e-6. The input sets are `test_torch_cuda.CASES`, with which
-the CUDA kernel is held against the plain version where a card is present.
+boxes within 1e-6. The input sets are `test_torch_cuda.CASES` (NaN scores,
+an early exit and an all-valid chain among them), with which the CUDA
+kernel is held against the plain version where a card is present. The
+invariant that the kernel's early exit rests on is checked on the plain
+version.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -55,6 +58,43 @@ def test_plain_matches_pallas_interpret(kw):
     finally:
         pallas_nms._INTERPRET = old
     _assert_same(ref, pnms.batched_nms(*_torch(boxes, scores), **kw))
+
+
+@pytest.mark.parametrize("name,boxes,scores,kw", CASES, ids=IDS)
+def test_plain_early_exit_invariant(monkeypatch, name, boxes, scores, kw):
+    """What csrc/nms.cu's early exit rests on: after the first step whose
+    winner is invalid and not NaN, every later winner is invalid and every
+    later row is the pad row (index 0, score 0, not valid, boxes[0] * 0)."""
+    winners = []
+    argmax = torch.argmax
+
+    def spy(live, dim):
+        best = argmax(live, dim=dim)
+        winners.append(live.gather(1, best[:, None])[:, 0].clone())
+        return best
+
+    monkeypatch.setattr(torch, "argmax", spy)
+    out = pnms.batched_nms(*_torch(boxes, scores), **kw)
+    monkeypatch.undo()
+    method = kw.get("method", "gaussian")
+    _, _, score_t = pnms.nms_thresholds(method, kw.get("iou_thresh"),
+                                        kw.get("score_thresh"), kw.get("sigma"))
+    win = torch.stack(winners, 1)  # [B, M] the live score of each winner
+    ok = (win >= score_t) & (win > 0.5 * pnms.NEG_INF)
+    assert torch.equal(ok, out.valid)
+    m = win.shape[1]
+    exits = 0
+    for b in range(win.shape[0]):
+        stops = [i for i in range(m) if not ok[b, i] and not torch.isnan(win[b, i])]
+        if not stops:
+            continue
+        s, exits = stops[0], exits + 1
+        assert not ok[b, s:].any()
+        assert not out.indices[b, s:].any() and not out.scores[b, s:].any()
+        pad = torch.from_numpy(boxes[b, 0]) * 0.0
+        assert torch.equal(out.boxes[b, s:], pad.expand(m - s, 4))
+    if name.startswith(("early_exit", "exhausted", "identical")):
+        assert exits == win.shape[0], f"{name}: no early exit in some image"
 
 
 def test_iou_matches_jax():
