@@ -45,8 +45,10 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    preprocessing), each against `serve` of the same batches;
 4. warp kernels vs plain: the four EOT warp kernels (two forward passes and
    both transposes) against their plain versions on the card, on the
-   lite4 window and on edge cases, within WARP_TOL of the output's scale;
-   two launches of each kernel must be bit-equal;
+   lite4 window, on edge cases, on an image with 16 windows beside images
+   with none, and on the b24 live regime's windows, within WARP_TOL of the
+   output's scale; two launches of each kernel must be bit-equal, and an
+   image with no window must get an exactly zero canvas gradient;
 5. attack step: `PatchAttacker.train_step` on efficientdet-lite4 at 640,
    full width and depth, seeded weights, fp32 (TF32 off), batch 24, window
    320, 256 NMS candidates, in the benchmark's "live" regime (1-5 person
@@ -60,7 +62,10 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    `_forward_unfused`, cuDNN, TF32 off) on one attack loss with fixed draws:
    logits within 2e-4 * max(1, max|ref|), patch gradient cosine >= 0.9999;
 6. warp kernels in the step: each kernel on the inputs a step gave it,
-   against its plain version, timed beside its bound and the plain time;
+   against its plain version, timed beside its bound (the input positions
+   that a non-zero tap reads, each read once, and the output written once;
+   beside it the figure that counts each input read whole) and the plain
+   time;
 6a. fused MBConv kernels in the step: the forward of the 25 blocks of the
    gradient-carrying pass and their 25 dx launches, on the inputs the step
    gave them, against the plain versions (as in 1a, the mask flips counted),
@@ -496,9 +501,10 @@ def make_live_slot_boxes(batch: int, image_hw, max_boxes: int = 16,
 
 
 def warp_case(rng, n_images, n, p0, w, *, angle_deg=None, size=None,
-              shift=0.0):
+              shift=0.0, images=None):
     """(canvases [B, p0, p0, 3] on the card, host window table [n, 8]) of
-    random windows; each region lies in its window unless `shift` moves it."""
+    random windows of `images` (else random images); each region lies in its
+    window unless `shift` moves it."""
     import torch
     from mladversarialobjectdetection_torch.ops import eot
 
@@ -512,7 +518,8 @@ def warp_case(rng, n_images, n, p0, w, *, angle_deg=None, size=None,
     zero = f(np.zeros(n))
     table = eot.window_table(p0, zero, zero, f(ymin), f(xmin), f(size),
                              f(diag), f(angle),
-                             torch.from_numpy(rng.integers(0, n_images, n)))
+                             torch.from_numpy(rng.integers(0, n_images, n)
+                                              if images is None else np.asarray(images)))
     canvases = torch.from_numpy(rng.uniform(
         -1, 1, (n_images, p0, p0, 3)).astype(np.float32)).cuda()
     return canvases, table
@@ -520,6 +527,8 @@ def warp_case(rng, n_images, n, p0, w, *, angle_deg=None, size=None,
 
 def warp_cases(rng):
     """(name, w, canvases, table): the lite4 window and the edge cases."""
+    import torch
+
     yield ("p96 w320 rot -20", 320, *warp_case(rng, 2, 3, 96, 320, angle_deg=-20))
     yield ("p96 w320 rot 0 rho<1", 320, *warp_case(rng, 2, 3, 96, 320,
                                                    angle_deg=0, size=150.0))
@@ -533,6 +542,27 @@ def warp_cases(rng):
     yield ("w384", 384, *warp_case(rng, 2, 4, 96, 384))
     yield ("p32 w200", 200, *warp_case(rng, 3, 5, 32, 200))
     yield ("b24 70 windows", 320, *warp_case(rng, 24, 70, 96, 320))
+    yield ("16 windows of one image beside images with none", 320,
+           *warp_case(rng, 4, 16, 96, 320, images=np.full(16, 2)))
+    table = live_regime_table()
+    yield ("b24 live regime", ATTACK_WINDOW, torch.from_numpy(rng.uniform(
+        -1, 1, (ATTACK_BATCH, 96, 96, 3)).astype(np.float32)).cuda(), table)
+
+
+def live_regime_table(seed: int = 0):
+    """The host window table of `make_live_slot_boxes`' b24 regime at 640,
+    the attacker's initial scale .4, window 320 and canvas 96: the
+    attack step's windows before its draws move them."""
+    import torch
+    from mladversarialobjectdetection_torch.ops import eot
+
+    boxes, valid = make_live_slot_boxes(ATTACK_BATCH, (640, 640), 16)
+    geom = eot.make_patch_geometry(
+        torch.from_numpy(boxes), torch.from_numpy(valid), 0.4, (640, 640),
+        max_region=float(ATTACK_WINDOW),
+        generator=torch.Generator().manual_seed(seed))
+    live = eot._live_windows(geom, 640, 640, ATTACK_WINDOW)
+    return eot.window_table(96, *live.geom.unbind(-1), live.image)
 
 
 def kernel_err(name, kern, plain) -> float:
@@ -574,6 +604,9 @@ def check_warp(name, canvases, table, w, g=None):
     for k, a, b in zip(WARP_KERNELS, again, (t, out, dt, dc)):
         if not torch.equal(a, b):
             fail(f"warp {name} {k}: two launches differ")
+    empty = sorted(set(range(n_img)) - set(table[:, 7].long().tolist()))
+    if empty and bool(dc[empty].any()):
+        fail(f"warp {name} pass1_bwd: an image with no window got a gradient")
     return errs, float(out.abs().max()) == 0.0
 
 
@@ -599,44 +632,64 @@ def check_warp_fwd(name, canvases, table, w, t_in, chunk: int = 16):
     return errs
 
 
-def warp_taps(table, p0: int, w: int):
-    """(T1, T2): the (window, i, x, j) and (window, y, x, i) taps whose hat
-    weight is non-zero for these windows, counted with the plain version's
-    weights (`eot._pass1_weights`, `eot._pass2_weights`)."""
+def warp_taps(table, n_img: int, p0: int, w: int):
+    """(T1, T2, live): the (window, i, x, j) and (window, y, x, i) taps whose
+    hat weight is non-zero for these windows, counted with the plain
+    version's weights (`eot._pass1_weights`, `eot._pass2_weights`), and per
+    kernel the input positions that a non-zero tap reads: canvas (b, i, j)
+    for pass1_fwd, t (n, i, x) for pass2_fwd, g (n, y, x) for pass2_bwd, dt
+    (n, i, x) for pass1_bwd."""
+    import torch
     from mladversarialobjectdetection_torch.ops import eot
 
     t1 = t2 = 0
+    live = dict.fromkeys(WARP_KERNELS, 0)
+    canvas = torch.zeros((n_img, p0, p0), dtype=torch.bool, device="cuda")
     for start in range(0, table.shape[0], 8):
         part = table[start:start + 8].cuda()
-        t1 += int((eot._pass1_weights(part, p0, w) > 0).sum())
-        t2 += int((eot._pass2_weights(part, p0, w) > 0).sum())
-    return t1, t2
+        h1 = eot._pass1_weights(part, p0, w) > 0   # [n, i, x, j]
+        h2 = eot._pass2_weights(part, p0, w) > 0   # [n, y, x, i]
+        t1 += int(h1.sum())
+        t2 += int(h2.sum())
+        for img, read in zip(part[:, 7].long().tolist(), h1.any(2)):
+            canvas[img] |= read                    # (i, j) of image img
+        live["pass2_fwd"] += int(h2.any(1).sum())  # (n, x, i)
+        live["pass2_bwd"] += int(h2.any(3).sum())  # (n, y, x)
+        live["pass1_bwd"] += int(h1.any(3).sum())  # (n, i, x)
+    live["pass1_fwd"] = int(canvas.sum())
+    return t1, t2, live
 
 
 def warp_bounds(n_img: int, n_win: int, p0: int, w: int, taps):
-    """{kernel: (bound ms, bound_by, bytes, ops)}: each input read once and
-    each output written once, over the HBM rate; the operations of the
-    non-zero taps and of each output, over the fp32 rate."""
-    t1, t2 = taps
+    """{kernel: (bound ms, bound_by, bytes, ops, whole-tensor bound ms)}: the
+    input positions that a non-zero tap reads, each read once, and each
+    output written once, over the HBM rate; the operations of the non-zero
+    taps and of each output, over the fp32 rate. The last figure counts
+    each input read whole, the earlier yardstick, printed beside the new
+    one to show the change."""
+    t1, t2, live = taps
     f = 4  # bytes per float32
     canvas, table = n_img * p0 * p0 * 3 * f, n_win * 8 * f
     t_sz, out_sz = n_win * p0 * w * 3 * f, n_win * w * w * 3 * f
-    work = {
-        "pass1_fwd": (canvas + table + t_sz,
+    work = {  # (live input bytes + table, output bytes, whole input, ops)
+        "pass1_fwd": (live["pass1_fwd"] * 3 * f, t_sz, canvas,
                       t1 * WARP_TAP_OPS + n_win * p0 * w * WARP_FWD_OUT_OPS),
-        "pass2_fwd": (t_sz + table + out_sz,
+        "pass2_fwd": (live["pass2_fwd"] * 3 * f, out_sz, t_sz,
                       t2 * WARP_TAP_OPS + n_win * w * w * WARP_FWD_OUT_OPS),
-        "pass2_bwd": (out_sz + table + t_sz,
+        "pass2_bwd": (live["pass2_bwd"] * 3 * f, t_sz, out_sz,
                       t2 * WARP_TAP_OPS + n_win * w * w * WARP_BWD_OUT_OPS),
-        "pass1_bwd": (t_sz + table + canvas,
+        "pass1_bwd": (live["pass1_bwd"] * 3 * f, canvas, t_sz,
                       t1 * WARP_TAP_OPS + n_win * p0 * w * WARP_BWD_OUT_OPS),
     }
     out = {}
-    for k, (nbytes, ops) in work.items():
+    for k, (read, written, whole, ops) in work.items():
+        nbytes = read + table + written
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / FP32_FLOP_PER_S * 1e3
+        whole_ms = max((whole + table + written) / HBM_BYTES_PER_S * 1e3, ops_ms)
         out[k] = (max(bytes_ms, ops_ms),
-                  "bytes" if bytes_ms >= ops_ms else "operations", nbytes, ops)
+                  "bytes" if bytes_ms >= ops_ms else "operations", nbytes, ops,
+                  whole_ms)
     return out
 
 
@@ -1219,7 +1272,7 @@ def main() -> int:
     (dt_in, _, n_img), _ = cap.args["pass1_bwd"][0]
     errs, _ = check_warp("step inputs", canvases, table, w, g=g_in)
     warp_errs = {k: max(warp_errs[k], errs[k]) for k in WARP_KERNELS}
-    taps = warp_taps(table, p0, w)
+    taps = warp_taps(table, n_img, p0, w)
     bounds = warp_bounds(n_img, table.shape[0], p0, w, taps)
     calls = {
         "pass1_fwd": (lambda: warp_cuda.pass1_fwd(canvases, table, w),
@@ -1236,16 +1289,19 @@ def main() -> int:
         kern_ms = kernel_device_ms(kern_fn, f"{k}_kernel")
         wrapper_ms = cuda_ms(kern_fn, iters=20)
         plain_ms = cuda_ms(plain_fn, iters=3, warmup=1)
-        bound_ms, bound_by, nbytes, ops = bounds[k]
+        bound_ms, bound_by, nbytes, ops, whole_ms = bounds[k]
         warp_times[k] = (kern_ms, plain_ms, bound_ms, bound_by)
         print(f"  warp {k} at the step's {table.shape[0]} windows (p0 {p0}, w "
               f"{w}, {n_img} canvases): kernel {kern_ms:.4f} ms on the card "
               f"(wrapper with its host checks {wrapper_ms:.4f} ms per call), "
               f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
               f"{nbytes} B, {ops} fp32 ops), {bound_ms / kern_ms:.1%} of the "
-              f"bound; {attack_launches[k] // ATTACK_STEPS} launch per step")
+              f"bound (counting each input read whole, the earlier yardstick: "
+              f"{whole_ms:.6f} ms, {whole_ms / kern_ms:.1%}); "
+              f"{attack_launches[k] // ATTACK_STEPS} launch per step")
     print(f"phase 6 warp kernels at the step's inputs: non-zero taps pass 1 "
-          f"{taps[0]}, pass 2 {taps[1]}; max errors {warp_errs}")
+          f"{taps[0]}, pass 2 {taps[1]}; input positions a non-zero tap "
+          f"reads {taps[2]}; max errors {warp_errs}")
     (nms_boxes, nms_scores), nms_kw = cap.args["batched_nms_cuda"][0]
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by, err = nms_numbers(
         nms_boxes, nms_scores, nms_kw, "attack first pass")

@@ -19,38 +19,71 @@
 // [B, p0, p0, 3], and a window table [N, 8] of (g_i, g_x, g_c, a, b, cu, r,
 // image) per window; t and dt are [N, p0, w, 3], out and g [N, w, w, 3].
 //
-// Design:
-//   - one thread per output element (all three channels), so each output is
-//     a gather over its contraction interval, summed in a fixed order: no
-//     atomics, and a launch repeats bit for bit. The Pallas transposes
-//     accumulate over revisited output blocks and rely on the TPU running
-//     the grid in order; Hopper runs blocks in no order, so the transposes
-//     gather instead of scatter;
-//   - the hat is zero beyond r, so a thread visits only the taps of
-//     [floor(c - r) - 1, ceil(c + r) + 1] around its centre c (about 2r + 1,
-//     not p0 or w). For the transposes the interval is solved from the
-//     slope of the affine index (a in y for pass 2^T, g_x in x for pass 1^T)
-//     by its sign, and is the full range when the slope is 0;
+// Common to the four kernels:
+//   - every output is a gather over its contraction interval, summed in a
+//     fixed order: no atomics, and a launch repeats bit for bit. The Pallas
+//     transposes accumulate over revisited output blocks and rely on the TPU
+//     running the grid in order; Hopper runs blocks in no order, so the
+//     transposes gather instead of scatter;
+//   - the hat is zero beyond r, so an output visits only the taps around
+//     its centre c (about 2r + 1, not p0 or w): [floor(c - r) - 1,
+//     ceil(c + r) + 1] in the forward passes, [floor(c - r), ceil(c + r)]
+//     in the transposes (`taps_near`). For the transposes' outputs the
+//     interval is solved from the slope of the affine index (a in y for
+//     pass 2^T, g_x in x for pass 1^T) by its sign, and is the full range
+//     when the slope is 0 (`taps_along`);
 //   - each weight is evaluated with the plain version's expression
 //     (__fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn: never contracted into
-//     FMAs), so every tap that is non-zero there is non-zero here; the sums
-//     differ only in their order;
-//   - the transposes divide by the forward's normaliser, recomputed for each
-//     tap they visit (about 2r + 1 hat evaluations), so the backward needs
-//     nothing saved from the forward but the window table;
-//   - the window table is read once per thread; pass 1^T scans it for the
-//     windows of its own image (N <= B * max_boxes).
+//     FMAs), so every tap that is non-zero there is non-zero here; the
+//     results differ only in the order of the sums and in the
+//     normalisation, a product with 1 / N where the plain version divides.
+//
+// The forward passes: one thread per output element (all three channels).
+// Bytes bound them on an H100 (pass 2 at the attack step writes 86 MB).
+//
+// The transposes. A transpose divides each input by the forward's
+// normaliser at that position, which depends on the position alone, and
+// then spreads it over the 2r + 1 outputs whose hat reaches it. A thread
+// per output that recomputes the normaliser for each tap (about 2r + 3 hat
+// divisions, once for every output that reads the position), and that
+// scans the whole window table in pass 1^T, ran at 16% and 6% of their
+// byte bound. So each transpose stages the inputs it needs in shared
+// memory, divided by their normaliser, computed once per position:
+//   - pass 2^T: one CTA per (window n, strip of 32 columns x, block of 96
+//     canvas rows i), its 96 x 32 outputs summed in shared memory. It walks
+//     the strip's live rows y (those at which u(y, x) reaches [0, p0)
+//     within r for some x of the strip, a host table [N, strips, 2]) in
+//     chunks of 32: each position's normaliser once, g / N2 into shared
+//     memory; then for each column the warps share out the rows i that the
+//     chunk's taps reach, and each adds the chunk's taps to its output, y
+//     ascending. dt is written once, zeros included;
+//   - pass 1^T: one CTA per (canvas row i, image b, block of up to 128
+//     columns j), a thread per column j. It stages the live columns x (a
+//     host table [N, p0, 2]) of row i of all the image's windows at once, as
+//     dt / N1, walking them in table order (the host's stable sort of the
+//     table's image column, with offsets); then each thread adds its
+//     column's taps, windows in table order, x ascending, in registers.
+//     dcanvas is written once; an image with no window gets zeros.
+// A position at which every hat is zero (the ends of a live range) is
+// neither read nor divided: no tap reads it. The host tables are the window
+// table's appendix, copied with it in one transfer (ops/warp_cuda.py builds
+// them, and the CPU tests check that they cover every non-zero tap of the
+// plain weights). A range that is too wide costs time, never a tap: every
+// hat is still evaluated exactly and zeros are skipped.
 //
 // Bound on an H100 (chip_smoke.py computes it from a step's inputs): the
-// bytes are each input read once and each output written once (pass 2 at
-// b24 with 70 live windows of w = 320 writes 86 MB: about 0.026 ms at
-// 3.35 TB/s); the operations are about 12 per non-zero tap (hat: 5, three
-// FMAs: 6, the normaliser's add: 1), with 2r + 1 taps per output (about 0.005
-// ms at 67 TFLOP/s). So bytes bound every pass. The design keeps each pass
-// at one read and one write of its operands (the sums stay in registers;
-// the re-read of canvas rows and t columns by neighbouring threads hits the
-// L1 and L2 caches); fusing the two forward passes to keep t on chip is
-// later work.
+// bytes are each input position that a non-zero tap reads, read once, and
+// each output written once (pass 2^T at the attack step: 46 MB, 0.0137 ms at
+// 3.35 TB/s; pass 1^T: 8.7 MB); the operations are about 12 per non-zero tap
+// (hat: 5, three FMAs: 6, the normaliser's add: 1). Bytes bound both
+// transposes, yet by what moved their time on the card (PERF.md) what holds
+// them is the instructions they issue, the hat's IEEE division first: it is
+// evaluated for each tap of each staged normaliser and again for each
+// output's taps. At r = 1 (every window whose patch is at least the
+// canvas's size) that division is exact, |d| / 1 = |d|, so the transposes
+// run an instance without it (`hat<true>`), chosen per window; their
+// intervals visit no tap that is zero for certain; and `taps_along` takes
+// the slope's reciprocal once per window.
 
 #include <cmath>
 #include <cstdint>
@@ -87,10 +120,14 @@ __device__ __forceinline__ float affine(float alpha, float m, float beta,
   return __fadd_rn(__fadd_rn(__fmul_rn(alpha, m), __fmul_rn(beta, n)), gamma);
 }
 
-// hat(c - k) = max(0, 1 - |c - k| / r), as ops/eot.py `_hat`
+// hat(c - k) = max(0, 1 - |c - k| / r), as ops/eot.py `_hat`. At r = 1 the
+// division is exact, so the transposes' kUnit instance leaves it out and
+// gets the same float
+template <bool kUnit = false>
 __device__ __forceinline__ float hat(float c, int k, float r) {
   const float d = __fsub_rn(c, static_cast<float>(k));
-  return fmaxf(0.0f, __fsub_rn(1.0f, __fdiv_rn(fabsf(d), r)));
+  const float q = kUnit ? fabsf(d) : __fdiv_rn(fabsf(d), r);
+  return fmaxf(0.0f, __fsub_rn(1.0f, q));
 }
 
 // [lo, hi] within [0, n): the taps k whose hat(c - k) can be non-zero,
@@ -103,10 +140,26 @@ __device__ __forceinline__ void taps_around(float c, float r, int n, int& lo,
   hi = static_cast<int>(fminf(fmaxf(h, -1.0f), static_cast<float>(n - 1)));
 }
 
+// The transposes' intervals hold no margin beyond the real one: their
+// floor and ceil already take in the rounding of the affine index (well
+// under a thousandth of a step), and each end may hold a zero tap. The CPU
+// tests hold their float32 twins in ops/warp_cuda.py to every non-zero tap
+// of the plain weights.
+
+// [lo, hi] within [0, n): the k with |c - k| < r (`taps_near` in ops/warp_cuda.py)
+__device__ __forceinline__ void taps_near(float c, float r, int n, int& lo,
+                                          int& hi) {
+  const float l = floorf(__fsub_rn(c, r));
+  const float h = ceilf(__fadd_rn(c, r));
+  lo = static_cast<int>(fminf(fmaxf(l, 0.0f), static_cast<float>(n)));
+  hi = static_cast<int>(fminf(fmaxf(h, -1.0f), static_cast<float>(n - 1)));
+}
+
 // [lo, hi] within [0, n): the k with |slope * k + base - target| < r, where
-// base does not depend on k, widened by one on each side; the full range for
-// slope 0
-__device__ __forceinline__ void taps_along(float slope, float base,
+// base does not depend on k; the full range for slope 0. inv is 1 / slope
+// (__fdiv_rn, once per window): a product with it is within a few ulp of
+// the quotient (`taps_along` in ops/warp_cuda.py)
+__device__ __forceinline__ void taps_along(float slope, float inv, float base,
                                            float target, float r, int n,
                                            int& lo, int& hi) {
   if (slope == 0.0f) {
@@ -114,21 +167,32 @@ __device__ __forceinline__ void taps_along(float slope, float base,
     hi = n - 1;
     return;
   }
-  const float q0 = __fdiv_rn(__fsub_rn(__fsub_rn(target, r), base), slope);
-  const float q1 = __fdiv_rn(__fsub_rn(__fadd_rn(target, r), base), slope);
-  const float l = floorf(fminf(q0, q1)) - 1.0f;
-  const float h = ceilf(fmaxf(q0, q1)) + 1.0f;
+  const float q0 = __fmul_rn(__fsub_rn(__fsub_rn(target, r), base), inv);
+  const float q1 = __fmul_rn(__fsub_rn(__fadd_rn(target, r), base), inv);
+  const float l = floorf(fminf(q0, q1));
+  const float h = ceilf(fmaxf(q0, q1));
   lo = static_cast<int>(fminf(fmaxf(l, 0.0f), static_cast<float>(n)));
   hi = static_cast<int>(fminf(fmaxf(h, -1.0f), static_cast<float>(n - 1)));
 }
 
-// the forward's normaliser max(sum_k hat(c - k), 1e-8) over k in [0, n)
-__device__ __forceinline__ float norm_at(float c, float r, int n) {
+// sum_k hat(c - k) over k in [0, n): the forward's normaliser before its floor
+template <bool kUnit>
+__device__ __forceinline__ float hat_sum(float c, float r, int n) {
   int lo, hi;
-  taps_around(c, r, n, lo, hi);
+  taps_near(c, r, n, lo, hi);
   float s = 0.0f;
-  for (int k = lo; k <= hi; ++k) s += hat(c, k, r);
-  return fmaxf(s, kNormFloor);
+  for (int k = lo; k <= hi; ++k) s += hat<kUnit>(c, k, r);
+  return s;
+}
+
+// v / nrm, three channels, into dst: one division, three products (as the
+// forward passes normalise)
+__device__ __forceinline__ void normalise3(const float* v, float nrm,
+                                           float* dst) {
+  const float inv = __fdiv_rn(1.0f, nrm);
+  dst[0] = v[0] * inv;
+  dst[1] = v[1] * inv;
+  dst[2] = v[2] * inv;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -191,72 +255,238 @@ pass2_fwd_kernel(const float* __restrict__ t, const float* __restrict__ table,
   o[2] = a2 * inv;
 }
 
-__global__ void __launch_bounds__(kThreads)
-pass2_bwd_kernel(const float* __restrict__ g, const float* __restrict__ table,
-                 int64_t total, int p0, int w, float* __restrict__ dt) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int x = static_cast<int>(idx % w);
-  const int i = static_cast<int>((idx / w) % p0);
-  const int64_t n = idx / (static_cast<int64_t>(w) * p0);
-  const Window q = load_window(table, n);
+// pass 2^T: a CTA per (window, strip of kStrip columns x, block of
+// kRowBlock canvas rows i); its outputs dt[n, i, x, :] are summed in shared
+// memory
+constexpr int kStrip = 32;
+constexpr int kChunk = 32;  // rows y staged per step
+constexpr int kWarps = 8;
+constexpr int kRowBlock = 96;  // one block at the path's p0
+
+// the chunks of the strip's live rows [ylo, yhi]: stage g / N2, then add
+// each chunk's taps to the outputs in acc
+template <bool kUnit>
+__device__ __forceinline__ void pass2_bwd_rows(
+    const float* __restrict__ g, const Window& q, int n, int x0, int i_base,
+    int i_last, int ylo, int yhi, int p0, int w, float* gn, float* acc) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int x = x0 + lane;
   // u(y, x) - i = a * y + (b * x + cu) - i
   const float base = __fadd_rn(__fmul_rn(q.b, static_cast<float>(x)), q.cu);
-  int lo, hi;
-  taps_along(q.a, base, static_cast<float>(i), q.r, w, lo, hi);
-  const float* col = g + (n * w * w + x) * 3;  // g[n, 0, x, :]
-  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
-  for (int y = lo; y <= hi; ++y) {
-    const float u = affine(q.a, static_cast<float>(y), q.b,
-                           static_cast<float>(x), q.cu);
-    const float h = hat(u, i, q.r);
-    if (h == 0.0f) continue;
-    const float nrm = norm_at(u, q.r, p0);
-    const float* v = col + static_cast<int64_t>(y) * w * 3;
-    a0 += h * __fdiv_rn(v[0], nrm);
-    a1 += h * __fdiv_rn(v[1], nrm);
-    a2 += h * __fdiv_rn(v[2], nrm);
+  const float inv_a = __fdiv_rn(1.0f, q.a);
+  for (int y0 = ylo; y0 <= yhi; y0 += kChunk) {
+    const int ny = min(kChunk, yhi - y0 + 1);
+    for (int p = threadIdx.x; p < ny * kStrip; p += blockDim.x) {
+      const int y = y0 + p / kStrip;
+      const int xs = x0 + p % kStrip;
+      float* dst = gn + 3 * p;
+      dst[0] = dst[1] = dst[2] = 0.0f;
+      if (xs < w) {
+        const float u = affine(q.a, static_cast<float>(y), q.b,
+                               static_cast<float>(xs), q.cu);
+        const float s = hat_sum<kUnit>(u, q.r, p0);
+        if (s > 0.0f) {  // else no tap reads the position
+          normalise3(g + ((static_cast<int64_t>(n) * w + y) * w + xs) * 3,
+                     fmaxf(s, kNormFloor), dst);
+        }
+      }
+    }
+    __syncthreads();  // (the first one also orders the zero fill of acc)
+    if (x < w) {
+      // the rows i that a tap of this chunk reaches at column x: u is
+      // monotone in y, so they lie around u at the chunk's two ends
+      const float ua = affine(q.a, static_cast<float>(y0), q.b,
+                              static_cast<float>(x), q.cu);
+      const float ub = affine(q.a, static_cast<float>(y0 + ny - 1), q.b,
+                              static_cast<float>(x), q.cu);
+      int ilo, ihi, unused;
+      taps_near(fminf(ua, ub), q.r, p0, ilo, unused);
+      taps_near(fmaxf(ua, ub), q.r, p0, unused, ihi);
+      ihi = min(ihi, i_last);
+      for (int i = max(ilo, i_base) + warp; i <= ihi; i += kWarps) {
+        int lo, hi;
+        taps_along(q.a, inv_a, base, static_cast<float>(i), q.r, w, lo, hi);
+        lo = max(lo, y0);
+        hi = min(hi, y0 + ny - 1);
+        if (lo > hi) continue;
+        float* o = acc + 3 * ((i - i_base) * kStrip + lane);
+        float a0 = o[0], a1 = o[1], a2 = o[2];  // y ascending across chunks
+        for (int y = lo; y <= hi; ++y) {
+          const float u = affine(q.a, static_cast<float>(y), q.b,
+                                 static_cast<float>(x), q.cu);
+          const float h = hat<kUnit>(u, i, q.r);
+          if (h == 0.0f) continue;
+          const float* v = gn + 3 * ((y - y0) * kStrip + lane);
+          a0 += h * v[0];
+          a1 += h * v[1];
+          a2 += h * v[2];
+        }
+        o[0] = a0;
+        o[1] = a1;
+        o[2] = a2;
+      }
+    }
+    __syncthreads();
   }
-  float* o = dt + idx * 3;
-  o[0] = a0;
-  o[1] = a1;
-  o[2] = a2;
 }
 
-__global__ void __launch_bounds__(kThreads)
-pass1_bwd_kernel(const float* __restrict__ dt, const float* __restrict__ table,
-                 int n_win, int64_t total, int p0, int w,
-                 float* __restrict__ dcanvas) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int j = static_cast<int>(idx % p0);
-  const int i = static_cast<int>((idx / p0) % p0);
-  const int b = static_cast<int>(idx / (static_cast<int64_t>(p0) * p0));
-  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
-  for (int n = 0; n < n_win; ++n) {
-    const Window q = load_window(table, n);
-    if (q.image != b) continue;
-    // g(i, x) - j = g_x * x + (g_i * i + g_c) - j
-    const float base = __fadd_rn(__fmul_rn(q.g_i, static_cast<float>(i)), q.g_c);
-    int lo, hi;
-    taps_along(q.g_x, base, static_cast<float>(j), q.r, w, lo, hi);
-    const float* row = dt + (static_cast<int64_t>(n) * p0 + i) * w * 3;
-    for (int x = lo; x <= hi; ++x) {
-      const float gc = affine(q.g_i, static_cast<float>(i), q.g_x,
-                              static_cast<float>(x), q.g_c);
-      const float h = hat(gc, j, q.r);
-      if (h == 0.0f) continue;
-      const float nrm = norm_at(gc, q.r, p0);
-      const float* v = row + 3 * x;
-      a0 += h * __fdiv_rn(v[0], nrm);
-      a1 += h * __fdiv_rn(v[1], nrm);
-      a2 += h * __fdiv_rn(v[2], nrm);
-    }
+__global__ void __launch_bounds__(kWarps * 32)
+pass2_bwd_kernel(const float* __restrict__ g, const float* __restrict__ table,
+                 const int* __restrict__ rows, int p0, int w,
+                 float* __restrict__ dt) {
+  __shared__ float gn[kChunk * kStrip * 3];      // g / N2 of a chunk
+  __shared__ float acc[kRowBlock * kStrip * 3];  // the outputs, 36 KB
+  const int n = blockIdx.x;
+  const int x0 = blockIdx.y * kStrip;
+  const int i_base = blockIdx.z * kRowBlock;
+  const int i_last = min(p0, i_base + kRowBlock) - 1;
+  for (int f = threadIdx.x; f < kRowBlock * kStrip * 3; f += blockDim.x) {
+    acc[f] = 0.0f;
   }
-  float* o = dcanvas + idx * 3;
-  o[0] = a0;
-  o[1] = a1;
-  o[2] = a2;
+  const Window q = load_window(table, n);
+  const int* live = rows + 2 * (static_cast<int64_t>(n) * gridDim.y + blockIdx.y);
+  if (q.r == 1.0f) {
+    pass2_bwd_rows<true>(g, q, n, x0, i_base, i_last, live[0], live[1], p0,
+                         w, gn, acc);
+  } else {
+    pass2_bwd_rows<false>(g, q, n, x0, i_base, i_last, live[0], live[1], p0,
+                          w, gn, acc);
+  }
+  __syncthreads();  // a strip with no live row has passed no barrier yet
+  // dt[n, i_base:i_last + 1, x0:x0 + cols, :], rows of 3 * cols floats
+  const int cols3 = 3 * min(kStrip, w - x0);
+  const int total = (i_last - i_base + 1) * cols3;
+  for (int f = threadIdx.x; f < total; f += blockDim.x) {
+    const int r = f / cols3, c = f - r * cols3;
+    dt[((static_cast<int64_t>(n) * p0 + i_base + r) * w + x0) * 3 + c] =
+        acc[r * kStrip * 3 + c];
+  }
+}
+
+// pass 1^T: a CTA per (canvas row i, image b, block of up to kColBlock
+// canvas columns j), a thread per column j. A round stages up to kStage
+// positions: the live columns of row i of the image's windows, in table
+// order; a window longer than what is left of a round goes on in the next.
+constexpr int kColBlock = 128;
+constexpr int kStage = 1024;
+
+// A place in the walk over an image's windows: the window's position o in
+// the image's run of `order`, and the columns of it already staged.
+struct Cursor {
+  int o, done;
+};
+
+// dn[p] = dt[n, i, first + p, :] / N1(i, first + p) for p in [from, to),
+// each thread its own slots
+template <bool kUnit>
+__device__ __forceinline__ void pass1_bwd_stage(const float* __restrict__ row,
+                                                const Window& q, int i,
+                                                int first, int from, int to,
+                                                int p0, float* dn) {
+  for (int p = from + threadIdx.x; p < to; p += blockDim.x) {
+    const int x = first + p;
+    const float gc = affine(q.g_i, static_cast<float>(i), q.g_x,
+                            static_cast<float>(x), q.g_c);
+    const float s = hat_sum<kUnit>(gc, q.r, p0);
+    float* dst = dn + 3 * p;
+    dst[0] = dst[1] = dst[2] = 0.0f;
+    if (s > 0.0f) normalise3(row + 3 * x, fmaxf(s, kNormFloor), dst);
+  }
+}
+
+// the taps of column j over the staged columns [x_from, x_to] of a window
+template <bool kUnit>
+__device__ __forceinline__ void pass1_bwd_gather(const Window& q, int i, int j,
+                                                 int first, int x_from,
+                                                 int x_to, int w,
+                                                 const float* dn, float& a0,
+                                                 float& a1, float& a2) {
+  // g(i, x) - j = g_x * x + (g_i * i + g_c) - j
+  const float base = __fadd_rn(__fmul_rn(q.g_i, static_cast<float>(i)), q.g_c);
+  int lo, hi;
+  taps_along(q.g_x, __fdiv_rn(1.0f, q.g_x), base, static_cast<float>(j), q.r,
+             w, lo, hi);
+  lo = max(lo, x_from);
+  hi = min(hi, x_to);
+  for (int x = lo; x <= hi; ++x) {
+    const float gc = affine(q.g_i, static_cast<float>(i), q.g_x,
+                            static_cast<float>(x), q.g_c);
+    const float h = hat<kUnit>(gc, j, q.r);
+    if (h == 0.0f) continue;
+    const float* v = dn + 3 * (x - first);
+    a0 += h * v[0];
+    a1 += h * v[1];
+    a2 += h * v[2];
+  }
+}
+
+__global__ void __launch_bounds__(kColBlock)
+pass1_bwd_kernel(const float* __restrict__ dt, const float* __restrict__ table,
+                 const int* __restrict__ order, const int* __restrict__ offsets,
+                 const int* __restrict__ cols, int p0, int w,
+                 float* __restrict__ dcanvas) {
+  __shared__ float dn[kStage * 3];  // dt / N1 of the staged columns, 12 KB
+  const int i = blockIdx.x;
+  const int b = blockIdx.y;
+  const int j = blockIdx.z * blockDim.x + threadIdx.x;
+  const int o_end = offsets[b + 1];
+  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+  Cursor at{offsets[b], 0};
+  while (at.o < o_end) {
+    // stage: every thread walks the same windows and takes its own slots
+    Cursor c = at;
+    int slot = 0;
+    for (; c.o < o_end && slot < kStage; ++c.o, c.done = 0) {
+      const int n = order[c.o];
+      const int* live = cols + 2 * (static_cast<int64_t>(n) * p0 + i);
+      const int len = live[1] - live[0] + 1 - c.done;
+      if (len <= 0) continue;
+      const int take = min(len, kStage - slot);
+      const Window q = load_window(table, n);
+      const float* row = dt + (static_cast<int64_t>(n) * p0 + i) * w * 3;
+      const int first = live[0] + c.done - slot;  // the column at slot 0
+      if (q.r == 1.0f) {
+        pass1_bwd_stage<true>(row, q, i, first, slot, slot + take, p0, dn);
+      } else {
+        pass1_bwd_stage<false>(row, q, i, first, slot, slot + take, p0, dn);
+      }
+      slot += take;
+      if (take < len) {  // the round ends inside this window
+        c.done += take;
+        break;
+      }
+    }
+    __syncthreads();
+    // gather: the same walk, windows in table order, x ascending
+    slot = 0;
+    for (Cursor d = at; slot < kStage && d.o < o_end; ++d.o, d.done = 0) {
+      const int n = order[d.o];
+      const int* live = cols + 2 * (static_cast<int64_t>(n) * p0 + i);
+      const int len = live[1] - live[0] + 1 - d.done;
+      if (len <= 0) continue;
+      const int take = min(len, kStage - slot);
+      const int first = live[0] + d.done - slot;
+      if (j < p0) {
+        const Window q = load_window(table, n);
+        if (q.r == 1.0f) {
+          pass1_bwd_gather<true>(q, i, j, first, first + slot,
+                                 first + slot + take - 1, w, dn, a0, a1, a2);
+        } else {
+          pass1_bwd_gather<false>(q, i, j, first, first + slot,
+                                  first + slot + take - 1, w, dn, a0, a1, a2);
+        }
+      }
+      slot += take;
+    }
+    __syncthreads();
+    at = c;
+  }
+  if (j >= p0) return;
+  float* out = dcanvas + ((static_cast<int64_t>(b) * p0 + i) * p0 + j) * 3;
+  out[0] = a0;
+  out[1] = a1;
+  out[2] = a2;
 }
 
 int blocks_for(int64_t total) {
@@ -274,9 +504,17 @@ bool shapes_ok(int n_win, int p0, int w) {
 
 // C entries for ctypes. All arrays are float32 and contiguous; `table` is
 // [n_win, 8] with every image index in [0, n_img) (the wrapper checks it on
-// the host). Each returns cudaErrorInvalidValue without launching when a
-// size is out of range, else launches on `stream` and returns the
-// cudaError_t of the launch (0 on success).
+// the host). For the transposes the table carries an int32 appendix, copied
+// with it in one transfer (ops/warp_cuda.py `pass2_bwd_ranges`,
+// `pass1_bwd_ranges`):
+//   pass 2^T: rows [n_win, ceil(w / 32), 2], the live rows y of each strip
+//             of 32 columns, an inclusive range (empty when lo > hi);
+//   pass 1^T: order [n_win], the windows sorted by image, stably;
+//             offsets [n_img + 1] into it; cols [n_win, p0, 2], the live
+//             columns x of each window's row i.
+// Each returns cudaErrorInvalidValue without launching when a size is out
+// of range, else launches on `stream` and returns the cudaError_t of the
+// launch (0 on success).
 
 // canvas [n_img, p0, p0, 3] -> t [n_win, p0, w, 3]
 extern "C" int mlad_warp_pass1_fwd(const float* canvas, const float* table,
@@ -308,10 +546,15 @@ extern "C" int mlad_warp_pass2_fwd(const float* t, const float* table,
 extern "C" int mlad_warp_pass2_bwd(const float* g, const float* table,
                                    int n_win, int p0, int w, float* dt,
                                    void* stream) {
-  if (!shapes_ok(n_win, p0, w)) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t total = static_cast<int64_t>(n_win) * p0 * w;
-  pass2_bwd_kernel<<<blocks_for(total), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(g, table, total, p0,
+  const int strips = (w + kStrip - 1) / kStrip;
+  const int row_blocks = (p0 + kRowBlock - 1) / kRowBlock;
+  if (n_win < 1 || p0 < 1 || w < 1 || strips > 65535 || row_blocks > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int* rows = reinterpret_cast<const int*>(
+      table + static_cast<int64_t>(n_win) * kTableCols);
+  pass2_bwd_kernel<<<dim3(n_win, strips, row_blocks), kWarps * 32, 0,
+                     static_cast<cudaStream_t>(stream)>>>(g, table, rows, p0,
                                                           w, dt);
   return static_cast<int>(cudaGetLastError());
 }
@@ -320,13 +563,18 @@ extern "C" int mlad_warp_pass2_bwd(const float* g, const float* table,
 extern "C" int mlad_warp_pass1_bwd(const float* dt, const float* table,
                                    int n_win, int n_img, int p0, int w,
                                    float* dcanvas, void* stream) {
-  if (n_img < 1 || !shapes_ok(n_win, p0, w)) {
+  const int threads = p0 < kColBlock ? (p0 + 31) / 32 * 32 : kColBlock;
+  const int col_blocks = (p0 + threads - 1) / threads;
+  if (n_win < 1 || n_img < 1 || n_img > 65535 || p0 < 1 || w < 1 ||
+      col_blocks > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t total = static_cast<int64_t>(n_img) * p0 * p0;
-  pass1_bwd_kernel<<<blocks_for(total), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(dt, table, n_win,
-                                                          total, p0, w,
-                                                          dcanvas);
+  const int* order = reinterpret_cast<const int*>(
+      table + static_cast<int64_t>(n_win) * kTableCols);
+  const int* offsets = order + n_win;
+  const int* cols = offsets + n_img + 1;
+  pass1_bwd_kernel<<<dim3(p0, n_img, col_blocks), threads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      dt, table, order, offsets, cols, p0, w, dcanvas);
   return static_cast<int>(cudaGetLastError());
 }

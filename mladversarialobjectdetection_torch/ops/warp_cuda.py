@@ -10,7 +10,17 @@ radius, image) rows (`eot.window_table`).
 
 The table lives on the host: each wrapper checks it there (shape, finite
 values, radius > 0, integral image indices in range), so that a kernel never
-reads out of bounds, and copies it to the card without waiting. The wrappers
+reads out of bounds, and copies it to the card without waiting. The two
+transposes also take small host tables, appended to the window table and
+copied with it in the same transfer: the live rows of each strip of
+`STRIP` columns (`pass2_bwd_ranges`), and the windows of each image in
+table order with the live columns of each window's rows
+(`pass1_bwd_ranges`). A live range covers every position that a non-zero
+hat reads, widened by one on each side; the kernels still evaluate every
+hat and skip the zeros, so a wide range costs time, never a tap.
+`taps_near` and `taps_along` are float32 twins of the transposes' own
+intervals, for the tests.
+The wrappers
 take only contiguous float32 CUDA tensors (the kernels read single floats,
 so no alignment beyond a float's is needed), launch on PyTorch's current
 stream, allocate their outputs and nothing else, and raise on any refusal;
@@ -32,6 +42,7 @@ LAUNCHES = {"pass1_fwd": 0, "pass2_fwd": 0, "pass2_bwd": 0, "pass1_bwd": 0}
 WINDOWS = 0  # windows warped by pass1_fwd launches in this process
 
 TABLE_COLS = 8
+STRIP = 32  # output columns of a pass2_bwd CTA (csrc/warp.cu kStrip)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -95,14 +106,97 @@ def _check_data(name: str, x: torch.Tensor, ndim: int) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+def taps_near(c, r, n: int):
+    """(lo, hi): the float32 twin of csrc/warp.cu `taps_near`, elementwise:
+    the k in [0, n) with |c - k| < r, from floor(c - r) to ceil(c + r)."""
+    c, r = np.asarray(c, np.float32), np.asarray(r, np.float32)
+    return (np.clip(np.floor(c - r), 0, n).astype(np.int64),
+            np.clip(np.ceil(c + r), -1, n - 1).astype(np.int64))
+
+
+def taps_along(slope, base, target, r, n: int):
+    """(lo, hi): the float32 twin of csrc/warp.cu `taps_along`, elementwise.
+
+    The k in [0, n) with |slope * k + base - target| < r ((0, n - 1) where
+    slope is 0); empty when lo > hi. As in the kernel, the quotient by the
+    slope is a product with its float32 reciprocal."""
+    f32 = np.float32
+    slope, base, target, r = (np.asarray(v, f32) for v in (slope, base, target, r))
+    flat = slope == 0
+    inv = f32(1) / np.where(flat, f32(1), slope)
+    q0 = ((target - r) - base) * inv
+    q1 = ((target + r) - base) * inv
+    lo = np.clip(np.floor(np.minimum(q0, q1)), 0, n)
+    hi = np.clip(np.ceil(np.maximum(q0, q1)), -1, n - 1)
+    return (np.where(flat, 0, lo).astype(np.int64),
+            np.where(flat, n - 1, hi).astype(np.int64))
+
+
+def _live_range(slope, lo_t, hi_t, n: int) -> np.ndarray:
+    """[..., 2] int32 inclusive ranges within [0, n) of the k with
+    lo_t < slope * k < hi_t (float64), widened by one on each side; where
+    slope is 0, every k or none."""
+    out = np.empty(np.broadcast(slope, lo_t).shape + (2,), np.int32)
+    flat = slope == 0
+    if flat.any():  # never at |angle| <= 20 degrees
+        slope = np.where(flat, 1.0, slope)
+    q0, q1 = lo_t / slope, hi_t / slope
+    np.clip(np.floor(np.minimum(q0, q1)) - 1, 0, n, out=out[..., 0],
+            casting="unsafe")
+    np.clip(np.ceil(np.maximum(q0, q1)) + 1, -1, n - 1, out=out[..., 1],
+            casting="unsafe")
+    if flat.any():
+        every = np.broadcast_to(flat & (lo_t < 0) & (hi_t > 0), out.shape[:-1])
+        none = np.broadcast_to(flat, out.shape[:-1]) & ~every
+        out[every] = (0, n - 1)
+        out[none] = (n, -1)
+    return out
+
+
+def pass2_bwd_ranges(table, p0: int, w: int) -> np.ndarray:
+    """[N, ceil(w / STRIP), 2] int32: for each window and strip of STRIP
+    output columns x, the rows y at which u(y, x) = a*y + b*x + cu lies in
+    (-r, p0 - 1 + r) for some x of the strip: every row where pass 2 has a
+    non-zero tap there."""
+    q = np.asarray(table, np.float64)
+    a, b, cu, r = (q[:, c, None] for c in (3, 4, 5, 6))
+    x0 = np.arange(0, w, STRIP, dtype=np.float64)
+    x1 = np.minimum(x0 + STRIP - 1, w - 1)
+    bmin, bmax = np.minimum(b * x0, b * x1), np.maximum(b * x0, b * x1)
+    return _live_range(a, -r - cu - bmax, (p0 - 1) + r - cu - bmin, w)
+
+
+def pass1_bwd_ranges(table, n_images: int, p0: int, w: int):
+    """(order [N], offsets [n_images + 1], cols [N, p0, 2]), int32: the
+    windows sorted by image, stably, so each image's keep their table order;
+    where each image's run starts; and for each window and canvas row i the
+    columns x at which g(i, x) = g_i*i + g_x*x + g_c lies in
+    (-r, p0 - 1 + r): every column where pass 1 has a non-zero tap."""
+    q = np.asarray(table, np.float64)
+    image = q[:, 7].astype(np.int64)
+    order = np.argsort(image, kind="stable").astype(np.int32)
+    offsets = np.concatenate(
+        [[0], np.cumsum(np.bincount(image, minlength=n_images))]).astype(np.int32)
+    g_i, g_x, g_c, r = (q[:, c, None] for c in (0, 1, 2, 6))
+    base = g_i * np.arange(p0, dtype=np.float64) + g_c          # [N, p0]
+    cols = _live_range(g_x, -r - base, (p0 - 1) + r - base, w)
+    return order, offsets, cols
+
+
 def _launch(name: str, x: torch.Tensor, table: torch.Tensor, out_shape,
-            *sizes) -> torch.Tensor:
-    """Copy the checked table to x's card, launch kernel `name`, count it."""
+            *sizes, appendix=()) -> torch.Tensor:
+    """Copy the checked table, with its int32 appendix, to x's card in one
+    transfer, launch kernel `name`, count it."""
     dev = x.device
     out = torch.empty(out_shape, dtype=torch.float32, device=dev)
     fn = _kernels()[name]
+    host = table
+    if len(appendix):
+        host = torch.from_numpy(np.concatenate(
+            [table.numpy().view(np.int32).ravel()]
+            + [np.asarray(a, np.int32).ravel() for a in appendix]))
     with torch.cuda.device(dev):
-        table_d = table.pin_memory().to(dev, non_blocking=True)
+        table_d = host.pin_memory().to(dev, non_blocking=True)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), table_d.data_ptr(), *sizes, out.data_ptr(),
                  stream)
@@ -146,7 +240,8 @@ def pass2_bwd(g: torch.Tensor, table: torch.Tensor, p0: int) -> torch.Tensor:
     check_table(table)
     if table.shape[0] != n:
         raise ValueError(f"g has {n} windows, the table {table.shape[0]}")
-    return _launch("pass2_bwd", g, table, (n, p0, w, 3), n, int(p0), w)
+    return _launch("pass2_bwd", g, table, (n, p0, w, 3), n, int(p0), w,
+                   appendix=[pass2_bwd_ranges(table.numpy(), int(p0), w)])
 
 
 def pass1_bwd(dt: torch.Tensor, table: torch.Tensor, n_images: int
@@ -159,4 +254,5 @@ def pass1_bwd(dt: torch.Tensor, table: torch.Tensor, n_images: int
     if table.shape[0] != n:
         raise ValueError(f"dt has {n} windows, the table {table.shape[0]}")
     return _launch("pass1_bwd", dt, table, (n_images, p0, p0, 3), n,
-                   int(n_images), p0, w)
+                   int(n_images), p0, w,
+                   appendix=pass1_bwd_ranges(table.numpy(), int(n_images), p0, w))

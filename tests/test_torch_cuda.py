@@ -242,8 +242,9 @@ def test_serve_on_card_goes_through_kernel(cuda):
 
 
 def warp_windows_case(rng, n_images, n, p0, w, *, angle_deg=None, size=None,
-                      shift=0.0):
-    """(canvases [B, p0, p0, 3], host window table [n, 8]) of random windows.
+                      shift=0.0, images=None):
+    """(canvases [B, p0, p0, 3], host window table [n, 8]) of random windows
+    of `images` (else random images).
 
     Each region lies in the window (origin 0, 0) unless `shift` moves it."""
     size = np.full(n, size) if size is not None else rng.uniform(40, 200, n)
@@ -256,9 +257,19 @@ def warp_windows_case(rng, n_images, n, p0, w, *, angle_deg=None, size=None,
     f = lambda v: torch.tensor(v, dtype=torch.float32)
     table = peot.window_table(p0, f(zero), f(zero), f(ymin), f(xmin), f(size),
                               f(diag), f(angle),
-                              torch.from_numpy(rng.integers(0, n_images, n)))
+                              torch.from_numpy(rng.integers(0, n_images, n)
+                                               if images is None else np.asarray(images)))
     canvases = rng.uniform(-1, 1, (n_images, p0, p0, 3)).astype(np.float32)
     return torch.from_numpy(canvases), table
+
+
+def live_regime_case(rng):
+    """(canvases [24, 96, 96, 3], host window table) of the attack step's
+    windows: `chip_smoke.make_live_slot_boxes`' b24 live regime at 640."""
+    import chip_smoke
+
+    canvases = rng.uniform(-1, 1, (24, 96, 96, 3)).astype(np.float32)
+    return torch.from_numpy(canvases), chip_smoke.live_regime_table()
 
 
 def _warp_cases():
@@ -276,6 +287,9 @@ def _warp_cases():
         ("w200_p32", 200, warp_windows_case(r, 3, 5, 32, 200)),
         ("w384", 384, warp_windows_case(r, 2, 2, 96, 384)),
         ("b24_70_windows", 320, warp_windows_case(r, 24, 70, 96, 320)),
+        ("16_windows_of_one_image_beside_none", 320, warp_windows_case(
+            r, 4, 16, 96, 320, images=np.full(16, 2))),
+        ("b24_live_regime", 320, live_regime_case(r)),
     ]
 
 
@@ -309,6 +323,9 @@ def test_warp_kernels_match_plain(cuda, name, w, case):
     assert all(warp_cuda.LAUNCHES[k] == before[k] + 1 for k in before)
     if name == "wholly_outside":
         assert float(out.abs().max()) == 0.0
+    # an image with no window gets an exactly zero gradient
+    empty = sorted(set(range(n_img)) - set(table[:, 7].long().tolist()))
+    assert not bool(dc[empty].any())
     # gathers in a fixed order: a second launch repeats bit for bit
     assert torch.equal(warp_cuda.pass1_fwd(canvases, table, w), t)
     assert torch.equal(warp_cuda.pass2_fwd(t, table), out)
