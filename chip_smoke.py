@@ -19,7 +19,12 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    MBCONV_FWD_TOL of max(1, max|plain|), dx within MBCONV_DX_TOL of
    max|plain| of the plain dx fed the kernel's own relu masks, each mask
    that differs from the plain version's within MBCONV_KINK_TOL of its kink;
-   two launches bit-equal;
+   two launches bit-equal; then their bf16 instances on the same shapes
+   against the bf16 plain versions, within the MBCONV_BF16_* tolerances,
+   and every bf16 forward output within the roundings the bf16 function
+   allows (`ops/mbconv.rounding_bound`: an e, d or output rounded the other
+   way only where its float32 value lies within the sums' float32 error of a
+   bf16 boundary);
 2. NMS kernel vs plain: the NMS kernel against its plain PyTorch version on
    the card, at B=8, N=1024, M=100 (hard and gaussian) and on edge cases
    (NaN scores, an early exit after a few valid winners, the all-valid
@@ -43,6 +48,9 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    path; `serve_streams` over three in-memory sources of unequal length and
    `serve_pipelined` with a partial last batch (host and device
    preprocessing), each against `serve` of the same batches;
+3b. bf16 serve: `Detector(params={"mixed_precision": True})` at b1 / b8:
+   25 launches of the bf16 forward instance per serve and none of the
+   float32 one, NMS once per serve, the outputs checked and timed;
 4. warp kernels vs plain: the four EOT warp kernels (two forward passes and
    both transposes) against their plain versions on the card, on the
    lite4 window, on edge cases, on an image with 16 windows beside images
@@ -59,21 +67,35 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    and its dx 25 times per step; loss, patch and scale are checked; the
    step is timed, profiled and its peak memory read;
 5a. the fused victim against the unfused one (every block through
-   `_forward_unfused`, cuDNN, TF32 off) on one attack loss with fixed draws:
-   logits within 2e-4 * max(1, max|ref|), patch gradient cosine >= 0.9999;
+   `_forward_unfused`, cuDNN, TF32 off): logits within VICTIM_TOL of
+   max(1, max|ref|), the input gradient of a seeded cotangent on every
+   class and box output at cosine >= VICTIM_GRAD_COS, and on one attack
+   loss with fixed draws the patch gradient at cosine >= VICTIM_COS;
 6. warp kernels in the step: each kernel on the inputs a step gave it,
    against its plain version, timed beside its bound (the input positions
-   that a non-zero tap reads, each read once, and the output written once;
-   beside it the figure that counts each input read whole) and the plain
-   time;
+   that a non-zero tap reads, each read once, and the output written once)
+   and the plain time, with the windows at r = 1 counted;
 6a. fused MBConv kernels in the step: the forward of the 25 blocks of the
    gradient-carrying pass and their 25 dx launches, on the inputs the step
    gave them, against the plain versions (as in 1a, the mask flips counted),
    timed beside the fp32 and 3xTF32 bounds, the plain time, the unfused
    block (cuDNN, TF32 off) and the kernels' SIMT ablation on the same plan;
-7. driver: `attack.train.train` for 3 steps at batch 12 with a score
-   threshold the random victim passes, so the warp runs on its detections;
-   its metrics log and patch artifacts must be written;
+7. driver: `attack.train.train` for 3 steps at batch 12 (`mixed_precision=
+   False`) with a score threshold the random victim passes, so the warp
+   runs on its detections; its metrics log and patch artifacts must be
+   written;
+5b. bf16 attack step: phase 5's step with `config.mixed_precision` (the JAX
+   driver's default and bench.py's attack workload: bf16 victim, float32
+   patch, EOT composite, warp and loss): each warp kernel and NMS once a
+   step, 50 bf16 forward and 25 bf16 dx launches a step and no float32
+   MBConv launch; loss and patch checked; timed, profiled, peak memory;
+   then phase 5a's check on it (the fused bf16 victim against the unfused
+   bf16 one, BF16_VICTIM_TOL, BF16_VICTIM_GRAD_COS and BF16_VICTIM_COS) and
+   phase 6a's on the bf16 instances at the bf16 step's own inputs (with
+   1a's rounding bound; bounds with the products at the bf16 rate; beside
+   cuDNN's unfused bf16 block);
+7b. driver with its defaults (bf16): `attack.train.train` for 3 steps at
+   batch 12; only bf16 MBConv launches;
 8. cmconv kernels vs plain: both instances of the channel-major 3x3 conv
    (`simt` and the 3xTF32 `tc`) against the plain version at every shape of
    the defender's path at full size (batch 24 at 640x640 and 320x320,
@@ -102,7 +124,8 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    threshold .0099; its metrics log and `antipatch.pkl` must be written;
 13. card: the `nvidia-smi` name and power limit, and one JSON line with each
    kernel's launches, error, times and bound (cmconv's also with its
-   ablation, the instance the plan did not pick, and its bound at 3xTF32).
+   ablation, the instance the plan did not pick, and its bound at 3xTF32;
+   the fused MBConv's float32 and bf16 instances each a row).
 
 The last line is `{"ok": true, "device": {...}}`. Without a card, or without
 the rest of the repository beside it, the script exits non-zero and prints
@@ -110,6 +133,7 @@ no result.
 """
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -164,8 +188,44 @@ WARP_REPLACES = {  # the Pallas kernels of v1; v2's are listed in PERF.md
 MBCONV_FWD_TOL = 1e-5
 MBCONV_DX_TOL = 1e-4
 MBCONV_KINK_TOL = 1e-5
+# the bf16 instances vs their bf16 plain versions: the same rounding points
+# (e, d, gd, ge and the output), float32 sums in another order, so an
+# intermediate within float32 rounding of a bf16 rounding boundary can round
+# the other way (one bf16 ulp, 2^-8 relative, moved downstream): forward
+# within MBCONV_BF16_FWD_TOL of max(1, max|plain|), dx within
+# MBCONV_BF16_DX_TOL of max|plain| of the plain dx fed the kernel's own
+# masks, four bf16 ulps of scale; a flipped mask within MBCONV_BF16_KINK_TOL
+# of its kink over max(1, max|z|) (z1 sums bf16 e, one of which may have
+# rounded the other way)
+MBCONV_BF16_FWD_TOL = 2.0 ** -6
+MBCONV_BF16_DX_TOL = 2.0 ** -6
+MBCONV_BF16_KINK_TOL = 2.0 ** -8
+# the fused victim against the unfused one (phase 5a): logits within
+# VICTIM_TOL of max(1, max|ref|), the attack's patch gradient at cosine >=
+# VICTIM_COS, and the input gradient of a seeded cotangent on every output
+# at cosine >= VICTIM_GRAD_COS (float32: sums in another order only)
+VICTIM_TOL = 2e-4
+VICTIM_COS = 0.9999
+VICTIM_GRAD_COS = 0.9999
+# bf16: the two round at other points (the fused block rounds e once, the
+# unfused one after each conv, BN and activation), as the port's bf16 net
+# and JAX's do. Readings of this script on an H100 80GB HBM3 at 700 W, the
+# same in every run: logits 4.58e-05 of scale, patch gradient cosine
+# 1.00000000 (mostly its TV term), the input gradient of the seeded
+# cotangent 0.80113035. That gradient is bf16's own at lite4's depth: the
+# fused one lies at cosine 0.80517509 of the float32 victim's, cuDNN's
+# unfused one at 0.80404789. The limits: about four times the
+# logits' reading, 0.05 under the input gradient's, and the fused gradient
+# no further from the float32 one than the unfused, less
+# BF16_VS_FP32_MARGIN. A zero or sign-flipped gradient reads 0 or below.
+BF16_VICTIM_TOL = 2e-4
+BF16_VICTIM_COS = 0.9999
+BF16_VICTIM_GRAD_COS = 0.75
+BF16_VS_FP32_MARGIN = 0.02
 # the 1x1 products at the 3xTF32 rate: three TF32 tensor-core products each
 TC3_FLOP_PER_S = 495e12 / 3
+# the bf16 instance's products: dense bf16 on the tensor cores
+BF16_FLOP_PER_S = 989e12
 MBCONV_PER_PASS = 25   # lite4's fuseable blocks: all but 0 (e1), 1, 5, 9, 21
 UNFUSED_PER_PASS = 5
 MBCONV_REPLACES = {"fwd": "tools/experiments/fused_mbconv.py:212",
@@ -404,7 +464,8 @@ def kernel_name(mangled: str) -> str:
 
 
 # libraries on the main path: a spill in their kernels fails phase 1
-MAIN_PATH_LIBS = ("nms", "warp", "cmconv", "cmconv_tc", "mbconv", "mbconv_dx")
+MAIN_PATH_LIBS = ("nms", "warp", "cmconv", "cmconv_tc", "mbconv", "mbconv_dx",
+                  "mbconv_bf16", "mbconv_bf16_dx")
 
 
 def print_ptxas(libs) -> None:
@@ -661,35 +722,31 @@ def warp_taps(table, n_img: int, p0: int, w: int):
 
 
 def warp_bounds(n_img: int, n_win: int, p0: int, w: int, taps):
-    """{kernel: (bound ms, bound_by, bytes, ops, whole-tensor bound ms)}: the
-    input positions that a non-zero tap reads, each read once, and each
-    output written once, over the HBM rate; the operations of the non-zero
-    taps and of each output, over the fp32 rate. The last figure counts
-    each input read whole, the earlier yardstick, printed beside the new
-    one to show the change."""
+    """{kernel: (bound ms, bound_by, bytes, ops)}: the input positions that a
+    non-zero tap reads, each read once, and each output written once, over
+    the HBM rate; the operations of the non-zero taps and of each output,
+    over the fp32 rate."""
     t1, t2, live = taps
     f = 4  # bytes per float32
     canvas, table = n_img * p0 * p0 * 3 * f, n_win * 8 * f
     t_sz, out_sz = n_win * p0 * w * 3 * f, n_win * w * w * 3 * f
-    work = {  # (live input bytes + table, output bytes, whole input, ops)
-        "pass1_fwd": (live["pass1_fwd"] * 3 * f, t_sz, canvas,
+    work = {  # (live input bytes, output bytes, ops)
+        "pass1_fwd": (live["pass1_fwd"] * 3 * f, t_sz,
                       t1 * WARP_TAP_OPS + n_win * p0 * w * WARP_FWD_OUT_OPS),
-        "pass2_fwd": (live["pass2_fwd"] * 3 * f, out_sz, t_sz,
+        "pass2_fwd": (live["pass2_fwd"] * 3 * f, out_sz,
                       t2 * WARP_TAP_OPS + n_win * w * w * WARP_FWD_OUT_OPS),
-        "pass2_bwd": (live["pass2_bwd"] * 3 * f, t_sz, out_sz,
+        "pass2_bwd": (live["pass2_bwd"] * 3 * f, t_sz,
                       t2 * WARP_TAP_OPS + n_win * w * w * WARP_BWD_OUT_OPS),
-        "pass1_bwd": (live["pass1_bwd"] * 3 * f, canvas, t_sz,
+        "pass1_bwd": (live["pass1_bwd"] * 3 * f, canvas,
                       t1 * WARP_TAP_OPS + n_win * p0 * w * WARP_BWD_OUT_OPS),
     }
     out = {}
-    for k, (read, written, whole, ops) in work.items():
+    for k, (read, written, ops) in work.items():
         nbytes = read + table + written
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / FP32_FLOP_PER_S * 1e3
-        whole_ms = max((whole + table + written) / HBM_BYTES_PER_S * 1e3, ops_ms)
         out[k] = (max(bytes_ms, ops_ms),
-                  "bytes" if bytes_ms >= ops_ms else "operations", nbytes, ops,
-                  whole_ms)
+                  "bytes" if bytes_ms >= ops_ms else "operations", nbytes, ops)
     return out
 
 
@@ -744,18 +801,29 @@ def mbconv_case(dev, b, h, w, c, e, co, k, seed):
 
 def check_mbconv(name, x, g, fb, act_type, residual):
     """Both fused MBConv kernels against the plain versions on the same CUDA
-    tensors, each launched twice bit-equal. For relu6 / relu, dx is held to
-    the plain dx fed the masks the kernel's masks instance wrote, and every
-    mask that differs from the plain version's must lie within
-    MBCONV_KINK_TOL of its kink. Returns (fwd error, dx error, (z0 flips,
-    z1 flips, worst flip distance of scale))."""
+    tensors, each launched twice bit-equal, in x's dtype (float32, or bf16
+    with a bf16 fold and the MBCONV_BF16_* tolerances; there every forward
+    output must also lie within the roundings the bf16 function allows,
+    `ops/mbconv.rounding_bound`). For relu6 / relu, dx is held to the plain
+    dx fed the masks the kernel's masks instance wrote, and every mask that
+    differs from the plain version's must lie within the kink tolerance of
+    its kink. Returns (fwd error, dx error, (z0 flips, z1 flips, worst flip
+    distance of scale), the forward's `RoundingBound` or None)."""
     import torch
     from mladversarialobjectdetection_torch.ops import mbconv, mbconv_cuda
 
+    bf16 = x.dtype == torch.bfloat16
+    fwd_tol, dx_tol, kink_tol = ((MBCONV_BF16_FWD_TOL, MBCONV_BF16_DX_TOL,
+                                  MBCONV_BF16_KINK_TOL) if bf16 else
+                                 (MBCONV_FWD_TOL, MBCONV_DX_TOL, MBCONV_KINK_TOL))
     kw = dict(act_type=act_type, residual=residual)
     y = mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw)
     dx = mbconv_cuda.mbconv_dx_cuda(x, g, fb, **kw)
     plain_y = mbconv.mbconv_plain(x, fb, **kw)
+    rounding = mbconv.rounding_bound(y, x, fb, **kw) if bf16 else None
+    if rounding is not None and rounding.outside:
+        fail(f"mbconv fwd {name}: {rounding.outside} outputs lie beyond every rounding "
+             f"of the bf16 function within float32 distance of a boundary ({rounding})")
     flips = (0, 0, 0.0)
     if act_type in ("relu6", "relu"):
         b, h, w, _ = x.shape
@@ -766,25 +834,27 @@ def check_mbconv(name, x, g, fb, act_type, residual):
         del plain_masks, z0, z1
         plain_dx = mbconv.mbconv_dx_plain(x, g, fb, masks=masks, **kw)
         del masks
-        if not flips[2] <= MBCONV_KINK_TOL:
+        if not flips[2] <= kink_tol:
             fail(f"mbconv dx {name}: a mask flip lies {flips[2]} of scale from its "
-                 f"kink (> {MBCONV_KINK_TOL}); flips z0 {flips[0]}, z1 {flips[1]}")
+                 f"kink (> {kink_tol}); flips z0 {flips[0]}, z1 {flips[1]}")
     else:
         plain_dx = mbconv.mbconv_dx_plain(x, g, fb, **kw)
-    errs = (float((y - plain_y).abs().max()), float((dx - plain_dx).abs().max()))
-    limits = (MBCONV_FWD_TOL * max(1.0, float(plain_y.abs().max())),
-              MBCONV_DX_TOL * float(plain_dx.abs().max()))
+    errs = (float((y.float() - plain_y.float()).abs().max()),
+            float((dx.float() - plain_dx.float()).abs().max()))
+    limits = (fwd_tol * max(1.0, float(plain_y.float().abs().max())),
+              dx_tol * float(plain_dx.float().abs().max()))
     for what, err, limit in zip(("fwd", "dx"), errs, limits):
         if not err <= limit:
             fail(f"mbconv {what} {name}: kernel and plain differ by {err} > {limit}")
     if not (torch.equal(mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw), y)
             and torch.equal(mbconv_cuda.mbconv_dx_cuda(x, g, fb, **kw), dx)):
         fail(f"mbconv {name}: two launches differ")
-    return errs + (flips,)
+    return errs + (flips, rounding)
 
 
-def mbconv_bound(x_shape, e: int, co: int, k: int, residual: bool, dx: bool):
-    """(bound ms, bound_by, bytes, ops, 3xTF32 bound ms) of one fused MBConv
+def mbconv_bound(x_shape, e: int, co: int, k: int, residual: bool, dx: bool,
+                 itemsize: int = 4):
+    """(bound ms, bound_by, bytes, ops, 3xTF32 bound ms, operations ms) of one fused MBConv
     launch on x [B, H, W, C]: x, g and the output read or written once and
     the folded weights read once, over the HBM rate; the multiply-adds and
     bias adds per output pixel (the activations not counted), over the fp32
@@ -793,24 +863,35 @@ def mbconv_bound(x_shape, e: int, co: int, k: int, residual: bool, dx: bool):
     act'(z1) E, the depthwise transpose 2k^2E, act'(z0) E, . We^T 2EC (+ C).
     The second bound takes the 1x1 products (2CE, 2ECo, and in dx 2ECo and
     2EC) at the 3xTF32 rate of the tensor cores and the rest at the fp32
-    rate, or the bytes where they take longer."""
+    rate, or the bytes where they take longer.
+
+    itemsize 2, the bf16 instance: x, g, the output, We and Wp in 2 bytes;
+    the bound takes the products at the bf16 rate of the tensor cores
+    (989 TFLOP/s) and the rest at the fp32 rate, or the bytes, and the
+    second figure is the same bound."""
     b, h, w, c = x_shape
     pixels = b * h * w
-    weights = c * e + e + k * k * e + e + e * co + (0 if dx else co)
+    w_cd = c * e + e * co  # We and Wp, in the activations' type
+    f32 = e + k * k * e + e + (0 if dx else co)
     if dx:
         products = 2 * c * e + 2 * e * co + 2 * e * c
         rest = e + 2 * k * k * e + e + e + 2 * k * k * e + e + (c if residual else 0)
-        nbytes = 4 * (pixels * (2 * c + co) + weights)
+        nbytes = itemsize * (pixels * (2 * c + co) + w_cd) + 4 * f32
     else:
         products = 2 * c * e + 2 * e * co
         rest = e + 2 * k * k * e + e + co + (co if residual else 0)
-        nbytes = 4 * (pixels * (c + co) + weights)
+        nbytes = itemsize * (pixels * (c + co) + w_cd) + 4 * f32
     ops = pixels * (products + rest)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    if itemsize == 2:
+        ops_ms = (pixels * products / BF16_FLOP_PER_S + pixels * rest / FP32_FLOP_PER_S) * 1e3
+        bound = max(bytes_ms, ops_ms)
+        return (bound, "bytes" if bytes_ms >= ops_ms else "operations", nbytes, ops, bound,
+                ops_ms)
     ops_ms = ops / FP32_FLOP_PER_S * 1e3
     tc_ms = (pixels * products / TC3_FLOP_PER_S + pixels * rest / FP32_FLOP_PER_S) * 1e3
     return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
-            nbytes, ops, max(bytes_ms, tc_ms))
+            nbytes, ops, max(bytes_ms, tc_ms), ops_ms)
 
 
 def same_detections(name, a, b, exact_scores: bool = True) -> float:
@@ -872,6 +953,216 @@ class AllUnfused:
 
     def __exit__(self, *exc):
         self.cls.forward = self.orig
+
+
+def fused_vs_unfused(label, atk, state, images, override, logit_tol, cos_min,
+                     grad_cos_min, ref_net=None, ref_margin=None):
+    """The fused victim against the unfused one (every block through
+    `_forward_unfused`, cuDNN): logits within logit_tol of max(1, max|ref|);
+    the victim's input gradient of a smooth function of its outputs (a
+    seeded cotangent on every class and box output, no max over anchors) at
+    cosine >= grad_cos_min; and on one attack loss with fixed draws (the
+    step's boxes, a fresh seeded generator) the patch gradient at cosine >=
+    cos_min. Prints the cosine of the attack gradient's part through the
+    warp and the detector (no TV term), which is not held.
+
+    With `ref_net` (the same weights in float32, fused), both input
+    gradients are also held to its: the fused one's cosine to it at least
+    the unfused one's less `ref_margin`."""
+    import torch
+
+    dev = images.device
+    gen = torch.Generator(dev).manual_seed(11)
+    with torch.no_grad():
+        cots = [torch.randn(o.shape, generator=gen, device=dev)
+                for outs in atk.net(images) for o in outs]
+
+    def input_grad(net=atk.net):
+        x = images.detach().clone().requires_grad_(True)
+        outs = [o for group in net(x) for o in group]
+        sum((o.float() * c).sum() for o, c in zip(outs, cots)).backward()
+        return x.grad
+
+    def attack_grad(tv_weight):
+        patch_v = state.patch.detach().clone().requires_grad_(True)
+        scale_v = state.scale.detach().clone().requires_grad_(True)
+        loss, _ = atk._loss_from_images(patch_v, scale_v, images, *override,
+                                        torch.Generator(dev).manual_seed(7),
+                                        tv_weight=tv_weight)
+        loss.backward()
+        return float(loss.detach()), patch_v.grad
+
+    def cosine(a, b):
+        a, b = a.double().flatten(), b.double().flatten()
+        return float(a @ b / (a.norm() * b.norm()))
+
+    with torch.no_grad():
+        logits = [t for outs in atk.net(images) for t in outs]
+    igrad = input_grad()
+    grads = (attack_grad(1e-5), attack_grad(0.0))
+    with AllUnfused():
+        with torch.no_grad():
+            ref_logits = [t for outs in atk.net(images) for t in outs]
+        ref_igrad = input_grad()
+        ref_grads = (attack_grad(1e-5), attack_grad(0.0))
+    logit_err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                    for a, b in zip(logits, ref_logits))
+    icos = cosine(igrad, ref_igrad)
+    irel = float((igrad - ref_igrad).abs().max() / ref_igrad.abs().max())
+    cos, cos_det = (cosine(g[1], r[1]) for g, r in zip(grads, ref_grads))
+    if not logit_err <= logit_tol or not icos >= grad_cos_min or not cos >= cos_min:
+        fail(f"{label}: logits differ by {logit_err} of scale (> {logit_tol}?), input "
+             f"gradient cosine {icos} (< {grad_cos_min}?), patch gradient cosine {cos} "
+             f"(< {cos_min}?)")
+    if ref_net is not None:
+        g32 = input_grad(ref_net)
+        fcos, ucos = cosine(igrad, g32), cosine(ref_igrad, g32)
+        del g32
+        if not fcos >= ucos - ref_margin:
+            fail(f"{label}: the fused input gradient lies at cosine {fcos} of the float32 "
+                 f"one, the unfused at {ucos} (margin {ref_margin})")
+        print(f"{label}: input gradients against the float32 victim's: fused cosine "
+              f"{fcos:.8f}, unfused (cuDNN) {ucos:.8f} (the fused at least the unfused "
+              f"less {ref_margin})")
+    print(f"{label}: logits within {logit_err:.3g} of max(1, max|ref|) (limit "
+          f"{logit_tol}); victim input gradient of a seeded cotangent on every "
+          f"output at cosine {icos:.8f} (limit {grad_cos_min}; largest difference "
+          f"{irel:.3g} of max|ref|); loss {grads[0][0]:.6f} vs {ref_grads[0][0]:.6f}; "
+          f"patch gradient cosine {cos:.8f} (limit {cos_min}; without the TV term, the "
+          f"part through the warp and the detector: {cos_det:.8f})")
+
+
+def mbconv_step_numbers(label, atk, cap, mb_errs):
+    """The fused MBConv kernels on the inputs a captured attack step gave
+    them (the second, gradient-carrying pass's 25 forward launches and their
+    25 dx launches), in the step's dtype: each against the plain versions
+    (`check_mbconv`), timed by CUDA events beside its bound, the plain time
+    and the unfused block (cuDNN, in the same dtype), and in float32 beside
+    the SIMT ablation on the same plan. Returns (per-pass totals per kind,
+    the max errors so far per kind)."""
+    import torch
+    from mladversarialobjectdetection_torch.ops import mbconv, mbconv_cuda
+
+    fwd_calls = cap.args["mbconv_fwd_cuda"]  # the first pass, then the second
+    dx_calls = cap.args["mbconv_dx_cuda"]    # the last block first
+    if (len(fwd_calls), len(dx_calls)) != (2 * MBCONV_PER_PASS, MBCONV_PER_PASS):
+        fail(f"{label}: captured {len(fwd_calls)} fused forward and {len(dx_calls)} "
+             f"dx calls")
+    blocks = [(i, b) for i, b in enumerate(
+        getattr(atk.net.backbone, f"blocks_{i}")
+        for i in range(len(atk.net.backbone.spec.blocks))) if b.fuseable]
+    mb_tot = {k: dict.fromkeys(("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms",
+                                "unfused_ms", "simt_ms", "bound_tc_ms"), 0.0)
+              for k in ("fwd", "dx")}
+    mb_flips, rounding = [0, 0, 0.0], [0] * 5  # flips, e_near, d_near, y_open, outputs
+    for j, (idx, blk) in enumerate(blocks):
+        (x, fb), kw = fwd_calls[MBCONV_PER_PASS + j]
+        (xd, g, _), _ = dx_calls[MBCONV_PER_PASS - 1 - j]
+        if xd.data_ptr() != x.data_ptr():
+            fail(f"{label} block {idx}: the dx call's x is not the forward's")
+        kw = dict(act_type=kw["act_type"], residual=kw["residual"])
+        bf16 = x.dtype == torch.bfloat16
+        errs = check_mbconv(f"{label} block {idx} step inputs", x, g, fb, **kw)
+        mb_errs = {"fwd": max(mb_errs["fwd"], errs[0]), "dx": max(mb_errs["dx"], errs[1])}
+        mb_flips = [mb_flips[0] + errs[2][0], mb_flips[1] + errs[2][1],
+                    max(mb_flips[2], errs[2][2])]
+        if bf16:
+            rb = errs[3]
+            rounding = [n + m for n, m in zip(rounding, (rb.flips, rb.e_near, rb.d_near,
+                                                         rb.y_open, g.numel()))]
+        xr = x.permute(0, 3, 1, 2)
+        xg = xr.detach().requires_grad_(True)
+        gr = g.permute(0, 3, 1, 2)
+
+        def unfused_fwd_dx():
+            with torch.enable_grad():
+                torch.autograd.grad(blk._forward_unfused(xg), xg, gr)
+
+        e, co = fb.wp.shape
+        k = fb.wd.shape[0]
+        b_, h_, w_, c_ = x.shape
+        plans = {"fwd": mbconv_cuda.plan_fwd(h_, w_, c_, e, co, k, b_, dtype=x.dtype),
+                 "dx": mbconv_cuda.plan_dx(h_, w_, c_, e, co, k, b_, dtype=x.dtype)}
+        # kernel, plain, unfused (cuDNN), and in float32 the SIMT ablation on
+        # the same plan, in turns with the kernel: kernel, ablation, ablation, kernel
+        fns = {"fwd": (lambda: mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw),
+                       lambda: mbconv_cuda.mbconv_fwd_simt(x, fb, **kw)),
+               "dx": (lambda: mbconv_cuda.mbconv_dx_cuda(x, g, fb, **kw),
+                      lambda: mbconv_cuda.mbconv_dx_simt(x, g, fb, **kw))}
+        times, simt_err = {}, {}
+        for kind, (kern_fn, simt_fn) in fns.items():
+            if bf16:
+                times[kind] = (cuda_ms(kern_fn, iters=5), float("nan"))
+                continue
+            ref = kern_fn()
+            simt_err[kind] = float((simt_fn() - ref).abs().max()) / max(
+                1.0, float(ref.abs().max()))
+            del ref
+            t = [cuda_ms(kern_fn, iters=5), cuda_ms(simt_fn, iters=3),
+                 cuda_ms(simt_fn, iters=3), cuda_ms(kern_fn, iters=5)]
+            times[kind] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
+        times = {
+            "fwd": times["fwd"] + (
+                cuda_ms(lambda: mbconv.mbconv_plain(x, fb, **kw), iters=1, warmup=1),
+                cuda_ms(lambda: blk._forward_unfused(xr), iters=5)),
+            "dx": times["dx"] + (
+                cuda_ms(lambda: mbconv.mbconv_dx_plain(x, g, fb, **kw), iters=1, warmup=1),
+                cuda_ms(unfused_fwd_dx, iters=3))}
+        if not bf16 and not simt_err["fwd"] <= MBCONV_FWD_TOL:
+            fail(f"block {idx}: the SIMT ablation's forward differs from the "
+                 f"kernel's by {simt_err['fwd']} of scale")
+        line = []
+        for kind, (kern_ms, simt_ms, plain_ms, unf_ms) in times.items():
+            bound_ms, bound_by, nbytes, ops, bound_tc_ms, ops_ms = mbconv_bound(
+                tuple(x.shape), e, co, k, kw["residual"], kind == "dx", x.element_size())
+            tot = mb_tot[kind]
+            tot["ms"] += kern_ms
+            tot["simt_ms"] += simt_ms
+            tot["plain_ms"] += plain_ms
+            tot["bound_ms"] += bound_ms
+            tot["bound_tc_ms"] += bound_tc_ms
+            tot["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+            tot["ops_ms"] += ops_ms
+            tot["unfused_ms"] += unf_ms
+            p = plans[kind]
+            simt = ("" if bf16 else f", SIMT ablation {simt_ms:.4f} (off the kernel by "
+                    f"{simt_err[kind]:.3g} of scale)")
+            line.append(f"{kind} kernel {kern_ms:.4f} ms (plan {p.th}x{p.tw} npw {p.npw} "
+                        f"split {p.split} slice {p.n_per_slice}){simt}, plain "
+                        f"{plain_ms:.4f}, unfused "
+                        f"{'fwd+dx ' if kind == 'dx' else ''}{unf_ms:.4f} (kernel / "
+                        f"unfused {kern_ms / unf_ms:.3f}), bound {bound_ms:.6f} "
+                        f"({bound_by}: {nbytes} B, {ops} ops; {bound_ms / kern_ms:.1%})"
+                        + ("" if bf16 else f", 3xTF32 bound {bound_tc_ms:.6f} "
+                           f"({bound_tc_ms / kern_ms:.1%})")
+                        + f", error {errs[kind == 'dx']:.3g}")
+        print(f"  mbconv {x.dtype} block {idx:2d} {tuple(x.shape)} E {e} Co {co} k{k}"
+              f"{' res' if kw['residual'] else ''}: " + "; ".join(line)
+              + f"; dx mask flips z0 {errs[2][0]}, z1 {errs[2][1]} (at most "
+              f"{errs[2][2]:.3g} of scale from the kink)"
+              + (f"; forward outputs off plain {errs[3].flips}, none beyond the "
+                 f"roundings" if bf16 else ""))
+    for kind, tot in mb_tot.items():
+        tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
+        rates = ("bf16 products at 989 TFLOP/s, the rest at 67 TFLOP/s" if bf16 else
+                 f"fp32, {tot['bound_ms'] / tot['ms']:.1%} of it; 3xTF32 bound "
+                 f"{tot['bound_tc_ms']:.6f} ms, {tot['bound_tc_ms'] / tot['ms']:.1%}")
+        print(f"  mbconv {x.dtype} {kind} per pass ({MBCONV_PER_PASS} launches): kernel "
+              f"{tot['ms']:.4f} ms"
+              + ("" if bf16 else f", SIMT ablation {tot['simt_ms']:.4f} ms")
+              + f", plain {tot['plain_ms']:.4f} ms, unfused "
+              f"{'forward + input gradient ' if kind == 'dx' else ''}(cuDNN) "
+              f"{tot['unfused_ms']:.4f} ms (kernel / unfused "
+              f"{tot['ms'] / tot['unfused_ms']:.3f}), bound {tot['bound_ms']:.6f} ms "
+              f"({tot['bound_by']}; {tot['bound_ms'] / tot['ms']:.1%} of it; {rates})")
+    print(f"  mbconv {x.dtype} dx mask flips at the step's inputs: z0 {mb_flips[0]}, "
+          f"z1 {mb_flips[1]}, each within {mb_flips[2]:.3g} of scale of its kink"
+          + (f"; forward outputs off the plain version's {rounding[0]}, every one "
+             f"within the roundings of the bf16 function (e near a bf16 boundary "
+             f"{rounding[1]}, d {rounding[2]}; {rounding[3]} of {rounding[4]} outputs "
+             f"may take more than one bf16 value)" if bf16 else ""))
+    print(f"{label} mbconv kernels at the step's inputs: max errors {mb_errs}")
+    return mb_tot, mb_errs
 
 
 def check_fused_route(label, launches, route, fwd, dx, passes):
@@ -952,6 +1243,29 @@ def main() -> int:
               f"slice {pd.n_per_slice}")
     print(f"phase 1a mbconv kernels vs plain: {len(MBCONV_ODD)} shapes, max "
           f"errors {mb_errs}")
+    # and their bf16 instances against the bf16 plain versions
+    mb16_errs = {"fwd": 0.0, "dx": 0.0}
+    for i, (name, b, h, w, c, e, co, k, res, act) in enumerate(MBCONV_ODD):
+        x, fb = mbconv_case(dev, b, h, w, c, e, co, k, seed=10 + i)
+        g = torch.randn((b, h, w, co), device=dev,
+                        generator=torch.Generator(dev).manual_seed(i))
+        errs = check_mbconv(f"bf16 {name}", x.bfloat16(), g.bfloat16(),
+                            fb.in_dtype(torch.bfloat16), act, res)
+        mb16_errs = {"fwd": max(mb16_errs["fwd"], errs[0]),
+                     "dx": max(mb16_errs["dx"], errs[1])}
+        pf = mbconv_cuda.plan_fwd(h, w, c, e, co, k, b, dtype=torch.bfloat16)
+        pd = mbconv_cuda.plan_dx(h, w, c, e, co, k, b, dtype=torch.bfloat16)
+        print(f"  mbconv bf16 {name}: max errors fwd {errs[0]:.3g}, dx {errs[1]:.3g} "
+              f"(mask flips z0 {errs[2][0]}, z1 {errs[2][1]}, at most {errs[2][2]:.3g} "
+              f"of scale from the kink; forward outputs off the plain version's "
+              f"{errs[3].flips}, none beyond the roundings of e ({errs[3].e_near} near "
+              f"a bf16 boundary) and d ({errs[3].d_near}); {errs[3].y_open} of "
+              f"{b * h * w * co} outputs may take more than one bf16 value), "
+              f"two launches bit-equal; plans fwd {pf.th}x{pf.tw} npw {pf.npw} split "
+              f"{pf.split}, dx {pd.th}x{pd.tw} npw {pd.npw} split {pd.split}")
+    print(f"phase 1a mbconv bf16 instances vs bf16 plain: {len(MBCONV_ODD)} shapes, "
+          f"max errors {mb16_errs} (limits {MBCONV_BF16_FWD_TOL} and "
+          f"{MBCONV_BF16_DX_TOL} of scale)")
     del x, g, fb
 
     # phase 2: kernel vs plain on the card
@@ -1139,6 +1453,39 @@ def main() -> int:
           f"serve_pipelined equal to serve of the same batches")
     del det, images_d, scales_d, cls_out, box_out, raw_d, dev_images
 
+    # phase 3b: a bf16 serve (config.mixed_precision, as the JAX Detector
+    # serves it), lite4@640 at b1 / b8
+    bdet = Detector("efficientdet-lite4", params={"mixed_precision": True}, seed=0,
+                    device="cuda")
+    bdet.serve(frames[:1])
+    torch.cuda.synchronize()
+    nms_cuda.LAUNCHES = 0
+    mbconv_cuda.reset_counts()
+    with UnfusedRoute() as unfused:
+        bresults = {b: bdet.serve(batch) for b, batch in batches.items()}
+    serve_dtypes = {k: dict(v) for k, v in mbconv_cuda.DTYPE_LAUNCHES.items()}
+    if nms_cuda.LAUNCHES != len(batches):
+        fail(f"bf16 serve: NMS kernel launched {nms_cuda.LAUNCHES} times")
+    check_fused_route("bf16 serve", dict(mbconv_cuda.LAUNCHES), unfused,
+                      len(batches) * MBCONV_PER_PASS, 0, passes=len(batches))
+    if serve_dtypes["bfloat16"]["mbconv_fwd"] != len(batches) * MBCONV_PER_PASS:
+        fail(f"bf16 serve ran a float32 instance: {serve_dtypes}")
+    for b, res in bresults.items():
+        if res.boxes.shape != (b, m, 4) or not all(
+                np.all(np.isfinite(getattr(res, f))) for f in res._fields) or not (
+                np.array_equal(res.valid.sum(1), res.valid_len)):
+            fail(f"bf16 serve b{b}: {res.boxes.shape}, valid_len {res.valid_len}")
+    for b, batch in batches.items():
+        ms = host_p50_ms(lambda: bdet.serve(batch), iters=10)
+        dms = host_p50_ms(lambda: bdet.serve(batch, device_preprocess=True), iters=10)
+        print(f"  bf16 serve b{b}: p50 {ms:.3f} ms/batch ({b * 1e3 / ms:.2f} images/s); "
+              f"device_preprocess=True {dms:.3f} ms/batch; valid_len "
+              f"{bresults[b].valid_len.tolist()} (fp32 {results[b].valid_len.tolist()})")
+    profile_device(lambda: bdet.serve(frames, device_preprocess=True), "bf16 serve b8")
+    print(f"phase 3b bf16 serve: fused MBConv launches per dtype in {len(batches)} "
+          f"serve calls {serve_dtypes}, NMS once per serve")
+    del bdet, bresults
+
 
     # phase 4: warp kernels vs plain on the card
     warp_errs = dict.fromkeys(WARP_KERNELS, 0.0)
@@ -1226,37 +1573,8 @@ def main() -> int:
 
     # phase 5a: the fused victim against the unfused one, on one attack
     # loss with fixed draws (the step's boxes, a fresh seeded generator)
-    def attack_grad(tv_weight):
-        patch_v = state.patch.detach().clone().requires_grad_(True)
-        scale_v = state.scale.detach().clone().requires_grad_(True)
-        loss, _ = atk._loss_from_images(patch_v, scale_v, images, *override,
-                                        torch.Generator(dev).manual_seed(7),
-                                        tv_weight=tv_weight)
-        loss.backward()
-        return float(loss.detach()), patch_v.grad
-
-    def cosine(a, b):
-        a, b = a.double().flatten(), b.double().flatten()
-        return float(a @ b / (a.norm() * b.norm()))
-
-    with torch.no_grad():
-        logits = [t for outs in atk.net(images) for t in outs]
-    grads = (attack_grad(1e-5), attack_grad(0.0))
-    with AllUnfused():
-        with torch.no_grad():
-            ref_logits = [t for outs in atk.net(images) for t in outs]
-        ref_grads = (attack_grad(1e-5), attack_grad(0.0))
-    logit_err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
-                    for a, b in zip(logits, ref_logits))
-    cos, cos_det = (cosine(g[1], r[1]) for g, r in zip(grads, ref_grads))
-    if not logit_err <= 2e-4 or not cos >= 0.9999:
-        fail(f"fused vs unfused victim: logits differ by {logit_err} of scale, "
-             f"patch gradient cosine {cos}")
-    print(f"phase 5a fused vs unfused victim: logits within {logit_err:.3g} of "
-          f"max(1, max|ref|); loss {grads[0][0]:.6f} vs {ref_grads[0][0]:.6f}; "
-          f"patch gradient cosine {cos:.8f} (without the TV term, the part "
-          f"through the warp and the detector: {cos_det:.8f})")
-    del logits, ref_logits, grads, ref_grads
+    fused_vs_unfused("phase 5a fused vs unfused victim", atk, state, images, override,
+                     VICTIM_TOL, VICTIM_COS, VICTIM_GRAD_COS)
 
     # phase 6: each kernel on the inputs a step gave it
     with Capture([(warp_cuda, k) for k in WARP_KERNELS]
@@ -1289,125 +1607,26 @@ def main() -> int:
         kern_ms = kernel_device_ms(kern_fn, f"{k}_kernel")
         wrapper_ms = cuda_ms(kern_fn, iters=20)
         plain_ms = cuda_ms(plain_fn, iters=3, warmup=1)
-        bound_ms, bound_by, nbytes, ops, whole_ms = bounds[k]
+        bound_ms, bound_by, nbytes, ops = bounds[k]
         warp_times[k] = (kern_ms, plain_ms, bound_ms, bound_by)
         print(f"  warp {k} at the step's {table.shape[0]} windows (p0 {p0}, w "
               f"{w}, {n_img} canvases): kernel {kern_ms:.4f} ms on the card "
               f"(wrapper with its host checks {wrapper_ms:.4f} ms per call), "
               f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
               f"{nbytes} B, {ops} fp32 ops), {bound_ms / kern_ms:.1%} of the "
-              f"bound (counting each input read whole, the earlier yardstick: "
-              f"{whole_ms:.6f} ms, {whole_ms / kern_ms:.1%}); "
-              f"{attack_launches[k] // ATTACK_STEPS} launch per step")
-    print(f"phase 6 warp kernels at the step's inputs: non-zero taps pass 1 "
-          f"{taps[0]}, pass 2 {taps[1]}; input positions a non-zero tap "
-          f"reads {taps[2]}; max errors {warp_errs}")
+              f"bound; {attack_launches[k] // ATTACK_STEPS} launch per step")
+    print(f"phase 6 warp kernels at the step's inputs: {int((table[:, 6] == 1).sum())} "
+          f"of {table.shape[0]} windows at r = 1 (the kernels' instance without the "
+          f"hat's division); non-zero taps pass 1 {taps[0]}, pass 2 {taps[1]}; input "
+          f"positions a non-zero tap reads {taps[2]}; max errors {warp_errs}")
     (nms_boxes, nms_scores), nms_kw = cap.args["batched_nms_cuda"][0]
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by, err = nms_numbers(
         nms_boxes, nms_scores, nms_kw, "attack first pass")
     max_err = max(max_err, err)
 
     # phase 6a: the fused MBConv kernels on the inputs the step gave them
-    fwd_calls = cap.args["mbconv_fwd_cuda"]  # the first pass, then the second
-    dx_calls = cap.args["mbconv_dx_cuda"]    # the last block first
-    if (len(fwd_calls), len(dx_calls)) != (2 * MBCONV_PER_PASS, MBCONV_PER_PASS):
-        fail(f"captured {len(fwd_calls)} fused forward and {len(dx_calls)} dx calls")
-    blocks = [(i, b) for i, b in enumerate(
-        getattr(atk.net.backbone, f"blocks_{i}")
-        for i in range(len(atk.net.backbone.spec.blocks))) if b.fuseable]
-    mb_tot = {k: dict.fromkeys(("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms",
-                                "unfused_ms", "simt_ms", "bound_tc_ms"), 0.0)
-              for k in ("fwd", "dx")}
-    mb_flips = [0, 0, 0.0]
-    for j, (idx, blk) in enumerate(blocks):
-        (x, fb), kw = fwd_calls[MBCONV_PER_PASS + j]
-        (xd, g, _), _ = dx_calls[MBCONV_PER_PASS - 1 - j]
-        if xd.data_ptr() != x.data_ptr():
-            fail(f"block {idx}: the dx call's x is not the forward's")
-        errs = check_mbconv(f"block {idx} step inputs", x, g, fb, **kw)
-        mb_errs = {"fwd": max(mb_errs["fwd"], errs[0]), "dx": max(mb_errs["dx"], errs[1])}
-        mb_flips = [mb_flips[0] + errs[2][0], mb_flips[1] + errs[2][1],
-                    max(mb_flips[2], errs[2][2])]
-        xr = x.permute(0, 3, 1, 2)
-        xg = xr.detach().requires_grad_(True)
-        gr = g.permute(0, 3, 1, 2)
-
-        def unfused_fwd_dx():
-            with torch.enable_grad():
-                torch.autograd.grad(blk._forward_unfused(xg), xg, gr)
-
-        e, co = fb.wp.shape
-        k = fb.wd.shape[0]
-        b_, h_, w_, c_ = x.shape
-        plans = {"fwd": mbconv_cuda.plan_fwd(h_, w_, c_, e, co, k, b_),
-                 "dx": mbconv_cuda.plan_dx(h_, w_, c_, e, co, k, b_)}
-        # kernel, plain, unfused (cuDNN), the SIMT ablation on the same plan;
-        # the kernel and the ablation in turns: kernel, ablation, ablation, kernel
-        fns = {"fwd": (lambda: mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw),
-                       lambda: mbconv_cuda.mbconv_fwd_simt(x, fb, **kw)),
-               "dx": (lambda: mbconv_cuda.mbconv_dx_cuda(x, g, fb, **kw),
-                      lambda: mbconv_cuda.mbconv_dx_simt(x, g, fb, **kw))}
-        times, simt_err = {}, {}
-        for kind, (kern_fn, simt_fn) in fns.items():
-            ref = kern_fn()
-            simt_err[kind] = float((simt_fn() - ref).abs().max()) / max(
-                1.0, float(ref.abs().max()))
-            del ref
-            t = [cuda_ms(kern_fn, iters=5), cuda_ms(simt_fn, iters=3),
-                 cuda_ms(simt_fn, iters=3), cuda_ms(kern_fn, iters=5)]
-            times[kind] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
-        times = {
-            "fwd": times["fwd"] + (
-                cuda_ms(lambda: mbconv.mbconv_plain(x, fb, **kw), iters=1, warmup=1),
-                cuda_ms(lambda: blk._forward_unfused(xr), iters=5)),
-            "dx": times["dx"] + (
-                cuda_ms(lambda: mbconv.mbconv_dx_plain(x, g, fb, **kw), iters=1, warmup=1),
-                cuda_ms(unfused_fwd_dx, iters=3))}
-        if not simt_err["fwd"] <= MBCONV_FWD_TOL:
-            fail(f"block {idx}: the SIMT ablation's forward differs from the "
-                 f"kernel's by {simt_err['fwd']} of scale")
-        line = []
-        for kind, (kern_ms, simt_ms, plain_ms, unf_ms) in times.items():
-            bound_ms, bound_by, nbytes, ops, bound_tc_ms = mbconv_bound(
-                tuple(x.shape), e, co, k, kw["residual"], kind == "dx")
-            tot = mb_tot[kind]
-            tot["ms"] += kern_ms
-            tot["simt_ms"] += simt_ms
-            tot["plain_ms"] += plain_ms
-            tot["bound_ms"] += bound_ms
-            tot["bound_tc_ms"] += bound_tc_ms
-            tot["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
-            tot["ops_ms"] += ops / FP32_FLOP_PER_S * 1e3
-            tot["unfused_ms"] += unf_ms
-            p = plans[kind]
-            line.append(f"{kind} kernel {kern_ms:.4f} ms (plan {p.th}x{p.tw} npw {p.npw} "
-                        f"split {p.split} slice {p.n_per_slice}), SIMT ablation "
-                        f"{simt_ms:.4f} (off the kernel by {simt_err[kind]:.3g} of "
-                        f"scale), plain {plain_ms:.4f}, unfused "
-                        f"{'fwd+dx ' if kind == 'dx' else ''}{unf_ms:.4f} (kernel / "
-                        f"unfused {kern_ms / unf_ms:.3f}), bound {bound_ms:.6f} "
-                        f"({bound_by}: {nbytes} B, {ops} ops; {bound_ms / kern_ms:.1%}), "
-                        f"3xTF32 bound {bound_tc_ms:.6f} ({bound_tc_ms / kern_ms:.1%}), "
-                        f"error {errs[kind == 'dx']:.3g}")
-        print(f"  mbconv block {idx:2d} {tuple(x.shape)} E {e} Co {co} k{k}"
-              f"{' res' if kw['residual'] else ''}: " + "; ".join(line)
-              + f"; dx mask flips z0 {errs[2][0]}, z1 {errs[2][1]} (at most "
-              f"{errs[2][2]:.3g} of scale from the kink)")
-    for kind, tot in mb_tot.items():
-        tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
-        print(f"  mbconv {kind} per pass ({MBCONV_PER_PASS} launches): kernel "
-              f"{tot['ms']:.4f} ms, SIMT ablation {tot['simt_ms']:.4f} ms, plain "
-              f"{tot['plain_ms']:.4f} ms, unfused "
-              f"{'forward + input gradient ' if kind == 'dx' else ''}(cuDNN) "
-              f"{tot['unfused_ms']:.4f} ms (kernel / unfused "
-              f"{tot['ms'] / tot['unfused_ms']:.3f}), bound {tot['bound_ms']:.6f} ms "
-              f"({tot['bound_by']}, {tot['bound_ms'] / tot['ms']:.1%} of it), 3xTF32 "
-              f"bound {tot['bound_tc_ms']:.6f} ms ({tot['bound_tc_ms'] / tot['ms']:.1%})")
-    print(f"  mbconv dx mask flips at the step's inputs: z0 {mb_flips[0]}, z1 "
-          f"{mb_flips[1]}, each within {mb_flips[2]:.3g} of scale of its kink")
-    print(f"phase 6a mbconv kernels at the step's inputs: max errors {mb_errs}")
+    mb_tot, mb_errs = mbconv_step_numbers("phase 6a", atk, cap, mb_errs)
     del cap, canvases, t_in, g_in, dt_in, atk, state, images, patch, patch0
-    del fwd_calls, dx_calls, x, xd, g, fb, xr, xg, gr, blocks, blk
     torch.set_grad_enabled(True)
 
     # phase 7: the driver entry point, 3 steps at batch 12; a score threshold
@@ -1444,6 +1663,116 @@ def main() -> int:
           f"in {driver_s:.2f} s, launches {driver_launches}, "
           f"{warp_cuda.WINDOWS} windows warped, artifacts {dirs}, "
           f"{len(records)} log records")
+
+    # phase 5b: the bf16 attack step (config.mixed_precision, the JAX attack
+    # driver's default and bench.py's attack workload): lite4@640, b24, the
+    # live regime; bf16 victim, float32 patch, EOT composite, warp and loss
+    t0 = time.perf_counter()
+    bcfg = config_lib.get_efficientdet_config("efficientdet-lite4")
+    bcfg.nms_configs.update({"iou_thresh": 0.5, "score_thresh": 0.5,
+                             "pre_nms_topk": 256})
+    bcfg.mixed_precision = True
+    batk = PatchAttacker(bcfg, get_victim(bcfg, seed=0, device=dev),
+                         window=ATTACK_WINDOW, device=dev)
+    bstate = batk.init_state(1)
+    bimages = torch.rand((ATTACK_BATCH, *batk.image_hw, 3), device=dev,
+                         generator=torch.Generator(dev).manual_seed(2)) * 2 - 1
+    boxes, valid = make_live_slot_boxes(ATTACK_BATCH, batk.image_hw, batk.max_boxes)
+    boverride = (torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev))
+    bstep = lambda asr=False: batk.train_step(bstate, bimages, with_asr=asr,
+                                              boxes_override=boverride)
+    bstep()  # warm-up outside the counted run
+    torch.cuda.synchronize()
+    print(f"  bf16 attacker efficientdet-lite4 {batk.image_hw}, batch {ATTACK_BATCH}, "
+          f"window {ATTACK_WINDOW}, {int(valid.sum())} live windows, built and warmed "
+          f"up in {time.perf_counter() - t0:.2f} s")
+    patch0 = bstate.patch.detach().clone()
+    torch.cuda.reset_peak_memory_stats(dev)
+    nms_cuda.LAUNCHES = 0
+    warp_cuda.reset_counts()
+    mbconv_cuda.reset_counts()
+    with UnfusedRoute() as unfused:
+        for _ in range(ATTACK_STEPS):
+            _, bm = bstep()
+    torch.cuda.synchronize()
+    bf16_launches = dict(warp_cuda.LAUNCHES, nms=nms_cuda.LAUNCHES)
+    bf16_mb = {k: dict(v) for k, v in mbconv_cuda.DTYPE_LAUNCHES.items()}
+    bpeak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if bf16_launches != dict.fromkeys(bf16_launches, ATTACK_STEPS):
+        fail(f"{ATTACK_STEPS} bf16 attack steps launched {bf16_launches}; want one "
+             f"launch of each kernel per step")
+    check_fused_route("bf16 attack step", dict(mbconv_cuda.LAUNCHES), unfused,
+                      2 * MBCONV_PER_PASS * ATTACK_STEPS,
+                      MBCONV_PER_PASS * ATTACK_STEPS, passes=2 * ATTACK_STEPS)
+    want = {"bfloat16": {"mbconv_fwd": 2 * MBCONV_PER_PASS * ATTACK_STEPS,
+                         "mbconv_dx": MBCONV_PER_PASS * ATTACK_STEPS},
+            "float32": {"mbconv_fwd": 0, "mbconv_dx": 0}}
+    if bf16_mb != want:
+        fail(f"bf16 attack step: fused MBConv launches per dtype {bf16_mb}, want {want}")
+    bpatch = bstate.patch.detach()
+    if bpatch.dtype != torch.float32 or not np.isfinite(float(bm.loss)) or \
+            not bool(torch.isfinite(bpatch).all()):
+        fail(f"bf16 attack step: loss {float(bm.loss)}, patch {bpatch.dtype}")
+    if torch.equal(bpatch, patch0) or float(bpatch.abs().max()) > 1.0 or \
+            not 0.0 <= float(bstate.scale.detach()) <= 1.0:
+        fail("bf16 attack step: the patch did not move, or a variable left its range")
+    print(f"phase 5b bf16 attack step: launches in {ATTACK_STEPS} steps {bf16_launches}, "
+          f"fused MBConv per dtype {bf16_mb}; loss {float(bm.loss):.6f}, scale "
+          f"{float(bstate.scale.detach()):.6f}; peak memory {bpeak_gb:.3f} GB")
+    bstep_ms = host_p50_ms(bstep, iters=5, warmup=1)
+    print(f"  bf16 attack step b{ATTACK_BATCH} p50 {bstep_ms:.3f} ms "
+          f"({ATTACK_BATCH * 1e3 / bstep_ms:.2f} images/s; fp32 in phase 5 "
+          f"{step_ms:.3f} ms)")
+    profile_device(bstep, f"bf16 attack step b{ATTACK_BATCH}", top=10)
+
+    # phase 5a, bf16: the fused bf16 victim against the unfused bf16 one
+    # (cuDNN's bf16 convs), which rounds after each conv, BN and activation
+    # where the fused block rounds e once: logits within BF16_VICTIM_TOL
+    # and both bf16 input gradients held to the float32 victim's
+    cfg32 = copy.deepcopy(bcfg)
+    cfg32.mixed_precision = False
+    fused_vs_unfused("phase 5a bf16 fused vs unfused victim", batk, bstate, bimages,
+                     boverride, BF16_VICTIM_TOL, BF16_VICTIM_COS, BF16_VICTIM_GRAD_COS,
+                     ref_net=get_victim(cfg32, seed=0, device=dev),
+                     ref_margin=BF16_VS_FP32_MARGIN)
+
+    # phase 6a, bf16: the bf16 instances on the inputs the bf16 step gave them
+    with Capture([(mbconv_cuda, "mbconv_fwd_cuda"),
+                  (mbconv_cuda, "mbconv_dx_cuda")]) as cap:
+        bstep()
+    torch.cuda.synchronize()
+    torch.set_grad_enabled(False)
+    mb16_tot, mb16_errs = mbconv_step_numbers("phase 6a bf16", batk, cap, mb16_errs)
+    torch.set_grad_enabled(True)
+    del cap, batk, bstate, bimages, bpatch, patch0, bstep, bm, boverride
+    torch.cuda.empty_cache()
+
+    # phase 7b: the driver with its defaults (bf16), 3 steps at batch 12
+    with tempfile.TemporaryDirectory() as tmp:
+        nms_cuda.LAUNCHES = 0
+        warp_cuda.reset_counts()
+        mbconv_cuda.reset_counts()
+        t0 = time.perf_counter()
+        final = train("efficientdet-lite4", synthetic=True, batch_size=12, epochs=1,
+                      steps_per_epoch=3, visualize_freq=0, save_dir=tmp, device=dev,
+                      config_override={"nms_configs": {"score_thresh": 0.0099}})
+        torch.cuda.synchronize()
+        bdriver_s = time.perf_counter() - t0
+        per_dtype = {k: dict(v) for k, v in mbconv_cuda.DTYPE_LAUNCHES.items()}
+        records = [json.loads(line) for line in
+                   (Path(tmp) / "logs" / "metrics.jsonl").read_text().splitlines()]
+        dirs = sorted(p.name for p in Path(tmp).glob("patch_00_*"))
+        if final.step != 3 or not any("val/loss" in r for r in records) or len(dirs) != 1:
+            fail(f"bf16 driver: step {final.step}, artifacts {dirs}")
+        if (sum(per_dtype["float32"].values())
+                or per_dtype["bfloat16"]["mbconv_dx"] != 3 * MBCONV_PER_PASS
+                or per_dtype["bfloat16"]["mbconv_fwd"] < 3 * 2 * MBCONV_PER_PASS
+                or warp_cuda.LAUNCHES["pass1_bwd"] != 3):
+            fail(f"bf16 driver: launches {per_dtype}, warp {warp_cuda.LAUNCHES}")
+    print(f"phase 7b driver with its defaults (bf16): train(efficientdet-lite4, batch "
+          f"12, 3 steps) in {bdriver_s:.2f} s, fused MBConv launches per dtype "
+          f"{per_dtype}, warp {warp_cuda.LAUNCHES}, artifacts {dirs}")
+    del final
 
     # phase 8: both cmconv instances and the plan's pick vs plain at the
     # path's shapes, full size
@@ -1727,6 +2056,17 @@ def main() -> int:
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": tot["bound_by"], "library_ms": None,
             "unfused_ms": tot["unfused_ms"], "bound_tc_ms": tot["bound_tc_ms"]})
+    for kind in ("fwd", "dx"):  # the bf16 instances, per pass of the bf16 step
+        tot = mb16_tot[kind]
+        kernels.append({
+            "name": f"mbconv_{kind}_bf16", "route": "cuda",
+            "source": ("mladversarialobjectdetection_torch/csrc/mbconv_bf16.cu" if kind == "fwd"
+                       else "mladversarialobjectdetection_torch/csrc/mbconv_bf16_dx.cu"),
+            "replaces": MBCONV_REPLACES[kind],
+            "launches": bf16_mb["bfloat16"][f"mbconv_{kind}"],
+            "max_abs_err": mb16_errs[kind], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"], "library_ms": None,
+            "unfused_ms": tot["unfused_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

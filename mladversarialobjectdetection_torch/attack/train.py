@@ -9,15 +9,16 @@ ReduceLROnPlateau(.5, min 1e-4, patience 50) on the validation loss.
 `train` keeps the JAX driver's signature and defaults, and adds `device`
 (CUDA unless "cpu" is asked for) and `victim_variables` (Flax variables of
 the victim, loaded through `ckpt/bridge.py`; without them the victim's
-weights are drawn from a seed by `models/init.py`). Not ported yet, and
-raising `NotImplementedError`: bf16 `mixed_precision` (so the default
-`mixed_precision=True` raises: pass False, the JAX driver's `--fp32`),
-`img_dir`, `victim_ckpt`, `resume`, `spatial > 1` and `packed_entry`. The
-data are synthetic.
+weights are drawn from a seed by `models/init.py`). `mixed_precision`
+defaults to True, as in the JAX driver: the victim runs bf16 activations
+with float32 parameters and predictions, and the patch, the EOT composite
+and the loss stay float32 (`--fp32` opts out). Not ported yet, and raising
+`NotImplementedError`: `img_dir`, `victim_ckpt`, `resume`, `spatial > 1`
+and `packed_entry`. The data are synthetic.
 
 Usage:
     python -m mladversarialobjectdetection_torch.attack.train --synthetic \\
-        --fp32 --epochs 1 --steps-per-epoch 3
+        --epochs 1 --steps-per-epoch 3
 """
 from __future__ import annotations
 
@@ -73,21 +74,18 @@ def train(model_name: str = "efficientdet-lite4", *,
           grad_accum: int = 1, spatial: int = 1, resume: bool = False,
           packed_entry: int = 0, victim_variables=None, device=None):
     """Train an adversarial patch; returns the final `AttackState`."""
-    if mixed_precision:
-        raise _not_ported("mixed_precision (bf16); pass mixed_precision="
-                          "False", "Queue 1 item 4")
     if img_dir is not None:
         raise _not_ported("img_dir (ImageFolderSource, partition)",
-                          "Queue 1 item 1")
+                          "Queue 1 item 4")
     if victim_ckpt is not None:
-        raise _not_ported("victim_ckpt (checkpoint files)", "Queue 1 item 5")
+        raise _not_ported("victim_ckpt (checkpoint files)", "Queue 1 item 2")
     if resume:
         raise _not_ported("resume (save_loop_state / load_loop_state)",
-                          "Queue 1 item 1")
+                          "Queue 1 item 2")
     if spatial > 1:
-        raise _not_ported("spatial > 1", "Queue 1 item 7")
+        raise _not_ported("spatial > 1", "Queue 1 item 10")
     if packed_entry:
-        raise _not_ported("packed_entry", "Queue 1 item 4")
+        raise _not_ported("packed_entry", "Queue 1 item 7")
     del label_dir, synthetic  # only synthetic data is ported
     device = resolve_device(device)
 
@@ -97,6 +95,7 @@ def train(model_name: str = "efficientdet-lite4", *,
     # smaller static candidate set is lossless
     config.nms_configs.update({"iou_thresh": 0.5, "score_thresh": 0.5,
                                "pre_nms_topk": pre_nms_topk})
+    # bf16 activations by default (the patch and the predictions stay float32)
     config.mixed_precision = mixed_precision
     if image_size is not None:
         config.image_size = image_size
@@ -205,8 +204,7 @@ def main():
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--image-size", type=int, default=None)
     p.add_argument("--fp32", action="store_true",
-                   help="disable bf16 mixed precision (required: bf16 is not "
-                        "ported yet)")
+                   help="disable bf16 mixed precision")
     p.add_argument("--pre-nms-topk", type=int, default=256,
                    help="static NMS candidate cap (256 is lossless at "
                         "score_thresh .5 and faster)")

@@ -27,8 +27,8 @@
 //     transposes gather instead of scatter;
 //   - the hat is zero beyond r, so an output visits only the taps around
 //     its centre c (about 2r + 1, not p0 or w): [floor(c - r) - 1,
-//     ceil(c + r) + 1] in the forward passes, [floor(c - r), ceil(c + r)]
-//     in the transposes (`taps_near`). For the transposes' outputs the
+//     ceil(c + r) + 1] in pass 2, [floor(c - r), ceil(c + r)] in pass 1 and
+//     the transposes (`taps_near`). For the transposes' outputs the
 //     interval is solved from the slope of the affine index (a in y for
 //     pass 2^T, g_x in x for pass 1^T) by its sign, and is the full range
 //     when the slope is 0 (`taps_along`);
@@ -38,8 +38,19 @@
 //     results differ only in the order of the sums and in the
 //     normalisation, a product with 1 / N where the plain version divides.
 //
-// The forward passes: one thread per output element (all three channels).
-// Bytes bound them on an H100 (pass 2 at the attack step writes 86 MB).
+// The forward passes. Bytes bound them on an H100 (pass 2 at the attack step
+// writes 86 MB, pass 1 26 MB).
+//   - pass 2: one thread per output element (all three channels);
+//   - pass 1: one CTA per (window n, block of 4 canvas rows i). A thread per
+//     output that read its window's 8 floats and its canvas row from device
+//     memory, walked two taps that are zero for certain and divided in
+//     every hat ran at 40% of its byte bound. Here the window is read once
+//     into shared memory, the block's canvas rows are staged there with
+//     16-byte loads (4.6 KB at p0 = 96), the interval is `taps_near`, and a
+//     window with r = 1 runs the hat without its division (`hat<true>`).
+//     The sums keep j ascending and the normaliser stays a product with
+//     1 / N1, and a zero tap adds nothing to a float sum, so the outputs
+//     equal those of the thread-per-output version bit for bit.
 //
 // The transposes. A transpose divides each input by the forward's
 // normaliser at that position, which depends on the position alone, and
@@ -94,6 +105,7 @@ namespace {
 constexpr int kTableCols = 8;
 constexpr int kThreads = 256;
 constexpr float kNormFloor = 1e-8f;
+constexpr int64_t kMaxSmem = 232448;  // 227 KB, the most a block can use
 
 struct Window {
   float g_i, g_x, g_c, a, b, cu, r;
@@ -121,8 +133,8 @@ __device__ __forceinline__ float affine(float alpha, float m, float beta,
 }
 
 // hat(c - k) = max(0, 1 - |c - k| / r), as ops/eot.py `_hat`. At r = 1 the
-// division is exact, so the transposes' kUnit instance leaves it out and
-// gets the same float
+// division is exact, so the kUnit instance (pass 1 and the transposes)
+// leaves it out and gets the same float
 template <bool kUnit = false>
 __device__ __forceinline__ float hat(float c, int k, float r) {
   const float d = __fsub_rn(c, static_cast<float>(k));
@@ -140,7 +152,7 @@ __device__ __forceinline__ void taps_around(float c, float r, int n, int& lo,
   hi = static_cast<int>(fminf(fmaxf(h, -1.0f), static_cast<float>(n - 1)));
 }
 
-// The transposes' intervals hold no margin beyond the real one: their
+// Pass 1's and the transposes' intervals hold no margin beyond the real one: their
 // floor and ceil already take in the rounding of the affine index (well
 // under a thousandth of a step), and each end may hold a zero tap. The CPU
 // tests hold their float32 twins in ops/warp_cuda.py to every non-zero tap
@@ -195,34 +207,68 @@ __device__ __forceinline__ void normalise3(const float* v, float nrm,
   dst[2] = v[2] * inv;
 }
 
+// pass 1: a CTA per (window n, block of kRows1 canvas rows i). The
+// window's parameters are read once into shared memory, and the block's
+// canvas rows (p0 x 3 floats each) are staged there with 16-byte loads;
+// then each thread sums its outputs (i, x) over the taps of `taps_near`,
+// j ascending, with the exact hat (hat<true> when the window's r is 1).
+constexpr int kRows1 = 4;
+
+template <bool kUnit>
+__device__ __forceinline__ void pass1_fwd_rows(const float* rows, const Window& q,
+                                               int n, int i0, int nr, int p0,
+                                               int w, float* __restrict__ t) {
+  for (int f = threadIdx.x; f < nr * w; f += blockDim.x) {
+    const int r = f / w, x = f - r * w, i = i0 + r;
+    const float g = affine(q.g_i, static_cast<float>(i), q.g_x,
+                           static_cast<float>(x), q.g_c);
+    const float* row = rows + r * p0 * 3;
+    int lo, hi;
+    taps_near(g, q.r, p0, lo, hi);
+    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, s = 0.0f;
+    for (int j = lo; j <= hi; ++j) {
+      const float h = hat<kUnit>(g, j, q.r);
+      a0 += h * row[3 * j];
+      a1 += h * row[3 * j + 1];
+      a2 += h * row[3 * j + 2];
+      s += h;
+    }
+    const float inv = __fdiv_rn(1.0f, fmaxf(s, kNormFloor));
+    float* o = t + ((static_cast<int64_t>(n) * p0 + i) * w + x) * 3;
+    o[0] = a0 * inv;
+    o[1] = a1 * inv;
+    o[2] = a2 * inv;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 pass1_fwd_kernel(const float* __restrict__ canvas,
-                 const float* __restrict__ table, int64_t total, int p0,
-                 int w, float* __restrict__ t) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int x = static_cast<int>(idx % w);
-  const int i = static_cast<int>((idx / w) % p0);
-  const int64_t n = idx / (static_cast<int64_t>(w) * p0);
-  const Window q = load_window(table, n);
-  const float g = affine(q.g_i, static_cast<float>(i), q.g_x,
-                         static_cast<float>(x), q.g_c);
-  const float* row = canvas + (static_cast<int64_t>(q.image) * p0 + i) * p0 * 3;
-  int lo, hi;
-  taps_around(g, q.r, p0, lo, hi);
-  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, s = 0.0f;
-  for (int j = lo; j <= hi; ++j) {
-    const float h = hat(g, j, q.r);
-    a0 += h * row[3 * j];
-    a1 += h * row[3 * j + 1];
-    a2 += h * row[3 * j + 2];
-    s += h;
+                 const float* __restrict__ table, int p0, int w,
+                 float* __restrict__ t) {
+  extern __shared__ float4 rows4[];  // [nr][p0][3] of image(n)'s canvas
+  __shared__ Window q_s;
+  float* rows = reinterpret_cast<float*>(rows4);
+  const int n = blockIdx.x;
+  const int i0 = blockIdx.y * kRows1;
+  const int nr = min(kRows1, p0 - i0);
+  if (threadIdx.x == 0) q_s = load_window(table, n);
+  __syncthreads();
+  const Window q = q_s;
+  // rows i0 .. i0 + nr - 1 of the image are contiguous
+  const float* src = canvas + (static_cast<int64_t>(q.image) * p0 + i0) * p0 * 3;
+  const int count = nr * p0 * 3;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && (count & 3) == 0) {
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+    for (int k = threadIdx.x; k < count / 4; k += blockDim.x) rows4[k] = __ldg(src4 + k);
+  } else {
+    for (int k = threadIdx.x; k < count; k += blockDim.x) rows[k] = __ldg(src + k);
   }
-  const float inv = __fdiv_rn(1.0f, fmaxf(s, kNormFloor));
-  float* o = t + idx * 3;
-  o[0] = a0 * inv;
-  o[1] = a1 * inv;
-  o[2] = a2 * inv;
+  __syncthreads();
+  if (q.r == 1.0f) {
+    pass1_fwd_rows<true>(rows, q, n, i0, nr, p0, w, t);
+  } else {
+    pass1_fwd_rows<false>(rows, q, n, i0, nr, p0, w, t);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -520,13 +566,21 @@ bool shapes_ok(int n_win, int p0, int w) {
 extern "C" int mlad_warp_pass1_fwd(const float* canvas, const float* table,
                                    int n_win, int n_img, int p0, int w,
                                    float* t, void* stream) {
-  if (n_img < 1 || !shapes_ok(n_win, p0, w)) {
+  const int row_blocks = (p0 + kRows1 - 1) / kRows1;
+  const int64_t smem = static_cast<int64_t>(p0 < kRows1 ? p0 : kRows1) * p0 * 3 *
+                       static_cast<int64_t>(sizeof(float));
+  if (n_img < 1 || !shapes_ok(n_win, p0, w) || row_blocks > 65535 ||
+      smem > kMaxSmem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t total = static_cast<int64_t>(n_win) * p0 * w;
-  pass1_fwd_kernel<<<blocks_for(total), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(canvas, table, total,
-                                                          p0, w, t);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        pass1_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  pass1_fwd_kernel<<<dim3(n_win, row_blocks), kThreads, static_cast<size_t>(smem),
+                     static_cast<cudaStream_t>(stream)>>>(canvas, table, p0, w, t);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,6 +18,8 @@ import torch
 
 from ..utils.image import parse_image_size
 
+PUT_POLL_S = 0.05  # how often a blocked prefetch worker looks for a stop
+
 
 def augment_batch(images: torch.Tensor, generator: torch.Generator | None = None,
                   *, flip: torch.Tensor | None = None,
@@ -56,28 +58,48 @@ def skip_batches(iterator: Iterator[np.ndarray], n: int) -> Iterator[np.ndarray]
 def prefetch(iterator: Iterator, *, size: int = 2, device_put_fn=None) -> Iterator:
     """Background-thread prefetch with an optional device copy (double buffering).
 
-    An exception in the producer is raised in the consumer."""
+    An exception in the producer is raised in the consumer. When the
+    consumer is closed or dropped (a driver returns while its endless
+    synthetic iterator still has batches to give), the worker stops within
+    `PUT_POLL_S` and releases the batches it holds: a worker left blocked on
+    a full queue would keep `size` + 1 batches, on the card with a device
+    copy, for the rest of the process."""
     q: "queue.Queue" = queue.Queue(maxsize=size)
     end = object()
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=PUT_POLL_S)
+                return True
+            except queue.Full:
+                pass
+        return False
 
     def worker():
         try:
             for item in iterator:
                 if device_put_fn is not None:
                     item = device_put_fn(item)
-                q.put(item)
-            q.put(end)
+                if not put(item):
+                    return
+            put(end)
         except BaseException as e:  # handed to the consumer, which raises it
-            q.put(e)
+            put(e)
 
-    threading.Thread(target=worker, daemon=True).start()
-    while True:
-        item = q.get()
-        if item is end:
-            return
-        if isinstance(item, BaseException):
-            raise item
-        yield item
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
 
 
 def synthetic_batches(batch_size: int, image_size, *, seed: int = 0,

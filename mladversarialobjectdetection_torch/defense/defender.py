@@ -86,14 +86,14 @@ class PatchAttackDefender:
         if packed:
             raise NotImplementedError(
                 "packed (models/unet_packed.py) is not ported yet "
-                "(ROADMAP Queue 1 item 2)")
+                "(ROADMAP Queue 1 item 6)")
         if packed_entry:
             raise NotImplementedError(
-                "packed_entry is not ported yet (ROADMAP Queue 1 item 4)")
+                "packed_entry is not ported yet (ROADMAP Queue 1 item 7)")
         if config.get("mixed_precision"):
             raise NotImplementedError(
-                "mixed_precision (bf16) is not ported yet (ROADMAP Queue 1 "
-                "item 4)")
+                "mixed_precision (bf16) is not ported to the defender yet "
+                "(ROADMAP Queue 1 item 1: the bf16 U-Net and cmconv instance)")
         self.device = resolve_device(device)
         self.config = config
         self.spec: DetSpec = spec_from_config(config)

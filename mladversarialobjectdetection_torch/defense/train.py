@@ -72,21 +72,22 @@ def train(model_name: str = "efficientdet-lite4", *,
     """Train the defender U-Net; returns the final `DefenderState`."""
     if img_dir is not None:
         raise _not_ported("img_dir (ImageFolderSource, partition)",
-                          "Queue 1 item 1")
+                          "Queue 1 item 4")
     if victim_ckpt is not None:
-        raise _not_ported("victim_ckpt (checkpoint files)", "Queue 1 item 5")
+        raise _not_ported("victim_ckpt (checkpoint files)", "Queue 1 item 2")
     if initial_weights is not None:
         raise _not_ported("initial_weights (ckpt/convert_defense.py)",
                           "Queue 1 item 2")
     if resume:
         raise _not_ported("resume (save_loop_state / load_loop_state)",
-                          "Queue 1 item 1")
+                          "Queue 1 item 2")
     if spatial > 1:
-        raise _not_ported("spatial > 1", "Queue 1 item 7")
+        raise _not_ported("spatial > 1", "Queue 1 item 10")
     if packed:
-        raise _not_ported("packed (models/unet_packed.py)", "Queue 1 item 2")
+        raise _not_ported("packed (models/unet_packed.py)", "Queue 1 item 6")
     if bf16:
-        raise _not_ported("bf16", "Queue 1 item 4")
+        raise _not_ported("bf16 (the bf16 U-Net and cmconv instance)",
+                          "Queue 1 item 1")
     del label_dir, synthetic  # only synthetic data is ported
     device = resolve_device(device)
 

@@ -8,8 +8,11 @@ the post mode `global`, `per_class`, `combined` or `tflite` (whose NMS is
 the CUDA kernel); `serve_streams` batches several frame sources,
 `serve_pipelined` overlaps the host side of the next batch with the card.
 
-`quantize_int8`, `export`, checkpoint paths, meshes and `packed_entry` are
-not ported yet and raise.
+`config.mixed_precision` (`params={"mixed_precision": True}`) serves in
+bf16, as the JAX `Detector` does through `EfficientDetNet`: bf16 activations
+and the fused blocks' bf16 kernels, float32 predictions, so postprocessing
+and NMS see float32. `quantize_int8`, `export`, checkpoint paths, meshes and
+`packed_entry` are not ported yet and raise.
 """
 from __future__ import annotations
 

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .efficientnet import BatchNorm, Conv2d, activation, pad_same
+from .efficientnet import BatchNorm, Conv2d, activation, pad_same, set_compute_dtype
 
 
 class FpnNode(NamedTuple):
@@ -141,12 +141,14 @@ def _nearest_upsample_to(x: torch.Tensor, th: int, tw: int) -> torch.Tensor:
 class ResampleFeatureMap(nn.Module):
     """Match a feature map to a target (h, w, c) (bifpn.py:108-146).
 
-    `in_channels` and `in_hw` are the static shape of the input map.
+    `in_channels` and `in_hw` are the static shape of the input map; `dtype`
+    the compute dtype (`efficientnet.set_compute_dtype`).
     """
 
     def __init__(self, in_channels: int, in_hw: Tuple[int, int],
                  target_num_channels: int, target_hw: Tuple[int, int],
-                 apply_bn: bool = True, conv_after_downsample: bool = False):
+                 apply_bn: bool = True, conv_after_downsample: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         (h, w), (th, tw) = in_hw, target_hw
         self.target_hw = target_hw
@@ -163,6 +165,7 @@ class ResampleFeatureMap(nn.Module):
                                  init="fan_in_truncated")
             if apply_bn:
                 self.bn = BatchNorm(target_num_channels)
+        set_compute_dtype(self, dtype)
 
     def _maybe_1x1(self, x: torch.Tensor) -> torch.Tensor:
         if self.conv2d is not None:
@@ -189,7 +192,9 @@ class ResampleFeatureMap(nn.Module):
 class FNode(nn.Module):
     """One BiFPN fusion node (bifpn.py:149-223).
 
-    `in_shapes[i]` is (channels, (h, w)) of `feats[i]`.
+    `in_shapes[i]` is (channels, (h, w)) of `feats[i]`. The fusion weights
+    are cast to the nodes' dtype before the softmax or relu, as the JAX
+    node does (bifpn.py:175-191): at bf16 the fusion runs in bf16.
     """
 
     def __init__(self, inputs_offsets: Tuple[int, ...],
@@ -235,18 +240,19 @@ class FNode(nn.Module):
                  for i, offset in enumerate(self.inputs_offsets)]
         wm = self.weight_method
         n = len(nodes)
+        dtype = nodes[0].dtype
         if wm == "attn":
-            norm = torch.softmax(self.WSM, dim=0)
+            norm = torch.softmax(self.WSM.to(dtype), dim=0)
             new_node = sum(nodes[i] * norm[i] for i in range(n))
         elif wm == "fastattn":  # divides by sum(relu(w)) + 1e-4 (bifpn.py:182-184)
-            w = F.relu(self.WSM)
+            w = F.relu(self.WSM.to(dtype))
             new_node = sum(nodes[i] * w[i] for i in range(n)) / (
                 torch.sum(w) + 1e-4)
         elif wm == "channel_attn":
-            norm = torch.softmax(self.WSM, dim=0).view(n, 1, -1, 1, 1)
+            norm = torch.softmax(self.WSM.to(dtype), dim=0).view(n, 1, -1, 1, 1)
             new_node = sum(nodes[i] * norm[i] for i in range(n))
         elif wm == "channel_fastattn":
-            w = F.relu(self.WSM)
+            w = F.relu(self.WSM.to(dtype))
             new_node = sum(nodes[i] * w[i].view(1, -1, 1, 1)
                            for i in range(n)) / (
                 torch.sum(w, dim=0) + 1e-4).view(1, -1, 1, 1)
@@ -292,7 +298,8 @@ class FPNCell(nn.Module):
 
 
 class FPNCells(nn.Module):
-    """Stack of FPN cells with output re-selection (bifpn.py:259-298)."""
+    """Stack of FPN cells with output re-selection (bifpn.py:259-298), in
+    the compute dtype `dtype` (`efficientnet.set_compute_dtype`)."""
 
     def __init__(self, nodes: Tuple[FpnNode, ...], min_level: int,
                  max_level: int, fpn_cell_repeats: int, fpn_num_filters: int,
@@ -300,7 +307,8 @@ class FPNCells(nn.Module):
                  act_type: str, separable_conv: bool = True,
                  apply_bn_for_resampling: bool = True,
                  conv_after_downsample: bool = False,
-                 conv_bn_act_pattern: bool = False):
+                 conv_bn_act_pattern: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.fpn_cell_repeats = fpn_cell_repeats
         node_kw = dict(weight_method=weight_method, act_type=act_type,
@@ -319,6 +327,7 @@ class FPNCells(nn.Module):
         self._select = [n_in + max(i for i, fnode in enumerate(nodes)
                                    if fnode.feat_level == level)
                         for level in levels]
+        set_compute_dtype(self, dtype)
 
     def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         for rep in range(self.fpn_cell_repeats):

@@ -6,7 +6,11 @@ ClassNet / BoxNet. A static `DetSpec` resolves every architectural decision
 before the modules are built.
 
 The public forward keeps the JAX layouts: NHWC images in, per-level NHWC
-head outputs out (fp32). NCHW is used only inside.
+head outputs out (fp32). NCHW is used only inside. With `mixed_precision`
+the net follows the JAX policy (efficientdet.py:107-109, :154-155): float32
+parameters, the images cast to bf16 at the entry, bf16 activations through
+the backbone (the fused blocks on the kernels' bf16 instance), the BiFPN and
+the heads, and the predictions cast back to float32.
 """
 from __future__ import annotations
 
@@ -89,22 +93,21 @@ class EfficientDetNet(nn.Module):
     """Backbone -> resample 6..max -> BiFPN -> heads (no pre/post).
 
     Raises on what the port does not run yet, rather than ignoring it: the
-    lane-packed backbone entry (`packed_entry`), bf16 `mixed_precision` and
-    the segmentation head. Gradient checkpointing changes no eval output
-    and is ignored.
+    lane-packed backbone entry (`packed_entry`) and the segmentation head.
+    Gradient checkpointing changes no eval output and is ignored.
     """
 
     def __init__(self, spec: DetSpec, packed_entry: int = 0):
         super().__init__()
         if packed_entry:
             raise NotImplementedError("packed_entry is not ported yet")
-        if spec.mixed_precision:
-            raise NotImplementedError("mixed_precision (bf16) is not ported yet")
         if tuple(spec.heads) != ("object_detection",):
             raise NotImplementedError(
                 f"heads {spec.heads}: only object_detection is ported")
         self.spec = spec
-        self.backbone = EfficientNet(spec.backbone)
+        cdtype = torch.bfloat16 if spec.mixed_precision else None
+        self.compute_dtype = cdtype or torch.float32
+        self.backbone = EfficientNet(spec.backbone, dtype=cdtype)
         # endpoints[i] == reduction_{i+1}; levels min..5 come from the backbone
         self._backbone_levels = range(spec.min_level, min(spec.max_level, 5) + 1)
         channels = [self.backbone.endpoint_channels[level - 1]
@@ -114,23 +117,23 @@ class EfficientDetNet(nn.Module):
             self.add_module(f"resample_p{level}", bifpn.ResampleFeatureMap(
                 channels[-1], spec.level_hw[level - 1], spec.fpn_num_filters,
                 spec.level_hw[level], apply_bn=spec.apply_bn_for_resampling,
-                conv_after_downsample=spec.conv_after_downsample))
+                conv_after_downsample=spec.conv_after_downsample, dtype=cdtype))
             channels.append(spec.fpn_num_filters)
         self.fpn_cells = bifpn.FPNCells(
             spec.fpn_nodes, spec.min_level, spec.max_level,
             spec.fpn_cell_repeats, spec.fpn_num_filters, spec.level_hw,
             channels, spec.fpn_weight_method, spec.act_type,
             spec.separable_conv, spec.apply_bn_for_resampling,
-            spec.conv_after_downsample, spec.conv_bn_act_pattern)
+            spec.conv_after_downsample, spec.conv_bn_act_pattern, dtype=cdtype)
         num_levels = spec.max_level - spec.min_level + 1
         self.class_net = heads.class_net(
             spec.num_classes, spec.num_anchors, spec.fpn_num_filters,
             num_levels, spec.box_class_repeats, spec.act_type,
-            spec.separable_conv, spec.survival_prob)
+            spec.separable_conv, spec.survival_prob, dtype=cdtype)
         self.box_net = heads.box_net(
             spec.num_anchors, spec.fpn_num_filters, num_levels,
             spec.box_class_repeats, spec.act_type, spec.separable_conv,
-            spec.survival_prob)
+            spec.survival_prob, dtype=cdtype)
 
     def pyramid(self, x: torch.Tensor) -> List[torch.Tensor]:
         """NCHW images -> NCHW features of levels min..max, before the BiFPN."""
@@ -142,8 +145,10 @@ class EfficientDetNet(nn.Module):
 
     def forward(self, images: torch.Tensor
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-        """[B, H, W, 3] images -> (class, box) outputs, per level [B, h, w, C]."""
-        x = images.permute(0, 3, 1, 2)
+        """[B, H, W, 3] images -> (class, box) outputs, per level [B, h, w, C],
+        float32 (the images cast to the compute dtype first)."""
+        x = images.to(self.compute_dtype).permute(0, 3, 1, 2)
         fpn_feats = self.fpn_cells(self.pyramid(x))
-        nhwc = lambda outs: [o.permute(0, 2, 3, 1).contiguous() for o in outs]
+        nhwc = lambda outs: [o.permute(0, 2, 3, 1).to(torch.float32).contiguous()
+                             for o in outs]
         return nhwc(self.class_net(fpn_feats)), nhwc(self.box_net(fpn_feats))

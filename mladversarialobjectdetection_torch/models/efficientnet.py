@@ -15,6 +15,15 @@ PyTorch's defaults differ:
 - Flax `"SAME"` padding is asymmetric for stride 2: `same_pads`.
 - Flax `BatchNorm` in eval mode computes
   `(x - mean) * (rsqrt(var + eps) * scale) + bias` with eps 1e-3: `BatchNorm`.
+
+Mixed precision follows Flax's explicit `dtype=` (the JAX package's
+`EfficientNet(..., dtype=bf16)`), not `torch.autocast`, whose op lists
+round at other points: a module built with a compute dtype
+(`set_compute_dtype`) keeps float32 parameters, and each `Conv2d` casts its
+input, kernel and bias to that dtype and adds the bias after the conv, as
+`nn.Conv(dtype=...)` does; each `BatchNorm` normalises in float32 (bf16 x
+minus the float32 mean promotes, flax.linen.normalization._normalize) and
+rounds once; a fused block runs the kernels' bf16 instance.
 """
 from __future__ import annotations
 
@@ -199,7 +208,12 @@ class Conv2d(nn.Conv2d):
 
     `init` names the Flax initializer family of the matching Flax conv,
     which `models/init.py` applies; `bias_value` is its constant bias.
+    `compute_dtype` (None: float32) as Flax's `dtype`: see the module notes.
+    The kernel and bias in the compute dtype are cached and recast when a
+    parameter changes (its storage or version); where gradients are on and
+    a parameter requires one, they are cast with autograd on every call.
     """
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, groups: int = 1, bias: bool = True, *,
@@ -208,9 +222,29 @@ class Conv2d(nn.Conv2d):
                          padding=0, groups=groups, bias=bias)
         self.init = init
         self.bias_value = bias_value
+        self._cast = None  # (key of the parameters and dtype, weight, bias)
+
+    def _in_dtype(self, cd: torch.dtype):
+        """(weight, bias) in the compute dtype cd (see the class docstring)."""
+        params = [p for p in (self.weight, self.bias) if p is not None]
+        cast = lambda: (self.weight.to(cd),
+                        None if self.bias is None else self.bias.to(cd))
+        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+            return cast()
+        key = (cd,) + tuple((p.data_ptr(), p._version, p.device) for p in params)
+        if self._cast is None or self._cast[0] != key:
+            with torch.no_grad():
+                self._cast = (key, *cast())
+        return self._cast[1:]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(pad_same(x, self.kernel_size, self.stride))
+        cd = self.compute_dtype
+        if cd is None:
+            return super().forward(pad_same(x, self.kernel_size, self.stride))
+        weight, bias = self._in_dtype(cd)
+        y = F.conv2d(pad_same(x.to(cd), self.kernel_size, self.stride),
+                     weight, None, self.stride, 0, self.dilation, self.groups)
+        return y if bias is None else y + bias.view(1, -1, 1, 1)
 
 
 class BatchNorm(nn.Module):
@@ -221,8 +255,10 @@ class BatchNorm(nn.Module):
     (flax.linen.normalization._normalize). The port uses Flax's order and
     eps 1e-3 (efficientnet.py:164), so fp32 results match to rounding.
     The Flax wrapper nests `nn.BatchNorm` as `bn`; this module holds the
-    parameters directly (the bridge drops that segment).
+    parameters directly (the bridge drops that segment). With a
+    `compute_dtype` it normalises in float32 and returns that dtype.
     """
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, num_features: int, eps: float = BN_EPSILON):
         super().__init__()
@@ -235,8 +271,23 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1, 1, 1)
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x - self.running_mean.view(shape)) * mul.view(shape)
-                + self.bias.view(shape))
+        cd = self.compute_dtype
+        if cd is not None:
+            x = x.to(torch.float32)
+        y = ((x - self.running_mean.view(shape)) * mul.view(shape)
+             + self.bias.view(shape))
+        return y if cd is None else y.to(cd)
+
+
+def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> None:
+    """Give every `Conv2d` and `BatchNorm` in `module` the compute dtype
+    (None or torch.float32: float32; torch.bfloat16: mixed precision)."""
+    dtype = None if dtype == torch.float32 else dtype
+    if dtype not in (None, torch.bfloat16):
+        raise ValueError(f"compute dtype float32 or bfloat16, got {dtype}")
+    for m in module.modules():
+        if isinstance(m, (Conv2d, BatchNorm)):
+            m.compute_dtype = dtype
 
 
 class SqueezeExcite(nn.Module):
@@ -270,6 +321,8 @@ class MBConvBlock(nn.Module):
     one, the fold is recomputed with autograd so that a backward that needs
     the weights' gradient reaches the op's refusal instead of a silent zero.
     The other blocks, and the tests' reference, run `_forward_unfused`.
+    A bf16 input runs the op's bf16 instance on the fold in bf16
+    (`folded(torch.bfloat16)`: We and Wp in bf16), cached per dtype.
     """
 
     def __init__(self, args: BlockArgs, spec: BackboneSpec, in_channels: int):
@@ -298,7 +351,7 @@ class MBConvBlock(nn.Module):
         self.residual = (args.id_skip and args.strides == (1, 1)
                          and args.input_filters == args.output_filters)
         self.fuseable = mbconv_ops.fuseable(args, spec.use_se, spec.act_type)
-        self._folded = None  # (key of the source tensors, FoldedBlock)
+        self._folded = {}  # dtype: (key of the source tensors, FoldedBlock)
 
     def _fold_sources(self) -> Tuple[torch.Tensor, ...]:
         bns = (self.bn0, self.bn1, self.bn2)
@@ -307,22 +360,24 @@ class MBConvBlock(nn.Module):
                 + tuple(t for bn in bns for t in (bn.weight, bn.bias,
                                                   bn.running_mean, bn.running_var)))
 
-    def folded(self) -> mbconv_ops.FoldedBlock:
-        """The block's BN-folded weights (cached; see the class docstring)."""
+    def folded(self, dtype: torch.dtype = torch.float32) -> mbconv_ops.FoldedBlock:
+        """The block's BN-folded weights, We and Wp in `dtype` (cached per
+        dtype; see the class docstring)."""
         sources = self._fold_sources()
         if torch.is_grad_enabled() and any(t.requires_grad for t in sources):
-            return mbconv_ops.fold_block(self)
+            return mbconv_ops.fold_block(self).in_dtype(dtype)
         key = tuple((t.data_ptr(), t._version, t.device) for t in sources)
-        if self._folded is None or self._folded[0] != key:
+        hit = self._folded.get(dtype)
+        if hit is None or hit[0] != key:
             with torch.no_grad():
-                self._folded = (key, mbconv_ops.fold_block(self))
-        return self._folded[1]
+                hit = self._folded[dtype] = (key, mbconv_ops.fold_block(self).in_dtype(dtype))
+        return hit[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.fuseable:
             return self._forward_unfused(x)
         y = mbconv_ops.mbconv(mbconv_ops.nhwc(x.permute(0, 2, 3, 1)),
-                              self.folded(), act_type=self.act_type,
+                              self.folded(x.dtype), act_type=self.act_type,
                               residual=self.residual)
         return y.permute(0, 3, 1, 2)
 
@@ -340,9 +395,13 @@ class MBConvBlock(nn.Module):
 
 
 class EfficientNet(nn.Module):
-    """Backbone returning the reduction_1..5 endpoints (efficientnet.py:270-301)."""
+    """Backbone returning the reduction_1..5 endpoints (efficientnet.py:270-301).
 
-    def __init__(self, spec: BackboneSpec, in_channels: int = 3):
+    `dtype`: the compute dtype (None: float32; torch.bfloat16 as the JAX
+    `EfficientNet(..., dtype)`); the endpoints come in it."""
+
+    def __init__(self, spec: BackboneSpec, in_channels: int = 3,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.spec = spec
         self.stem_conv = Conv2d(in_channels, spec.stem_filters, 3, 2,
@@ -358,6 +417,7 @@ class EfficientNet(nn.Module):
             if idx == n_blocks - 1 or spec.blocks[idx + 1].strides[0] > 1)
         self.endpoint_channels: List[int] = [
             spec.blocks[idx].output_filters for idx in self._reductions]
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = activation(self.stem_bn(self.stem_conv(x)), self.spec.act_type)

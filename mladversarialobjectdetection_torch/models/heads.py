@@ -13,7 +13,7 @@ from typing import List, Optional, Sequence
 import torch
 from torch import nn
 
-from .efficientnet import BatchNorm, Conv2d, activation
+from .efficientnet import BatchNorm, Conv2d, activation, set_compute_dtype
 
 
 class _SharedConv(nn.Module):
@@ -39,12 +39,14 @@ class _SharedConv(nn.Module):
 
 
 class PredictionNet(nn.Module):
-    """Shared-conv / per-level-BN head body + prediction layer (heads.py:48-90)."""
+    """Shared-conv / per-level-BN head body + prediction layer (heads.py:48-90),
+    in the compute dtype `dtype` (`efficientnet.set_compute_dtype`)."""
 
     def __init__(self, output_features: int, num_filters: int,
                  num_levels: int, repeats: int = 4, act_type: str = "swish",
                  separable_conv: bool = True, head_bias_init: float = 0.0,
-                 survival_prob: Optional[float] = None):
+                 survival_prob: Optional[float] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.num_levels = num_levels
         self.repeats = repeats
@@ -58,6 +60,7 @@ class PredictionNet(nn.Module):
         for level_id in range(num_levels):
             for i in range(repeats):
                 self.add_module(f"bn_{i}_l{level_id}", BatchNorm(num_filters))
+        set_compute_dtype(self, dtype)
 
     def forward(self, inputs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         outputs = []
@@ -76,20 +79,20 @@ class PredictionNet(nn.Module):
 
 def class_net(num_classes: int, num_anchors: int, num_filters: int,
               num_levels: int, repeats: int, act_type: str,
-              separable_conv: bool, survival_prob=None) -> PredictionNet:
+              separable_conv: bool, survival_prob=None, dtype=None) -> PredictionNet:
     return PredictionNet(
         output_features=num_classes * num_anchors,
         num_filters=num_filters, num_levels=num_levels, repeats=repeats,
         act_type=act_type, separable_conv=separable_conv,
         head_bias_init=-math.log((1 - 0.01) / 0.01),
-        survival_prob=survival_prob)
+        survival_prob=survival_prob, dtype=dtype)
 
 
 def box_net(num_anchors: int, num_filters: int, num_levels: int,
             repeats: int, act_type: str, separable_conv: bool,
-            survival_prob=None) -> PredictionNet:
+            survival_prob=None, dtype=None) -> PredictionNet:
     return PredictionNet(
         output_features=4 * num_anchors,
         num_filters=num_filters, num_levels=num_levels, repeats=repeats,
         act_type=act_type, separable_conv=separable_conv,
-        survival_prob=survival_prob)
+        survival_prob=survival_prob, dtype=dtype)

@@ -221,7 +221,7 @@ class PatchNeutralizer(nn.Module):
         if remat:
             raise NotImplementedError(
                 "remat (recompute blocks in the backward pass) has no "
-                "counterpart in the port (ROADMAP Queue 1 item 2)")
+                "counterpart in the port (ROADMAP Queue 1 item 6)")
         nf = n_filters
         chans = 3
         for i in range(4):

@@ -6,17 +6,24 @@ Replace the Pallas TPU kernels `_fwd_kernel` and `_bwd_kernel` of
 signatures of `ops/mbconv.mbconv_plain` and `mbconv_dx_plain`: x [B, H, W, C]
 and g [B, H, W, Co] NHWC, the folded weights of `ops/mbconv.FoldedBlock`, a
 k of 3 or 5, an act of `ops/mbconv.SUPPORTED_ACTS`. They take only
-contiguous float32 CUDA tensors on one device whose data start on a 16-byte
-boundary, launch on PyTorch's current stream, allocate their output (and,
-where the plan splits E, a workspace) and nothing else, and raise on any
-refusal; neither falls back to the plain version.
+contiguous CUDA tensors on one device whose data start on a 16-byte
+boundary: x, g and the fold's We and Wp all float32, or all bf16 (the bf16
+instance, `mbconv_bf16.cu` and `mbconv_bf16_dx.cu`; `FoldedBlock.in_dtype`),
+the other folded weights float32. Any other dtype raises: there is no
+float16 instance. They launch on PyTorch's current stream, allocate their
+output (in x's dtype; and, where the plan splits E, a float32 workspace) and
+nothing else, and raise on any refusal; neither falls back to the plain
+version.
 
 `plan_fwd` / `plan_dx` choose each launch's tiling on the host (pure Python,
-tested on the CPU, cached per shape: the search takes milliseconds): the output tile, the accumulator width (a template
+tested on the CPU, cached per shape and dtype: the search takes
+milliseconds; a bf16 plan counts 2-byte buffers and bf16 products): the output tile, the accumulator width (a template
 instance of the kernel, `built`), a split of E across blocks whose partials
 `mbconv_reduce_kernel` adds in a fixed order, and a slice of the output
 channels per block. A launch with a split runs two kernels; `LAUNCHES`
-counts it once, as one call of the op.
+counts it once, as one call of the op, and `DTYPE_LAUNCHES` counts it again
+under its dtype, so that a bf16 pass can show that it launched no float32
+instance.
 
 `mbconv_fwd_simt` / `mbconv_dx_simt` run the kernels' ablation (the 1x1
 products as SIMT FMAs instead of 3xTF32 tensor-core products, the same
@@ -35,6 +42,9 @@ from .. import _build
 from .mbconv import SUPPORTED_ACTS, FoldedBlock
 
 LAUNCHES = {"mbconv_fwd": 0, "mbconv_dx": 0}  # op calls that launched, this process
+DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}  # the instances
+ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
+DTYPE_LAUNCHES = {d: {"mbconv_fwd": 0, "mbconv_dx": 0} for d in DTYPES.values()}
 ABLATION_LAUNCHES = {"mbconv_fwd": 0, "mbconv_dx": 0}
 ACT_CODES = {"relu6": 0, "relu": 1, "swish": 2, "silu": 2, "swish_native": 2}
 assert set(ACT_CODES) == set(SUPPORTED_ACTS)
@@ -57,9 +67,11 @@ MASKS_CONFIG = (8, 8, 8)
 # estimate, set from ptxas's counts on the H100 (chip_smoke.py phase 1 prints
 # them), which it matches within 20
 REG_OVERHEAD = {"fwd": 80, "dx": 110}
-# H100 SXM per-SM rates for the cost model: 3xTF32 products, fp32 FMAs
+# H100 SXM per-SM rates for the cost model: 3xTF32 products, bf16 products,
+# fp32 FMAs
 SMS = 132
 TC_FLOP_PER_US = 495e6 / 3 / SMS
+BF16_FLOP_PER_US = 989e6 / SMS
 FP_FLOP_PER_US = 67e6 / SMS
 
 _P = ctypes.c_void_p
@@ -83,8 +95,8 @@ class Plan(NamedTuple):
 
 
 def reset_counts() -> None:
-    """Set the launch counts (main path and ablation) to 0."""
-    for counts in (LAUNCHES, ABLATION_LAUNCHES):
+    """Set the launch counts (main path, per dtype and ablation) to 0."""
+    for counts in (LAUNCHES, ABLATION_LAUNCHES, *DTYPE_LAUNCHES.values()):
         for name in counts:
             counts[name] = 0
 
@@ -124,25 +136,29 @@ def warp_layout(th: int, tw: int):
     return (1, mt // WARPS) if mt >= WARPS else (WARPS // mt, 1)
 
 
-def smem_bytes(kind: str, k: int, th: int, tw: int, npw: int, n_cols: int) -> int:
-    """Dynamic shared memory of a block (`fwd_smem_floats` / `dx_smem_floats`)
-    whose widest output slice has n_cols channels."""
+def smem_bytes(kind: str, k: int, th: int, tw: int, npw: int, n_cols: int,
+               itemsize: int = 4) -> int:
+    """Dynamic shared memory of a block (`fwd_smem_bytes` / `dx_smem_bytes`)
+    whose widest output slice has n_cols channels; itemsize 4 for float32,
+    2 for bf16 (whose rows pad by 8 elements, not 4)."""
     _, _, _, ec, kc = _config(kind, th, tw, npw)
-    ldx, ldw, lde = kc + 4, ec + 8, ec + 4
+    pad = 16 // itemsize
+    ldx, ldw, lde = kc + pad, ec + 8, ec + pad
     h = k // 2
     tp = th * tw
     if kind == "fwd":
         fnh = (th + 2 * h) * (tw + 2 * h)
         ldp = _round(_round(n_cols, 8), 32) + 8
         nhp = _round(fnh, 16)  # the packed rows' offsets, then the rings, e, d, Wp
-        floats = nhp + 2 * nhp * ldx + 2 * kc * ldw + fnh * lde + tp * lde + ec * ldp
-    else:
-        n2 = (th + 4 * h) * (tw + 4 * h)
-        n1 = (th + 2 * h) * (tw + 2 * h)
-        region = max(2 * _round(n2, 16) * ldx + 2 * kc * ldw,
-                     2 * _round(n1, 16) * ldx + 2 * ec * ldx, _round(n_cols, 8) * lde)
-        floats = _round(n2, 16) + _round(n1, 16) + region + (n2 + n1 + tp) * lde
-    return 4 * floats
+        return 4 * nhp + itemsize * (2 * nhp * ldx + 2 * kc * ldw + fnh * lde
+                                     + tp * lde + ec * ldp)
+    n2 = (th + 4 * h) * (tw + 4 * h)
+    n1 = (th + 2 * h) * (tw + 2 * h)
+    region = max(2 * _round(n2, 16) * ldx + 2 * kc * ldw,
+                 2 * _round(n1, 16) * ldx + 2 * ec * ldx, _round(n_cols, 8) * lde)
+    # offsets, staging and e in the element type; act'(z1) / gd, act'(z0) / ge float32
+    return (4 * (_round(n2, 16) + _round(n1, 16)) + itemsize * (region + n2 * lde)
+            + 4 * (n1 + tp) * (ec + 4))
 
 
 def regs_estimate(kind: str, k: int, th: int, tw: int, npw: int) -> int:
@@ -161,10 +177,11 @@ def _clipped(n: int, t: int, halo: int):
     return [min(n, y + t + halo) - max(0, y - halo) for y in range(0, n, t)]
 
 
-def _cost_us(kind, b, hgt, wid, c, e, co, k, th, tw, npw, split, eps, n_slice, n_out):
+def _cost_us(kind, b, hgt, wid, c, e, co, k, th, tw, npw, split, eps, n_slice, n_out,
+             itemsize=4):
     """A rough time model: waves of one block per SM; per block the 3xTF32
-    products over its rows and the depthwise on the FP32 pipe, plus a fixed
-    cost per staged chunk; then the reduction's bytes."""
+    (or bf16) products over its rows and the depthwise on the FP32 pipe, plus
+    a fixed cost per staged chunk; then the reduction's bytes."""
     h = k // 2
     tiles = _ceil(hgt, th) * _ceil(wid, tw)
     blocks = tiles * b * split * _ceil(n_out, n_slice)
@@ -184,7 +201,9 @@ def _cost_us(kind, b, hgt, wid, c, e, co, k, th, tw, npw, split, eps, n_slice, n
         tc = rows(2 * h) * _round(c, 8) + rows(h) * _round(co, 8) + _round(tp_rows, 16) * n_cols
         fp = ((th + 2 * h) * (tw + 2 * h) + th * tw) * k * k
         stages = _ceil(c, kc) + _ceil(co, kc) + 1
-    per_chunk = 3 * 2 * tc * ec / TC_FLOP_PER_US + 2 * fp * ec / FP_FLOP_PER_US + 0.3 * stages
+    products = (3 * 2 * tc * ec / TC_FLOP_PER_US if itemsize == 4
+                else 2 * tc * ec / BF16_FLOP_PER_US)
+    per_chunk = products + 2 * fp * ec / FP_FLOP_PER_US + 0.3 * stages
     t = _ceil(blocks, SMS) * _ceil(eps, ec) * per_chunk
     if split > 1:
         t += (split + 2) * b * hgt * wid * n_out * 4 / 3.0e6
@@ -192,9 +211,10 @@ def _cost_us(kind, b, hgt, wid, c, e, co, k, th, tw, npw, split, eps, n_slice, n
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(kind, hgt, wid, c, e, co, k, batch, masks):
+def _plan(kind, hgt, wid, c, e, co, k, batch, masks, itemsize):
     n_out = co if kind == "fwd" else c
-    v16 = c % 4 == 0 and e % 4 == 0 and co % 4 == 0
+    vec = 16 // itemsize  # elements of a 16-byte copy
+    v16 = c % vec == 0 and e % vec == 0 and co % vec == 0
     best = None
     for th, tw, npw, _, _ in configs(kind) if k in (3, 5) else ():
         if not built(kind, k, th, tw, npw, v16, masks):
@@ -203,7 +223,7 @@ def _plan(kind, hgt, wid, c, e, co, k, batch, masks):
         cover = npw * wpm * 8
         n_slices = _ceil(n_out, cover)
         n_slice = _round(_ceil(n_out, n_slices), 8)
-        smem = smem_bytes(kind, k, th, tw, npw, min(n_slice, n_out))
+        smem = smem_bytes(kind, k, th, tw, npw, min(n_slice, n_out), itemsize)
         regs = regs_estimate(kind, k, th, tw, npw)
         if smem > MAX_SMEM or regs > MAX_REGS:
             continue
@@ -212,7 +232,7 @@ def _plan(kind, hgt, wid, c, e, co, k, batch, masks):
             if (split - 1) * eps >= e:
                 continue
             cost = _cost_us(kind, batch, hgt, wid, c, e, co, k, th, tw, npw, split, eps,
-                            n_slice, n_out)
+                            n_slice, n_out, itemsize)
             plan = Plan(th, tw, npw, split, eps, n_slice, smem, regs, cost)
             if best is None or cost < best.cost_us:
                 best = plan
@@ -222,15 +242,22 @@ def _plan(kind, hgt, wid, c, e, co, k, batch, masks):
     return best
 
 
-def plan_fwd(H: int, W: int, C: int, E: int, Co: int, k: int, batch: int = 1) -> Plan:
-    """The forward's tile plan for x [batch, H, W, C] (E, Co, k)."""
-    return _plan("fwd", H, W, C, E, Co, k, batch, False)
+def _itemsize(dtype) -> int:
+    if dtype not in ITEMSIZE:
+        raise TypeError(f"no fused MBConv instance for {dtype} (float32 or bfloat16)")
+    return ITEMSIZE[dtype]
+
+
+def plan_fwd(H: int, W: int, C: int, E: int, Co: int, k: int, batch: int = 1,
+             dtype=torch.float32) -> Plan:
+    """The forward's tile plan for x [batch, H, W, C] (E, Co, k) in `dtype`."""
+    return _plan("fwd", H, W, C, E, Co, k, batch, False, _itemsize(dtype))
 
 
 def plan_dx(H: int, W: int, C: int, E: int, Co: int, k: int, batch: int = 1,
-            masks: bool = False) -> Plan:
+            masks: bool = False, dtype=torch.float32) -> Plan:
     """dx's tile plan; `masks` plans the instance that also writes the masks."""
-    return _plan("dx", H, W, C, E, Co, k, batch, masks)
+    return _plan("dx", H, W, C, E, Co, k, batch, masks, _itemsize(dtype))
 
 
 @functools.lru_cache(maxsize=None)
@@ -243,18 +270,28 @@ def _entry(lib: str, name: str):
     return fn
 
 
-_LIBS = {("fwd", False): ("mbconv", "mlad_mbconv_fwd"),
-         ("dx", False): ("mbconv_dx", "mlad_mbconv_dx"),
-         ("fwd", True): ("mbconv_simt_fwd", "mlad_mbconv_fwd_simt"),
-         ("dx", True): ("mbconv_simt_dx", "mlad_mbconv_dx_simt")}
+# (kind, instance): (library, C entry)
+_LIBS = {("fwd", "float32"): ("mbconv", "mlad_mbconv_fwd"),
+         ("dx", "float32"): ("mbconv_dx", "mlad_mbconv_dx"),
+         ("fwd", "simt"): ("mbconv_simt_fwd", "mlad_mbconv_fwd_simt"),
+         ("dx", "simt"): ("mbconv_simt_dx", "mlad_mbconv_dx_simt"),
+         ("fwd", "bfloat16"): ("mbconv_bf16", "mlad_mbconv_fwd_bf16"),
+         ("dx", "bfloat16"): ("mbconv_bf16_dx", "mlad_mbconv_dx_bf16")}
 
 
-def _check(tensors, fb: FoldedBlock, c: int, act_type: str, residual: bool):
-    """Raise unless the tensors are contiguous float32 CUDA tensors on one
-    device, 16-byte aligned, and the folded weights fit x's C. Returns
-    (E, Co, k)."""
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"float32 only, got {[t.dtype for t in tensors]}")
+def _check(data, fb: FoldedBlock, c: int, act_type: str, residual: bool):
+    """Raise unless x (and g) are contiguous CUDA tensors of one dtype,
+    float32 or bf16, the fold's We and Wp in that dtype and its other
+    weights float32, all on one device, 16-byte aligned, and the folded
+    weights fit x's C. Returns (E, Co, k)."""
+    dtype = data[0].dtype
+    weights = list(fb)
+    want = [dtype] + [torch.float32] * 3 + [dtype, torch.float32]
+    if (dtype not in DTYPES or any(t.dtype != dtype for t in data)
+            or [t.dtype for t in weights] != want):
+        raise TypeError(f"float32 only, or bf16 x and g with a bf16 fold's We and "
+                        f"Wp (the rest float32); got {[t.dtype for t in data + weights]}")
+    tensors = data + weights
     if not all(t.is_cuda for t in tensors):
         raise ValueError("the fused MBConv kernels take CUDA tensors; use "
                          "ops/mbconv.mbconv_plain on the CPU")
@@ -281,7 +318,7 @@ def _check(tensors, fb: FoldedBlock, c: int, act_type: str, residual: bool):
     return e, co, k
 
 
-def _launch(kind, simt, ptrs, shape, e, co, k, act_type, residual, out, plan,
+def _launch(kind, variant, ptrs, shape, e, co, k, act_type, residual, out, plan,
             masks_out=None):
     b, h, w, c = shape
     if min(b, h, w, c) < 1:
@@ -294,7 +331,7 @@ def _launch(kind, simt, ptrs, shape, e, co, k, act_type, residual, out, plan,
     tail = [out.data_ptr(), ws.data_ptr() if ws is not None else None]
     if kind == "dx":
         tail.append(masks_out.data_ptr() if masks_out is not None else None)
-    lib, name = _LIBS[(kind, simt)]
+    lib, name = _LIBS[(kind, variant)]
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
         err = _entry(lib, name)(*ptrs, b, h, w, c, e, co, k, ACT_CODES[act_type],
@@ -303,28 +340,37 @@ def _launch(kind, simt, ptrs, shape, e, co, k, act_type, residual, out, plan,
     if err != 0:
         raise RuntimeError(f"mbconv {kind} kernel launch failed: cudaError_t "
                            f"{err} (x {tuple(shape)}, E {e}, Co {co}, k {k}, {plan})")
-    (ABLATION_LAUNCHES if simt else LAUNCHES)[f"mbconv_{kind}"] += 1
+    if variant == "simt":
+        ABLATION_LAUNCHES[f"mbconv_{kind}"] += 1
+    else:
+        LAUNCHES[f"mbconv_{kind}"] += 1
+        DTYPE_LAUNCHES[variant][f"mbconv_{kind}"] += 1
     return out
 
 
+def _variant(x, simt):
+    if simt and x.dtype != torch.float32:
+        raise TypeError("the SIMT ablation has a float32 instance only")
+    return "simt" if simt else DTYPES[x.dtype]
+
+
 def _fwd(x, fb, act_type, residual, plan, simt):
-    tensors = (x, *fb)
     if x.dim() != 4:
         raise ValueError(f"want x [B, H, W, C], got {tuple(x.shape)}")
-    e, co, k = _check(tensors, fb, x.shape[3], act_type, residual)
+    e, co, k = _check([x], fb, x.shape[3], act_type, residual)
     b, h, w, c = x.shape
-    plan = plan or plan_fwd(h, w, c, e, co, k, b)
-    out = torch.empty((b, h, w, co), dtype=torch.float32, device=x.device)
-    return _launch("fwd", simt, [t.data_ptr() for t in tensors], x.shape, e, co, k,
-                   act_type, residual, out, plan)
+    plan = plan or plan_fwd(h, w, c, e, co, k, b, dtype=x.dtype)
+    out = torch.empty((b, h, w, co), dtype=x.dtype, device=x.device)
+    ptrs = [t.data_ptr() for t in (x, *fb)]
+    return _launch("fwd", _variant(x, simt), ptrs, x.shape, e, co, k, act_type,
+                   residual, out, plan)
 
 
 def _dx(x, g, fb, act_type, residual, masks_out, plan, simt):
-    tensors = (x, g, *fb[:5])  # bp has no part in dx
     if x.dim() != 4 or g.dim() != 4 or g.shape[:3] != x.shape[:3]:
         raise ValueError(f"want x [B, H, W, C] and g [B, H, W, Co], got "
                          f"{tuple(x.shape)} and {tuple(g.shape)}")
-    e, co, k = _check(tensors + (fb.bp,), fb, x.shape[3], act_type, residual)
+    e, co, k = _check([x, g], fb, x.shape[3], act_type, residual)
     if g.shape[3] != co:
         raise ValueError(f"g has {g.shape[3]} channels, the block {co}")
     b, h, w, c = x.shape
@@ -335,35 +381,39 @@ def _dx(x, g, fb, act_type, residual, masks_out, plan, simt):
                 or not masks_out.is_contiguous() or masks_out.device != x.device):
             raise ValueError(f"masks_out must be a contiguous uint8 [2, {b}, {h}, "
                              f"{w}, {e}] tensor on {x.device}")
-    plan = plan or plan_dx(h, w, c, e, co, k, b, masks=masks_out is not None)
-    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    return _launch("dx", simt, [t.data_ptr() for t in tensors], x.shape, e, co, k,
-                   act_type, residual, out, plan, masks_out)
+    plan = plan or plan_dx(h, w, c, e, co, k, b, masks=masks_out is not None,
+                           dtype=x.dtype)
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    ptrs = [t.data_ptr() for t in (x, g, *fb[:5])]  # bp: no part in dx
+    return _launch("dx", _variant(x, simt), ptrs, x.shape, e, co, k, act_type,
+                   residual, out, plan, masks_out)
 
 
 def mbconv_fwd_cuda(x: torch.Tensor, fb: FoldedBlock, *, act_type: str,
                     residual: bool) -> torch.Tensor:
-    """`ops/mbconv.mbconv_plain` as one op call: y [B, H, W, Co]."""
+    """`ops/mbconv.mbconv_plain` as one op call: y [B, H, W, Co] in x's
+    dtype."""
     return _fwd(x, fb, act_type, residual, None, False)
 
 
 def mbconv_dx_cuda(x: torch.Tensor, g: torch.Tensor, fb: FoldedBlock, *,
                    act_type: str, residual: bool,
                    masks_out: torch.Tensor | None = None) -> torch.Tensor:
-    """`ops/mbconv.mbconv_dx_plain` as one op call: dx [B, H, W, C]. Given
-    `masks_out` (uint8 [2, B, H, W, E], relu6 / relu), the masks instance also
-    writes act'(z0) != 0 and act'(z1) != 0 into it; the main path passes
-    none."""
+    """`ops/mbconv.mbconv_dx_plain` as one op call: dx [B, H, W, C] in x's
+    dtype. Given `masks_out` (uint8 [2, B, H, W, E], relu6 / relu), the masks
+    instance also writes act'(z0) != 0 and act'(z1) != 0 into it; the main
+    path passes none."""
     return _dx(x, g, fb, act_type, residual, masks_out, None, False)
 
 
 def mbconv_fwd_simt(x: torch.Tensor, fb: FoldedBlock, *, act_type: str,
                     residual: bool) -> torch.Tensor:
-    """The forward's ablation (SIMT 1x1 products), on the main kernel's plan."""
+    """The forward's ablation (SIMT 1x1 products, float32), on the main
+    kernel's plan."""
     return _fwd(x, fb, act_type, residual, None, True)
 
 
 def mbconv_dx_simt(x: torch.Tensor, g: torch.Tensor, fb: FoldedBlock, *,
                    act_type: str, residual: bool) -> torch.Tensor:
-    """dx's ablation (SIMT 1x1 products), on the main kernel's plan."""
+    """dx's ablation (SIMT 1x1 products, float32), on the main kernel's plan."""
     return _dx(x, g, fb, act_type, residual, None, None, True)

@@ -18,8 +18,8 @@ table order with the live columns of each window's rows
 (`pass1_bwd_ranges`). A live range covers every position that a non-zero
 hat reads, widened by one on each side; the kernels still evaluate every
 hat and skip the zeros, so a wide range costs time, never a tap.
-`taps_near` and `taps_along` are float32 twins of the transposes' own
-intervals, for the tests.
+`taps_near` and `taps_along` are float32 twins of the kernels' own
+intervals (pass 1's and the transposes'), for the tests.
 The wrappers
 take only contiguous float32 CUDA tensors (the kernels read single floats,
 so no alignment beyond a float's is needed), launch on PyTorch's current

@@ -21,8 +21,10 @@ within MBCONV_FWD_TOL of max(1, max|plain|) (3xTF32 products summed in
 another order), dx within MBCONV_DX_TOL of max|plain| of the plain dx fed
 the kernel's own relu masks, every mask that differs from the plain
 version's within MBCONV_KINK_TOL of its kink; two launches bit-equal; the
-kernels' SIMT ablation against them; and the backbone's dispatch counts on
-the card.
+kernels' SIMT ablation against them; their bf16 instances against the bf16
+plain versions within chip_smoke.py's MBCONV_BF16_* tolerances (the reasons
+there), with only bf16 launches counted; and the backbone's dispatch counts
+on the card.
 """
 import numpy as np
 import pytest
@@ -669,6 +671,81 @@ def test_mbconv_ablation_matches_kernel(cuda, name, b, h, w, c, e, co, k, residu
     err = float((mbconv_cuda.mbconv_dx_simt(x, gy, fb, **kw) - ref).abs().max())
     assert err <= MBCONV_DX_TOL * float(ref.abs().max()), err
     assert mbconv_cuda.LAUNCHES == {k_: v + 1 for k_, v in before.items()}
+
+
+@pytest.mark.parametrize("name,b,h,w,c,e,co,k,residual,act", MBCONV_CASES,
+                         ids=[m[0] for m in MBCONV_CASES])
+def test_mbconv_bf16_kernels_match_plain(cuda, name, b, h, w, c, e, co, k, residual, act):
+    """The bf16 instances against the bf16 plain versions (chip_smoke.py's
+    tolerances), only bf16 launches counted, two launches bit-equal."""
+    import chip_smoke
+    from mladversarialobjectdetection_torch.ops import mbconv as pmb
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, fb = _mbconv_case(cuda, b, h, w, c, e, co, k, seed=b * 1000 + c)
+    x, fb = x.to(torch.bfloat16), fb.in_dtype(torch.bfloat16)
+    gy = torch.randn((b, h, w, co), generator=torch.Generator().manual_seed(1)).to(
+        cuda, torch.bfloat16)
+    kw = dict(act_type=act, residual=residual)
+    mbconv_cuda.reset_counts()
+    y = mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw)
+    dx = mbconv_cuda.mbconv_dx_cuda(x, gy, fb, **kw)
+    torch.cuda.synchronize()
+    assert y.dtype == dx.dtype == torch.bfloat16
+    assert mbconv_cuda.DTYPE_LAUNCHES["bfloat16"] == {"mbconv_fwd": 1, "mbconv_dx": 1}
+    assert sum(mbconv_cuda.DTYPE_LAUNCHES["float32"].values()) == 0
+    y_plain = pmb.mbconv_plain(x, fb, **kw)
+    _close(y.float(), y_plain.float(), "mbconv bf16 fwd", chip_smoke.MBCONV_BF16_FWD_TOL)
+    bound = pmb.rounding_bound(y, x, fb, **kw)
+    assert bound.outside == 0, bound
+    if act in ("relu6", "relu"):
+        masks = torch.full((2, b, h, w, e), 7, dtype=torch.uint8, device=cuda)
+        mbconv_cuda.mbconv_dx_cuda(x, gy, fb, masks_out=masks, **kw)
+        assert int(masks.max()) <= 1
+        plain_masks, z0, z1 = pmb.dx_masks(x, fb, act_type=act)
+        flips = pmb.kink_flips(masks, plain_masks, z0, z1, act)
+        assert flips[2] <= chip_smoke.MBCONV_BF16_KINK_TOL, flips
+        dx_plain = pmb.mbconv_dx_plain(x, gy, fb, masks=masks, **kw)
+    else:
+        dx_plain = pmb.mbconv_dx_plain(x, gy, fb, **kw)
+    err = float((dx.float() - dx_plain.float()).abs().max())
+    assert err <= chip_smoke.MBCONV_BF16_DX_TOL * float(dx_plain.float().abs().max()), err
+    assert torch.equal(mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw), y)
+    assert torch.equal(mbconv_cuda.mbconv_dx_cuda(x, gy, fb, **kw), dx)
+
+
+def test_mbconv_bf16_wrapper_rejects_other_dtypes(cuda):
+    """No float16 instance, no mixed x / g dtypes, no bf16 x with a float32
+    fold (nor the reverse), no bf16 ablation."""
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
+    x, fb = _mbconv_case(cuda, 1, 8, 8, 8, 48, 8, 3)
+    fb16 = fb.in_dtype(torch.bfloat16)
+    kw = dict(act_type="relu6", residual=True)
+    mbconv_cuda.reset_counts()
+    with pytest.raises(TypeError, match="float32 only"):
+        mbconv_cuda.mbconv_fwd_cuda(x.half(), fb, **kw)
+    with pytest.raises(TypeError, match="float32 only"):
+        mbconv_cuda.mbconv_dx_cuda(x.bfloat16(), x, fb16, **kw)
+    with pytest.raises(TypeError, match="float32 only"):
+        mbconv_cuda.mbconv_fwd_cuda(x.bfloat16(), fb, **kw)
+    with pytest.raises(TypeError, match="float32 only"):
+        mbconv_cuda.mbconv_fwd_cuda(x, fb16, **kw)
+    with pytest.raises(TypeError, match="SIMT"):
+        mbconv_cuda.mbconv_fwd_simt(x.bfloat16(), fb16, **kw)
+    assert sum(mbconv_cuda.LAUNCHES.values()) == 0
+
+
+def test_warp_pass1_fwd_at_unit_and_wider_radius(cuda):
+    """pass1_fwd runs its r = 1 instance (no division) and the divided one
+    within one launch: both against the plain pass within WARP_TOL, and a
+    second launch bit-equal."""
+    canvases, table = warp_windows_case(np.random.default_rng(11), 3, 12, 96, 320)
+    r = table[:, 6]
+    assert bool((r == 1.0).any()) and bool((r > 1.0).any())
+    canvases = canvases.to(cuda)
+    t = warp_cuda.pass1_fwd(canvases, table, 320)
+    _close(t, peot.pass1_fwd(canvases, table, 320), "pass1_fwd")
+    assert torch.equal(warp_cuda.pass1_fwd(canvases, table, 320), t)
 
 
 def test_mbconv_autograd_on_card_matches_cpu(cuda):

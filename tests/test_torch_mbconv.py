@@ -13,7 +13,13 @@ The same numpy-seeded inputs go through the archived JAX module
 - a port `MBConvBlock` against the JAX `MBConvBlock` in eval, 2e-4;
 - a lite0 backbone at 64 px, endpoints within 2e-4 * max(1, max|ref|) and the
   input gradient at cosine >= 0.9999;
-- the refusal of a weight gradient, the fold cache and the layout copies.
+- the refusal of a weight gradient, the fold cache and the layout copies;
+- bf16: `mbconv_plain` / `mbconv_dx_plain` on bf16 inputs against the Pallas
+  kernels in interpret mode with bf16 inputs (the same rounding points,
+  float32 sums in another order: within BF16_PALLAS_TOL, two bf16 ulps),
+  and against `mbconv_eval_xla(compute_dtype=bf16)` and its `jax.vjp`
+  (which also round wd and the depthwise sum to bf16: BF16_XLA_TOL); the
+  bf16 tile plans.
 """
 import sys
 from pathlib import Path
@@ -331,25 +337,27 @@ def _plan_shapes():
     return sorted(set(shapes))
 
 
-@pytest.mark.parametrize("kind", ["fwd", "dx", "dx_masks"])
-def test_tile_plans_cover_and_fit(kind):
+def _check_plans(kind, dtype):
     """Every plan fits shared memory and registers, splits E at most 8 ways,
     names a built instance, and covers each output pixel, each E channel and
     each output channel exactly once."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
     for b, h, w, c, e, co, k in _plan_shapes():
         if kind == "fwd":
-            p = mbconv_cuda.plan_fwd(h, w, c, e, co, k, b)
+            p = mbconv_cuda.plan_fwd(h, w, c, e, co, k, b, dtype=dtype)
         else:
-            p = mbconv_cuda.plan_dx(h, w, c, e, co, k, b, masks=kind == "dx_masks")
+            p = mbconv_cuda.plan_dx(h, w, c, e, co, k, b, masks=kind == "dx_masks",
+                                    dtype=dtype)
         base = kind[:3].rstrip("_")
         shape = (b, h, w, c, e, co, k)
-        v16 = c % 4 == 0 and e % 4 == 0 and co % 4 == 0
+        vec = 16 // itemsize
+        v16 = c % vec == 0 and e % vec == 0 and co % vec == 0
         assert mbconv_cuda.built(base, k, p.th, p.tw, p.npw, v16, kind == "dx_masks"), shape
         assert p.smem <= mbconv_cuda.MAX_SMEM and p.regs <= mbconv_cuda.MAX_REGS, (shape, p)
         assert 1 <= p.split <= mbconv_cuda.MAX_SPLIT and p.e_per_split % mbconv_cuda.EC == 0
         n_out = co if base == "fwd" else c
         assert p.smem == mbconv_cuda.smem_bytes(base, k, p.th, p.tw, p.npw,
-                                                min(p.n_per_slice, n_out))
+                                                min(p.n_per_slice, n_out), itemsize)
         wpm, _ = mbconv_cuda.warp_layout(p.th, p.tw)
         assert p.n_per_slice % 8 == 0 and p.npw * wpm * 8 >= min(p.n_per_slice, n_out)
         for n, step in ((e, p.e_per_split), (n_out, p.n_per_slice)):
@@ -365,6 +373,25 @@ def test_tile_plans_cover_and_fit(kind):
             for x0 in range(0, w, p.tw):
                 ys[y0:y0 + p.th, x0:x0 + p.tw] += 1
         assert (ys == 1).all()
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dx", "dx_masks"])
+def test_tile_plans_cover_and_fit(kind):
+    _check_plans(kind, torch.float32)
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dx", "dx_masks"])
+def test_bf16_tile_plans_cover_and_fit(kind):
+    """The bf16 instance's plans, on 2-byte buffers (16-byte copies of 8
+    channels), keyed apart from the float32 ones."""
+    _check_plans(kind, torch.bfloat16)
+    shape = (160, 160, 32, 192, 32, 3, 24)
+    f32, bf = (mbconv_cuda.plan_fwd(*shape, dtype=d) if kind == "fwd" else
+               mbconv_cuda.plan_dx(*shape, masks=kind == "dx_masks", dtype=d)
+               for d in (torch.float32, torch.bfloat16))
+    assert bf.smem < f32.smem  # the same shape, two cache entries
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        mbconv_cuda.plan_fwd(*shape, dtype=torch.float16)
 
 
 def test_plans_reach_every_regime():
@@ -463,3 +490,143 @@ def test_3xtf32_forward_within_tolerance_and_flips_near_kinks(shape):
         dist = torch.minimum(z0_plain[flips].abs(), (z0_plain[flips] - 6.0).abs())
         assert float(dist.max()) <= KINK_TOL * max(1.0, float(z0_plain.abs().max()))
     print(f"{shape}: {int(flips.sum())} z0 mask flips of {z0.numel()}")
+
+
+# ---------------------------------------------------------------------------
+# bf16: the plain versions against the Pallas kernels' bf16 instance
+# ---------------------------------------------------------------------------
+
+# (C, Co, k, expand, H, W, residual): CASES and a C that is not a multiple of 8
+BF16_CASES = CASES + [(13, 20, 3, 6, 12, 10, False)]
+BF16_IDS = CASE_IDS + ["C13_k3"]
+# plain vs the Pallas kernel in interpret mode at bf16: the same rounding
+# points, float32 sums in another order, so an e or d within float32
+# rounding of a bf16 boundary can round the other way; two bf16 ulps (2^-7)
+# of max(1, max|ref|) (dx: of max|ref|). Measured: at most 0.0033.
+BF16_PALLAS_TOL = 2.0 ** -7
+# `mbconv_eval_xla(compute_dtype=bf16)` also rounds wd and the depthwise
+# sum to bf16 before bd (fused_mbconv.py:146-151): another function by a
+# few bf16 ulps (measured: forward 0.0077)
+BF16_XLA_TOL = 2.0 ** -5
+# dx against that path's vjp under relu / relu6, where a mask can flip:
+# cosine (measured: at least 0.99966)
+BF16_XLA_COS = 0.999
+
+
+def _bf16(a):
+    """numpy float32 -> (jax bf16, torch bf16) of the same values."""
+    j = jnp.asarray(a).astype(jnp.bfloat16)
+    return j, torch.tensor(np.asarray(j.astype(jnp.float32))).to(torch.bfloat16)
+
+
+def _f32(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+def _within(out, ref, tol, floor=1.0):
+    out = out.float().numpy() if isinstance(out, torch.Tensor) else out
+    scale = max(floor, float(np.abs(ref).max()))
+    err = float(np.abs(out - ref).max())
+    assert err <= tol * scale, f"{err} > {tol} * {scale}"
+
+
+@pytest.mark.parametrize("act", ["relu6", "relu", "swish"])
+@pytest.mark.parametrize("case", BF16_CASES, ids=BF16_IDS)
+def test_bf16_plain_matches_pallas_and_xla(case, act):
+    fb, x, residual = _case(case, 21)
+    xj, xt = _bf16(x)
+    tfb = _torch_fb(fb).in_dtype(torch.bfloat16)
+    out = pmb.mbconv_plain(xt, tfb, act_type=act, residual=residual)
+    assert out.dtype == torch.bfloat16
+    kern = fm._mbconv_fwd_pallas(xj, _jax_fb(fb), act_type=act, residual=residual,
+                                 interpret=True)
+    ref = fm.mbconv_eval_xla(xj, _jax_fb(fb), act_type=act, residual=residual,
+                             compute_dtype=jnp.bfloat16)
+    assert kern.dtype == ref.dtype == jnp.bfloat16
+    _within(out, _f32(kern), BF16_PALLAS_TOL)
+    _within(out, _f32(ref), BF16_XLA_TOL)
+    # the Pallas kernel, which sums in another order, within the roundings
+    # the plain version allows
+    kern_t = torch.tensor(_f32(kern)).to(torch.bfloat16)
+    assert pmb.rounding_bound(kern_t, xt, tfb, act_type=act, residual=residual).outside == 0
+
+
+@pytest.mark.parametrize("act", ["relu6", "relu", "swish"])
+@pytest.mark.parametrize("case", BF16_CASES, ids=BF16_IDS)
+def test_bf16_dx_matches_pallas_and_xla_vjp(case, act):
+    """`mbconv_dx_plain` and the op's autograd on bf16 x against the Pallas dx
+    kernel (bf16 x, g rounded to bf16) and `jax.vjp` of the bf16 XLA path."""
+    fb, x, residual = _case(case, 22)
+    co = fb.wp.shape[1]
+    g = np.random.RandomState(23).normal(size=x.shape[:3] + (co,)).astype(np.float32)
+    xj, xt = _bf16(x)
+    gj, gt = _bf16(g)
+    kern = _f32(fm._mbconv_bwd_pallas(xj, gj, _jax_fb(fb), act_type=act,
+                                      residual=residual, interpret=True))
+    _, vjp = jax.vjp(lambda xx: fm.mbconv_eval_xla(
+        xx, _jax_fb(fb), act_type=act, residual=residual,
+        compute_dtype=jnp.bfloat16), xj)
+    (ref,) = vjp(gj)
+    tfb = _torch_fb(fb).in_dtype(torch.bfloat16)
+    direct = pmb.mbconv_dx_plain(xt, gt, tfb, act_type=act, residual=residual)
+    assert direct.dtype == torch.bfloat16
+    _within(direct, kern, BF16_PALLAS_TOL, floor=0.0)
+    ref = _f32(ref)
+    if act == "swish":
+        _within(direct, ref, BF16_XLA_TOL, floor=0.0)
+    else:
+        # the XLA path's bf16 depthwise moves z1, so a relu mask can flip
+        # and move a whole term of dx (the relu-mask rule): held by cosine
+        a, b = direct.double().numpy().ravel(), ref.astype(np.float64).ravel()
+        cos = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+        assert cos >= BF16_XLA_COS
+    xg = xt.clone().requires_grad_(True)
+    y = pmb.mbconv(xg, tfb, act_type=act, residual=residual)
+    assert y.dtype == torch.bfloat16
+    y.backward(gt)
+    assert xg.grad.dtype == torch.bfloat16
+    assert torch.equal(xg.grad, direct)
+
+
+def test_bf16_masks_and_rounding_flips():
+    """The bf16 masks come from float32 z0 and z1 (z1 from the bf16 e). The
+    plain forward lies within its own rounding bound; one bf16 ulp moved at
+    an output no near e or d reaches is a fault counted there, and a forward
+    with the wrong activation is out nearly everywhere."""
+    x, fb, g = _np_case(16, 96, 16, 3, 9, 11)
+    xb, fb = x.to(torch.bfloat16), fb.in_dtype(torch.bfloat16)
+    masks, z0, z1 = pmb.dx_masks(xb, fb, act_type="relu6")
+    assert z0.dtype == z1.dtype == torch.float32
+    got = pmb.mbconv_dx_plain(xb, g, fb, act_type="relu6", residual=True, masks=masks)
+    assert torch.equal(got, pmb.mbconv_dx_plain(xb, g, fb, act_type="relu6", residual=True))
+    kw = dict(act_type="relu6", residual=True)
+    y = pmb.mbconv_plain(xb, fb, **kw)
+    bound = pmb.rounding_bound(y, xb, fb, **kw)
+    assert (bound.flips, bound.outside) == (0, 0)
+    assert 0 < bound.e_near < z0.numel() // 100 and bound.d_near < z1.numel() // 100
+    moved = y.clone()
+    moved.view(-1)[5] = (moved.view(-1)[5].float() * (1 + 2 ** -6)).to(torch.bfloat16)
+    assert pmb.rounding_bound(moved, xb, fb, **kw)[:2] == (1, 1)
+    wrong = pmb.mbconv_plain(xb, fb, act_type="relu", residual=True)
+    assert pmb.rounding_bound(wrong, xb, fb, **kw).outside > y.numel() // 10
+
+
+def test_bf16_lowp_weights_cached_on_the_block():
+    """`folded(dtype)`: We and Wp in the dtype, the rest float32, one cached
+    fold per dtype, refolded when a statistic changes; no float16 fold."""
+    _, _, pblk, x = _block_pair(CASES[0])
+    for p in pblk.parameters():
+        p.requires_grad_(False)
+    fb = pblk.folded(torch.bfloat16)
+    assert fb.we.dtype == fb.wp.dtype == fb.dtype == torch.bfloat16
+    assert {t.dtype for t in (fb.be, fb.wd, fb.bd, fb.bp)} == {torch.float32}
+    assert pblk.folded(torch.bfloat16) is fb and pblk.folded().dtype == torch.float32
+    assert torch.equal(fb.we, pblk.folded().we.to(torch.bfloat16))
+    with torch.no_grad():
+        pblk.bn0.running_mean += 0.1  # a new fold
+    assert pblk.folded(torch.bfloat16) is not fb
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        pblk.folded(torch.float16)
+    with pytest.raises(TypeError, match="in_dtype"):  # x and the fold disagree
+        pmb.mbconv_plain(torch.from_numpy(x).to(torch.bfloat16), pblk.folded(),
+                         act_type=pblk.act_type, residual=pblk.residual)

@@ -6,7 +6,9 @@ endpoints, BiFPN outputs and head outputs must agree within
 2e-4 * max(1, max|ref|), in fp32, on the tiny lite0 at 64 px, at 96 px (the
 non-integer nearest upsample) and on a tiny d0 (swish, squeeze-excite,
 `fastattn` fusion). Unit tests pin the asymmetric SAME padding, the -inf
-max-pool and the nearest-upsample index table.
+max-pool and the nearest-upsample index table. With `mixed_precision` the
+port's bf16 net is held to JAX's bf16 net within BF16_VS_JAX_TOL and to its
+own float32 net within BF16_VS_FP32_ABS (the reasons beside them).
 """
 import flax.linen as fnn
 import jax
@@ -205,9 +207,143 @@ def test_fnode_weight_methods(method):
 def test_unported_options_raise():
     spec = pdet.spec_from_config(pconfig.Config(tiny_config().as_dict()))
     with pytest.raises(NotImplementedError):
-        pdet.EfficientDetNet(spec._replace(mixed_precision=True))
-    with pytest.raises(NotImplementedError):
         pdet.EfficientDetNet(spec, packed_entry=2)
+
+
+# ---------------------------------------------------------------------------
+# bf16 mixed precision
+# ---------------------------------------------------------------------------
+
+# The port's bf16 net against JAX's bf16 `EfficientDetNet`, on the head
+# outputs (float32 in both), of max(1, max|ref|). The two are not the same
+# function at bf16: JAX's Flax `MBConvBlock` rounds after the expand conv,
+# its BatchNorm and its activation, where the port's fused block (the Pallas
+# kernels' function) rounds e once; and XLA and ATen round bf16 convolutions
+# and elementwise ops at other points. Measured on the CPU: at most 0.0235
+# (lite0 at 96 px), where JAX's own bf16 net is 0.048 away from its float32
+# one in absolute terms.
+BF16_VS_JAX_TOL = 0.05
+# bf16 against float32 logits, absolute: tests/test_heads_extra.py's bound
+# for JAX's own two precisions
+BF16_VS_FP32_ABS = 0.15
+# The input gradient of a smooth function of the head outputs (a seeded
+# cotangent on every class and box output; no max over anchors, no TV
+# term): the port's bf16 net against JAX's bf16 net and against JAX's
+# float32 net, by cosine. Measured on the CPU: 0.9853 / 0.9995 / 0.9988
+# against JAX's bf16 (lite0_64, d0_64, variants_64), where JAX's own bf16
+# gradient lies at 0.9913 / 0.9996 / 0.9979 of its float32 one, and the
+# port's bf16 at 0.9842 / 0.9996 / 0.9979 of its float32 one. A zero or
+# sign-flipped victim gradient reads 0 or below.
+BF16_INPUT_GRAD_COS = 0.97
+
+
+def _cosine(a, b) -> float:
+    a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+@pytest.fixture(scope="module", params=["lite0_64", "d0_64", "variants_64"])
+def bf16_pair(request):
+    """(JAX bf16 head outputs, port float32 net, port bf16 net, images,
+    (cotangents of the head outputs, JAX's float32 input gradient, JAX's
+    bf16 one)): one set of redrawn Flax variables in all of them."""
+    cfg = CONFIGS[request.param]()
+    size = cfg.image_size
+    images = np.random.RandomState(7).uniform(-1, 1, (2, size, size, 3)).astype(
+        np.float32)
+    net = jdet.EfficientDetNet(jdet.spec_from_config(cfg))
+    variables = _redraw(jax.jit(net.init, static_argnames=("training",))(
+        {"params": jax.random.PRNGKey(0)}, images[:1], training=False), seed=1)
+    rng = np.random.RandomState(3)
+    cots = [rng.normal(size=o.shape).astype(np.float32)
+            for o in jax.tree_util.tree_leaves(jax.eval_shape(
+                lambda x: net.apply(variables, x, False), images))]
+    grads = []
+    for mixed in (False, True):
+        cfg.mixed_precision = mixed
+        jnet = jdet.EfficientDetNet(jdet.spec_from_config(cfg))
+        def out_and_grad(v, x, c, _net=jnet):
+            out, vjp = jax.vjp(lambda xx: _net.apply(v, xx, False), x)
+            return out, vjp(jax.tree_util.tree_unflatten(
+                jax.tree_util.tree_structure(out), c))[0]
+
+        ref, grad = jax.jit(out_and_grad)(variables, images, cots)
+        grads.append(np.asarray(grad))
+    nets = []
+    for mixed in (False, True):
+        d = dict(cfg.as_dict(), mixed_precision=mixed)
+        pnet = pdet.EfficientDetNet(pdet.spec_from_config(pconfig.Config(d))).eval()
+        load_flax_variables(pnet, variables)
+        nets.append(pnet)
+    return ref, nets[0], nets[1], images, (cots, *grads)
+
+
+def test_bf16_net_matches_jax_bf16(bf16_pair):
+    ref, _, pnet, images, _ = bf16_pair
+    with torch.no_grad():
+        out_cls, out_box = pnet(torch.from_numpy(images))
+    assert all(o.dtype == torch.float32 for o in out_cls + out_box)
+    for outs, refs in ((out_cls, ref[0]), (out_box, ref[1])):
+        assert len(outs) == len(refs)
+        for out, want in zip(outs, refs):
+            want = np.asarray(want)
+            assert want.dtype == np.float32 and out.shape == want.shape
+            tol = BF16_VS_JAX_TOL * max(1.0, float(np.abs(want).max()))
+            np.testing.assert_allclose(out.numpy(), want, rtol=0, atol=tol)
+
+
+def test_bf16_net_close_to_its_fp32(bf16_pair):
+    """bf16 activations: the backbone's and the heads' activations are bf16,
+    the parameters stay float32, and the logits stay within 0.15 of the
+    float32 net's."""
+    _, net32, net16, images, _ = bf16_pair
+    assert all(p.dtype == torch.float32 for p in net16.parameters())
+    x = torch.from_numpy(images)
+    with torch.no_grad():
+        a, b = net32(x), net16(x)
+        endpoints = net16.backbone(x.to(torch.bfloat16).permute(0, 3, 1, 2))
+    assert all(e.dtype == torch.bfloat16 for e in endpoints)
+    diff = max(float((p - q).abs().max()) for p, q in zip(a[0] + a[1], b[0] + b[1]))
+    assert 0.0 < diff < BF16_VS_FP32_ABS
+
+
+def test_bf16_input_gradient_matches_jax(bf16_pair):
+    """The bf16 victim's input gradient, which the attack follows: through
+    the bf16 backbone (the fused blocks' bf16 dx), BiFPN and heads, against
+    `jax.vjp` of JAX's bf16 net and of its float32 net on one cotangent."""
+    _, _, net16, images, (cots, jgrad32, jgrad16) = bf16_pair
+    net16.requires_grad_(False)
+    x = torch.from_numpy(images).requires_grad_(True)
+    out_cls, out_box = net16(x)
+    outs = list(out_cls) + list(out_box)
+    assert [tuple(o.shape) for o in outs] == [c.shape for c in cots]
+    sum((o * torch.from_numpy(c)).sum() for o, c in zip(outs, cots)).backward()
+    grad = x.grad
+    assert grad.dtype == torch.float32 and bool(torch.isfinite(grad).all())
+    assert _cosine(grad, jgrad16) >= BF16_INPUT_GRAD_COS
+    assert _cosine(grad, jgrad32) >= BF16_INPUT_GRAD_COS
+
+
+def test_conv_casts_its_weights_once_per_dtype():
+    """A frozen bf16 `Conv2d` casts its kernel and bias once and recasts
+    them when a parameter changes; one whose weights train casts with
+    autograd on every call, so that the weights get their gradient."""
+    conv = peff.Conv2d(4, 6, 3, init="fan_out_normal")
+    conv.compute_dtype = torch.bfloat16
+    x = torch.from_numpy(np.random.RandomState(0).normal(size=(1, 4, 8, 8)).astype(
+        np.float32))
+    conv.requires_grad_(False)
+    y = conv(x)
+    w, b = conv._cast[1:]
+    assert y.dtype == w.dtype == b.dtype == torch.bfloat16
+    assert torch.equal(conv(x), y) and conv._cast[1] is w  # reused
+    with torch.no_grad():
+        conv.weight.mul_(2.0)
+    assert conv(x).dtype == torch.bfloat16 and conv._cast[1] is not w
+    assert torch.equal(conv._cast[1], conv.weight.to(torch.bfloat16))
+    conv.requires_grad_(True)
+    conv(x).float().sum().backward()
+    assert conv.weight.grad is not None and conv.bias.grad is not None
 
 
 def test_seeded_init():

@@ -1,6 +1,7 @@
-"""The host side of the warp transposes' CUDA kernels, on the CPU.
+"""The host side of the warp kernels, on the CPU.
 
-`csrc/warp.cu`'s `pass2_bwd_kernel` and `pass1_bwd_kernel` visit only the
+`csrc/warp.cu`'s `pass1_fwd_kernel` sums each output over the taps of its
+`taps_near` interval alone. Its `pass2_bwd_kernel` and `pass1_bwd_kernel` visit only the
 rows and columns that `ops/warp_cuda.py` marks live, and within them only the
 taps of their `taps_along` and `taps_near` intervals, so a range that misses a
 non-zero tap would lose it without a trace. These tests hold the host ranges
@@ -120,6 +121,27 @@ def test_pass1_bwd_ranges_cover_every_nonzero_tap(name, table, p0, w):
         assert _within(js, nlo, nhi).all(), f"window {k}: a tap outside taps_near"
     if name == "wholly_outside":
         assert (cols[..., 0] > cols[..., 1]).all()
+
+
+@pytest.mark.parametrize("name,table,p0,w", RANGE_CASES,
+                         ids=[c[0] for c in RANGE_CASES])
+def test_pass1_fwd_taps_near_covers_every_nonzero_tap(name, table, p0, w):
+    """`pass1_fwd_kernel` sums output (i, x) over taps_near(g(i, x)) and
+    nothing else: every non-zero weight of the plain pass 1 lies inside, and
+    the interval holds no margin, at most one zero tap past each end."""
+    q = table.numpy()
+    i, x = np.meshgrid(np.arange(p0, dtype=np.float32),
+                       np.arange(w, dtype=np.float32), indexing="ij")
+    for k in range(table.shape[0]):
+        hat = eot._pass1_weights(table[k:k + 1], p0, w)[0].numpy()  # [i, x, j]
+        g_i, g_x, g_c, r = (np.float32(q[k, c]) for c in (0, 1, 2, 6))
+        lo, hi = warp_cuda.taps_near((g_i * i + g_x * x) + g_c, r, p0)  # [i, x]
+        is_, xs, js = np.nonzero(hat > 0)
+        assert _within(js, lo[is_, xs], hi[is_, xs]).all(), (
+            f"window {k}: a non-zero tap outside taps_near")
+        width = np.maximum(hi - lo + 1, 0)
+        assert (width <= (hat > 0).sum(-1) + 2).all(), (
+            f"window {k}: taps_near wider than the non-zero taps and one on each side")
 
 
 def test_taps_along_full_range_at_slope_zero():
