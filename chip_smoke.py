@@ -100,7 +100,10 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    (`simt` and the 3xTF32 `tc`) against the plain version at every shape of
    the defender's path at full size (batch 24 at 640x640 and 320x320,
    forward with bias and input gradient), within WARP_TOL of the output's
-   scale; two launches bit-equal; the wrapper runs the plan's instance;
+   scale; two launches bit-equal; the wrapper runs the plan's instance; then
+   the bf16 instance (`csrc/cmconv_bf16.cu`) at the same shapes against the
+   bf16 plain version, with the U-Net's kernels (bf16 values in float32):
+   bit-equal, within BF16_CMCONV_TOL of scale, and no float32 launch;
 9. defender step: `PatchAttackDefender.train_step` against efficientdet-lite4
    at 640 (full width and depth, seeded weights, fp32, TF32 off), U-Net
    n_filters 8, batch 24, score threshold .0099 so that the random victim's
@@ -120,12 +123,41 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    cuDNN weight gradient of the same convs; the two forward warp kernels
    (the masker's windows) and NMS (the victim pass) on the inputs the same
    step gave them, against their plain versions;
+9b. bf16 defender step: phase 9's step with `config.mixed_precision`
+   (bf16 victim and U-Net): 15 bf16 cmconv launches a step and no float32
+   one, 25 bf16 fused MBConv forward and no dx, NMS and the two forward
+   warp passes once; loss and metrics checked; timed, profiled, peak memory
+   beside the fp32 step's; its `eval_step` and `recover` checked and timed;
+11, bf16: the bf16 instance on the 15 inputs the bf16 step gave it,
+   against the bf16 plain version (bit-equal), each launch timed beside its
+   bound with 2-byte x, bias and output and the products at the bf16
+   tensor-core rate (the kernels hold bf16 values: checked), beside the
+   bound at fp32 FMAs, the plain time and `F.conv2d` in bf16 (cuDNN) on the
+   same tensors;
+9c. packed defender (`packed=1, 2, 3`, fp32, phase 9's victim, weights and
+   images): its `recover` against the unpacked `recover` within
+   RECOVER_TOL of the pre-tanh logits' scale; one train-mode pass's
+   parameter gradients at dropout 0 against the unpacked U-Net's on the
+   same masked images, each within PACKED_GRAD_TOL of its scale; every
+   cmconv call of its train step (the packed 12 -> 32, 32 -> 32 forwards
+   and 32 -> 32, 32 -> 12 input gradients at 320x320 among them) against
+   the plain version within WARP_TOL of scale, two launches bit-equal, the
+   packed ones timed beside `F.conv2d`; its train step's cmconv and NMS
+   launches checked, timed, with its peak memory;
+9d. remat: one fp32 train step's parameter gradients and BatchNorm
+   statistics with every U-Net block recomputed against remat=False's, on
+   the same masks (cuDNN deterministic: bit-equal, else within REMAT_TOL);
+   the defender step with the remat U-Net (15 + 8 cmconv launches) timed,
+   its peak memory beside the step's without;
 12. driver: `defense.train.train` for 3 steps at batch 12 with score
    threshold .0099; its metrics log and `antipatch.pkl` must be written;
+   then with `bf16=True` (only bf16 cmconv and MBConv launches) and with
+   `packed=3`, 3 steps each;
 13. card: the `nvidia-smi` name and power limit, and one JSON line with each
    kernel's launches, error, times and bound (cmconv's also with its
    ablation, the instance the plan did not pick, and its bound at 3xTF32;
-   the fused MBConv's float32 and bf16 instances each a row).
+   cmconv's bf16 instance, and the fused MBConv's float32 and bf16
+   instances, each a row).
 
 The last line is `{"ok": true, "device": {...}}`. Without a card, or without
 the rest of the repository beside it, the script exits non-zero and prints
@@ -222,6 +254,10 @@ BF16_VICTIM_TOL = 2e-4
 BF16_VICTIM_COS = 0.9999
 BF16_VICTIM_GRAD_COS = 0.75
 BF16_VS_FP32_MARGIN = 0.02
+# the bf16 cmconv instance vs the bf16 plain version: one bf16 ulp of the
+# sum's rounding and one of the bias add's, at most 2^-6 of the output's
+# scale (ops/cmconv.BF16_TOL); at the U-Net's kernels it is bit-equal
+BF16_CMCONV_TOL = 2.0 ** -6
 # the 1x1 products at the 3xTF32 rate: three TF32 tensor-core products each
 TC3_FLOP_PER_S = 495e12 / 3
 # the bf16 instance's products: dense bf16 on the tensor cores
@@ -249,6 +285,27 @@ DEFEND_BATCH = 24
 DEFEND_STEPS = 2
 DEFEND_THRESH = 0.0099  # under the random victim's scores (about 0.01)
 CMCONV_PER_STEP = 15    # 8 forward + 7 input gradients
+# the packed U-Net's cmconv launches per train step: a packed 3x3 conv goes
+# to cmconv where both packed channel counts are at most 32 (conv0's two
+# and deconv3's second: 3 forward, 2 input gradients); at level 1 the
+# unpacked conv1 and deconv2 blocks add 4 convs (4 forward, 4 gradients)
+PACKED_LEVELS = (1, 2, 3)
+PACKED_CMCONV_PER_STEP = {1: 13, 2: 5, 3: 5}
+# the packed recover against the unpacked one on the same weights: float32
+# sums in another order, within 2e-4 of max(1, max|pre-tanh logits|) (tanh
+# is 1-Lipschitz; the ROADMAP rule on the head's output)
+RECOVER_TOL = 2e-4
+# the packed U-Net's parameter gradients (one train-mode pass, dropout 0)
+# against the unpacked one's on the same weights and inputs: float32 sums in
+# another order (the packed convs sum the zero taps too), magnified by
+# train-mode BatchNorm; each gradient within PACKED_GRAD_TOL of its largest
+# entry (measured 9.15e-5 to 3.05e-4 at levels 1-3 over two runs on an H100
+# 80GB HBM3 at 700 W: each run's masks differ)
+PACKED_GRAD_TOL = 1e-3
+# remat against no remat, one train step's parameter gradients with cuDNN
+# deterministic: bit-equal expected (the recompute replays the same masks
+# on the same inputs); else within REMAT_TOL of each gradient's scale
+REMAT_TOL = 1e-5
 # the cmconv instances (ops/cmconv_cuda.ENTRIES) and their kernels' names
 CMCONV_INSTANCES = ("simt", "tc")
 CMCONV_KERNEL = {"simt": "cmconv3x3_kernel", "tc": "cmconv3x3_tc_kernel"}
@@ -464,8 +521,8 @@ def kernel_name(mangled: str) -> str:
 
 
 # libraries on the main path: a spill in their kernels fails phase 1
-MAIN_PATH_LIBS = ("nms", "warp", "cmconv", "cmconv_tc", "mbconv", "mbconv_dx",
-                  "mbconv_bf16", "mbconv_bf16_dx")
+MAIN_PATH_LIBS = ("nms", "warp", "cmconv", "cmconv_bf16", "cmconv_tc", "mbconv",
+                  "mbconv_dx", "mbconv_bf16", "mbconv_bf16_dx")
 
 
 def print_ptxas(libs) -> None:
@@ -773,18 +830,72 @@ class Capture:
             setattr(mod, name, orig)
 
 
-def cmconv_bound(x, co: int, has_bias: bool):
+def cmconv_bound(x, co: int, has_bias: bool, flop_per_s: float = FP32_FLOP_PER_S):
     """(bound ms, bound_by, bytes, ops) of one cmconv call on x [B, C, H, W]:
-    x, the weights and the bias read once and the output written once, over
-    the HBM rate; 2 * 9 * C * Co operations per output pixel over the fp32
-    rate."""
+    x, the weights (float32) and the bias read once and the output written
+    once, over the HBM rate (x, bias and output in x's element size: 2 bytes
+    at bf16); 2 * 9 * C * Co operations per output pixel over `flop_per_s`
+    (the fp32 rate by default; the bf16 tensor-core rate for bf16 x and a
+    kernel holding bf16 values, where one bf16 product is exact)."""
     b, c, h, w = x.shape
-    nbytes = 4 * (b * c * h * w + 9 * c * co + co * has_bias + b * co * h * w)
+    item = x.element_size()
+    nbytes = item * (b * c * h * w + co * has_bias + b * co * h * w) + 4 * 9 * c * co
     ops = 2 * 9 * c * co * b * h * w
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_FLOP_PER_S * 1e3
+    ops_ms = ops / flop_per_s * 1e3
     return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
             nbytes, ops)
+
+
+def check_cmconv_bf16(name, kern, plain) -> float:
+    """The bf16 instance against the bf16 plain version: within
+    BF16_CMCONV_TOL of the output's scale, and bit-equal (the kernels the
+    U-Net hands it hold bf16 values: each product is exact in float32 and
+    the sums run in the plain version's order)."""
+    import torch
+
+    if kern.dtype != plain.dtype or kern.shape != plain.shape:
+        fail(f"{name}: kernel {kern.dtype} {tuple(kern.shape)}, plain "
+             f"{plain.dtype} {tuple(plain.shape)}")
+    err = float((kern.float() - plain.float()).abs().max())
+    scale = max(1.0, float(plain.float().abs().max()))
+    if not err <= BF16_CMCONV_TOL * scale:
+        fail(f"{name}: kernel and plain differ by {err} > {BF16_CMCONV_TOL} * {scale}")
+    if not torch.equal(kern, plain):
+        fail(f"{name}: not bit-equal to the plain version (max error {err})")
+    return err
+
+
+def calibrate_bn(unet, images) -> None:
+    """Set every BatchNorm's running statistics of `unet` to the batch
+    statistics that a train-mode pass over `images` (dropout off) uses, so
+    that its eval pass computes what that train pass computes."""
+    import torch
+    from mladversarialobjectdetection_torch.models.unet import BatchNorm
+
+    seen = {}
+
+    def record(mod, args):  # returns None: the module's arguments stay as they are
+        seen[mod] = args[0].detach().float().clone()
+
+    hooks = [m.register_forward_pre_hook(record)
+             for m in unet.modules() if isinstance(m, BatchNorm)]
+    drops = {m: m.dropout for m in unet.modules() if hasattr(m, "dropout")}
+    try:
+        for m in drops:
+            m.dropout = 0.0
+        with torch.no_grad():
+            unet(images, training=True)
+    finally:
+        for h in hooks:
+            h.remove()
+        for m, rate in drops.items():
+            m.dropout = rate
+    with torch.no_grad():
+        for m, x in seen.items():
+            mu = x.mean(dim=(0, 2, 3))
+            m.running_mean.copy_(mu)
+            m.running_var.copy_(torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mu * mu, 0.0))
 
 
 def mbconv_case(dev, b, h, w, c, e, co, k, seed):
@@ -1797,10 +1908,32 @@ def main() -> int:
         cm_err = max(cm_err, *errs.values())
         print(f"  cmconv {role} {c}->{co} b{DEFEND_BATCH} {side}x{side}: max errors "
               f"{errs}, two launches bit-equal, plan {pick}")
-    del x, w, bias, kern, plain
-    torch.set_grad_enabled(True)
     print(f"phase 8 cmconv instances vs plain: {len(CMCONV_SHAPES)} shapes within "
           f"{WARP_TOL} of scale, max error {cm_err}")
+    # the bf16 instance at the bf16 step's shapes: bf16 x and bias, the
+    # kernel's bf16 values in float32 (as the bf16 U-Net hands them)
+    cm16_err = 0.0
+    f32_before = cmconv_cuda.DTYPE_LAUNCHES["float32"]
+    for role, c, co, side in CMCONV_SHAPES:
+        x = torch.randn((DEFEND_BATCH, c, side, side), device=dev,
+                        generator=gen).bfloat16()
+        w = (torch.randn((3, 3, c, co), device=dev, generator=gen) * 0.3).bfloat16().float()
+        bias = (torch.randn((co,), device=dev, generator=gen).bfloat16()
+                if role == "fwd" else None)
+        plain = cmconv.cmconv_plain(x, w, bias)
+        kern = cmconv_cuda.cmconv3x3_cuda(x, w, bias)
+        cm16_err = max(cm16_err, check_cmconv_bf16(
+            f"cmconv bf16 {role} {c}->{co} at {side}", kern, plain))
+        if not torch.equal(cmconv_cuda.cmconv3x3_instance(x, w, bias, "simt"), kern):
+            fail(f"cmconv bf16 {role} {c}->{co} at {side}: two launches differ")
+        print(f"  cmconv bf16 {role} {c}->{co} b{DEFEND_BATCH} {side}x{side}: "
+              f"bit-equal to the bf16 plain version, two launches bit-equal")
+    if cmconv_cuda.DTYPE_LAUNCHES["float32"] != f32_before:
+        fail("a bf16 cmconv call launched the float32 instance")
+    del x, w, bias, kern, plain
+    torch.set_grad_enabled(True)
+    print(f"phase 8 cmconv bf16 instance vs bf16 plain: {len(CMCONV_SHAPES)} shapes "
+          f"bit-equal (tolerance {BF16_CMCONV_TOL} of scale), max error {cm16_err}")
 
     # phase 9: the defender step, lite4@640, b24, fp32
     t0 = time.perf_counter()
@@ -1979,9 +2112,340 @@ def main() -> int:
     (nms_boxes, nms_scores), nms_kw = cap.args["batched_nms_cuda"][0]
     *_, err = nms_numbers(nms_boxes, nms_scores, nms_kw, "defender victim pass")
     max_err = max(max_err, err)
-    del cap, calls, x, w, g, bias, kern, lib, dfd, dstate, dimages, params0
+    del cap, calls, x, w, g, bias, kern, lib, params0
     del canvases, table, t_in, nms_boxes, nms_scores
     torch.set_grad_enabled(True)
+    torch.cuda.empty_cache()
+
+    # phase 9b: the bf16 defender step (config.mixed_precision, the JAX
+    # driver's --bf16): bf16 victim and U-Net, float32 parameters and loss;
+    # lite4@640, b24, n_filters 8, the phase 9 images
+    t0 = time.perf_counter()
+    bdcfg = config_lib.get_efficientdet_config("efficientdet-lite4")
+    bdcfg.nms_configs.update({"iou_thresh": 0.5, "score_thresh": DEFEND_THRESH})
+    bdcfg.mixed_precision = True
+    bdfd = PatchAttackDefender(bdcfg, get_victim(bdcfg, seed=0, device=dev),
+                               eval_patch=eval_patch, eval_scale=0.4, device=dev)
+    bdstate = bdfd.init_state(3)
+    bdstep = lambda: bdfd.train_step(bdstate, dimages)
+    bdstep()  # warm-up outside the counted run
+    torch.cuda.synchronize()
+    print(f"  bf16 defender efficientdet-lite4 {bdfd.image_hw}, U-Net n_filters "
+          f"{bdfd.n_filters} in {bdstate.unet.dtype}, batch {DEFEND_BATCH}, built and "
+          f"warmed up in {time.perf_counter() - t0:.2f} s")
+    params0 = [p.detach().clone() for p in bdstate.unet.parameters()]
+    torch.cuda.reset_peak_memory_stats(dev)
+    nms_cuda.LAUNCHES = 0
+    warp_cuda.reset_counts()
+    cmconv_cuda.reset_counts()
+    mbconv_cuda.reset_counts()
+    with UnfusedRoute() as unfused:
+        for _ in range(DEFEND_STEPS):
+            _, bdm = bdstep()
+    torch.cuda.synchronize()
+    bdefend_launches = dict(warp_cuda.LAUNCHES, nms=nms_cuda.LAUNCHES,
+                            cmconv_bf16=cmconv_cuda.DTYPE_LAUNCHES["bfloat16"],
+                            cmconv_fp32=cmconv_cuda.DTYPE_LAUNCHES["float32"])
+    bd_mb = {k: dict(v) for k, v in mbconv_cuda.DTYPE_LAUNCHES.items()}
+    check_fused_route("bf16 defender step", dict(mbconv_cuda.LAUNCHES), unfused,
+                      MBCONV_PER_PASS * DEFEND_STEPS, 0, passes=DEFEND_STEPS)
+    bdpeak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    want = dict(pass1_fwd=DEFEND_STEPS, pass2_fwd=DEFEND_STEPS, pass2_bwd=0,
+                pass1_bwd=0, nms=DEFEND_STEPS,
+                cmconv_bf16=CMCONV_PER_STEP * DEFEND_STEPS, cmconv_fp32=0)
+    if bdefend_launches != want:
+        fail(f"{DEFEND_STEPS} bf16 defender steps launched {bdefend_launches}; want {want}")
+    if (sum(bd_mb["float32"].values())
+            or bd_mb["bfloat16"]["mbconv_fwd"] != MBCONV_PER_PASS * DEFEND_STEPS
+            or bd_mb["bfloat16"]["mbconv_dx"]):
+        fail(f"bf16 defender steps: fused MBConv launches per dtype {bd_mb}")
+    if not warp_cuda.WINDOWS:
+        fail("bf16 defender: the masker planted no patch")
+    if not (np.isfinite(float(bdm.loss)) and 0 < float(bdm.mean_clean_score) < 1):
+        fail(f"bf16 defender metrics {bdm}")
+    if all(torch.equal(p, q) for p, q in zip(bdstate.unet.parameters(), params0)):
+        fail("the bf16 U-Net did not move")
+    if any(p.dtype != torch.float32 for p in bdstate.unet.parameters()):
+        fail("the bf16 U-Net's parameters are not float32")
+    print(f"phase 9b bf16 defender step: launches in {DEFEND_STEPS} steps "
+          f"{bdefend_launches}, fused MBConv per dtype {bd_mb}, "
+          f"{warp_cuda.WINDOWS // DEFEND_STEPS} windows planted per step; loss "
+          f"{float(bdm.loss):.6f}, mean clean score {float(bdm.mean_clean_score):.6f}; "
+          f"peak memory {bdpeak_gb:.3f} GB (fp32 {dpeak_gb:.3f} GB)")
+    bdstep_ms = host_p50_ms(bdstep, iters=5, warmup=1)
+    print(f"  bf16 defender step b{DEFEND_BATCH} p50 {bdstep_ms:.3f} ms "
+          f"({DEFEND_BATCH * 1e3 / bdstep_ms:.2f} images/s; fp32 {dstep_ms:.3f} ms in "
+          f"phase 9)")
+    profile_device(bdstep, f"bf16 defender step b{DEFEND_BATCH}", top=10)
+    cmconv_cuda.reset_counts()
+    nms_cuda.LAUNCHES = 0
+    bem = bdfd.eval_step(bdstate, dimages, 1)
+    brec = bdfd.recover(bdstate, dimages)
+    torch.cuda.synchronize()
+    if (cmconv_cuda.DTYPE_LAUNCHES["bfloat16"], cmconv_cuda.DTYPE_LAUNCHES["float32"],
+            nms_cuda.LAUNCHES) != (16, 0, 3):
+        fail(f"bf16 eval_step + recover launched cmconv {cmconv_cuda.DTYPE_LAUNCHES}, "
+             f"NMS {nms_cuda.LAUNCHES}; want 8 + 8 bf16, 3")
+    if not (np.isfinite(float(bem.loss)) and np.isfinite(float(bem.recovery_psnr))):
+        fail(f"bf16 eval metrics {bem}")
+    if brec.dtype != torch.float32 or not float(brec.abs().max()) <= 1.0:
+        fail(f"bf16 recover: {brec.dtype}")
+    beval_ms = host_p50_ms(lambda: bdfd.eval_step(bdstate, dimages, 1), iters=3,
+                           warmup=1)
+    brecover_ms = host_p50_ms(lambda: bdfd.recover(bdstate, dimages), iters=5)
+    print(f"  bf16 eval_step: loss {float(bem.loss):.6f}, recovery PSNR "
+          f"{float(bem.recovery_psnr):.4f} dB, p50 {beval_ms:.3f} ms (fp32 "
+          f"{eval_ms:.3f}); bf16 recover b{DEFEND_BATCH} p50 {brecover_ms:.3f} ms "
+          f"({DEFEND_BATCH * 1e3 / brecover_ms:.2f} images/s; fp32 {recover_ms:.3f})")
+    del brec
+
+    # phase 11, bf16: the bf16 instance on the 15 inputs the bf16 step gave
+    # it, against the bf16 plain version, timed beside its bound (2-byte x,
+    # bias and output; the products at the bf16 tensor-core rate, since the
+    # U-Net's kernels hold bf16 values and one bf16 product of them is
+    # exact), the fp32-FMA bound that the instance's SIMT sums meet, the
+    # plain time and F.conv2d in bf16 (cuDNN)
+    with Capture([(cmconv_cuda, "cmconv3x3_cuda")]) as cap:
+        bdstep()
+    torch.cuda.synchronize()
+    calls = [a for a, _ in cap.args["cmconv3x3_cuda"]]
+    if len(calls) != CMCONV_PER_STEP or any(x.dtype != torch.bfloat16 for x, _, _ in calls):
+        fail(f"captured {len(calls)} cmconv calls in a bf16 step, dtypes "
+             f"{sorted({str(x.dtype) for x, _, _ in calls})}")
+    torch.set_grad_enabled(False)
+    cm16_tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                    ops_ms=0.0, bound_simt_ms=0.0)
+    cm16_fwd = dict(cm16_tot)
+    for i, (x, w, bias) in enumerate(calls):
+        role = "fwd" if i < 8 else "dx"
+        c, co = w.shape[2], w.shape[3]
+        if not torch.equal(w, w.bfloat16().float()):
+            fail(f"cmconv bf16 step call {i}: the kernel holds values off bf16")
+        plain = cmconv.cmconv_plain(x, w, bias)
+        kern = cmconv_cuda.cmconv3x3_cuda(x, w, bias)
+        cm16_err = max(cm16_err, check_cmconv_bf16(f"cmconv bf16 step call {i}", kern,
+                                                   plain))
+        w_oihw = w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
+        lib = torch.nn.functional.conv2d(x, w_oihw, bias, padding=1)
+        lib_err = float((lib.float() - kern.float()).abs().max())
+        t = {"ms": kernel_device_ms(lambda: cmconv_cuda.cmconv3x3_instance(
+            x, w, bias, "simt"), CMCONV_KERNEL["simt"], iters=5)}
+        t["plain_ms"] = cuda_ms(lambda: cmconv.cmconv_plain(x, w, bias), iters=2,
+                                warmup=1)
+        t["library_ms"] = cuda_ms(lambda: torch.nn.functional.conv2d(
+            x, w_oihw, bias, padding=1), iters=10)
+        t["bound_ms"], bound_by, nbytes, ops = cmconv_bound(x, co, bias is not None,
+                                                           BF16_FLOP_PER_S)
+        t["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        t["ops_ms"] = ops / BF16_FLOP_PER_S * 1e3
+        t["bound_simt_ms"] = cmconv_bound(x, co, bias is not None)[0]
+        for k in cm16_tot:
+            cm16_tot[k] += t[k]
+            if role == "fwd":
+                cm16_fwd[k] += t[k]
+        print(f"  cmconv bf16 step call {i:2d} {role} {c}->{co} {tuple(x.shape)}"
+              f"{' +bias' if bias is not None else ''}: {t['ms']:.4f} ms "
+              f"({t['bound_ms'] / t['ms']:.1%} of its bound, "
+              f"{t['bound_simt_ms'] / t['ms']:.1%} of the fp32-FMA one); plain "
+              f"{t['plain_ms']:.4f} ms, F.conv2d bf16 {t['library_ms']:.4f} ms (differs "
+              f"by {lib_err:.3g}); bound {t['bound_ms']:.6f} ms ({bound_by}: {nbytes} B, "
+              f"{ops} ops at the bf16 rate), at fp32 FMAs {t['bound_simt_ms']:.6f} ms")
+    cm16_bound_by = ("bytes" if cm16_tot["bytes_ms"] >= cm16_tot["ops_ms"]
+                     else "operations")
+    for label, tot in ((f"per step ({CMCONV_PER_STEP} launches)", cm16_tot),
+                       ("over the 8 forward launches (recover, eval_step)", cm16_fwd)):
+        print(f"phase 11 cmconv bf16 at the bf16 step's inputs, {label}: "
+              f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, F.conv2d bf16 "
+              f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.6f} ms (bytes "
+              f"{tot['bytes_ms']:.6f}, operations at the bf16 rate {tot['ops_ms']:.6f}; "
+              f"{tot['bound_ms'] / tot['ms']:.1%}), at fp32 FMAs "
+              f"{tot['bound_simt_ms']:.6f} ms; fp32 instance "
+              f"{cm_tot['ms'] if 'per step' in label else cm_fwd['ms']:.4f} ms; max "
+              f"error {cm16_err}")
+    del cap, calls, x, w, bias, kern, lib, plain, bdfd, bdstate, params0
+    torch.set_grad_enabled(True)
+    torch.cuda.empty_cache()
+
+    # phase 9c: the packed defender (models/unet_packed.py) at packed_levels
+    # 1, 2 and 3, fp32, on phase 9's victim and images: its train step timed
+    # with its peak memory, and its recover against the unpacked recover on
+    # the same weights. A few train steps leave the running statistics near
+    # their initial values, so an eval pass would not normalise: its logits
+    # reach 1e7 and every recovered pixel clips to +-1, where any two
+    # functions agree. The statistics are first set to these images' batch
+    # statistics (`calibrate_bn`), so that eval computes what train mode
+    # does and the comparison sees the function.
+    calibrate_bn(dstate.unet, dimages)
+    rec_logits = []
+    hook = dstate.unet.output.register_forward_hook(
+        lambda mod, args, out: rec_logits.append(out))
+    rec_ref = dfd.recover(dstate, dimages)
+    hook.remove()
+    if not float(rec_logits[0].abs().max()) < 100.0:
+        fail(f"packed recover: the unpacked logits reach {rec_logits[0].abs().max()}")
+    rec_tol = RECOVER_TOL * max(1.0, float(rec_logits[0].abs().max()))
+    # one train step's masked images and targets: the packed gradients
+    # here and remat's in phase 9d are taken on them
+    with torch.no_grad():
+        boxes, _, valid = dfd.odet_boxes(dimages)
+        patched, targets = dfd._mask(dstate, dimages, boxes, valid, None)
+
+    def unet_grads(net):
+        """{name: gradient} of one train-mode pass of a copy of `net` at
+        dropout 0 (the packed and unpacked modules draw their masks
+        otherwise)."""
+        net = copy.deepcopy(net)
+        net.zero_grad(set_to_none=True)
+        for m in net.modules():
+            if isinstance(getattr(m, "dropout", None), float):
+                m.dropout = 0.0
+        loss, _ = dfd._loss(net, patched, targets, True)
+        loss.backward()
+        return {k: p.grad for k, p in net.named_parameters()}
+
+    ref_grads = unet_grads(dstate.unet)
+    packed_rows = {}
+    route = {}
+    for level in PACKED_LEVELS:
+        pdfd = PatchAttackDefender(dcfg, dfd.net, eval_patch=eval_patch, eval_scale=0.4,
+                                   packed=level, device=dev)
+        pstate = pdfd.init_state(3)
+        pstate.unet.load_state_dict(dstate.unet.state_dict())
+        rec = pdfd.recover(pstate, dimages)
+        rec_err = float((rec - rec_ref).abs().max())
+        if not rec_err <= rec_tol:
+            fail(f"packed {level} recover differs from the unpacked by {rec_err} > {rec_tol}")
+        # the gradients against the unpacked U-Net's, leaf by leaf; the
+        # biases of the convs that feed a BatchNorm have a true gradient of
+        # 0 and only rounding noise is left of them
+        grad_err = 0.0
+        for k, g in unet_grads(pstate.unet).items():
+            if k.endswith(("cnv1.bias", "cnv2.bias", "conv3.bias")):
+                continue
+            err = float((g - ref_grads[k]).abs().max()) / float(ref_grads[k].abs().max())
+            if not err <= PACKED_GRAD_TOL:
+                fail(f"packed {level}: gradient of {k} differs from the unpacked by "
+                     f"{err} of its scale > {PACKED_GRAD_TOL}")
+            grad_err = max(grad_err, err)
+        pstep = lambda: pdfd.train_step(pstate, dimages)
+        # every cmconv call of a step against the plain version, two
+        # launches bit-equal
+        with Capture([(cmconv_cuda, "cmconv3x3_cuda")]) as cap:
+            pstep()  # also the warm-up
+        torch.cuda.synchronize()
+        calls = [a for a, _ in cap.args["cmconv3x3_cuda"]]
+        if len(calls) != PACKED_CMCONV_PER_STEP[level]:
+            fail(f"packed {level}: captured {len(calls)} cmconv calls in a step")
+        with torch.no_grad():
+            for i, (x, w, bias) in enumerate(calls):
+                kern = cmconv_cuda.cmconv3x3_cuda(x, w, bias)
+                cm_err = max(cm_err, kernel_err(f"cmconv packed {level} step call {i}",
+                                                kern, cmconv.cmconv_plain(x, w, bias)))
+                if not torch.equal(cmconv_cuda.cmconv3x3_cuda(x, w, bias), kern):
+                    fail(f"cmconv packed {level} step call {i}: two launches differ")
+                c, co = w.shape[2], w.shape[3]
+                if 12 in (c, co) or (c, co) == (32, 32):  # a packed conv
+                    w_oihw = w.permute(3, 2, 0, 1).contiguous()
+                    kern_ms = cuda_ms(lambda: cmconv_cuda.cmconv3x3_cuda(x, w, bias),
+                                      iters=10)
+                    lib_ms = cuda_ms(lambda: torch.nn.functional.conv2d(
+                        x, w_oihw, bias, padding=1), iters=10)
+                    route[(level, i)] = (f"{'fwd' if bias is not None else 'dx'} "
+                                         f"{c}->{co} {tuple(x.shape)} cmconv "
+                                         f"{kern_ms:.4f} ms, F.conv2d {lib_ms:.4f} ms")
+        del cap, calls, x, w, bias, kern
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        cmconv_cuda.reset_counts()
+        nms_cuda.LAUNCHES = 0
+        for _ in range(DEFEND_STEPS):
+            _, pm = pstep()
+        torch.cuda.synchronize()
+        ppeak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        got = (cmconv_cuda.LAUNCHES, nms_cuda.LAUNCHES)
+        if got != (PACKED_CMCONV_PER_STEP[level] * DEFEND_STEPS, DEFEND_STEPS):
+            fail(f"packed {level}: cmconv and NMS launches {got} in {DEFEND_STEPS} steps")
+        if not np.isfinite(float(pm.loss)):
+            fail(f"packed {level} metrics {pm}")
+        pstep_ms = host_p50_ms(pstep, iters=5, warmup=1)
+        precover_ms = host_p50_ms(lambda: pdfd.recover(pstate, dimages), iters=5)
+        packed_rows[level] = (pstep_ms, ppeak_gb, precover_ms)
+        print(f"  packed {level}: train step p50 {pstep_ms:.3f} ms "
+              f"({DEFEND_BATCH * 1e3 / pstep_ms:.2f} images/s), peak memory "
+              f"{ppeak_gb:.3f} GB, cmconv {PACKED_CMCONV_PER_STEP[level]} a step, each "
+              f"within {WARP_TOL} of the plain version's scale and two launches "
+              f"bit-equal, loss {float(pm.loss):.6f}; parameter gradients within "
+              f"{grad_err:.3g} of scale of the unpacked (limit {PACKED_GRAD_TOL}); "
+              f"recover p50 {precover_ms:.3f} ms, within {rec_err:.3g} of the unpacked "
+              f"recover (limit {rec_tol:.3g})")
+        del pdfd, pstate, pstep, rec
+    # the routing of a packed 3x3 conv: cmconv where both packed channel
+    # counts are at most 32, against cuDNN (TF32 off) on the same tensors
+    print(f"  packed 3x3 convs of the packed steps at b{DEFEND_BATCH} (CUDA events): "
+          + "; ".join(f"level {lv} call {i} {r}" for (lv, i), r in route.items()))
+    print(f"phase 9c packed defender, fp32 b{DEFEND_BATCH}: unpacked step {dstep_ms:.3f} "
+          f"ms / {dpeak_gb:.3f} GB, recover {recover_ms:.3f} ms; "
+          + "; ".join(f"packed {lv} step {r[0]:.3f} ms ({dstep_ms / r[0]:.3f}x the "
+                      f"unpacked images/s) / {r[1]:.3f} GB, recover {r[2]:.3f} ms"
+                      for lv, r in packed_rows.items()))
+    del rec_ref, rec_logits, ref_grads
+    torch.cuda.empty_cache()
+
+    # phase 9d: remat (every ConvBlock and DeconvBlock recomputed in the
+    # backward pass), fp32: one train step's parameter gradients against
+    # remat=False on the same weights, masks and images; then the defender
+    # step with the remat U-Net, timed, with its peak memory
+    import dataclasses
+    from mladversarialobjectdetection_torch.models.unet import PatchNeutralizer
+    rnet = PatchNeutralizer(dfd.n_filters, remat=True).to(dev)
+    rnet.load_state_dict(dstate.unet.state_dict())
+    torch.backends.cudnn.deterministic = True
+    grads, stats = {}, {}
+    for name, net in (("plain", dstate.unet), ("remat", rnet)):
+        snapshot = copy.deepcopy(net.state_dict())
+        net.zero_grad(set_to_none=True)
+        loss, _ = dfd._loss(net, patched, targets, True,
+                            torch.Generator(dev).manual_seed(11))
+        loss.backward()
+        torch.cuda.synchronize()
+        grads[name] = [p.grad.detach().clone() for p in net.parameters()]
+        stats[name] = [b.detach().clone() for b in net.buffers()]
+        net.load_state_dict(snapshot)
+        net.zero_grad(set_to_none=True)
+    torch.backends.cudnn.deterministic = False
+    bit_equal = all(torch.equal(a, b) for a, b in zip(grads["plain"], grads["remat"]))
+    remat_err = max(float((a - b).abs().max()) / max(1e-30, float(a.abs().max()))
+                    for a, b in zip(grads["plain"], grads["remat"]))
+    if not (bit_equal or remat_err <= REMAT_TOL):
+        fail(f"remat gradients differ by {remat_err} of scale > {REMAT_TOL}")
+    if not all(torch.equal(a, b) for a, b in zip(stats["plain"], stats["remat"])):
+        fail("remat moved the BatchNorm statistics otherwise than one pass")
+    rstate = dataclasses.replace(dstate, unet=rnet, optimizer=torch.optim.Adam(
+        rnet.parameters(), lr=dfd.learning_rate, betas=(0.9, 0.999), eps=1e-8))
+    rstep = lambda: dfd.train_step(rstate, dimages)
+    rstep()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cmconv_cuda.reset_counts()
+    rstep()
+    torch.cuda.synchronize()
+    rpeak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if cmconv_cuda.LAUNCHES != CMCONV_PER_STEP + 8:
+        fail(f"remat step: {cmconv_cuda.LAUNCHES} cmconv launches, want "
+             f"{CMCONV_PER_STEP} + 8 (the recompute's forwards)")
+    rstep_ms = host_p50_ms(rstep, iters=5, warmup=1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    dstep()
+    torch.cuda.synchronize()
+    dpeak2_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"phase 9d remat: one step's {len(grads['plain'])} parameter gradients "
+          f"{'bit-equal to' if bit_equal else f'within {remat_err:.3g} of scale of'} "
+          f"remat=False's, BatchNorm statistics bit-equal; defender step with remat "
+          f"p50 {rstep_ms:.3f} ms, peak {rpeak_gb:.3f} GB (without remat {dstep_ms:.3f} "
+          f"ms in phase 9, peak {dpeak2_gb:.3f} GB now), {CMCONV_PER_STEP + 8} cmconv "
+          f"launches a step")
+    del rnet, rstate, rstep, grads, stats, patched, targets, boxes, valid
+    del dfd, dstate, dimages
     torch.cuda.empty_cache()
 
     # phase 12: the defense driver, 3 steps at batch 12
@@ -2016,6 +2480,34 @@ def main() -> int:
           f"steps) in {ddriver_s:.2f} s, launches {ddriver_launches}, artifact "
           f"{arts}, {len(records)} log records")
     del dfinal
+    # the driver with --bf16 and with --packed (3 levels), 3 steps each
+    for opts, want_cm in ((dict(bf16=True), ("bfloat16", 3 * CMCONV_PER_STEP + 5 * 8)),
+                          (dict(packed=3), ("float32", 3 * PACKED_CMCONV_PER_STEP[3]
+                                            + 5 * 3))):
+        with tempfile.TemporaryDirectory() as tmp:
+            cmconv_cuda.reset_counts()
+            mbconv_cuda.reset_counts()
+            t0 = time.perf_counter()
+            dfinal = defense_train("efficientdet-lite4", synthetic=True, batch_size=12,
+                                   epochs=1, steps_per_epoch=3, save_dir=tmp,
+                                   device=dev, config_override={
+                                       "nms_configs": {"score_thresh": DEFEND_THRESH}},
+                                   **opts)
+            torch.cuda.synchronize()
+            odriver_s = time.perf_counter() - t0
+            arts = sorted(str(p.relative_to(tmp)) for p in Path(tmp).glob(
+                "patch_00_*/antipatch.pkl"))
+            cm = dict(cmconv_cuda.DTYPE_LAUNCHES)
+            mb = {k: dict(v) for k, v in mbconv_cuda.DTYPE_LAUNCHES.items()}
+            other = "float32" if want_cm[0] == "bfloat16" else "bfloat16"
+            if dfinal.step != 3 or len(arts) != 1:
+                fail(f"defense driver {opts}: step {dfinal.step}, artifacts {arts}")
+            if cm[want_cm[0]] != want_cm[1] or cm[other] or sum(mb[other].values()):
+                fail(f"defense driver {opts}: cmconv launches {cm}, MBConv {mb}")
+        print(f"phase 12 defense driver {opts}: train(efficientdet-lite4, batch 12, 3 "
+              f"steps) in {odriver_s:.2f} s, cmconv launches per dtype {cm}, fused "
+              f"MBConv per dtype {mb}, artifact {arts}")
+        del dfinal
 
     # phase 13: card
     smi = subprocess.run(
@@ -2046,6 +2538,14 @@ def main() -> int:
         "bound_ms": cm_tot["bound_ms"], "bound_by": cm_bound_by,
         "library_ms": cm_tot["library_ms"], "ablation_ms": cm_tot["ablation_ms"],
         "bound_tc_ms": cm_tot["bound_tc_ms"]})
+    kernels.append({
+        "name": "cmconv_bf16", "route": "cuda",
+        "source": "mladversarialobjectdetection_torch/csrc/cmconv_bf16.cu",
+        "replaces": "tools/proto_cmconv.py:28",
+        "launches": bdefend_launches["cmconv_bf16"], "max_abs_err": cm16_err,
+        "ms": cm16_tot["ms"], "plain_ms": cm16_tot["plain_ms"],
+        "bound_ms": cm16_tot["bound_ms"], "bound_by": cm16_bound_by,
+        "library_ms": cm16_tot["library_ms"], "bound_simt_ms": cm16_tot["bound_simt_ms"]})
     for kind in ("fwd", "dx"):  # per pass of the 25 fuseable blocks
         tot = mb_tot[kind]
         kernels.append({

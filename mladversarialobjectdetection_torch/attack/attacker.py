@@ -99,11 +99,11 @@ class PatchAttacker:
         """
         if bn_axis_name is not None:
             raise NotImplementedError(
-                "bn_axis_name is not ported yet (ROADMAP Queue 1 item 10, "
+                "bn_axis_name is not ported yet (ROADMAP Queue 1 item 8, "
                 "distribution)")
         if packed_entry:
             raise NotImplementedError(
-                "packed_entry is not ported yet (ROADMAP Queue 1 item 7)")
+                "packed_entry is not ported yet (ROADMAP Queue 1 item 5)")
         self.device = resolve_device(device)
         self.config = config
         self.spec: DetSpec = spec_from_config(config)

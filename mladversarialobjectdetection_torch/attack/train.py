@@ -76,16 +76,16 @@ def train(model_name: str = "efficientdet-lite4", *,
     """Train an adversarial patch; returns the final `AttackState`."""
     if img_dir is not None:
         raise _not_ported("img_dir (ImageFolderSource, partition)",
-                          "Queue 1 item 4")
+                          "Queue 1 item 3")
     if victim_ckpt is not None:
-        raise _not_ported("victim_ckpt (checkpoint files)", "Queue 1 item 2")
+        raise _not_ported("victim_ckpt (checkpoint files)", "Queue 1 item 1")
     if resume:
         raise _not_ported("resume (save_loop_state / load_loop_state)",
-                          "Queue 1 item 2")
+                          "Queue 1 item 1")
     if spatial > 1:
-        raise _not_ported("spatial > 1", "Queue 1 item 10")
+        raise _not_ported("spatial > 1", "Queue 1 item 8")
     if packed_entry:
-        raise _not_ported("packed_entry", "Queue 1 item 7")
+        raise _not_ported("packed_entry", "Queue 1 item 5")
     del label_dir, synthetic  # only synthetic data is ported
     device = resolve_device(device)
 

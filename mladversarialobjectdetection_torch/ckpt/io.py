@@ -4,7 +4,7 @@ Port of the pickle fallback of `mladversarialobjectdetection_tpu/ckpt/io.py`
 `save_pytree` (io.py:27-31): `<path>.pkl` holds a nested dict of numpy
 arrays, which the JAX package's `load_pytree` (io.py:57-60) reads. Orbax
 checkpoint directories, and reading files back, are not ported (ROADMAP
-Queue 1 item 5).
+Queue 1 item 1).
 """
 from __future__ import annotations
 

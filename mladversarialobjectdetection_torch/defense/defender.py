@@ -11,11 +11,16 @@ attack_detection.py:30-318, `PatchAttackDefender`):
   and on the recovered images (score threshold 0), and reports the recovery
   PSNR over the patched region and the attack-detection rate.
 
-The U-Net (`models/unet.PatchNeutralizer`) is the only trainable: its
-parameters take a torch Adam step (optax's adam: b1 .9, b2 .999, eps 1e-8),
-and its BatchNorm statistics move in place in train mode. On the card the
+The U-Net (`models/unet.PatchNeutralizer`, or with `packed` the
+space-to-depth `models/unet_packed.PackedPatchNeutralizer` on the same
+parameters) is the only trainable: its parameters take a torch Adam step
+(optax's adam: b1 .9, b2 .999, eps 1e-8), and its BatchNorm statistics move
+in place in train mode. Under `config.mixed_precision` the U-Net computes in
+bf16 (its parameters, statistics, output and the loss stay float32), as the
+victim does. On the card the
 victim's NMS runs the CUDA NMS kernel, the masker's warp the CUDA warp
-kernels, and the U-Net's small-channel 3x3 convs the CUDA cmconv kernel.
+kernels, and the U-Net's small-channel 3x3 convs the CUDA cmconv kernel
+(its bf16 instance under mixed precision).
 Where the JAX package threads PRNG keys, the port draws from the state's
 `torch.Generator`; the parity tests pass JAX's draws in (`masker_draws`).
 """
@@ -32,6 +37,7 @@ from ..ckpt import bridge
 from ..models.efficientdet import DetSpec, spec_from_config
 from ..models.init import init_weights
 from ..models.unet import PatchNeutralizer
+from ..models.unet_packed import PackedPatchNeutralizer
 from ..ops import nms as nms_ops
 from ..ops import postprocess
 from ..utils.device import resolve_device
@@ -42,7 +48,7 @@ from . import masker as masker_lib
 class DefenderState:
     """The U-Net and its optimizer; `train_step` updates it in place and
     returns it."""
-    unet: PatchNeutralizer            # parameters and BatchNorm statistics
+    unet: PatchNeutralizer | PackedPatchNeutralizer  # parameters, BN statistics
     optimizer: torch.optim.Optimizer  # Adam over unet.parameters()
     step: int
     generator: torch.Generator        # masker and dropout draws of the train steps
@@ -79,21 +85,31 @@ class PatchAttackDefender:
             (`attack.train.get_victim`); frozen and moved to `device`.
           eval_patch, eval_scale, learning_rate, n_filters, grad_accum: as
             in the JAX package.
-          packed, packed_entry, and bf16 `config.mixed_precision`: not
-            ported yet; anything but the default raises.
+          packed: the space-to-depth U-Net (`models/unet_packed.py`), the
+            same parameters; True packs level 1 (the full-resolution
+            stages), an int 1..3 that many levels. A TPU layout, kept for
+            parity: slower than the unpacked U-Net on an H100 (PERF.md).
+          `config.mixed_precision`: the U-Net in bf16; the victim must
+            compute in the same dtype (it does when built from `config`).
+          packed_entry: not ported yet; anything but 0 raises.
           device: "cuda" (the default) or "cpu".
         """
-        if packed:
-            raise NotImplementedError(
-                "packed (models/unet_packed.py) is not ported yet "
-                "(ROADMAP Queue 1 item 6)")
         if packed_entry:
             raise NotImplementedError(
-                "packed_entry is not ported yet (ROADMAP Queue 1 item 7)")
-        if config.get("mixed_precision"):
-            raise NotImplementedError(
-                "mixed_precision (bf16) is not ported to the defender yet "
-                "(ROADMAP Queue 1 item 1: the bf16 U-Net and cmconv instance)")
+                "packed_entry is not ported yet (ROADMAP Queue 1 item 5)")
+        self.unet_dtype = (torch.bfloat16 if config.get("mixed_precision")
+                           else torch.float32)
+        victim_dtype = getattr(victim, "compute_dtype", torch.float32)
+        if victim_dtype != self.unet_dtype:
+            raise ValueError(
+                f"the victim computes in {victim_dtype}, but the config asks "
+                f"for {self.unet_dtype} (mixed_precision "
+                f"{bool(config.get('mixed_precision'))}): build the victim "
+                "from the same config")
+        self.packed_levels = 0 if not packed else (
+            1 if packed is True else int(packed))
+        if not 0 <= self.packed_levels <= 3:
+            raise ValueError(f"packed must be True or 1..3, got {packed}")
         self.device = resolve_device(device)
         self.config = config
         self.spec: DetSpec = spec_from_config(config)
@@ -122,7 +138,7 @@ class PatchAttackDefender:
         draws) or loaded from Flax `variables` through `ckpt/bridge.py`;
         Adam at the learning rate; the train steps' generator seeded with
         `seed`."""
-        unet = PatchNeutralizer(self.n_filters)
+        unet = self.make_unet()
         if variables is None:
             init_weights(unet, torch.Generator().manual_seed(seed))
         else:
@@ -132,6 +148,14 @@ class PatchAttackDefender:
                                betas=(0.9, 0.999), eps=1e-8)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return DefenderState(unet, opt, 0, gen, int(seed))
+
+    def make_unet(self) -> PatchNeutralizer | PackedPatchNeutralizer:
+        """The defender's U-Net, undrawn: packed or not, in its dtype."""
+        if self.packed_levels:
+            return PackedPatchNeutralizer(self.n_filters,
+                                          packed_levels=self.packed_levels,
+                                          dtype=self.unet_dtype)
+        return PatchNeutralizer(self.n_filters, dtype=self.unet_dtype)
 
     # -- detector pass (attack_detection.py:94-127) -------------------------
     @torch.no_grad()
@@ -159,7 +183,7 @@ class PatchAttackDefender:
 
     # -- loss ----------------------------------------------------------------
     @staticmethod
-    def _loss(unet: PatchNeutralizer, patched, targets, training: bool,
+    def _loss(unet: torch.nn.Module, patched, targets, training: bool,
               generator=None):
         """sum over images of mean((targets - 2 * unet(patched))^2); returns
         (loss, updates)."""

@@ -14,10 +14,14 @@ format (`ckpt/io.py`), which its `ckpt/io.load_pytree` reads.
 `train` keeps the JAX driver's signature and defaults, and adds `device`
 (CUDA unless "cpu" is asked for) and `victim_variables` (Flax variables of
 the victim; without them its weights are drawn from a seed). The data are
-synthetic. Not ported yet, and raising `NotImplementedError`: `img_dir`,
-`victim_ckpt`, `initial_weights`, `resume`, `spatial > 1`, `packed` and
-`bf16`; the reference-format `antipatch.h5` mirror is not written (no h5py
-on the card).
+synthetic. `bf16` sets `config.mixed_precision` before the victim is built
+(bf16 victim and U-Net, float32 parameters and loss), as the JAX driver
+does; `packed` picks the space-to-depth U-Net (`models/unet_packed.py`, the
+same parameters and `antipatch.pkl`), `--packed` with no value packing 3
+levels as the JAX driver's. Not ported yet, and raising
+`NotImplementedError`: `img_dir`, `victim_ckpt`, `initial_weights`,
+`resume` and `spatial > 1`; the reference-format `antipatch.h5` mirror is
+not written (no h5py on the card).
 
 An untrained victim at score threshold .5 finds nobody, so the masker
 plants nothing: pass `config_override={"nms_configs": {"score_thresh":
@@ -72,22 +76,17 @@ def train(model_name: str = "efficientdet-lite4", *,
     """Train the defender U-Net; returns the final `DefenderState`."""
     if img_dir is not None:
         raise _not_ported("img_dir (ImageFolderSource, partition)",
-                          "Queue 1 item 4")
+                          "Queue 1 item 3")
     if victim_ckpt is not None:
-        raise _not_ported("victim_ckpt (checkpoint files)", "Queue 1 item 2")
+        raise _not_ported("victim_ckpt (checkpoint files)", "Queue 1 item 1")
     if initial_weights is not None:
         raise _not_ported("initial_weights (ckpt/convert_defense.py)",
-                          "Queue 1 item 2")
+                          "Queue 1 item 1")
     if resume:
         raise _not_ported("resume (save_loop_state / load_loop_state)",
-                          "Queue 1 item 2")
-    if spatial > 1:
-        raise _not_ported("spatial > 1", "Queue 1 item 10")
-    if packed:
-        raise _not_ported("packed (models/unet_packed.py)", "Queue 1 item 6")
-    if bf16:
-        raise _not_ported("bf16 (the bf16 U-Net and cmconv instance)",
                           "Queue 1 item 1")
+    if spatial > 1:
+        raise _not_ported("spatial > 1", "Queue 1 item 8")
     del label_dir, synthetic  # only synthetic data is ported
     device = resolve_device(device)
 
@@ -95,6 +94,8 @@ def train(model_name: str = "efficientdet-lite4", *,
     config.nms_configs.update({"iou_thresh": 0.5, "score_thresh": 0.5})
     if image_size is not None:
         config.image_size = image_size
+    if bf16:  # the victim and the U-Net compute in bf16; parameters float32
+        config.mixed_precision = True
     if config_override:
         config.update(config_override)
 
@@ -110,7 +111,8 @@ def train(model_name: str = "efficientdet-lite4", *,
     victim = get_victim(config, variables=victim_variables, device=device)
     defender = PatchAttackDefender(config, victim, eval_patch=patch_np,
                                    eval_scale=scale, learning_rate=lr,
-                                   grad_accum=grad_accum, device=device)
+                                   grad_accum=grad_accum, packed=packed,
+                                   device=device)
     state = defender.init_state(seed)
 
     plateau = ReduceLROnPlateau(factor=0.5, patience=50, min_lr=1e-4)
@@ -199,13 +201,19 @@ def main():
     p.add_argument("--image-size", type=int, default=None)
     p.add_argument("--hparams", default=None,
                    help="config override string 'a.b=1,c=2' or YAML path")
-    p.add_argument("--bf16", action="store_true", help="not ported yet")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 activations for the victim and the U-Net "
+                        "(float32 parameters and loss)")
     p.add_argument("--grad-accum", type=int, default=1,
                    help="split each step's batch into this many sequential "
                         "microbatches with one summed-gradient update")
     p.add_argument("--spatial", type=int, default=1, help="not ported yet")
     p.add_argument("--packed", type=int, nargs="?", const=3, default=0,
-                   help="not ported yet")
+                   help="space-to-depth packed U-Net layout "
+                        "(models/unet_packed.py), the same model and "
+                        "weights: N packs the first N resolution levels "
+                        "(1-3); bare --packed = 3. A TPU layout: slower "
+                        "than the unpacked U-Net on an H100 (PERF.md)")
     p.add_argument("--resume", action="store_true", help="not ported yet")
     p.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = p.parse_args()

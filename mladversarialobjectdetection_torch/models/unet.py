@@ -25,21 +25,46 @@ the JAX layout. Where Flax and PyTorch differ, the port follows Flax:
 
 The ConvBlocks of at most `CMCONV_MAX_FILTERS` filters (the 640x640 and
 320x320 stages at n_filters 8) run their 3x3 convs through `ops/cmconv.py`:
-on the card the hand-written CUDA kernel `csrc/cmconv.cu`, forward and input
-gradient. The choice is static, by channel count, made when the block is
-built. `remat` (a memory knob of the JAX package) has no counterpart.
+on the card the hand-written CUDA kernel `csrc/cmconv.cu` (bf16:
+`csrc/cmconv_bf16.cu`), forward and input gradient. The choice is static,
+by channel count, made when the block is built.
+
+`dtype` (None: float32; torch.bfloat16 under mixed precision) is Flax's
+`dtype=`, module by module, with explicit casts (never autocast): the images
+are cast to it at entry; every conv casts its input, kernel and bias to it,
+convolves in it and adds the bias in it (`efficientnet.Conv2d`; `CMConv2d`
+hands the kernel the bf16 input and the kernel rounded to bf16, held in
+float32); BatchNorm computes its statistics and its normalisation in
+float32 and rounds once to the dtype, its running statistics float32; leaky
+ReLU, sigmoid, the gate product, the concat, max-pool and dropout stay in
+the dtype, their constants (0.2, the keep rate) rounded to it as JAX's weak
+types are; the head's tanh is taken in it and then cast to float32. The
+cached casts of the convs' weights keep their autograd edge: they are
+recast on every call while gradients are on and the weights require one.
+
+`remat` (JAX unet.py:126-139, `nn.remat` of every ConvBlock and
+DeconvBlock) recomputes each block in the backward pass instead of storing
+its activations (`torch.utils.checkpoint`, non-reentrant). The recompute
+must be the same function: it draws its dropout masks from a generator
+restored to the state the block's first pass started from (checkpoint's
+`preserve_rng_state` restores only the global generators, not the explicit
+one the masks come from), and its BatchNorms do not move their running
+statistics a second time (Flax is functional and moves them once).
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.cmconv import cmconv
 from .efficientnet import BatchNorm as _FrozenBatchNorm
-from .efficientnet import Conv2d
+from .efficientnet import Conv2d, set_compute_dtype
 
 LEAKY_SLOPE = 0.2
 BN_EPS = 1e-3
@@ -70,22 +95,46 @@ def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y, new_mean, new_var
 
 
+_RECOMPUTE = threading.local()  # .active: a remat recompute is running
+
+
+def recomputing() -> bool:
+    """Whether a remat recompute is running in this thread."""
+    return getattr(_RECOMPUTE, "active", False)
+
+
+@contextlib.contextmanager
+def _recompute():
+    """The block pass inside runs again for remat: its BatchNorms leave their
+    running statistics as they are."""
+    before = getattr(_RECOMPUTE, "active", False)
+    _RECOMPUTE.active = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.active = before
+
+
 class BatchNorm(_FrozenBatchNorm):
     """Trainable Flax BatchNorm; in train mode its running statistics are
-    updated in place. Flax names it `bn1`..`bn3` directly, with no inner
-    `bn` wrapper."""
+    updated in place (not in a remat recompute). Flax names it `bn1`..`bn3`
+    directly, with no inner `bn` wrapper. With a `compute_dtype` it
+    normalises in float32 and rounds the output to that dtype."""
 
     FLAX_INNER_BN = False
 
     def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+        cd = self.compute_dtype
+        if cd is not None:
+            x = x.to(torch.float32)
         y, new_mean, new_var = batch_norm(x, self.weight, self.bias,
                                           self.running_mean, self.running_var,
                                           training=training, eps=self.eps)
-        if training:
+        if training and not recomputing():
             with torch.no_grad():
                 self.running_mean.copy_(new_mean)
                 self.running_var.copy_(new_var)
-        return y
+        return y if cd is None else y.to(cd)
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -94,19 +143,37 @@ def dropout(x: torch.Tensor, rate: float,
     1 - rate and scale it by 1 / (1 - rate)."""
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    return torch.where(mask, x / _weak(keep, x), torch.zeros_like(x))
+
+
+def _weak(value: float, x: torch.Tensor):
+    """A Python constant as JAX's weak type meets x: rounded to x's dtype
+    where that is bf16 (torch would keep it float32 inside the op)."""
+    if x.dtype == torch.bfloat16:
+        return torch.tensor(value, dtype=x.dtype, device=x.device)
+    return value
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype == torch.bfloat16:  # jnp.where(x >= 0, x, bf16(0.2) * x)
+        return torch.where(x >= 0, x, x * _weak(LEAKY_SLOPE, x))
     return F.leaky_relu(x, LEAKY_SLOPE)
 
 
 class CMConv2d(Conv2d):
     """A 3x3 stride-1 SAME conv run by `ops/cmconv.cmconv` (the CUDA kernel
-    on the card); the weight stays OIHW like every other conv of the port."""
+    on the card); the weight stays OIHW like every other conv of the port.
+    At bf16 the op takes the bf16 input, the kernel rounded to bf16 and held
+    in float32 (the TPU kernel's float32 w), and the bias in bf16."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return cmconv(x.contiguous(), self.weight.permute(2, 3, 1, 0), self.bias)
+        cd = self.compute_dtype
+        if cd is None:
+            return cmconv(x.contiguous(), self.weight.permute(2, 3, 1, 0),
+                          self.bias)
+        weight, bias = self._in_dtype(cd)
+        return cmconv(x.to(cd).contiguous(),
+                      weight.to(torch.float32).permute(2, 3, 1, 0), bias)
 
 
 class ConvTranspose(Conv2d):
@@ -122,9 +189,15 @@ class ConvTranspose(Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[-2:]
-        weight = self.weight.flip(2, 3).transpose(0, 1)
-        y = F.conv_transpose2d(x, weight, self.bias, stride=2)
-        return y[..., :2 * h, :2 * w]
+        cd = self.compute_dtype
+        if cd is None:
+            weight = self.weight.flip(2, 3).transpose(0, 1)
+            y = F.conv_transpose2d(x, weight, self.bias, stride=2)
+            return y[..., :2 * h, :2 * w]
+        weight, bias = self._in_dtype(cd)
+        y = F.conv_transpose2d(x.to(cd), weight.flip(2, 3).transpose(0, 1),
+                               None, stride=2)[..., :2 * h, :2 * w]
+        return y + bias.view(1, -1, 1, 1)
 
 
 class ConvBlock(nn.Module):
@@ -209,19 +282,41 @@ class DeconvBlock(nn.Module):
         return self.convblock(x, training)
 
 
+def remat_call(block: nn.Module, tensors, training: bool,
+               generator: torch.Generator | None):
+    """`block(*tensors, training, generator)` with its activations
+    recomputed in the backward pass: the recompute replays the first pass's
+    dropout masks from a generator restored to the state that pass started
+    from, and moves no BatchNorm statistics."""
+    snapshot = None if generator is None else generator.get_state()
+    first = [True]
+
+    def run(*args):
+        if first[0]:
+            first[0] = False
+            return block(*args, training, generator)
+        replay = None
+        if generator is not None:
+            replay = torch.Generator(device=generator.device)
+            replay.set_state(snapshot)
+        with _recompute():
+            return block(*args, training, replay)
+
+    return checkpoint(run, *tensors, use_reentrant=False)
+
+
 class PatchNeutralizer(nn.Module):
     """Attention U-Net + 1x1 tanh head (generator.py:17-96).
 
     The output is the defender's "update": 2 * output added to the input
-    image neutralizes the patches it finds (attack_detection.py:190)."""
+    image neutralizes the patches it finds (attack_detection.py:190).
+    `dtype` and `remat`: see the module notes; the output is float32."""
 
     def __init__(self, n_filters: int = 8, dropout: float = 0.2,
-                 batchnorm: bool = True, remat: bool = False):
+                 batchnorm: bool = True, remat: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                "remat (recompute blocks in the backward pass) has no "
-                "counterpart in the port (ROADMAP Queue 1 item 6)")
+        self.remat = remat
         nf = n_filters
         chans = 3
         for i in range(4):
@@ -236,18 +331,30 @@ class PatchNeutralizer(nn.Module):
                 chans, nf * m, dropout=dropout, batchnorm=batchnorm))
             chans = nf * m
         self.output = Conv2d(chans, 3, 1, init=HE_INIT)
+        self.dtype = None if dtype == torch.float32 else dtype
+        set_compute_dtype(self, self.dtype)
+
+    def _block(self, name: str, tensors, training, generator):
+        block = getattr(self, name)
+        if self.remat and torch.is_grad_enabled():
+            return remat_call(block, tensors, training, generator)
+        return block(*tensors, training, generator)
 
     def forward(self, images: torch.Tensor, training: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        """[B, H, W, 3] -> update [B, H, W, 3] in (-1, 1); H, W divisible by 16.
+        """[B, H, W, 3] -> update [B, H, W, 3] in (-1, 1), float32; H, W
+        divisible by 16.
 
         `generator` draws the dropout masks in train mode."""
         x = images.permute(0, 3, 1, 2).contiguous()
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         skips = []
         for i in range(4):
-            skip, x = getattr(self, f"conv{i}")(x, training, generator)
+            skip, x = self._block(f"conv{i}", (x,), training, generator)
             skips.append(skip)
-        x = self.conv4(x, training, generator)
+        x = self._block("conv4", (x,), training, generator)
         for i, skip in enumerate(reversed(skips)):
-            x = getattr(self, f"deconv{i}")(x, skip, training, generator)
-        return torch.tanh(self.output(x)).permute(0, 2, 3, 1)
+            x = self._block(f"deconv{i}", (x, skip), training, generator)
+        y = torch.tanh(self.output(x)).to(torch.float32)
+        return y.permute(0, 2, 3, 1)

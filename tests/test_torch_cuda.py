@@ -24,7 +24,10 @@ version's within MBCONV_KINK_TOL of its kink; two launches bit-equal; the
 kernels' SIMT ablation against them; their bf16 instances against the bf16
 plain versions within chip_smoke.py's MBCONV_BF16_* tolerances (the reasons
 there), with only bf16 launches counted; and the backbone's dispatch counts
-on the card.
+on the card. The bf16 cmconv instance against the bf16 plain version:
+bit-equal where the kernel holds bf16 values (the U-Net's), within
+`ops/cmconv.BF16_TOL` otherwise; the bf16, packed and remat defenders'
+launches on the card.
 """
 import numpy as np
 import pytest
@@ -411,8 +414,11 @@ def test_attack_step_on_card_goes_through_kernels(cuda):
 
 # (C, Co) of the defender's small-channel 3x3 convs: forward 3->8, 8->8,
 # 8->16, 16->16, 32->16, 16->16, 16->8, 8->8; input gradients the same
-# convs with C and Co swapped (16->32 and 16->8 are new)
-CMCONV_PATH = [(3, 8), (8, 8), (8, 16), (16, 16), (32, 16), (16, 8), (16, 32)]
+# convs with C and Co swapped (16->32 and 16->8 are new); the packed U-Net's
+# level-1 convs on the packed grid: forward 12->32 and 32->32, input
+# gradients 32->32 and 32->12
+CMCONV_PATH = [(3, 8), (8, 8), (8, 16), (16, 16), (32, 16), (16, 8), (16, 32),
+               (12, 32), (32, 32), (32, 12)]
 # (id, B, C, Co, H, W): sizes off the instances' 64-wide tiles, 1x1 images, one image, one
 # channel, the 32-channel limit, output widths off the compiled ones
 CMCONV_EDGES = [("ragged_13x37", 2, 8, 8, 13, 37), ("1x1", 3, 8, 16, 1, 1),
@@ -499,9 +505,9 @@ def test_cmconv_autograd_on_card_matches_cpu(cuda):
 def test_cmconv_wrapper_rejects_bad_inputs(cuda):
     x, wt, bias = _cmconv_case(cuda, 1, 8, 8, 16, 16)
     before = cmconv_cuda.LAUNCHES
-    with pytest.raises(TypeError, match="float32 only"):
+    with pytest.raises(TypeError, match="float32 or bfloat16 x"):
         cmconv_cuda.cmconv3x3_cuda(x.double(), wt.double())
-    with pytest.raises(TypeError, match="float32 only"):
+    with pytest.raises(TypeError, match="float32 or bfloat16 x"):
         cmconv_cuda.cmconv3x3_cuda(x, wt, bias.half())
     with pytest.raises(ValueError, match="contiguous"):
         cmconv_cuda.cmconv3x3_cuda(x.to(memory_format=torch.channels_last), wt)
@@ -525,6 +531,90 @@ def test_cmconv_wrapper_rejects_bad_inputs(cuda):
                                    torch.zeros((3, 3, 1, 1), device=cuda))
     assert cmconv_cuda.LAUNCHES == before
     _assert_cmconv(cuda, x, wt, bias)  # the context still works
+
+
+# the bf16 instance (csrc/cmconv_bf16.cu) against the bf16 plain version:
+# with a kernel of bf16 values each product is exact in float32, the sums
+# run in the same order, so the output is bit-equal; with any float32
+# kernel within one rounding of the sum (`cmconv.BF16_TOL`, two bf16 ulps
+# of scale with the bias's second rounding)
+CMCONV_BF16_EXTRA = [("w_even_not_8", 2, 8, 8, 12, 36), ("misaligned_x", 2, 8, 16, 9, 24)]
+
+
+def _cmconv_bf16_case(cuda, b, c, co, h, w, seed=0, offset=0):
+    g = torch.Generator().manual_seed(seed)
+    flat = torch.randn((b * c * h * w + offset,), generator=g).bfloat16().to(cuda)
+    x = flat[offset:].view(b, c, h, w)  # offset 1: x not 4-byte aligned
+    wt = (torch.randn((3, 3, c, co), generator=g) * 0.3).to(cuda)
+    bias = torch.randn((co,), generator=g).bfloat16().to(cuda)
+    return x, wt, bias
+
+
+def _assert_cmconv_bf16(cuda, x, wt, bias):
+    f32_before = cmconv_cuda.DTYPE_LAUNCHES["float32"]
+    before = cmconv_cuda.DTYPE_LAUNCHES["bfloat16"]
+    for w_ in (wt.bfloat16().float(), wt):
+        for b_ in (bias, None):
+            out = cmconv_cuda.cmconv3x3_cuda(x, w_, b_)
+            plain = pcmconv.cmconv_plain(x, w_, b_)
+            assert out.dtype == torch.bfloat16 and out.shape == plain.shape
+            _close(out.float(), plain.float(), "cmconv bf16", pcmconv.BF16_TOL)
+            if w_ is not wt:
+                assert torch.equal(out, plain)
+            assert torch.equal(cmconv_cuda.cmconv3x3_cuda(x, w_, b_), out)
+    torch.cuda.synchronize()
+    assert cmconv_cuda.DTYPE_LAUNCHES["bfloat16"] == before + 8
+    assert cmconv_cuda.DTYPE_LAUNCHES["float32"] == f32_before
+    inst = cmconv_cuda.INSTANCE_LAUNCHES["simt_bf16"]
+    assert torch.equal(cmconv_cuda.cmconv3x3_instance(x, wt, bias, "simt"),
+                       cmconv_cuda.cmconv3x3_cuda(x, wt, bias))
+    assert cmconv_cuda.INSTANCE_LAUNCHES["simt_bf16"] == inst + 1
+
+
+@pytest.mark.parametrize("c,co", CMCONV_PATH, ids=[f"{c}to{co}" for c, co in CMCONV_PATH])
+def test_cmconv_bf16_matches_plain_at_path_shapes(cuda, c, co):
+    _assert_cmconv_bf16(cuda, *_cmconv_bf16_case(cuda, 4, c, co, 48, 64, seed=c * 100 + co))
+
+
+@pytest.mark.parametrize("name,b,c,co,h,w", CMCONV_EDGES + CMCONV_BF16_EXTRA,
+                         ids=[e[0] for e in CMCONV_EDGES + CMCONV_BF16_EXTRA])
+def test_cmconv_bf16_edge_cases(cuda, name, b, c, co, h, w):
+    offset = 1 if name == "misaligned_x" else 0
+    _assert_cmconv_bf16(cuda, *_cmconv_bf16_case(cuda, b, c, co, h, w, 7, offset))
+
+
+def test_cmconv_bf16_wrapper_refuses_float16_and_mixed_dtypes(cuda):
+    x, wt, bias = _cmconv_bf16_case(cuda, 1, 8, 8, 16, 16)
+    before = cmconv_cuda.LAUNCHES
+    for args in ((x.half(), wt), (x, wt.bfloat16()), (x, wt, bias.float()),
+                 (x.float(), wt, bias), (x, wt.half())):
+        with pytest.raises(TypeError, match="float32 or bfloat16 x"):
+            cmconv_cuda.cmconv3x3_cuda(*args)
+    with pytest.raises(ValueError, match="no bfloat16 cmconv instance 'tc'"):
+        cmconv_cuda.cmconv3x3_instance(x, wt, bias, "tc")
+    assert cmconv_cuda.LAUNCHES == before
+
+
+def test_cmconv_bf16_autograd_on_card_matches_cpu(cuda):
+    """The bf16 op on the card (forward and input gradient through the bf16
+    instance, weight gradient by cuDNN in bf16) against the same op on the
+    CPU: forward and dx bit-equal (kernels of bf16 values), dw and db within
+    two bf16 ulps of scale."""
+    x, wt, bias = _cmconv_bf16_case(torch.device("cpu"), 2, 16, 8, 20, 36, seed=3)
+    wt = wt.bfloat16().float()
+    g = torch.randn((2, 8, 20, 36), generator=torch.Generator().manual_seed(4)).bfloat16()
+    res = []
+    for dev in (torch.device("cpu"), cuda):
+        args = [a.to(dev).clone().requires_grad_(True) for a in (x, wt, bias)]
+        before = cmconv_cuda.DTYPE_LAUNCHES["bfloat16"]
+        out = pcmconv.cmconv(*args)
+        out.backward(g.to(dev))
+        n = cmconv_cuda.DTYPE_LAUNCHES["bfloat16"] - before
+        assert n == (2 if dev.type == "cuda" else 0)
+        res.append([out.detach().cpu()] + [a.grad.cpu() for a in args])
+    assert torch.equal(res[1][0], res[0][0]) and torch.equal(res[1][1], res[0][1])
+    for name, a, b in zip(("dw", "db"), res[1][2:], res[0][2:]):
+        _close(a.float(), b.float(), name, pcmconv.BF16_TOL)
 
 
 def test_defender_step_on_card_goes_through_kernels(cuda):
@@ -567,6 +657,52 @@ def test_defender_step_on_card_goes_through_kernels(cuda):
     torch.cuda.synchronize()
     assert cmconv_cuda.LAUNCHES - cm0 == 8
     assert rec.shape == images.shape and float(rec.abs().max()) <= 1.0
+
+
+@pytest.mark.parametrize("variant", ["bf16", "packed1", "packed3_bf16", "remat"])
+def test_defender_variants_on_card(cuda, variant):
+    """The bf16, packed and remat defenders on the card: a train step, an
+    eval_step and recover. bf16: every cmconv launch in its bf16 instance
+    (15 a step, 8 an eval_step or recover), none in the float32 one.
+    Packed: a packed 3x3 conv goes to cmconv where both packed channel
+    counts are at most 32 (conv0's two and deconv3's second: 3 forward, 2
+    input gradients a step); at level 1 the unpacked conv1 and deconv2
+    blocks add their 4 convs (13 launches a step, 7 an eval pass). remat:
+    the same 15 launches a step, plus the 8 forwards of the recompute."""
+    from mladversarialobjectdetection_torch.models.unet import PatchNeutralizer
+    cfg = pconfig.get_efficientdet_config("efficientdet-lite0")
+    cfg.override({"image_size": 64, "fpn_num_filters": 16,
+                  "fpn_cell_repeats": 1, "box_class_repeats": 1,
+                  "nms_configs": {"iou_thresh": 0.5, "score_thresh": 0.0099,
+                                  "pre_nms_topk": 64, "max_output_size": 16},
+                  "max_boxes_per_image": 4})
+    bf16 = variant.endswith("bf16")
+    cfg.mixed_precision = bf16
+    packed = {"packed1": 1, "packed3_bf16": 3}.get(variant, 0)
+    patch = torch.rand((32, 32, 3), generator=torch.Generator().manual_seed(1)) * 2 - 1
+    d = PatchAttackDefender(cfg, get_victim(cfg, seed=0, device=cuda),
+                            eval_patch=patch.numpy(), packed=packed, device=cuda)
+    state = d.init_state(0)
+    if variant == "remat":
+        remat = PatchNeutralizer(8, remat=True).to(cuda)
+        remat.load_state_dict(state.unet.state_dict())
+        state.unet = remat
+        state.optimizer = torch.optim.Adam(remat.parameters(), lr=1e-2)
+    images = torch.rand((2, 64, 64, 3), generator=torch.Generator().manual_seed(2)
+                        ).to(cuda) * 2 - 1
+    want = {"bf16": (15, 8), "packed1": (13, 7), "packed3_bf16": (5, 3),
+            "remat": (15 + 8, 8)}[variant]
+    dtype = "bfloat16" if bf16 else "float32"
+    cmconv_cuda.reset_counts()
+    state, m = d.train_step(state, images)
+    em = d.eval_step(state, images)
+    rec = d.recover(state, images)
+    torch.cuda.synchronize()
+    assert cmconv_cuda.DTYPE_LAUNCHES[dtype] == want[0] + 2 * want[1]
+    assert cmconv_cuda.LAUNCHES == want[0] + 2 * want[1]
+    assert np.isfinite(float(m.loss)) and np.isfinite(float(em.loss))
+    assert rec.dtype == torch.float32 and rec.shape == images.shape
+    assert float(rec.abs().max()) <= 1.0
 
 
 # ---------------------------------------------------------------------------

@@ -417,7 +417,7 @@ def test_defense_entry_points_refuse_cpu_fallback(monkeypatch, tiny_cfg):
 
 @pytest.mark.parametrize("option", [
     dict(img_dir="x"), dict(victim_ckpt="x"), dict(initial_weights="x"),
-    dict(resume=True), dict(spatial=2), dict(packed=1), dict(bf16=True)])
+    dict(resume=True), dict(spatial=2)])
 def test_train_driver_refuses_unported_options(tmp_path, option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dtrain.train("efficientdet-lite0", device="cpu", save_dir=str(tmp_path),
@@ -427,13 +427,9 @@ def test_train_driver_refuses_unported_options(tmp_path, option):
 
 def test_defender_refuses_unported_options(pair):
     _, pdef = pair
-    for kw in (dict(packed=1), dict(packed_entry=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pdefender.PatchAttackDefender(pdef.config, pdef.net, device="cpu", **kw)
-    cfg = pconfig.Config(pdef.config.as_dict())
-    cfg.mixed_precision = True
-    with pytest.raises(NotImplementedError, match="bf16"):
-        pdefender.PatchAttackDefender(cfg, pdef.net, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pdefender.PatchAttackDefender(pdef.config, pdef.net, device="cpu",
+                                      packed_entry=1)
     with pytest.raises(ValueError, match="grad_accum"):
         pdefender.PatchAttackDefender(pdef.config, pdef.net, device="cpu",
                                       grad_accum=0)
