@@ -99,11 +99,11 @@ class PatchAttacker:
         """
         if bn_axis_name is not None:
             raise NotImplementedError(
-                "bn_axis_name is not ported yet (ROADMAP Queue 1 item 8, "
+                "bn_axis_name is not ported yet (ROADMAP Queue 1 item 6, "
                 "distribution)")
         if packed_entry:
             raise NotImplementedError(
-                "packed_entry is not ported yet (ROADMAP Queue 1 item 5)")
+                "packed_entry is not ported yet (ROADMAP Queue 1 item 3)")
         self.device = resolve_device(device)
         self.config = config
         self.spec: DetSpec = spec_from_config(config)

@@ -8,13 +8,20 @@ ReduceLROnPlateau(.5, min 1e-4, patience 50) on the validation loss.
 
 `train` keeps the JAX driver's signature and defaults, and adds `device`
 (CUDA unless "cpu" is asked for) and `victim_variables` (Flax variables of
-the victim, loaded through `ckpt/bridge.py`; without them the victim's
-weights are drawn from a seed by `models/init.py`). `mixed_precision`
-defaults to True, as in the JAX driver: the victim runs bf16 activations
-with float32 parameters and predictions, and the patch, the EOT composite
-and the loss stay float32 (`--fp32` opts out). Not ported yet, and raising
-`NotImplementedError`: `img_dir`, `victim_ckpt`, `resume`, `spatial > 1`
-and `packed_entry`. The data are synthetic.
+the victim, loaded through `ckpt/bridge.py`). The victim's weights come
+from `victim_ckpt` (a pytree file, `get_victim_variables`), from
+`victim_variables`, or else are drawn from a seed by `models/init.py`.
+`mixed_precision` defaults to True, as in the JAX driver: the victim runs
+bf16 activations with float32 parameters and predictions, and the patch,
+the EOT composite and the loss stay float32 (`--fp32` opts out). `resume`
+continues from `<save_dir>/state-latest.msgpack`, which every epoch writes:
+the patch, the scale, Adam's moments and LR, the step, the train steps' and
+the augmentation's generators, the loop counters and the plateau
+controller, with both synthetic streams fast-forwarded (JAX
+train.py:128-185), so a killed and resumed run repeats the uninterrupted
+one. Not ported yet, and raising `NotImplementedError`: `img_dir`,
+`spatial > 1`, `packed_entry`, and victim checkpoints in the orbax or TF
+formats. The data are synthetic.
 
 Usage:
     python -m mladversarialobjectdetection_torch.attack.train --synthetic \\
@@ -29,15 +36,17 @@ import numpy as np
 import torch
 
 from .. import config as config_lib
-from ..ckpt import bridge
+from ..ckpt import bridge, convert_tf
+from ..ckpt import io as ckpt_io
 from ..data import pipeline
 from ..models.efficientdet import EfficientDetNet, spec_from_config
 from ..models.init import init_weights
 from ..utils.device import resolve_device
 from ..utils.log import get_logger
+from ..utils import train_loop as train_loop_lib
 from ..utils.train_loop import MetricLogger, ReduceLROnPlateau, Throughput
 from . import artifacts
-from .attacker import PatchAttacker
+from .attacker import AttackState, PatchAttacker
 
 logger = get_logger(__name__)
 
@@ -58,6 +67,54 @@ def get_victim(config, *, seed: int = 0, variables=None,
     return net.to(resolve_device(device))
 
 
+def get_victim_variables(config, ckpt_path=None, *, seed: int = 0):
+    """The victim detector's Flax `{'params', 'batch_stats'}` variables
+    (JAX attack/train.py:40-67): restored from the pytree file at
+    `ckpt_path`, or drawn from `seed` as `get_victim` draws them. A
+    reference TF checkpoint there is recognised (`ckpt/convert_tf.py`) and
+    refused: its conversion is not ported."""
+    if ckpt_path:
+        tf_prefix = convert_tf.find_tf_checkpoint(ckpt_path)
+        if tf_prefix:
+            raise NotImplementedError(f"{tf_prefix}: {convert_tf.TF_NOT_PORTED}")
+        restored = ckpt_io.load_pytree(ckpt_path)
+        logger.info(f"restored victim detector from {ckpt_path}")
+        return {"params": restored["params"],
+                "batch_stats": restored.get("batch_stats", {})}
+    return bridge.torch_to_flax(get_victim(config, seed=seed, device="cpu"))
+
+
+def victim_source(config, victim_ckpt, victim_variables):
+    """The variables a driver's victim is built from (None: drawn from a
+    seed); `victim_ckpt` and `victim_variables` exclude each other."""
+    if victim_ckpt is None:
+        return victim_variables
+    if victim_variables is not None:
+        raise ValueError("pass victim_ckpt or victim_variables, not both")
+    return get_victim_variables(config, victim_ckpt)
+
+
+def attack_state_arrays(state: AttackState):
+    """An `AttackState` as the nested dicts of arrays `save_loop_state`
+    writes: patch, scale, step, Adam's state, the generator's state."""
+    return {"patch": state.patch.detach().cpu().numpy(),
+            "scale": state.scale.detach().cpu().numpy(),
+            "step": np.asarray(state.step, np.int64),
+            "generator": train_loop_lib.generator_state(state.generator),
+            "opt": train_loop_lib.adam_state(state.optimizer)}
+
+
+def load_attack_state(state: AttackState, arrays) -> AttackState:
+    """Restore `attack_state_arrays` into `state` (in place)."""
+    with torch.no_grad():
+        for t, name in ((state.patch, "patch"), (state.scale, "scale")):
+            t.copy_(torch.from_numpy(np.array(arrays[name], np.float32)))
+    train_loop_lib.load_adam_state(state.optimizer, arrays["opt"])
+    train_loop_lib.load_generator_state(state.generator, arrays["generator"])
+    state.step = int(arrays["step"])
+    return state
+
+
 def _not_ported(option: str, item: str):
     return NotImplementedError(f"{option} is not ported yet (ROADMAP {item})")
 
@@ -76,16 +133,11 @@ def train(model_name: str = "efficientdet-lite4", *,
     """Train an adversarial patch; returns the final `AttackState`."""
     if img_dir is not None:
         raise _not_ported("img_dir (ImageFolderSource, partition)",
-                          "Queue 1 item 3")
-    if victim_ckpt is not None:
-        raise _not_ported("victim_ckpt (checkpoint files)", "Queue 1 item 1")
-    if resume:
-        raise _not_ported("resume (save_loop_state / load_loop_state)",
                           "Queue 1 item 1")
     if spatial > 1:
-        raise _not_ported("spatial > 1", "Queue 1 item 8")
+        raise _not_ported("spatial > 1", "Queue 1 item 6")
     if packed_entry:
-        raise _not_ported("packed_entry", "Queue 1 item 5")
+        raise _not_ported("packed_entry", "Queue 1 item 3")
     del label_dir, synthetic  # only synthetic data is ported
     device = resolve_device(device)
 
@@ -102,6 +154,7 @@ def train(model_name: str = "efficientdet-lite4", *,
     if config_override:
         config.update(config_override)
 
+    victim_variables = victim_source(config, victim_ckpt, victim_variables)
     victim = get_victim(config, variables=victim_variables, device=device)
     attacker = PatchAttacker(config, victim, learning_rate=lr,
                              patch_size=patch_size, window=window or None,
@@ -117,20 +170,46 @@ def train(model_name: str = "efficientdet-lite4", *,
     plateau = ReduceLROnPlateau(factor=0.5, patience=50, min_lr=1e-4)
     best_val_loss = float("inf")
     aug_gen = torch.Generator(device=device).manual_seed(seed + 2)
-    put = lambda b: torch.from_numpy(b).to(device)
-    logger.info("using synthetic data")
-    train_iter = pipeline.prefetch(pipeline.synthetic_batches(
-        batch_size, config.image_size, seed=seed), device_put_fn=put)
-    val_iter = pipeline.prefetch(pipeline.synthetic_batches(
-        batch_size, config.image_size, seed=seed + 1), device_put_fn=put)
+    start_epoch = step = 0
+    latest = os.path.join(save_dir, "state-latest.msgpack")
+    if resume and os.path.exists(latest):
+        # full-state resume (JAX train.py:128-136): the trajectory of the
+        # uninterrupted run, where --initial-patch restores patch and scale
+        # only (the reference's semantics, attacker.py:328-341)
+        arrays, start_epoch, step, best_val_loss = \
+            train_loop_lib.load_loop_state(latest, attack_state_arrays(state),
+                                           aug_gen, plateau)
+        load_attack_state(state, arrays)
+        logger.info(f"resumed full state from {latest} "
+                    f"(epoch {start_epoch}, step {step})")
     spe = steps_per_epoch or 50
     val_steps = 5
+
+    def _viz_events(n_epochs: int) -> int:
+        """Visualisation epochs among the first n, each of which takes one
+        more val batch (JAX train.py:161-165)."""
+        if not visualize_freq or n_epochs <= 0:
+            return 0
+        period = max(1, visualize_freq // spe)
+        return (n_epochs + period - 1) // period
+
+    put = lambda b: torch.from_numpy(b).to(device)
+    logger.info("using synthetic data")
+    train_src = pipeline.synthetic_batches(batch_size, config.image_size,
+                                           seed=seed)
+    val_src = pipeline.synthetic_batches(batch_size, config.image_size,
+                                         seed=seed + 1)
+    if start_epoch:  # resume fast-forward of both streams
+        pipeline.skip_batches(train_src, start_epoch * spe)
+        pipeline.skip_batches(val_src, start_epoch * val_steps
+                              + _viz_events(start_epoch))
+    train_iter = pipeline.prefetch(train_src, device_put_fn=put)
+    val_iter = pipeline.prefetch(val_src, device_put_fn=put)
 
     os.makedirs(save_dir, exist_ok=True)
     mlog = MetricLogger(os.path.join(save_dir, "logs"))
     thr = Throughput()
-    step = 0
-    for epoch in range(epochs):
+    for epoch in range(start_epoch, epochs):
         thr.start()
         for _ in range(spe):
             batch = pipeline.augment_batch(next(train_iter), aug_gen)
@@ -185,6 +264,10 @@ def train(model_name: str = "efficientdet-lite4", *,
                                      float(state.scale.detach()), config.mean_rgb,
                                      config.stddev_rgb)
         plateau.update(val["loss"], state.optimizer)
+        # the full-state kill-and-resume checkpoint (see resume)
+        train_loop_lib.save_loop_state(
+            latest, attack_state_arrays(state), epoch=epoch + 1, step=step,
+            best=best_val_loss, plateau=plateau, aug_gen=aug_gen)
     mlog.close()
     return state
 
@@ -220,7 +303,9 @@ def main():
     p.add_argument("--packed-entry", type=int, default=0,
                    help="space-to-depth packed victim entry (not ported yet)")
     p.add_argument("--resume", action="store_true",
-                   help="full-state resume (not ported yet)")
+                   help="resume the full state (patch, Adam moments, "
+                        "generators, plateau LR, data position) from "
+                        "save_dir/state-latest.msgpack")
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
     args = p.parse_args()

@@ -20,7 +20,7 @@ The port's module names mirror Flax's, so the mapping is a rename:
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -97,6 +97,33 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
     return module
 
 
+def _flax_name(subs: Mapping[str, nn.Module], key: str, ndim: int
+               ) -> Tuple[str, list, str]:
+    """(collection, module path, leaf name) of the Flax variable that the
+    state_dict entry `key` of a tensor of `ndim` dimensions maps to."""
+    owner, _, leaf = key.rpartition(".")
+    sub = subs[owner]
+    path = owner.split(".") if owner else []
+    if isinstance(sub, BatchNorm) and leaf in _BN_FLAX:
+        collection, name = _BN_FLAX[leaf]
+        if getattr(sub, "FLAX_INNER_BN", True):
+            path = path + ["bn"]
+        return collection, path, name
+    if leaf == "weight" and ndim == 4:
+        return "params", path, "kernel"
+    if leaf in ("bias", "WSM"):
+        return "params", path, leaf
+    raise KeyError(f"no Flax name for {key}")
+
+
+def kernel_parameters(module: nn.Module) -> List[torch.Tensor]:
+    """The parameters of `module` whose Flax name is `kernel` (every conv
+    kernel, depthwise and transposed ones included), in module order."""
+    subs = dict(module.named_modules())
+    return [p for key, p in module.named_parameters()
+            if _flax_name(subs, key, p.dim())[2] == "kernel"]
+
+
 def torch_to_flax(module: nn.Module) -> Dict[str, Dict]:
     """The inverse of `load_flax_variables`: `module`'s weights as Flax
     `{'params', 'batch_stats'}` variables, nested dicts of float32 numpy
@@ -104,21 +131,10 @@ def torch_to_flax(module: nn.Module) -> Dict[str, Dict]:
     out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
     subs = dict(module.named_modules())
     for key, tensor in module.state_dict().items():
-        owner, _, leaf = key.rpartition(".")
-        sub = subs[owner]
-        path = owner.split(".") if owner else []
         arr = tensor.detach().to("cpu", torch.float32).numpy()
-        if isinstance(sub, BatchNorm) and leaf in _BN_FLAX:
-            collection, name = _BN_FLAX[leaf]
-            if getattr(sub, "FLAX_INNER_BN", True):
-                path = path + ["bn"]
-        elif leaf == "weight" and arr.ndim == 4:
-            collection, name = "params", "kernel"
+        collection, path, name = _flax_name(subs, key, arr.ndim)
+        if name == "kernel":
             arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
-        elif leaf in ("bias", "WSM"):
-            collection, name = "params", leaf
-        else:
-            raise KeyError(f"no Flax name for {key}")
         node = out[collection]
         for seg in path:
             node = node.setdefault(seg, {})

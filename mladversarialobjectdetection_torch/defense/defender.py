@@ -96,7 +96,7 @@ class PatchAttackDefender:
         """
         if packed_entry:
             raise NotImplementedError(
-                "packed_entry is not ported yet (ROADMAP Queue 1 item 5)")
+                "packed_entry is not ported yet (ROADMAP Queue 1 item 3)")
         self.unet_dtype = (torch.bfloat16 if config.get("mixed_precision")
                            else torch.float32)
         victim_dtype = getattr(victim, "compute_dtype", torch.float32)

@@ -13,15 +13,24 @@ format (`ckpt/io.py`), which its `ckpt/io.load_pytree` reads.
 
 `train` keeps the JAX driver's signature and defaults, and adds `device`
 (CUDA unless "cpu" is asked for) and `victim_variables` (Flax variables of
-the victim; without them its weights are drawn from a seed). The data are
-synthetic. `bf16` sets `config.mixed_precision` before the victim is built
+the victim). The victim's weights come from `victim_ckpt` (a pytree file,
+`attack.train.get_victim_variables`), from `victim_variables`, or else are
+drawn from a seed. `initial_weights` starts the U-Net from an
+`antipatch.pkl` (`ckpt/convert_defense.load_antipatch`: its weights only,
+the reference's semantics); `resume` continues from
+`<save_dir>/state-latest.msgpack`, which every epoch writes: the U-Net's
+parameters and BatchNorm statistics, Adam's moments and LR, the step, the
+train steps' and the augmentation's generators, the loop counters and the
+plateau controller, with both synthetic streams fast-forwarded (JAX
+train.py:89-124), so a killed and resumed run repeats the uninterrupted
+one. The data are synthetic. `bf16` sets `config.mixed_precision` before the victim is built
 (bf16 victim and U-Net, float32 parameters and loss), as the JAX driver
 does; `packed` picks the space-to-depth U-Net (`models/unet_packed.py`, the
 same parameters and `antipatch.pkl`), `--packed` with no value packing 3
 levels as the JAX driver's. Not ported yet, and raising
-`NotImplementedError`: `img_dir`, `victim_ckpt`, `initial_weights`,
-`resume` and `spatial > 1`; the reference-format `antipatch.h5` mirror is
-not written (no h5py on the card).
+`NotImplementedError`: `img_dir`, `spatial > 1`, victim checkpoints in the
+orbax or TF formats and `.h5` initial weights; the reference-format
+`antipatch.h5` mirror is not written (no h5py on the card).
 
 An untrained victim at score threshold .5 finds nobody, so the masker
 plants nothing: pass `config_override={"nms_configs": {"score_thresh":
@@ -41,20 +50,43 @@ import torch
 
 from .. import config as config_lib
 from ..attack import artifacts
-from ..attack.train import get_victim
+from ..attack.train import get_victim, victim_source
 from ..ckpt import bridge
 from ..ckpt import io as ckpt_io
+from ..ckpt.convert_defense import load_antipatch
 from ..data import pipeline
 from ..utils.device import resolve_device
 from ..utils.log import get_logger
+from ..utils import train_loop as train_loop_lib
 from ..utils.train_loop import MetricLogger, ReduceLROnPlateau, Throughput
-from .defender import PatchAttackDefender
+from .defender import DefenderState, PatchAttackDefender
 
 logger = get_logger(__name__)
 
 
 def _not_ported(option: str, item: str):
     return NotImplementedError(f"{option} is not ported yet (ROADMAP {item})")
+
+
+def defender_state_arrays(state: DefenderState):
+    """A `DefenderState` as the nested dicts of arrays `save_loop_state`
+    writes: the U-Net's parameters and BatchNorm statistics, the step,
+    Adam's state and the generator's state."""
+    return {"unet": {k: v.detach().cpu().numpy()
+                     for k, v in state.unet.state_dict().items()},
+            "step": np.asarray(state.step, np.int64),
+            "generator": train_loop_lib.generator_state(state.generator),
+            "opt": train_loop_lib.adam_state(state.optimizer)}
+
+
+def load_defender_state(state: DefenderState, arrays) -> DefenderState:
+    """Restore `defender_state_arrays` into `state` (in place)."""
+    state.unet.load_state_dict({k: torch.from_numpy(np.array(v))
+                                for k, v in arrays["unet"].items()})
+    train_loop_lib.load_adam_state(state.optimizer, arrays["opt"])
+    train_loop_lib.load_generator_state(state.generator, arrays["generator"])
+    state.step = int(arrays["step"])
+    return state
 
 
 def _nanmean(xs):
@@ -76,17 +108,11 @@ def train(model_name: str = "efficientdet-lite4", *,
     """Train the defender U-Net; returns the final `DefenderState`."""
     if img_dir is not None:
         raise _not_ported("img_dir (ImageFolderSource, partition)",
-                          "Queue 1 item 3")
-    if victim_ckpt is not None:
-        raise _not_ported("victim_ckpt (checkpoint files)", "Queue 1 item 1")
-    if initial_weights is not None:
-        raise _not_ported("initial_weights (ckpt/convert_defense.py)",
-                          "Queue 1 item 1")
-    if resume:
-        raise _not_ported("resume (save_loop_state / load_loop_state)",
                           "Queue 1 item 1")
     if spatial > 1:
-        raise _not_ported("spatial > 1", "Queue 1 item 8")
+        raise _not_ported("spatial > 1", "Queue 1 item 6")
+    # weights only (the reference's initial_weights, attack_detection.py:54-55)
+    unet_vars = load_antipatch(initial_weights) if initial_weights else None
     del label_dir, synthetic  # only synthetic data is ported
     device = resolve_device(device)
 
@@ -108,30 +134,45 @@ def train(model_name: str = "efficientdet-lite4", *,
             -1, 1, size=(640, 640, 3)).astype(np.float32)
         scale = 0.4
 
+    victim_variables = victim_source(config, victim_ckpt, victim_variables)
     victim = get_victim(config, variables=victim_variables, device=device)
     defender = PatchAttackDefender(config, victim, eval_patch=patch_np,
                                    eval_scale=scale, learning_rate=lr,
                                    grad_accum=grad_accum, packed=packed,
                                    device=device)
-    state = defender.init_state(seed)
+    state = defender.init_state(seed, variables=unet_vars)
 
     plateau = ReduceLROnPlateau(factor=0.5, patience=50, min_lr=1e-4)
     best_val = float("inf")
     aug_gen = torch.Generator(device=device).manual_seed(seed + 2)
-    put = lambda b: torch.from_numpy(b).to(device)
-    logger.info("using synthetic data")
-    train_iter = pipeline.prefetch(pipeline.synthetic_batches(
-        batch_size, config.image_size, seed=seed), device_put_fn=put)
-    val_iter = pipeline.prefetch(pipeline.synthetic_batches(
-        batch_size, config.image_size, seed=seed + 1), device_put_fn=put)
+    start_epoch = step = 0
+    latest = os.path.join(save_dir, "state-latest.msgpack")
+    if resume and os.path.exists(latest):
+        # full-state resume (JAX train.py:89-96); initial_weights restores
+        # the weights only
+        arrays, start_epoch, step, best_val = train_loop_lib.load_loop_state(
+            latest, defender_state_arrays(state), aug_gen, plateau)
+        load_defender_state(state, arrays)
+        logger.info(f"resumed full state from {latest} "
+                    f"(epoch {start_epoch}, step {step})")
     spe = steps_per_epoch or 50
     val_steps = 5
+    put = lambda b: torch.from_numpy(b).to(device)
+    logger.info("using synthetic data")
+    train_src = pipeline.synthetic_batches(batch_size, config.image_size,
+                                           seed=seed)
+    val_src = pipeline.synthetic_batches(batch_size, config.image_size,
+                                         seed=seed + 1)
+    if start_epoch:  # resume fast-forward of both streams
+        pipeline.skip_batches(train_src, start_epoch * spe)
+        pipeline.skip_batches(val_src, start_epoch * val_steps)
+    train_iter = pipeline.prefetch(train_src, device_put_fn=put)
+    val_iter = pipeline.prefetch(val_src, device_put_fn=put)
 
     os.makedirs(save_dir, exist_ok=True)
     mlog = MetricLogger(os.path.join(save_dir, "logs"))
     thr = Throughput()
-    step = 0
-    for epoch in range(epochs):
+    for epoch in range(start_epoch, epochs):
         thr.start()
         for _ in range(spe):
             batch = pipeline.augment_batch(next(train_iter), aug_gen)
@@ -178,6 +219,10 @@ def train(model_name: str = "efficientdet-lite4", *,
             ckpt_io.save_pytree(os.path.join(art_dir, "antipatch"),
                                 bridge.torch_to_flax(state.unet))
         plateau.update(val_loss, state.optimizer)
+        # the full-state kill-and-resume checkpoint (see resume)
+        train_loop_lib.save_loop_state(
+            latest, defender_state_arrays(state), epoch=epoch + 1, step=step,
+            best=best_val, plateau=plateau, aug_gen=aug_gen)
     mlog.close()
     return state
 
@@ -196,7 +241,8 @@ def main():
     p.add_argument("--lr", type=float, default=1e-2)
     p.add_argument("--steps-per-epoch", type=int, default=None)
     p.add_argument("--initial-weights", default=None,
-                   help="not ported yet")
+                   help="start the U-Net from an antipatch.pkl (weights "
+                        "only)")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--image-size", type=int, default=None)
     p.add_argument("--hparams", default=None,
@@ -214,7 +260,10 @@ def main():
                         "weights: N packs the first N resolution levels "
                         "(1-3); bare --packed = 3. A TPU layout: slower "
                         "than the unpacked U-Net on an H100 (PERF.md)")
-    p.add_argument("--resume", action="store_true", help="not ported yet")
+    p.add_argument("--resume", action="store_true",
+                   help="resume the full state (U-Net, Adam moments, "
+                        "generators, plateau LR, data position) from "
+                        "save_dir/state-latest.msgpack")
     p.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = p.parse_args()
     train(args.model, img_dir=args.img_dir, label_dir=args.label_dir,

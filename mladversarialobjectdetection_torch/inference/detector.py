@@ -11,8 +11,10 @@ the CUDA kernel); `serve_streams` batches several frame sources,
 `config.mixed_precision` (`params={"mixed_precision": True}`) serves in
 bf16, as the JAX `Detector` does through `EfficientDetNet`: bf16 activations
 and the fused blocks' bf16 kernels, float32 predictions, so postprocessing
-and NMS see float32. `quantize_int8`, `export`, checkpoint paths, meshes and
-`packed_entry` are not ported yet and raise.
+and NMS see float32. `ckpt_path` loads a pytree file of Flax variables
+(`ckpt/io.load_pytree`, either package's `<path>.pkl`); a reference TF
+checkpoint or an orbax directory there raises. `quantize_int8`, `export`,
+meshes and `packed_entry` are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ import numpy as np
 import torch
 
 from .. import config as config_lib
-from ..ckpt import bridge
+from ..ckpt import bridge, convert_tf
+from ..ckpt import io as ckpt_io
 from ..models.efficientdet import EfficientDetNet, spec_from_config
 from ..models.init import init_weights
 from ..ops import postprocess
@@ -35,8 +38,9 @@ logger = get_logger(__name__)
 POST_MODES = ("global", "per_class", "combined", "tflite")
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1)")
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
 def _numpy(det: postprocess.Detections) -> postprocess.Detections:
@@ -59,21 +63,29 @@ class Detector:
           model_name: efficientdet variant.
           params: config override dict (e.g. {'nms_configs': {...}}).
           seed: seed of the random initial weights (`models/init.py`); load
-            trained weights with `load_flax_variables`.
+            trained weights with `ckpt_path` or `load_flax_variables`.
           device: "cuda" (the default) or "cpu".
           post_mode: "global", "per_class", "combined" or "tflite"
             (normalized boxes, 0-based classes, no scale-back).
-          ckpt_path, mesh, packed_entry: not ported yet; anything but the
-            default raises.
+          ckpt_path: a pytree file of the detector's Flax variables
+            (`<ckpt_path>.pkl`, JAX detector.py:71-83); random weights if
+            None.
+          mesh, packed_entry: not ported yet; anything but the default
+            raises.
         """
         if post_mode not in POST_MODES:
             raise ValueError(f"post_mode {post_mode!r}: want one of {POST_MODES}")
-        if ckpt_path is not None:
-            raise _not_ported("ckpt_path (checkpoint files)")
         if mesh is not None:
-            raise _not_ported("mesh (distribution)")
+            raise _not_ported("mesh (distribution)", 6)
         if packed_entry:
-            raise _not_ported("packed_entry")
+            raise _not_ported("packed_entry", 3)
+        variables = None
+        if ckpt_path:
+            tf_prefix = convert_tf.find_tf_checkpoint(ckpt_path)
+            if tf_prefix:
+                raise NotImplementedError(
+                    f"{tf_prefix}: {convert_tf.TF_NOT_PORTED}")
+            variables = ckpt_io.load_pytree(ckpt_path)
         self.device = resolve_device(device)
         self.post_mode = post_mode
         self.config = config_lib.get_efficientdet_config(model_name)
@@ -81,7 +93,10 @@ class Detector:
             self.config.override(params, allow_new_keys=False)
         self.spec = spec_from_config(self.config)
         self.net = EfficientDetNet(self.spec).eval()
-        init_weights(self.net, torch.Generator().manual_seed(seed))
+        if variables is None:
+            init_weights(self.net, torch.Generator().manual_seed(seed))
+        else:
+            bridge.load_flax_variables(self.net, variables)
         self.net.to(self.device)
         self._params_dict = self.config.as_dict()
 
@@ -221,7 +236,7 @@ class Detector:
                 yield _row(det, i)
 
     def quantize_int8(self, *args, **kwargs):
-        raise _not_ported("quantize_int8")
+        raise _not_ported("quantize_int8", 5)
 
     def export(self, *args, **kwargs):
-        raise _not_ported("export")
+        raise _not_ported("export", 5)

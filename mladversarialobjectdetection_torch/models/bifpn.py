@@ -1,4 +1,4 @@
-"""BiFPN feature network in PyTorch (eval mode, NCHW inside).
+"""BiFPN feature network in PyTorch (NCHW inside; `training` as Flax's).
 
 Port of `mladversarialobjectdetection_tpu/models/bifpn.py`: the same DAG
 topologies (copied), the same resampling and the same weighted fusion. Every
@@ -167,23 +167,23 @@ class ResampleFeatureMap(nn.Module):
                 self.bn = BatchNorm(target_num_channels)
         set_compute_dtype(self, dtype)
 
-    def _maybe_1x1(self, x: torch.Tensor) -> torch.Tensor:
+    def _maybe_1x1(self, x: torch.Tensor, training: bool) -> torch.Tensor:
         if self.conv2d is not None:
             x = self.conv2d(x)
             if self.bn is not None:
-                x = self.bn(x)
+                x = self.bn(x, training)
         return x
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
         th, tw = self.target_hw
         if self.mode == "pool":
             if not self.conv_after_downsample:
-                x = self._maybe_1x1(x)
+                x = self._maybe_1x1(x, training)
             x = _max_pool_to(x, th, tw)
             if self.conv_after_downsample:
-                x = self._maybe_1x1(x)
+                x = self._maybe_1x1(x, training)
             return x
-        x = self._maybe_1x1(x)
+        x = self._maybe_1x1(x, training)
         if self.mode == "upsample":
             x = _nearest_upsample_to(x, th, tw)
         return x
@@ -235,8 +235,9 @@ class FNode(nn.Module):
             self.conv = Conv2d(c, c, 3, bias=use_bias, init="fan_in_truncated")
         self.bn = BatchNorm(c)
 
-    def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
-        nodes = [getattr(self, f"resample_{i}_{offset}")(feats[offset])
+    def forward(self, feats: Sequence[torch.Tensor],
+                training: bool = False) -> torch.Tensor:
+        nodes = [getattr(self, f"resample_{i}_{offset}")(feats[offset], training)
                  for i, offset in enumerate(self.inputs_offsets)]
         wm = self.weight_method
         n = len(nodes)
@@ -266,7 +267,7 @@ class FNode(nn.Module):
             new_node = self.conv_pw(self.conv_dw(new_node))
         else:
             new_node = self.conv(new_node)
-        new_node = self.bn(new_node)
+        new_node = self.bn(new_node, training)
         if self.conv_bn_act_pattern:
             new_node = activation(new_node, self.act_type)
         return new_node
@@ -290,10 +291,11 @@ class FPNCell(nn.Module):
                 node.inputs_offsets, shapes, fpn_num_filters, hw, **node_kw))
             shapes.append((fpn_num_filters, hw))
 
-    def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def forward(self, feats: Sequence[torch.Tensor],
+                training: bool = False) -> List[torch.Tensor]:
         feats = list(feats)
         for i in range(self.num_nodes):
-            feats.append(getattr(self, f"fnode{i}")(feats))
+            feats.append(getattr(self, f"fnode{i}")(feats, training))
         return feats
 
 
@@ -329,8 +331,9 @@ class FPNCells(nn.Module):
                         for level in levels]
         set_compute_dtype(self, dtype)
 
-    def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def forward(self, feats: Sequence[torch.Tensor],
+                training: bool = False) -> List[torch.Tensor]:
         for rep in range(self.fpn_cell_repeats):
-            cell_feats = getattr(self, f"cell_{rep}")(feats)
+            cell_feats = getattr(self, f"cell_{rep}")(feats, training)
             feats = [cell_feats[i] for i in self._select]
         return feats

@@ -1,4 +1,4 @@
-"""EfficientDet detector assembly in PyTorch (eval mode).
+"""EfficientDet detector assembly in PyTorch.
 
 Port of `mladversarialobjectdetection_tpu/models/efficientdet.py`: backbone
 -> extra `ResampleFeatureMap` for levels 6..max_level -> FPN cells ->
@@ -100,7 +100,8 @@ class EfficientDetNet(nn.Module):
     def __init__(self, spec: DetSpec, packed_entry: int = 0):
         super().__init__()
         if packed_entry:
-            raise NotImplementedError("packed_entry is not ported yet")
+            raise NotImplementedError(
+                "packed_entry is not ported yet (ROADMAP Queue 1 item 3)")
         if tuple(spec.heads) != ("object_detection",):
             raise NotImplementedError(
                 f"heads {spec.heads}: only object_detection is ported")
@@ -135,20 +136,30 @@ class EfficientDetNet(nn.Module):
             spec.box_class_repeats, spec.act_type, spec.separable_conv,
             spec.survival_prob, dtype=cdtype)
 
-    def pyramid(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def pyramid(self, x: torch.Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
         """NCHW images -> NCHW features of levels min..max, before the BiFPN."""
-        endpoints = self.backbone(x)
+        endpoints = self.backbone(x, training, generator)
         feats = [endpoints[level - 1] for level in self._backbone_levels]
         for level in range(6, self.spec.max_level + 1):
-            feats.append(getattr(self, f"resample_p{level}")(feats[-1]))
+            feats.append(getattr(self, f"resample_p{level}")(feats[-1], training))
         return feats
 
-    def forward(self, images: torch.Tensor
+    def forward(self, images: torch.Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         """[B, H, W, 3] images -> (class, box) outputs, per level [B, h, w, C],
-        float32 (the images cast to the compute dtype first)."""
+        float32 (the images cast to the compute dtype first).
+
+        `training` is Flax's argument (efficientdet.py:104), never the
+        module's own `training` flag: train-mode BatchNorm (batch
+        statistics, running statistics moved in place), every backbone
+        block unfused, and drop-connect drawn from `generator` where
+        `survival_prob` is set."""
         x = images.to(self.compute_dtype).permute(0, 3, 1, 2)
-        fpn_feats = self.fpn_cells(self.pyramid(x))
+        fpn_feats = self.fpn_cells(self.pyramid(x, training, generator), training)
         nhwc = lambda outs: [o.permute(0, 2, 3, 1).to(torch.float32).contiguous()
                              for o in outs]
-        return nhwc(self.class_net(fpn_feats)), nhwc(self.box_net(fpn_feats))
+        return (nhwc(self.class_net(fpn_feats, training)),
+                nhwc(self.box_net(fpn_feats, training)))

@@ -1,4 +1,4 @@
-"""EfficientNet / EfficientNet-lite backbone in PyTorch (eval mode).
+"""EfficientNet / EfficientNet-lite backbone in PyTorch.
 
 Port of `mladversarialobjectdetection_tpu/models/efficientnet.py`. The
 block-string decoding, width/depth rounding and lite rules are copies of
@@ -14,7 +14,11 @@ PyTorch's defaults differ:
 
 - Flax `"SAME"` padding is asymmetric for stride 2: `same_pads`.
 - Flax `BatchNorm` in eval mode computes
-  `(x - mean) * (rsqrt(var + eps) * scale) + bias` with eps 1e-3: `BatchNorm`.
+  `(x - mean) * (rsqrt(var + eps) * scale) + bias` with eps 1e-3, and in
+  train mode (an explicit `training` argument, as Flax's) normalises by the
+  batch statistics with the variance E[x^2] - E[x]^2 clipped at 0, in
+  float32, and moves the running statistics by that biased variance at
+  momentum .99: `batch_norm`, `BatchNorm` (the U-Net's too).
 
 Mixed precision follows Flax's explicit `dtype=` (the JAX package's
 `EfficientNet(..., dtype=bf16)`), not `torch.autocast`, whose op lists
@@ -27,8 +31,10 @@ rounds once; a fused block runs the kernels' bf16 instance.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import re
+import threading
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -90,6 +96,7 @@ DEFAULT_BLOCK_STRINGS = (
 )
 
 BN_EPSILON = 1e-3  # efficientnet.py:164 and the BatchNorm defaults at 180-181
+BN_MOMENTUM = 0.99
 
 
 def decode_block_string(s: str) -> BlockArgs:
@@ -247,36 +254,96 @@ class Conv2d(nn.Conv2d):
         return y if bias is None else y + bias.view(1, -1, 1, 1)
 
 
-class BatchNorm(nn.Module):
-    """Frozen (eval-mode) batch norm in Flax's order of operations.
+def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               mean: torch.Tensor, var: torch.Tensor, *, training: bool,
+               momentum: float = BN_MOMENTUM, eps: float = BN_EPSILON):
+    """Flax `nn.BatchNorm` over NCHW x; returns (y, new mean, new var).
 
-    Hazard: `F.batch_norm` computes `(x - mean) / sqrt(var + eps) * w + b`;
-    Flax computes `(x - mean) * (rsqrt(var + eps) * scale) + bias`
-    (flax.linen.normalization._normalize). The port uses Flax's order and
-    eps 1e-3 (efficientnet.py:164), so fp32 results match to rounding.
-    The Flax wrapper nests `nn.BatchNorm` as `bn`; this module holds the
+    Train mode normalizes by the batch statistics and returns the running
+    statistics moved toward them (Flax's `mutable=["batch_stats"]`); eval
+    mode normalizes by `mean` / `var` and returns them unchanged."""
+    if training:
+        mu = x.mean(dim=(0, 2, 3))
+        batch_var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mu * mu, 0.0)
+        new_mean = momentum * mean + (1.0 - momentum) * mu.detach()
+        new_var = momentum * var + (1.0 - momentum) * batch_var.detach()
+    else:
+        mu, batch_var, new_mean, new_var = mean, var, mean, var
+    shape = (1, -1, 1, 1)
+    mul = torch.rsqrt(batch_var + eps) * weight
+    y = (x - mu.view(shape)) * mul.view(shape) + bias.view(shape)
+    return y, new_mean, new_var
+
+
+_RECOMPUTE = threading.local()  # .active: a remat recompute is running
+
+
+def recomputing() -> bool:
+    """Whether a remat recompute is running in this thread."""
+    return getattr(_RECOMPUTE, "active", False)
+
+
+@contextlib.contextmanager
+def _recompute():
+    """The block pass inside runs again for remat: its BatchNorms leave their
+    running statistics as they are."""
+    before = getattr(_RECOMPUTE, "active", False)
+    _RECOMPUTE.active = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.active = before
+
+
+class BatchNorm(nn.Module):
+    """Flax `nn.BatchNorm` (the JAX wrapper `BatchNorm`, efficientnet.py:174-193),
+    eps 1e-3 and momentum .99, with an explicit `training` argument as Flax
+    has: a module's own `nn.Module.training` is not read, so a victim that
+    was never `.eval()`'d still normalises by its running statistics.
+
+    Eval mode computes `(x - mean) * (rsqrt(var + eps) * scale) + bias`
+    (flax.linen.normalization._normalize). Hazard: `F.batch_norm` divides by
+    `sqrt(var + eps)` and multiplies after, which differs by rounding. Train
+    mode normalises by the batch statistics (`batch_norm`) and moves the
+    running statistics in place, not in a remat recompute. The detector's
+    Flax wrapper nests `nn.BatchNorm` as `bn`; this module holds the
     parameters directly (the bridge drops that segment). With a
     `compute_dtype` it normalises in float32 and returns that dtype.
     """
     compute_dtype: Optional[torch.dtype] = None
 
-    def __init__(self, num_features: int, eps: float = BN_EPSILON):
+    def __init__(self, num_features: int, eps: float = BN_EPSILON,
+                 momentum: float = BN_MOMENTUM):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+    def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
         cd = self.compute_dtype
         if cd is not None:
             x = x.to(torch.float32)
-        y = ((x - self.running_mean.view(shape)) * mul.view(shape)
-             + self.bias.view(shape))
+        y, new_mean, new_var = batch_norm(
+            x, self.weight, self.bias, self.running_mean, self.running_var,
+            training=training, momentum=self.momentum, eps=self.eps)
+        if training and not recomputing():
+            with torch.no_grad():
+                self.running_mean.copy_(new_mean)
+                self.running_var.copy_(new_var)
         return y if cd is None else y.to(cd)
+
+
+def drop_connect(x: torch.Tensor, generator: torch.Generator,
+                 survival_prob: float) -> torch.Tensor:
+    """Stochastic depth (efficientnet.py:196-200, automl utils.py:329-341):
+    keep each example's residual branch with probability `survival_prob`
+    (a uniform draw from `generator` below it) and scale it by its inverse."""
+    keep = torch.rand((x.shape[0], 1, 1, 1), generator=generator,
+                      device=x.device) < survival_prob
+    return x / survival_prob * keep.to(x.dtype)
 
 
 def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> None:
@@ -323,6 +390,9 @@ class MBConvBlock(nn.Module):
     The other blocks, and the tests' reference, run `_forward_unfused`.
     A bf16 input runs the op's bf16 instance on the fold in bf16
     (`folded(torch.bfloat16)`: We and Wp in bf16), cached per dtype.
+
+    In training (`training=True`) every block runs `_forward_unfused`: the
+    fused op computes frozen BatchNorm and has no weight gradient.
     """
 
     def __init__(self, args: BlockArgs, spec: BackboneSpec, in_channels: int):
@@ -373,7 +443,11 @@ class MBConvBlock(nn.Module):
                 hit = self._folded[dtype] = (key, mbconv_ops.fold_block(self).in_dtype(dtype))
         return hit[1]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, training: bool = False,
+                survival_prob: Optional[float] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if training:
+            return self._forward_unfused(x, training, survival_prob, generator)
         if not self.fuseable:
             return self._forward_unfused(x)
         y = mbconv_ops.mbconv(mbconv_ops.nhwc(x.permute(0, 2, 3, 1)),
@@ -381,15 +455,25 @@ class MBConvBlock(nn.Module):
                               residual=self.residual)
         return y.permute(0, 3, 1, 2)
 
-    def _forward_unfused(self, x: torch.Tensor) -> torch.Tensor:
+    def _forward_unfused(self, x: torch.Tensor, training: bool = False,
+                         survival_prob: Optional[float] = None,
+                         generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
         inputs = x
         if self.args.expand_ratio != 1:
-            x = activation(self.bn0(self.expand_conv(x)), self.act_type)
-        x = activation(self.bn1(self.depthwise_conv(x)), self.act_type)
+            x = activation(self.bn0(self.expand_conv(x), training),
+                           self.act_type)
+        x = activation(self.bn1(self.depthwise_conv(x), training),
+                       self.act_type)
         if self.se is not None:
             x = self.se(x)
-        x = self.bn2(self.project_conv(x))
-        if self.residual:  # drop-connect is a training-only op
+        x = self.bn2(self.project_conv(x), training)
+        if self.residual:
+            if training and survival_prob:
+                if generator is None:  # Flax: no "dropout" rng
+                    raise ValueError("drop-connect in training needs a "
+                                     "generator")
+                x = drop_connect(x, generator, survival_prob)
             x = x + inputs
         return x
 
@@ -398,7 +482,9 @@ class EfficientNet(nn.Module):
     """Backbone returning the reduction_1..5 endpoints (efficientnet.py:270-301).
 
     `dtype`: the compute dtype (None: float32; torch.bfloat16 as the JAX
-    `EfficientNet(..., dtype)`); the endpoints come in it."""
+    `EfficientNet(..., dtype)`); the endpoints come in it. `training` as
+    Flax's argument: train-mode BatchNorm, every block unfused, and
+    drop-connect from `generator` where `spec.survival_prob` is set."""
 
     def __init__(self, spec: BackboneSpec, in_channels: int = 3,
                  dtype: Optional[torch.dtype] = None):
@@ -419,11 +505,19 @@ class EfficientNet(nn.Module):
             spec.blocks[idx].output_filters for idx in self._reductions]
         set_compute_dtype(self, dtype)
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        x = activation(self.stem_bn(self.stem_conv(x)), self.spec.act_type)
+    def forward(self, x: torch.Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
+        spec = self.spec
+        x = activation(self.stem_bn(self.stem_conv(x), training), spec.act_type)
         endpoints = []
-        for idx in range(len(self.spec.blocks)):
-            x = getattr(self, f"blocks_{idx}")(x)
+        n_blocks = len(spec.blocks)
+        for idx in range(n_blocks):
+            survival_prob = None
+            if spec.survival_prob:  # efficientnet.py:289-292
+                survival_prob = 1.0 - (1.0 - spec.survival_prob) * float(idx) / n_blocks
+            x = getattr(self, f"blocks_{idx}")(x, training, survival_prob,
+                                               generator)
             if idx in self._reductions:
                 endpoints.append(x)
         return endpoints  # [reduction_1 .. reduction_5]

@@ -1,4 +1,5 @@
-"""ClassNet / BoxNet prediction heads in PyTorch (eval mode, NCHW inside).
+"""ClassNet / BoxNet prediction heads in PyTorch (NCHW inside; `training`
+as Flax's: train-mode BatchNorm).
 
 Port of `mladversarialobjectdetection_tpu/models/heads.py:23-103,139-148`:
 `repeats` separable convs whose weights are SHARED across pyramid levels,
@@ -62,17 +63,18 @@ class PredictionNet(nn.Module):
                 self.add_module(f"bn_{i}_l{level_id}", BatchNorm(num_filters))
         set_compute_dtype(self, dtype)
 
-    def forward(self, inputs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def forward(self, inputs: Sequence[torch.Tensor],
+                training: bool = False) -> List[torch.Tensor]:
         outputs = []
         for level_id in range(self.num_levels):
             x = inputs[level_id]
             for i in range(self.repeats):
                 original = x
                 x = getattr(self, f"conv_{i}")(x)
-                x = getattr(self, f"bn_{i}_l{level_id}")(x)
+                x = getattr(self, f"bn_{i}_l{level_id}")(x, training)
                 x = activation(x, self.act_type)
                 if i > 0 and self.survival_prob:
-                    x = x + original  # drop-connect is training-only
+                    x = x + original  # no drop-connect, as heads.py:86-88
             outputs.append(self.predict(x))
         return outputs
 

@@ -53,8 +53,6 @@ statistics a second time (Flax is functional and moves them once).
 """
 from __future__ import annotations
 
-import contextlib
-import threading
 from typing import Optional
 
 import torch
@@ -63,78 +61,23 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.cmconv import cmconv
-from .efficientnet import BatchNorm as _FrozenBatchNorm
-from .efficientnet import Conv2d, set_compute_dtype
+from .efficientnet import BN_MOMENTUM, Conv2d, set_compute_dtype
+from .efficientnet import BatchNorm as _BatchNorm
+from .efficientnet import _recompute, batch_norm, recomputing  # noqa: F401
 
 LEAKY_SLOPE = 0.2
 BN_EPS = 1e-3
-BN_MOMENTUM = 0.99
 CMCONV_MAX_FILTERS = 16
 HE_INIT = "he_truncated"       # variance_scaling(2.0, fan_in, truncated_normal)
 LECUN_INIT = "fan_in_truncated"  # Flax's default lecun_normal
 
 
-def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               mean: torch.Tensor, var: torch.Tensor, *, training: bool,
-               momentum: float = BN_MOMENTUM, eps: float = BN_EPS):
-    """Flax `nn.BatchNorm` over NCHW x; returns (y, new mean, new var).
-
-    Train mode normalizes by the batch statistics and returns the running
-    statistics moved toward them (Flax's `mutable=["batch_stats"]`); eval
-    mode normalizes by `mean` / `var` and returns them unchanged."""
-    if training:
-        mu = x.mean(dim=(0, 2, 3))
-        batch_var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mu * mu, 0.0)
-        new_mean = momentum * mean + (1.0 - momentum) * mu.detach()
-        new_var = momentum * var + (1.0 - momentum) * batch_var.detach()
-    else:
-        mu, batch_var, new_mean, new_var = mean, var, mean, var
-    shape = (1, -1, 1, 1)
-    mul = torch.rsqrt(batch_var + eps) * weight
-    y = (x - mu.view(shape)) * mul.view(shape) + bias.view(shape)
-    return y, new_mean, new_var
-
-
-_RECOMPUTE = threading.local()  # .active: a remat recompute is running
-
-
-def recomputing() -> bool:
-    """Whether a remat recompute is running in this thread."""
-    return getattr(_RECOMPUTE, "active", False)
-
-
-@contextlib.contextmanager
-def _recompute():
-    """The block pass inside runs again for remat: its BatchNorms leave their
-    running statistics as they are."""
-    before = getattr(_RECOMPUTE, "active", False)
-    _RECOMPUTE.active = True
-    try:
-        yield
-    finally:
-        _RECOMPUTE.active = before
-
-
-class BatchNorm(_FrozenBatchNorm):
-    """Trainable Flax BatchNorm; in train mode its running statistics are
-    updated in place (not in a remat recompute). Flax names it `bn1`..`bn3`
-    directly, with no inner `bn` wrapper. With a `compute_dtype` it
-    normalises in float32 and rounds the output to that dtype."""
+class BatchNorm(_BatchNorm):
+    """Flax BatchNorm (`efficientnet.BatchNorm`, shared with the detector);
+    Flax names the U-Net's `bn1`..`bn3` directly, with no inner `bn`
+    wrapper."""
 
     FLAX_INNER_BN = False
-
-    def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
-        cd = self.compute_dtype
-        if cd is not None:
-            x = x.to(torch.float32)
-        y, new_mean, new_var = batch_norm(x, self.weight, self.bias,
-                                          self.running_mean, self.running_var,
-                                          training=training, eps=self.eps)
-        if training and not recomputing():
-            with torch.no_grad():
-                self.running_mean.copy_(new_mean)
-                self.running_var.copy_(new_var)
-        return y if cd is None else y.to(cd)
 
 
 def dropout(x: torch.Tensor, rate: float,

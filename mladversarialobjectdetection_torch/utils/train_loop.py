@@ -5,7 +5,11 @@ reference's ReduceLROnPlateau(.5, patience 50, min 1e-4)
 (attacker_train.py:70-72), a JSONL metric log and an images/s counter.
 The plateau controller mutates a `torch.optim` optimizer's learning rate
 where the JAX one rewrites an optax `inject_hyperparams` state.
-`save_loop_state`/`load_loop_state` (full-state resume) are not ported yet.
+`save_loop_state` / `load_loop_state` write and read the full-state resume
+file (`state-latest.msgpack`, flax msgpack bytes with the JAX payload's
+keys); `adam_state` / `load_adam_state` and `generator_state` /
+`load_generator_state` turn the torch objects of a driver's state into the
+arrays it holds and back.
 """
 from __future__ import annotations
 
@@ -13,7 +17,10 @@ import json
 import math
 import os
 import time
-from typing import Dict
+from typing import Any, Dict
+
+import numpy as np
+import torch
 
 
 class ReduceLROnPlateau:
@@ -43,6 +50,82 @@ class ReduceLROnPlateau:
             for group in optimizer.param_groups:
                 group["lr"] = max(float(group["lr"]) * self.factor, self.min_lr)
         return optimizer
+
+
+def adam_state(optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """The moments, step count and learning rate of a one-group Adam as
+    arrays: `{"<i>": {"exp_avg", "exp_avg_sq", "step"}, "lr"}`, parameter i
+    in the group's order. Before the first step the moments are zeros and
+    the step 0 (optax's initial state)."""
+    (group,) = optimizer.param_groups
+    out: Dict[str, Any] = {"lr": np.asarray(group["lr"], np.float64)}
+    for i, p in enumerate(group["params"]):
+        st = optimizer.state.get(p, {})
+        zeros = np.zeros(tuple(p.shape), np.float32)
+        out[str(i)] = {
+            "exp_avg": (st["exp_avg"].detach().cpu().numpy() if st else zeros),
+            "exp_avg_sq": (st["exp_avg_sq"].detach().cpu().numpy() if st
+                           else zeros),
+            "step": np.asarray(float(st["step"]) if st else 0.0, np.float32)}
+    return out
+
+
+def load_adam_state(optimizer: torch.optim.Optimizer, arrays) -> None:
+    """Restore what `adam_state` returned into `optimizer` (in place)."""
+    (group,) = optimizer.param_groups
+    group["lr"] = float(arrays["lr"])
+    for i, p in enumerate(group["params"]):
+        a = arrays[str(i)]
+        step = float(a["step"])
+        if step == 0:
+            optimizer.state.pop(p, None)
+            continue
+        optimizer.state[p] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": torch.tensor(np.array(a["exp_avg"]), device=p.device),
+            "exp_avg_sq": torch.tensor(np.array(a["exp_avg_sq"]),
+                                       device=p.device)}
+
+
+def generator_state(gen: torch.Generator) -> np.ndarray:
+    """A `torch.Generator`'s state as a uint8 array."""
+    return gen.get_state().numpy().copy()
+
+
+def load_generator_state(gen: torch.Generator, arr) -> None:
+    gen.set_state(torch.from_numpy(np.array(arr, np.uint8)))
+
+
+def save_loop_state(path: str, state: Dict[str, Any], *, epoch: int,
+                    step: int, best: float, plateau: ReduceLROnPlateau,
+                    aug_gen: torch.Generator) -> None:
+    """Full-state training checkpoint for kill-and-resume (JAX
+    train_loop.py:51-72): a training driver's state as nested dicts of arrays
+    (its trainables, optimizer moments, step and generator), the loop
+    counters, the best-metric gate, the plateau controller's best / wait
+    (its LR lives in the optimizer state) and the augmentation generator,
+    under the JAX payload's keys (`aug_key` holds the generator's state)."""
+    from ..ckpt import io as ckpt_io
+    payload = {"state": state, "aug_key": generator_state(aug_gen),
+               "loop": np.asarray([epoch, step], np.int64),
+               "best": np.asarray(best, np.float64),
+               "plateau": np.asarray([plateau.best, plateau.wait], np.float64)}
+    ckpt_io.save_state_bytes(path, payload)
+
+
+def load_loop_state(path: str, state_template: Dict[str, Any],
+                    aug_gen: torch.Generator, plateau: ReduceLROnPlateau):
+    """Restore a `save_loop_state` file. Sets `aug_gen` and `plateau` in
+    place; returns (state arrays, start_epoch, step, best)."""
+    from ..ckpt import io as ckpt_io
+    template = {"state": state_template, "aug_key": 0, "loop": 0, "best": 0,
+                "plateau": 0}
+    p = ckpt_io.load_state_bytes(path, template)
+    plateau.best = float(p["plateau"][0])
+    plateau.wait = int(p["plateau"][1])
+    load_generator_state(aug_gen, p["aug_key"])
+    return (p["state"], int(p["loop"][0]), int(p["loop"][1]),
+            float(p["best"]))
 
 
 class MetricLogger:

@@ -1007,3 +1007,109 @@ def test_backbone_dispatches_fuseable_blocks_to_kernels(cuda):
     finally:
         MBConvBlock._forward_unfused = orig
     assert unfused and not any(unfused)  # only e1 and strided blocks ran unfused
+
+
+# ---------------------------------------------------------------------------
+# the supervised trainer and checkpoint files on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_F64_TOL = 1e-6   # chip_smoke.py's: float64 card against CPU
+TRAIN_F32_TOL = 2e-2   # float32: train-mode BatchNorm over 2 images magnifies
+
+
+def _train_batch(rng, size):
+    images = rng.uniform(-1, 1, (2, size, size, 3)).astype(np.float32)
+    boxes = np.zeros((2, 3, 4), np.float32)
+    boxes[0, 0] = (4, 6, size * 0.7, size * 0.5)
+    boxes[1, 0] = (size * 0.2, size * 0.3, size * 0.9, size * 0.8)
+    boxes[1, 1] = (2, 2, size * 0.4, size * 0.3)
+    valid = np.zeros((2, 3), bool)
+    valid[0, 0] = valid[1, :2] = True
+    return images, (boxes, np.zeros((2, 3), np.int32), valid)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, dtype):
+    """One trainer step at lite0@128 b2 on the card and on the CPU from the
+    same weights and scenes: parameters and statistics per leaf within the
+    limit of scale, the loss within it relative."""
+    from mladversarialobjectdetection_torch.train.trainer import DetectorTrainer
+    cfg = pconfig.get_efficientdet_config("efficientdet-lite0")
+    cfg.image_size = 128
+    images, gt = _train_batch(np.random.default_rng(0), 128)
+    tol = TRAIN_F64_TOL if dtype == "float64" else TRAIN_F32_TOL
+    out = {}
+    for where in ("cpu", cuda):
+        tr = DetectorTrainer(cfg, steps_per_epoch=10, device=where)
+        st = tr.init_state(seed=0)
+        if dtype == "float64":
+            st.net.double()
+            st.net.compute_dtype = torch.float64
+        st, m = tr.train_step(st, images.astype(dtype), *gt)
+        out[str(where)] = (st.net.state_dict(), float(m["loss"]))
+    ref, ref_loss = out["cpu"]
+    got, loss = out[str(cuda)]
+    assert abs(loss - ref_loss) <= tol * abs(ref_loss)
+    for k, v in ref.items():
+        v = v.double()
+        err = float((got[k].cpu().double() - v).abs().max())
+        assert err <= tol * max(1.0, float(v.abs().max())), k
+
+
+def test_training_launches_no_fused_kernel(cuda):
+    """A train step on the card takes every block unfused: no fused MBConv
+    launch; an eval serve of the trained net launches them again."""
+    from mladversarialobjectdetection_torch.models.efficientnet import MBConvBlock
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
+    from mladversarialobjectdetection_torch.train.trainer import DetectorTrainer
+    cfg = _lite0_cfg()
+    tr = DetectorTrainer(cfg, device=cuda)
+    st = tr.init_state(seed=1)
+    images, gt = _train_batch(np.random.default_rng(1), 64)
+    mbconv_cuda.reset_counts()
+    calls = []
+    orig = MBConvBlock._forward_unfused
+
+    def spy(self, x, *args):
+        calls.append(1)
+        return orig(self, x, *args)
+
+    MBConvBlock._forward_unfused = spy
+    try:
+        st, m = tr.train_step(st, images, *gt)
+        torch.cuda.synchronize()
+    finally:
+        MBConvBlock._forward_unfused = orig
+    assert sum(mbconv_cuda.LAUNCHES.values()) == 0 and np.isfinite(float(m["loss"]))
+    assert len(calls) == len(st.net.spec.backbone.blocks)
+    with torch.no_grad():
+        tr.eval_variables(st)(torch.as_tensor(images, device=cuda))
+    assert mbconv_cuda.LAUNCHES["mbconv_fwd"] == 11
+
+
+def test_saved_victim_serves_what_the_victim_in_memory_serves(cuda, tmp_path):
+    """eval_variables -> torch_to_flax -> save_pytree -> Detector(ckpt_path)
+    gives the in-memory victim's detections exactly."""
+    from mladversarialobjectdetection_torch.ckpt import bridge
+    from mladversarialobjectdetection_torch.ckpt.io import save_pytree
+    from mladversarialobjectdetection_torch.train.trainer import DetectorTrainer
+    cfg = _lite0_cfg()
+    tr = DetectorTrainer(cfg, device=cuda)
+    st = tr.init_state(seed=2)
+    images, gt = _train_batch(np.random.default_rng(2), 64)
+    st, _ = tr.train_step(st, images, *gt)
+    victim = tr.eval_variables(st)
+    path = str(tmp_path / "victim")
+    save_pytree(path, bridge.torch_to_flax(victim))
+    params = {k: cfg.as_dict()[k] for k in ("image_size", "fpn_num_filters",
+                                            "fpn_cell_repeats", "box_class_repeats",
+                                            "nms_configs")}
+    det_file = Detector("efficientdet-lite0", params=params, device=cuda,
+                        ckpt_path=path)
+    det_mem = Detector("efficientdet-lite0", params=params, device=cuda)
+    det_mem.net = victim
+    rng = np.random.default_rng(3)
+    frames = [rng.integers(0, 256, (48, 80, 3), dtype=np.uint8) for _ in range(3)]
+    a, b = det_file.serve(frames), det_mem.serve(frames)
+    for x, y in zip(a, b):
+        assert np.array_equal(np.asarray(x), np.asarray(y))

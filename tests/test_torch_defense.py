@@ -416,8 +416,8 @@ def test_defense_entry_points_refuse_cpu_fallback(monkeypatch, tiny_cfg):
 
 
 @pytest.mark.parametrize("option", [
-    dict(img_dir="x"), dict(victim_ckpt="x"), dict(initial_weights="x"),
-    dict(resume=True), dict(spatial=2)])
+    dict(img_dir="x"), dict(victim_ckpt=os.path.dirname(__file__)),
+    dict(initial_weights="antipatch.h5"), dict(spatial=2)])
 def test_train_driver_refuses_unported_options(tmp_path, option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         dtrain.train("efficientdet-lite0", device="cpu", save_dir=str(tmp_path),

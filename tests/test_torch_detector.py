@@ -7,6 +7,8 @@ valid and some not (random init puts every score near 0.01, by the class
 head bias). Host preprocessing must be exactly equal; Detections: valid and
 classes exact, boxes within 1e-3 px, scores within 1e-5.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -85,7 +87,8 @@ def test_unported_post_modes_raise():
     with pytest.raises(ValueError, match="post_mode"):
         Detector("efficientdet-lite0", params=PARAMS, device="cpu",
                  post_mode="per_anchor")
-    for kw in ({"ckpt_path": "ckpt"}, {"mesh": object()}, {"packed_entry": 2}):
+    for kw in ({"ckpt_path": os.path.dirname(__file__)}, {"mesh": object()},
+               {"packed_entry": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Detector("efficientdet-lite0", params=PARAMS, device="cpu", **kw)
     det = Detector("efficientdet-lite0", params=PARAMS, device="cpu")

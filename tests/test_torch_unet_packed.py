@@ -227,6 +227,35 @@ def test_packed_unet_matches_the_ports_unpacked_unet(variables, images, levels):
                   np.concatenate([ref_g[k].ravel() for k in keys])) >= 0.9999
 
 
+@pytest.mark.parametrize("levels", LEVELS)
+def test_packed_unet_float64_gradients_match_the_unpacked(variables, images, levels):
+    """chip_smoke.py phase 9c's check of the function: both modules in
+    float64 (their 3x3 convs as float64 `F.conv2d`s), every parameter
+    gradient of a train-mode pass within PACKED_GRAD_F64_TOL of its largest
+    entry, the gate BatchNorm's one-channel scale and bias included (in
+    float32 each is one sum that may cancel)."""
+    import chip_smoke
+
+    v = variables
+    ref_net = punet.PatchNeutralizer(4, dropout=0.0)
+    bridge.load_flax_variables(ref_net, v)
+    grads = []
+    for m in (ref_net, port_packed(v, levels)):
+        m = m.to(torch.float64)
+        with chip_smoke.Float64Convs():
+            out = m(t(images).double(), training=True)
+            torch.sum(out * out).backward()
+        grads.append(dict((k, p.grad) for k, p in m.named_parameters()))
+    ref_g, got_g = grads
+    assert "deconv0.attention.bn3.bias" in ref_g
+    for k, r in ref_g.items():
+        if k.endswith(("cnv1.bias", "cnv2.bias", "conv3.bias")):
+            continue  # a true gradient of 0: rounding noise only
+        assert r.dtype == got_g[k].dtype == torch.float64, k
+        err = float((got_g[k] - r).abs().max() / r.abs().max())
+        assert err <= chip_smoke.PACKED_GRAD_F64_TOL, (k, err)
+
+
 def test_packed_unet_has_the_unpacked_parameters_and_fresh_init():
     """The same state_dict keys and shapes, and the same seeded draws."""
     a, b = punet.PatchNeutralizer(4), ppk.PackedPatchNeutralizer(4, packed_levels=3)
