@@ -55,8 +55,10 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    both transposes) against their plain versions on the card, on the
    lite4 window, on edge cases, on an image with 16 windows beside images
    with none, and on the b24 live regime's windows, within WARP_TOL of the
-   output's scale; two launches of each kernel must be bit-equal, and an
-   image with no window must get an exactly zero canvas gradient;
+   output's scale, and at the frontier's window 448 (16 windows of one
+   image, regions of 300 px, the b24 live regime at scale .6); two
+   launches of each kernel must be bit-equal, and an image with no window
+   must get an exactly zero canvas gradient;
 5. attack step: `PatchAttacker.train_step` on efficientdet-lite4 at 640,
    full width and depth, seeded weights, fp32 (TF32 off), batch 24, window
    320, 256 NMS candidates, in the benchmark's "live" regime (1-5 person
@@ -175,6 +177,28 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    bit-equal (else within RESUME_TOL);
 18. the same for the defense driver, its `initial_weights` the
    `antipatch.pkl` of a first run;
+19. the example workflows' stages (`mladversarialobjectdetection_torch/
+   examples/`) on that victim file at lite4@640 b24 bf16, score threshold
+   .0099 (the 12-step victim would fail the production soak's detection
+   gate at .5, so the stages are called directly). Each train step's
+   launches are counted: every warp kernel once, NMS once (twice with the
+   ASR pass), 50 bf16 MBConv forward and 25 dx, no float32 MBConv; and
+   every kernel of the path must have launched in each phase.
+   19a: the north-star epoch loop, 2 epochs of 3 steps, 1 val batch x 2
+   draws: `northstar.json` rows with val_asr_to_scale = val_asr / (scale +
+   1e-7) and the TPU record's keys, the best artifact equal to its epoch's
+   state, a restart from it (`initial_patch`, `initial_lr`) starting from
+   that patch, scale and lr exactly;
+   19b: the frontier at window 448, one scale for 3 steps and 4 val
+   batches x 4 draws, the scale bit-equal to its pin in every evaluation,
+   `frontier.json`'s keys; then the warp kernels at window 448 on a
+   frontier step's inputs (the b24 live regime) against the plain passes,
+   timed beside their bounds;
+   19c: the production soak's attack stage (3 steps) and defender stage (2
+   steps of 15 bf16 cmconv launches, 1 NMS and 25 bf16 MBConv forward, one
+   eval of 2 batches): recovery PSNR and ADR finite, or NaN only where the
+   defender defines NaN (the case printed), `soak.json`'s keys, the
+   antipatch file read back equal;
 13. card: the `nvidia-smi` name and power limit, and one JSON line with each
    kernel's launches, error, times and bound (cmconv's also with its
    ablation, the instance the plan did not pick, and its bound at 3xTF32;
@@ -304,6 +328,7 @@ MBCONV_ODD = [("1x1 b3 k5", 3, 1, 1, 8, 48, 8, 5, True, "relu6"),
 ATTACK_BATCH = 24
 ATTACK_WINDOW = 320
 ATTACK_STEPS = 3
+FRONTIER_WINDOW = 448   # examples/northstar_soak.py --frontier
 DEFEND_BATCH = 24
 DEFEND_STEPS = 2
 DEFEND_THRESH = 0.0099  # under the random victim's scores (about 0.01)
@@ -714,21 +739,32 @@ def warp_cases(rng):
     table = live_regime_table()
     yield ("b24 live regime", ATTACK_WINDOW, torch.from_numpy(rng.uniform(
         -1, 1, (ATTACK_BATCH, 96, 96, 3)).astype(np.float32)).cuda(), table)
+    # the frontier's window (examples/northstar_soak.py --frontier): regions
+    # up to 448 / sqrt(2) px, so sizes up to 316
+    yield ("w448 16 windows of one image beside images with none", FRONTIER_WINDOW,
+           *warp_case(rng, 4, 16, 96, FRONTIER_WINDOW, images=np.full(16, 2)))
+    yield ("w448 size 300", FRONTIER_WINDOW,
+           *warp_case(rng, 3, 6, 96, FRONTIER_WINDOW, size=300.0))
+    yield ("b24 live regime at w448, scale .6", FRONTIER_WINDOW, torch.from_numpy(
+        rng.uniform(-1, 1, (ATTACK_BATCH, 96, 96, 3)).astype(np.float32)).cuda(),
+        live_regime_table(window=FRONTIER_WINDOW, scale=0.6))
 
 
-def live_regime_table(seed: int = 0):
+def live_regime_table(seed: int = 0, window: int = ATTACK_WINDOW,
+                      scale: float = 0.4):
     """The host window table of `make_live_slot_boxes`' b24 regime at 640,
-    the attacker's initial scale .4, window 320 and canvas 96: the
-    attack step's windows before its draws move them."""
+    canvas 96, at the attacker's initial scale .4 and window 320 (or the
+    frontier's window 448 at a pinned scale): the attack step's windows
+    before its draws move them."""
     import torch
     from mladversarialobjectdetection_torch.ops import eot
 
     boxes, valid = make_live_slot_boxes(ATTACK_BATCH, (640, 640), 16)
     geom = eot.make_patch_geometry(
-        torch.from_numpy(boxes), torch.from_numpy(valid), 0.4, (640, 640),
-        max_region=float(ATTACK_WINDOW),
+        torch.from_numpy(boxes), torch.from_numpy(valid), scale, (640, 640),
+        max_region=float(window),
         generator=torch.Generator().manual_seed(seed))
-    live = eot._live_windows(geom, 640, 640, ATTACK_WINDOW)
+    live = eot._live_windows(geom, 640, 640, window)
     return eot.window_table(96, *live.geom.unbind(-1), live.image)
 
 
@@ -1512,6 +1548,345 @@ def resume_err(label, ref, res) -> float:
     if worst > RESUME_TOL:
         fail(f"{label}: resumed run differs by {worst:.3g} of scale > {RESUME_TOL}")
     return worst
+
+
+def path_counts() -> dict:
+    """The launch counts of every kernel of the workflows' path, the MBConv
+    and cmconv ones split by dtype."""
+    from mladversarialobjectdetection_torch.ops import (
+        cmconv_cuda, mbconv_cuda, nms_cuda, warp_cuda)
+    mb = mbconv_cuda.DTYPE_LAUNCHES
+    return dict(warp_cuda.LAUNCHES, nms=nms_cuda.LAUNCHES,
+                mbconv_fwd_bf16=mb["bfloat16"]["mbconv_fwd"],
+                mbconv_dx_bf16=mb["bfloat16"]["mbconv_dx"],
+                mbconv_fp32=sum(mb["float32"].values()),
+                cmconv_bf16=cmconv_cuda.DTYPE_LAUNCHES["bfloat16"],
+                cmconv_fp32=cmconv_cuda.DTYPE_LAUNCHES["float32"])
+
+
+def reset_path_counts() -> None:
+    from mladversarialobjectdetection_torch.ops import (
+        cmconv_cuda, mbconv_cuda, nms_cuda, warp_cuda)
+    nms_cuda.LAUNCHES = 0
+    warp_cuda.reset_counts()
+    mbconv_cuda.reset_counts()
+    cmconv_cuda.reset_counts()
+
+
+class PerCall:
+    """In its block, every call of `cls.name` records (its keyword
+    arguments, the launch counts it added), and `hook(self, *args, **kw)`
+    where given runs before the call."""
+
+    def __init__(self, cls, name: str, hook=None):
+        self.cls, self.name, self.hook = cls, name, hook
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+        self.orig = getattr(self.cls, self.name)
+
+        def wrapped(obj, *a, **kw):
+            if self.hook is not None:
+                self.hook(obj, *a, **kw)
+            before = path_counts()
+            out = self.orig(obj, *a, **kw)
+            torch.cuda.synchronize()
+            after = path_counts()
+            self.calls.append((kw, {k: after[k] - before[k] for k in after}))
+            return out
+
+        setattr(self.cls, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.orig)
+
+
+def attack_step_launches(label: str, calls) -> None:
+    """Each bf16 attack train step: every warp kernel once, NMS once (twice
+    with the ASR pass), 50 bf16 MBConv forward and 25 dx launches and no
+    float32 MBConv or cmconv launch."""
+    for kw, got in calls:
+        want = dict.fromkeys(WARP_KERNELS, 1)
+        want.update(nms=1 + bool(kw.get("with_asr")),
+                    mbconv_fwd_bf16=2 * MBCONV_PER_PASS,
+                    mbconv_dx_bf16=MBCONV_PER_PASS, mbconv_fp32=0,
+                    cmconv_bf16=0, cmconv_fp32=0)
+        if got != want:
+            fail(f"{label}: a train step launched {got}, want {want}")
+
+
+def launched_every(label: str, counts: dict, kernels) -> None:
+    """The path run between a reset and `counts` launched each kernel."""
+    idle = [k for k in kernels if counts[k] == 0]
+    if idle:
+        fail(f"{label}: no launch of {idle} in the run ({counts})")
+
+
+def soak_phases(dev, vpath: str, work: str) -> None:
+    """Phases 19a-19c: the example workflows' stage functions at full width
+    (lite4@640, b24, bf16, `train/victim.make_config`) on phase 16's victim
+    file. That victim trained 12 steps and would fail the production soak's
+    detection gate at score .5, so the stages run at score threshold .0099
+    and are called directly (the gate's own check runs in the card runs of
+    the workflows, PERF.md)."""
+    from pathlib import Path
+
+    import torch
+    from mladversarialobjectdetection_torch.attack import artifacts
+    from mladversarialobjectdetection_torch.attack.attacker import PatchAttacker
+    from mladversarialobjectdetection_torch.ckpt import bridge
+    from mladversarialobjectdetection_torch.ckpt.io import load_pytree
+    from mladversarialobjectdetection_torch.data.pipeline import ScenePool
+    from mladversarialobjectdetection_torch.defense.defender import PatchAttackDefender
+    from mladversarialobjectdetection_torch.examples import northstar_soak as ns
+    from mladversarialobjectdetection_torch.examples import production_soak as ps
+    from mladversarialobjectdetection_torch.ops import eot, warp_cuda
+    from mladversarialobjectdetection_torch.train.victim import make_config
+
+    t0 = time.perf_counter()
+    cfg = make_config()
+    cfg.nms_configs.update({"score_thresh": DEFEND_THRESH})
+    rng = np.random.default_rng(19)
+    pool = ScenePool(rng, n_batches=TRAIN_POOL_BATCHES, batch=ATTACK_BATCH,
+                     hw=640, device=dev)
+    net = ps.victim(cfg, pool, rng, work, det_steps=0, batch=ATTACK_BATCH,
+                    seed=0, victim_ckpt=vpath, device=dev)
+    doc = lambda name: json.loads((Path(__file__).resolve().parent / "docs" / name)
+                                  .read_text())
+
+    def covers(got, want, where):
+        missing = set(want) - set(got)
+        for k, v in want.items():
+            if isinstance(v, dict):
+                missing |= {f"{k}.{x}" for x in set(v) - set(got.get(k) or {})}
+            elif isinstance(v, list) and v and isinstance(v[0], dict):
+                missing |= {f"{k}[0].{x}" for x in set(v[0]) - set(
+                    (got.get(k) or [{}])[0])}
+        if missing:
+            fail(f"{where}: keys of the TPU record missing: {sorted(missing)}")
+
+    # phase 19a: the north-star epoch loop, 2 epochs of 3 steps, 1 val batch
+    # x 2 draws; each epoch's state read at its first eval
+    states = []
+    snap = lambda atk, st, images, batch_idx=0, **kw: batch_idx == 0 and states.append(
+        (st.patch.detach().clone(), st.scale.detach().clone()))
+    val_imgs = ns.val_pool(0, 1, ATTACK_BATCH, dev)
+    args = ns.parse_args(["--epochs", "2", "--steps-per-epoch", "3",
+                          "--val-batches", "1"])
+    record = {"config": ns.config_record(cfg, args)}
+    out = str(Path(work) / "northstar.json")
+    reset_path_counts()
+    with PerCall(PatchAttacker, "train_step") as steps, \
+            PerCall(PatchAttacker, "eval_step", hook=snap):
+        astate = ns.epoch_soak(cfg, net, pool, rng, val_imgs, work, epochs=2,
+                               steps_per_epoch=3, batch=ATTACK_BATCH, seed=0,
+                               window=ATTACK_WINDOW, eot_draws=2, max_hours=10.0,
+                               record=record, out_json=out, device=dev)
+    torch.cuda.synchronize()
+    counts = path_counts()
+    launched_every("phase 19a", counts, (*WARP_KERNELS, "nms", "mbconv_fwd_bf16",
+                                         "mbconv_dx_bf16"))
+    if len(steps.calls) != 6 or [bool(kw.get("with_asr")) for kw, _ in steps.calls] \
+            != [False, False, True] * 2:
+        fail(f"phase 19a: train steps {[kw for kw, _ in steps.calls]}")
+    attack_step_launches("phase 19a", steps.calls)
+    rec = json.loads(Path(out).read_text())
+    rows = rec["attack_trajectory"]
+    if len(rows) != 2 or any(r["val_asr_to_scale"] != r["val_asr"] / (r["scale"] + 1e-7)
+                             for r in rows):
+        fail(f"phase 19a: northstar.json rows {rows}")
+    covers(rec, doc("NORTHSTAR_phase1.json"), "northstar.json")
+    best = rec["best"]
+    patch, scale = artifacts.load_patch_dir(best["artifact"])
+    want_patch, want_scale = states[best["epoch"] - 1]
+    if Path(best["artifact"]).name != f"patch_{best['epoch']}_{best['val_asr_to_scale']:.4f}" \
+            or not np.array_equal(patch, want_patch.cpu().numpy()) \
+            or scale != float(want_scale):
+        fail(f"phase 19a: best artifact {best['artifact']} is not epoch "
+             f"{best['epoch']}'s state")
+    lr = float(astate.optimizer.param_groups[0]["lr"])
+    restart = ns.epoch_soak(cfg, net, pool, rng, val_imgs, str(Path(work) / "r"),
+                            epochs=0, steps_per_epoch=3, batch=ATTACK_BATCH, seed=0,
+                            window=ATTACK_WINDOW, eot_draws=2, max_hours=10.0,
+                            initial_patch=best["artifact"], initial_lr=lr,
+                            record={}, out_json=str(Path(work) / "r.json"),
+                            device=dev)
+    if not (np.array_equal(restart.patch.detach().cpu().numpy(), patch)
+            and float(restart.scale.detach()) == scale
+            and restart.optimizer.param_groups[0]["lr"] == lr):
+        fail("phase 19a: the --initial-patch restart does not start from the best "
+             "artifact's patch, scale and the given lr")
+    del astate, restart, states
+    print(f"phase 19a north-star epoch loop (lite4@640 b{ATTACK_BATCH} bf16, window "
+          f"{ATTACK_WINDOW}, score threshold {DEFEND_THRESH}; 2 epochs of 3 steps, 1 "
+          f"val batch x 2 draws): {time.perf_counter() - t0:.2f} s with the pool and "
+          f"the victim file; launches {counts}; per train step "
+          f"{steps.calls[0][1]}; rows {[(r['epoch'], r['val_asr'], r['scale'], r['lr']) for r in rows]}; "
+          f"best {Path(best['artifact']).name} equal to its epoch's state; the "
+          f"restart from it starts there at lr {lr}")
+
+    # phase 19b: the frontier, one scale at window 448, 3 steps and the
+    # converged evaluation over 4 val batches x 4 draws
+    t0 = time.perf_counter()
+    scales = []
+    frozen = lambda atk, st, images, batch_idx=0, **kw: scales.append(
+        (atk.window, atk.freeze_scale, st.scale.detach().clone()))
+    val4 = ns.val_pool(0, 4, ATTACK_BATCH, dev)
+    record = {"config": ns.config_record(cfg, ns.parse_args(["--val-batches", "4"]))}
+    fout = str(Path(work) / "frontier.json")
+    reset_path_counts()
+    with PerCall(PatchAttacker, "train_step") as fsteps, \
+            PerCall(PatchAttacker, "eval_step", hook=frozen):
+        ns.frontier(cfg, net, pool, rng, val4, [0.6], steps=3, batch=ATTACK_BATCH,
+                    seed=0, record=record, out_json=fout, device=dev)
+    torch.cuda.synchronize()
+    fcounts = path_counts()
+    fwindows = warp_cuda.WINDOWS
+    launched_every("phase 19b", fcounts, (*WARP_KERNELS, "nms", "mbconv_fwd_bf16",
+                                          "mbconv_dx_bf16"))
+    if len(fsteps.calls) != 3:
+        fail(f"phase 19b: {len(fsteps.calls)} train steps")
+    attack_step_launches("phase 19b", fsteps.calls)
+    if len(scales) != 16 or any(w != FRONTIER_WINDOW or not fz or
+                                not torch.equal(sc, torch.tensor(0.6, device=dev))
+                                for w, fz, sc in scales):
+        fail(f"phase 19b: evaluations (window, freeze_scale, scale) {scales}")
+    frec = json.loads(Path(fout).read_text())
+    covers(frec, doc("FRONTIER.json"), "frontier.json")
+    frow = frec["frontier"][0]
+    print(f"phase 19b frontier (scale .6 frozen, window {FRONTIER_WINDOW}, 3 steps, "
+          f"4 val batches x 4 draws): {time.perf_counter() - t0:.2f} s; launches "
+          f"{fcounts}, {fwindows} windows warped; scale bit-equal to .6 in all 16 "
+          f"evaluations; val_asr {frow['val_asr']}, val mean max score "
+          f"{frow['val_mean_max_score']}")
+
+    # the warp kernels at window 448 on a frontier step's inputs, the b24 live
+    # regime's boxes (phase 6 at window 320), against the plain passes, timed
+    t0 = time.perf_counter()
+    atk = PatchAttacker(cfg, net, window=FRONTIER_WINDOW, freeze_scale=True, device=dev)
+    st = atk.init_state(11, initial_scale=0.6)
+    boxes, valid = make_live_slot_boxes(ATTACK_BATCH, atk.image_hw, atk.max_boxes)
+    override = (torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev))
+    images = pool.sample(rng, ATTACK_BATCH)[0]
+    with Capture([(warp_cuda, k) for k in WARP_KERNELS]) as cap:
+        atk.train_step(st, images, with_asr=False, boxes_override=override)
+    torch.cuda.synchronize()
+    (canvases, table, w), _ = cap.args["pass1_fwd"][0]
+    (t_in, _), _ = cap.args["pass2_fwd"][0]
+    (g_in, _, p0), _ = cap.args["pass2_bwd"][0]
+    (dt_in, _, n_img), _ = cap.args["pass1_bwd"][0]
+    with torch.no_grad():
+        errs, _ = check_warp("w448 step inputs", canvases, table, w, g=g_in)
+        bounds = warp_bounds(n_img, table.shape[0], p0, w, warp_taps(table, n_img, p0, w))
+        calls = {
+            "pass1_fwd": (lambda: warp_cuda.pass1_fwd(canvases, table, w),
+                          lambda: eot.pass1_fwd(canvases, table, w)),
+            "pass2_fwd": (lambda: warp_cuda.pass2_fwd(t_in, table),
+                          lambda: eot.pass2_fwd(t_in, table)),
+            "pass2_bwd": (lambda: warp_cuda.pass2_bwd(g_in, table, p0),
+                          lambda: eot.pass2_bwd(g_in, table, p0)),
+            "pass1_bwd": (lambda: warp_cuda.pass1_bwd(dt_in, table, n_img),
+                          lambda: eot.pass1_bwd(dt_in, table, n_img)),
+        }
+        for k, (kern_fn, plain_fn) in calls.items():
+            kern_ms = kernel_device_ms(kern_fn, f"{k}_kernel")
+            plain_ms = cuda_ms(plain_fn, iters=3, warmup=1)
+            bound_ms, bound_by, nbytes, ops = bounds[k]
+            print(f"  warp {k} at window {w}, a frontier step's {table.shape[0]} "
+                  f"windows (scale .6, p0 {p0}, {n_img} canvases): kernel "
+                  f"{kern_ms:.4f} ms on the card, plain {plain_ms:.4f} ms, bound "
+                  f"{bound_ms:.6f} ms ({bound_by}: {nbytes} B, {ops} fp32 ops), "
+                  f"{bound_ms / kern_ms:.1%} of the bound; max error {errs[k]:.3g}")
+    del cap, canvases, t_in, g_in, dt_in, atk, st, val4
+    print(f"phase 19b warp kernels at window {FRONTIER_WINDOW} on a frontier step's "
+          f"inputs: within {WARP_TOL} of the plain passes, two launches bit-equal, in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # phase 19c: the production soak's attack stage (3 steps) and its
+    # defender stage against that patch (2 steps, one eval of 2 batches)
+    t0 = time.perf_counter()
+    evals = []
+
+    def clean_max(dfd, st, images, batch_idx=0, **kw):
+        """(boxes the masker can patch, the highest clean score) of a batch:
+        valid boxes of its first max_boxes slots at least 4 px a side."""
+        bx, sc, ok = dfd.odet_boxes(torch.as_tensor(images).to(dev))
+        k = dfd.max_boxes
+        big = ((bx[:, :k, 2] - bx[:, :k, 0]) >= 4) & ((bx[:, :k, 3] - bx[:, :k, 1]) >= 4)
+        evals.append((int((ok[:, :k] & big).sum()),
+                      float(torch.where(ok, sc.float(), 0.0).max())))
+
+    record = {"config": {}}
+    reset_path_counts()
+    with PerCall(PatchAttacker, "train_step") as asteps:
+        atk = PatchAttacker(cfg, net, window=ps.WINDOW, device=dev)
+        astate = ps.attack(atk, pool, rng, work, attack_steps=3, batch=ATTACK_BATCH,
+                           seed=0, log_every=2, record=record)
+    patch = astate.patch.detach().cpu().numpy()
+    scale = float(astate.scale.detach())
+    del atk, astate
+    with PerCall(PatchAttackDefender, "train_step") as dsteps, \
+            PerCall(PatchAttackDefender, "eval_step", hook=clean_max) as devals:
+        dstate = ps.defend(cfg, net, patch, scale, pool, rng, work, defend_steps=2,
+                           batch=ATTACK_BATCH, seed=0, log_every=2, record=record,
+                           device=dev)
+    torch.cuda.synchronize()
+    scounts = path_counts()
+    launched_every("phase 19c", scounts, (*WARP_KERNELS, "nms", "mbconv_fwd_bf16",
+                                          "mbconv_dx_bf16", "cmconv_bf16"))
+    attack_step_launches("phase 19c attack", asteps.calls)
+    for _, got in dsteps.calls:
+        if (got["cmconv_bf16"], got["cmconv_fp32"], got["nms"],
+                got["mbconv_fwd_bf16"], got["mbconv_fp32"]) != (
+                    CMCONV_PER_STEP, 0, 1, MBCONV_PER_PASS, 0):
+            fail(f"phase 19c: a defender step launched {got}")
+    if len(dsteps.calls) != 2 or len(devals.calls) != 2:
+        fail(f"phase 19c: {len(dsteps.calls)} defender steps, {len(devals.calls)} evals")
+    row = record["defense_trajectory"][-1]
+    detections = sum(n for n, _ in evals)
+    eligible = any(m > 0.55 for _, m in evals)
+    if not np.isfinite(row["val_loss"]):
+        fail(f"phase 19c: val_loss {row['val_loss']}")
+    if np.isnan(row["recovery_psnr"]) and detections:
+        fail(f"phase 19c: recovery PSNR NaN with {detections} detections to patch")
+    if not np.isfinite(row["recovery_psnr"]) and not np.isnan(row["recovery_psnr"]):
+        fail(f"phase 19c: recovery PSNR {row['recovery_psnr']}")
+    if np.isnan(row["adr"]) and eligible and detections:
+        fail("phase 19c: ADR NaN though an image's clean score exceeds .55")
+    adr_case = ("finite" if np.isfinite(row["adr"]) else
+                "NaN: no patched region" if not detections else
+                "NaN: no image whose clean score exceeds .55 (clean max "
+                f"{max(m for _, m in evals):.4f})")
+    path = ps.write_json(str(Path(work) / "soak.json"), record)
+    covers(json.loads(Path(path).read_text()),
+           {k: v for k, v in doc("SOAK_r03_1k.json").items()
+            if k not in ("config", "victim")}, "soak.json")
+    best = record["defense_best"]
+    saved = load_pytree(best["artifact"])
+    mem = bridge.torch_to_flax(dstate.unet)
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], f"{prefix}/{k}")
+        else:
+            yield prefix, np.asarray(tree)
+
+    if [k for k, _ in leaves(saved)] != [k for k, _ in leaves(mem)] or not all(
+            np.array_equal(a, b) for (_, a), (_, b) in zip(leaves(saved), leaves(mem))):
+        fail(f"phase 19c: {best['artifact']}.pkl does not read back as the U-Net")
+    del dstate, pool, net
+    torch.cuda.empty_cache()
+    print(f"phase 19c production soak stages (attack 3 steps, defender 2 steps and "
+          f"one eval of 2 batches): {time.perf_counter() - t0:.2f} s; launches "
+          f"{scounts}; per defender step {dsteps.calls[0][1]}; attack rows "
+          f"{[(r['step'], r['asr'], r['scale']) for r in record['attack_trajectory']]}; "
+          f"val_loss {row['val_loss']}, recovery PSNR {row['recovery_psnr']} dB "
+          f"({detections} clean detections in the eval batches), ADR {row['adr']} "
+          f"({adr_case}); {Path(best['artifact']).parent.name}/antipatch.pkl reads back "
+          f"equal; soak.json keys cover the TPU record's")
 
 
 def main() -> int:
@@ -2845,6 +3220,10 @@ def main() -> int:
               f"{'bit-equal' if err == 0.0 else f'within {err:.3g} of scale'} "
               f"(U-Net, Adam moments and LR, step {ref['step']}, generator) in "
               f"{defend_s:.2f} s")
+
+        # phases 19a-19c: the example workflows' stages on the victim file
+        with tempfile.TemporaryDirectory() as work:
+            soak_phases(dev, vpath, work)
 
     # phase 13: card
     smi = subprocess.run(

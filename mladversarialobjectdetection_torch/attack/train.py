@@ -17,11 +17,14 @@ the EOT composite and the loss stay float32 (`--fp32` opts out). `resume`
 continues from `<save_dir>/state-latest.msgpack`, which every epoch writes:
 the patch, the scale, Adam's moments and LR, the step, the train steps' and
 the augmentation's generators, the loop counters and the plateau
-controller, with both synthetic streams fast-forwarded (JAX
-train.py:128-185), so a killed and resumed run repeats the uninterrupted
-one. Not ported yet, and raising `NotImplementedError`: `img_dir`,
-`spatial > 1`, `packed_entry`, and victim checkpoints in the orbax or TF
-formats. The data are synthetic.
+controller, with both input streams fast-forwarded (JAX
+train.py:128-195), so a killed and resumed run repeats the uninterrupted
+one. The data are synthetic (`synthetic`, or no `img_dir`), or an image
+folder (`img_dir`; `data/pipeline.partition`, unfiltered, and the folder
+streams of `ImageFolderSource`, which need PIL). Not ported yet, and
+raising `NotImplementedError`: `spatial > 1` (and with it the sharding of
+a folder across processes), `packed_entry`, and victim checkpoints in the
+orbax or TF formats.
 
 Usage:
     python -m mladversarialobjectdetection_torch.attack.train --synthetic \\
@@ -131,14 +134,10 @@ def train(model_name: str = "efficientdet-lite4", *,
           grad_accum: int = 1, spatial: int = 1, resume: bool = False,
           packed_entry: int = 0, victim_variables=None, device=None):
     """Train an adversarial patch; returns the final `AttackState`."""
-    if img_dir is not None:
-        raise _not_ported("img_dir (ImageFolderSource, partition)",
-                          "Queue 1 item 1")
     if spatial > 1:
         raise _not_ported("spatial > 1", "Queue 1 item 6")
     if packed_entry:
         raise _not_ported("packed_entry", "Queue 1 item 3")
-    del label_dir, synthetic  # only synthetic data is ported
     device = resolve_device(device)
 
     config = config_lib.get_efficientdet_config(model_name)
@@ -182,27 +181,41 @@ def train(model_name: str = "efficientdet-lite4", *,
         load_attack_state(state, arrays)
         logger.info(f"resumed full state from {latest} "
                     f"(epoch {start_epoch}, step {step})")
-    spe = steps_per_epoch or 50
-    val_steps = 5
 
-    def _viz_events(n_epochs: int) -> int:
+    def _viz_events(n_epochs: int, spe_: int) -> int:
         """Visualisation epochs among the first n, each of which takes one
         more val batch (JAX train.py:161-165)."""
         if not visualize_freq or n_epochs <= 0:
             return 0
-        period = max(1, visualize_freq // spe)
+        period = max(1, visualize_freq // spe_)
         return (n_epochs + period - 1) // period
 
+    # resume fast-forward (JAX train.py:167-195): both streams advanced to
+    # where the uninterrupted run would be
+    if synthetic or img_dir is None:
+        logger.info("using synthetic data")
+        train_src = pipeline.synthetic_batches(batch_size, config.image_size,
+                                               seed=seed)
+        val_src = pipeline.synthetic_batches(batch_size, config.image_size,
+                                             seed=seed + 1)
+        spe = steps_per_epoch or 50
+        val_steps = 5
+        if start_epoch:
+            pipeline.skip_batches(train_src, start_epoch * spe)
+            pipeline.skip_batches(val_src, start_epoch * val_steps
+                                  + _viz_events(start_epoch, spe))
+    else:
+        parts = pipeline.partition(config, img_dir, label_dir,
+                                   batch_size=batch_size, filter_data=False,
+                                   seed=seed)
+        spe = steps_per_epoch or parts["train"]["length"]
+        val_steps = parts["val"]["length"]
+        train_src = parts["train"]["source"].repeat_batches(
+            batch_size, skip_batches=start_epoch * spe)
+        val_src = parts["val"]["source"].repeat_batches(
+            batch_size, skip_batches=start_epoch * val_steps
+            + _viz_events(start_epoch, spe))
     put = lambda b: torch.from_numpy(b).to(device)
-    logger.info("using synthetic data")
-    train_src = pipeline.synthetic_batches(batch_size, config.image_size,
-                                           seed=seed)
-    val_src = pipeline.synthetic_batches(batch_size, config.image_size,
-                                         seed=seed + 1)
-    if start_epoch:  # resume fast-forward of both streams
-        pipeline.skip_batches(train_src, start_epoch * spe)
-        pipeline.skip_batches(val_src, start_epoch * val_steps
-                              + _viz_events(start_epoch))
     train_iter = pipeline.prefetch(train_src, device_put_fn=put)
     val_iter = pipeline.prefetch(val_src, device_put_fn=put)
 

@@ -1,27 +1,189 @@
-"""Input pipeline of the drivers and the trainer (synthetic data).
+"""Input pipeline of the drivers and the trainer.
 
-Port of the parts of `mladversarialobjectdetection_tpu/data/pipeline.py`
-that the drivers run on synthetic data: `synthetic_batches` (a numpy
-copy, so both packages see the same images for a seed), `augment_batch`
-(PyTorch, draws from an explicit `torch.Generator` or passed in),
-`skip_batches` (the resume fast-forward) and `prefetch`. Also the port's
-copy of the labelled scene generator that trains the synthetic-scene victim
-(`examples/production_soak.py:40-118`): `synthetic_person_batch` and
-`ScenePool`. `ImageFolderSource` and `partition` (real image folders) are
-not ported yet.
+Port of `mladversarialobjectdetection_tpu/data/pipeline.py`:
+- real image folders (JAX pipeline.py:38-183, the reference's
+  DataSequence and partition): `ImageFolderSource` (read, normalize,
+  aspect-preserving resize and zero-pad through the port's own
+  `ops/preprocess.preprocess_host`; shuffled epochs from a numpy generator,
+  wrap-padded last batch, `repeat_batches(skip_batches=)` that fast-forwards
+  without reading a skipped image), `filter_by_dims` and `partition`. The
+  batches are host numpy [B, H, W, 3] float32, bit-equal to JAX's; the
+  drivers' `prefetch` puts them on the device. Reading an image needs PIL,
+  imported where an image is read;
+- synthetic data: `synthetic_batches` (a numpy copy, so both packages see
+  the same images for a seed);
+- `augment_batch` (PyTorch, draws from an explicit `torch.Generator` or
+  passed in), `skip_batches` (the resume fast-forward) and `prefetch`.
+Also the port's copy of the labelled scene generator that trains the
+synthetic-scene victim (`examples/production_soak.py:40-118`):
+`synthetic_person_batch` and `ScenePool`.
 """
 from __future__ import annotations
 
+import functools
+import math
+import os
 import queue
 import threading
-from typing import Iterator
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..ops.preprocess import preprocess_host
 from ..utils.image import parse_image_size
+from ..utils.log import get_logger
+
+logger = get_logger(__name__)
 
 PUT_POLL_S = 0.05  # how often a blocked prefetch worker looks for a stop
+
+
+def _read_image(img_dir: str, filename: str) -> np.ndarray:
+    """[H, W, 3] uint8 RGB of one image file."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("reading an image folder needs PIL (Pillow), "
+                          "which is not installed") from e
+    im = Image.open(os.path.join(img_dir, filename))
+    if im.mode != "RGB":
+        im = im.convert("RGB")
+    return np.asarray(im)
+
+
+def _parse_label_line(line: str) -> Optional[List[float]]:
+    """'cls ymin xmin ymax xmax' -> [ymin, xmin, ymax, xmax]; None for a
+    blank or malformed line."""
+    parts = line.split()
+    if len(parts) != 5:
+        return None
+    try:
+        return [float(v) for v in parts[1:]]
+    except ValueError:
+        return None
+
+
+def filter_by_dims(img_dir: str, label_dir: str, max_area_ratio: float,
+                   filename: str) -> bool:
+    """Keep an image only if none of its boxes touches a 20 px border margin
+    or covers max_area_ratio of the image (train_data_generator.py:135-158)."""
+    im = _read_image(img_dir, filename)
+    h, w, _ = im.shape
+    label_file = os.path.splitext(filename)[0] + ".txt"
+    with open(os.path.join(label_dir, label_file)) as f:
+        for line in f.readlines():
+            parsed = _parse_label_line(line)
+            if parsed is None:
+                continue
+            ymin, xmin, ymax, xmax = parsed
+            if ymin < 20 or xmin < 20 or ymax > h - 20 or xmax > w - 20:
+                return False
+            if ((ymax - ymin) * (xmax - xmin)) / (h * w) >= max_area_ratio:
+                return False
+    return True
+
+
+class ImageFolderSource:
+    """Reads and preprocesses the images of a directory (the reference's
+    DataSequence)."""
+
+    def __init__(self, img_dir: str, output_size, mean_rgb, stddev_rgb, *,
+                 file_list: Optional[Sequence[str]] = None,
+                 shuffle: bool = True, seed: int = 0):
+        self.img_dir = img_dir
+        self.output_size = parse_image_size(output_size)
+        self.mean_rgb = mean_rgb
+        self.stddev_rgb = stddev_rgb
+        self.files = list(file_list if file_list is not None
+                          else sorted(os.listdir(img_dir)))
+        self.shuffle = shuffle
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return len(self.files)
+
+    def shard(self, index: int, count: int) -> "ImageFolderSource":
+        """Keep the index-th of `count` disjoint slices of the files (one
+        process's share); returns self. Call before iterating."""
+        if not (0 <= index < count):
+            raise ValueError(f"bad shard ({index}, {count})")
+        self.files = self.files[index::count]
+        return self
+
+    def __getitem__(self, idx: int) -> np.ndarray:
+        im = _read_image(self.img_dir, self.files[idx])
+        out, _ = preprocess_host(im, self.output_size, self.mean_rgb,
+                                 self.stddev_rgb)
+        return out
+
+    def batches(self, batch_size: int, *, drop_remainder: bool = False,
+                start_batch: int = 0) -> Iterator[np.ndarray]:
+        """One epoch of [B, H, W, 3] float32 batches, the short last one
+        padded by wrapping to the epoch's first images. `start_batch` skips
+        the first batches of the epoch without reading their images."""
+        order = np.arange(len(self.files))
+        if self.shuffle:
+            self.rng.shuffle(order)
+        n = len(order)
+        for start in range(start_batch * batch_size, n, batch_size):
+            idxs = order[start:start + batch_size]
+            if len(idxs) < batch_size:
+                if drop_remainder:
+                    return
+                idxs = np.concatenate([idxs, order[: batch_size - len(idxs)]])
+            yield np.stack([self[i] for i in idxs])
+
+    def repeat_batches(self, batch_size: int, *, skip_batches: int = 0
+                       ) -> Iterator[np.ndarray]:
+        """Endless epochs of batches. `skip_batches` fast-forwards the stream
+        (resume): each skipped full epoch advances the shuffle generator as
+        an iterated epoch does (one shuffle of an equal-length permutation),
+        and the rest of the skip is by index, so no skipped image is read."""
+        if not self.files:
+            # an empty source would otherwise loop forever without a batch
+            raise ValueError(
+                f"no images in {self.img_dir!r} (empty dataset, "
+                f"everything filtered out, or a too-small train split)")
+        per_epoch = -(-len(self.files) // batch_size)  # wrap-padded
+        full, rem = divmod(skip_batches, per_epoch)
+        for _ in range(full):
+            if self.shuffle:
+                self.rng.shuffle(np.arange(len(self.files)))
+        first = True
+        while True:
+            yield from self.batches(batch_size,
+                                    start_batch=rem if first else 0)
+            first = False
+
+
+def partition(config, img_dir: str, label_dir: Optional[str],
+              max_area_ratio: float = 0.1, train_split: float = 0.9, *,
+              batch_size: int = 2, shuffle: bool = True,
+              filter_data: bool = False, seed: int = 0) -> dict:
+    """The sorted folder split into train (shuffled) and val sources
+    (train_data_generator.py:161-234), with their lengths in batches."""
+    file_list = sorted(os.listdir(img_dir))
+    if filter_data:
+        if label_dir is None:
+            logger.warning("no filtering done since label_dir is not provided")
+        else:
+            logger.info("filtering dataset by label constraints...")
+            keep = functools.partial(filter_by_dims, img_dir, label_dir,
+                                     max_area_ratio)
+            file_list = [f for f in file_list if keep(f)]
+            logger.info(f"done. data size is {len(file_list)}")
+    ds_size = len(file_list)
+    train_size = int(train_split * ds_size)
+    mk = functools.partial(ImageFolderSource, img_dir, config.image_size,
+                           config.mean_rgb, config.stddev_rgb, seed=seed)
+    return {
+        "train": {"source": mk(file_list=file_list[:train_size],
+                               shuffle=shuffle),
+                  "length": math.ceil(max(train_size, 1) / batch_size)},
+        "val": {"source": mk(file_list=file_list[train_size:], shuffle=False),
+                "length": math.ceil(max(ds_size - train_size, 1) / batch_size)},
+    }
 
 
 def augment_batch(images: torch.Tensor, generator: torch.Generator | None = None,

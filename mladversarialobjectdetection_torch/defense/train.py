@@ -21,16 +21,20 @@ the reference's semantics); `resume` continues from
 `<save_dir>/state-latest.msgpack`, which every epoch writes: the U-Net's
 parameters and BatchNorm statistics, Adam's moments and LR, the step, the
 train steps' and the augmentation's generators, the loop counters and the
-plateau controller, with both synthetic streams fast-forwarded (JAX
-train.py:89-124), so a killed and resumed run repeats the uninterrupted
-one. The data are synthetic. `bf16` sets `config.mixed_precision` before the victim is built
-(bf16 victim and U-Net, float32 parameters and loss), as the JAX driver
-does; `packed` picks the space-to-depth U-Net (`models/unet_packed.py`, the
-same parameters and `antipatch.pkl`), `--packed` with no value packing 3
+plateau controller, with both input streams fast-forwarded (JAX
+train.py:89-140), so a killed and resumed run repeats the uninterrupted
+one. The data are synthetic (`synthetic`, or no `img_dir`), or an image
+folder (`img_dir`, `label_dir`: `data/pipeline.partition` filtered by the
+labels, as the JAX driver's; reading needs PIL). `bf16` sets
+`config.mixed_precision` before the victim is built (bf16 victim and
+U-Net, float32 parameters and loss), as the JAX driver does; `packed`
+picks the space-to-depth U-Net (`models/unet_packed.py`, the same
+parameters and `antipatch.pkl`), `--packed` with no value packing 3
 levels as the JAX driver's. Not ported yet, and raising
-`NotImplementedError`: `img_dir`, `spatial > 1`, victim checkpoints in the
-orbax or TF formats and `.h5` initial weights; the reference-format
-`antipatch.h5` mirror is not written (no h5py on the card).
+`NotImplementedError`: `spatial > 1` (and with it the sharding of a
+folder across processes), victim checkpoints in the orbax or TF formats
+and `.h5` initial weights; the reference-format `antipatch.h5` mirror is
+not written (no h5py on the card).
 
 An untrained victim at score threshold .5 finds nobody, so the masker
 plants nothing: pass `config_override={"nms_configs": {"score_thresh":
@@ -106,14 +110,10 @@ def train(model_name: str = "efficientdet-lite4", *,
           resume: bool = False, packed: int = 0, victim_variables=None,
           device=None):
     """Train the defender U-Net; returns the final `DefenderState`."""
-    if img_dir is not None:
-        raise _not_ported("img_dir (ImageFolderSource, partition)",
-                          "Queue 1 item 1")
     if spatial > 1:
         raise _not_ported("spatial > 1", "Queue 1 item 6")
     # weights only (the reference's initial_weights, attack_detection.py:54-55)
     unet_vars = load_antipatch(initial_weights) if initial_weights else None
-    del label_dir, synthetic  # only synthetic data is ported
     device = resolve_device(device)
 
     config = config_lib.get_efficientdet_config(model_name)
@@ -155,17 +155,30 @@ def train(model_name: str = "efficientdet-lite4", *,
         load_defender_state(state, arrays)
         logger.info(f"resumed full state from {latest} "
                     f"(epoch {start_epoch}, step {step})")
-    spe = steps_per_epoch or 50
-    val_steps = 5
+    # resume fast-forward (JAX train.py:114-140): both streams advanced to
+    # where the uninterrupted run would be
+    if synthetic or img_dir is None:
+        logger.info("using synthetic data")
+        train_src = pipeline.synthetic_batches(batch_size, config.image_size,
+                                               seed=seed)
+        val_src = pipeline.synthetic_batches(batch_size, config.image_size,
+                                             seed=seed + 1)
+        spe = steps_per_epoch or 50
+        val_steps = 5
+        if start_epoch:
+            pipeline.skip_batches(train_src, start_epoch * spe)
+            pipeline.skip_batches(val_src, start_epoch * val_steps)
+    else:
+        parts = pipeline.partition(config, img_dir, label_dir,
+                                   batch_size=batch_size, filter_data=True,
+                                   seed=seed)
+        spe = steps_per_epoch or parts["train"]["length"]
+        val_steps = parts["val"]["length"]
+        train_src = parts["train"]["source"].repeat_batches(
+            batch_size, skip_batches=start_epoch * spe)
+        val_src = parts["val"]["source"].repeat_batches(
+            batch_size, skip_batches=start_epoch * val_steps)
     put = lambda b: torch.from_numpy(b).to(device)
-    logger.info("using synthetic data")
-    train_src = pipeline.synthetic_batches(batch_size, config.image_size,
-                                           seed=seed)
-    val_src = pipeline.synthetic_batches(batch_size, config.image_size,
-                                         seed=seed + 1)
-    if start_epoch:  # resume fast-forward of both streams
-        pipeline.skip_batches(train_src, start_epoch * spe)
-        pipeline.skip_batches(val_src, start_epoch * val_steps)
     train_iter = pipeline.prefetch(train_src, device_put_fn=put)
     val_iter = pipeline.prefetch(val_src, device_put_fn=put)
 

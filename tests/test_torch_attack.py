@@ -474,7 +474,7 @@ def test_train_driver_on_cpu(tmp_path, tiny_detector):
 
 
 @pytest.mark.parametrize("option", [
-    dict(img_dir="x"), dict(victim_ckpt=os.path.dirname(__file__)),
+    dict(img_dir="x", spatial=2), dict(victim_ckpt=os.path.dirname(__file__)),
     dict(spatial=2), dict(packed_entry=1)])
 def test_train_driver_refuses_unported_options(tmp_path, option):
     """Each option raises before any work (a directory as `victim_ckpt` is

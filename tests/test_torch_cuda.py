@@ -268,13 +268,16 @@ def warp_windows_case(rng, n_images, n, p0, w, *, angle_deg=None, size=None,
     return torch.from_numpy(canvases), table
 
 
-def live_regime_case(rng):
+def live_regime_case(rng, window=320, scale=0.4):
     """(canvases [24, 96, 96, 3], host window table) of the attack step's
-    windows: `chip_smoke.make_live_slot_boxes`' b24 live regime at 640."""
+    windows: `chip_smoke.make_live_slot_boxes`' b24 live regime at 640, at
+    the attacker's window 320 and initial scale .4 (or the frontier's window
+    448 at a pinned scale)."""
     import chip_smoke
 
     canvases = rng.uniform(-1, 1, (24, 96, 96, 3)).astype(np.float32)
-    return torch.from_numpy(canvases), chip_smoke.live_regime_table()
+    return torch.from_numpy(canvases), chip_smoke.live_regime_table(
+        window=window, scale=scale)
 
 
 def _warp_cases():
@@ -295,6 +298,11 @@ def _warp_cases():
         ("16_windows_of_one_image_beside_none", 320, warp_windows_case(
             r, 4, 16, 96, 320, images=np.full(16, 2))),
         ("b24_live_regime", 320, live_regime_case(r)),
+        # the frontier's window (examples/northstar_soak.py --frontier)
+        ("w448_16_windows_of_one_image_beside_none", 448, warp_windows_case(
+            r, 4, 16, 96, 448, images=np.full(16, 2))),
+        ("w448_size_300", 448, warp_windows_case(r, 3, 6, 96, 448, size=300.0)),
+        ("b24_live_regime_w448_scale_.6", 448, live_regime_case(r, 448, 0.6)),
     ]
 
 
@@ -1113,3 +1121,41 @@ def test_saved_victim_serves_what_the_victim_in_memory_serves(cuda, tmp_path):
     a, b = det_file.serve(frames), det_mem.serve(frames)
     for x, y in zip(a, b):
         assert np.array_equal(np.asarray(x), np.asarray(y))
+
+
+def test_northstar_epoch_on_card_goes_through_kernels(cuda, tmp_path):
+    """One epoch of one step of the north-star loop (examples/northstar_soak.py)
+    at lite0@64 on the card, with 1 val batch x 1 draw: the train step (the
+    epoch's last, so with the ASR pass) launches each warp kernel once, NMS
+    twice, 22 fused forward and 11 dx; the eval the two forward warp
+    kernels, NMS twice (detections and ASR) and 22 fused forward."""
+    from mladversarialobjectdetection_torch.examples import end_to_end_attack as e2e
+    from mladversarialobjectdetection_torch.examples import northstar_soak as ns
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
+
+    class Pool:
+        def sample(self, rng, batch):
+            imgs, boxes, valid = e2e.synthetic_scene_batch(rng, batch, 64)
+            return (torch.from_numpy(imgs).to(cuda), boxes,
+                    np.zeros(valid.shape, np.int32), valid)
+
+    cfg = _lite0_cfg()
+    victim = get_victim(cfg, seed=0, device=cuda)
+    val = [torch.from_numpy(e2e.synthetic_scene_batch(
+        np.random.default_rng(777), 2, 64)[0]).to(cuda)]
+    warp_cuda.reset_counts()
+    mbconv_cuda.reset_counts()
+    nms_before = nms_cuda.LAUNCHES
+    record = {"config": {}}
+    state = ns.epoch_soak(cfg, victim, Pool(), np.random.default_rng(0), val,
+                          str(tmp_path), epochs=1, steps_per_epoch=1, batch=2, seed=0,
+                          window=320, eot_draws=1, max_hours=10.0, record=record,
+                          out_json=str(tmp_path / "northstar.json"), device=cuda)
+    torch.cuda.synchronize()
+    assert warp_cuda.LAUNCHES == {"pass1_fwd": 2, "pass2_fwd": 2, "pass2_bwd": 1,
+                                  "pass1_bwd": 1}
+    assert nms_cuda.LAUNCHES - nms_before == 4
+    assert mbconv_cuda.LAUNCHES == {"mbconv_fwd": 44, "mbconv_dx": 11}
+    (row,) = record["attack_trajectory"]
+    assert row["lr"] == state.optimizer.param_groups[0]["lr"] == 1e-2
+    assert np.isfinite(row["val_loss"]) and np.isfinite(row["train_asr"])

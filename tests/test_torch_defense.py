@@ -416,7 +416,7 @@ def test_defense_entry_points_refuse_cpu_fallback(monkeypatch, tiny_cfg):
 
 
 @pytest.mark.parametrize("option", [
-    dict(img_dir="x"), dict(victim_ckpt=os.path.dirname(__file__)),
+    dict(img_dir="x", spatial=2), dict(victim_ckpt=os.path.dirname(__file__)),
     dict(initial_weights="antipatch.h5"), dict(spatial=2)])
 def test_train_driver_refuses_unported_options(tmp_path, option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
