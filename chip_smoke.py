@@ -199,11 +199,25 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    eval of 2 batches): recovery PSNR and ADR finite, or NaN only where the
    defender defines NaN (the case printed), `soak.json`'s keys, the
    antipatch file read back equal;
+20. the video demos' device path (`demo/`) at lite4@640, seeded weights,
+   on 8 synthetic 720x1280 frames (`demo/synthetic_clip.render_frames`):
+   `make_demo_detector`'s `infer` (gaussian NMS at score 0, where every
+   candidate stays valid and the chain runs to the end: 1 NMS and 25 fused
+   MBConv forward launches a frame) and `RecoveryDemo.recover`, the U-Net on
+   one normalized 640 px frame (8 cmconv launches a frame), its seeded
+   weights written with `ckpt/io` and read back through `load_antipatch`;
+   the NMS kernel against the plain version on the phase's own score-0
+   candidates and cmconv against `cmconv_plain` on the U-Net's b1 inputs,
+   each timed beside its bound; p50 ms per frame of detection and of
+   recovery. The demos' cv2 parts (reading, drawing, writing, the recovered
+   frame's resize) are held to JAX on the CPU (tests/test_torch_demo.py);
+   none is imported here;
 13. card: the `nvidia-smi` name and power limit, and one JSON line with each
    kernel's launches, error, times and bound (cmconv's also with its
    ablation, the instance the plan did not pick, and its bound at 3xTF32;
    cmconv's bf16 instance, and the fused MBConv's float32 and bf16
-   instances, each a row).
+   instances, each a row; NMS, cmconv and the fused forward also with phase
+   20's launches per frame, and NMS and cmconv with their times there).
 
 The last line is `{"ok": true, "device": {...}}`. Without a card, or without
 the rest of the repository beside it, the script exits non-zero and prints
@@ -1889,6 +1903,169 @@ def soak_phases(dev, vpath: str, work: str) -> None:
           f"equal; soak.json keys cover the TPU record's")
 
 
+DEMO_FRAMES = 8
+DEMO_HW = (720, 1280)
+DEMO_CMCONV_PER_FRAME = 8  # the U-Net's forward ConvBlocks of at most 16 filters
+
+
+def demo_phase(dev, work: str) -> dict:
+    """Phase 20: the video demos' device path (`demo/`) at lite4@640 on
+    720x1280 frames of the synthetic clip: `make_demo_detector`'s `infer`
+    (NMS at score 0: every candidate stays valid and the chain runs to the
+    end) and `RecoveryDemo.recover`, the U-Net on one normalized frame, its
+    seeded weights written with `ckpt/io` and read back through
+    `load_antipatch`. Returns the launches per frame and the kernels' numbers
+    at the phase's own inputs. The demos' cv2 parts (reading, drawing,
+    writing, the recovered frame's resize) are held to JAX on the CPU by
+    tests/test_torch_demo.py; none runs here."""
+    from pathlib import Path
+
+    import torch
+    from mladversarialobjectdetection_torch.ckpt import bridge
+    from mladversarialobjectdetection_torch.ckpt.io import save_pytree
+    from mladversarialobjectdetection_torch.demo import make_demo_detector
+    from mladversarialobjectdetection_torch.demo import synthetic_clip
+    from mladversarialobjectdetection_torch.demo.demo_v2 import RecoveryDemo
+    from mladversarialobjectdetection_torch.inference.detector import Detector
+    from mladversarialobjectdetection_torch.models.init import init_weights
+    from mladversarialobjectdetection_torch.models.unet import PatchNeutralizer
+    from mladversarialobjectdetection_torch.ops import cmconv, cmconv_cuda, postprocess
+    from mladversarialobjectdetection_torch.ops.preprocess import preprocess_host
+
+    t0 = time.perf_counter()
+    frames, _ = synthetic_clip.render_frames(DEMO_FRAMES, *DEMO_HW, n_persons=2,
+                                             seed=20)
+    det = make_demo_detector("efficientdet-lite4", device=dev)
+    nms_cfg = det.config.nms_configs
+    if (nms_cfg.score_thresh, nms_cfg.iou_thresh, nms_cfg.method) != (0.0, 0.5, "gaussian"):
+        fail(f"phase 20: the demo detector's NMS {det._params_dict['nms_configs']}")
+    unet = PatchNeutralizer()
+    init_weights(unet, torch.Generator().manual_seed(20))
+    upath = str(Path(work) / "antipatch")
+    save_pytree(upath, bridge.torch_to_flax(unet))
+    rd = RecoveryDemo(upath, det)
+    want = unet.state_dict()
+    if any(not torch.equal(v.cpu(), want[k]) for k, v in rd.unet.state_dict().items()):
+        fail("phase 20: the U-Net read back through load_antipatch differs")
+    cfg = det.config
+    pre = [preprocess_host(f, cfg.image_size, cfg.mean_rgb, cfg.stddev_rgb)[0]
+           for f in frames]
+    normalized = lambda i: torch.from_numpy(pre[i])[None].to(dev)
+    det.infer(frames[0])
+    rd.recover(normalized(0))
+    torch.cuda.synchronize()
+
+    reset_path_counts()
+    dets, recs = [], []
+    with PerCall(Detector, "infer") as infers, PerCall(RecoveryDemo, "recover") as recovers:
+        for i, frame in enumerate(frames):
+            dets.append(det.infer(frame))
+            recs.append(rd.recover(normalized(i)))
+    torch.cuda.synchronize()
+    counts = path_counts()
+    launched_every("phase 20", counts, ("nms", "mbconv_fp32", "cmconv_fp32"))
+    zero = dict.fromkeys(counts, 0)
+    for _, got in infers.calls:
+        if got != dict(zero, nms=1, mbconv_fp32=MBCONV_PER_PASS):
+            fail(f"phase 20: an infer launched {got}")
+    for _, got in recovers.calls:
+        if got != dict(zero, cmconv_fp32=DEMO_CMCONV_PER_FRAME):
+            fail(f"phase 20: a recover launched {got}")
+    for bb, sc in dets:
+        if len(bb) != len(sc) or not all(np.isfinite(b).all() for b in bb) or \
+                not all(0.0 <= s <= 1.0 for s in sc):
+            fail(f"phase 20: infer gave {len(bb)} boxes, scores {sc[:4]}")
+    hw = tuple(pre[0].shape[:2])
+    for r in recs:
+        if r.shape != (1, *hw, 3) or not bool(torch.isfinite(r).all()) or \
+                float(r.abs().max()) > 1.0:
+            fail(f"phase 20: recovery {tuple(r.shape)}, max |r| {float(r.abs().max())}")
+    full = det.serve(frames[:1])
+    m = nms_cfg.max_output_size
+    if int(full.valid_len[0]) != m:
+        fail(f"phase 20: valid_len {full.valid_len} at score 0, want all {m}")
+    det_ms = statistics.median(
+        host_p50_ms(lambda f=f: det.infer(f), iters=3, warmup=1) for f in frames)
+    pre_ms = host_p50_ms(lambda: preprocess_host(frames[0], cfg.image_size,
+                                                 cfg.mean_rgb, cfg.stddev_rgb),
+                         iters=DEMO_FRAMES)
+    x0 = normalized(0)
+    rec_ms = host_p50_ms(lambda: rd.recover(x0), iters=DEMO_FRAMES)
+    rec_host_ms = host_p50_ms(lambda: rd.recover(normalized(0)).cpu().numpy(),
+                              iters=DEMO_FRAMES)
+    profile_device(lambda: rd.recover(x0), "recover b1")
+    print(f"phase 20 demos' device path ({cfg.name}@{hw[0]}, seeded weights, {DEMO_FRAMES} "
+          f"synthetic {DEMO_HW[0]}x{DEMO_HW[1]} frames): launches {counts}; per frame "
+          f"{infers.calls[0][1]['nms']} NMS and {infers.calls[0][1]['mbconv_fp32']} "
+          f"fused MBConv forward (infer), {recovers.calls[0][1]['cmconv_fp32']} cmconv "
+          f"(recover); persons per frame "
+          f"{[len(bb) for bb, _ in dets]} of {m} valid slots; detection p50 "
+          f"{det_ms:.3f} ms/frame (infer: host preprocess {pre_ms:.3f} ms, forward, "
+          f"NMS, to host); recovery p50 {rec_ms:.3f} ms/frame on the card "
+          f"({rec_host_ms:.3f} with the copies to and from the host); cv2 parts held "
+          f"on the CPU "
+          f"(tests/test_torch_demo.py), cv2 imported here: {'cv2' in sys.modules}")
+
+    # NMS at score 0 on the phase's own candidates, beside its serve row
+    images, _ = det.preprocess(frames[:1])
+    with torch.no_grad():
+        cls_out, box_out = det.net(torch.from_numpy(images).to(dev))
+        cand_boxes, cand_scores, _ = postprocess._pre_nms_select(
+            det._params_dict, cls_out, box_out)
+    nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by, nms_err = nms_numbers(
+        cand_boxes.contiguous(), cand_scores.contiguous(),
+        postprocess.nms_kwargs_from_config(nms_cfg), "demo score 0")
+
+    # cmconv at the U-Net's b1 inputs against the plain version, timed
+    with Capture([(cmconv_cuda, "cmconv3x3_cuda")]) as cap:
+        rd.recover(normalized(1))
+    torch.cuda.synchronize()
+    calls = [a for a, _ in cap.args["cmconv3x3_cuda"]]
+    if len(calls) != DEMO_CMCONV_PER_FRAME:
+        fail(f"phase 20: captured {len(calls)} cmconv calls in a recover")
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+    cm_err = 0.0
+    with torch.no_grad():
+        for i, (x, w, bias) in enumerate(calls):
+            c, co = w.shape[2], w.shape[3]
+            cm_err = max(cm_err, kernel_err(f"phase 20 cmconv call {i}",
+                                            cmconv_cuda.cmconv3x3_cuda(x, w, bias),
+                                            cmconv.cmconv_plain(x, w, bias)))
+            pick = cmconv_cuda.plan(c, co, x.shape[2], x.shape[3]).instance
+            w_oihw = w.permute(3, 2, 0, 1).contiguous()
+            ms = kernel_device_ms(lambda: cmconv_cuda.cmconv3x3_cuda(x, w, bias),
+                                  CMCONV_KERNEL[pick], iters=5, sessions=2)
+            plain_ms = cuda_ms(lambda: cmconv.cmconv_plain(x, w, bias), iters=2,
+                               warmup=1)
+            lib_ms = cuda_ms(lambda: torch.nn.functional.conv2d(
+                x, w_oihw, bias, padding=1), iters=10)
+            _, bound_by, nbytes, ops = cmconv_bound(x, co, bias is not None)
+            for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                         ("bytes_ms", nbytes / HBM_BYTES_PER_S * 1e3),
+                         ("ops_ms", ops / FP32_FLOP_PER_S * 1e3)):
+                tot[k] += v
+            print(f"  cmconv recover call {i} {c}->{co} {tuple(x.shape)}: plan {pick}, "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.conv2d {lib_ms:.4f} "
+                  f"ms, bound {max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S) * 1e3:.6f} "
+                  f"ms ({bound_by})")
+    tot["bound_ms"] = max(tot["bytes_ms"], tot["ops_ms"])
+    tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
+    print(f"phase 20 kernels at the demo's inputs: NMS at score 0 {nms_ms:.4f} ms "
+          f"(bound {nms_bound_ms:.6f} ms, {nms_bound_by}; plain {nms_plain_ms:.4f} ms; "
+          f"max error {nms_err}); cmconv over a recover's {len(calls)} launches "
+          f"{tot['ms']:.4f} ms (bound {tot['bound_ms']:.6f} ms, {tot['bound_by']}; "
+          f"plain {tot['plain_ms']:.4f} ms, F.conv2d {tot['library_ms']:.4f} ms), max "
+          f"error {cm_err:.3g} (limit {WARP_TOL} of scale); "
+          f"{time.perf_counter() - t0:.2f} s")
+    del det, rd, recs, cand_boxes, cand_scores, cls_out, box_out, calls, cap
+    torch.cuda.empty_cache()
+    return {"launches_per_frame": {"nms": 1, "mbconv_fwd": MBCONV_PER_PASS,
+                                   "cmconv": DEMO_CMCONV_PER_FRAME},
+            "detect_p50_ms": det_ms, "recover_p50_ms": rec_ms,
+            "nms_ms": nms_ms, "nms_bound_ms": nms_bound_ms, "cmconv": tot,
+            "cmconv_err": cm_err}
+
+
 def main() -> int:
     import tempfile
     from pathlib import Path
@@ -3225,6 +3402,10 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as work:
             soak_phases(dev, vpath, work)
 
+    # phase 20: the video demos' device path
+    with tempfile.TemporaryDirectory() as work:
+        demo = demo_phase(dev, work)
+
     # phase 13: card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3236,7 +3417,9 @@ def main() -> int:
         "replaces": "mladversarialobjectdetection_tpu/ops/pallas_nms.py:34",
         "launches": attack_launches["nms"], "max_abs_err": max_err,
         "ms": nms_ms, "plain_ms": nms_plain_ms, "bound_ms": nms_bound_ms,
-        "bound_by": nms_bound_by, "library_ms": None}]
+        "bound_by": nms_bound_by, "library_ms": None,
+        "demo_launches_per_frame": demo["launches_per_frame"]["nms"],
+        "demo_score0_ms": demo["nms_ms"], "demo_score0_bound_ms": demo["nms_bound_ms"]}]
     for k in WARP_KERNELS:
         kern_ms, plain_ms, bound_ms, bound_by = warp_times[k]
         kernels.append({
@@ -3253,7 +3436,11 @@ def main() -> int:
         "ms": cm_tot["ms"], "plain_ms": cm_tot["plain_ms"],
         "bound_ms": cm_tot["bound_ms"], "bound_by": cm_bound_by,
         "library_ms": cm_tot["library_ms"], "ablation_ms": cm_tot["ablation_ms"],
-        "bound_tc_ms": cm_tot["bound_tc_ms"]})
+        "bound_tc_ms": cm_tot["bound_tc_ms"],
+        "demo_launches_per_frame": demo["launches_per_frame"]["cmconv"],
+        "demo_recover_ms": demo["cmconv"]["ms"],
+        "demo_recover_bound_ms": demo["cmconv"]["bound_ms"],
+        "demo_max_abs_err": demo["cmconv_err"]})
     kernels.append({
         "name": "cmconv_bf16", "route": "cuda",
         "source": "mladversarialobjectdetection_torch/csrc/cmconv_bf16.cu",
@@ -3271,7 +3458,9 @@ def main() -> int:
             "launches": attack_mb[f"mbconv_{kind}"], "max_abs_err": mb_errs[kind],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": tot["bound_by"], "library_ms": None,
-            "unfused_ms": tot["unfused_ms"], "bound_tc_ms": tot["bound_tc_ms"]})
+            "unfused_ms": tot["unfused_ms"], "bound_tc_ms": tot["bound_tc_ms"],
+            **({"demo_launches_per_frame": demo["launches_per_frame"]["mbconv_fwd"]}
+               if kind == "fwd" else {})})
     for kind in ("fwd", "dx"):  # the bf16 instances, per pass of the bf16 step
         tot = mb16_tot[kind]
         kernels.append({

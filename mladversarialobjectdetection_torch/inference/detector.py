@@ -6,7 +6,9 @@ frames in, padded person detections out. Host preprocessing (or, with
 forward (whose fuseable backbone blocks run the fused MBConv kernels) and
 the post mode `global`, `per_class`, `combined` or `tflite` (whose NMS is
 the CUDA kernel); `serve_streams` batches several frame sources,
-`serve_pipelined` overlaps the host side of the next batch with the card.
+`serve_pipelined` overlaps the host side of the next batch with the card;
+`infer` lists one frame's person detections and `__call__` draws them
+(`demo/draw.py`, cv2 on the host).
 
 `config.mixed_precision` (`params={"mixed_precision": True}`) serves in
 bf16, as the JAX `Detector` does through `EfficientDetNet`: bf16 activations
@@ -165,6 +167,15 @@ class Detector:
                 bb.append(tuple(boxes[i].tolist()))
                 sc.append(float(scores[i]))
         return bb, sc
+
+    def __call__(self, frame: np.ndarray) -> np.ndarray:
+        """Draw person detections over the frame (detector.py:62-72); the
+        drawing (cv2) on the host."""
+        from ..demo import draw
+        bb, sc = self.infer(frame)
+        thresh = self.config.nms_configs.score_thresh or 0.0
+        bb, sc = draw.filter_by_thresh(bb, sc, thresh)
+        return draw.draw_boxes(frame, bb, sc)
 
     def serve_streams(self, streams):
         """Serve several frame sources through one batched call per tick

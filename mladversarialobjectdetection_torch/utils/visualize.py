@@ -1,6 +1,6 @@
-"""Host-side plots of the attack and defense drivers (copies of the JAX
-package's `utils/visualize.plot_asr_curve` and `plot_score_violin`). Need
-matplotlib, imported at call time."""
+"""Host-side plots and images of the attack and defense training (copies of
+the JAX package's `utils/visualize.plot_asr_curve`, `plot_score_violin` and
+`draw_detections_grid`). Need matplotlib or cv2, imported at call time."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -48,3 +48,25 @@ def plot_score_violin(original: Sequence[float], recovered: Sequence[float]
     ax.set_ylabel("scores")
     fig.tight_layout()
     return _fig_to_array(fig)
+
+
+def draw_detections_grid(images: np.ndarray, clean_boxes, clean_valid,
+                         adv_boxes, adv_valid, mean_rgb=127.0,
+                         stddev_rgb=128.0) -> np.ndarray:
+    """A batch of normalized images with the clean (green) and patched
+    (red) detections drawn: the attack's sample images
+    (reference attacker.py:285-305). Returns uint8 [B, H, W, 3]."""
+    from ..demo import draw as drawmod
+
+    out = []
+    for i in range(images.shape[0]):
+        img = np.clip(images[i] * stddev_rgb + mean_rgb, 0, 255).astype(
+            np.uint8)
+        cb = [b for b, v in zip(np.asarray(clean_boxes[i]),
+                                np.asarray(clean_valid[i])) if v]
+        ab = [b for b, v in zip(np.asarray(adv_boxes[i]),
+                                np.asarray(adv_valid[i])) if v]
+        img = drawmod.draw_boxes(img, cb, [1.0] * len(cb))
+        img = drawmod.draw_boxes(img, ab, [0.0] * len(ab))
+        out.append(img)
+    return np.stack(out) if out else np.zeros((0, 1, 1, 3), np.uint8)

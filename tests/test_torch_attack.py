@@ -29,7 +29,12 @@ Tolerances:
 - grad_accum=2 against grad_accum=1 (port only): 1e-5 relative;
 - bf16 (`mixed_precision`, the driver's default) against JAX's bf16 step:
   loss 1e-3 relative, the patch gradient at cosine >= 0.9999, the scale
-  after Adam within 1e-6 (the reasons beside BF16_LOSS_REL).
+  after Adam within 1e-6 (the reasons beside BF16_LOSS_REL);
+- the patch gradient through the warp and the victim alone (no TV term), on
+  a victim whose top anchors do not tie: float32 at cosine >= 0.99 with the
+  same argmax anchors; bf16 against JAX's bf16 compiled with Flax's
+  roundings, within 0.4 of JAX's own bf16-to-float32 distance (the reasons
+  beside PERSON_GAIN).
 """
 import contextlib
 import json
@@ -527,10 +532,10 @@ def bf16_pair(tiny_detector):
 # blocks round e once, Flax's blocks after each op; XLA and ATen round convs
 # apart). Measured: loss 6.4e-5 relative, the whole patch gradient at cosine
 # 0.99999988. That gradient is mostly the TV term's: the part through the
-# detector alone reads cosine 0.27 here (0.99 in float32), which this test
-# does not hold. The loss takes a max over anchors whose scores, at random
-# weights, lie near 0.01 and near each other; which anchors each bf16 net
-# picks was not checked. The victim's own bf16 input gradient is held on a
+# detector alone reads cosine 0.27 here (0.99 in float32), because the max
+# over anchors whose scores, at random weights, lie near 0.01 ties hundreds
+# of anchors on bf16's grid; the tests on a margin victim below hold that
+# part. The victim's own bf16 input gradient is held on a
 # smooth function of every head output, with no max, in
 # tests/test_torch_models.py::test_bf16_input_gradient_matches_jax.
 BF16_LOSS_REL = 1e-3
@@ -609,3 +614,115 @@ def test_train_driver_bf16_by_default_on_cpu(tmp_path, tiny_detector):
     dirs = [d for d in os.listdir(tmp_path) if d.startswith("patch_00_")]
     assert len(dirs) == 1
     assert {"patch.npy", "scale.txt"} <= set(os.listdir(tmp_path / dirs[0]))
+
+
+# ---------------------------------------------------------------------------
+# The patch gradient through the victim alone (no TV term), on a victim
+# whose top anchors do not tie (ROADMAP Queue 3 item 26)
+# ---------------------------------------------------------------------------
+#
+# At random weights every person score lies near 0.01 and the top anchors
+# tie within bf16's rounding, so the max may pick other anchors in the two
+# packages. The margin victim scales the class head's person columns by
+# PERSON_GAIN, which spreads the person logits (scores 0.33 and 0.60 at the
+# top here) so that each image's top anchor leads its second by more than
+# MIN_MARGIN, far above the bf16 nets' score error (about 1e-3). (Raising
+# the class bias, as tests/test_defense.py does, lifts every anchor alike.)
+#
+# bf16 is held to JAX's bf16 compiled with `xla_allow_excess_precision` off,
+# the roundings Flax's `dtype=` declares (as Queue 3 item 23 holds the
+# train-mode forward): by default XLA on the CPU drops nearly all of them
+# (its bf16 gradient reads cosine 0.981 against its own float32 one) and is
+# then 0.873 from the strict one. Measured at PERSON_GAIN 3000: port bf16 to
+# strict JAX bf16, distance (1 - cosine) 0.0114; JAX's own strict bf16 to
+# its float32, 0.1114; the port's float32 to strict JAX bf16, 0.1127 (share
+# 1.01, so a port whose victim ran float32 fails BF16_NET_GRAD_SHARE); the
+# port's bf16 to JAX's default-compiled bf16, 0.128.
+PERSON_GAIN = 3000.0
+MIN_MARGIN = 0.01
+NET_GRAD_COS = 0.99  # float32: the bf16 warp rounding of Queue 3 item 4
+BF16_NET_GRAD_SHARE = 0.4  # of JAX's own bf16-to-float32 distance
+
+
+@pytest.fixture(scope="module")
+def margin_variables(tiny_detector):
+    cfg, _, _, variables = tiny_detector
+    variables = jax.tree_util.tree_map(np.array, variables)  # a host copy
+    pw = variables["params"]["class_net"]["predict"]["pw"]
+    pw["kernel"][..., 0::cfg.num_classes] *= PERSON_GAIN
+    return variables
+
+
+def _net_gradients(cfg, variables, images, boxes, valid, mixed_precision):
+    """(JAX loss, masked scores, d loss / d patch) jitted as `train` runs
+    it, the same compiled strictly (bf16 only), and the port's, at
+    tv_weight 0 on the same EOT draws."""
+    bcfg = type(cfg)(cfg.as_dict())
+    bcfg.mixed_precision = mixed_precision
+    jatk = JAttacker(bcfg, jax.tree_util.tree_map(jnp.asarray, variables),
+                     patch_size=32, eot_overrides=PINNED)
+    jst = jatk.init_state(jax.random.PRNGKey(0))
+    _, k_eot, _ = jax.random.split(jst.key, 3)
+
+    def jloss(patch):
+        loss, aux = jatk._loss_from_images(
+            patch, jst.scale, jnp.asarray(images), jnp.asarray(boxes),
+            jnp.asarray(valid), k_eot, tv_weight=0.0)
+        return loss, aux["adv_masked"]
+
+    grad_fn = jax.jit(jax.value_and_grad(jloss, has_aux=True))
+    runs = {"jax": grad_fn(jst.patch)}
+    if mixed_precision:
+        strict = grad_fn.lower(jst.patch).compile(
+            compiler_options={"xla_allow_excess_precision": False})
+        runs["strict"] = strict(jst.patch)
+    victim = ptrain.get_victim(port_config(bcfg), variables=variables,
+                               device="cpu")
+    patk = PatchAttacker(port_config(bcfg), victim, patch_size=32,
+                         eot_overrides=PINNED, device="cpu")
+    pst = patk.init_state(0, initial_patch=np.asarray(jst.patch))
+    loss, aux = patk._loss_from_images(
+        pst.patch, pst.scale, t(images), t(boxes), torch.from_numpy(valid),
+        None, jax_draws(k_eot, 2, 4), tv_weight=0.0)
+    loss.backward()
+    runs["port"] = ((loss.detach(), aux["adv_masked"]), pst.patch.grad)
+    return {k: (float(lo), np.asarray(m), np.asarray(g).ravel())
+            for k, ((lo, m), g) in runs.items()}
+
+
+@pytest.fixture(scope="module")
+def net_gradients_f32(tiny_detector, margin_variables, images, live_boxes):
+    return _net_gradients(tiny_detector[0], margin_variables, images,
+                          *live_boxes, mixed_precision=False)
+
+
+def _cos(a, b):
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+def test_net_patch_gradient_matches_jax_on_a_margin_victim(net_gradients_f32):
+    """float32: d loss / d patch without the TV term, all of it through the
+    warp and the victim, on a victim whose top anchors lead by MIN_MARGIN."""
+    jl, jm, jg = net_gradients_f32["jax"]
+    pl, pm, pg = net_gradients_f32["port"]
+    top2 = np.sort(jm, axis=1)[:, -2:]
+    assert (top2[:, 1] - top2[:, 0] >= MIN_MARGIN).all(), top2
+    assert (pm.argmax(1) == jm.argmax(1)).all()
+    assert pl == pytest.approx(jl, rel=1e-3)
+    assert _cos(pg, jg) >= NET_GRAD_COS
+
+
+def test_bf16_net_patch_gradient_matches_jax_bf16_on_a_margin_victim(
+        tiny_detector, margin_variables, images, live_boxes, net_gradients_f32):
+    """bf16 against JAX's bf16 with Flax's roundings: within
+    BF16_NET_GRAD_SHARE of JAX's own bf16-to-float32 distance, and the same
+    argmax anchor in every image."""
+    runs = _net_gradients(tiny_detector[0], margin_variables, images,
+                          *live_boxes, mixed_precision=True)
+    _, sm, sg = runs["strict"]
+    _, pm, pg = runs["port"]
+    jg32 = net_gradients_f32["jax"][2]
+    assert (pm.argmax(1) == sm.argmax(1)).all()
+    assert (pm.argmax(1) == net_gradients_f32["jax"][1].argmax(1)).all()
+    own = 1.0 - _cos(sg, jg32)
+    assert 1.0 - _cos(pg, sg) <= BF16_NET_GRAD_SHARE * own, (_cos(pg, sg), own)

@@ -1159,3 +1159,65 @@ def test_northstar_epoch_on_card_goes_through_kernels(cuda, tmp_path):
     (row,) = record["attack_trajectory"]
     assert row["lr"] == state.optimizer.param_groups[0]["lr"] == 1e-2
     assert np.isfinite(row["val_loss"]) and np.isfinite(row["train_asr"])
+
+
+DEMO_PARAMS = {"image_size": 64, "fpn_num_filters": 16, "fpn_cell_repeats": 1,
+               "box_class_repeats": 1,
+               "nms_configs": {"pre_nms_topk": 64, "max_output_size": 16}}
+
+
+def test_demo_detector_nms_at_score_0_on_card(cuda):
+    """The demos' detector (gaussian, iou .5, score 0): every candidate
+    stays valid and the chain runs all M steps. One kernel launch per
+    `infer`, and the kernel equals the plain version on the serve's own
+    candidates."""
+    from mladversarialobjectdetection_torch.demo import make_demo_detector
+    det = make_demo_detector("efficientdet-lite0", detector_params=DEMO_PARAMS,
+                             device=cuda)
+    frame = np.random.RandomState(5).randint(0, 256, (48, 80, 3)).astype(np.uint8)
+    before = nms_cuda.LAUNCHES
+    boxes, scores = det.infer(frame)
+    assert nms_cuda.LAUNCHES == before + 1 and len(boxes) == len(scores)
+    images, _ = det.preprocess([frame])
+    with torch.no_grad():
+        cls_out, box_out = det.net(torch.from_numpy(images).to(cuda))
+        cand_boxes, cand_scores, _ = postprocess._pre_nms_select(
+            det._params_dict, cls_out, box_out)
+    kw = postprocess.nms_kwargs_from_config(det.config.nms_configs)
+    assert kw["score_thresh"] == 0.0 and kw["method"] == "gaussian"
+    kern = assert_kernel_equals_plain(cand_boxes.contiguous(),
+                                      cand_scores.contiguous(), kw)
+    assert bool(kern.valid.all())
+
+
+def test_recovery_unet_at_b1_on_card_matches_cpu(cuda, tmp_path):
+    """`RecoveryDemo.recover` on one 640 px frame: 8 cmconv launches on the
+    card (the ConvBlocks of at most 16 filters), and the recovery within
+    1e-4 of its scale of the same U-Net on the CPU (plain cmconv; cuDNN's
+    convs in float32, TF32 off)."""
+    from mladversarialobjectdetection_torch.ckpt import bridge
+    from mladversarialobjectdetection_torch.ckpt.io import save_pytree
+    from mladversarialobjectdetection_torch.demo import demo_v2, make_demo_detector
+    from mladversarialobjectdetection_torch.models.init import init_weights
+    from mladversarialobjectdetection_torch.models.unet import PatchNeutralizer
+    unet = PatchNeutralizer()
+    init_weights(unet, torch.Generator().manual_seed(0))
+    path = str(tmp_path / "antipatch")
+    save_pytree(path, bridge.torch_to_flax(unet))
+    x = torch.from_numpy(np.random.default_rng(6).uniform(
+        -1, 1, (1, 640, 640, 3)).astype(np.float32))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        outs = []
+        for dev in (torch.device("cpu"), cuda):
+            det = make_demo_detector("efficientdet-lite0",
+                                     detector_params=DEMO_PARAMS, device=dev)
+            rd = demo_v2.RecoveryDemo(path, det, "efficientdet-lite0")
+            before = cmconv_cuda.LAUNCHES
+            outs.append(rd.recover(x.to(dev)).cpu())
+            assert cmconv_cuda.LAUNCHES - before == (8 if dev.type == "cuda" else 0)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert outs[1].shape == (1, 640, 640, 3)
+    _close(outs[1], outs[0], "recover", 1e-4)

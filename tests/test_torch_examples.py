@@ -10,8 +10,9 @@ and contents (the antipatch read back by JAX's `load_pytree`), the plateau's
 lr after a flat validation loss, the best artifact, the `--max-hours` cap,
 the `--initial-patch` restart, the frontier's frozen scale and its 4 EOT
 draws per val batch, and that each record's keys include those of the TPU
-records in `docs/` (SOAK_r03_1k, NORTHSTAR_phase1, FRONTIER). Each entry
-point needs a card unless asked for the CPU.
+records in `docs/` (SOAK_r03_1k, NORTHSTAR_phase1, FRONTIER,
+VICTIM_CONFIDENCE), and the precision frontier's two arms on one victim.
+Each entry point needs a card unless asked for the CPU.
 """
 import importlib.util
 import json
@@ -292,3 +293,39 @@ def test_frontier_freezes_the_scale(tmp_path, monkeypatch):
     assert row["scale"] == 0.3 and row["trajectory"] == []
     assert row["val_asr_to_scale"] == row["val_asr"] / 0.3
     _assert_keys_cover(on_disk, _doc_keys("FRONTIER.json"), "frontier.json")
+
+
+def test_precision_frontier_runs_both_arms_on_one_victim(tmp_path, monkeypatch):
+    """`examples/precision_frontier.run`: the bf16 and float32 arms on the
+    same victim variables, each victim computing in its arm's dtype, from
+    the same pool draws; the tie counts of a random victim (its scores all
+    near 0.01: bf16 ties many anchors at the max, float32 none) and the
+    confidence record's keys, those of `docs/VICTIM_CONFIDENCE.json`."""
+    from mladversarialobjectdetection_torch.examples import precision_frontier as pf
+    cfg = _cfg()
+    cfg.mixed_precision = True
+    variables = bridge.torch_to_flax(get_victim(cfg, seed=4, device="cpu"))
+    seen, draws = [], []
+    real_step = PatchAttacker.train_step
+
+    def spy(self, state, images, **kw):
+        seen.append(self.net.compute_dtype)
+        draws.append(np.asarray(images).copy())
+        return real_step(self, state, images, **kw)
+
+    monkeypatch.setattr(PatchAttacker, "train_step", spy)
+    out = pf.run(cfg, TinyPool(), _val(2), variables, scale=0.6, steps=2,
+                 batch=BATCH, seed=0, save_dir=str(tmp_path), device="cpu")
+    assert seen == [torch.bfloat16] * 2 + [torch.float32] * 2
+    assert all(np.array_equal(a, b) for a, b in zip(draws[:2], draws[2:]))
+    for name in ("bf16", "fp32"):
+        row = out[name]
+        assert row["scale"] == 0.6 and np.isfinite(row["val_asr"])
+        assert (tmp_path / f"frontier_{name}.json").exists()
+        assert row["max_ties"]["images"] == 2 * BATCH
+    assert out["bf16"]["max_ties"]["mean"] > 1 and out["fp32"]["max_ties"]["max"] == 1
+    net = get_victim(cfg, variables=variables, device="cpu")
+    conf = pf.victim_confidence(PatchAttacker(cfg, net, window=48, device="cpu"),
+                                _val(2))
+    _assert_keys_cover(conf, {k: v for k, v in _doc_keys("VICTIM_CONFIDENCE.json").items()
+                              if k != "victim"}, "victim confidence")

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from mladversarialobjectdetection_torch.ckpt import bridge
+from mladversarialobjectdetection_torch.demo import make_demo_detector
 from mladversarialobjectdetection_torch.inference import detector as pdetector
 from mladversarialobjectdetection_torch.models import efficientdet as pdet
 from mladversarialobjectdetection_torch import config as pconfig
@@ -22,9 +23,10 @@ REPO = Path(__file__).resolve().parents[1]
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
-# any import of these now raises ImportError; cv2 and PIL are imported only
-# where a frame source reads frames (inference/streaming.py)
-for name in ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL"):
+# any import of these now raises ImportError; cv2, PIL and matplotlib are
+# imported only where a frame is read, drawn on or written, or a plot drawn
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL",
+             "matplotlib"):
     sys.modules[name] = None
 import mladversarialobjectdetection_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -33,6 +35,7 @@ for name in names:
 import chip_smoke  # noqa: F401
 leaked = sorted(m for m in sys.modules if m.startswith("mladversarialobjectdetection_tpu"))
 assert not leaked, leaked
+print(" ".join(names))
 print(len(names))
 """
 
@@ -42,8 +45,15 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     # every module of the port: attack/, data/, defense/, ops/mbconv*.py and
-    # inference/streaming.py included
-    assert int(proc.stdout.split()[-1]) >= 44
+    # inference/streaming.py included, and the serving surface around the
+    # demos (host NMS and WBF, label maps, the patch compositor, demo/)
+    assert int(proc.stdout.split()[-1]) >= 69
+    names = set(proc.stdout.split()[:-1])
+    for mod in ("ops.nms_np", "ops.wbf", "utils.label_util", "demo", "demo.draw",
+                "inference.adv_patch", "demo.synthetic_clip", "demo.video",
+                "demo.demo_v2", "demo.demo", "utils.visualize",
+                "examples.precision_frontier"):
+        assert f"mladversarialobjectdetection_torch.{mod}" in names, mod
 
 
 def test_detector_refuses_cpu_fallback(monkeypatch):
@@ -51,6 +61,8 @@ def test_detector_refuses_cpu_fallback(monkeypatch):
     for device in (None, "cuda", "cuda:0"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pdetector.Detector("efficientdet-lite0", device=device)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_demo_detector("efficientdet-lite0", device=device)
 
 
 def test_attack_entry_points_refuse_cpu_fallback(monkeypatch, tiny_cfg):
