@@ -212,12 +212,42 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    recovery. The demos' cv2 parts (reading, drawing, writing, the recovered
    frame's resize) are held to JAX on the CPU (tests/test_torch_demo.py);
    none is imported here;
+21. the rest of the supervised trainer (lite4@640, 90 classes, 76,725
+   anchors), with phase 16's victim file:
+   21a: the supervised driver `train.train` (synthetic input, fp32, batch
+   8, 2 epochs of 3 steps): `ckpt-0`, `ckpt-1` and `state-latest.msgpack`
+   written, 0 fused MBConv launches while training; `resume=True` to 3
+   epochs starts at epoch 2 and ends at step 9, and `ckpt-1` reads back
+   equal to the state it was saved from; with `prune_sparsity=0.5,
+   prune_end=6` every kernel at .5 within one weight and the EMA zero
+   wherever the parameters are; p50 step ms, images/s and peak memory;
+   21b: `train.evaluate_map` on the victim over 4 batches of 24 held-out
+   `ScenePool` scenes (their own seed), NMS and the evaluation at score
+   .0099 (the 12-step victim scores about .01): per batch 25 bf16 fused MBConv
+   forward and 1 NMS launches; AP, AP50, AP75 and the other 9 metrics within
+   EVAL_AP_TOL of the same evaluation with the plain versions of both ops
+   on the card; AP and
+   ms a batch; the NMS kernel and the 25 bf16 forward launches timed at an
+   eval batch's inputs beside their bounds and plain versions;
+   21c: `segmentation.train` (heads ("segmentation",), batch 8, 3 steps):
+   a finite loss and logits [8, 160, 160, 3]; p50 step ms, peak memory;
+   21d: `grad_checkpoint` at the trainer's operating point
+   (`train/victim.make_config`, b24, fp32): one step with it on and off
+   from the same state, loss, gradients and BatchNorm statistics within
+   TRAIN_F32_TOL (cuDNN deterministic: bit-equal expected), each one's
+   peak memory and step time;
+   21e: the native TFRecord reader (`csrc/tfrecord_native.c`) built with
+   the host C compiler, reading records written by `make_example` and
+   `write_records` (raw image bytes: no PIL here): payloads equal to the
+   pure-python framing's, and a flipped CRC raises;
 13. card: the `nvidia-smi` name and power limit, and one JSON line with each
    kernel's launches, error, times and bound (cmconv's also with its
    ablation, the instance the plan did not pick, and its bound at 3xTF32;
    cmconv's bf16 instance, and the fused MBConv's float32 and bf16
    instances, each a row; NMS, cmconv and the fused forward also with phase
-   20's launches per frame, and NMS and cmconv with their times there).
+   20's launches per frame, and NMS and cmconv with their times there; NMS
+   and the bf16 fused forward also with phase 21b's launches per
+   `evaluate_map` batch and their times at its inputs).
 
 The last line is `{"ok": true, "device": {...}}`. Without a card, or without
 the rest of the repository beside it, the script exits non-zero and prints
@@ -389,6 +419,11 @@ TRAIN_BATCH = 24
 TRAIN_STEPS = 10
 TRAIN_POOL_BATCHES = 2  # northstar renders 12; 48 scenes keep the host part short
 DRIVER_BATCH = 12
+# phase 21: the rest of the supervised trainer
+SUP_BATCH = 8           # the driver's and the segmentation trainer's batch
+SUP_STEPS = 3           # steps per epoch of the driver
+EVAL_BATCHES = 4        # evaluate_map: 4 batches of 24 held-out scenes
+EVAL_AP_TOL = 1e-3      # each COCO metric with the kernels vs the plain versions
 # kill and resume on the card: bit-equal expected (cuDNN deterministic, the
 # same kernels on the same inputs); where ATen's CUDA backward of a gather
 # or index op adds with atomics, float32 sums may reorder between runs, so a
@@ -2066,6 +2101,348 @@ def demo_phase(dev, work: str) -> dict:
             "cmconv_err": cm_err}
 
 
+class StepTimes:
+    """Host wall time of every call of `cls.name` in its block, each call
+    bracketed by synchronizes (ms, in call order)."""
+
+    def __init__(self, cls, name: str):
+        self.cls, self.name, self.ms = cls, name, []
+
+    def __enter__(self):
+        import torch
+        self.orig = getattr(self.cls, self.name)
+
+        def timed(obj, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.orig(obj, *a, **kw)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(self.cls, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.name, self.orig)
+
+
+class PlainMBConv:
+    """Runs the plain fused-MBConv forward (`ops/mbconv.mbconv_plain`)
+    wherever the op would launch its kernel, in its block."""
+
+    def __enter__(self):
+        from mladversarialobjectdetection_torch.ops import mbconv
+        self.mod, self.orig = mbconv, mbconv._forward
+        mbconv._forward = lambda x, fb, act_type, residual: mbconv.mbconv_plain(
+            x, fb, act_type=act_type, residual=residual)
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._forward = self.orig
+
+
+def grad_checkpoint_phase(dev) -> None:
+    """Phase 21d: one fp32 train step at the trainer's operating point with
+    `grad_checkpoint` on and off from the same state and batch, then a
+    timed second step of each; peak memory of each."""
+    import torch
+    from mladversarialobjectdetection_torch.data.pipeline import synthetic_person_batch
+    from mladversarialobjectdetection_torch.train.trainer import DetectorTrainer
+    from mladversarialobjectdetection_torch.train.victim import make_config
+
+    rng = np.random.default_rng(21)
+    images, boxes, classes, valid = synthetic_person_batch(rng, TRAIN_BATCH)
+    images = torch.from_numpy(images).to(dev)
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    for gc in (True, False):
+        cfg = make_config(mixed_precision=False)
+        cfg.grad_checkpoint = gc
+        tr = DetectorTrainer(cfg, steps_per_epoch=800, device=dev)
+        st = tr.init_state(seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        st, m = tr.train_step(st, images, boxes, classes, valid)
+        loss = float(m["loss"])
+        grads = {n: p.grad.detach().clone() for n, p in st.net.named_parameters()}
+        stats = {n: b.detach().clone() for n, b in st.net.named_buffers()}
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = tr.train_step(st, images, boxes, classes, valid)
+        float(m["loss"])
+        step_ms = (time.perf_counter() - t0) * 1e3
+        runs[gc] = dict(loss=loss, grads=grads, stats=stats, peak=peak, ms=step_ms)
+        del tr, st, m
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    on, off = runs[True], runs[False]
+    worst = 0.0
+    for key in ("grads", "stats"):
+        for n, ref in off[key].items():
+            d = float((on[key][n] - ref).abs().max())
+            worst = max(worst, d / max(1.0, float(ref.abs().max())))
+    loss_rel = abs(on["loss"] - off["loss"]) / abs(off["loss"])
+    if worst > TRAIN_F32_TOL or loss_rel > TRAIN_F32_TOL or not np.isfinite(on["loss"]):
+        fail(f"grad_checkpoint: gradients and statistics {worst:.3g} of scale, loss "
+             f"{loss_rel:.3g} relative from no checkpointing (limit {TRAIN_F32_TOL})")
+    print(f"phase 21d grad_checkpoint (train/victim.make_config, lite4@640 b{TRAIN_BATCH}, "
+          f"fp32, one step from the same state, cuDNN deterministic): loss "
+          f"{on['loss']:.6f} vs {off['loss']:.6f}, gradients and BatchNorm statistics "
+          f"{'bit-equal' if worst == 0.0 and loss_rel == 0.0 else f'within {worst:.3g} of scale'}"
+          f" (limit {TRAIN_F32_TOL}); on: peak {on['peak']:.3f} GB, step "
+          f"{on['ms']:.3f} ms; off: peak {off['peak']:.3f} GB, step {off['ms']:.3f} ms "
+          f"(phase 15's fp32 peak: 79.8 GB, PERF.md)")
+
+
+def supervised_driver_phase(dev, work: str) -> None:
+    """Phase 21a: `train.train` at lite4@640 b8 with synthetic input: two
+    epochs, a resume to three, and a pruned run."""
+    from pathlib import Path
+
+    import torch
+    from mladversarialobjectdetection_torch.ckpt import bridge
+    from mladversarialobjectdetection_torch.ckpt.io import load_pytree
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
+    from mladversarialobjectdetection_torch.train import train as sup
+    from mladversarialobjectdetection_torch.train.trainer import DetectorTrainer
+
+    kw = dict(train_pattern=None, batch_size=SUP_BATCH, steps_per_epoch=SUP_STEPS,
+              device=dev)
+    mdir = str(Path(work) / "detector")
+    mbconv_cuda.reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with StepTimes(DetectorTrainer, "train_step") as steps:
+        first = sup.train("efficientdet-lite4", model_dir=mdir, num_epochs=2, **kw)
+    driver_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    fused = dict(mbconv_cuda.LAUNCHES)
+    files = sorted(p.name for p in Path(mdir).iterdir())
+    if files != ["ckpt-0.pkl", "ckpt-1.pkl", "logs", "state-latest.msgpack"] or \
+            first.step != 2 * SUP_STEPS or sum(fused.values()):
+        fail(f"phase 21a: files {files}, step {first.step}, fused launches {fused}")
+    # ckpt-1 holds the inference net of the state at the end of epoch 1
+    saved = bridge.torch_to_flax(DetectorTrainer(
+        sup.config_lib.get_efficientdet_config("efficientdet-lite4"),
+        device=dev).eval_variables(first))
+    read = load_pytree(str(Path(mdir) / "ckpt-1"))
+    flat = lambda d, p="": ([(p + k, v) for k, v in d.items() if not isinstance(v, dict)]
+                            + [x for k, v in d.items() if isinstance(v, dict)
+                               for x in flat(v, p + k + "/")])
+    rd = dict(flat(read))
+    if sorted(rd) != sorted(k for k, _ in flat(saved)) or not all(
+            np.array_equal(v, rd[k]) for k, v in flat(saved)):
+        fail("phase 21a: ckpt-1 does not read back equal to the state it was saved from")
+    del first
+    res = sup.train("efficientdet-lite4", model_dir=mdir, num_epochs=3, resume=True, **kw)
+    with open(Path(mdir) / "logs" / "metrics.jsonl") as f:
+        logged = [json.loads(line)["step"] for line in f]
+    if res.step != 3 * SUP_STEPS or logged != [SUP_STEPS, 2 * SUP_STEPS, 3 * SUP_STEPS]:
+        fail(f"phase 21a resume: step {res.step}, logged steps {logged}")
+    del res
+    pdir = str(Path(work) / "pruned")
+    pruned = sup.train("efficientdet-lite4", model_dir=pdir, num_epochs=2,
+                       prune_sparsity=0.5, prune_end=2 * SUP_STEPS, **kw)
+    named = {id(p): n for n, p in pruned.net.named_parameters()}
+    off_by, n_kernels = 0, 0
+    for path, p in bridge.named_kernel_parameters(pruned.net):
+        zeros = int((p == 0).sum())
+        off_by = max(off_by, abs(zeros - 0.5 * p.numel()))
+        n_kernels += 1
+        if not bool((pruned.ema[named[id(p)]][p == 0] == 0).all()):
+            fail(f"phase 21a prune: the EMA of {path} is not zero where it is")
+    if off_by > 1:
+        fail(f"phase 21a prune: a kernel is {off_by} weights off .5")
+    with open(Path(pdir) / "logs" / "metrics.jsonl") as f:
+        sparsity = json.loads(f.readlines()[-1])["train/sparsity"]
+    del pruned
+    torch.cuda.empty_cache()
+    p50 = statistics.median(steps.ms[1:])
+    print(f"phase 21a supervised driver (train.train efficientdet-lite4, synthetic, fp32, "
+          f"batch {SUP_BATCH}, 2 epochs of {SUP_STEPS} steps) in {driver_s:.2f} s: files "
+          f"{files}, 0 fused MBConv launches while training, step p50 {p50:.3f} ms "
+          f"({1e3 * SUP_BATCH / p50:.2f} images/s; steps {' '.join(f'{v:.1f}' for v in steps.ms)}), "
+          f"peak {peak:.3f} GB; ckpt-1 reads back equal; resume to 3 epochs: "
+          f"epoch 2 only, step {3 * SUP_STEPS}; prune .5 by step {2 * SUP_STEPS}: "
+          f"{n_kernels} kernels within {off_by:g} weight of .5, overall {sparsity:.6f}, "
+          f"EMA zero with them")
+
+
+def evaluate_map_phase(dev, vpath: str) -> dict:
+    """Phase 21b: `evaluate_map` on the phase 16 victim over held-out
+    scenes, with the kernels and with the plain versions on the card; the
+    NMS kernel and the 25 bf16 forward launches at an eval batch's inputs."""
+    import torch
+    from mladversarialobjectdetection_torch.ckpt.io import load_pytree
+    from mladversarialobjectdetection_torch.data.pipeline import ScenePool
+    from mladversarialobjectdetection_torch.ops import mbconv, mbconv_cuda, nms_cuda
+    from mladversarialobjectdetection_torch.train import train as sup
+    from mladversarialobjectdetection_torch.train.trainer import DetectorTrainer
+    from mladversarialobjectdetection_torch.train.victim import make_config
+
+    # the 12-step victim scores about .01: NMS and the evaluation at
+    # DEFEND_THRESH, as phase 19's stages, so that detections are ranked
+    cfg = make_config(mixed_precision=True)
+    cfg.nms_configs.update({"score_thresh": DEFEND_THRESH})
+    tr = DetectorTrainer(cfg, device=dev)
+    st = tr.init_state(variables=load_pytree(vpath))
+    pool = ScenePool(np.random.default_rng(2121), n_batches=EVAL_BATCHES,
+                     batch=TRAIN_BATCH, hw=640, device=dev)
+
+    def batches():
+        for i in range(EVAL_BATCHES):
+            rows = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+            yield {"images": pool.images[rows], "boxes": pool.boxes[rows],
+                   "classes": pool.classes[rows], "valid": pool.valid[rows]}
+
+    sup.evaluate_map(tr, st, batches(), 1)  # warm-up
+    reset_path_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Capture([(nms_cuda, "batched_nms_cuda"),
+                  (mbconv_cuda, "mbconv_fwd_cuda")]) as cap:
+        res = sup.evaluate_map(tr, st, batches(), EVAL_BATCHES, score_thresh=DEFEND_THRESH)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    counts = path_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(nms=EVAL_BATCHES, mbconv_fwd_bf16=EVAL_BATCHES * MBCONV_PER_PASS)
+    if counts != want:
+        fail(f"phase 21b: evaluate_map launched {counts}, want {want}")
+    with PlainNMS(), PlainMBConv():
+        plain = sup.evaluate_map(tr, st, batches(), EVAL_BATCHES, score_thresh=DEFEND_THRESH)
+    if path_counts() != want:
+        fail(f"phase 21b: the plain evaluation launched kernels {path_counts()}")
+    diffs = {k: abs(res[k] - plain[k]) for k in res}
+    if not all(np.isfinite(v) for v in res.values()) or max(diffs.values()) > EVAL_AP_TOL:
+        fail(f"phase 21b: kernels {res} vs plain {plain} (limit {EVAL_AP_TOL})")
+    # the kernels at the last eval batch's inputs
+    (boxes, scores), nkw = cap.args["batched_nms_cuda"][-1]
+    nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by, nms_err = nms_numbers(
+        boxes, scores, nkw, "evaluate_map per_class")
+    fwd = cap.args["mbconv_fwd_cuda"][-MBCONV_PER_PASS:]
+    mb = dict.fromkeys(("ms", "plain_ms", "bytes_ms", "ops_ms"), 0.0)
+    mb_err = 0.0
+    with torch.no_grad():
+        for (x, fb), kw in fwd:
+            kw = dict(act_type=kw["act_type"], residual=kw["residual"])
+            kern = mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw)
+            ref = mbconv.mbconv_plain(x, fb, **kw)
+            mb_err = max(mb_err, float((kern.float() - ref.float()).abs().max())
+                         / max(1.0, float(ref.float().abs().max())))
+            mb["ms"] += cuda_ms(lambda: mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw), iters=10)
+            mb["plain_ms"] += cuda_ms(lambda: mbconv.mbconv_plain(x, fb, **kw), iters=2,
+                                      warmup=1)
+            _, _, nbytes, _, _, ops_ms = mbconv_bound(
+                tuple(x.shape), fb.we.shape[1], fb.wp.shape[1], fb.wd.shape[0],
+                kw["residual"], False, x.element_size())
+            mb["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
+            mb["ops_ms"] += ops_ms
+    if mb_err > MBCONV_BF16_FWD_TOL:
+        fail(f"phase 21b: bf16 fused forward {mb_err:.3g} of scale from plain")
+    mb["bound_ms"] = max(mb["bytes_ms"], mb["ops_ms"])
+    mb["bound_by"] = "bytes" if mb["bytes_ms"] >= mb["ops_ms"] else "operations"
+    n_det = sum(int((a[1] > DEFEND_THRESH).sum()) for a, _ in cap.args["batched_nms_cuda"])
+    print(f"phase 21b evaluate_map (phase 16's bf16 victim, {EVAL_BATCHES} batches of "
+          f"{TRAIN_BATCH} held-out scenes, NMS and score {DEFEND_THRESH}: {n_det} "
+          f"candidates above it) in {eval_s:.3f} s "
+          f"({1e3 * eval_s / EVAL_BATCHES:.3f} ms a batch): launches {counts} "
+          f"({MBCONV_PER_PASS} bf16 fused forward and 1 NMS a batch); AP {res['AP']:.6f} "
+          f"AP50 {res['AP50']:.6f} AP75 {res['AP75']:.6f} ARmax100 {res['ARmax100']:.6f}; "
+          f"plain versions of both ops: AP {plain['AP']:.6f} AP50 {plain['AP50']:.6f} "
+          f"AP75 {plain['AP75']:.6f} (all 12 metrics within {max(diffs.values()):.3g}, "
+          f"limit {EVAL_AP_TOL}); "
+          f"at the last batch's inputs: NMS {nms_ms:.4f} ms (bound {nms_bound_ms:.6f} ms, "
+          f"{nms_bound_by}; plain {nms_plain_ms:.4f} ms), the 25 bf16 forward launches "
+          f"{mb['ms']:.4f} ms (bound {mb['bound_ms']:.6f} ms, {mb['bound_by']}; plain "
+          f"{mb['plain_ms']:.4f} ms), max error {mb_err:.3g} of scale")
+    del tr, st, pool, cap, fwd
+    torch.cuda.empty_cache()
+    return {"launches_per_batch": {"nms": 1, "mbconv_fwd_bf16": MBCONV_PER_PASS},
+            "ms_per_batch": 1e3 * eval_s / EVAL_BATCHES, "AP": res["AP"],
+            "nms_ms": nms_ms, "nms_bound_ms": nms_bound_ms, "nms_err": nms_err,
+            "mbconv": mb, "mbconv_err": mb_err}
+
+
+def segmentation_phase(dev, work: str) -> None:
+    """Phase 21c: `segmentation.train` at lite4@640, heads ("segmentation",),
+    batch 8, 3 steps; then the logits of one batch."""
+    from pathlib import Path
+
+    import torch
+    from mladversarialobjectdetection_torch.train import segmentation as seg
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    with StepTimes(seg.SegmentationTrainer, "train_step") as steps:
+        state, metrics = seg.train("efficientdet-lite4", image_size=640,
+                                   batch_size=SUP_BATCH, steps=SUP_STEPS, log_every=1,
+                                   model_dir=str(Path(work) / "seg"), device=dev)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    size = seg.output_size(640, state.net.spec.min_level)
+    images = next(seg.synthetic_seg_batches(SUP_BATCH, 640, size, seed=5))["images"]
+    with torch.no_grad():
+        (logits,) = state.net(torch.from_numpy(images).to(dev))
+    shape = tuple(logits.shape)
+    if shape != (SUP_BATCH, 160, 160, 3) or size != 160 or \
+            not np.isfinite(metrics["loss"]) or not bool(torch.isfinite(logits).all()):
+        fail(f"phase 21c: logits {shape}, output_size {size}, metrics {metrics}")
+    p50 = statistics.median(steps.ms[1:])
+    print(f"phase 21c segmentation trainer (efficientdet-lite4@640, heads "
+          f"('segmentation',), batch {SUP_BATCH}, {SUP_STEPS} steps): loss "
+          f"{metrics['loss']:.4f}, accuracy {metrics['accuracy']:.4f}, val accuracy "
+          f"{metrics['val_accuracy']:.4f}; logits {shape}; step p50 {p50:.3f} ms "
+          f"({1e3 * SUP_BATCH / p50:.2f} images/s; steps "
+          f"{' '.join(f'{v:.1f}' for v in steps.ms)}), peak {peak:.3f} GB")
+    del state, logits
+    torch.cuda.empty_cache()
+
+
+def tfrecord_native_phase(work: str) -> None:
+    """Phase 21e: the native TFRecord reader built on the host, against the
+    pure-python framing, on records of raw image bytes."""
+    from pathlib import Path
+
+    from mladversarialobjectdetection_torch import _build
+    from mladversarialobjectdetection_torch.data import tfrecord
+    from mladversarialobjectdetection_torch.data.create_coco_tfrecord import (
+        make_example, write_records)
+
+    t0 = time.perf_counter()
+    lib = _build.build_tfrecord_native()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(215)
+    recs = [make_example(rng.integers(0, 256, (64, 80, 3), dtype=np.uint8).tobytes(),
+                         64, 80, rng.uniform(0, 1, (i % 4, 4)), [1] * (i % 4),
+                         [0] * (i % 4), str(i)) for i in range(32)]
+    path = Path(work) / "raw.tfrecord"
+    write_records(recs, str(path))
+    native = tfrecord._native()
+    got = list(native.read_records(str(path)))
+    orig = tfrecord._native
+    tfrecord._native = lambda: None
+    try:
+        python = list(tfrecord.read_tfrecord_file(str(path)))
+    finally:
+        tfrecord._native = orig
+    if got != python or got != recs or list(tfrecord.read_tfrecord_file(str(path))) != recs:
+        fail("phase 21e: the native reader's payloads differ from the python framing's")
+    data = bytearray(path.read_bytes())
+    data[12 + len(recs[0])] ^= 0x04  # the first payload's CRC
+    bad = Path(work) / "bad.tfrecord"
+    bad.write_bytes(bytes(data))
+    try:
+        list(tfrecord.read_tfrecord_file(str(bad)))
+    except ValueError as e:
+        raised = str(e)
+    else:
+        fail("phase 21e: a flipped CRC did not raise")
+    print(f"phase 21e native TFRecord reader: built {lib.name} in {build_s:.2f} s; "
+          f"{len(recs)} records ({path.stat().st_size} bytes) equal to the python "
+          f"framing's; a flipped CRC raises: {raised!r}")
+
+
 def main() -> int:
     import tempfile
     from pathlib import Path
@@ -3402,6 +3779,16 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as work:
             soak_phases(dev, vpath, work)
 
+        # phase 21: the rest of the supervised trainer; 21d first, while
+        # the card holds nothing else (the fp32 b24 step peaks near 80 GB)
+        torch.cuda.empty_cache()
+        grad_checkpoint_phase(dev)
+        with tempfile.TemporaryDirectory() as work:
+            supervised_driver_phase(dev, work)
+            sup_eval = evaluate_map_phase(dev, vpath)
+            segmentation_phase(dev, work)
+            tfrecord_native_phase(work)
+
     # phase 20: the video demos' device path
     with tempfile.TemporaryDirectory() as work:
         demo = demo_phase(dev, work)
@@ -3419,7 +3806,10 @@ def main() -> int:
         "ms": nms_ms, "plain_ms": nms_plain_ms, "bound_ms": nms_bound_ms,
         "bound_by": nms_bound_by, "library_ms": None,
         "demo_launches_per_frame": demo["launches_per_frame"]["nms"],
-        "demo_score0_ms": demo["nms_ms"], "demo_score0_bound_ms": demo["nms_bound_ms"]}]
+        "demo_score0_ms": demo["nms_ms"], "demo_score0_bound_ms": demo["nms_bound_ms"],
+        "eval_launches_per_batch": sup_eval["launches_per_batch"]["nms"],
+        "eval_ms": sup_eval["nms_ms"], "eval_bound_ms": sup_eval["nms_bound_ms"],
+        "eval_max_abs_err": sup_eval["nms_err"]}]
     for k in WARP_KERNELS:
         kern_ms, plain_ms, bound_ms, bound_by = warp_times[k]
         kernels.append({
@@ -3471,7 +3861,12 @@ def main() -> int:
             "launches": bf16_mb["bfloat16"][f"mbconv_{kind}"],
             "max_abs_err": mb16_errs[kind], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"], "library_ms": None,
-            "unfused_ms": tot["unfused_ms"]})
+            "unfused_ms": tot["unfused_ms"],
+            **({"eval_launches_per_batch": sup_eval["launches_per_batch"]["mbconv_fwd_bf16"],
+                "eval_ms": sup_eval["mbconv"]["ms"],
+                "eval_bound_ms": sup_eval["mbconv"]["bound_ms"],
+                "eval_plain_ms": sup_eval["mbconv"]["plain_ms"],
+                "eval_max_abs_err": sup_eval["mbconv_err"]} if kind == "fwd" else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

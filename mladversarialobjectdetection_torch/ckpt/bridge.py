@@ -116,12 +116,71 @@ def _flax_name(subs: Mapping[str, nn.Module], key: str, ndim: int
     raise KeyError(f"no Flax name for {key}")
 
 
-def kernel_parameters(module: nn.Module) -> List[torch.Tensor]:
-    """The parameters of `module` whose Flax name is `kernel` (every conv
-    kernel, depthwise and transposed ones included), in module order."""
+def flax_paths(module: nn.Module) -> Dict[str, str]:
+    """The Flax path (`class_net/conv_0/dw/kernel`, under its collection) of
+    each parameter and buffer of `module`, by state_dict key."""
     subs = dict(module.named_modules())
-    return [p for key, p in module.named_parameters()
-            if _flax_name(subs, key, p.dim())[2] == "kernel"]
+    out = {}
+    for key, tensor in module.state_dict().items():
+        _, path, name = _flax_name(subs, key, tensor.dim())
+        out[key] = "/".join(path + [name])
+    return out
+
+
+def named_kernel_parameters(module: nn.Module) -> List[Tuple[str, torch.Tensor]]:
+    """(Flax path, parameter) of every parameter of `module` whose Flax name
+    is `kernel` (every conv kernel, depthwise and transposed ones
+    included), in module order."""
+    paths = flax_paths(module)
+    return [(paths[key], p) for key, p in module.named_parameters()
+            if paths[key].endswith("/kernel")]
+
+
+def kernel_parameters(module: nn.Module) -> List[torch.Tensor]:
+    """The parameters of `module` whose Flax name is `kernel`, in module order."""
+    return [p for _, p in named_kernel_parameters(module)]
+
+
+def to_flax_tree(module: nn.Module, tensors: Mapping[str, torch.Tensor]
+                 ) -> Dict[str, Dict]:
+    """Tensors keyed by `module`'s parameter names (an EMA, a momentum
+    buffer) as a Flax `params` tree of float32 numpy arrays, the layouts as
+    `torch_to_flax`'s."""
+    subs = dict(module.named_modules())
+    out: Dict[str, Dict] = {}
+    for key, tensor in tensors.items():
+        arr = tensor.detach().to("cpu", torch.float32).numpy()
+        _, path, name = _flax_name(subs, key, arr.ndim)
+        if name == "kernel":
+            arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        node = out
+        for seg in path:
+            node = node.setdefault(seg, {})
+        node[name] = np.array(arr, order="C")
+    return out
+
+
+def from_flax_tree(module: nn.Module, tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The inverse of `to_flax_tree`: a Flax `params` tree as CPU float32
+    tensors keyed by `module`'s parameter names; raises on a missing leaf
+    or a shape that differs from the parameter's."""
+    subs = dict(module.named_modules())
+    out = {}
+    for key, p in module.named_parameters():
+        _, path, name = _flax_name(subs, key, p.dim())
+        node = tree
+        for seg in path + [name]:
+            if not isinstance(node, Mapping) or seg not in node:
+                raise KeyError(f"{'/'.join(path + [name])} missing for {key}")
+            node = node[seg]
+        arr = np.array(node, dtype=np.float32)
+        if name == "kernel":
+            arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{key}: Flax shape {arr.shape} vs module shape "
+                             f"{tuple(p.shape)}")
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
 
 
 def torch_to_flax(module: nn.Module) -> Dict[str, Dict]:

@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .efficientnet import BatchNorm, Conv2d, activation, pad_same, set_compute_dtype
+from .efficientnet import (BatchNorm, Conv2d, activation, checkpointed,
+                           pad_same, set_compute_dtype)
 
 
 class FpnNode(NamedTuple):
@@ -301,7 +302,13 @@ class FPNCell(nn.Module):
 
 class FPNCells(nn.Module):
     """Stack of FPN cells with output re-selection (bifpn.py:259-298), in
-    the compute dtype `dtype` (`efficientnet.set_compute_dtype`)."""
+    the compute dtype `dtype` (`efficientnet.set_compute_dtype`).
+
+    `grad_checkpoint` recomputes each cell in the backward pass (JAX
+    bifpn.py:276-281, `nn.remat(FPNCell)`): only the cell's selected
+    outputs are kept, and the recompute leaves the BatchNorms' running
+    statistics where the first pass moved them (`efficientnet.checkpointed`;
+    a cell draws nothing at random)."""
 
     def __init__(self, nodes: Tuple[FpnNode, ...], min_level: int,
                  max_level: int, fpn_cell_repeats: int, fpn_num_filters: int,
@@ -310,9 +317,11 @@ class FPNCells(nn.Module):
                  apply_bn_for_resampling: bool = True,
                  conv_after_downsample: bool = False,
                  conv_bn_act_pattern: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 grad_checkpoint: bool = False):
         super().__init__()
         self.fpn_cell_repeats = fpn_cell_repeats
+        self.grad_checkpoint = grad_checkpoint
         node_kw = dict(weight_method=weight_method, act_type=act_type,
                        separable_conv=separable_conv,
                        apply_bn_for_resampling=apply_bn_for_resampling,
@@ -331,9 +340,18 @@ class FPNCells(nn.Module):
                         for level in levels]
         set_compute_dtype(self, dtype)
 
+    def _cell_outputs(self, cell: FPNCell, training: bool, *feats):
+        cell_feats = cell(feats, training)
+        return tuple(cell_feats[i] for i in self._select)
+
     def forward(self, feats: Sequence[torch.Tensor],
                 training: bool = False) -> List[torch.Tensor]:
         for rep in range(self.fpn_cell_repeats):
-            cell_feats = getattr(self, f"cell_{rep}")(feats, training)
-            feats = [cell_feats[i] for i in self._select]
+            # bound now: a checkpoint calls it again in the backward pass
+            run = functools.partial(self._cell_outputs,
+                                    getattr(self, f"cell_{rep}"), training)
+            if self.grad_checkpoint and torch.is_grad_enabled():
+                feats = list(checkpointed(run, *feats))
+            else:
+                feats = list(run(*feats))
         return feats

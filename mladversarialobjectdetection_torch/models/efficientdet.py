@@ -89,12 +89,18 @@ def spec_from_config(config) -> DetSpec:
     )
 
 
+HEADS = ("object_detection", "segmentation")
+
+
 class EfficientDetNet(nn.Module):
     """Backbone -> resample 6..max -> BiFPN -> heads (no pre/post).
 
-    Raises on what the port does not run yet, rather than ignoring it: the
-    lane-packed backbone entry (`packed_entry`) and the segmentation head.
-    Gradient checkpointing changes no eval output and is ignored.
+    `spec.heads` names the heads, as JAX's (efficientdet.py:143-160):
+    `object_detection` (ClassNet and BoxNet) and / or `segmentation`
+    (`heads.SegmentationHead`, module `seg_head`). `grad_checkpoint`
+    recomputes the FPN cells and the heads' shared convs in the backward
+    pass. The lane-packed backbone entry (`packed_entry`) is not ported yet
+    and raises.
     """
 
     def __init__(self, spec: DetSpec, packed_entry: int = 0):
@@ -102,9 +108,9 @@ class EfficientDetNet(nn.Module):
         if packed_entry:
             raise NotImplementedError(
                 "packed_entry is not ported yet (ROADMAP Queue 1 item 3)")
-        if tuple(spec.heads) != ("object_detection",):
-            raise NotImplementedError(
-                f"heads {spec.heads}: only object_detection is ported")
+        unknown = set(spec.heads) - set(HEADS)
+        if unknown or not spec.heads:
+            raise ValueError(f"heads {spec.heads}: want some of {HEADS}")
         self.spec = spec
         cdtype = torch.bfloat16 if spec.mixed_precision else None
         self.compute_dtype = cdtype or torch.float32
@@ -125,16 +131,23 @@ class EfficientDetNet(nn.Module):
             spec.fpn_cell_repeats, spec.fpn_num_filters, spec.level_hw,
             channels, spec.fpn_weight_method, spec.act_type,
             spec.separable_conv, spec.apply_bn_for_resampling,
-            spec.conv_after_downsample, spec.conv_bn_act_pattern, dtype=cdtype)
+            spec.conv_after_downsample, spec.conv_bn_act_pattern, dtype=cdtype,
+            grad_checkpoint=spec.grad_checkpoint)
         num_levels = spec.max_level - spec.min_level + 1
-        self.class_net = heads.class_net(
-            spec.num_classes, spec.num_anchors, spec.fpn_num_filters,
-            num_levels, spec.box_class_repeats, spec.act_type,
-            spec.separable_conv, spec.survival_prob, dtype=cdtype)
-        self.box_net = heads.box_net(
-            spec.num_anchors, spec.fpn_num_filters, num_levels,
-            spec.box_class_repeats, spec.act_type, spec.separable_conv,
-            spec.survival_prob, dtype=cdtype)
+        if "object_detection" in spec.heads:
+            self.class_net = heads.class_net(
+                spec.num_classes, spec.num_anchors, spec.fpn_num_filters,
+                num_levels, spec.box_class_repeats, spec.act_type,
+                spec.separable_conv, spec.survival_prob,
+                spec.grad_checkpoint, dtype=cdtype)
+            self.box_net = heads.box_net(
+                spec.num_anchors, spec.fpn_num_filters, num_levels,
+                spec.box_class_repeats, spec.act_type, spec.separable_conv,
+                spec.survival_prob, spec.grad_checkpoint, dtype=cdtype)
+        if "segmentation" in spec.heads:
+            self.seg_head = heads.SegmentationHead(
+                spec.seg_num_classes, spec.fpn_num_filters,
+                [spec.fpn_num_filters] * num_levels, spec.act_type)
 
     def pyramid(self, x: torch.Tensor, training: bool = False,
                 generator: Optional[torch.Generator] = None
@@ -147,10 +160,11 @@ class EfficientDetNet(nn.Module):
         return feats
 
     def forward(self, images: torch.Tensor, training: bool = False,
-                generator: Optional[torch.Generator] = None
-                ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+                generator: Optional[torch.Generator] = None) -> tuple:
         """[B, H, W, 3] images -> (class, box) outputs, per level [B, h, w, C],
-        float32 (the images cast to the compute dtype first).
+        float32 (the images cast to the compute dtype first); with a
+        segmentation head its logits [B, h, w, seg_num_classes] float32
+        follow, or stand alone: `(seg,)` (JAX's output tuple).
 
         `training` is Flax's argument (efficientdet.py:104), never the
         module's own `training` flag: train-mode BatchNorm (batch
@@ -159,7 +173,11 @@ class EfficientDetNet(nn.Module):
         `survival_prob` is set."""
         x = images.to(self.compute_dtype).permute(0, 3, 1, 2)
         fpn_feats = self.fpn_cells(self.pyramid(x, training, generator), training)
-        nhwc = lambda outs: [o.permute(0, 2, 3, 1).to(torch.float32).contiguous()
-                             for o in outs]
-        return (nhwc(self.class_net(fpn_feats, training)),
-                nhwc(self.box_net(fpn_feats, training)))
+        nhwc = lambda o: o.permute(0, 2, 3, 1).to(torch.float32).contiguous()
+        outputs = []
+        if "object_detection" in self.spec.heads:
+            outputs.append([nhwc(o) for o in self.class_net(fpn_feats, training)])
+            outputs.append([nhwc(o) for o in self.box_net(fpn_feats, training)])
+        if "segmentation" in self.spec.heads:
+            outputs.append(nhwc(self.seg_head(fpn_feats, training)))
+        return tuple(outputs)

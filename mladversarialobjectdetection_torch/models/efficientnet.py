@@ -295,6 +295,27 @@ def _recompute():
         _RECOMPUTE.active = before
 
 
+def checkpointed(fn, *tensors):
+    """`fn(*tensors)` with its activations recomputed in the backward pass
+    (`torch.utils.checkpoint`, non-reentrant; Flax's `nn.remat`): the
+    recompute runs under `_recompute`, so its BatchNorms do not move their
+    running statistics a second time. `fn` must compute the same function
+    again: the detector's FPN cells and head convs draw nothing at random;
+    `unet.remat_call` hands the U-Net's blocks, which draw dropout, a
+    generator restored to the first pass's state."""
+    from torch.utils.checkpoint import checkpoint
+    first = [True]
+
+    def run(*args):
+        if first[0]:
+            first[0] = False
+            return fn(*args)
+        with _recompute():
+            return fn(*args)
+
+    return checkpoint(run, *tensors, use_reentrant=False)
+
+
 class BatchNorm(nn.Module):
     """Flax `nn.BatchNorm` (the JAX wrapper `BatchNorm`, efficientnet.py:174-193),
     eps 1e-3 and momentum .99, with an explicit `training` argument as Flax

@@ -1,10 +1,18 @@
-"""ClassNet / BoxNet prediction heads in PyTorch (NCHW inside; `training`
-as Flax's: train-mode BatchNorm).
+"""ClassNet / BoxNet prediction heads and the segmentation head in PyTorch
+(NCHW inside; `training` as Flax's: train-mode BatchNorm).
 
-Port of `mladversarialobjectdetection_tpu/models/heads.py:23-103,139-148`:
-`repeats` separable convs whose weights are SHARED across pyramid levels,
-with a BatchNorm PER LEVEL (`bn_{i}_l{level}`), and a class-head bias of
--log((1 - 0.01) / 0.01). The segmentation head is not ported yet.
+Port of `mladversarialobjectdetection_tpu/models/heads.py`: `repeats`
+separable convs whose weights are SHARED across pyramid levels, with a
+BatchNorm PER LEVEL (`bn_{i}_l{level}`), and a class-head bias of
+-log((1 - 0.01) / 0.01); `grad_checkpoint` recomputes each shared conv
+`conv_{i}` in the backward pass (JAX heads.py:63-69, `nn.remat(_SharedConv)`;
+the convs hold no BatchNorm and draw nothing). `SegmentationHead`
+(heads.py:106-136) upsamples the pyramid from its coarsest level with
+Flax's stride-2 `ConvTranspose` (`models/unet.ConvTranspose`, not
+`F.conv_transpose2d`'s padding), crops each upsample to its skip before
+BatchNorm, and predicts per-pixel classes at half the min_level stride.
+It has no `dtype` in JAX, so it computes in float32 whatever the net's
+compute dtype (a bf16 pyramid is promoted, as `jnp.concatenate` does).
 """
 from __future__ import annotations
 
@@ -14,7 +22,11 @@ from typing import List, Optional, Sequence
 import torch
 from torch import nn
 
-from .efficientnet import BatchNorm, Conv2d, activation, set_compute_dtype
+from .efficientnet import (BatchNorm, Conv2d, activation, checkpointed,
+                           set_compute_dtype)
+from .unet import ConvTranspose
+
+LECUN_INIT = "fan_in_truncated"  # Flax ConvTranspose's default lecun_normal
 
 
 class _SharedConv(nn.Module):
@@ -47,8 +59,10 @@ class PredictionNet(nn.Module):
                  num_levels: int, repeats: int = 4, act_type: str = "swish",
                  separable_conv: bool = True, head_bias_init: float = 0.0,
                  survival_prob: Optional[float] = None,
+                 grad_checkpoint: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.grad_checkpoint = grad_checkpoint
         self.num_levels = num_levels
         self.repeats = repeats
         self.act_type = act_type
@@ -70,7 +84,11 @@ class PredictionNet(nn.Module):
             x = inputs[level_id]
             for i in range(self.repeats):
                 original = x
-                x = getattr(self, f"conv_{i}")(x)
+                conv = getattr(self, f"conv_{i}")
+                if self.grad_checkpoint and torch.is_grad_enabled():
+                    x = checkpointed(conv, x)
+                else:
+                    x = conv(x)
                 x = getattr(self, f"bn_{i}_l{level_id}")(x, training)
                 x = activation(x, self.act_type)
                 if i > 0 and self.survival_prob:
@@ -81,20 +99,63 @@ class PredictionNet(nn.Module):
 
 def class_net(num_classes: int, num_anchors: int, num_filters: int,
               num_levels: int, repeats: int, act_type: str,
-              separable_conv: bool, survival_prob=None, dtype=None) -> PredictionNet:
+              separable_conv: bool, survival_prob=None, grad_checkpoint=False,
+              dtype=None) -> PredictionNet:
     return PredictionNet(
         output_features=num_classes * num_anchors,
         num_filters=num_filters, num_levels=num_levels, repeats=repeats,
         act_type=act_type, separable_conv=separable_conv,
         head_bias_init=-math.log((1 - 0.01) / 0.01),
-        survival_prob=survival_prob, dtype=dtype)
+        survival_prob=survival_prob, grad_checkpoint=grad_checkpoint,
+        dtype=dtype)
 
 
 def box_net(num_anchors: int, num_filters: int, num_levels: int,
             repeats: int, act_type: str, separable_conv: bool,
-            survival_prob=None, dtype=None) -> PredictionNet:
+            survival_prob=None, grad_checkpoint=False,
+            dtype=None) -> PredictionNet:
     return PredictionNet(
         output_features=4 * num_anchors,
         num_filters=num_filters, num_levels=num_levels, repeats=repeats,
         act_type=act_type, separable_conv=separable_conv,
-        survival_prob=survival_prob, dtype=dtype)
+        survival_prob=survival_prob, grad_checkpoint=grad_checkpoint,
+        dtype=dtype)
+
+
+class SegmentationHead(nn.Module):
+    """Semantic-segmentation head over the FPN pyramid (JAX heads.py:106-136,
+    reference tf2/efficientdet_keras.py:635-697): from the coarsest level,
+    repeatedly upsample by a stride-2 transposed conv (`up_{i}`, no bias:
+    BatchNorm `bn_{i}` follows), crop to the next finer level's shape, and
+    concat it; a last stride-2 transposed conv (`predict`, with a bias)
+    gives per-pixel class logits at half the min_level stride, in its
+    parameters' dtype (float32: a bf16 pyramid is promoted, as Flax's
+    `ConvTranspose` and `jnp.concatenate` promote it)."""
+
+    def __init__(self, num_classes: int, num_filters: int,
+                 in_channels: Sequence[int], act_type: str = "swish"):
+        super().__init__()
+        self.act_type = act_type
+        chans = in_channels[-1]
+        for i, skip_ch in enumerate(reversed(in_channels[:-1])):
+            self.add_module(f"up_{i}", ConvTranspose(
+                chans, num_filters, bias=False, init=LECUN_INIT))
+            self.add_module(f"bn_{i}", BatchNorm(num_filters))
+            chans = num_filters + skip_ch
+        self.predict = ConvTranspose(chans, num_classes, init=LECUN_INIT)
+
+    def forward(self, feats: Sequence[torch.Tensor],
+                training: bool = False) -> torch.Tensor:
+        """NCHW features of levels min..max -> NCHW logits."""
+        dtype = self.predict.weight.dtype
+        x = feats[-1].to(dtype)
+        skips = list(reversed(feats[:-1]))
+        for i, skip in enumerate(skips):
+            x = getattr(self, f"up_{i}")(x)
+            # the (s-1)//2+1 pyramid is not an exact power-of-two chain at
+            # small sizes: crop the upsample to the skip's shape
+            x = x[..., :skip.shape[2], :skip.shape[3]]
+            x = getattr(self, f"bn_{i}")(x, training)
+            x = activation(x, self.act_type)
+            x = torch.cat([x, skip.to(dtype)], dim=1)
+        return self.predict(x)

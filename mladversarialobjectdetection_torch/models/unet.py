@@ -58,10 +58,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..ops.cmconv import cmconv
-from .efficientnet import BN_MOMENTUM, Conv2d, set_compute_dtype
+from .efficientnet import BN_MOMENTUM, Conv2d, checkpointed, set_compute_dtype
 from .efficientnet import BatchNorm as _BatchNorm
 from .efficientnet import _recompute, batch_norm, recomputing  # noqa: F401
 
@@ -127,8 +126,9 @@ class ConvTranspose(Conv2d):
     its channel axes into the [in, out, 3, 3] form `F.conv_transpose2d`
     takes."""
 
-    def __init__(self, in_channels: int, out_channels: int):
-        super().__init__(in_channels, out_channels, 3, init=HE_INIT)
+    def __init__(self, in_channels: int, out_channels: int, *,
+                 bias: bool = True, init: str = HE_INIT):
+        super().__init__(in_channels, out_channels, 3, bias=bias, init=init)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[-2:]
@@ -140,7 +140,7 @@ class ConvTranspose(Conv2d):
         weight, bias = self._in_dtype(cd)
         y = F.conv_transpose2d(x.to(cd), weight.flip(2, 3).transpose(0, 1),
                                None, stride=2)[..., :2 * h, :2 * w]
-        return y + bias.view(1, -1, 1, 1)
+        return y if bias is None else y + bias.view(1, -1, 1, 1)
 
 
 class ConvBlock(nn.Module):
@@ -235,17 +235,14 @@ def remat_call(block: nn.Module, tensors, training: bool,
     first = [True]
 
     def run(*args):
-        if first[0]:
-            first[0] = False
-            return block(*args, training, generator)
-        replay = None
-        if generator is not None:
-            replay = torch.Generator(device=generator.device)
-            replay.set_state(snapshot)
-        with _recompute():
-            return block(*args, training, replay)
+        gen = generator
+        if not first[0] and generator is not None:
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(snapshot)
+        first[0] = False
+        return block(*args, training, gen)
 
-    return checkpoint(run, *tensors, use_reentrant=False)
+    return checkpointed(run, *tensors)
 
 
 class PatchNeutralizer(nn.Module):

@@ -107,6 +107,7 @@ class Optimizer:
     def __init__(self, params: List[torch.Tensor], schedule, *, name: str,
                  momentum: float, clip: float):
         self.params = list(params)
+        self.name = name
         self.schedule = schedule
         self.clip = float(clip or 0.0)
         self.count = 0

@@ -28,6 +28,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ckpt import bridge
 from ..models.efficientdet import EfficientDetNet, spec_from_config
 from ..models.init import init_weights
 from ..ops.anchors import Anchors
@@ -74,7 +75,6 @@ class DetectorTrainer:
         draws) or loaded from Flax `variables`, its optimizer and EMA."""
         net = EfficientDetNet(self.spec)
         if variables is not None:
-            from ..ckpt import bridge
             bridge.load_flax_variables(net, variables)
         else:
             init_weights(net, torch.Generator().manual_seed(seed))
@@ -158,6 +158,65 @@ class DetectorTrainer:
         metrics = {"loss": loss_sum, "det_loss": loss_sum - reg_sum,
                    "reg_loss": reg_sum, **parts_sum}
         return state, metrics
+
+    def state_dict(self, state: TrainState) -> Dict:
+        """`state` as the JAX `TrainState`'s flax state dict (nested dicts of
+        numpy arrays, Flax names and layouts): params, batch_stats,
+        ema_params (the parameters themselves at decay 0, as JAX's), the
+        optax chain's opt_state and step (int32). `ckpt/io.save_state_bytes`
+        of it is the file both packages' drivers resume from."""
+        net = state.net
+        named = dict(net.named_parameters())
+        variables = bridge.torch_to_flax(net)
+        tree = lambda tensors: bridge.to_flax_tree(net, tensors)
+        opt = state.optimizer
+        count = np.asarray(opt.count, np.int32)
+        slots = {n: opt.opt.state.get(p, {}) for n, p in named.items()}
+        moment = lambda key: tree({n: s[key] if key in s else torch.zeros_like(named[n])
+                                   for n, s in slots.items()})
+        if opt.name == "sgd":  # optax.sgd: chain(trace, scale_by_schedule)
+            tx = {"0": {"trace": moment("momentum_buffer")}, "1": {"count": count}}
+        else:  # optax.adam: chain(scale_by_adam, scale_by_schedule)
+            tx = {"0": {"count": count, "mu": moment("exp_avg"),
+                        "nu": moment("exp_avg_sq")}, "1": {"count": count}}
+        return {"params": variables["params"],
+                "batch_stats": variables["batch_stats"],
+                "ema_params": tree(state.ema if state.ema is not None else named),
+                "opt_state": {"0": {}, "1": tx} if opt.clip > 0 else tx,
+                "step": np.asarray(state.step, np.int32)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: TrainState, arrays) -> TrainState:
+        """Restore what `state_dict` gives (or JAX's `TrainState` read through
+        `ckpt/io.load_state_bytes` with `state_dict(state)` as the template)
+        into `state`, in place; returns it."""
+        net = state.net
+        bridge.load_flax_variables(net, {"params": arrays["params"],
+                                         "batch_stats": arrays["batch_stats"]})
+        if state.ema is not None:
+            for name, value in bridge.from_flax_tree(
+                    net, arrays["ema_params"]).items():
+                state.ema[name].copy_(value)
+        opt = state.optimizer
+        tx = arrays["opt_state"]["1"] if opt.clip > 0 else arrays["opt_state"]
+        opt.count = int(tx["1"]["count"])
+        inner = opt.opt
+        inner.state.clear()
+        named = dict(net.named_parameters())
+        if opt.name == "sgd":
+            for name, value in bridge.from_flax_tree(net, tx["0"]["trace"]).items():
+                p = named[name]
+                inner.state[p] = {"momentum_buffer": value.to(p.device, p.dtype)}
+        elif opt.count > 0:
+            mu = bridge.from_flax_tree(net, tx["0"]["mu"])
+            nu = bridge.from_flax_tree(net, tx["0"]["nu"])
+            for name, p in named.items():
+                inner.state[p] = {
+                    "step": torch.tensor(float(tx["0"]["count"]), dtype=torch.float32),
+                    "exp_avg": mu[name].to(p.device, p.dtype),
+                    "exp_avg_sq": nu[name].to(p.device, p.dtype)}
+        state.step = int(arrays["step"])
+        return state
 
     def eval_variables(self, state: TrainState, use_ema: bool = True
                        ) -> EfficientDetNet:

@@ -10,6 +10,9 @@ trained victim is for:
 
 - the max person score of each held-out scene (4 batches from another
   seed, as the example's validation pool), before and after training;
+- the COCO metrics of the trained victim on those scenes and their person
+  boxes (`train.evaluate_map`: the frozen net with the fused MBConv
+  kernels, per-class NMS, score .05);
 - the attack driver (`attack.train.train` with `victim_ckpt`, its defaults:
   bf16, batch 12) for a few epochs of 50 steps: val loss, ASR and
   asr_to_scale per epoch, read from its metrics log.
@@ -17,6 +20,8 @@ trained victim is for:
 Usage:
     python -m mladversarialobjectdetection_torch.train.victim \\
         --save-dir /tmp/victim --steps 800 --attack-epochs 3
+
+(`--attack-epochs 0` skips the attack.)
 
 It prints one JSON object with the numbers as its last line, and writes it
 to `<save-dir>/victim.json`.
@@ -37,7 +42,8 @@ from ..ckpt import io as ckpt_io
 from ..data.pipeline import ScenePool, synthetic_person_batch
 from ..utils.device import resolve_device
 from ..utils.log import get_logger
-from .trainer import DetectorTrainer
+from .train import evaluate_map
+from .trainer import DetectorTrainer, TrainState
 
 logger = get_logger(__name__)
 
@@ -107,12 +113,11 @@ def main(argv=None) -> dict:
     rng = np.random.default_rng(a.seed)
     pool = ScenePool(rng, n_batches=a.pool_batches, batch=a.batch, device=device)
     rng_val = np.random.default_rng(a.seed + 777)
-    val = [synthetic_person_batch(rng_val, a.batch)[0]
-           for _ in range(a.val_batches)]
+    val = [synthetic_person_batch(rng_val, a.batch) for _ in range(a.val_batches)]
 
     def val_scores(net):
         return np.concatenate([max_person_scores(
-            net, torch.from_numpy(v).to(device), cfg.num_classes) for v in val])
+            net, torch.from_numpy(v[0]).to(device), cfg.num_classes) for v in val])
 
     path = os.path.join(a.save_dir, "victim")
     t0 = time.perf_counter()
@@ -123,21 +128,28 @@ def main(argv=None) -> dict:
                             seed=a.seed, device=device)
     train_s = time.perf_counter() - t0
     after = val_scores(net)
+    t0 = time.perf_counter()
+    coco = evaluate_map(DetectorTrainer(cfg, device=device), TrainState(net, None, None, 0),
+                        iter({"images": torch.from_numpy(v[0]).to(device), "boxes": v[1],
+                              "classes": v[2], "valid": v[3]} for v in val), len(val))
+    eval_s = time.perf_counter() - t0
     del net, pool
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    from ..attack.train import train as attack_train
-    attack_dir = os.path.join(a.save_dir, "attack")
-    t0 = time.perf_counter()
-    attack_train("efficientdet-lite4", synthetic=True, victim_ckpt=path,
-                 epochs=a.attack_epochs, steps_per_epoch=a.attack_steps,
-                 save_dir=attack_dir, device=device)
-    attack_s = time.perf_counter() - t0
-    with open(os.path.join(attack_dir, "logs", "metrics.jsonl")) as f:
-        recs = [json.loads(line) for line in f]
-    epochs = [{k[len("val/"):]: r[k] for k in r if k.startswith("val/")}
-              for r in recs if "val/loss" in r]
+    epochs, attack_s = [], 0.0
+    if a.attack_epochs:
+        from ..attack.train import train as attack_train
+        attack_dir = os.path.join(a.save_dir, "attack")
+        t0 = time.perf_counter()
+        attack_train("efficientdet-lite4", synthetic=True, victim_ckpt=path,
+                     epochs=a.attack_epochs, steps_per_epoch=a.attack_steps,
+                     save_dir=attack_dir, device=device)
+        attack_s = time.perf_counter() - t0
+        with open(os.path.join(attack_dir, "logs", "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        epochs = [{k[len("val/"):]: r[k] for k in r if k.startswith("val/")}
+                  for r in recs if "val/loss" in r]
     summary = {
         "steps": a.steps, "batch": a.batch, "train_s": train_s,
         "train_log": log,
@@ -145,6 +157,7 @@ def main(argv=None) -> dict:
             "before": {"mean": float(before.mean()), "min": float(before.min())},
             "after": {"mean": float(after.mean()), "min": float(after.min()),
                       "share_at_or_above_0.5": float((after >= 0.5).mean())}},
+        "val_coco": coco, "val_coco_seconds": eval_s,
         "attack": {"epochs": a.attack_epochs, "steps_per_epoch": a.attack_steps,
                    "seconds": attack_s, "val": epochs}}
     with open(os.path.join(a.save_dir, "victim.json"), "w") as f:

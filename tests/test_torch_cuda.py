@@ -1221,3 +1221,49 @@ def test_recovery_unet_at_b1_on_card_matches_cpu(cuda, tmp_path):
         torch.backends.cudnn.allow_tf32 = tf32
     assert outs[1].shape == (1, 640, 640, 3)
     _close(outs[1], outs[0], "recover", 1e-4)
+
+
+def test_evaluate_map_on_card_launches_kernels_and_matches_cpu(cuda):
+    """`train.evaluate_map` on the card: 11 fused forward and 1 NMS launches
+    a batch (lite0), and the COCO metrics of the CPU's evaluation of the
+    same net and scenes (NMS at .0099, so the random net detects) within
+    1e-3."""
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
+    from mladversarialobjectdetection_torch.train import train as sup
+    from mladversarialobjectdetection_torch.train.trainer import DetectorTrainer
+    rng = np.random.default_rng(2)
+    batches = [_train_batch(rng, 64) for _ in range(2)]
+    res = {}
+    for where in ("cpu", cuda):
+        tr = DetectorTrainer(_lite0_cfg(), device=where)
+        st = tr.init_state(seed=3)
+        nms_cuda.LAUNCHES = 0
+        mbconv_cuda.reset_counts()
+        res[str(where)] = sup.evaluate_map(
+            tr, st, iter({"images": im, "boxes": b, "classes": c, "valid": v}
+                         for im, (b, c, v) in batches), 2, score_thresh=0.0099)
+    assert nms_cuda.LAUNCHES == 2 and mbconv_cuda.LAUNCHES["mbconv_fwd"] == 22
+    for k, v in res["cpu"].items():
+        assert abs(res[str(cuda)][k] - v) <= 1e-3, k
+
+
+def test_grad_checkpoint_on_card_matches_no_checkpointing(cuda):
+    """One lite0 train step with `grad_checkpoint` and without, cuDNN
+    deterministic: the parameters and statistics after it bit-equal."""
+    from mladversarialobjectdetection_torch.train.trainer import DetectorTrainer
+    images, gt = _train_batch(np.random.default_rng(4), 64)
+    out = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for gc in (False, True):
+            cfg = _lite0_cfg()
+            cfg.grad_checkpoint = gc
+            tr = DetectorTrainer(cfg, device=cuda)
+            st, m = tr.train_step(tr.init_state(seed=5), images, *gt)
+            out[gc] = (st.net.state_dict(), float(m["loss"]))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    assert out[True][1] == out[False][1]
+    for k, v in out[False][0].items():
+        assert torch.equal(out[True][0][k], v), k

@@ -45,14 +45,20 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     # every module of the port: attack/, data/, defense/, ops/mbconv*.py and
-    # inference/streaming.py included, and the serving surface around the
-    # demos (host NMS and WBF, label maps, the patch compositor, demo/)
-    assert int(proc.stdout.split()[-1]) >= 69
+    # inference/streaming.py included, the serving surface around the demos
+    # (host NMS and WBF, label maps, the patch compositor, demo/), and the
+    # rest of the supervised trainer (TFRecord input, COCO mAP, the drivers,
+    # segmentation, pruning, fine-tuning)
+    assert int(proc.stdout.split()[-1]) >= 81
     names = set(proc.stdout.split()[:-1])
     for mod in ("ops.nms_np", "ops.wbf", "utils.label_util", "demo", "demo.draw",
                 "inference.adv_patch", "demo.synthetic_clip", "demo.video",
                 "demo.demo_v2", "demo.demo", "utils.visualize",
-                "examples.precision_frontier"):
+                "examples.precision_frontier", "utils.coco_metric",
+                "utils.sparsity", "ckpt.finetune", "data.tfrecord",
+                "data.create_coco_tfrecord", "data.create_pascal_tfrecord",
+                "data.inspect_tfrecords", "data.autoaugment", "data.augment",
+                "train.train", "train.eval", "train.segmentation"):
         assert f"mladversarialobjectdetection_torch.{mod}" in names, mod
 
 
