@@ -240,6 +240,33 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    the host C compiler, reading records written by `make_example` and
    `write_records` (raw image bytes: no PIL here): payloads equal to the
    pure-python framing's, and a flipped CRC raises;
+22. export and quantize (lite4@640, seeded weights), with phase 16's victim:
+   22a: the int8 conv kernel (`csrc/conv_int8.cu`) against `conv_int8_plain`
+   on odd shapes (a 1x1 map, 13x37, C not a multiple of 4, stride 2 at odd
+   sizes, k5 depthwise, the pooled [B, C, 1, 1] case, a bias, bf16 x and
+   output, VALID, Co over many tiles) and then at every conv call of a b8
+   int8 serve, fp32 and bf16: the int32 sums and the outputs bit-equal, two
+   launches bit-equal; each serve call timed beside its bound (int8 products
+   at 1,979 TOPS, bytes at 3.35 TB/s), the plain version, `torch._int_mm` on
+   the 1x1 convs and cuDNN's bf16 conv of the same shape; what `F.conv2d`
+   does with int8 CUDA tensors, as a record;
+   22b: `Detector.quantize_int8` on 16 seeded 720x1280 frames, fp32 and
+   bf16: every eligible conv quantised (no `predict`), a b1 and a b8 serve
+   with conv_int8 at two launches a conv call (the heads' shared convs at
+   each level), NMS once a serve, no fused MBConv launch; b8 detections
+   equal to those of the same detector on `conv_int8_plain`; against the
+   float serve the largest score difference and the top detection's
+   agreement; p50 at b1 and b8 of the float and int8 serves in both
+   dtypes, peak memory and the device's busy share;
+   22c: `Detector.export` (the float program after `quantize_int8`) fp32
+   and bf16 at b1: the graph holds the NMS op once and the fused MBConv op
+   25 times; `ExportedProgramDriver.serve` launches them and equals
+   `Detector.serve`; export, load and both p50s;
+   22d: `python -m ...inference.inspector --mode benchmark --batch-size 8`
+   and `--mode dry` (whose checkpoint serves as the seeded detector); the
+   victim exported per_class at b8 and `train.eval.evaluate(artifact=)`
+   over TFRecords of zlib PNGs (no PIL on the card's machine) equal to the
+   live victim's metrics within 1e-6;
 13. card: the `nvidia-smi` name and power limit, and one JSON line with each
    kernel's launches, error, times and bound (cmconv's also with its
    ablation, the instance the plan did not pick, and its bound at 3xTF32;
@@ -247,7 +274,10 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    instances, each a row; NMS, cmconv and the fused forward also with phase
    20's launches per frame, and NMS and cmconv with their times there; NMS
    and the bf16 fused forward also with phase 21b's launches per
-   `evaluate_map` batch and their times at its inputs).
+   `evaluate_map` batch and their times at its inputs; `conv_int8` with
+   phase 22b's launches in a b1 and a b8 fp32 int8 serve and phase 22a's
+   times summed over a b8 serve's calls, `torch._int_mm` as its library
+   time on the 1x1 convs, cuDNN's bf16 convs beside it).
 
 The last line is `{"ok": true, "device": {...}}`. Without a card, or without
 the rest of the repository beside it, the script exits non-zero and prints
@@ -429,6 +459,30 @@ EVAL_AP_TOL = 1e-3      # each COCO metric with the kernels vs the plain version
 # or index op adds with atomics, float32 sums may reorder between runs, so a
 # difference is printed and held within RESUME_TOL of max(1, max|ref|)
 RESUME_TOL = 1e-5
+# phase 22: the int8 serve, export and the inspector. The int8 conv kernel
+# is held bit-equal to its plain version (integer sums are exact; the
+# epilogue keeps the multiply and the add apart); its bound counts the int8
+# products at the dense int8 tensor-core rate (NVIDIA data sheet)
+INT8_OPS_PER_S = 1979e12
+INT8_CALIB_FRAMES = 16
+EVAL_ARTIFACT_BATCHES = 2   # eval --artifact: 2 batches of 8 scenes
+CONV_INT8_REPLACES = ("no Pallas counterpart: XLA's int8 lax.conv_general_dilated with "
+                      "preferred_element_type=int32, "
+                      "mladversarialobjectdetection_tpu/inference/quantize.py:168-173")
+# (name, B, C, H, W, Co, k, stride, padding, depthwise, bias, dtype of x and out)
+CONV_INT8_ODD = [
+    ("1x1 map", 3, 24, 1, 1, 40, 1, 1, "SAME", False, True, "float32"),
+    ("13x37 k3", 2, 16, 13, 37, 24, 3, 1, "SAME", False, False, "float32"),
+    ("C 13 not a multiple of 4", 2, 13, 12, 10, 20, 3, 1, "SAME", False, True, "bfloat16"),
+    ("stride 2 at odd 15x17", 2, 12, 15, 17, 16, 3, 2, "SAME", False, False, "float32"),
+    ("k5 depthwise stride 2 at odd 15x13", 2, 40, 15, 13, 40, 5, 2, "SAME", True, False,
+     "bfloat16"),
+    ("k5 depthwise with bias", 1, 96, 20, 20, 96, 5, 1, "SAME", True, True, "float32"),
+    ("pooled [B, C, 1, 1]", 4, 64, 1, 1, 16, 1, 1, "SAME", False, True, "bfloat16"),
+    ("VALID 3x3", 2, 16, 9, 9, 24, 3, 1, "VALID", False, False, "float32"),
+    ("Co 700 over 11 tiles, K 612", 1, 272, 10, 10, 700, 3, 1, "SAME", False, True,
+     "float32"),
+]
 # the cmconv instances (ops/cmconv_cuda.ENTRIES) and their kernels' names
 CMCONV_INSTANCES = ("simt", "tc")
 CMCONV_KERNEL = {"simt": "cmconv3x3_kernel", "tc": "cmconv3x3_tc_kernel"}
@@ -2443,6 +2497,426 @@ def tfrecord_native_phase(work: str) -> None:
           f"framing's; a flipped CRC raises: {raised!r}")
 
 
+def stdlib_png(img: np.ndarray) -> bytes:
+    """An RGB uint8 image as a PNG (filter 0 rows, zlib), without PIL."""
+    import struct
+    import zlib
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    h, w, _ = img.shape
+    rows = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
+
+
+class StdlibPngDecode:
+    """In its block the TFRecord reader decodes `stdlib_png` images with zlib:
+    `data/tfrecord.decode_detection_example` opens images with PIL, which the
+    card's machine lacks. Boxes, labels and crowd flags as it reads them."""
+
+    def __enter__(self):
+        import struct
+        import zlib
+
+        from mladversarialobjectdetection_torch.data import tfrecord
+        self.mod, self.orig = tfrecord, tfrecord.decode_detection_example
+
+        def decode(example):
+            data = example["image/encoded"][0]
+            w, h = struct.unpack(">II", data[16:24])
+            pos, idat = 8, b""
+            while pos < len(data):
+                n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+                if kind == b"IDAT":
+                    idat += data[pos + 8:pos + 8 + n]
+                pos += 12 + n
+            rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 3 * w + 1)
+            if rows[:, 0].any():
+                fail("phase 22d: a PNG row with a filter other than 0")
+            coords = [np.asarray(example.get(f"image/object/bbox/{k}", []), np.float32)
+                      for k in ("ymin", "xmin", "ymax", "xmax")]
+            return {"image": rows[:, 1:].reshape(h, w, 3).copy(),
+                    "boxes": (np.stack(coords, -1) if len(coords[0])
+                              else np.zeros((0, 4), np.float32)),
+                    "classes": np.asarray(example.get("image/object/class/label", []),
+                                          np.int64),
+                    "is_crowd": np.asarray(example.get("image/object/is_crowd", []),
+                                           np.int64)}
+
+        tfrecord.decode_detection_example = decode
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.decode_detection_example = self.orig
+
+
+class PlainInt8:
+    """In its block every int8 conv of the int8 serve runs `conv_int8_plain`
+    (the plain version, on the card), not the kernel."""
+
+    def __enter__(self):
+        from mladversarialobjectdetection_torch.ops import conv_int8
+        self.mod, self.orig = conv_int8, conv_int8.conv_int8
+        conv_int8.conv_int8 = conv_int8.conv_int8_plain
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.conv_int8 = self.orig
+
+
+def int8_call(call):
+    """(x, a_s, wq, scale, bias, keywords) of a captured `conv_int8_cuda` call."""
+    (x, a_s, wq, scale, *rest), kw = call
+    kw = dict(kw)
+    bias = rest[0] if rest else kw.pop("bias", None)
+    return x, a_s, wq, scale, bias, kw
+
+
+def conv_int8_bound(x, wq, bias, kw):
+    """(bound ms, bound_by, bytes, ops) of one int8 conv call: x in its
+    dtype, the int8 weights, scale, bias and the output once over HBM; two
+    int8 operations per product at the dense int8 tensor-core rate."""
+    import torch
+    from mladversarialobjectdetection_torch.ops import conv_int8 as ci
+    b, _, h, w = x.shape
+    co, cg, kh, kw_ = wq.shape
+    _, (oh, ow) = ci.geometry(h, w, kh, kw_, kw.get("stride", 1), kw.get("padding", "SAME"))
+    out_dtype = kw.get("out_dtype") or x.dtype
+    out_bytes = b * co * oh * ow * torch.empty((), dtype=out_dtype).element_size()
+    nbytes = (x.numel() * x.element_size() + wq.numel() + 4 * co * (1 + (bias is not None))
+              + out_bytes)
+    ops = 2 * b * co * oh * ow * cg * kh * kw_
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
+            nbytes, ops, bytes_ms, ops_ms)
+
+
+def check_conv_int8(name, x, a_s, wq, scale, bias, kw) -> None:
+    """The kernel's int32 sums and output bit-equal to the plain version's,
+    and two launches bit-equal; fails otherwise."""
+    import torch
+    from mladversarialobjectdetection_torch.ops import conv_int8 as ci
+    geo = {k: kw[k] for k in ("stride", "padding", "groups") if k in kw}
+    sums = ci.sums_cuda(x, a_s, wq, **geo)
+    plain_sums = ci.sums_plain(ci.quantize_plain(x, a_s), wq, **geo)
+    y = ci.conv_int8_cuda(x, a_s, wq, scale, bias, **kw)
+    y2 = ci.conv_int8_cuda(x, a_s, wq, scale, bias, **kw)
+    plain = ci.conv_int8_plain(x, a_s, wq, scale, bias, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(sums, plain_sums):
+        fail(f"{name}: int32 sums differ from the plain version's in "
+             f"{int((sums != plain_sums).sum())} places")
+    if y.dtype != plain.dtype or not torch.equal(y, plain):
+        fail(f"{name}: output differs from the plain version's by "
+             f"{float((y.float() - plain.float()).abs().max())}")
+    if not torch.equal(y, y2):
+        fail(f"{name}: two launches differ")
+
+
+def int8_numbers(calls) -> dict:
+    """The int8 conv kernel at a serve's own inputs (its captured calls):
+    each call held bit-equal to the plain version, then timed by CUDA events
+    beside its bound, the plain version, `torch._int_mm` (cuBLASLt's int8
+    product: the 1x1 convs only) and cuDNN's bf16 conv of the same shape."""
+    import torch
+    import torch.nn.functional as F
+    from mladversarialobjectdetection_torch.models.efficientnet import pad_same
+    from mladversarialobjectdetection_torch.ops import conv_int8 as ci
+    tot = dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0, intmm_ms=0.0,
+               intmm_kernel_ms=0.0, cudnn_bf16_ms=0.0, n_1x1=0, n_intmm=0, n=0,
+               dense_ms=0.0, depthwise_ms=0.0, dense_bound_ms=0.0, depthwise_bound_ms=0.0)
+    for i, call in enumerate(calls):
+        x, a_s, wq, scale, bias, kw = int8_call(call)
+        check_conv_int8(f"phase 22a serve conv {i}", x, a_s, wq, scale, bias, kw)
+        ms = cuda_ms(lambda: ci.conv_int8_cuda(x, a_s, wq, scale, bias, **kw), iters=5)
+        tot["ms"] += ms
+        tot["plain_ms"] += cuda_ms(lambda: ci.conv_int8_plain(x, a_s, wq, scale, bias, **kw),
+                                   iters=1, warmup=1)
+        _, _, _, _, bytes_ms, ops_ms = conv_int8_bound(x, wq, bias, kw)
+        tot["bytes_ms"] += bytes_ms
+        tot["ops_ms"] += ops_ms
+        part = "depthwise" if kw.get("groups", 1) != 1 else "dense"
+        tot[f"{part}_ms"] += ms
+        tot[f"{part}_bound_ms"] += max(bytes_ms, ops_ms)
+        stride = kw.get("stride", 1)
+        xb, wb = x.to(torch.bfloat16), wq.to(torch.bfloat16)
+        tot["cudnn_bf16_ms"] += cuda_ms(lambda: F.conv2d(
+            pad_same(xb, wq.shape[2:], stride if isinstance(stride, tuple) else (stride,) * 2),
+            wb, None, stride, 0, 1, kw.get("groups", 1)), iters=5)
+        if wq.shape[2:] == (1, 1) and kw.get("groups", 1) == 1:
+            tot["n_1x1"] += 1
+            xq = ci.quantize_plain(x, a_s).permute(0, 2, 3, 1).reshape(-1, x.shape[1]).contiguous()
+            wt = wq[:, :, 0, 0].t().contiguous()
+            try:
+                torch._int_mm(xq, wt)
+            except RuntimeError:
+                continue  # shapes cuBLASLt's int8 product refuses
+            tot["n_intmm"] += 1
+            tot["intmm_ms"] += cuda_ms(lambda: torch._int_mm(xq, wt), iters=5)
+            tot["intmm_kernel_ms"] += ms
+        tot["n"] += 1
+    tot["bound_ms"] = max(tot["bytes_ms"], tot["ops_ms"])
+    tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
+    return tot
+
+
+def top_agreement(a, b) -> int:
+    """Images whose top detection agrees (class equal, IoU >= .5)."""
+    agree = 0
+    for i in range(a.boxes.shape[0]):
+        if not (a.valid[i][0] and b.valid[i][0]) or a.classes[i][0] != b.classes[i][0]:
+            continue
+        (y0, x0, y1, x1), (v0, u0, v1, u1) = a.boxes[i][0], b.boxes[i][0]
+        inter = max(0.0, min(y1, v1) - max(y0, v0)) * max(0.0, min(x1, u1) - max(x0, u0))
+        union = (y1 - y0) * (x1 - x0) + (v1 - v0) * (u1 - u0) - inter
+        agree += bool(union > 0 and inter / union >= 0.5)
+    return agree
+
+
+def int8_export_phase(dev, vpath: str, work: str) -> dict:
+    """Phase 22: the int8 conv kernel (22a), the int8 serve (22b), export and
+    the artifact driver (22c), the inspector and eval's artifact mode (22d)."""
+    import torch
+    import torch.nn.functional as F
+    from pathlib import Path
+    from mladversarialobjectdetection_torch.data.create_coco_tfrecord import (
+        make_example, write_records)
+    from mladversarialobjectdetection_torch.inference import drivers
+    from mladversarialobjectdetection_torch.inference import quantize as pquant
+    from mladversarialobjectdetection_torch.inference.detector import Detector
+    from mladversarialobjectdetection_torch.ops import conv_int8 as ci
+    from mladversarialobjectdetection_torch.ops import library, mbconv_cuda, nms_cuda
+    from mladversarialobjectdetection_torch.train import eval as peval
+
+    # 22a: the kernel against its plain version on odd shapes
+    g = torch.Generator().manual_seed(22)
+    for name, b, c, h, w, co, k, s, pad, dw, has_bias, od in CONV_INT8_ODD:
+        dtype = getattr(torch, od)
+        x = (torch.randn((b, c, h, w), generator=g) * 3).to(dev, dtype)
+        wq = torch.randint(-127, 128, (co, 1 if dw else c, k, k), generator=g,
+                           dtype=torch.int8).to(dev)
+        a_s = ci.activation_scale(float(x.float().abs().max()))
+        scale = torch.from_numpy(ci.dequant_scale(
+            a_s, (torch.rand(co, generator=g) * 0.01 + 1e-3).numpy())).to(dev)
+        bias = torch.randn(co, generator=g).to(dev) if has_bias else None
+        check_conv_int8(f"phase 22a {name}", x, a_s, wq, scale, bias,
+                        dict(stride=s, padding=pad, groups=c if dw else 1, out_dtype=dtype))
+    a8 = torch.full((1, 64, 2, 2), 100, dtype=torch.int8, device=dev)
+    w8 = torch.full((1, 64, 1, 1), 100, dtype=torch.int8, device=dev)
+    try:
+        r = F.conv2d(a8, w8)
+        torch.cuda.synchronize()
+        fconv = f"returns {r.dtype} {r.flatten()[:2].tolist()} where the sum is 640000"
+    except Exception as e:  # a record of what PyTorch does, not a route
+        fconv = f"raises {type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    print(f"phase 22a conv_int8 kernel vs plain: {len(CONV_INT8_ODD)} odd shapes "
+          f"({', '.join(c[0] for c in CONV_INT8_ODD)}): int32 sums and outputs "
+          f"bit-equal, two launches bit-equal; F.conv2d on int8 CUDA tensors {fconv}")
+
+    # 22b: the int8 serve at lite4@640, fp32 and bf16
+    rng = np.random.default_rng(2222)
+    calib = [rng.integers(0, 256, (720, 1280, 3), dtype=np.uint8)
+             for _ in range(INT8_CALIB_FRAMES)]
+    frames = [rng.integers(0, 256, (720, 1280, 3), dtype=np.uint8) for _ in range(8)]
+    batches = {1: frames[:1], 8: frames}
+    dets, out = {}, {"serve": {}}
+    for label, params in (("fp32", None), ("bf16", {"mixed_precision": True})):
+        det = Detector("efficientdet-lite4", params=params, seed=0, device=dev)
+        det.serve(frames[:1])
+        t0 = time.perf_counter()
+        det.quantize_int8(calib)
+        calib_s = time.perf_counter() - t0
+        dets[label] = det
+        int8 = det._int8
+        eligible = pquant.eligible_convs(det.net)
+        shared = [p for p in eligible if p.startswith(("class_net/", "box_net/"))]
+        levels = det.spec.max_level - det.spec.min_level + 1
+        calls = len(eligible) + (levels - 1) * len(shared)
+        if set(int8.qkernels) != set(eligible) or any("predict" in p for p in int8.qkernels):
+            fail(f"phase 22b {label}: {len(int8.qkernels)} quantised convs of "
+                 f"{len(eligible)} eligible")
+        det.serve(frames[:1])  # warm-up of the int8 route
+        torch.cuda.synchronize()
+        reset_path_counts()
+        ci.reset_counts()
+        with Capture([(ci, "conv_int8_cuda")]) as cap:
+            res = {b: det.serve(batch) for b, batch in batches.items()}
+        torch.cuda.synchronize()
+        counts = path_counts()
+        want = dict.fromkeys(counts, 0)
+        want["nms"] = len(batches)
+        if counts != want or ci.CALLS != len(batches) * calls or ci.LAUNCHES != 2 * ci.CALLS:
+            fail(f"phase 22b {label}: launches {counts} (want {want}), conv_int8 "
+                 f"{ci.LAUNCHES} launches in {ci.CALLS} calls (want {len(batches) * calls} "
+                 f"calls)")
+        launches = ci.LAUNCHES
+        with PlainInt8():
+            ci.reset_counts()
+            plain = det.serve(frames)
+            if ci.LAUNCHES:
+                fail(f"phase 22b {label}: the plain route launched the kernel")
+        same_detections(f"phase 22b {label} int8 kernel vs plain route", res[8], plain)
+        det._int8 = None
+        fl = det.serve(frames)
+        det._int8 = int8
+        score_diff = float(np.abs(fl.scores - res[8].scores).max())
+        agree = top_agreement(res[8], fl)
+        print(f"phase 22b int8 serve {label} (lite4@640, {len(int8.qkernels)} quantised "
+              f"convs of {len(eligible)} eligible, {len(shared)} head convs shared by "
+              f"{levels} levels: {calls} conv calls a serve; calibration on "
+              f"{INT8_CALIB_FRAMES} frames {calib_s:.2f} s): in b1 + b8 conv_int8 "
+              f"{launches} launches ({launches // len(batches)} a serve, two a call), NMS "
+              f"{counts['nms']}, fused MBConv 0; b8 detections equal to the plain int8 "
+              f"route's (valid_len {res[8].valid_len.tolist()}); against the float "
+              f"serve: largest score difference {score_diff:.4g}, top detection agrees "
+              f"in {agree} of 8")
+        out["serve"][label] = dict(calls=calls, launches=launches, score_diff=score_diff,
+                                   agree=agree, n_quantised=len(int8.qkernels))
+        out[f"calls_{label}"] = cap.args["conv_int8_cuda"][-calls:]
+        del cap, res, plain, fl
+    # p50s in one call: float and int8, fp32 and bf16, b1 and b8
+    for label, det in dets.items():
+        int8 = det._int8
+        images, scales = det.preprocess(frames)
+        images_d = torch.from_numpy(images).to(dev)
+        scales_d = torch.from_numpy(scales).to(dev)
+        for mode in ("float", "int8"):
+            det._int8 = int8 if mode == "int8" else None
+            for b, batch in batches.items():
+                ms = host_p50_ms(lambda: det.serve(batch), iters=7)
+                dms = host_p50_ms(lambda: det.serve_tensors(images_d[:b], scales_d[:b]),
+                                  iters=10)
+                out["serve"][f"{label} {mode} b{b}"] = (ms, dms)
+                print(f"  serve {label} {mode} b{b}: p50 {ms:.3f} ms/batch "
+                      f"({b * 1e3 / ms:.2f} images/s); device part (forward + "
+                      f"postprocess) p50 {dms:.3f} ms")
+            torch.cuda.reset_peak_memory_stats()
+            det.serve_tensors(images_d, scales_d)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            print(f"  {label} {mode} b8 device part: peak memory {peak:.3f} GB")
+            profile_device(lambda: det.serve_tensors(images_d, scales_d),
+                           f"{label} {mode} device part b8")
+        det._int8 = int8
+        del images_d, scales_d
+    # 22a continued: the kernel at every conv call of a b8 serve
+    for label in ("fp32", "bf16"):
+        tot = int8_numbers(out.pop(f"calls_{label}"))
+        out[f"numbers_{label}"] = tot
+        print(f"phase 22a conv_int8 at the {tot['n']} conv calls of a {label} b8 int8 "
+              f"serve: every call's sums and output bit-equal to the plain version's; "
+              f"{tot['ms']:.4f} ms in all (dense {tot['dense_ms']:.4f}, depthwise "
+              f"{tot['depthwise_ms']:.4f}), bound {tot['bound_ms']:.6f} ms "
+              f"({tot['bound_by']}: bytes {tot['bytes_ms']:.6f}, int8 operations "
+              f"{tot['ops_ms']:.6f}; dense {tot['dense_bound_ms']:.6f}, depthwise "
+              f"{tot['depthwise_bound_ms']:.6f}), plain {tot['plain_ms']:.4f} ms, "
+              f"cuDNN bf16 convs of the same shapes {tot['cudnn_bf16_ms']:.4f} ms; the "
+              f"{tot['n_1x1']} 1x1 convs: torch._int_mm {tot['intmm_ms']:.4f} ms on "
+              f"{tot['n_intmm']} of them against the kernel's {tot['intmm_kernel_ms']:.4f}")
+
+    # 22c: export, fp32 and bf16, and the artifact driver
+    for label, det in dets.items():
+        int8 = det._int8
+        path = str(Path(work) / f"lite4_{label}.pt2")
+        t0 = time.perf_counter()
+        det.export(path, batch_size=1)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        drv = drivers.ExportedProgramDriver(path, "efficientdet-lite4",
+                                            {"mixed_precision": label == "bf16"}, device=dev)
+        load_s = time.perf_counter() - t0
+        ops = library.op_counts(drv.program.graph)
+        if ops != {"batched_nms": 1, "mbconv_fwd": MBCONV_PER_PASS}:
+            fail(f"phase 22c {label}: the exported graph holds {ops}")
+        drv.serve(frames[:1])
+        det._int8 = None
+        try:
+            ref = det.serve(frames[:1])
+            reset_path_counts()
+            got = drv.serve(frames[:1])
+            torch.cuda.synchronize()
+            counts = path_counts()
+            key = "mbconv_fp32" if label == "fp32" else "mbconv_fwd_bf16"
+            if counts["nms"] != 1 or counts[key] != MBCONV_PER_PASS:
+                fail(f"phase 22c {label}: the program launched {counts}")
+            same_detections(f"phase 22c {label} driver vs Detector.serve", got, ref)
+            live_ms = host_p50_ms(lambda: det.serve(frames[:1]), iters=10)
+            drv_ms = host_p50_ms(lambda: drv.serve(frames[:1]), iters=10)
+        finally:
+            det._int8 = int8
+        out[f"export_{label}"] = dict(export_s=export_s, load_s=load_s, live_ms=live_ms,
+                                      drv_ms=drv_ms, mb=Path(path).stat().st_size / 1e6)
+        print(f"phase 22c export {label} (lite4@640 b1, after quantize_int8: the float "
+              f"program): torch.export + save {export_s:.2f} s ({out[f'export_{label}']['mb']:.1f} "
+              f"MB), load {load_s:.2f} s; graph holds {ops}; the driver launched NMS 1 and "
+              f"{MBCONV_PER_PASS} fused forward, detections equal to Detector.serve "
+              f"(valid_len {got.valid_len.tolist()}); p50 b1 driver {drv_ms:.3f} ms, "
+              f"Detector.serve {live_ms:.3f} ms")
+        Path(path).unlink()
+        del drv
+    del dets, det
+    torch.cuda.empty_cache()
+
+    # 22d: the inspector's benchmark and dry modes, and eval's artifact mode
+    for argv in (["--mode", "benchmark", "--batch-size", "8"],
+                 ["--mode", "dry", "--export-ckpt", str(Path(work) / "dry")]):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "mladversarialobjectdetection_torch.inference.inspector",
+             "--model", "efficientdet-lite4", *argv], capture_output=True, text=True,
+            timeout=600, cwd=str(Path(__file__).resolve().parent))
+        if proc.returncode != 0:
+            fail(f"phase 22d inspector {argv[1]}: exit {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        lines = proc.stdout.strip().splitlines()
+        print(f"phase 22d inspector --mode {argv[1]} ({time.perf_counter() - t0:.1f} s): "
+              f"{lines[-1] if lines else '(no output)'}")
+    dry = Detector("efficientdet-lite4", ckpt_path=str(Path(work) / "dry"), device=dev)
+    same_detections("phase 22d dry checkpoint", dry.serve(frames[:2]),
+                    Detector("efficientdet-lite4", seed=0, device=dev).serve(frames[:2]))
+    print(f"phase 22d dry checkpoint ({Path(work, 'dry.pkl').stat().st_size / 1e6:.1f} MB) "
+          f"serves as the seeded detector")
+    del dry
+    # NMS at score 0 (the demos' setting): every image's top box is valid,
+    # whatever the 12-step victim's scores, and is the image's ground truth
+    hp = {"mixed_precision": True, "nms_configs": {"score_thresh": 0.0}}
+    live_det = Detector("efficientdet-lite4", params=hp, ckpt_path=vpath,
+                        post_mode="per_class", device=dev)
+    scenes = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+              for _ in range(EVAL_ARTIFACT_BATCHES * 8)]
+    top = live_det.serve(scenes)
+    recs = []
+    for i, img in enumerate(scenes):
+        h, w = img.shape[:2]
+        box = top.boxes[i][:1] / np.asarray([h, w, h, w], np.float32)
+        cls = int(top.classes[i][0])
+        recs.append(make_example(stdlib_png(img), h, w, np.clip(box, 0, 1), [cls], [0],
+                                 str(i)))
+    val = str(Path(work) / "val.tfrecord")
+    write_records(recs, val)
+    artifact = str(Path(work) / "victim.pt2")
+    live_det.export(artifact, batch_size=8)
+    kw = dict(ckpt=vpath, batch_size=8, hparams=hp, score_thresh=0.0, device=dev)
+    with StdlibPngDecode():
+        live = peval.evaluate("efficientdet-lite4", val, **kw)
+        arte = peval.evaluate("efficientdet-lite4", val, artifact=artifact, **kw)
+    diff = max(abs(live[k] - arte[k]) for k in live)
+    if set(live) != set(arte) or not diff <= 1e-6 or not live["AP50"] > 0:
+        fail(f"phase 22d: eval of the exported victim {arte} vs the live victim {live} "
+             f"(a top box that is its own ground truth must match)")
+    print(f"phase 22d eval --artifact (phase 16's bf16 victim exported per_class at b8, "
+          f"NMS at score 0, {len(scenes)} 480x640 scenes whose ground truth is the "
+          f"victim's top box): "
+          f"AP {arte['AP']:.6f} AP50 {arte['AP50']:.6f}, all {len(live)} metrics within "
+          f"{diff:.3g} of the live victim's")
+    del live_det
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import tempfile
     from pathlib import Path
@@ -3789,6 +4263,12 @@ def main() -> int:
             segmentation_phase(dev, work)
             tfrecord_native_phase(work)
 
+        # phase 22: export and quantize (the int8 conv kernel, the int8
+        # serve, torch.export and its driver, the inspector, eval --artifact)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as work:
+            q8 = int8_export_phase(dev, vpath, work)
+
     # phase 20: the video demos' device path
     with tempfile.TemporaryDirectory() as work:
         demo = demo_phase(dev, work)
@@ -3867,6 +4347,18 @@ def main() -> int:
                 "eval_bound_ms": sup_eval["mbconv"]["bound_ms"],
                 "eval_plain_ms": sup_eval["mbconv"]["plain_ms"],
                 "eval_max_abs_err": sup_eval["mbconv_err"]} if kind == "fwd" else {})})
+    c8, c8b = q8["numbers_fp32"], q8["numbers_bf16"]
+    kernels.append({
+        "name": "conv_int8", "route": "cuda",
+        "source": "mladversarialobjectdetection_torch/csrc/conv_int8.cu",
+        "replaces": CONV_INT8_REPLACES, "launches": q8["serve"]["fp32"]["launches"],
+        "max_abs_err": 0.0, "ms": c8["ms"], "plain_ms": c8["plain_ms"],
+        "bound_ms": c8["bound_ms"], "bound_by": c8["bound_by"], "library_ms": c8["intmm_ms"],
+        "library_covers": f"torch._int_mm on {c8['n_intmm']} of the {c8['n_1x1']} 1x1 convs",
+        "kernel_ms_on_library_convs": c8["intmm_kernel_ms"],
+        "cudnn_bf16_ms": c8["cudnn_bf16_ms"], "conv_calls_per_serve": c8["n"],
+        "bf16_ms": c8b["ms"], "bf16_bound_ms": c8b["bound_ms"],
+        "bf16_launches": q8["serve"]["bf16"]["launches"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

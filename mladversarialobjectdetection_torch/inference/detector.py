@@ -15,8 +15,19 @@ bf16, as the JAX `Detector` does through `EfficientDetNet`: bf16 activations
 and the fused blocks' bf16 kernels, float32 predictions, so postprocessing
 and NMS see float32. `ckpt_path` loads a pytree file of Flax variables
 (`ckpt/io.load_pytree`, either package's `<path>.pkl`); a reference TF
-checkpoint or an orbax directory there raises. `quantize_int8`, `export`,
-meshes and `packed_entry` are not ported yet and raise.
+checkpoint or an orbax directory there raises. Meshes and `packed_entry`
+are not ported yet and raise.
+
+`quantize_int8` switches `serve`, `serve_raw`, `infer`, `serve_streams` and
+`serve_pipelined` to the W8A8 forward (`inference/quantize.Int8Serve`: the
+int8 conv kernel on the card, every block unfused); `load_flax_variables`
+switches back to the float forward, as JAX's `variables` setter does.
+`export` writes the float serve program (`_serve_float_impl`, whatever
+`quantize_int8` did) as a `torch.export` program (`fmt="exported_program"`,
+the port's counterpart of JAX's `"stablehlo"`), which
+`inference/drivers.ExportedProgramDriver` re-serves; the NMS and fused
+MBConv kernels are custom ops inside it (`ops/library.py`). A SavedModel or
+TFLite file cannot be written from the port (`inference/export.py`).
 """
 from __future__ import annotations
 
@@ -51,6 +62,26 @@ def _numpy(det: postprocess.Detections) -> postprocess.Detections:
 
 def _row(det: postprocess.Detections, i: int) -> postprocess.Detections:
     return postprocess.Detections(*(a[i] for a in det))
+
+
+class _ServeProgram(torch.nn.Module):
+    """What `Detector.export` traces: preprocessed (images [B, H, W, 3]
+    float32, scales [B]) -> the five Detections fields of the float serve
+    (`Detector._serve_float_impl`), or with `pre_nms` the three outputs of
+    `postprocess.tflite_pre_nms` (JAX's int8 export function,
+    detector.py:246-251)."""
+
+    def __init__(self, det: "Detector", pre_nms: bool):
+        super().__init__()
+        self.net = det.net  # a submodule: its weights go into the program
+        self.det = det
+        self.pre_nms = pre_nms
+
+    def forward(self, images: torch.Tensor, scales: torch.Tensor) -> tuple:
+        if self.pre_nms:
+            return tuple(postprocess.tflite_pre_nms(self.det._params_dict,
+                                                    *self.net(images)))
+        return tuple(self.det._serve_float_impl(images, scales))
 
 
 class Detector:
@@ -101,18 +132,21 @@ class Detector:
             bridge.load_flax_variables(self.net, variables)
         self.net.to(self.device)
         self._params_dict = self.config.as_dict()
+        self._int8 = None  # the Int8Serve of quantize_int8, or None: float
 
     def load_flax_variables(self, variables: Mapping) -> None:
-        """Load the JAX package's Flax `{'params', 'batch_stats'}` variables."""
+        """Load the JAX package's Flax `{'params', 'batch_stats'}` variables;
+        the serve returns to the float forward (detector.py:110-119)."""
         self.net.cpu()
         bridge.load_flax_variables(self.net, variables)
         self.net.to(self.device)
+        self._int8 = None
 
-    @torch.no_grad()
-    def serve_tensors(self, images: torch.Tensor, scales: torch.Tensor
-                      ) -> postprocess.Detections:
-        """Preprocessed [B, H, W, 3] images and scales -> Detections on device."""
-        cls_out, box_out = self.net(images)
+    def _forward(self, images: torch.Tensor):
+        return self.net(images) if self._int8 is None else self._int8(images)
+
+    def _post_detections(self, outs, scales) -> postprocess.Detections:
+        cls_out, box_out = outs
         if self.post_mode == "tflite":  # normalized boxes, no scale-back
             return postprocess.postprocess_tflite(self._params_dict, cls_out,
                                                   box_out)
@@ -120,6 +154,19 @@ class Detector:
                 "per_class": postprocess.postprocess_per_class,
                 "combined": postprocess.postprocess_combined}[self.post_mode]
         return post(self._params_dict, cls_out, box_out, image_scales=scales)
+
+    @torch.no_grad()
+    def serve_tensors(self, images: torch.Tensor, scales: torch.Tensor
+                      ) -> postprocess.Detections:
+        """Preprocessed [B, H, W, 3] images and scales -> Detections on
+        device, on the int8 forward after `quantize_int8`."""
+        return self._post_detections(self._forward(images), scales)
+
+    def _serve_float_impl(self, images: torch.Tensor, scales: torch.Tensor
+                          ) -> postprocess.Detections:
+        """The serve on the float forward, whatever `quantize_int8` did: the
+        program `export` traces (without autograd)."""
+        return self._post_detections(self.net(images), scales)
 
     @torch.no_grad()
     def serve_raw(self, raw: torch.Tensor) -> postprocess.Detections:
@@ -246,8 +293,50 @@ class Detector:
             for i in range(n):
                 yield _row(det, i)
 
-    def quantize_int8(self, *args, **kwargs):
-        raise _not_ported("quantize_int8", 5)
+    def quantize_int8(self, representative_frames, *, skip_patterns=None) -> None:
+        """Switch this detector's serve path to int8 (detector.py:153-188).
 
-    def export(self, *args, **kwargs):
-        raise _not_ported("export", 5)
+        Post-training quantization: conv weights per output channel, the
+        activations per tensor with scales calibrated on
+        `representative_frames` (raw HxWx3 frames, preprocessed on the host
+        in batches of 8 as serve() inputs). Head `predict` layers,
+        BatchNorm, activations and postprocessing stay float
+        (`inference/quantize.py`). Affects serve, serve_raw, infer,
+        serve_streams and serve_pipelined; export() stays float."""
+        from .quantize import DEFAULT_SKIP, Int8Serve
+
+        frames = list(representative_frames)
+        if not frames:
+            raise ValueError("quantize_int8 needs representative frames")
+        batches = [self.preprocess(frames[i:i + 8])[0] for i in range(0, len(frames), 8)]
+        self._int8 = Int8Serve(self.net, batches,
+                               skip_patterns=skip_patterns or DEFAULT_SKIP)
+
+    def export(self, out_path: str, fmt: str = "exported_program", batch_size: int = 1,
+               quantize: str | None = None, representative_frames=None) -> None:
+        """Export the float serve program (forward + postprocess, fixed shapes)
+        (detector.py:216-294).
+
+        fmt: "exported_program" (`torch.export`, a `.pt2` with the weights
+        inside; the NMS and fused MBConv kernels as custom ops), which
+        `inference.drivers.ExportedProgramDriver` re-serves: preprocessed
+        (images [B, H, W, 3] float32, scales [B]) in, the five Detections
+        fields out. "stablehlo" is JAX's format and raises ValueError;
+        "saved_model" and "tflite" raise NotImplementedError
+        (`inference/export.py`). `quantize="int8"` exports, as JAX's, the
+        float network up to the TFLite NMS op's inputs
+        (`postprocess.tflite_pre_nms`); `representative_frames` is the TFLite
+        calibration set and unused here."""
+        from . import export as export_lib
+
+        if fmt == "stablehlo":
+            raise ValueError("fmt 'stablehlo' is the JAX package's; the port's "
+                             "counterpart is fmt='exported_program' (torch.export)")
+        if fmt in ("saved_model", "tflite"):
+            raise NotImplementedError(export_lib.TF_NOT_PORTED)
+        if fmt != "exported_program":
+            raise ValueError(f"unknown export format {fmt}")
+        example = (torch.zeros((batch_size, *self.spec.image_size, 3), device=self.device),
+                   torch.ones((batch_size,), device=self.device))
+        export_lib.export_program(_ServeProgram(self, quantize == "int8"), example,
+                                  out_path)

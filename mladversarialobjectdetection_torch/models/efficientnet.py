@@ -218,7 +218,9 @@ class Conv2d(nn.Conv2d):
     `compute_dtype` (None: float32) as Flax's `dtype`: see the module notes.
     The kernel and bias in the compute dtype are cached and recast when a
     parameter changes (its storage or version); where gradients are on and
-    a parameter requires one, they are cast with autograd on every call.
+    a parameter requires one, they are cast with autograd on every call, and
+    under `torch.export` (whose parameters have no storage) the cast is
+    traced as ops.
     """
     compute_dtype: Optional[torch.dtype] = None
 
@@ -236,7 +238,8 @@ class Conv2d(nn.Conv2d):
         params = [p for p in (self.weight, self.bias) if p is not None]
         cast = lambda: (self.weight.to(cd),
                         None if self.bias is None else self.bias.to(cd))
-        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        if torch.compiler.is_exporting() or (
+                torch.is_grad_enabled() and any(p.requires_grad for p in params)):
             return cast()
         key = (cd,) + tuple((p.data_ptr(), p._version, p.device) for p in params)
         if self._cast is None or self._cast[0] != key:
@@ -276,6 +279,20 @@ def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 _RECOMPUTE = threading.local()  # .active: a remat recompute is running
+_UNFUSED = threading.local()    # .active: every MBConvBlock runs unfused
+
+
+@contextlib.contextmanager
+def unfused_blocks():
+    """Every `MBConvBlock` in this thread runs `_forward_unfused` inside:
+    the int8 serve (`inference/quantize.py`) calibrates and quantises the
+    block's own convs, which the fused op never calls."""
+    before = getattr(_UNFUSED, "active", False)
+    _UNFUSED.active = True
+    try:
+        yield
+    finally:
+        _UNFUSED.active = before
 
 
 def recomputing() -> bool:
@@ -407,8 +424,10 @@ class MBConvBlock(nn.Module):
     weights are cached and refolded when a parameter or statistic changes
     (its storage or version). Where gradients are on and a weight requires
     one, the fold is recomputed with autograd so that a backward that needs
-    the weights' gradient reaches the op's refusal instead of a silent zero.
-    The other blocks, and the tests' reference, run `_forward_unfused`.
+    the weights' gradient reaches the op's refusal instead of a silent zero;
+    under `torch.export` the fold is traced as ops. The other blocks, the
+    tests' reference and the int8 serve (`unfused_blocks`, whose calibration
+    and int8 convs need the block's own convs) run `_forward_unfused`.
     A bf16 input runs the op's bf16 instance on the fold in bf16
     (`folded(torch.bfloat16)`: We and Wp in bf16), cached per dtype.
 
@@ -455,7 +474,8 @@ class MBConvBlock(nn.Module):
         """The block's BN-folded weights, We and Wp in `dtype` (cached per
         dtype; see the class docstring)."""
         sources = self._fold_sources()
-        if torch.is_grad_enabled() and any(t.requires_grad for t in sources):
+        if torch.compiler.is_exporting() or (
+                torch.is_grad_enabled() and any(t.requires_grad for t in sources)):
             return mbconv_ops.fold_block(self).in_dtype(dtype)
         key = tuple((t.data_ptr(), t._version, t.device) for t in sources)
         hit = self._folded.get(dtype)
@@ -469,7 +489,7 @@ class MBConvBlock(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if training:
             return self._forward_unfused(x, training, survival_prob, generator)
-        if not self.fuseable:
+        if not self.fuseable or getattr(_UNFUSED, "active", False):
             return self._forward_unfused(x)
         y = mbconv_ops.mbconv(mbconv_ops.nhwc(x.permute(0, 2, 3, 1)),
                               self.folded(x.dtype), act_type=self.act_type,

@@ -36,8 +36,10 @@ kernel's layout.
   on entry, gd = (g . Wp^T) act'(z1) and ge act'(z0). The relu masks come
   from the float32 z0 and z1. `rounding_bound` holds a kernel's bf16
   forward to where those roundings may go.
-- `FusedMBConv` / `mbconv`: the op. Forward: the CUDA kernel for CUDA
-  tensors (which launches or raises), the plain version for CPU tensors.
+- `FusedMBConv` / `mbconv`: the op. Forward: the custom op
+  `mlad::mbconv_fwd` (`ops/library.py`, which `torch.export` traces): the
+  CUDA kernel for CUDA tensors (which launches or raises), the plain
+  version for CPU tensors; without autograd `mbconv` calls it alone.
   Backward: the dx kernel or `mbconv_dx_plain`; it saves x and the folded
   weights, no activation. A gradient for the folded weights is refused with
   an error, as the JAX op refuses one: never silently zero.
@@ -338,12 +340,12 @@ def kink_flips(masks: torch.Tensor, plain_masks: torch.Tensor, z0: torch.Tensor,
 
 
 def _forward(x, fb: FoldedBlock, act_type: str, residual: bool):
-    if x.is_cuda:
-        from . import mbconv_cuda
-        return mbconv_cuda.mbconv_fwd_cuda(x, fb, act_type=act_type, residual=residual)
-    if x.device.type == "cpu":
-        return mbconv_plain(x, fb, act_type=act_type, residual=residual)
-    raise ValueError(f"no fused MBConv for device {x.device}")
+    """The custom op `mlad::mbconv_fwd` (`ops/library.py`): the kernel for
+    CUDA tensors, `mbconv_plain` for CPU tensors."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no fused MBConv for device {x.device}")
+    from . import library
+    return library.mbconv_fwd(x, *fb, act_type, residual)
 
 
 def _dx(x, g, fb: FoldedBlock, act_type: str, residual: bool):
@@ -394,4 +396,6 @@ def mbconv(x: torch.Tensor, fb: FoldedBlock, *, act_type: str,
     fused_mbconv.py:405-433)."""
     if act_type not in SUPPORTED_ACTS:
         raise ValueError(f"fused MBConv: unsupported act {act_type}")
-    return FusedMBConv.apply(x, *fb, act_type, residual)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *fb)):
+        return FusedMBConv.apply(x, *fb, act_type, residual)
+    return _forward(x, fb, act_type, residual)  # no autograd: the op alone

@@ -9,7 +9,8 @@ with a validity mask.
 as `nms.py:93-124`, written over a leading batch dim. It runs on any device
 and is what the CUDA kernel (`ops/nms_cuda.py`, `csrc/nms.cu`) is held
 against. `batched_nms_auto` sends CUDA tensors to the kernel and CPU tensors
-to the plain version, as `nms.py:133-142` sends TPU arrays to Pallas.
+to the plain version, as `nms.py:133-142` sends TPU arrays to Pallas, through
+the custom op of `ops/library.py`.
 """
 from __future__ import annotations
 
@@ -131,17 +132,18 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, **kwargs
     return NMSResult(*(t[0] for t in res))
 
 
-def batched_nms_auto(boxes: torch.Tensor, scores: torch.Tensor,
-                     **kwargs) -> NMSResult:
-    """batched_nms through the CUDA kernel for CUDA tensors.
-
-    CUDA tensors go to `nms_cuda.batched_nms_cuda`, which launches the
-    kernel or raises; CPU tensors go to the plain version. Nothing falls
-    back from the card to the CPU.
+def batched_nms_auto(boxes: torch.Tensor, scores: torch.Tensor, *,
+                     method: str = "gaussian", iou_thresh: float | None = None,
+                     score_thresh: float | None = None, sigma: float | None = None,
+                     max_output_size: int = 100) -> NMSResult:
+    """batched_nms through the custom op `mlad::batched_nms` (`ops/library.py`,
+    which `torch.export` traces): CUDA tensors go to
+    `nms_cuda.batched_nms_cuda`, which launches the kernel or raises; CPU
+    tensors go to the plain version. Nothing falls back from the card to the
+    CPU.
     """
-    if boxes.is_cuda:
-        from . import nms_cuda
-        return nms_cuda.batched_nms_cuda(boxes, scores, **kwargs)
-    if boxes.device.type != "cpu":
+    if boxes.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no NMS for device {boxes.device}")
-    return batched_nms(boxes, scores, **kwargs)
+    from . import library
+    return NMSResult(*library.batched_nms(boxes, scores, method, iou_thresh, score_thresh,
+                                          sigma, int(max_output_size)))

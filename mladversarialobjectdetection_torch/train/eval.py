@@ -12,9 +12,13 @@ mode (tf2/train.py:271-297): evaluate each new `ckpt-{epoch}`, archive the
 best by AP, tolerate a checkpoint deleted mid-eval, stop after
 `idle_timeout` seconds without a new one or at `until_epoch`.
 
-TFRecord images decode on the host with PIL (CPU only). Evaluating an
-exported artifact (`artifact=`, `--artifact`) is ROADMAP Queue 1 item 5
-(export and quantize) and raises.
+TFRecord images decode on the host with PIL (CPU only). `artifact=` /
+`--artifact` evaluates an exported artifact instead of the live model
+(JAX eval.py:44-57, the reference's eval_tflite.py generalised): a
+`.tflite` file through `TfliteDriver`, a directory holding `saved_model.pb`
+through `SavedModelDriver` (both files the JAX package wrote, on the host),
+anything else as a `torch.export` program through `ExportedProgramDriver`
+(`Detector.export`), each with its post mode as exported.
 """
 from __future__ import annotations
 
@@ -22,14 +26,12 @@ import argparse
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..utils.log import get_logger
 
 logger = get_logger(__name__)
-
-ARTIFACT_NOT_PORTED = ("evaluating an exported artifact is not ported yet "
-                       "(ROADMAP Queue 1 item 5, export and quantize)")
 
 
 def count_examples(file_pattern: str) -> int:
@@ -46,6 +48,19 @@ def count_examples(file_pattern: str) -> int:
     return n
 
 
+def _build_artifact_driver(artifact: str, model_name: str, params: dict, device=None):
+    """Driver for an exported artifact, the format from the path (JAX
+    eval.py:44-57)."""
+    from ..inference import drivers
+
+    if artifact.endswith(".tflite"):
+        return drivers.TfliteDriver(artifact, model_name, params)
+    if os.path.isdir(artifact) and os.path.exists(
+            os.path.join(artifact, "saved_model.pb")):
+        return drivers.SavedModelDriver(artifact, model_name, params)
+    return drivers.ExportedProgramDriver(artifact, model_name, params, device=device)
+
+
 def evaluate(model_name: str, val_file_pattern: str, *,
              ckpt: Optional[str] = None, batch_size: int = 8,
              eval_samples: Optional[int] = None,
@@ -54,15 +69,16 @@ def evaluate(model_name: str, val_file_pattern: str, *,
              score_thresh: float = 0.0, per_class: bool = False,
              max_instances: Optional[int] = None,
              artifact: Optional[str] = None, device=None) -> dict:
-    """Run COCO eval; returns the metric dict (eval.py:115-125)."""
-    if artifact:
-        raise NotImplementedError(ARTIFACT_NOT_PORTED)
+    """Run COCO eval; returns the metric dict (eval.py:115-125). With
+    `artifact`, the exported artifact is evaluated instead of the live model
+    (see the module notes)."""
     from .. import config as config_lib
     from ..data.tfrecord import DetectionTFRecordReader
     from ..inference.detector import Detector
     from ..ops import postprocess
     from ..utils import label_util
     from ..utils.coco_metric import COCOEvaluator
+    from ..utils.image import parse_image_size
 
     cfg = config_lib.get_efficientdet_config(model_name)
     if hparams:
@@ -82,11 +98,16 @@ def evaluate(model_name: str, val_file_pattern: str, *,
         logger.warning(f"evaluating {n_batches * batch_size}/{n_eval} "
                        f"samples ({dropped} dropped by batching)")
 
-    # per-class NMS, the reference eval's generate_detections path
-    # (eval.py:84-88 -> postprocess per_class)
-    det = Detector(model_name=model_name, params=cfg.as_dict(),
-                   ckpt_path=ckpt, post_mode="per_class", device=device)
-    cfg = det.config
+    driver = det = None
+    if artifact:
+        driver = _build_artifact_driver(artifact, model_name, cfg.as_dict(), device)
+        cfg = driver.config
+    else:
+        # per-class NMS, the reference eval's generate_detections path
+        # (eval.py:84-88 -> postprocess per_class)
+        det = Detector(model_name=model_name, params=cfg.as_dict(),
+                       ckpt_path=ckpt, post_mode="per_class", device=device)
+        cfg = det.config
     reader = DetectionTFRecordReader(
         val_file_pattern, image_size=cfg.image_size,
         mean_rgb=cfg.mean_rgb, stddev_rgb=cfg.stddev_rgb,
@@ -94,13 +115,24 @@ def evaluate(model_name: str, val_file_pattern: str, *,
         skip_crowd=False, shuffle=False)
 
     evaluator = COCOEvaluator()
-    ones = torch.ones((batch_size,), dtype=torch.float32, device=det.device)
+    ih, iw = parse_image_size(cfg.image_size)
+    ones = np.ones((batch_size,), np.float32)
     batches = reader.batches(batch_size)
     for b in range(n_batches):
         batch = next(batches)
-        images = torch.from_numpy(batch["images"]).to(det.device)
-        detections = [t.cpu().numpy()
-                      for t in det.serve_tensors(images, ones)[:4]]
+        if driver is not None:
+            detections = driver.predict(batch["images"], ones)
+            if driver.normalized_boxes:
+                # TFLite output contract -> model-input pixel coords and
+                # 1-based classes, as the ground truth
+                detections = detections._replace(
+                    boxes=detections.boxes * np.asarray([ih, iw, ih, iw], np.float32),
+                    classes=detections.classes + postprocess.CLASS_OFFSET)
+            detections = list(detections[:4])
+        else:
+            images = torch.from_numpy(batch["images"]).to(det.device)
+            detections = [t.cpu().numpy() for t in det.serve_tensors(
+                images, torch.from_numpy(ones).to(det.device))[:4]]
         boxes, scores, classes, valid = detections
         for i in range(batch_size):
             keep = valid[i] & (scores[i] >= score_thresh)
@@ -204,7 +236,8 @@ def main(argv=None):
     p.add_argument("--per-class", action="store_true",
                    help="also report AP_/<class> entries")
     p.add_argument("--artifact", default=None,
-                   help="evaluate an exported artifact (not ported yet)")
+                   help="evaluate an exported artifact (a torch.export .pt2, or a "
+                        "SavedModel directory / .tflite file the JAX package wrote)")
     p.add_argument("--follow", default=None, metavar="MODEL_DIR",
                    help="continuous eval: watch MODEL_DIR for new "
                         "ckpt-{epoch} checkpoints and evaluate each "

@@ -11,8 +11,9 @@ Here they work on a torch module in place:
   with tfmot's PolynomialDecay sparsity ramp;
 - `mask_like`: the parameter EMA follows the mask;
 - `sparsity_report`: the zero share per kernel and overall;
-- `get_method(name)` / `set_config`: the tfmot.py registry; 'quantize'
-  raises (the int8 path is ROADMAP Queue 1 item 5).
+- `get_method(name)` / `set_config`: the tfmot.py registry; 'quantize' is
+  the port's `inference/quantize` module, and `set_config` binds kwargs
+  onto its `quantize_conv_params`, as JAX's (sparsity.py:161-195).
 
 As tfmot, only the weight kernels are pruned: the parameters whose Flax
 name is `kernel` (`ckpt/bridge.named_kernel_parameters`), every conv
@@ -169,9 +170,9 @@ def sparsity_report(module: nn.Module) -> Dict[str, Any]:
             "overall": (zeros / total) if total else 0.0}
 
 
-QUANTIZE_NOT_PORTED = ("the 'quantize' method (inference/quantize.py) is not "
-                       "ported yet (ROADMAP Queue 1 item 5, export and "
-                       "quantize)")
+def _quantize_method():
+    from ..inference import quantize
+    return quantize
 
 _optimization_methods: Dict[str, Any] = {}
 
@@ -185,7 +186,8 @@ def set_config(configs: Dict[str, Dict[str, Any]]) -> None:
             _optimization_methods[key] = functools.partial(
                 prune_low_magnitude, **kwargs)
         elif key == "quantize":
-            raise NotImplementedError(QUANTIZE_NOT_PORTED)
+            _optimization_methods[key] = functools.partial(
+                _quantize_method().quantize_conv_params, **kwargs)
         else:
             raise KeyError(f"only support ['prune', 'quantize'], got {key!r}")
 
@@ -197,5 +199,5 @@ def get_method(method: str):
     if method == "prune":
         return prune_low_magnitude
     if method == "quantize":
-        raise NotImplementedError(QUANTIZE_NOT_PORTED)
+        return _quantize_method()
     raise KeyError(f"only support ['prune', 'quantize'], got {method!r}")

@@ -1267,3 +1267,99 @@ def test_grad_checkpoint_on_card_matches_no_checkpointing(cuda):
     assert out[True][1] == out[False][1]
     for k, v in out[False][0].items():
         assert torch.equal(out[True][0][k], v), k
+
+
+# (B, C, H, W, Co, k, stride, padding, depthwise): dense 1x1 and 3x3, the
+# stem's stride 2, depthwise k3 / k5 at odd sizes, VALID, C not a multiple of
+# 4, the pooled [B, C, 1, 1] case
+CONV_INT8_CASES = [(2, 13, 9, 11, 20, 1, 1, "SAME", False),
+                   (1, 3, 64, 64, 32, 3, 2, "SAME", False),
+                   (2, 48, 13, 37, 48, 3, 2, "SAME", True),
+                   (2, 40, 15, 15, 40, 5, 1, "SAME", True),
+                   (2, 16, 9, 9, 24, 3, 1, "VALID", False),
+                   (3, 7, 1, 1, 9, 1, 1, "SAME", False)]
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CONV_INT8_CASES)
+def test_conv_int8_kernel_bit_equal_to_plain(cuda, case, out_dtype):
+    """The int8 conv kernel against `conv_int8_plain` on the card: the int32
+    sums and the dequantised output bit-equal (integer sums are exact; the
+    epilogue keeps the multiply and the add apart), two launches bit-equal,
+    two launches a call counted."""
+    from mladversarialobjectdetection_torch.ops import conv_int8 as ci
+    b, c, h, w, co, k, s, pad, dw = case
+    g = torch.Generator().manual_seed(sum(case[:6]))
+    x = (torch.randn((b, c, h, w), generator=g) * 3).to(cuda)
+    if out_dtype == "bfloat16":
+        x = x.bfloat16()
+    wq = torch.randint(-127, 128, (co, 1 if dw else c, k, k), generator=g,
+                       dtype=torch.int8).to(cuda)
+    a_s = ci.activation_scale(float(x.float().abs().max()))
+    scale = torch.from_numpy(ci.dequant_scale(
+        a_s, (torch.rand(co, generator=g) * 0.01 + 1e-3).numpy())).to(cuda)
+    bias = torch.randn(co, generator=g).to(cuda)
+    groups = c if dw else 1
+    kw = dict(stride=s, padding=pad, groups=groups, out_dtype=getattr(torch, out_dtype))
+    before = ci.LAUNCHES
+    sums = ci.sums_cuda(x, a_s, wq, stride=s, padding=pad, groups=groups)
+    assert torch.equal(sums, ci.sums_plain(ci.quantize_plain(x, a_s), wq, stride=s,
+                                           padding=pad, groups=groups))
+    y = ci.conv_int8_cuda(x, a_s, wq, scale, bias, **kw)
+    assert ci.LAUNCHES == before + 4
+    assert torch.equal(y, ci.conv_int8_plain(x, a_s, wq, scale, bias, **kw))
+    assert torch.equal(y, ci.conv_int8_cuda(x, a_s, wq, scale, bias, **kw))
+    torch.cuda.synchronize()
+
+
+def test_int8_serve_on_card_equals_the_plain_route(cuda, monkeypatch):
+    """`Detector.quantize_int8` at lite0@64 on the card: NMS once a serve,
+    no fused MBConv launch, two int8 launches per quantised conv call, and
+    detections equal to the same detector's on `conv_int8_plain`."""
+    from mladversarialobjectdetection_torch.ops import conv_int8 as ci
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
+    det = Detector("efficientdet-lite0", params=DEMO_PARAMS, device=cuda)
+    rng = np.random.RandomState(3)
+    frames = [rng.randint(0, 256, (48, 80, 3)).astype(np.uint8) for _ in range(8)]
+    det.quantize_int8(frames)
+    n_convs = len(det._int8.qkernels)
+    ci.reset_counts()
+    mbconv_cuda.reset_counts()
+    before = nms_cuda.LAUNCHES
+    got = det.serve(frames[:2])
+    torch.cuda.synchronize()
+    assert nms_cuda.LAUNCHES == before + 1
+    assert mbconv_cuda.LAUNCHES["mbconv_fwd"] == 0
+    assert ci.CALLS >= n_convs and ci.LAUNCHES == 2 * ci.CALLS
+    monkeypatch.setattr(ci, "conv_int8", ci.conv_int8_plain)
+    ci.reset_counts()
+    want = det.serve(frames[:2])
+    assert ci.LAUNCHES == 0
+    for f in got._fields:
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
+def test_export_on_card_runs_the_kernels(cuda, tmp_path):
+    """`Detector.export` on the card: the program holds the NMS op once and
+    the fused MBConv op once per fuseable block, runs the kernels when it
+    runs, and re-serves `Detector.serve` exactly."""
+    from mladversarialobjectdetection_torch.inference import drivers
+    from mladversarialobjectdetection_torch.inference import export as pexport
+    from mladversarialobjectdetection_torch.ops import library, mbconv_cuda
+    det = Detector("efficientdet-lite0", params=DEMO_PARAMS, device=cuda)
+    frames = np.random.RandomState(4).randint(0, 256, (2, 48, 80, 3)).astype(np.uint8)
+    ref = det.serve(frames)
+    path = str(tmp_path / "det.pt2")
+    det.export(path, batch_size=2)
+    counts = library.op_counts(pexport.load_program(path).graph)
+    fused = sum(b.fuseable for b in det.net.backbone.children()
+                if hasattr(b, "fuseable"))
+    assert counts == {"batched_nms": 1, "mbconv_fwd": fused}
+    driver = drivers.ExportedProgramDriver(path, "efficientdet-lite0", DEMO_PARAMS)
+    mbconv_cuda.reset_counts()
+    before = nms_cuda.LAUNCHES
+    out = driver.serve(frames)
+    assert nms_cuda.LAUNCHES == before + 1
+    assert mbconv_cuda.LAUNCHES["mbconv_fwd"] == fused
+    for f in out._fields:
+        np.testing.assert_array_equal(getattr(out, f), getattr(ref, f))

@@ -91,10 +91,11 @@ def test_unported_post_modes_raise():
                {"packed_entry": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Detector("efficientdet-lite0", params=PARAMS, device="cpu", **kw)
+    # export and quantize are ported; writing a TF file is what stays behind
     det = Detector("efficientdet-lite0", params=PARAMS, device="cpu")
-    for method in (det.quantize_int8, det.export):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            method()
+    for fmt in ("saved_model", "tflite"):
+        with pytest.raises(NotImplementedError, match="jax2tf"):
+            det.export(os.path.join(os.path.dirname(__file__), "unwritten"), fmt=fmt)
 
 
 def test_seeded_detectors_repeat():

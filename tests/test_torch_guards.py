@@ -24,9 +24,10 @@ REPO = Path(__file__).resolve().parents[1]
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 # any import of these now raises ImportError; cv2, PIL and matplotlib are
-# imported only where a frame is read, drawn on or written, or a plot drawn
+# imported only where a frame is read, drawn on or written, or a plot drawn,
+# tensorflow only where inference/drivers builds a SavedModel or TFLite driver
 for name in ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL",
-             "matplotlib"):
+             "matplotlib", "tensorflow"):
     sys.modules[name] = None
 import mladversarialobjectdetection_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -48,8 +49,9 @@ def test_port_imports_without_jax():
     # inference/streaming.py included, the serving surface around the demos
     # (host NMS and WBF, label maps, the patch compositor, demo/), and the
     # rest of the supervised trainer (TFRecord input, COCO mAP, the drivers,
-    # segmentation, pruning, fine-tuning)
-    assert int(proc.stdout.split()[-1]) >= 81
+    # segmentation, pruning, fine-tuning), and export and quantize (the int8
+    # conv, the custom ops, the drivers, the inspector, the debug harness)
+    assert int(proc.stdout.split()[-1]) >= 88
     names = set(proc.stdout.split()[:-1])
     for mod in ("ops.nms_np", "ops.wbf", "utils.label_util", "demo", "demo.draw",
                 "inference.adv_patch", "demo.synthetic_clip", "demo.video",
@@ -58,7 +60,9 @@ def test_port_imports_without_jax():
                 "utils.sparsity", "ckpt.finetune", "data.tfrecord",
                 "data.create_coco_tfrecord", "data.create_pascal_tfrecord",
                 "data.inspect_tfrecords", "data.autoaugment", "data.augment",
-                "train.train", "train.eval", "train.segmentation"):
+                "train.train", "train.eval", "train.segmentation", "utils.debug",
+                "ops.conv_int8", "ops.library", "inference.quantize",
+                "inference.export", "inference.drivers", "inference.inspector"):
         assert f"mladversarialobjectdetection_torch.{mod}" in names, mod
 
 
@@ -69,6 +73,25 @@ def test_detector_refuses_cpu_fallback(monkeypatch):
             pdetector.Detector("efficientdet-lite0", device=device)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_demo_detector("efficientdet-lite0", device=device)
+
+
+def test_export_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
+    """The artifact driver and the inspector's detector run on the card
+    unless asked for the CPU; the int8 conv takes CUDA tensors or the plain
+    route, never a quiet CPU copy."""
+    from mladversarialobjectdetection_torch.inference import drivers, inspector
+    from mladversarialobjectdetection_torch.ops import conv_int8
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            drivers.ExportedProgramDriver(str(tmp_path / "x.pt2"), "efficientdet-lite0",
+                                          device=device)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            inspector.build_detector("efficientdet-lite0", device=device)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        conv_int8.conv_int8_cuda(torch.zeros((1, 4, 3, 3)), 0.1,
+                                 torch.zeros((4, 4, 1, 1), dtype=torch.int8), torch.ones(4))
 
 
 def test_attack_entry_points_refuse_cpu_fallback(monkeypatch, tiny_cfg):

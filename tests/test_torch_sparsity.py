@@ -174,10 +174,15 @@ def test_registry_prunes_and_leaves_quantize_to_its_item():
     finally:
         psp._optimization_methods.clear()
     assert psp.get_method("prune") is psp.prune_low_magnitude
-    for call in (lambda: psp.get_method("quantize"),
-                 lambda: psp.set_config({"quantize": {}})):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            call()
+    # 'quantize' is the int8 module, its kwargs bound by set_config as JAX's
+    from mladversarialobjectdetection_torch.inference import quantize as pquant
+    assert psp.get_method("quantize") is pquant
+    psp.set_config({"quantize": {"paths": ["backbone/stem_conv"]}})
+    try:
+        (k_q, w_scale), = psp.get_method("quantize")(net).values()
+        assert k_q.dtype == torch.int8 and tuple(w_scale.shape) == (k_q.shape[0],)
+    finally:
+        psp._optimization_methods.clear()
     with pytest.raises(KeyError):
         psp.get_method("distill")
 

@@ -305,8 +305,10 @@ def test_eval_and_follow_match_jax(records, tmp_path, monkeypatch):
                             device="cpu", **kw)
     assert single == got[1]
     assert peval.count_examples(val_pat) == jeval.count_examples(val_pat) == 4
-    with pytest.raises(NotImplementedError, match="item 5"):
-        peval.evaluate("efficientdet-lite0", val_pat, artifact="m.tflite", **kw)
+    # an artifact path that is no file reaches the exported-program driver
+    with pytest.raises(FileNotFoundError):
+        peval.evaluate("efficientdet-lite0", val_pat,
+                       artifact=str(tmp_path / "missing.pt2"), device="cpu", **kw)
     kw.update(min_interval=0.0, idle_timeout=0.0)
     # a checkpoint deleted while it is read is skipped, as JAX's
     pio.save_pytree(str(pdir / "ckpt-2"), ckpts[0])
