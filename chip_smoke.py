@@ -267,6 +267,29 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    victim exported per_class at b8 and `train.eval.evaluate(artifact=)`
    over TFRecords of zlib PNGs (no PIL on the card's machine) equal to the
    live victim's metrics within 1e-6;
+23. the packed backbone entry (`models/efficientnet_packed.py`) at JAX's
+   lite4 operating point, `packed_entry` 10 (blocks 0-9 packed, the fuseable
+   2-4 and 6-8 among them), beside the unpacked net on the same weights:
+   23a: `Detector(packed_entry=10)` at b1 and b8, fp32 and bf16, seeded
+   weights: head outputs within VICTIM_TOL (bf16 PACKED_BF16_SERVE_TOL) of
+   max(1, max|ref|), the top detection agreeing in every image, 19 fused
+   forward launches and one unfused block a serve, NMS once; p50 (host path
+   and device part), peak memory and busy share of both, and the device
+   part with the packed kernels built on every call;
+   23b: `PatchAttacker(packed_entry=10)` at b24, window 320, the live
+   regime, fp32 and bf16, from the unpacked attacker's state: the loss with
+   fixed draws within PACKED_LOSS_REL, the patch gradient at cosine >=
+   PACKED_COS, 38 fused forward and 19 dx launches a step; step p50,
+   images/s and peak memory of both;
+   23c: one `PatchAttackDefender(packed_entry=10)` step at b24, fp32: loss
+   and mean clean score within PACKED_DEFENDER_REL of the unpacked step's,
+   19 fused forward launches;
+   23d: phase 16's victim written by this script's own TF1 bundle writer
+   (`write_tf_bundle`) under the reference's names (raw values off by U(1,
+   2), EMA shadows true) and packed as a release tarball; on a machine
+   without TensorFlow, `Detector(ckpt_path=<tgz>)` serves b8 detections
+   bit-equal to the victim `.pkl`'s and `attack.train.get_victim_variables`
+   returns its variables bit-equal; read and convert seconds;
 13. card: the `nvidia-smi` name and power limit, and one JSON line with each
    kernel's launches, error, times and bound (cmconv's also with its
    ablation, the instance the plan did not pick, and its bound at 3xTF32;
@@ -385,6 +408,20 @@ TC3_FLOP_PER_S = 495e12 / 3
 BF16_FLOP_PER_S = 989e12
 MBCONV_PER_PASS = 25   # lite4's fuseable blocks: all but 0 (e1), 1, 5, 9, 21
 UNFUSED_PER_PASS = 5
+# phase 23: the packed entry at JAX's lite4 operating point (bench.py
+# --packed-entry 10, docs/PACKED_BACKBONE.md): blocks 0-9 packed, among them
+# the fuseable 2-4 and 6-8, so 19 fused blocks a pass and one unfused (21)
+PACKED_ENTRY = 10
+PACKED_MBCONV_PER_PASS = 19
+PACKED_UNFUSED_PER_PASS = 1
+# packed against unpacked serve: fp32 head outputs within VICTIM_TOL of
+# max(1, max|ref|); bf16 within .05 of it (the packed region rounds after each
+# conv, BatchNorm and activation as Flax does, the fused blocks it replaces
+# round e once: the two bf16 nets' distance, ROADMAP Queue 3 item 17)
+PACKED_BF16_SERVE_TOL = 0.05
+PACKED_LOSS_REL = 1e-3
+PACKED_COS = 0.999
+PACKED_DEFENDER_REL = 1e-4
 MBCONV_REPLACES = {"fwd": "tools/experiments/fused_mbconv.py:212",
                    "dx": "tools/experiments/fused_mbconv.py:282"}
 # (name, B, H, W, C, E, Co, k, residual, act): shapes off the path's
@@ -606,10 +643,11 @@ def host_p50_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def profile_device(fn, label: str, top: int = 6, sessions: int = 3) -> None:
+def profile_device(fn, label: str, top: int = 6, sessions: int = 3):
     """One traced call of fn: device busy share of the wall time, top kernels.
     A session that records no device activity is tried again, up to
-    `sessions` times, and then reported as not measured."""
+    `sessions` times, and then reported as not measured (None). Returns the
+    busy share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -630,7 +668,7 @@ def profile_device(fn, label: str, top: int = 6, sessions: int = 3) -> None:
         print(f"  profile {label}: wall {wall_us / 1e3:.3f} ms, device busy not "
               f"measured (the profiler saw no device activity in {sessions} "
               f"sessions)")
-        return
+        return None
     launches = sum(e.count for e in kernels)
     print(f"  profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%, idle "
@@ -638,6 +676,7 @@ def profile_device(fn, label: str, top: int = 6, sessions: int = 3) -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x "
               f"{e.key[:90]}")
+    return busy_us / wall_us
 
 
 def kernel_device_ms(fn, kernel: str, iters: int = 10, sessions: int = 3) -> float:
@@ -2917,6 +2956,408 @@ def int8_export_phase(dev, vpath: str, work: str) -> dict:
     return out
 
 
+# -- phase 23: the packed backbone entry and a reference TF checkpoint ------
+
+def _pb_varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        out.append(b | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def _pb_field(num: int, wire: int, payload) -> bytes:
+    key = _pb_varint(num << 3 | wire)
+    if wire == 0:
+        return key + _pb_varint(payload)
+    if wire == 5:
+        return key + payload.to_bytes(4, "little")
+    return key + _pb_varint(len(payload)) + payload
+
+
+TF_DTYPES = {np.dtype(np.float32): 1, np.dtype(np.float64): 2, np.dtype(np.int32): 3,
+             np.dtype(np.int64): 9, np.dtype(np.bool_): 10, np.dtype(np.float16): 19}
+
+
+def _table_block(entries) -> bytes:
+    """A LevelDB table block: every entry a restart point (no shared key
+    prefix), then the restart array and its count."""
+    body, restarts = bytearray(), []
+    for key, value in entries:
+        restarts.append(len(body))
+        body += _pb_varint(0) + _pb_varint(len(key)) + _pb_varint(len(value)) + key + value
+    for r in restarts or [0]:
+        body += r.to_bytes(4, "little")
+    body += len(restarts or [0]).to_bytes(4, "little")
+    return bytes(body)
+
+
+def write_tf_bundle(prefix: str, tensors: dict) -> None:
+    """Write `tensors` ({name: array}) as a TF tensor bundle, the format of a
+    TF1 name-based checkpoint (`<prefix>.index`, a LevelDB table of
+    `BundleEntryProto`s after the `BundleHeaderProto` keyed "", and
+    `<prefix>.data-00000-of-00001`), without TensorFlow. Its own writer, for
+    phase 23d; tests/test_torch_convert.py holds its files readable by
+    `tf.train.load_checkpoint`."""
+    from mladversarialobjectdetection_torch.data.tfrecord import masked_crc32c
+
+    data, entries = bytearray(), []
+    header = _pb_field(1, 0, 1) + _pb_field(3, 2, _pb_field(1, 0, 1))  # 1 shard, producer 1
+    entries.append((b"", header))
+    for name in sorted(tensors):
+        arr = np.asarray(tensors[name])
+        raw = arr.astype(arr.dtype.newbyteorder("<")).tobytes()  # C order
+        shape = b"".join(_pb_field(2, 2, _pb_field(1, 0, d) if d else b"")
+                         for d in arr.shape)
+        entry = (_pb_field(1, 0, TF_DTYPES[arr.dtype]) + _pb_field(2, 2, shape)
+                 + (_pb_field(4, 0, len(data)) if data else b"")
+                 + (_pb_field(5, 0, len(raw)) if raw else b"")
+                 + _pb_field(6, 5, masked_crc32c(raw)))
+        entries.append((name.encode(), entry))
+        data += raw
+    with open(f"{prefix}.data-00000-of-00001", "wb") as f:
+        f.write(data)
+    out = bytearray()
+
+    def block(contents: bytes) -> bytes:
+        handle = _pb_varint(len(out)) + _pb_varint(len(contents))
+        out.extend(contents + b"\x00")
+        out.extend(masked_crc32c(contents + b"\x00").to_bytes(4, "little"))
+        return handle
+
+    data_handle = block(_table_block(entries))
+    meta_handle = block(_table_block([]))
+    index_handle = block(_table_block([(entries[-1][0], data_handle)]))
+    footer = (meta_handle + index_handle).ljust(40, b"\x00")
+    out += footer + (0xDB4775248B80FB57).to_bytes(8, "little")
+    with open(f"{prefix}.index", "wb") as f:
+        f.write(out)
+
+
+def tf_release_names(config, variables, rng) -> dict:
+    """The detector's Flax variables under the reference's TF1 names
+    (`ckpt/convert_tf._NameMapper`, its transforms undone; each fnode's WSM
+    vector split into the scalars WSM, WSM_1, ...): each raw name holds its
+    value + U(1, 2) and its `/ExponentialMovingAverage` shadow the value, as
+    tests/test_ckpt_file_restore.py:69-90 writes them."""
+    from mladversarialobjectdetection_torch.ckpt import convert_tf
+    from mladversarialobjectdetection_torch.models.efficientdet import spec_from_config
+
+    mapper = convert_tf._NameMapper(config, spec_from_config(config))
+    out = {}
+    for collection, tree in variables.items():
+        for path, leaf in convert_tf._leaves(tree):
+            name, transform = mapper(collection, path)
+            leaf = np.asarray(leaf, np.float32)
+            if path[-1] == "WSM":
+                vals = {name if i == 0 else f"{name}_{i}": leaf[i]
+                        for i in range(leaf.shape[0])}
+            else:
+                vals = {name: leaf.transpose(0, 1, 3, 2)
+                        if transform is convert_tf._dw_to_flax else leaf}
+            for n, v in vals.items():
+                v = np.asarray(v, np.float32)
+                out[f"{n}/ExponentialMovingAverage"] = v
+                out[n] = (v + rng.uniform(1.0, 2.0, v.shape)).astype(np.float32)
+    return out
+
+
+def packed_serve_phase(dev) -> dict:
+    """Phase 23a: `Detector(packed_entry=PACKED_ENTRY)` at lite4@640 beside the
+    unpacked serve on the same seeded weights, fp32 and bf16, b1 and b8."""
+    import torch
+    from mladversarialobjectdetection_torch.inference.detector import Detector
+    from mladversarialobjectdetection_torch.models.efficientnet_packed import (
+        PackedEntryEfficientNet)
+
+    rng = np.random.default_rng(2323)
+    frames = [rng.integers(0, 256, (720, 1280, 3), dtype=np.uint8) for _ in range(8)]
+    batches = {1: frames[:1], 8: frames}
+    out = {}
+    for label, params, tol in (("fp32", None, VICTIM_TOL),
+                               ("bf16", {"mixed_precision": True}, PACKED_BF16_SERVE_TOL)):
+        t0 = time.perf_counter()
+        pdet = Detector("efficientdet-lite4", params=params, seed=0, device=dev,
+                        packed_entry=PACKED_ENTRY)
+        build_s = time.perf_counter() - t0
+        if not isinstance(pdet.net.backbone, PackedEntryEfficientNet):
+            fail(f"phase 23a {label}: Detector(packed_entry) built no packed backbone")
+        udet = copy.copy(pdet)
+        udet.net = pdet.net.with_packed_entry(0)
+        images, scales = pdet.preprocess(frames)
+        images_d = torch.from_numpy(images).to(dev)
+        scales_d = torch.from_numpy(scales).to(dev)
+        with torch.no_grad():
+            p_out = [o for group in pdet.net(images_d) for o in group]
+            u_out = [o for group in udet.net(images_d) for o in group]
+        err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                  for a, b in zip(p_out, u_out))
+        del p_out, u_out
+        if not err <= tol:
+            fail(f"phase 23a {label}: packed head outputs {err} of scale from the "
+                 f"unpacked ones (limit {tol})")
+        pdet.serve(frames[:1])  # warm-up outside the counted run
+        torch.cuda.synchronize()
+        reset_path_counts()
+        with UnfusedRoute() as route:
+            res = {b: pdet.serve(batch) for b, batch in batches.items()}
+        torch.cuda.synchronize()
+        counts = path_counts()
+        want = dict.fromkeys(counts, 0)
+        want["nms"] = len(batches)
+        want["mbconv_fwd_bf16" if params else "mbconv_fp32"] = (
+            len(batches) * PACKED_MBCONV_PER_PASS)
+        if counts != want or len(route.calls) != len(batches) * PACKED_UNFUSED_PER_PASS \
+                or any(route.calls):
+            fail(f"phase 23a {label}: launches {counts} (want {want}), {len(route.calls)} "
+                 f"blocks unfused ({sum(route.calls)} fuseable)")
+        ures = {b: udet.serve(batch) for b, batch in batches.items()}
+        agree = {b: top_agreement(res[b], ures[b]) for b in batches}
+        if any(agree[b] != b for b in batches):
+            fail(f"phase 23a {label}: the top detection agrees in {agree} images")
+        score_diff = float(np.abs(res[8].scores - ures[8].scores).max())
+        row = {"err": err, "launches": counts, "build_s": build_s, "score_diff": score_diff}
+        for name, det in (("packed", pdet), ("unpacked", udet)):
+            for b, batch in batches.items():
+                row[f"{name} b{b}"] = (
+                    host_p50_ms(lambda: det.serve(batch), iters=7),
+                    host_p50_ms(lambda: det.serve_tensors(images_d[:b], scales_d[:b]),
+                                iters=10))
+            torch.cuda.reset_peak_memory_stats(dev)
+            det.serve_tensors(images_d, scales_d)
+            torch.cuda.synchronize()
+            row[f"{name} peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            row[f"{name} busy"] = profile_device(
+                lambda: det.serve_tensors(images_d, scales_d), f"23a {label} {name} b8",
+                top=4)
+        # the packed kernels cached (the serve above) against built every call
+        backbone = pdet.net.backbone
+
+        def rebuilt():
+            backbone._kernels.clear()
+            return pdet.serve_tensors(images_d, scales_d)
+
+        row["rebuilt b8"] = host_p50_ms(rebuilt, iters=10)
+        with torch.no_grad():
+            row["build_ms"] = cuda_ms(lambda: (backbone._kernels.clear(),
+                                               backbone.packed_kernels(pdet.net.compute_dtype)),
+                                      iters=10)
+        out[label] = row
+        print(f"phase 23a packed serve {label} (lite4@640, packed_entry {PACKED_ENTRY}, "
+              f"built in {build_s:.2f} s): head outputs within {err:.3g} of the unpacked "
+              f"serve's scale (limit {tol}); in b1 + b8 launches {counts}, "
+              f"{len(route.calls)} blocks unfused; top detection agrees in {agree}; "
+              f"largest b8 score difference {score_diff:.3g}")
+        for b in batches:
+            (pm, pd), (um, ud) = row[f"packed b{b}"], row[f"unpacked b{b}"]
+            print(f"  serve {label} b{b}: packed p50 {pm:.3f} ms (device part {pd:.3f}), "
+                  f"unpacked {um:.3f} ms (device part {ud:.3f})")
+        busy = {k: "not measured" if row[f"{k} busy"] is None
+                else f"{100 * row[f'{k} busy']:.1f}%" for k in ("packed", "unpacked")}
+        print(f"  {label} b8 device part: peak memory packed {row['packed peak_gb']:.3f} "
+              f"GB, unpacked {row['unpacked peak_gb']:.3f} GB; busy packed "
+              f"{busy['packed']}, unpacked {busy['unpacked']}; the packed "
+              f"kernels built every call: device part p50 {row['rebuilt b8']:.3f} ms "
+              f"(building them alone {row['build_ms']:.4f} ms)")
+        del pdet, udet, images_d, scales_d, res, ures
+        torch.cuda.empty_cache()
+    return out
+
+
+def packed_attack_phase(dev) -> dict:
+    """Phase 23b: `PatchAttacker(packed_entry=PACKED_ENTRY)` beside the unpacked
+    attacker on one victim, b24, window 320, the live regime, fp32 and bf16."""
+    import torch
+    from mladversarialobjectdetection_torch import config as config_lib
+    from mladversarialobjectdetection_torch.attack.attacker import PatchAttacker
+    from mladversarialobjectdetection_torch.attack.train import get_victim
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda, nms_cuda
+
+    def cosine(a, b):
+        a, b = a.double().flatten(), b.double().flatten()
+        return float(a @ b / (a.norm() * b.norm()))
+
+    out = {}
+    for label, mixed in (("fp32", False), ("bf16", True)):
+        cfg = config_lib.get_efficientdet_config("efficientdet-lite4")
+        cfg.nms_configs.update({"iou_thresh": 0.5, "score_thresh": 0.5,
+                                "pre_nms_topk": 256})
+        cfg.mixed_precision = mixed
+        victim = get_victim(cfg, seed=0, device=dev)
+        atks = {"unpacked": PatchAttacker(cfg, victim, window=ATTACK_WINDOW, device=dev),
+                "packed": PatchAttacker(cfg, victim, window=ATTACK_WINDOW,
+                                        packed_entry=PACKED_ENTRY, device=dev)}
+        images = torch.rand((ATTACK_BATCH, *atks["packed"].image_hw, 3), device=dev,
+                            generator=torch.Generator(dev).manual_seed(2)) * 2 - 1
+        boxes, valid = make_live_slot_boxes(ATTACK_BATCH, atks["packed"].image_hw,
+                                            atks["packed"].max_boxes)
+        override = (torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev))
+        row = {}
+        for name, atk in atks.items():
+            state = atk.init_state(1)
+            patch = state.patch.detach().clone().requires_grad_(True)
+            scale = state.scale.detach().clone().requires_grad_(True)
+            loss, _ = atk._loss_from_images(patch, scale, images, *override,
+                                            torch.Generator(dev).manual_seed(7))
+            loss.backward()
+            row[f"{name} loss"], row[f"{name} grad"] = float(loss.detach()), patch.grad
+            step = lambda atk=atk, state=state: atk.train_step(
+                state, images, with_asr=False, boxes_override=override)
+            step()  # warm-up outside the counted run
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_path_counts()
+            step()
+            torch.cuda.synchronize()
+            row[f"{name} launches"] = dict(
+                nms=nms_cuda.LAUNCHES,
+                **{k: dict(v) for k, v in mbconv_cuda.DTYPE_LAUNCHES.items()})
+            row[f"{name} peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            row[f"{name} ms"] = host_p50_ms(step, iters=5, warmup=1)
+        rel = abs(row["packed loss"] - row["unpacked loss"]) / abs(row["unpacked loss"])
+        cos = cosine(row.pop("packed grad"), row.pop("unpacked grad"))
+        got = row["packed launches"]
+        zero = {"mbconv_fwd": 0, "mbconv_dx": 0}
+        want = {"nms": 1, "float32": dict(zero), "bfloat16": dict(zero)}
+        want["bfloat16" if mixed else "float32"] = {
+            "mbconv_fwd": 2 * PACKED_MBCONV_PER_PASS, "mbconv_dx": PACKED_MBCONV_PER_PASS}
+        if not (rel <= PACKED_LOSS_REL and cos >= PACKED_COS and got == want):
+            fail(f"phase 23b {label}: loss {rel} relative (limit {PACKED_LOSS_REL}), patch "
+                 f"gradient cosine {cos} (limit {PACKED_COS}), launches {got}")
+        row.update(rel=rel, cos=cos)
+        out[label] = row
+        print(f"phase 23b packed attack step {label} (b{ATTACK_BATCH}, window "
+              f"{ATTACK_WINDOW}, packed_entry {PACKED_ENTRY}): loss "
+              f"{row['packed loss']:.6f} vs {row['unpacked loss']:.6f} ({rel:.3g} "
+              f"relative), patch gradient cosine {cos:.8f}; launches a step packed "
+              f"{got}, unpacked {row['unpacked launches']}")
+        for name in ("packed", "unpacked"):
+            ms = row[f"{name} ms"]
+            print(f"  {label} {name} step p50 {ms:.3f} ms ({ATTACK_BATCH * 1e3 / ms:.2f} "
+                  f"images/s), peak memory {row[f'{name} peak_gb']:.3f} GB")
+        del atks, victim, images
+        torch.cuda.empty_cache()
+    return out
+
+
+def packed_defender_phase(dev) -> dict:
+    """Phase 23c: one `PatchAttackDefender(packed_entry=PACKED_ENTRY)` step
+    beside the unpacked defender's, b24, fp32, from the same state."""
+    import torch
+    from mladversarialobjectdetection_torch import config as config_lib
+    from mladversarialobjectdetection_torch.attack.train import get_victim
+    from mladversarialobjectdetection_torch.defense.defender import PatchAttackDefender
+
+    dcfg = config_lib.get_efficientdet_config("efficientdet-lite4")
+    dcfg.nms_configs.update({"iou_thresh": 0.5, "score_thresh": DEFEND_THRESH})
+    eval_patch = np.random.default_rng(0).uniform(-1, 1, (640, 640, 3)).astype(np.float32)
+    victim = get_victim(dcfg, seed=0, device=dev)
+    images = torch.rand((DEFEND_BATCH, 640, 640, 3), device=dev,
+                        generator=torch.Generator(dev).manual_seed(4)) * 2 - 1
+    row = {}
+    for name, pe in (("unpacked", 0), ("packed", PACKED_ENTRY)):
+        dfd = PatchAttackDefender(dcfg, victim, eval_patch=eval_patch, eval_scale=0.4,
+                                  packed_entry=pe, device=dev)
+        state = dfd.init_state(3)
+        reset_path_counts()
+        _, m = dfd.train_step(state, images)
+        torch.cuda.synchronize()
+        row[name] = (float(m.loss), float(m.mean_clean_score), path_counts())
+        row[f"{name} ms"] = host_p50_ms(lambda: dfd.train_step(state, images), iters=3,
+                                        warmup=1)
+    rel = abs(row["packed"][0] - row["unpacked"][0]) / abs(row["unpacked"][0])
+    srel = abs(row["packed"][1] - row["unpacked"][1]) / abs(row["unpacked"][1])
+    if not (rel <= PACKED_DEFENDER_REL and srel <= PACKED_DEFENDER_REL) or \
+            row["packed"][2]["mbconv_fp32"] != PACKED_MBCONV_PER_PASS:
+        fail(f"phase 23c: packed defender loss {rel} relative, clean score {srel} "
+             f"(limit {PACKED_DEFENDER_REL}), launches {row['packed'][2]}")
+    print(f"phase 23c packed defender step (b{DEFEND_BATCH}, fp32): loss "
+          f"{row['packed'][0]:.8f} vs {row['unpacked'][0]:.8f} ({rel:.3g} relative), mean "
+          f"clean score {srel:.3g} relative; launches packed {row['packed'][2]}; step p50 "
+          f"packed {row['packed ms']:.3f} ms, unpacked {row['unpacked ms']:.3f} ms")
+    del victim, images
+    torch.cuda.empty_cache()
+    return {"rel": rel, "packed_ms": row["packed ms"], "unpacked_ms": row["unpacked ms"]}
+
+
+def tf_checkpoint_phase(dev, vpath: str, work: str) -> dict:
+    """Phase 23d: phase 16's victim written as a reference TF1 release
+    tarball (raw names off by U(1, 2), EMA shadows true) and read back on a
+    machine without TensorFlow by `Detector(ckpt_path=<tgz>)` and
+    `attack.train.get_victim_variables`."""
+    import importlib.util
+    import tarfile
+    from pathlib import Path
+    import torch
+    from mladversarialobjectdetection_torch import _build
+    from mladversarialobjectdetection_torch import config as config_lib
+    from mladversarialobjectdetection_torch.attack.train import get_victim_variables
+    from mladversarialobjectdetection_torch.ckpt import convert_tf, io as ckpt_io
+    from mladversarialobjectdetection_torch.inference.detector import Detector
+    from mladversarialobjectdetection_torch.models.efficientdet import spec_from_config
+
+    no_tf = importlib.util.find_spec("tensorflow") is None
+    bf16 = {"mixed_precision": True}
+    cfg = config_lib.get_efficientdet_config("efficientdet-lite4")
+    cfg.update(bf16)
+    flax_vars = ckpt_io.load_pytree(vpath)
+    _build.build_tfrecord_native()  # the native CRC, for the writer too
+    t0 = time.perf_counter()
+    tensors = tf_release_names(cfg, flax_vars, np.random.default_rng(23))
+    root = Path(work) / "efficientdet-lite4"
+    root.mkdir(parents=True)
+    write_tf_bundle(str(root / "model"), tensors)
+    (root / "checkpoint").write_text('model_checkpoint_path: "model"\n')
+    tgz = str(Path(work) / "efficientdet-lite4.tgz")
+    with tarfile.open(tgz, "w:gz", compresslevel=1) as tar:
+        tar.add(str(root), arcname="efficientdet-lite4")
+    write_s = time.perf_counter() - t0
+    mb = Path(tgz).stat().st_size / 1e6
+    t0 = time.perf_counter()
+    prefix = convert_tf.find_tf_checkpoint(tgz)
+    weights = convert_tf.load_tf_checkpoint(prefix)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    convert_tf.convert_tf_weights(weights, cfg, spec_from_config(cfg), flax_vars)
+    convert_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    det_tf = Detector("efficientdet-lite4", params=bf16, device=dev, ckpt_path=tgz)
+    det_s = time.perf_counter() - t0
+    det_pkl = Detector("efficientdet-lite4", params=bf16, device=dev, ckpt_path=vpath)
+    rng = np.random.default_rng(2324)
+    frames = [rng.integers(0, 256, (720, 1280, 3), dtype=np.uint8) for _ in range(8)]
+    det_tf.serve(frames[:1])
+    reset_path_counts()
+    from_tf = det_tf.serve(frames)
+    torch.cuda.synchronize()
+    counts = path_counts()
+    same_detections("phase 23d Detector(<tgz>) against Detector(<victim .pkl>)",
+                    from_tf, det_pkl.serve(frames))
+    if counts["nms"] != 1 or counts["mbconv_fwd_bf16"] != MBCONV_PER_PASS:
+        fail(f"phase 23d: a serve from the tarball launched {counts}")
+    t0 = time.perf_counter()
+    vv = get_victim_variables(cfg, tgz)
+    victim_s = time.perf_counter() - t0
+    leaves = dict(convert_tf._leaves(vv))
+    want = dict(convert_tf._leaves(flax_vars))
+    if leaves.keys() != want.keys() or not all(
+            np.array_equal(leaves[k], np.asarray(want[k], np.float32)) for k in want):
+        fail("phase 23d: get_victim_variables(<tgz>) differs from the victim's variables")
+    if "tensorflow" in sys.modules:
+        fail("phase 23d: TensorFlow was imported")
+    n_valid = int(np.asarray(from_tf.valid).sum())
+    print(f"phase 23d reference TF checkpoint: {len(tensors)} tensors ({len(tensors) // 2} "
+          f"variables and their EMA shadows) written as a {mb:.1f} MB release tarball in "
+          f"{write_s:.2f} s; TensorFlow installed: {not no_tf}; read without it in "
+          f"{read_s:.2f} s, converted in {convert_s:.2f} s; Detector(ckpt_path=<tgz>) "
+          f"built in {det_s:.2f} s serves b8 detections bit-equal to the victim .pkl's "
+          f"({n_valid} valid, launches {counts}); get_victim_variables(<tgz>) in "
+          f"{victim_s:.2f} s, every leaf bit-equal")
+    return {"read_s": read_s, "convert_s": convert_s, "detector_s": det_s}
+
+
 def main() -> int:
     import tempfile
     from pathlib import Path
@@ -4268,6 +4709,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as work:
             q8 = int8_export_phase(dev, vpath, work)
+
+        # phase 23: the packed backbone entry (serve, attack step, defender
+        # step) beside the unpacked one, and the victim as a TF tarball
+        torch.cuda.empty_cache()
+        t23 = time.perf_counter()
+        packed_serve_phase(dev)
+        packed_attack_phase(dev)
+        packed_defender_phase(dev)
+        with tempfile.TemporaryDirectory() as work:
+            tf_checkpoint_phase(dev, vpath, work)
+        print(f"phase 23 took {time.perf_counter() - t23:.2f} s")
 
     # phase 20: the video demos' device path
     with tempfile.TemporaryDirectory() as work:

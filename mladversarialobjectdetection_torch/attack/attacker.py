@@ -93,21 +93,24 @@ class PatchAttacker:
             (`attack.train.get_victim`); frozen and moved to `device`.
           patch_size, learning_rate, tolerance, use_histogram_match, window,
             eot_overrides, grad_accum, freeze_scale: as in the JAX package.
-          bn_axis_name, packed_entry: not ported yet; anything but the
-            default raises.
+          packed_entry: > 0 runs the victim's stem and first `packed_entry`
+            backbone blocks in the space-to-depth layout
+            (`models/efficientnet_packed.py`) on the same weights: the
+            attacker's net is a packed view of `victim`, which is left as it
+            is (JAX attacker.py:96-104).
+          bn_axis_name: not ported yet; anything but None raises.
           device: "cuda" (the default) or "cpu".
         """
         if bn_axis_name is not None:
             raise NotImplementedError(
                 "bn_axis_name is not ported yet (ROADMAP Queue 1 item 6, "
                 "distribution)")
-        if packed_entry:
-            raise NotImplementedError(
-                "packed_entry is not ported yet (ROADMAP Queue 1 item 3)")
         self.device = resolve_device(device)
         self.config = config
         self.spec: DetSpec = spec_from_config(config)
         self.net = victim.to(self.device).eval()
+        if packed_entry:
+            self.net = self.net.with_packed_entry(packed_entry)
         for p in self.net.parameters():
             p.requires_grad_(False)
         self.patch_size = patch_size

@@ -21,10 +21,12 @@ controller, with both input streams fast-forwarded (JAX
 train.py:128-195), so a killed and resumed run repeats the uninterrupted
 one. The data are synthetic (`synthetic`, or no `img_dir`), or an image
 folder (`img_dir`; `data/pipeline.partition`, unfiltered, and the folder
-streams of `ImageFolderSource`, which need PIL). Not ported yet, and
-raising `NotImplementedError`: `spatial > 1` (and with it the sharding of
-a folder across processes), `packed_entry`, and victim checkpoints in the
-orbax or TF formats.
+streams of `ImageFolderSource`, which need PIL). `victim_ckpt` may also be
+an orbax directory or a reference TF1 checkpoint (the release tarball
+too); `packed_entry` runs the victim's entry blocks in the space-to-depth
+layout (`--packed-entry`). Not ported yet, and raising
+`NotImplementedError`: `spatial > 1` (and with it the sharding of a folder
+across processes).
 
 Usage:
     python -m mladversarialobjectdetection_torch.attack.train --synthetic \\
@@ -72,14 +74,20 @@ def get_victim(config, *, seed: int = 0, variables=None,
 
 def get_victim_variables(config, ckpt_path=None, *, seed: int = 0):
     """The victim detector's Flax `{'params', 'batch_stats'}` variables
-    (JAX attack/train.py:40-67): restored from the pytree file at
-    `ckpt_path`, or drawn from `seed` as `get_victim` draws them. A
-    reference TF checkpoint there is recognised (`ckpt/convert_tf.py`) and
-    refused: its conversion is not ported."""
+    (JAX attack/train.py:40-67): restored from the pytree file or orbax
+    directory at `ckpt_path`, converted from a reference TF1 checkpoint
+    there (a prefix, a directory or the release tarball; EMA shadows
+    preferred, `ckpt/convert_tf.py`, no TensorFlow), or drawn from `seed` as
+    `get_victim` draws them."""
     if ckpt_path:
         tf_prefix = convert_tf.find_tf_checkpoint(ckpt_path)
         if tf_prefix:
-            raise NotImplementedError(f"{tf_prefix}: {convert_tf.TF_NOT_PORTED}")
+            template = bridge.torch_to_flax(get_victim(config, seed=seed, device="cpu"))
+            variables = convert_tf.convert_tf_weights(
+                convert_tf.load_tf_checkpoint(tf_prefix), config,
+                spec_from_config(config), template)
+            logger.info(f"converted TF victim checkpoint {tf_prefix}")
+            return variables
         restored = ckpt_io.load_pytree(ckpt_path)
         logger.info(f"restored victim detector from {ckpt_path}")
         return {"params": restored["params"],
@@ -136,8 +144,6 @@ def train(model_name: str = "efficientdet-lite4", *,
     """Train an adversarial patch; returns the final `AttackState`."""
     if spatial > 1:
         raise _not_ported("spatial > 1", "Queue 1 item 6")
-    if packed_entry:
-        raise _not_ported("packed_entry", "Queue 1 item 3")
     device = resolve_device(device)
 
     config = config_lib.get_efficientdet_config(model_name)
@@ -157,7 +163,8 @@ def train(model_name: str = "efficientdet-lite4", *,
     victim = get_victim(config, variables=victim_variables, device=device)
     attacker = PatchAttacker(config, victim, learning_rate=lr,
                              patch_size=patch_size, window=window or None,
-                             grad_accum=grad_accum, device=device)
+                             grad_accum=grad_accum, packed_entry=packed_entry,
+                             device=device)
     if initial_patch:
         patch_np, scale0 = artifacts.load_patch_dir(
             initial_patch, config.mean_rgb, config.stddev_rgb)
@@ -314,7 +321,9 @@ def main():
     p.add_argument("--spatial", type=int, default=1,
                    help="spatial model parallelism (not ported yet)")
     p.add_argument("--packed-entry", type=int, default=0,
-                   help="space-to-depth packed victim entry (not ported yet)")
+                   help="victim entry blocks in the space-to-depth packed layout "
+                        "(models/efficientnet_packed.py), the same weights; a "
+                        "TPU layout, measured slower on an H100 (PERF.md)")
     p.add_argument("--resume", action="store_true",
                    help="resume the full state (patch, Adam moments, "
                         "generators, plateau LR, data position) from "

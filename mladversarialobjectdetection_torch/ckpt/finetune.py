@@ -14,8 +14,9 @@ torch_to_flax` gives and `ckpt/io.load_pytree` reads). Two modes:
 
 Leaves missing from the checkpoint or of another shape keep their fresh
 initialization (util_keras.restore_ckpt's skip semantics,
-util_keras.py:108-203). A reference TF1 checkpoint raises
-(`convert_tf.TF_NOT_PORTED`, ROADMAP Queue 1 item 7).
+util_keras.py:108-203). A reference TF1 checkpoint is converted through
+`convert_tf.convert_tf_weights` with the mode's exclusions (JAX
+finetune.py:102-117), read without TensorFlow.
 """
 from __future__ import annotations
 
@@ -88,16 +89,22 @@ def merge_pretrained(fresh_variables: Dict[str, Any], loaded: Dict[str, Any],
 def restore_pretrained(fresh_variables: Dict[str, Any], ckpt_path: str,
                        config=None, spec=None, *, mode: str = "backbone"
                        ) -> Dict[str, Any]:
-    """Restore `ckpt_path` (a pytree file, `<ckpt_path>.pkl`) into
-    `fresh_variables` under the mode's exclude rules. `config` and `spec`
-    serve the TF1 branch, which raises here."""
+    """Restore `ckpt_path` (a pytree file `<ckpt_path>.pkl`, an orbax
+    directory, a reference TF1 checkpoint prefix or directory, or a release
+    tarball) into `fresh_variables` under the mode's exclude rules;
+    `config` and `spec` serve the TF1 branch."""
     from . import convert_tf
     from . import io as ckpt_io
 
     _excluded(mode, ())  # validate the mode before any IO
     tf_prefix = convert_tf.find_tf_checkpoint(ckpt_path)
     if tf_prefix:
-        raise NotImplementedError(f"{tf_prefix}: {convert_tf.TF_NOT_PORTED}")
+        variables = convert_tf.convert_tf_weights(
+            convert_tf.load_tf_checkpoint(tf_prefix), config, spec,
+            fresh_variables, skip=lambda coll, path: _excluded(mode, path),
+            strict=False)
+        logger.info(f"finetune({mode}): from TF checkpoint {tf_prefix}")
+        return variables
     loaded = ckpt_io.load_pytree(ckpt_path)
     logger.info(f"finetune({mode}): from native checkpoint {ckpt_path}")
     return merge_pretrained(fresh_variables, loaded, mode)

@@ -4,10 +4,10 @@ Port of `mladversarialobjectdetection_tpu/ckpt/io.py`:
 
 - `save_pytree` / `load_pytree`: `<path>.pkl`, a pickled nested dict of
   numpy arrays, the file JAX's `save_pytree` writes when orbax is absent
-  (io.py:27-31) and its `load_pytree` reads (io.py:57-60). An orbax
-  directory (io.py:52-56; this version of JAX writes OCDBT directories,
-  `manifest.ocdbt` and `ocdbt.process_0/`) cannot be read without orbax and
-  tensorstore, which the card's machine lacks: `load_pytree` raises on one.
+  (io.py:27-31) and its `load_pytree` reads (io.py:57-60). `load_pytree`
+  also reads the orbax directory JAX writes where orbax is installed
+  (io.py:52-56), with tensorstore and without orbax, which imports JAX
+  (`_load_orbax`).
 - `save_state_bytes` / `load_state_bytes` (io.py:34-48): flax's msgpack
   state encoding (`flax.serialization.to_bytes`), written here on `struct`
   because `msgpack` is not known to be installed where the port runs. An
@@ -26,10 +26,6 @@ from typing import Any, Tuple
 
 import numpy as np
 
-ORBAX_NOT_PORTED = ("orbax checkpoint directories are not read by the port "
-                    "(ROADMAP Queue 1 item 7, converters and orbax intake); "
-                    "save with the pickle fallback (`<path>.pkl`)")
-
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
 MAX_LEAF_BYTES = 2 ** 30  # flax chunks leaves above this (MAX_CHUNK_SIZE)
@@ -44,7 +40,12 @@ def _to_numpy(tree: Any) -> Any:
 
 
 def save_pytree(path: str, tree: Any) -> str:
-    """Write `tree` (nested dicts of arrays) to `<path>.pkl`; returns that file."""
+    """Write `tree` (nested dicts of arrays) to `<path>.pkl`; returns that file.
+
+    Both packages read this file. The one difference from JAX's
+    `save_pytree`: where orbax is installed, JAX writes an orbax directory
+    at `path` instead (which `load_pytree` reads too); the port never does,
+    since the card's machine has no orbax."""
     out = os.path.abspath(path) + ".pkl"
     os.makedirs(os.path.dirname(out), exist_ok=True)
     with open(out, "wb") as f:
@@ -53,14 +54,67 @@ def save_pytree(path: str, tree: Any) -> str:
 
 
 def load_pytree(path: str) -> Any:
-    """Read what `save_pytree` wrote (either package's `<path>.pkl`)."""
+    """Read what either package's `save_pytree` wrote: `<path>.pkl`, or the
+    orbax directory at `path`."""
     path = os.path.abspath(path)
     if os.path.isdir(path):
-        raise NotImplementedError(f"{path}: {ORBAX_NOT_PORTED}")
+        return _load_orbax(path)
     if os.path.exists(path + ".pkl"):
         with open(path + ".pkl", "rb") as f:
             return pickle.load(f)
     raise FileNotFoundError(path)
+
+
+def _load_orbax(path: str) -> Any:
+    """An orbax PyTree checkpoint directory, read with tensorstore.
+
+    The tree comes from `_METADATA`'s `tree_metadata`: each leaf's key path
+    (`key_type` 2 a dict key, 1 a list index) and value type. Each array leaf
+    is a zarr array (zarr3 where `use_zarr3`) in the OCDBT key-value store
+    at the path's keys joined by "."; the store must be OCDBT (`use_ocdbt`).
+    Leaves come back as orbax restores them: numpy arrays, Python scalars
+    for `scalar` leaves, and empty dicts, lists and None where saved."""
+    import json
+
+    meta_file = os.path.join(path, "_METADATA")
+    if not os.path.isfile(meta_file):
+        raise FileNotFoundError(f"{path}: a directory without orbax's _METADATA")
+    with open(meta_file) as f:
+        meta = json.load(f)
+    if not meta.get("use_ocdbt"):
+        raise ValueError(f"{path}: an orbax layout without OCDBT is not read")
+    import tensorstore as ts
+
+    driver = "zarr3" if meta.get("use_zarr3") else "zarr"
+    kvstore = {"driver": "ocdbt", "base": f"file://{path}"}
+    empty = {"Dict": dict, "List": list, "None": lambda: None}
+    root: dict = {}
+    for leaf in meta["tree_metadata"].values():
+        keys = leaf["key_metadata"]
+        kind = leaf["value_metadata"]["value_type"]
+        if kind in empty:
+            value = empty[kind]()
+        else:
+            spec = {"driver": driver, "kvstore": kvstore,
+                    "path": ".".join(str(k["key"]) for k in keys)}
+            value = ts.open(spec, open=True).result().read().result()
+            if kind == "scalar":
+                value = value.item()
+        node = root
+        for k in keys[:-1]:
+            node = node.setdefault((k["key"], k["key_type"]), {})
+        node[(keys[-1]["key"], keys[-1]["key_type"])] = value
+    return _orbax_tree(root)
+
+
+def _orbax_tree(node: Any) -> Any:
+    """Nested {(key, key_type): value} -> dicts, and lists where every key is
+    a sequence index (key_type 1)."""
+    if not isinstance(node, dict) or not node:
+        return node
+    if all(kt == 1 for _, kt in node):
+        return [_orbax_tree(node[k]) for k in sorted(node, key=lambda k: int(k[0]))]
+    return {k: _orbax_tree(v) for (k, _), v in node.items()}
 
 
 # -- msgpack ---------------------------------------------------------------

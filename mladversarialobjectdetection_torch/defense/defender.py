@@ -91,12 +91,12 @@ class PatchAttackDefender:
             parity: slower than the unpacked U-Net on an H100 (PERF.md).
           `config.mixed_precision`: the U-Net in bf16; the victim must
             compute in the same dtype (it does when built from `config`).
-          packed_entry: not ported yet; anything but 0 raises.
+          packed_entry: > 0 runs the frozen victim's stem and first
+            `packed_entry` backbone blocks in the space-to-depth layout
+            (`models/efficientnet_packed.py`) on the same weights, through a
+            packed view of `victim` (JAX defender.py:63-68).
           device: "cuda" (the default) or "cpu".
         """
-        if packed_entry:
-            raise NotImplementedError(
-                "packed_entry is not ported yet (ROADMAP Queue 1 item 3)")
         self.unet_dtype = (torch.bfloat16 if config.get("mixed_precision")
                            else torch.float32)
         victim_dtype = getattr(victim, "compute_dtype", torch.float32)
@@ -114,6 +114,8 @@ class PatchAttackDefender:
         self.config = config
         self.spec: DetSpec = spec_from_config(config)
         self.net = victim.to(self.device).eval()
+        if packed_entry:
+            self.net = self.net.with_packed_entry(packed_entry)
         for p in self.net.parameters():
             p.requires_grad_(False)
         self.n_filters = n_filters

@@ -16,8 +16,9 @@ format (`ckpt/io.py`), which its `ckpt/io.load_pytree` reads.
 the victim). The victim's weights come from `victim_ckpt` (a pytree file,
 `attack.train.get_victim_variables`), from `victim_variables`, or else are
 drawn from a seed. `initial_weights` starts the U-Net from an
-`antipatch.pkl` (`ckpt/convert_defense.load_antipatch`: its weights only,
-the reference's semantics); `resume` continues from
+`antipatch.pkl` or a reference `antipatch.h5`
+(`ckpt/convert_defense.load_antipatch`: its weights only, the reference's
+semantics); `resume` continues from
 `<save_dir>/state-latest.msgpack`, which every epoch writes: the U-Net's
 parameters and BatchNorm statistics, Adam's moments and LR, the step, the
 train steps' and the augmentation's generators, the loop counters and the
@@ -32,9 +33,12 @@ picks the space-to-depth U-Net (`models/unet_packed.py`, the same
 parameters and `antipatch.pkl`), `--packed` with no value packing 3
 levels as the JAX driver's. Not ported yet, and raising
 `NotImplementedError`: `spatial > 1` (and with it the sharding of a
-folder across processes), victim checkpoints in the orbax or TF formats
-and `.h5` initial weights; the reference-format `antipatch.h5` mirror is
-not written (no h5py on the card).
+folder across processes). `victim_ckpt` may be a pytree file, an orbax
+directory or a reference TF1 checkpoint (the release tarball too);
+`initial_weights` an `antipatch` pytree path or a reference `antipatch.h5`;
+beside each `antipatch.pkl` the driver writes the reference-format
+`antipatch.h5` mirror where h5py is installed, and otherwise logs JAX's
+warning and goes on (JAX train.py:205-216), as on the card's machine.
 
 An untrained victim at score threshold .5 finds nobody, so the masker
 plants nothing: pass `config_override={"nms_configs": {"score_thresh":
@@ -57,7 +61,7 @@ from ..attack import artifacts
 from ..attack.train import get_victim, victim_source
 from ..ckpt import bridge
 from ..ckpt import io as ckpt_io
-from ..ckpt.convert_defense import load_antipatch
+from ..ckpt.convert_defense import load_antipatch, save_antipatch_h5
 from ..data import pipeline
 from ..utils.device import resolve_device
 from ..utils.log import get_logger
@@ -229,8 +233,13 @@ def train(model_name: str = "efficientdet-lite4", *,
         if val_loss < best_val:
             best_val = val_loss
             art_dir = os.path.join(save_dir, f"patch_{epoch:02d}_{val_loss:.4f}")
-            ckpt_io.save_pytree(os.path.join(art_dir, "antipatch"),
-                                bridge.torch_to_flax(state.unet))
+            weights = bridge.torch_to_flax(state.unet)
+            ckpt_io.save_pytree(os.path.join(art_dir, "antipatch"), weights)
+            try:
+                # the reference-consumable mirror (attack_detection.py:311-318)
+                save_antipatch_h5(weights, os.path.join(art_dir, "antipatch.h5"))
+            except Exception as e:  # h5py absent
+                logger.warning(f"antipatch.h5 mirror not written: {e}")
         plateau.update(val_loss, state.optimizer)
         # the full-state kill-and-resume checkpoint (see resume)
         train_loop_lib.save_loop_state(
@@ -254,8 +263,8 @@ def main():
     p.add_argument("--lr", type=float, default=1e-2)
     p.add_argument("--steps-per-epoch", type=int, default=None)
     p.add_argument("--initial-weights", default=None,
-                   help="start the U-Net from an antipatch.pkl (weights "
-                        "only)")
+                   help="start the U-Net from an antipatch pytree path or a "
+                        "reference antipatch.h5 (weights only)")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--image-size", type=int, default=None)
     p.add_argument("--hparams", default=None,

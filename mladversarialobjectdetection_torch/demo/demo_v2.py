@@ -81,10 +81,11 @@ class RecoveryDemo(Demo):
         from ..ckpt.convert_defense import load_antipatch
         from ..models.unet import PatchNeutralizer
 
-        # a pytree file of either package's defender (`antipatch.pkl`); a
-        # reference antipatch.h5 raises (ROADMAP Queue 1 item 7)
+        # a pytree file of either package's defender (`antipatch.pkl`) or a
+        # reference antipatch.h5 (attack_detection.py:311-318, demo_v2.py:226)
         self.unet = PatchNeutralizer().eval()
-        bridge.load_flax_variables(self.unet, load_antipatch(weights_path))
+        bridge.load_flax_variables(self.unet, load_antipatch(
+            weights_path, bridge.torch_to_flax(self.unet)))
         for p in self.unet.parameters():
             p.requires_grad_(False)
         self.unet.to(detector.device)

@@ -14,9 +14,12 @@ the CUDA kernel); `serve_streams` batches several frame sources,
 bf16, as the JAX `Detector` does through `EfficientDetNet`: bf16 activations
 and the fused blocks' bf16 kernels, float32 predictions, so postprocessing
 and NMS see float32. `ckpt_path` loads a pytree file of Flax variables
-(`ckpt/io.load_pytree`, either package's `<path>.pkl`); a reference TF
-checkpoint or an orbax directory there raises. Meshes and `packed_entry`
-are not ported yet and raise.
+(`ckpt/io.load_pytree`: either package's `<path>.pkl` or an orbax
+directory) or a reference TF1 checkpoint (a prefix, a directory or the
+release tarball), converted on the fly with EMA shadows preferred
+(`ckpt/convert_tf.py`, read without TensorFlow). `packed_entry` computes
+the backbone's first blocks in the space-to-depth layout
+(`models/efficientnet_packed.py`). Meshes are not ported yet and raise.
 
 `quantize_int8` switches `serve`, `serve_raw`, `infer`, `serve_streams` and
 `serve_pipelined` to the W8A8 forward (`inference/quantize.Int8Serve`: the
@@ -100,36 +103,37 @@ class Detector:
           device: "cuda" (the default) or "cpu".
           post_mode: "global", "per_class", "combined" or "tflite"
             (normalized boxes, 0-based classes, no scale-back).
-          ckpt_path: a pytree file of the detector's Flax variables
-            (`<ckpt_path>.pkl`, JAX detector.py:71-83); random weights if
+          ckpt_path: the detector's Flax variables: a pytree file
+            (`<ckpt_path>.pkl`) or an orbax directory, or a reference TF1
+            checkpoint (prefix, directory or `.tgz` / `.tar.gz` / `.tar`),
+            converted on the fly (JAX detector.py:71-83); random weights if
             None.
-          mesh, packed_entry: not ported yet; anything but the default
-            raises.
+          packed_entry: > 0 computes the stem and the first `packed_entry`
+            backbone blocks in the space-to-depth layout on the same weights
+            (JAX detector.py:65-68).
+          mesh: not ported yet; anything but None raises.
         """
         if post_mode not in POST_MODES:
             raise ValueError(f"post_mode {post_mode!r}: want one of {POST_MODES}")
         if mesh is not None:
             raise _not_ported("mesh (distribution)", 6)
-        if packed_entry:
-            raise _not_ported("packed_entry", 3)
-        variables = None
-        if ckpt_path:
-            tf_prefix = convert_tf.find_tf_checkpoint(ckpt_path)
-            if tf_prefix:
-                raise NotImplementedError(
-                    f"{tf_prefix}: {convert_tf.TF_NOT_PORTED}")
-            variables = ckpt_io.load_pytree(ckpt_path)
         self.device = resolve_device(device)
         self.post_mode = post_mode
         self.config = config_lib.get_efficientdet_config(model_name)
         if params:
             self.config.override(params, allow_new_keys=False)
         self.spec = spec_from_config(self.config)
-        self.net = EfficientDetNet(self.spec).eval()
-        if variables is None:
+        self.net = EfficientDetNet(self.spec, packed_entry=packed_entry).eval()
+        if not ckpt_path:
             init_weights(self.net, torch.Generator().manual_seed(seed))
+        elif tf_prefix := convert_tf.find_tf_checkpoint(ckpt_path):
+            # a reference TF1 checkpoint (the downloaded tarball): every leaf
+            # converted, EMA shadows preferred (util_keras.py:108-203)
+            bridge.load_flax_variables(self.net, convert_tf.convert_tf_weights(
+                convert_tf.load_tf_checkpoint(tf_prefix), self.config, self.spec,
+                bridge.torch_to_flax(self.net)))
         else:
-            bridge.load_flax_variables(self.net, variables)
+            bridge.load_flax_variables(self.net, ckpt_io.load_pytree(ckpt_path))
         self.net.to(self.device)
         self._params_dict = self.config.as_dict()
         self._int8 = None  # the Int8Serve of quantize_int8, or None: float

@@ -14,6 +14,7 @@ the heads, and the predictions cast back to float32.
 """
 from __future__ import annotations
 
+import copy
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -22,6 +23,7 @@ from torch import nn
 from ..utils.image import get_feat_sizes, parse_image_size
 from . import bifpn, heads
 from .efficientnet import BackboneSpec, EfficientNet, get_backbone_spec
+from .efficientnet_packed import PackedEntryEfficientNet
 
 
 class DetSpec(NamedTuple):
@@ -99,22 +101,26 @@ class EfficientDetNet(nn.Module):
     `object_detection` (ClassNet and BoxNet) and / or `segmentation`
     (`heads.SegmentationHead`, module `seg_head`). `grad_checkpoint`
     recomputes the FPN cells and the heads' shared convs in the backward
-    pass. The lane-packed backbone entry (`packed_entry`) is not ported yet
-    and raises.
+    pass. `packed_entry` > 0 computes the backbone's stem and first
+    `packed_entry` blocks in the space-to-depth layout
+    (`models/efficientnet_packed.py`, JAX efficientdet.py:111-117) on the same
+    parameters: the `state_dict` is the unpacked net's.
     """
 
     def __init__(self, spec: DetSpec, packed_entry: int = 0):
         super().__init__()
-        if packed_entry:
-            raise NotImplementedError(
-                "packed_entry is not ported yet (ROADMAP Queue 1 item 3)")
         unknown = set(spec.heads) - set(HEADS)
         if unknown or not spec.heads:
             raise ValueError(f"heads {spec.heads}: want some of {HEADS}")
         self.spec = spec
         cdtype = torch.bfloat16 if spec.mixed_precision else None
         self.compute_dtype = cdtype or torch.float32
-        self.backbone = EfficientNet(spec.backbone, dtype=cdtype)
+        self.packed_entry = int(packed_entry)
+        if self.packed_entry > 0:
+            self.backbone = PackedEntryEfficientNet(spec.backbone, self.packed_entry,
+                                                    dtype=cdtype)
+        else:
+            self.backbone = EfficientNet(spec.backbone, dtype=cdtype)
         # endpoints[i] == reduction_{i+1}; levels min..5 come from the backbone
         self._backbone_levels = range(spec.min_level, min(spec.max_level, 5) + 1)
         channels = [self.backbone.endpoint_channels[level - 1]
@@ -148,6 +154,17 @@ class EfficientDetNet(nn.Module):
             self.seg_head = heads.SegmentationHead(
                 spec.seg_num_classes, spec.fpn_num_filters,
                 [spec.fpn_num_filters] * num_levels, spec.act_type)
+
+    def with_packed_entry(self, packed_entry: int) -> "EfficientDetNet":
+        """This net with its backbone's first `packed_entry` blocks packed
+        (0: unpacked), sharing every parameter, buffer and submodule but the
+        backbone's packed view; `self` is left as it is."""
+        view = copy.copy(self)
+        view._modules = dict(self._modules)
+        view._modules["backbone"] = PackedEntryEfficientNet.sharing(
+            self.backbone, packed_entry)
+        view.packed_entry = int(packed_entry)
+        return view
 
     def pyramid(self, x: torch.Tensor, training: bool = False,
                 generator: Optional[torch.Generator] = None

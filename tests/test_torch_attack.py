@@ -480,22 +480,48 @@ def test_train_driver_on_cpu(tmp_path, tiny_detector):
 
 @pytest.mark.parametrize("option", [
     dict(img_dir="x", spatial=2), dict(victim_ckpt=os.path.dirname(__file__)),
-    dict(spatial=2), dict(packed_entry=1)])
+    dict(spatial=2)])
 def test_train_driver_refuses_unported_options(tmp_path, option):
-    """Each option raises before any work (a directory as `victim_ckpt` is
-    an orbax checkpoint, which the port does not read)."""
+    """Each option raises before any work: `spatial > 1` is not ported; a
+    directory as `victim_ckpt` is read as an orbax checkpoint, and one
+    without orbax's metadata is refused."""
     kw = dict(mixed_precision=False, device="cpu", save_dir=str(tmp_path))
     kw.update(option)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    error, match = ((FileNotFoundError, "_METADATA") if "victim_ckpt" in option
+                    else (NotImplementedError, "ROADMAP"))
+    with pytest.raises(error, match=match):
         ptrain.train("efficientdet-lite0", **kw)
     assert not os.listdir(tmp_path)
 
 
+def test_train_driver_packed_entry_on_cpu(tmp_path, tiny_detector):
+    """`packed_entry` (was refused above): the driver's attacker runs the
+    victim's first blocks packed, and its first step equals the unpacked
+    driver's (the packed victim's forward within 2e-5, a step's patch within
+    Adam's lr)."""
+    kw = dict(synthetic=True, image_size=64, batch_size=2, epochs=1, steps_per_epoch=1,
+              patch_size=32, mixed_precision=False, config_override={
+                  "fpn_num_filters": 16, "fpn_cell_repeats": 1, "box_class_repeats": 1},
+              victim_variables=jax.tree_util.tree_map(np.asarray, tiny_detector[3]),
+              device="cpu")
+    packed = ptrain.train("efficientdet-lite0", packed_entry=2,
+                          save_dir=str(tmp_path / "p"), **kw)
+    plain = ptrain.train("efficientdet-lite0", save_dir=str(tmp_path / "u"), **kw)
+    assert packed.step == plain.step == 1
+    diff = (packed.patch - plain.patch).abs().max()
+    assert float(diff) <= LR
+    assert abs(float(packed.scale - plain.scale)) < 1e-6
+
+
 def test_attacker_refuses_unported_options(pair):
     _, patk = pair
-    for kw in (dict(bn_axis_name="batch"), dict(packed_entry=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PatchAttacker(patk.config, patk.net, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PatchAttacker(patk.config, patk.net, device="cpu", bn_axis_name="batch")
+    # packed_entry is ported: a packed view of the victim, which stays as it is
+    packed = PatchAttacker(patk.config, patk.net, device="cpu", packed_entry=1)
+    assert packed.net.backbone.packed_blocks == 1 and packed.net.backbone is not \
+        patk.net.backbone
+    assert packed.net.backbone.stem_conv is patk.net.backbone.stem_conv
 
 
 def test_window_table_of_a_step_lists_live_windows_slot_major(live_boxes):

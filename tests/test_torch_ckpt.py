@@ -118,22 +118,25 @@ def test_pytree_files_both_ways(tmp_path, monkeypatch):
 
 
 def test_orbax_tf_and_h5_inputs_raise(tmp_path):
-    """An orbax directory (what JAX's save_pytree writes here), a TF prefix
-    and an .h5 file each raise NotImplementedError naming ROADMAP."""
+    """The orbax, TF and .h5 intakes are ported (tests/test_torch_convert.py):
+    an orbax directory (what JAX's save_pytree writes here) reads back, and
+    a broken input of each kind raises before any work: a directory without
+    orbax's metadata, a TF prefix whose index is empty, a missing .h5."""
     orbax_dir = str(tmp_path / "orbax")
     jio.save_pytree(orbax_dir, {"params": {"k": np.ones(3, np.float32)}})
     assert os.path.isdir(orbax_dir)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        pio.load_pytree(orbax_dir)
+    assert np.array_equal(pio.load_pytree(orbax_dir)["params"]["k"], np.ones(3))
+    with pytest.raises(FileNotFoundError, match="_METADATA"):
+        pio.load_pytree(str(tmp_path))
     prefix = tmp_path / "tf" / "model.ckpt-10"
     prefix.parent.mkdir()
     (tmp_path / "tf" / "model.ckpt-10.index").write_bytes(b"")
     cfg = pconfig.get_efficientdet_config("efficientdet-lite0")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+    with pytest.raises(ValueError, match="table footer"):
         atrain.get_victim_variables(cfg, str(tmp_path / "tf"))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+    with pytest.raises(ValueError, match="table footer"):
         Detector("efficientdet-lite0", device="cpu", ckpt_path=str(prefix))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+    with pytest.raises(OSError):
         load_antipatch(str(tmp_path / "antipatch.h5"))
 
 

@@ -27,8 +27,11 @@ there), with only bf16 launches counted; and the backbone's dispatch counts
 on the card. The bf16 cmconv instance against the bf16 plain version:
 bit-equal where the kernel holds bf16 values (the U-Net's), within
 `ops/cmconv.BF16_TOL` otherwise; the bf16, packed and remat defenders'
-launches on the card.
+launches on the card; the packed backbone entry's lite4@640 serve against
+the unpacked one (19 fused forward launches a serve).
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -244,6 +247,37 @@ def test_serve_on_card_goes_through_kernel(cuda):
     assert_kernel_equals_plain(
         boxes.contiguous(), scores.contiguous(),
         postprocess.nms_kwargs_from_config(det.config.nms_configs))
+
+
+def test_packed_serve_on_card_matches_unpacked(cuda):
+    """`Detector(packed_entry=10)` at lite4@640 b1 on the card (JAX's lite4
+    operating point): head outputs within 2e-4 of the unpacked serve's
+    scale on the same seeded weights, the same detections' top entry, and
+    19 fused MBConv forward launches (25 less the fuseable blocks 2-4 and
+    6-8 in the packed range) and one NMS a serve."""
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
+    det = Detector("efficientdet-lite4", seed=0, device=cuda, packed_entry=10)
+    frames = [np.random.default_rng(3).integers(0, 256, (720, 1280, 3), dtype=np.uint8)]
+    det.serve(frames)  # warm-up
+    nms0, mb0 = nms_cuda.LAUNCHES, dict(mbconv_cuda.LAUNCHES)
+    out = det.serve(frames)
+    torch.cuda.synchronize()
+    assert nms_cuda.LAUNCHES - nms0 == 1
+    assert {k: v - mb0[k] for k, v in mbconv_cuda.LAUNCHES.items()} == {
+        "mbconv_fwd": 19, "mbconv_dx": 0}
+    plain = copy.copy(det)
+    plain.net = det.net.with_packed_entry(0)
+    ref = plain.serve(frames)
+    assert out.valid[0, 0] and ref.valid[0, 0]
+    assert out.classes[0, 0] == ref.classes[0, 0]
+    np.testing.assert_allclose(out.boxes[0, 0], ref.boxes[0, 0], rtol=0, atol=1e-2)
+    images, _ = det.preprocess(frames)
+    x = torch.from_numpy(images).to(cuda)
+    with torch.no_grad():
+        got = [o for group in det.net(x) for o in group]
+        want = [o for group in plain.net(x) for o in group]
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 2e-4 * max(1.0, float(b.abs().max()))
 
 
 def warp_windows_case(rng, n_images, n, p0, w, *, angle_deg=None, size=None,

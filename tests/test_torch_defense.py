@@ -374,7 +374,10 @@ def test_train_driver_on_cpu_writes_jax_readable_weights(tmp_path, tiny_detector
             (tmp_path / "logs" / "metrics.jsonl").read_text().splitlines()]
     assert any('"val/loss"' in r and '"val/recovery_psnr"' in r for r in recs)
     dirs = [d for d in os.listdir(tmp_path) if d.startswith("patch_00_")]
-    assert len(dirs) == 1 and os.listdir(tmp_path / dirs[0]) == ["antipatch.pkl"]
+    # the reference-format mirror beside the pytree file, where h5py is installed
+    # (JAX train.py:205-216; tests/test_torch_convert.py reads it back)
+    assert len(dirs) == 1 and sorted(os.listdir(tmp_path / dirs[0])) == [
+        "antipatch.h5", "antipatch.pkl"]
     restored = jio.load_pytree(str(tmp_path / dirs[0] / "antipatch"))
     from mladversarialobjectdetection_torch.ckpt import bridge
     mine = bridge.torch_to_flax(state.unet)
@@ -419,7 +422,13 @@ def test_defense_entry_points_refuse_cpu_fallback(monkeypatch, tiny_cfg):
     dict(img_dir="x", spatial=2), dict(victim_ckpt=os.path.dirname(__file__)),
     dict(initial_weights="antipatch.h5"), dict(spatial=2)])
 def test_train_driver_refuses_unported_options(tmp_path, option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Each raises before any work: `spatial > 1` is not ported; the orbax
+    and .h5 intakes are (tests/test_torch_convert.py), and refuse a
+    directory without orbax's metadata and a missing .h5 file."""
+    error, match = {"victim_ckpt": (FileNotFoundError, "_METADATA"),
+                    "initial_weights": (OSError, "antipatch.h5")}.get(
+                        next(iter(option)), (NotImplementedError, "ROADMAP"))
+    with pytest.raises(error, match=match):
         dtrain.train("efficientdet-lite0", device="cpu", save_dir=str(tmp_path),
                      **option)
     assert not os.listdir(tmp_path)
@@ -427,9 +436,11 @@ def test_train_driver_refuses_unported_options(tmp_path, option):
 
 def test_defender_refuses_unported_options(pair):
     _, pdef = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pdefender.PatchAttackDefender(pdef.config, pdef.net, device="cpu",
-                                      packed_entry=1)
+    # packed_entry is ported: the defender's victim is a packed view
+    packed = pdefender.PatchAttackDefender(pdef.config, pdef.net, device="cpu",
+                                           packed_entry=1)
+    assert packed.net.backbone.packed_blocks == 1
+    assert packed.net.backbone.stem_conv is pdef.net.backbone.stem_conv
     with pytest.raises(ValueError, match="grad_accum"):
         pdefender.PatchAttackDefender(pdef.config, pdef.net, device="cpu",
                                       grad_accum=0)

@@ -87,10 +87,15 @@ def test_unported_post_modes_raise():
     with pytest.raises(ValueError, match="post_mode"):
         Detector("efficientdet-lite0", params=PARAMS, device="cpu",
                  post_mode="per_anchor")
-    for kw in ({"ckpt_path": os.path.dirname(__file__)}, {"mesh": object()},
-               {"packed_entry": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Detector("efficientdet-lite0", params=PARAMS, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Detector("efficientdet-lite0", params=PARAMS, device="cpu", mesh=object())
+    # a directory is read as an orbax checkpoint (ported), and refused without
+    # orbax's metadata; packed_entry is ported (tests/test_torch_efficientnet_packed.py)
+    with pytest.raises(FileNotFoundError, match="_METADATA"):
+        Detector("efficientdet-lite0", params=PARAMS, device="cpu",
+                 ckpt_path=os.path.dirname(__file__))
+    packed = Detector("efficientdet-lite0", params=PARAMS, device="cpu", packed_entry=2)
+    assert packed.net.backbone.packed_blocks == 2
     # export and quantize are ported; writing a TF file is what stays behind
     det = Detector("efficientdet-lite0", params=PARAMS, device="cpu")
     for fmt in ("saved_model", "tflite"):

@@ -25,9 +25,11 @@ _IMPORT_ALL = """
 import importlib, pkgutil, sys
 # any import of these now raises ImportError; cv2, PIL and matplotlib are
 # imported only where a frame is read, drawn on or written, or a plot drawn,
-# tensorflow only where inference/drivers builds a SavedModel or TFLite driver
+# tensorflow only where inference/drivers builds a SavedModel or TFLite driver,
+# h5py where a keras .h5 file is read or written, tensorstore where an orbax
+# directory is read
 for name in ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL",
-             "matplotlib", "tensorflow"):
+             "matplotlib", "tensorflow", "h5py", "tensorstore"):
     sys.modules[name] = None
 import mladversarialobjectdetection_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -50,8 +52,9 @@ def test_port_imports_without_jax():
     # (host NMS and WBF, label maps, the patch compositor, demo/), and the
     # rest of the supervised trainer (TFRecord input, COCO mAP, the drivers,
     # segmentation, pruning, fine-tuning), and export and quantize (the int8
-    # conv, the custom ops, the drivers, the inspector, the debug harness)
-    assert int(proc.stdout.split()[-1]) >= 88
+    # conv, the custom ops, the drivers, the inspector, the debug harness), and
+    # the converters and the packed backbone entry
+    assert int(proc.stdout.split()[-1]) >= 90
     names = set(proc.stdout.split()[:-1])
     for mod in ("ops.nms_np", "ops.wbf", "utils.label_util", "demo", "demo.draw",
                 "inference.adv_patch", "demo.synthetic_clip", "demo.video",
@@ -62,7 +65,9 @@ def test_port_imports_without_jax():
                 "data.inspect_tfrecords", "data.autoaugment", "data.augment",
                 "train.train", "train.eval", "train.segmentation", "utils.debug",
                 "ops.conv_int8", "ops.library", "inference.quantize",
-                "inference.export", "inference.drivers", "inference.inspector"):
+                "inference.export", "inference.drivers", "inference.inspector",
+                "ckpt.tf_bundle", "ckpt.convert_tf", "ckpt.convert_defense",
+                "models.efficientnet_packed"):
         assert f"mladversarialobjectdetection_torch.{mod}" in names, mod
 
 

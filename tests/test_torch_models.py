@@ -205,9 +205,14 @@ def test_fnode_weight_methods(method):
 
 
 def test_unported_options_raise():
+    """packed_entry is ported (tests/test_torch_efficientnet_packed.py): its
+    net has the unpacked one's state_dict; unknown heads still raise."""
     spec = pdet.spec_from_config(pconfig.Config(tiny_config().as_dict()))
-    with pytest.raises(NotImplementedError):
-        pdet.EfficientDetNet(spec, packed_entry=2)
+    packed, plain = pdet.EfficientDetNet(spec, packed_entry=2), pdet.EfficientDetNet(spec)
+    assert {k: v.shape for k, v in packed.state_dict().items()} == {
+        k: v.shape for k, v in plain.state_dict().items()}
+    with pytest.raises(ValueError, match="heads"):
+        pdet.EfficientDetNet(spec._replace(heads=("keypoints",)))
 
 
 # ---------------------------------------------------------------------------
