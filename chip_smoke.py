@@ -490,6 +490,20 @@ DRIVER_BATCH = 12
 SUP_BATCH = 8           # the driver's and the segmentation trainer's batch
 SUP_STEPS = 3           # steps per epoch of the driver
 EVAL_BATCHES = 4        # evaluate_map: 4 batches of 24 held-out scenes
+# phase 24: data parallelism (parallel/). 24a: a world-size-1 NCCL group in
+# this process, every collective issued; 24b-c: two ranks on the one card
+# through gloo (NCCL refuses two ranks on one device; parallel's helpers stage
+# the CUDA tensors through the host for gloo). The two-rank times check the
+# path; they are not a scaling figure.
+DP_STEPS = 5            # 24a: timed steps of each path
+DP_SUP_BATCH = 4        # 24b: the float64 supervised step, 2 a rank
+DP_SUP_F64_TOL = 1e-9   # of max(1, max|ref|) per leaf (phase 14 read 6.52e-12)
+DP_SERVE_FRAMES = 5     # 24b: Detector(mesh=), padded to 6, 3 a rank
+DP_LOSS_REL = 1e-4      # 24b: attack and defender losses, relative
+DP_SERVE_SCORE_TOL = 1e-5  # 24b: Detector(mesh=) against one process
+DP_SERVE_BOX_TOL = 1e-3    # px, as tests/test_parallel.py:95-119
+DP_GRAD_COS = 0.9999    # 24b: the attack's patch gradient
+DP_TIMEOUT_S = 600.0    # 24b-c: the two ranks' join
 EVAL_AP_TOL = 1e-3      # each COCO metric with the kernels vs the plain versions
 # kill and resume on the card: bit-equal expected (cuDNN deterministic, the
 # same kernels on the same inputs); where ATen's CUDA backward of a gather
@@ -3358,6 +3372,292 @@ def tf_checkpoint_phase(dev, vpath: str, work: str) -> dict:
     return {"read_s": read_s, "convert_s": convert_s, "detector_s": det_s}
 
 
+def dp_inputs() -> dict:
+    """Phase 24's global batches, from a seeded numpy generator: the b24
+    attack and defender images with phase 5's live boxes, the float64
+    supervised batch with its boxes, and 720x1280 frames to serve."""
+    rng = np.random.default_rng(24)
+    boxes, valid = make_live_slot_boxes(ATTACK_BATCH, (640, 640), 16)
+    return {"images": rng.uniform(-1, 1, (ATTACK_BATCH, 640, 640, 3)).astype(np.float32),
+            "boxes": boxes, "valid": valid,
+            "sup": rng.uniform(-1, 1, (DP_SUP_BATCH, 640, 640, 3)),
+            "gt": random_gt(rng, DP_SUP_BATCH, 640),
+            "frames": [rng.integers(0, 256, (720, 1280, 3), dtype=np.uint8)
+                       for _ in range(DP_SERVE_FRAMES)]}
+
+
+def dp_lite4(score_thresh: float = 0.5):
+    from mladversarialobjectdetection_torch import config as config_lib
+    cfg = config_lib.get_efficientdet_config("efficientdet-lite4")
+    cfg.nms_configs.update({"iou_thresh": 0.5, "score_thresh": score_thresh,
+                            "pre_nms_topk": 256})
+    return cfg
+
+
+def dp_attack_step(atk, inp, rows, dev, timed: int = 0) -> dict:
+    """One fp32 attack step of phase 5's setup (state seed 1, window 320, the
+    live boxes) on rows of phase 24's batch; with `timed`, the p50 of that
+    many more steps."""
+    import torch
+    state = atk.init_state(1)
+    images = torch.from_numpy(inp["images"][rows]).to(dev)
+    override = (torch.from_numpy(inp["boxes"][rows]).to(dev),
+                torch.from_numpy(inp["valid"][rows]).to(dev))
+    state, m = atk.train_step(state, images, boxes_override=override)
+    out = {"loss": float(m.loss), "grad": state.patch.grad.detach().cpu().clone(),
+           "patch": state.patch.detach().cpu().clone()}
+    if timed:
+        out["p50_ms"] = host_p50_ms(
+            lambda: atk.train_step(state, images, boxes_override=override), timed, 1)
+    return out
+
+
+def dp_defender_step(dfd, inp, rows, dev) -> dict:
+    """One fp32 defender step (U-Net seed 3) on rows of phase 24's batch,
+    the victim's boxes stubbed with the live boxes at score .9 (a random
+    victim's near-tied scores would let conv rounding move the masker)."""
+    import torch
+    boxes = torch.from_numpy(inp["boxes"][rows]).to(dev)
+    valid = torch.from_numpy(inp["valid"][rows]).to(dev)
+    dfd.odet_boxes = lambda images, score_thresh=None: (
+        boxes, torch.full(valid.shape, 0.9, device=dev), valid)
+    state = dfd.init_state(3)
+    state, m = dfd.train_step(state, torch.from_numpy(inp["images"][rows]).to(dev))
+    return {"loss": float(m.loss)}
+
+
+def dp_supervised_step(inp, rows, dev) -> dict:
+    """One float64 supervised step at lite4@640 (seed 0) on rows of phase
+    24's supervised batch."""
+    import torch
+    from mladversarialobjectdetection_torch.train.trainer import DetectorTrainer
+    tr = DetectorTrainer(dp_lite4(), steps_per_epoch=10, device=dev)
+    st = tr.init_state(seed=0)
+    st.net.double()
+    st.net.compute_dtype = torch.float64
+    if st.ema is not None:
+        st.ema = {n: e.double() for n, e in st.ema.items()}
+    boxes, classes, valid = inp["gt"]
+    st, m = tr.train_step(st, inp["sup"][rows], boxes[rows], classes[rows], valid[rows])
+    return {"loss": float(m["loss"]),
+            "net": {k: v.detach().cpu() for k, v in st.net.state_dict().items()}}
+
+
+def dp_rank(rank: int, work: str) -> None:
+    """Phases 24b-c on one of two ranks (gloo, both on the one card): the
+    attack, defender and float64 supervised steps on this rank's rows of the
+    global batch and `Detector(mesh=)` on the whole one, then
+    `attack.train.train` for 2 synthetic steps; results to work/r{rank}.pt."""
+    import os
+    import torch
+    from mladversarialobjectdetection_torch import parallel
+    from mladversarialobjectdetection_torch.attack.train import get_victim, train
+    from mladversarialobjectdetection_torch.attack.attacker import PatchAttacker
+    from mladversarialobjectdetection_torch.defense.defender import PatchAttackDefender
+    from mladversarialobjectdetection_torch.inference.detector import Detector
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    inp = dp_inputs()
+    mesh = parallel.make_mesh(device=dev)
+    half = lambda n: slice(rank * n // 2, (rank + 1) * n // 2)
+    out = {}
+    t0 = time.perf_counter()
+    with parallel.use_mesh(mesh):
+        cfg = dp_lite4()
+        out["attack"] = dp_attack_step(
+            PatchAttacker(cfg, get_victim(cfg, seed=0, device=dev),
+                          window=ATTACK_WINDOW, device=dev), inp, half(ATTACK_BATCH), dev)
+        dcfg = dp_lite4(DEFEND_THRESH)
+        out["defend"] = dp_defender_step(
+            PatchAttackDefender(dcfg, get_victim(dcfg, seed=0, device=dev), device=dev),
+            inp, half(ATTACK_BATCH), dev)
+        out["sup64"] = dp_supervised_step(inp, half(DP_SUP_BATCH), dev)
+    det = Detector("efficientdet-lite4", seed=0, device=dev, mesh=mesh)
+    out["serve"] = det.serve(inp["frames"])
+    out["serve_rows"] = det._rows(inp["frames"])
+    torch.cuda.synchronize()
+    out["steps_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st = train("efficientdet-lite4", synthetic=True, batch_size=DRIVER_BATCH, epochs=1,
+               steps_per_epoch=2, visualize_freq=0, device=dev,
+               save_dir=os.path.join(work, f"driver{rank}"))
+    out["driver_patch"] = st.patch.detach().cpu()
+    out["driver_scale"] = float(st.scale.detach())
+    out["driver_s"] = time.perf_counter() - t0
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.save(out, os.path.join(work, f"r{rank}.pt"))
+
+
+def dp_leaf_err(got: dict, ref: dict) -> float:
+    """Max over leaves of max|got - ref| / max(1, max|ref|)."""
+    worst = 0.0
+    for k, v in ref.items():
+        v = v.double()
+        worst = max(worst, float((got[k].double() - v).abs().max())
+                    / max(1.0, float(v.abs().max())))
+    return worst
+
+
+def data_parallel_phase(dev, work: str) -> dict:
+    """Phase 24: the mesh path in a world-size-1 NCCL group (24a), two ranks
+    on the one card through gloo (24b), the attack driver at two ranks (24c);
+    every step held against the one-process step on the global batch."""
+    import os
+    import socket
+    import torch
+    import torch.distributed as dist
+    from mladversarialobjectdetection_torch import parallel
+    from mladversarialobjectdetection_torch.attack.train import get_victim
+    from mladversarialobjectdetection_torch.attack.attacker import PatchAttacker
+    from mladversarialobjectdetection_torch.defense.defender import PatchAttackDefender
+    from mladversarialobjectdetection_torch.inference.detector import Detector
+    from mladversarialobjectdetection_torch.parallel import launch
+    from mladversarialobjectdetection_torch.train.trainer import DetectorTrainer
+
+    t24 = time.perf_counter()
+    inp = dp_inputs()
+    every = slice(None)
+    # 24a: a group of one rank in this process: every collective is issued
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        mesh = parallel.make_mesh(device=dev)
+        cfg = dp_lite4()
+        atk = PatchAttacker(cfg, get_victim(cfg, seed=0, device=dev),
+                            window=ATTACK_WINDOW, device=dev)
+        # bit-equality needs cuDNN's deterministic algorithms (its backward
+        # passes sum with atomics otherwise, as phases 17-18 note)
+        torch.backends.cudnn.deterministic = True
+        try:
+            plain = dp_attack_step(atk, inp, every, dev)
+            with parallel.use_mesh(mesh):
+                meshed = dp_attack_step(atk, inp, every, dev)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        if not torch.equal(meshed["patch"], plain["patch"]):
+            fail("phase 24a: the attack step through the mesh path moved the patch "
+                 "otherwise than the plain step")
+        plain["p50_ms"] = dp_attack_step(atk, inp, every, dev, timed=DP_STEPS)["p50_ms"]
+        with parallel.use_mesh(mesh):
+            meshed["p50_ms"] = dp_attack_step(atk, inp, every, dev,
+                                              timed=DP_STEPS)["p50_ms"]
+        del atk
+        rng = np.random.default_rng(8)
+        images = rng.uniform(-1, 1, (SUP_BATCH, 640, 640, 3)).astype(np.float32)
+        gt = random_gt(rng, SUP_BATCH, 640)
+        sup = {}
+        for label in ("plain", "mesh"):
+            tr = DetectorTrainer(dp_lite4(), steps_per_epoch=10, device=dev)
+            st = tr.init_state(seed=0)
+            with parallel.use_mesh(mesh if label == "mesh" else None):
+                st, m = tr.train_step(st, images, *gt)
+                net = {k: v.detach().cpu().clone() for k, v in st.net.state_dict().items()}
+                p50 = host_p50_ms(lambda: tr.train_step(st, images, *gt), DP_STEPS, 1)
+                profile_device(lambda: tr.train_step(st, images, *gt),
+                               f"phase 24a supervised b{SUP_BATCH} step, {label}")
+            sup[label] = (net, float(m["loss"]), p50)
+            del tr, st
+        sup_err = dp_leaf_err(sup["mesh"][0], sup["plain"][0])
+        sup_loss = abs(sup["mesh"][1] - sup["plain"][1]) / abs(sup["plain"][1])
+        if sup_err > TRAIN_F32_TOL or sup_loss > TRAIN_F32_TOL:
+            fail(f"phase 24a: the supervised step through the global-BatchNorm path "
+                 f"lies {sup_err:.3g} of scale (loss {sup_loss:.3g}) off the plain step")
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 24a world-size-1 NCCL group: the lite4@640 b{ATTACK_BATCH} fp32 attack "
+          f"step through the mesh path bit-equal to the plain step (patch, cuDNN "
+          f"deterministic), step p50 "
+          f"{meshed['p50_ms']:.3f} ms against {plain['p50_ms']:.3f} ms plain (collectives "
+          f"{meshed['p50_ms'] - plain['p50_ms']:+.3f} ms); the b{SUP_BATCH} fp32 supervised "
+          f"step with global BatchNorm within {sup_err:.3g} of scale of the plain one "
+          f"(loss {sup_loss:.3g} relative, limit {TRAIN_F32_TOL}), step p50 "
+          f"{sup['mesh'][2]:.3f} ms against {sup['plain'][2]:.3f} ms plain (collectives "
+          f"{sup['mesh'][2] - sup['plain'][2]:+.3f} ms)")
+    del sup
+    torch.cuda.empty_cache()
+
+    # 24b-c: two ranks through gloo on the one card
+    t0 = time.perf_counter()
+    launch.spawn(dp_rank, 2, (work,), init_method=f"file://{work}/store",
+                 backend="gloo", timeout_s=DP_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f"r{r}.pt"), weights_only=False)
+             for r in range(2)]
+    # the one-process references on the global batch, in this process
+    dcfg = dp_lite4(DEFEND_THRESH)
+    ref_defend = dp_defender_step(
+        PatchAttackDefender(dcfg, get_victim(dcfg, seed=0, device=dev), device=dev),
+        inp, every, dev)
+    torch.cuda.empty_cache()
+    ref_sup = dp_supervised_step(inp, every, dev)
+    torch.cuda.empty_cache()
+    ref_serve = Detector("efficientdet-lite4", seed=0, device=dev).serve(inp["frames"])
+    r0, r1 = ranks
+    a0, a1 = r0["attack"], r1["attack"]
+    att_rel = abs(a0["loss"] - plain["loss"]) / abs(plain["loss"])
+    g, gr = a0["grad"].double().ravel(), plain["grad"].double().ravel()
+    att_cos = float(g @ gr / (g.norm() * gr.norm()))
+    if not (att_rel <= DP_LOSS_REL and att_cos >= DP_GRAD_COS
+            and torch.equal(a0["patch"], a1["patch"])):
+        fail(f"phase 24b attack: loss {att_rel:.3g} relative, patch gradient cosine "
+             f"{att_cos:.6f}, ranks' patches equal {torch.equal(a0['patch'], a1['patch'])}")
+    def_rel = abs(r0["defend"]["loss"] - ref_defend["loss"]) / abs(ref_defend["loss"])
+    if def_rel > DP_LOSS_REL:
+        fail(f"phase 24b defender: loss {def_rel:.3g} relative off one process")
+    sup_err = dp_leaf_err(r0["sup64"]["net"], ref_sup["net"])
+    sup_rel = abs(r0["sup64"]["loss"] - ref_sup["loss"]) / abs(ref_sup["loss"])
+    if sup_err > DP_SUP_F64_TOL or sup_rel > DP_SUP_F64_TOL:
+        fail(f"phase 24b supervised float64: {sup_err:.3g} of scale, loss "
+             f"{sup_rel:.3g} relative (limit {DP_SUP_F64_TOL})")
+    serve_err = box_err = 0.0
+    for r in ranks:
+        got, ref = r["serve"], [t.cpu().numpy() if hasattr(t, "cpu") else t
+                                for t in ref_serve]
+        for field, x, y in zip(("classes", "valid", "valid_len"), got[2:], ref[2:]):
+            if not np.array_equal(x, y):
+                fail(f"phase 24b Detector(mesh=): {field} differ from one process")
+        serve_err = max(serve_err, float(np.abs(got.scores - ref[1]).max()))
+        box_err = max(box_err, float(np.abs(got.boxes - ref[0]).max()))
+    if serve_err > DP_SERVE_SCORE_TOL or box_err > DP_SERVE_BOX_TOL:
+        fail(f"phase 24b Detector(mesh=): scores within {serve_err:.3g}, boxes within "
+             f"{box_err:.3g} of one process")
+    own = Detector("efficientdet-lite4", seed=0, device=dev).serve(r0["serve_rows"])
+    same_detections("phase 24b Detector(mesh=) rank 0 rows against their own serve",
+                    [t[:len(r0["serve_rows"])] for t in r0["serve"]], own)
+    print(f"phase 24b two ranks on one card (gloo, b{ATTACK_BATCH} global, "
+          f"{ATTACK_BATCH // 2} a rank): attack loss {att_rel:.3g} relative to one "
+          f"process, patch gradient cosine {att_cos:.7f}, the ranks' patches bit-equal; "
+          f"defender (stubbed boxes) loss {def_rel:.3g} relative; supervised lite4@640 "
+          f"float64 b{DP_SUP_BATCH} within {sup_err:.3g} of scale (loss {sup_rel:.3g}, "
+          f"limit {DP_SUP_F64_TOL}); Detector(mesh=) b{DP_SERVE_FRAMES}: classes and valid "
+          f"equal, scores within {serve_err:.3g}, boxes within {box_err:.3g} px, rank 0's "
+          f"rows bit-equal to their own one-process serve; ranks' steps "
+          f"{r0['steps_s']:.2f} / {r1['steps_s']:.2f} s, peak {r0['peak_gb']:.2f} / "
+          f"{r1['peak_gb']:.2f} GB each (a correctness check on one card, not a "
+          f"scaling figure)")
+    files = lambda d: sorted(os.path.relpath(os.path.join(p, f), d)
+                             for p, _, fs in os.walk(d) for f in fs)
+    if files(os.path.join(work, "driver1")) != ["logs/metrics.p1.jsonl"]:
+        fail(f"phase 24c: rank 1 wrote {files(os.path.join(work, 'driver1'))}")
+    main_files = files(os.path.join(work, "driver0"))
+    if not {"logs/metrics.jsonl", "state-latest.msgpack"} <= set(main_files):
+        fail(f"phase 24c: rank 0 wrote {main_files}")
+    if not (torch.equal(r0["driver_patch"], r1["driver_patch"])
+            and r0["driver_scale"] == r1["driver_scale"]):
+        fail("phase 24c: the ranks' patches differ after attack.train.train")
+    print(f"phase 24c attack.train.train at 2 ranks (b{DRIVER_BATCH}, bf16, 2 steps and "
+          f"5 val batches): rank 0 wrote {len(main_files)} files, rank 1 only "
+          f"logs/metrics.p1.jsonl; the ranks' patches bit-equal; {r0['driver_s']:.2f} s")
+    print(f"phase 24 took {time.perf_counter() - t24:.2f} s (the two ranks "
+          f"{spawn_s:.2f} s with their start)")
+    return {"attack_p50_ms": (plain["p50_ms"], meshed["p50_ms"])}
+
+
 def main() -> int:
     import tempfile
     from pathlib import Path
@@ -4175,8 +4475,8 @@ def main() -> int:
           f"canvases): max errors {errs}, two launches bit-equal; kernel "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in dwarp_ms.items()))
     (nms_boxes, nms_scores), nms_kw = cap.args["batched_nms_cuda"][0]
-    *_, err = nms_numbers(nms_boxes, nms_scores, nms_kw, "defender victim pass")
-    max_err = max(max_err, err)
+    defend_nms = nms_numbers(nms_boxes, nms_scores, nms_kw, "defender victim pass")
+    max_err = max(max_err, defend_nms[-1])
     del cap, calls, x, w, g, bias, kern, lib, params0
     del canvases, table, t_in, nms_boxes, nms_scores
     torch.set_grad_enabled(True)
@@ -4725,6 +5025,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         demo = demo_phase(dev, work)
 
+    # phase 24: data parallelism, last, so that no process group outlives it
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        data_parallel_phase(dev, work)
+
     # phase 13: card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4741,7 +5048,9 @@ def main() -> int:
         "demo_score0_ms": demo["nms_ms"], "demo_score0_bound_ms": demo["nms_bound_ms"],
         "eval_launches_per_batch": sup_eval["launches_per_batch"]["nms"],
         "eval_ms": sup_eval["nms_ms"], "eval_bound_ms": sup_eval["nms_bound_ms"],
-        "eval_max_abs_err": sup_eval["nms_err"]}]
+        "eval_max_abs_err": sup_eval["nms_err"],
+        "defender_ms": defend_nms[0], "defender_plain_ms": defend_nms[1],
+        "defender_bound_ms": defend_nms[2], "defender_bound_by": defend_nms[3]}]
     for k in WARP_KERNELS:
         kern_ms, plain_ms, bound_ms, bound_by = warp_times[k]
         kernels.append({

@@ -17,6 +17,16 @@ gradients). On the card, both NMS passes run the CUDA NMS kernel
 (`ops/warp_cuda.py`). Where the JAX package threads PRNG keys, the port
 draws from the state's `torch.Generator`; the parity tests pass JAX's draws
 in through `eot_draws`.
+
+Data parallelism (`parallel.use_mesh`, JAX's step on a batch-sharded
+array): each rank steps on its rows of the global batch with the same
+state. The EOT draws are the global batch's, sliced (`ops/eot.py`); the
+loss is a sum over images, so each rank's loss is its images' sum, and the
+TV term of the replicated patch enters on the first rank only; the patch
+and scale gradients are summed over the ranks (an average would divide the
+data term by their number), so every rank takes the same Adam step; the
+metrics are the global batch's (the score std as sqrt(max(E[x^2] - E[x]^2,
+0)) in float32, the ASR from the summed counts).
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from .. import parallel
 from ..models.efficientdet import DetSpec, spec_from_config
 from ..ops import eot
 from ..ops import nms as nms_ops
@@ -98,13 +109,13 @@ class PatchAttacker:
             (`models/efficientnet_packed.py`) on the same weights: the
             attacker's net is a packed view of `victim`, which is left as it
             is (JAX attacker.py:96-104).
-          bn_axis_name: not ported yet; anything but None raises.
+          bn_axis_name: JAX's sync-BN axis; the victim is frozen (eval-mode
+            BatchNorm), so it issues no collective. Not with packed_entry.
           device: "cuda" (the default) or "cpu".
         """
-        if bn_axis_name is not None:
-            raise NotImplementedError(
-                "bn_axis_name is not ported yet (ROADMAP Queue 1 item 6, "
-                "distribution)")
+        if packed_entry and bn_axis_name is not None:
+            raise ValueError("packed_entry does not support cross-replica BN")
+        self.bn_axis_name = bn_axis_name
         self.device = resolve_device(device)
         self.config = config
         self.spec: DetSpec = spec_from_config(config)
@@ -224,6 +235,8 @@ class PatchAttacker:
         max_scores = torch.clamp_min(torch.amax(adv_masked, dim=1), 0.0)
         scale_losses = (max_scores - scale) ** 2
         tv = eot.total_variation(patch)
+        # the replicated patch's TV term counts once in the ranks' sum
+        tv_weight = tv_weight if parallel.is_first_rank() else 0.0
         if self.freeze_scale:
             # frontier-probe objective: the scale gets no gradient, so Adam
             # leaves it exactly at its initial value
@@ -246,8 +259,9 @@ class PatchAttacker:
 
     @staticmethod
     def _update(state: AttackState) -> None:
-        """One Adam step on (scale, patch), then the variable constraints
-        (attacker.py:51-54, 301-306)."""
+        """The gradients summed over the ranks, one Adam step on (scale,
+        patch), then the variable constraints (attacker.py:51-54, 301-306)."""
+        parallel.all_reduce_grads([state.scale, state.patch])
         with torch.no_grad():
             for p in (state.scale, state.patch):
                 if p.grad is None:  # no live slot: optax sees a zero gradient
@@ -333,6 +347,11 @@ class PatchAttacker:
                 n_adv = n_adv + ((adv_s >= ASR_THRESH) & adv_v).sum()
         self._update(state)
         scale = state.scale.detach().clone()
+        lsum, sl_sum, s_sum, s_sq, n_clean, n_adv, c_sum, v_sum = \
+            parallel.reduce_sum(torch.stack([
+                lsum, sl_sum, s_sum, s_sq, n_clean.to(torch.float32),
+                n_adv.to(torch.float32), c_sum, v_sum])).unbind()
+        b = parallel.global_rows(b)[0]
         mean = s_sum / b
         std = torch.sqrt(torch.clamp_min(s_sq / b - mean ** 2, 0.0))
         asr = (1.0 - n_adv / (n_clean + 1e-7) if with_asr
@@ -369,23 +388,37 @@ class PatchAttacker:
 
     def _metrics(self, loss, scale, aux, clean_scores, clean_valid,
                  with_asr: bool = True, clamp=None) -> StepMetrics:
+        """The step's metrics over the global batch, from sums reduced over
+        the ranks under an active mesh (one reduction): the loss, the scale
+        loss, the score mean, the ASR counts and the clamp counts. The score
+        std is the two-pass std in one process (JAX's `jnp.std`) and
+        sqrt(max(E[x^2] - E[x]^2, 0)) in float32 from the ranks' sums across
+        processes (ROADMAP Queue 3 item 5)."""
+        ms = aux["max_scores"]
+        zero = torch.zeros((), device=self.device)
         nan = torch.full((), float("nan"), device=self.device)
+        n_clean = n_adv = zero
         if with_asr:
             _, adv_scores, adv_valid = self._nms(aux["adv_boxes"],
                                                  aux["adv_masked"])
-            asr = self.calc_asr(clean_scores, clean_valid, adv_scores,
-                                adv_valid)
-        else:
-            asr = nan
-        clamp_frac = nan if clamp is None else (
-            clamp[0] / torch.clamp_min(clamp[1], 1.0))
+            n_clean = ((clean_scores >= ASR_THRESH) & clean_valid).sum()
+            n_adv = ((adv_scores >= ASR_THRESH) & adv_valid).sum()
+        c_n, c_d = (zero, zero) if clamp is None else clamp
+        (loss, scale_loss, s_sum, s_sq, n_clean, n_adv, c_n, c_d
+         ) = parallel.reduce_sum(torch.stack([
+             loss.detach(), aux["scale_losses"].sum(), ms.sum(),
+             (ms * ms).sum(), n_clean.to(torch.float32),
+             n_adv.to(torch.float32), c_n, c_d])).unbind()
+        b = parallel.global_rows(ms.shape[0])[0]
+        mean = s_sum / b
+        std = (torch.std(ms, correction=0) if parallel.data_group() is None
+               else torch.sqrt(torch.clamp_min(s_sq / b - mean ** 2, 0.0)))
+        asr = 1.0 - n_adv / (n_clean + 1e-7) if with_asr else nan
         return StepMetrics(
-            loss=loss, scale=scale,
-            scale_loss=torch.sum(aux["scale_losses"]), tv_loss=aux["tv"],
-            mean_max_score=torch.mean(aux["max_scores"]),
-            std_max_score=torch.std(aux["max_scores"], correction=0),
-            asr=asr, asr_to_scale=asr / (scale + 1e-7),
-            eot_clamp_frac=clamp_frac)
+            loss=loss, scale=scale, scale_loss=scale_loss, tv_loss=aux["tv"],
+            mean_max_score=mean, std_max_score=std, asr=asr,
+            asr_to_scale=asr / (scale + 1e-7),
+            eot_clamp_frac=nan if clamp is None else c_n / torch.clamp_min(c_d, 1.0))
 
     @torch.no_grad()
     def asr_curve(self, state: AttackState, images: torch.Tensor, thresholds,
@@ -403,6 +436,9 @@ class PatchAttacker:
             **self.eot_overrides)
         adv_boxes, adv_masked = self.second_pass_scores(patched)
         _, adv_scores, adv_valid = self._nms(adv_boxes, adv_masked)
-        return torch.stack([
-            self.calc_asr(clean_scores, clean_valid, adv_scores, adv_valid,
-                          float(t)) for t in thresholds])
+        # calc_asr's counts at each threshold, over the global batch
+        counts = parallel.reduce_sum(torch.stack([torch.stack([
+            ((clean_scores >= float(t)) & clean_valid).sum(),
+            ((adv_scores >= float(t)) & adv_valid).sum()]) for t in thresholds
+        ]).to(torch.float32))
+        return 1.0 - counts[:, 1] / (counts[:, 0] + 1e-7)

@@ -24,9 +24,19 @@ folder (`img_dir`; `data/pipeline.partition`, unfiltered, and the folder
 streams of `ImageFolderSource`, which need PIL). `victim_ckpt` may also be
 an orbax directory or a reference TF1 checkpoint (the release tarball
 too); `packed_entry` runs the victim's entry blocks in the space-to-depth
-layout (`--packed-entry`). Not ported yet, and raising
-`NotImplementedError`: `spatial > 1` (and with it the sharding of a folder
-across processes).
+layout (`--packed-entry`).
+
+Across processes (`torchrun --nproc_per_node N -m
+mladversarialobjectdetection_torch.attack.train ...`; `main` calls
+`parallel.initialize`), the driver runs JAX's data-parallel program (JAX
+train.py:95-195, 264-270) on `make_train_mesh`: each rank loads
+`batch_size / N` images (`local_batch_size`), synthetic streams seeded
+`seed + 1000 * rank`, an image folder split with `seed + rank` and then
+`ImageFolderSource.shard(rank, N)`; the state and the victim come from rank
+0 (`replicate`); the steps reduce over the ranks (`attack/attacker.py`); only
+the main process writes `state-latest.msgpack`, the patch directories and
+the plots, and every rank reads `resume`'s file. `spatial > 1` raises
+`NotImplementedError` before any work (ROADMAP Queue 1 item 9).
 
 Usage:
     python -m mladversarialobjectdetection_torch.attack.train --synthetic \\
@@ -41,6 +51,7 @@ import numpy as np
 import torch
 
 from .. import config as config_lib
+from .. import parallel
 from ..ckpt import bridge, convert_tf
 from ..ckpt import io as ckpt_io
 from ..data import pipeline
@@ -126,10 +137,6 @@ def load_attack_state(state: AttackState, arrays) -> AttackState:
     return state
 
 
-def _not_ported(option: str, item: str):
-    return NotImplementedError(f"{option} is not ported yet (ROADMAP {item})")
-
-
 def train(model_name: str = "efficientdet-lite4", *,
           img_dir: str | None = None, label_dir: str | None = None,
           victim_ckpt: str | None = None, save_dir: str = "save_dir",
@@ -142,8 +149,8 @@ def train(model_name: str = "efficientdet-lite4", *,
           grad_accum: int = 1, spatial: int = 1, resume: bool = False,
           packed_entry: int = 0, victim_variables=None, device=None):
     """Train an adversarial patch; returns the final `AttackState`."""
-    if spatial > 1:
-        raise _not_ported("spatial > 1", "Queue 1 item 6")
+    if spatial > 1:  # before any work: JAX row-shards the images there
+        raise NotImplementedError(parallel.SPATIAL_NOT_PORTED)
     device = resolve_device(device)
 
     config = config_lib.get_efficientdet_config(model_name)
@@ -159,6 +166,8 @@ def train(model_name: str = "efficientdet-lite4", *,
     if config_override:
         config.update(config_override)
 
+    mesh = parallel.make_train_mesh(batch_size, device=device)
+    logger.info(f"mesh over {mesh.size} rank(s); global batch {batch_size}")
     victim_variables = victim_source(config, victim_ckpt, victim_variables)
     victim = get_victim(config, variables=victim_variables, device=device)
     attacker = PatchAttacker(config, victim, learning_rate=lr,
@@ -188,6 +197,7 @@ def train(model_name: str = "efficientdet-lite4", *,
         load_attack_state(state, arrays)
         logger.info(f"resumed full state from {latest} "
                     f"(epoch {start_epoch}, step {step})")
+    parallel.replicate(mesh, [state.patch, state.scale, attacker.net])
 
     def _viz_events(n_epochs: int, spe_: int) -> int:
         """Visualisation epochs among the first n, each of which takes one
@@ -198,13 +208,17 @@ def train(model_name: str = "efficientdet-lite4", *,
         return (n_epochs + period - 1) // period
 
     # resume fast-forward (JAX train.py:167-195): both streams advanced to
-    # where the uninterrupted run would be
+    # where the uninterrupted run would be. Each rank loads its share of the
+    # global batch from a stream of its own
+    rank, n_proc = parallel.process_index(), parallel.world_size()
+    local_bs = parallel.local_batch_size(batch_size)
     if synthetic or img_dir is None:
         logger.info("using synthetic data")
-        train_src = pipeline.synthetic_batches(batch_size, config.image_size,
-                                               seed=seed)
-        val_src = pipeline.synthetic_batches(batch_size, config.image_size,
-                                             seed=seed + 1)
+        pseed = seed + 1000 * rank
+        train_src = pipeline.synthetic_batches(local_bs, config.image_size,
+                                               seed=pseed)
+        val_src = pipeline.synthetic_batches(local_bs, config.image_size,
+                                             seed=pseed + 1)
         spe = steps_per_epoch or 50
         val_steps = 5
         if start_epoch:
@@ -214,80 +228,88 @@ def train(model_name: str = "efficientdet-lite4", *,
     else:
         parts = pipeline.partition(config, img_dir, label_dir,
                                    batch_size=batch_size, filter_data=False,
-                                   seed=seed)
+                                   seed=seed + rank)
+        if n_proc > 1:
+            parts["train"]["source"].shard(rank, n_proc)
+            parts["val"]["source"].shard(rank, n_proc)
         spe = steps_per_epoch or parts["train"]["length"]
         val_steps = parts["val"]["length"]
         train_src = parts["train"]["source"].repeat_batches(
-            batch_size, skip_batches=start_epoch * spe)
+            local_bs, skip_batches=start_epoch * spe)
         val_src = parts["val"]["source"].repeat_batches(
-            batch_size, skip_batches=start_epoch * val_steps
+            local_bs, skip_batches=start_epoch * val_steps
             + _viz_events(start_epoch, spe))
-    put = lambda b: torch.from_numpy(b).to(device)
+    put = lambda b: parallel.shard_batch_auto(mesh, b)
     train_iter = pipeline.prefetch(train_src, device_put_fn=put)
     val_iter = pipeline.prefetch(val_src, device_put_fn=put)
 
     os.makedirs(save_dir, exist_ok=True)
     mlog = MetricLogger(os.path.join(save_dir, "logs"))
     thr = Throughput()
-    for epoch in range(start_epoch, epochs):
-        thr.start()
-        for _ in range(spe):
-            batch = pipeline.augment_batch(next(train_iter), aug_gen)
-            # the ASR pass (a second NMS) runs only on logged steps
-            logged = (step + 1) % 50 == 0
-            state, metrics = attacker.train_step(state, batch, with_asr=logged)
-            thr.count(batch_size)
-            step += 1
-            if logged:
-                mlog.log(step, metrics._asdict(), prefix="train/")
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        ips = thr.rate()
+    with parallel.use_mesh(mesh):  # the steps reduce over its ranks
+        for epoch in range(start_epoch, epochs):
+            thr.start()
+            for _ in range(spe):
+                batch = pipeline.augment_batch(next(train_iter), aug_gen)
+                # the ASR pass (a second NMS) runs only on logged steps
+                logged = (step + 1) % 50 == 0
+                state, metrics = attacker.train_step(state, batch, with_asr=logged)
+                thr.count(batch_size)
+                step += 1
+                if logged:
+                    mlog.log(step, metrics._asdict(), prefix="train/")
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            ips = thr.rate()
 
-        val_metrics = [attacker.eval_step(state, next(val_iter), vi)
-                       for vi in range(val_steps)]
-        val = {k: float(np.mean([float(getattr(m, k)) for m in val_metrics]))
-               for k in val_metrics[0]._fields}
-        mlog.log(step, val, prefix="val/")
-        mlog.log(step, {"images_per_sec": ips, "epoch": epoch})
-        logger.info(
-            f"epoch {epoch}: val_loss={val['loss']:.4f} "
-            f"asr={val['asr']:.3f} scale={val['scale']:.3f} "
-            f"asr_to_scale={val['asr_to_scale']:.4f} {ips:.1f} img/s")
-        if val.get("eot_clamp_frac", 0.0) > 0.01:
-            logger.warning(
-                f"epoch {epoch}: {val['eot_clamp_frac']:.1%} of patch slots "
-                f"hit the EOT window clamp (window={window}); raise --window")
+            val_metrics = [attacker.eval_step(state, next(val_iter), vi)
+                           for vi in range(val_steps)]
+            val = {k: float(np.mean([float(getattr(m, k)) for m in val_metrics]))
+                   for k in val_metrics[0]._fields}
+            mlog.log(step, val, prefix="val/")
+            mlog.log(step, {"images_per_sec": ips, "epoch": epoch})
+            logger.info(
+                f"epoch {epoch}: val_loss={val['loss']:.4f} "
+                f"asr={val['asr']:.3f} scale={val['scale']:.3f} "
+                f"asr_to_scale={val['asr_to_scale']:.4f} {ips:.1f} img/s")
+            if val.get("eot_clamp_frac", 0.0) > 0.01:
+                logger.warning(
+                    f"epoch {epoch}: {val['eot_clamp_frac']:.1%} of patch slots "
+                    f"hit the EOT window clamp (window={window}); raise --window")
 
-        # ASR-vs-threshold curve every visualize_freq steps; the `try`
-        # guards only the plot, never the device path
-        if visualize_freq and epoch % max(1, visualize_freq // spe) == 0:
-            thresholds = np.arange(
-                float(config.nms_configs.score_thresh or 0.5), 0.805, 0.01,
-                dtype=np.float32)
-            curve = attacker.asr_curve(state, next(val_iter), thresholds)
-            curve = curve.cpu().numpy()
-            try:
-                from ..utils import visualize
-                from PIL import Image
-                img = visualize.plot_asr_curve(thresholds, curve)
-                Image.fromarray(img).save(
-                    os.path.join(save_dir, "logs", f"asr_{epoch:03d}.png"))
-            except Exception as e:  # a plot must never stop training
-                logger.warning(f"asr-curve plot failed: {e}")
+            # ASR-vs-threshold curve every visualize_freq steps; the `try`
+            # guards only the plot, never the device path
+            if visualize_freq and epoch % max(1, visualize_freq // spe) == 0:
+                thresholds = np.arange(
+                    float(config.nms_configs.score_thresh or 0.5), 0.805, 0.01,
+                    dtype=np.float32)
+                curve = attacker.asr_curve(state, next(val_iter), thresholds)
+                curve = curve.cpu().numpy()
+                try:
+                    if parallel.is_main_process():
+                        from ..utils import visualize
+                        from PIL import Image
+                        img = visualize.plot_asr_curve(thresholds, curve)
+                        Image.fromarray(img).save(
+                            os.path.join(save_dir, "logs", f"asr_{epoch:03d}.png"))
+                except Exception as e:  # a plot must never stop training
+                    logger.warning(f"asr-curve plot failed: {e}")
 
-        dirname = os.path.join(save_dir,
-                               f"patch_{epoch:02d}_{val['asr_to_scale']:.4f}")
-        if val["loss"] < best_val_loss:
-            best_val_loss = val["loss"]
-            artifacts.save_patch_dir(dirname, state.patch.detach().cpu().numpy(),
-                                     float(state.scale.detach()), config.mean_rgb,
-                                     config.stddev_rgb)
-        plateau.update(val["loss"], state.optimizer)
-        # the full-state kill-and-resume checkpoint (see resume)
-        train_loop_lib.save_loop_state(
-            latest, attack_state_arrays(state), epoch=epoch + 1, step=step,
-            best=best_val_loss, plateau=plateau, aug_gen=aug_gen)
+            dirname = os.path.join(save_dir,
+                                   f"patch_{epoch:02d}_{val['asr_to_scale']:.4f}")
+            if val["loss"] < best_val_loss:
+                best_val_loss = val["loss"]
+                if parallel.is_main_process():  # one writer in a shared directory
+                    artifacts.save_patch_dir(
+                        dirname, state.patch.detach().cpu().numpy(),
+                        float(state.scale.detach()), config.mean_rgb,
+                        config.stddev_rgb)
+            plateau.update(val["loss"], state.optimizer)
+            if parallel.is_main_process():
+                # the full-state kill-and-resume checkpoint (see resume)
+                train_loop_lib.save_loop_state(
+                    latest, attack_state_arrays(state), epoch=epoch + 1, step=step,
+                    best=best_val_loss, plateau=plateau, aug_gen=aug_gen)
     mlog.close()
     return state
 
@@ -319,7 +341,8 @@ def main():
                    help="split each step's batch into this many sequential "
                         "microbatches with one summed-gradient update")
     p.add_argument("--spatial", type=int, default=1,
-                   help="spatial model parallelism (not ported yet)")
+                   help="shard each image's rows over this many cards: not "
+                        "ported yet, > 1 raises (ROADMAP Queue 1 item 9)")
     p.add_argument("--packed-entry", type=int, default=0,
                    help="victim entry blocks in the space-to-depth packed layout "
                         "(models/efficientnet_packed.py), the same weights; a "
@@ -331,6 +354,7 @@ def main():
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
     args = p.parse_args()
+    parallel.initialize(args.device)
     train(args.model, img_dir=args.img_dir, label_dir=args.label_dir,
           victim_ckpt=args.victim_ckpt, save_dir=args.save_dir,
           batch_size=args.batch_size, epochs=args.epochs, lr=args.lr,

@@ -30,6 +30,7 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import parallel
 from ..ops.preprocess import preprocess_host
 from ..utils.image import parse_image_size
 from ..utils.log import get_logger
@@ -196,16 +197,19 @@ def augment_batch(images: torch.Tensor, generator: torch.Generator | None = None
     * factor + channel mean with factor ~ U(.8, 1.2), random_brightness(.2)
     as + delta with delta ~ U(-.2, .2), clip to [-1, 1]. images [B, H, W, 3];
     the draws flip [B] bool, factor [B] and delta [B] are fed in or drawn
-    from `generator`.
+    from `generator` (under an active mesh, this rank's rows of the global
+    batch's draws).
     """
     b = images.shape[0]
     dev = images.device
+    rand = lambda: parallel.draw_rows(
+        lambda n: torch.rand((n,), generator=generator, device=dev), b)
     if flip is None:
-        flip = torch.rand((b,), generator=generator, device=dev) < 0.5
+        flip = rand() < 0.5
     if factor is None:
-        factor = 0.8 + 0.4 * torch.rand((b,), generator=generator, device=dev)
+        factor = 0.8 + 0.4 * rand()
     if delta is None:
-        delta = -0.2 + 0.4 * torch.rand((b,), generator=generator, device=dev)
+        delta = -0.2 + 0.4 * rand()
     col = lambda v: v.to(dev).reshape(b, 1, 1, 1)
     images = torch.where(col(flip), torch.flip(images, dims=(2,)), images)
     mean = torch.mean(images, dim=(1, 2), keepdim=True)

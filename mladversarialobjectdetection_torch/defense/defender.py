@@ -23,6 +23,16 @@ kernels, and the U-Net's small-channel 3x3 convs the CUDA cmconv kernel
 (its bf16 instance under mixed precision).
 Where the JAX package threads PRNG keys, the port draws from the state's
 `torch.Generator`; the parity tests pass JAX's draws in (`masker_draws`).
+
+Data parallelism (`parallel.use_mesh`, JAX's step on a batch-sharded
+array): each rank steps on its rows of the global batch with the same
+state. The masker crops a permutation of the whole batch (the crops
+gathered, the draws the global batch's; `defense/masker.py`), the EOT and
+dropout draws are the global batch's, sliced; the U-Net's train-mode
+BatchNorm normalises by the global batch's statistics
+(`efficientnet.batch_stats`); each rank's loss is its images' sum and the
+gradients are summed over the ranks, so every rank takes the same Adam
+step; the metrics and the eval sums are the global batch's.
 """
 from __future__ import annotations
 
@@ -32,6 +42,7 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import parallel
 from ..attack.attacker import NEG_INF, filter_valid_boxes
 from ..ckpt import bridge
 from ..models.efficientdet import DetSpec, spec_from_config
@@ -67,8 +78,12 @@ class DefenderMetrics(NamedTuple):
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The mean of x where mask holds, over the global batch under an
+    active mesh."""
     m = mask.to(x.dtype)
-    return torch.sum(x * m) / (torch.sum(m) + 1e-7)
+    num, den = parallel.reduce_sum(torch.stack([torch.sum(x * m),
+                                                torch.sum(m)])).unbind()
+    return num / (den + 1e-7)
 
 
 class PatchAttackDefender:
@@ -202,8 +217,9 @@ class PatchAttackDefender:
 
     @staticmethod
     def _update(state: DefenderState) -> None:
-        """One Adam step; a parameter without a gradient sees a zero one,
-        as in optax."""
+        """The gradients summed over the ranks, then one Adam step; a
+        parameter without a gradient sees a zero one, as in optax."""
+        parallel.all_reduce_grads(state.unet.parameters())
         with torch.no_grad():
             for p in state.unet.parameters():
                 if p.grad is None:
@@ -242,7 +258,7 @@ class PatchAttackDefender:
         else:
             mean_adv = torch.zeros((), device=self.device)
         state.step += 1
-        return state, DefenderMetrics(loss.detach(),
+        return state, DefenderMetrics(parallel.reduce_sum(loss.detach()),
                                       _masked_mean(clean_scores, clean_valid),
                                       mean_adv, self._nan(), self._nan())
 
@@ -282,6 +298,8 @@ class PatchAttackDefender:
                 den_a = den_a + torch.sum(am)
         self._update(state)
         state.step += 1
+        lsum, num_c, den_c, num_a, den_a = parallel.reduce_sum(
+            torch.stack([lsum, num_c, den_c, num_a, den_a])).unbind()
         mean_adv = num_a / (den_a + 1e-7) if with_adv_scores else zero()
         return state, DefenderMetrics(lsum, num_c / (den_c + 1e-7), mean_adv,
                                       self._nan(), self._nan())
@@ -325,11 +343,6 @@ class PatchAttackDefender:
         has_region = n_px > 0
         mse = se / torch.clamp_min(n_px, 1.0)
         psnr_i = 10.0 * torch.log10(4.0 / torch.clamp_min(mse, 1e-12))
-        n_reg = torch.sum(has_region).to(torch.float32)
-        recovery_psnr = torch.where(
-            n_reg > 0,
-            torch.sum(torch.where(has_region, psnr_i, 0.0))
-            / torch.clamp_min(n_reg, 1.0), self._nan())
 
         # attack-detection rate, the demo's rule (demo_v2.py:28, 48-55,
         # 136-141): per image the max score above .55 (0 if none); detected
@@ -344,11 +357,17 @@ class PatchAttackDefender:
         rec_i = max_above(rec_scores, rec_valid)
         eligible = (clean_i > 0.55) & has_region
         detected = (rec_i - adv_i) > 0.10
-        n_elig = torch.sum(eligible).to(torch.float32)
+        # the global batch's sums (one reduction under an active mesh)
+        loss, psnr_sum, n_reg, det_sum, n_elig = parallel.reduce_sum(
+            torch.stack([loss, torch.sum(torch.where(has_region, psnr_i, 0.0)),
+                         torch.sum(has_region).to(torch.float32),
+                         torch.sum(torch.where(eligible,
+                                               detected.to(torch.float32), 0.0)),
+                         torch.sum(eligible).to(torch.float32)])).unbind()
+        recovery_psnr = torch.where(
+            n_reg > 0, psnr_sum / torch.clamp_min(n_reg, 1.0), self._nan())
         adr = torch.where(
-            n_elig > 0,
-            torch.sum(torch.where(eligible, detected.to(torch.float32), 0.0))
-            / torch.clamp_min(n_elig, 1.0), self._nan())
+            n_elig > 0, det_sum / torch.clamp_min(n_elig, 1.0), self._nan())
         return DefenderMetrics(loss, _masked_mean(clean_scores, valid),
                                _masked_mean(adv_scores, adv_valid),
                                recovery_psnr, adr)

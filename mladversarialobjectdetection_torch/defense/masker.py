@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import parallel
 from ..ops import eot
 from ..utils.device import resolve_device
 
@@ -49,17 +50,27 @@ def make_train_patches(images: torch.Tensor, crop: int = TRAIN_CROP, *,
                        flip_lr: torch.Tensor | None = None,
                        flip_ud: torch.Tensor | None = None) -> torch.Tensor:
     """Self-supervised patch sources: shuffled batch crops with random flips
-    (attack_detection.py:487-492). images [B, H, W, 3] -> [B, c, c, 3]."""
+    (attack_detection.py:487-492). images [B, H, W, 3] -> [B, c, c, 3].
+
+    The crops are of a permutation of the whole batch. Under an active mesh
+    (`parallel.use_mesh`) images is this rank's rows of the global batch:
+    every rank's crops are gathered, `perm` and the flips are drawn at the
+    global batch's shape, and this rank keeps its rows, so the ranks plant
+    what one process plants for the global batch. Fed-in draws are this
+    rank's rows (`perm`'s entries index the global batch)."""
     b, h, w, _ = images.shape
     crop = min(crop, h, w)
     dev = images.device
     if perm is None:
-        perm = torch.randperm(b, generator=generator, device=dev)
+        perm = parallel.draw_rows(
+            lambda n: torch.randperm(n, generator=generator, device=dev), b)
+    coin = lambda n: torch.rand((n,), generator=generator, device=dev) < 0.5
     if flip_lr is None:
-        flip_lr = torch.rand((b,), generator=generator, device=dev) < 0.5
+        flip_lr = parallel.draw_rows(coin, b)
     if flip_ud is None:
-        flip_ud = torch.rand((b,), generator=generator, device=dev) < 0.5
-    crops = images[:, :crop, :crop, :][perm.to(dev)]
+        flip_ud = parallel.draw_rows(coin, b)
+    crops = parallel.all_gather_rows(images[:, :crop, :crop, :].contiguous())
+    crops = crops[perm.to(dev)]
     col = lambda m: m.to(dev).reshape(b, 1, 1, 1)
     crops = torch.where(col(flip_lr), crops.flip(2), crops)
     return torch.where(col(flip_ud), crops.flip(1), crops)

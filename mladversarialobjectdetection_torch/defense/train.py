@@ -31,14 +31,23 @@ labels, as the JAX driver's; reading needs PIL). `bf16` sets
 U-Net, float32 parameters and loss), as the JAX driver does; `packed`
 picks the space-to-depth U-Net (`models/unet_packed.py`, the same
 parameters and `antipatch.pkl`), `--packed` with no value packing 3
-levels as the JAX driver's. Not ported yet, and raising
-`NotImplementedError`: `spatial > 1` (and with it the sharding of a
-folder across processes). `victim_ckpt` may be a pytree file, an orbax
+levels as the JAX driver's. `victim_ckpt` may be a pytree file, an orbax
 directory or a reference TF1 checkpoint (the release tarball too);
 `initial_weights` an `antipatch` pytree path or a reference `antipatch.h5`;
 beside each `antipatch.pkl` the driver writes the reference-format
 `antipatch.h5` mirror where h5py is installed, and otherwise logs JAX's
 warning and goes on (JAX train.py:205-216), as on the card's machine.
+
+Across processes (`torchrun --nproc_per_node N -m
+mladversarialobjectdetection_torch.defense.train ...`; `main` calls
+`parallel.initialize`), the driver runs JAX's data-parallel program (JAX
+train.py:53-142, 201-220) on `make_train_mesh`, as the attack driver does:
+`batch_size / N` images a rank, synthetic streams seeded `seed + 1000 *
+rank`, the folder split seeded `seed + rank` and sharded by rank, the
+U-Net and the victim from rank 0, the steps reduced over the ranks
+(`defense/defender.py`), and only the main process writing files.
+`spatial > 1` raises `NotImplementedError` before any work (ROADMAP Queue 1
+item 9).
 
 An untrained victim at score threshold .5 finds nobody, so the masker
 plants nothing: pass `config_override={"nms_configs": {"score_thresh":
@@ -57,6 +66,7 @@ import numpy as np
 import torch
 
 from .. import config as config_lib
+from .. import parallel
 from ..attack import artifacts
 from ..attack.train import get_victim, victim_source
 from ..ckpt import bridge
@@ -70,10 +80,6 @@ from ..utils.train_loop import MetricLogger, ReduceLROnPlateau, Throughput
 from .defender import DefenderState, PatchAttackDefender
 
 logger = get_logger(__name__)
-
-
-def _not_ported(option: str, item: str):
-    return NotImplementedError(f"{option} is not ported yet (ROADMAP {item})")
 
 
 def defender_state_arrays(state: DefenderState):
@@ -114,8 +120,8 @@ def train(model_name: str = "efficientdet-lite4", *,
           resume: bool = False, packed: int = 0, victim_variables=None,
           device=None):
     """Train the defender U-Net; returns the final `DefenderState`."""
-    if spatial > 1:
-        raise _not_ported("spatial > 1", "Queue 1 item 6")
+    if spatial > 1:  # before any work: JAX row-shards the images there
+        raise NotImplementedError(parallel.SPATIAL_NOT_PORTED)
     # weights only (the reference's initial_weights, attack_detection.py:54-55)
     unet_vars = load_antipatch(initial_weights) if initial_weights else None
     device = resolve_device(device)
@@ -138,6 +144,7 @@ def train(model_name: str = "efficientdet-lite4", *,
             -1, 1, size=(640, 640, 3)).astype(np.float32)
         scale = 0.4
 
+    mesh = parallel.make_train_mesh(batch_size, device=device)
     victim_variables = victim_source(config, victim_ckpt, victim_variables)
     victim = get_victim(config, variables=victim_variables, device=device)
     defender = PatchAttackDefender(config, victim, eval_patch=patch_np,
@@ -159,14 +166,18 @@ def train(model_name: str = "efficientdet-lite4", *,
         load_defender_state(state, arrays)
         logger.info(f"resumed full state from {latest} "
                     f"(epoch {start_epoch}, step {step})")
+    parallel.replicate(mesh, [state.unet, defender.net])
     # resume fast-forward (JAX train.py:114-140): both streams advanced to
     # where the uninterrupted run would be
+    rank, n_proc = parallel.process_index(), parallel.world_size()
+    local_bs = parallel.local_batch_size(batch_size)
     if synthetic or img_dir is None:
         logger.info("using synthetic data")
-        train_src = pipeline.synthetic_batches(batch_size, config.image_size,
-                                               seed=seed)
-        val_src = pipeline.synthetic_batches(batch_size, config.image_size,
-                                             seed=seed + 1)
+        pseed = seed + 1000 * rank
+        train_src = pipeline.synthetic_batches(local_bs, config.image_size,
+                                               seed=pseed)
+        val_src = pipeline.synthetic_batches(local_bs, config.image_size,
+                                             seed=pseed + 1)
         spe = steps_per_epoch or 50
         val_steps = 5
         if start_epoch:
@@ -175,76 +186,83 @@ def train(model_name: str = "efficientdet-lite4", *,
     else:
         parts = pipeline.partition(config, img_dir, label_dir,
                                    batch_size=batch_size, filter_data=True,
-                                   seed=seed)
+                                   seed=seed + rank)
+        if n_proc > 1:
+            parts["train"]["source"].shard(rank, n_proc)
+            parts["val"]["source"].shard(rank, n_proc)
         spe = steps_per_epoch or parts["train"]["length"]
         val_steps = parts["val"]["length"]
         train_src = parts["train"]["source"].repeat_batches(
-            batch_size, skip_batches=start_epoch * spe)
+            local_bs, skip_batches=start_epoch * spe)
         val_src = parts["val"]["source"].repeat_batches(
-            batch_size, skip_batches=start_epoch * val_steps)
-    put = lambda b: torch.from_numpy(b).to(device)
+            local_bs, skip_batches=start_epoch * val_steps)
+    put = lambda b: parallel.shard_batch_auto(mesh, b)
     train_iter = pipeline.prefetch(train_src, device_put_fn=put)
     val_iter = pipeline.prefetch(val_src, device_put_fn=put)
 
     os.makedirs(save_dir, exist_ok=True)
     mlog = MetricLogger(os.path.join(save_dir, "logs"))
     thr = Throughput()
-    for epoch in range(start_epoch, epochs):
-        thr.start()
-        for _ in range(spe):
-            batch = pipeline.augment_batch(next(train_iter), aug_gen)
-            # real adversarial scores on logged steps only (an extra
-            # detector pass), as the reference logs them
-            logged = (step + 1) % 50 == 0
-            state, metrics = defender.train_step(state, batch,
-                                                 with_adv_scores=logged)
-            thr.count(batch_size)
-            step += 1
-            if logged:
-                mlog.log(step, metrics._asdict(), prefix="train/")
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        ips = thr.rate()
+    with parallel.use_mesh(mesh):  # the steps reduce over its ranks
+        for epoch in range(start_epoch, epochs):
+            thr.start()
+            for _ in range(spe):
+                batch = pipeline.augment_batch(next(train_iter), aug_gen)
+                # real adversarial scores on logged steps only (an extra
+                # detector pass), as the reference logs them
+                logged = (step + 1) % 50 == 0
+                state, metrics = defender.train_step(state, batch,
+                                                     with_adv_scores=logged)
+                thr.count(batch_size)
+                step += 1
+                if logged:
+                    mlog.log(step, metrics._asdict(), prefix="train/")
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            ips = thr.rate()
 
-        vals = [defender.eval_step(state, next(val_iter), vi)
-                for vi in range(val_steps)]
-        val_loss = float(np.mean([float(v.loss) for v in vals]))
-        # NaN-mean skips val batches where the victim found nobody to patch
-        val_psnr = _nanmean([float(v.recovery_psnr) for v in vals])
-        val_adr = _nanmean([float(v.adr) for v in vals])
-        mlog.log(step, {"loss": val_loss, "recovery_psnr": val_psnr,
-                        "adr": val_adr, "images_per_sec": ips,
-                        "epoch": epoch}, prefix="val/")
-        logger.info(f"epoch {epoch}: val_loss={val_loss:.4f} "
-                    f"psnr={val_psnr:.1f}dB adr={val_adr:.2f} "
-                    f"{ips:.1f} img/s")
+            vals = [defender.eval_step(state, next(val_iter), vi)
+                    for vi in range(val_steps)]
+            val_loss = float(np.mean([float(v.loss) for v in vals]))
+            # NaN-mean skips val batches where the victim found nobody to patch
+            val_psnr = _nanmean([float(v.recovery_psnr) for v in vals])
+            val_adr = _nanmean([float(v.adr) for v in vals])
+            mlog.log(step, {"loss": val_loss, "recovery_psnr": val_psnr,
+                            "adr": val_adr, "images_per_sec": ips,
+                            "epoch": epoch}, prefix="val/")
+            logger.info(f"epoch {epoch}: val_loss={val_loss:.4f} "
+                        f"psnr={val_psnr:.1f}dB adr={val_adr:.2f} "
+                        f"{ips:.1f} img/s")
 
-        if epoch % 10 == 0:
-            clean = [float(v.mean_clean_score) for v in vals]
-            adv = [float(v.mean_adv_score) for v in vals]
-            try:
-                from ..utils import visualize
-                from PIL import Image
-                Image.fromarray(visualize.plot_score_violin(clean, adv)).save(
-                    os.path.join(save_dir, "logs", f"scores_{epoch:03d}.png"))
-            except Exception as e:  # a plot must never stop training
-                logger.warning(f"violin plot failed: {e}")
+            if epoch % 10 == 0 and parallel.is_main_process():
+                clean = [float(v.mean_clean_score) for v in vals]
+                adv = [float(v.mean_adv_score) for v in vals]
+                try:
+                    from ..utils import visualize
+                    from PIL import Image
+                    Image.fromarray(visualize.plot_score_violin(clean, adv)).save(
+                        os.path.join(save_dir, "logs", f"scores_{epoch:03d}.png"))
+                except Exception as e:  # a plot must never stop training
+                    logger.warning(f"violin plot failed: {e}")
 
-        if val_loss < best_val:
-            best_val = val_loss
-            art_dir = os.path.join(save_dir, f"patch_{epoch:02d}_{val_loss:.4f}")
-            weights = bridge.torch_to_flax(state.unet)
-            ckpt_io.save_pytree(os.path.join(art_dir, "antipatch"), weights)
-            try:
-                # the reference-consumable mirror (attack_detection.py:311-318)
-                save_antipatch_h5(weights, os.path.join(art_dir, "antipatch.h5"))
-            except Exception as e:  # h5py absent
-                logger.warning(f"antipatch.h5 mirror not written: {e}")
-        plateau.update(val_loss, state.optimizer)
-        # the full-state kill-and-resume checkpoint (see resume)
-        train_loop_lib.save_loop_state(
-            latest, defender_state_arrays(state), epoch=epoch + 1, step=step,
-            best=best_val, plateau=plateau, aug_gen=aug_gen)
+            improved = val_loss < best_val
+            if improved:
+                best_val = val_loss
+            if improved and parallel.is_main_process():
+                art_dir = os.path.join(save_dir, f"patch_{epoch:02d}_{val_loss:.4f}")
+                weights = bridge.torch_to_flax(state.unet)
+                ckpt_io.save_pytree(os.path.join(art_dir, "antipatch"), weights)
+                try:
+                    # the reference-consumable mirror (attack_detection.py:311-318)
+                    save_antipatch_h5(weights, os.path.join(art_dir, "antipatch.h5"))
+                except Exception as e:  # h5py absent
+                    logger.warning(f"antipatch.h5 mirror not written: {e}")
+            plateau.update(val_loss, state.optimizer)
+            if parallel.is_main_process():
+                # the full-state kill-and-resume checkpoint (see resume)
+                train_loop_lib.save_loop_state(
+                    latest, defender_state_arrays(state), epoch=epoch + 1,
+                    step=step, best=best_val, plateau=plateau, aug_gen=aug_gen)
     mlog.close()
     return state
 
@@ -275,7 +293,9 @@ def main():
     p.add_argument("--grad-accum", type=int, default=1,
                    help="split each step's batch into this many sequential "
                         "microbatches with one summed-gradient update")
-    p.add_argument("--spatial", type=int, default=1, help="not ported yet")
+    p.add_argument("--spatial", type=int, default=1,
+                   help="shard each image's rows over this many cards: not "
+                        "ported yet, > 1 raises (ROADMAP Queue 1 item 9)")
     p.add_argument("--packed", type=int, nargs="?", const=3, default=0,
                    help="space-to-depth packed U-Net layout "
                         "(models/unet_packed.py), the same model and "
@@ -288,6 +308,7 @@ def main():
                         "save_dir/state-latest.msgpack")
     p.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = p.parse_args()
+    parallel.initialize(args.device)
     train(args.model, img_dir=args.img_dir, label_dir=args.label_dir,
           victim_ckpt=args.victim_ckpt, eval_patch=args.eval_patch,
           save_dir=args.save_dir, batch_size=args.batch_size,

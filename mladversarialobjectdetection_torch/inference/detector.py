@@ -19,7 +19,16 @@ directory) or a reference TF1 checkpoint (a prefix, a directory or the
 release tarball), converted on the fly with EMA shadows preferred
 (`ckpt/convert_tf.py`, read without TensorFlow). `packed_entry` computes
 the backbone's first blocks in the space-to-depth layout
-(`models/efficientnet_packed.py`). Meshes are not ported yet and raise.
+(`models/efficientnet_packed.py`).
+
+`mesh` (a `parallel` mesh over the ranks of a process group) serves data
+parallel, as JAX's `Detector(mesh=)` (detector.py:35-94, 124-151): the
+weights come from rank 0, every rank passes the whole batch to `serve` (or
+`serve_pipelined`), the batch is padded to a multiple of the data size by
+repeating its last frame, each rank preprocesses and serves its rows (on
+the host or the device path), and the detections are gathered, the padding
+stripped, so every rank returns the whole batch's. A mesh with a 'spatial'
+axis larger than 1 raises `NotImplementedError` (ROADMAP Queue 1 item 9).
 
 `quantize_int8` switches `serve`, `serve_raw`, `infer`, `serve_streams` and
 `serve_pipelined` to the W8A8 forward (`inference/quantize.Int8Serve`: the
@@ -40,6 +49,7 @@ import numpy as np
 import torch
 
 from .. import config as config_lib
+from .. import parallel
 from ..ckpt import bridge, convert_tf
 from ..ckpt import io as ckpt_io
 from ..models.efficientdet import EfficientDetNet, spec_from_config
@@ -52,11 +62,6 @@ from ..utils.log import get_logger
 logger = get_logger(__name__)
 
 POST_MODES = ("global", "per_class", "combined", "tflite")
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
 def _numpy(det: postprocess.Detections) -> postprocess.Detections:
@@ -111,12 +116,14 @@ class Detector:
           packed_entry: > 0 computes the stem and the first `packed_entry`
             backbone blocks in the space-to-depth layout on the same weights
             (JAX detector.py:65-68).
-          mesh: not ported yet; anything but None raises.
+          mesh: a `parallel` mesh: data-parallel serving across its ranks
+            (see the module notes).
         """
         if post_mode not in POST_MODES:
             raise ValueError(f"post_mode {post_mode!r}: want one of {POST_MODES}")
         if mesh is not None:
-            raise _not_ported("mesh (distribution)", 6)
+            parallel.check_no_spatial(mesh)
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.post_mode = post_mode
         self.config = config_lib.get_efficientdet_config(model_name)
@@ -135,6 +142,8 @@ class Detector:
         else:
             bridge.load_flax_variables(self.net, ckpt_io.load_pytree(ckpt_path))
         self.net.to(self.device)
+        if mesh is not None:
+            parallel.replicate(mesh, self.net)
         self._params_dict = self.config.as_dict()
         self._int8 = None  # the Int8Serve of quantize_int8, or None: float
 
@@ -189,20 +198,48 @@ class Detector:
             for f in raw_frames])
         return np.stack(imgs), np.asarray(scales, np.float32)
 
+    def _rows(self, frames: list) -> list:
+        """This rank's frames of a batch under the mesh: the batch padded to
+        a multiple of the data size with its last frame, then this rank's
+        share (JAX detector.py:124-151); the batch itself without a mesh."""
+        if self.mesh is None:
+            return frames
+        axes = parallel.data_axis_names(self.mesh)
+        n = self.mesh.axis_size(axes)
+        frames = frames + [frames[-1]] * ((-len(frames)) % n)
+        rows = len(frames) // n
+        i = self.mesh.axis_index(axes)
+        return frames[i * rows:(i + 1) * rows]
+
+    def _gather(self, det: postprocess.Detections, b: int
+                ) -> postprocess.Detections:
+        """Every rank's served rows, gathered in order with the padding
+        stripped, as numpy (`det` itself without a mesh)."""
+        if self.mesh is not None:
+            with parallel.use_mesh(self.mesh):
+                det = postprocess.Detections(
+                    *(parallel.all_gather_rows(t) for t in det))
+        return postprocess.Detections(*(a[:b] for a in _numpy(det)))
+
     def serve(self, raw_frames, *, device_preprocess: bool = False
               ) -> postprocess.Detections:
         """Batch of raw RGB frames -> padded Detections (numpy) in original coords.
 
         device_preprocess=True ships the raw uint8 frames, which must share
         one shape, and resizes, normalizes and pads them on the device."""
+        frames = [np.asarray(f) for f in raw_frames]
+        mine = self._rows(frames)
         if device_preprocess:
-            raw = np.stack([np.asarray(f) for f in raw_frames])
+            raw = np.stack(mine)
             if raw.dtype != np.uint8:
                 raise ValueError("device_preprocess expects uint8 frames")
-            return _numpy(self.serve_raw(torch.from_numpy(raw).to(self.device)))
-        images, scales = self.preprocess(raw_frames)
-        return _numpy(self.serve_tensors(torch.from_numpy(images).to(self.device),
-                                         torch.from_numpy(scales).to(self.device)))
+            return self._gather(
+                self.serve_raw(torch.from_numpy(raw).to(self.device)), len(frames))
+        images, scales = self.preprocess(mine)
+        return self._gather(
+            self.serve_tensors(torch.from_numpy(images).to(self.device),
+                               torch.from_numpy(scales).to(self.device)),
+            len(frames))
 
     def infer(self, frame: np.ndarray, max_boxes: int = 200
               ) -> Tuple[List[tuple], List[float]]:
@@ -256,7 +293,8 @@ class Detector:
         last partial batch is padded with its last frame to `batch_size` and
         the padding's results dropped. Yields one Detections per frame, in
         order. device_preprocess=True uploads raw uint8 frames of one shape
-        and preprocesses them on the device."""
+        and preprocesses them on the device. Under a mesh each rank serves
+        its rows of every batch and yields the whole batch's results."""
         from ..data.pipeline import prefetch
 
         end = object()  # a None from the caller's iterator is an error
@@ -276,10 +314,11 @@ class Detector:
                         raise ValueError("frames_iter yielded None mid-stream")
                     buf.append(np.asarray(frame))
                 if len(buf) == batch_size:
+                    mine = self._rows(buf)
                     if device_preprocess:
-                        yield np.stack(buf), None, batch_size - pad_count
+                        yield np.stack(mine), None, batch_size - pad_count
                     else:
-                        images, scales = self.preprocess(buf)
+                        images, scales = self.preprocess(mine)
                         yield images, scales, batch_size - pad_count
                     if pad_count:
                         return
@@ -292,8 +331,9 @@ class Detector:
                     else torch.from_numpy(scales).to(self.device), n)
 
         for images, scales, n in prefetch(host_batches(), device_put_fn=put):
-            det = _numpy(self.serve_raw(images) if device_preprocess
-                         else self.serve_tensors(images, scales))
+            det = self._gather(self.serve_raw(images) if device_preprocess
+                               else self.serve_tensors(images, scales),
+                               batch_size)
             for i in range(n):
                 yield _row(det, i)
 

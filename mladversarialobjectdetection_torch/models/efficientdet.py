@@ -22,7 +22,8 @@ from torch import nn
 
 from ..utils.image import get_feat_sizes, parse_image_size
 from . import bifpn, heads
-from .efficientnet import BackboneSpec, EfficientNet, get_backbone_spec
+from .efficientnet import (BackboneSpec, EfficientNet, get_backbone_spec,
+                           set_bn_axis_name)
 from .efficientnet_packed import PackedEntryEfficientNet
 
 
@@ -104,11 +105,17 @@ class EfficientDetNet(nn.Module):
     pass. `packed_entry` > 0 computes the backbone's stem and first
     `packed_entry` blocks in the space-to-depth layout
     (`models/efficientnet_packed.py`, JAX efficientdet.py:111-117) on the same
-    parameters: the `state_dict` is the unpacked net's.
+    parameters: the `state_dict` is the unpacked net's. `bn_axis_name` is
+    the mesh axis its train-mode BatchNorms reduce over
+    (`efficientnet.set_bn_axis_name`); packed entry blocks do not take it,
+    as in JAX.
     """
 
-    def __init__(self, spec: DetSpec, packed_entry: int = 0):
+    def __init__(self, spec: DetSpec, packed_entry: int = 0,
+                 bn_axis_name: Optional[str] = None):
         super().__init__()
+        if packed_entry > 0 and bn_axis_name is not None:
+            raise ValueError("packed_entry does not support cross-replica BN")
         unknown = set(spec.heads) - set(HEADS)
         if unknown or not spec.heads:
             raise ValueError(f"heads {spec.heads}: want some of {HEADS}")
@@ -154,11 +161,15 @@ class EfficientDetNet(nn.Module):
             self.seg_head = heads.SegmentationHead(
                 spec.seg_num_classes, spec.fpn_num_filters,
                 [spec.fpn_num_filters] * num_levels, spec.act_type)
+        self.bn_axis_name = bn_axis_name
+        set_bn_axis_name(self, bn_axis_name)
 
     def with_packed_entry(self, packed_entry: int) -> "EfficientDetNet":
         """This net with its backbone's first `packed_entry` blocks packed
         (0: unpacked), sharing every parameter, buffer and submodule but the
         backbone's packed view; `self` is left as it is."""
+        if packed_entry > 0 and self.bn_axis_name is not None:
+            raise ValueError("packed_entry does not support cross-replica BN")
         view = copy.copy(self)
         view._modules = dict(self._modules)
         view._modules["backbone"] = PackedEntryEfficientNet.sharing(
@@ -190,7 +201,9 @@ class EfficientDetNet(nn.Module):
         `survival_prob` is set."""
         x = images.to(self.compute_dtype).permute(0, 3, 1, 2)
         fpn_feats = self.fpn_cells(self.pyramid(x, training, generator), training)
-        nhwc = lambda o: o.permute(0, 2, 3, 1).to(torch.float32).contiguous()
+        # float32 outputs, as Flax's (float64 nets keep float64)
+        out_dtype = torch.promote_types(self.compute_dtype, torch.float32)
+        nhwc = lambda o: o.permute(0, 2, 3, 1).to(out_dtype).contiguous()
         outputs = []
         if "object_detection" in self.spec.heads:
             outputs.append([nhwc(o) for o in self.class_net(fpn_feats, training)])

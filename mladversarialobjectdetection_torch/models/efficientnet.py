@@ -18,7 +18,9 @@ PyTorch's defaults differ:
   train mode (an explicit `training` argument, as Flax's) normalises by the
   batch statistics with the variance E[x^2] - E[x]^2 clipped at 0, in
   float32, and moves the running statistics by that biased variance at
-  momentum .99: `batch_norm`, `BatchNorm` (the U-Net's too).
+  momentum .99: `batch_norm`, `BatchNorm` (the U-Net's too). Under an
+  active mesh (`parallel.use_mesh`) with a process group, the statistics are
+  the global batch's (`batch_stats`), as in JAX's SPMD step.
 
 Mixed precision follows Flax's explicit `dtype=` (the JAX package's
 `EfficientNet(..., dtype=bf16)`), not `torch.autocast`, whose op lists
@@ -41,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import parallel
 from ..ops import mbconv as mbconv_ops
 
 
@@ -257,17 +260,37 @@ class Conv2d(nn.Conv2d):
         return y if bias is None else y + bias.view(1, -1, 1, 1)
 
 
+def batch_stats(x: torch.Tensor, dims: Tuple[int, ...],
+                axis_name: Optional[str] = None):
+    """Flax's train-mode statistics of x over `dims`: (E[x], E[x^2] - E[x]^2
+    clipped at 0), in x's dtype. Under an active mesh with a process group
+    (`parallel.use_mesh`) they are the global batch's, as JAX's SPMD step
+    computes them: one all-reduce of [sum x, sum x^2] (2C values) over the
+    data axes (or `axis_name`, which must name one), with a sum's gradient,
+    divided by the global count. Equal batches on every rank."""
+    group = parallel.data_group(axis_name)
+    if group is None:
+        mu = x.mean(dim=dims)
+        return mu, torch.clamp_min((x * x).mean(dim=dims) - mu * mu, 0.0)
+    count = math.prod(x.shape[d] for d in dims) * group.size
+    sums = parallel.all_reduce_sum(
+        torch.stack([x.sum(dim=dims), (x * x).sum(dim=dims)]), axis_name)
+    mu = sums[0] / count
+    return mu, torch.clamp_min(sums[1] / count - mu * mu, 0.0)
+
+
 def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                mean: torch.Tensor, var: torch.Tensor, *, training: bool,
-               momentum: float = BN_MOMENTUM, eps: float = BN_EPSILON):
+               momentum: float = BN_MOMENTUM, eps: float = BN_EPSILON,
+               axis_name: Optional[str] = None):
     """Flax `nn.BatchNorm` over NCHW x; returns (y, new mean, new var).
 
-    Train mode normalizes by the batch statistics and returns the running
-    statistics moved toward them (Flax's `mutable=["batch_stats"]`); eval
-    mode normalizes by `mean` / `var` and returns them unchanged."""
+    Train mode normalizes by the batch statistics (`batch_stats`: the global
+    batch's under an active mesh) and returns the running statistics moved
+    toward them (Flax's `mutable=["batch_stats"]`); eval mode normalizes by
+    `mean` / `var`, returns them unchanged and issues no collective."""
     if training:
-        mu = x.mean(dim=(0, 2, 3))
-        batch_var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mu * mu, 0.0)
+        mu, batch_var = batch_stats(x, (0, 2, 3), axis_name)
         new_mean = momentum * mean + (1.0 - momentum) * mu.detach()
         new_var = momentum * var + (1.0 - momentum) * batch_var.detach()
     else:
@@ -349,6 +372,7 @@ class BatchNorm(nn.Module):
     `compute_dtype` it normalises in float32 and returns that dtype.
     """
     compute_dtype: Optional[torch.dtype] = None
+    axis_name: Optional[str] = None  # `set_bn_axis_name`
 
     def __init__(self, num_features: int, eps: float = BN_EPSILON,
                  momentum: float = BN_MOMENTUM):
@@ -366,7 +390,8 @@ class BatchNorm(nn.Module):
             x = x.to(torch.float32)
         y, new_mean, new_var = batch_norm(
             x, self.weight, self.bias, self.running_mean, self.running_var,
-            training=training, momentum=self.momentum, eps=self.eps)
+            training=training, momentum=self.momentum, eps=self.eps,
+            axis_name=self.axis_name)
         if training and not recomputing():
             with torch.no_grad():
                 self.running_mean.copy_(new_mean)
@@ -378,10 +403,21 @@ def drop_connect(x: torch.Tensor, generator: torch.Generator,
                  survival_prob: float) -> torch.Tensor:
     """Stochastic depth (efficientnet.py:196-200, automl utils.py:329-341):
     keep each example's residual branch with probability `survival_prob`
-    (a uniform draw from `generator` below it) and scale it by its inverse."""
-    keep = torch.rand((x.shape[0], 1, 1, 1), generator=generator,
-                      device=x.device) < survival_prob
+    (a uniform draw from `generator` below it, drawn at the global batch's
+    shape under an active mesh) and scale it by its inverse."""
+    keep = parallel.draw_rows(
+        lambda n: torch.rand((n, 1, 1, 1), generator=generator, device=x.device),
+        x.shape[0]) < survival_prob
     return x / survival_prob * keep.to(x.dtype)
+
+
+def set_bn_axis_name(module: nn.Module, axis_name: Optional[str]) -> None:
+    """Give every `BatchNorm` in `module` the mesh axis its train-mode
+    statistics reduce over (JAX's `bn_axis_name`; None: every data axis of
+    the active mesh)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.axis_name = axis_name
 
 
 def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> None:

@@ -59,6 +59,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import parallel
 from ..ops.cmconv import cmconv
 from .efficientnet import BN_MOMENTUM, Conv2d, checkpointed, set_compute_dtype
 from .efficientnet import BatchNorm as _BatchNorm
@@ -82,9 +83,12 @@ class BatchNorm(_BatchNorm):
 def dropout(x: torch.Tensor, rate: float,
             generator: torch.Generator | None) -> torch.Tensor:
     """Flax `nn.Dropout` in train mode: keep each unit with probability
-    1 - rate and scale it by 1 / (1 - rate)."""
+    1 - rate and scale it by 1 / (1 - rate). Under an active mesh the mask
+    is this rank's rows of the global batch's draw (`parallel.draw_rows`)."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = parallel.draw_rows(
+        lambda n: torch.rand((n, *x.shape[1:]), generator=generator,
+                             device=x.device), x.shape[0]) < keep
     return torch.where(mask, x / _weak(keep, x), torch.zeros_like(x))
 
 

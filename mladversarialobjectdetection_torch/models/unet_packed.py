@@ -49,7 +49,7 @@ from torch import nn
 
 from ..ops.cmconv import cmconv
 from ..ops.cmconv_cuda import MAX_CHANNELS as CMCONV_MAX_CHANNELS
-from .efficientnet import Conv2d, set_compute_dtype
+from .efficientnet import Conv2d, batch_stats, set_compute_dtype
 from .unet import (BN_MOMENTUM, HE_INIT, LECUN_INIT, BatchNorm, ConvBlock,
                    ConvTranspose, DeconvBlock, dropout, leaky_relu, recomputing)
 
@@ -197,8 +197,7 @@ class PackedBN(BatchNorm):
         if training:
             b, c4, h, w = xf.shape
             xr = xf.reshape(b, 4, c4 // 4, h, w)
-            mu = xr.mean(dim=(0, 1, 3, 4))
-            var = torch.clamp_min((xr * xr).mean(dim=(0, 1, 3, 4)) - mu * mu, 0.0)
+            mu, var = batch_stats(xr, (0, 1, 3, 4), self.axis_name)
             if not recomputing():
                 with torch.no_grad():
                     self.running_mean.copy_(BN_MOMENTUM * self.running_mean

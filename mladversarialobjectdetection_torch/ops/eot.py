@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import parallel
 from ..utils.device import resolve_device
 from . import color
 from .preprocess import linear_resize_matrix
@@ -73,6 +74,15 @@ def _uniform(shape, lo: float, hi: float, generator, device) -> torch.Tensor:
                                        device=device)
 
 
+def _uniform_rows(shape, lo: float, hi: float, generator, device
+                  ) -> torch.Tensor:
+    """`_uniform` of a batched shape (dim 0 the batch): under an active
+    mesh, this rank's rows of the draw at the global batch's shape."""
+    return parallel.draw_rows(
+        lambda n: _uniform((n, *shape[1:]), lo, hi, generator, device),
+        shape[0])
+
+
 def make_patch_geometry(boxes: torch.Tensor, boxes_valid: torch.Tensor, scale,
                         img_hw: Tuple[int, int], *, tolerance: float = 0.2,
                         min_patch_area: float = 4.0,
@@ -88,8 +98,10 @@ def make_patch_geometry(boxes: torch.Tensor, boxes_valid: torch.Tensor, scale,
     """Per-slot patch placement (eot.py:76-142) for boxes [..., K, 4].
 
     Draws not given (u_y, u_x, angle; random_scale with random_scale_range)
-    come from `generator`. The geometry does not depend on `scale`'s
-    gradient, as in the reference (its floor and int cast cut the path).
+    come from `generator` (dim 0 of boxes is the batch: under an active mesh
+    they are this rank's rows of the global batch's draws). The geometry
+    does not depend on `scale`'s gradient, as in the reference (its floor
+    and int cast cut the path).
     """
     h_img, w_img = float(img_hw[0]), float(img_hw[1])
     region_cap = w_img if max_region is None else min(w_img, float(max_region))
@@ -102,7 +114,7 @@ def make_patch_geometry(boxes: torch.Tensor, boxes_valid: torch.Tensor, scale,
 
     if random_scale_range is not None:
         lo, hi = random_scale_range
-        scale_k = (_uniform(shape, lo, hi, generator, dev)
+        scale_k = (_uniform_rows(shape, lo, hi, generator, dev)
                    if random_scale is None else random_scale.to(dev))
     else:
         scale_k = torch.as_tensor(scale, dtype=torch.float32,
@@ -114,9 +126,9 @@ def make_patch_geometry(boxes: torch.Tensor, boxes_valid: torch.Tensor, scale,
     diag = torch.clamp_max(SQRT2 * size, region_cap)
 
     if u_y is None:
-        u_y = _uniform(shape, -1.0, 1.0, generator, dev)
+        u_y = _uniform_rows(shape, -1.0, 1.0, generator, dev)
     if u_x is None:
-        u_x = _uniform(shape, -1.0, 1.0, generator, dev)
+        u_x = _uniform_rows(shape, -1.0, 1.0, generator, dev)
     jy = u_y.to(dev) * (tolerance * h / 2.0)
     jx = u_x.to(dev) * (tolerance * w / 2.0)
     cy = ymin + h / 2.0 + jy
@@ -128,7 +140,7 @@ def make_patch_geometry(boxes: torch.Tensor, boxes_valid: torch.Tensor, scale,
     xmin_p = torch.where(xmin_p + diag > w_img, w_img - diag, xmin_p)
 
     if angle is None:
-        angle = _uniform(shape, -rotation_mag, rotation_mag, generator, dev)
+        angle = _uniform_rows(shape, -rotation_mag, rotation_mag, generator, dev)
     valid = boxes_valid.to(dev) & (size * size > min_patch_area)
     return PatchGeometry(ymin_p, xmin_p, size, diag, angle.to(dev), valid)
 
@@ -333,6 +345,7 @@ class LiveWindows(NamedTuple):
     image: torch.Tensor  # [N] int64
     slot: torch.Tensor   # [N] int64
     geom: torch.Tensor   # [N, 7] float32: oy, ox, ymin, xmin, size, diag, angle
+    mask: torch.Tensor   # [B, K] bool: which slots are live
 
 
 def _live_windows(geom: PatchGeometry, h_img: int, w_img: int, window: int
@@ -343,12 +356,37 @@ def _live_windows(geom: PatchGeometry, h_img: int, w_img: int, window: int
     host = torch.stack([geom.ymin, geom.xmin, geom.size, geom.diag,
                         geom.angle, geom.valid.to(torch.float32)],
                        dim=-1).detach().cpu()                  # [B, K, 6]
-    slot, image = (host[..., 5] > 0).t().nonzero(as_tuple=True)
+    mask = host[..., 5] > 0
+    slot, image = mask.t().nonzero(as_tuple=True)
     ymin, xmin, size, diag, angle, _ = host[image, slot].unbind(-1)
     oy = torch.clamp(torch.floor(ymin), 0.0, float(h_img - window))
     ox = torch.clamp(torch.floor(xmin), 0.0, float(w_img - window))
     return LiveWindows(image, slot, torch.stack(
-        [oy, ox, ymin, xmin, size, diag, angle], dim=-1))
+        [oy, ox, ymin, xmin, size, diag, angle], dim=-1), mask)
+
+
+def _window_noise(live: LiveWindows, window: int, noise_mag: float,
+                  generator, dev) -> torch.Tensor:
+    """Sensor noise [N, w, w, 3] of the live windows. Under an active mesh
+    it is drawn for the global batch's live windows, slot-major as one
+    process orders them (the live masks gathered), and this rank keeps its
+    own; every rank draws, so the replicated generator stays replicated.
+    Nothing is drawn where no window is live."""
+    shape = (window, window, 3)
+    group = parallel.data_group()
+    if group is None:
+        n = live.image.numel()
+        return (_uniform((n, *shape), -noise_mag, noise_mag, generator, dev)
+                if n else torch.zeros((0, *shape), device=dev))
+    b, k = live.mask.shape
+    mask = parallel.all_gather_rows(live.mask.to(dev, torch.uint8)).cpu() > 0
+    n_all = int(mask.sum())
+    if n_all == 0:
+        return torch.zeros((0, *shape), device=dev)
+    order = (mask.t().reshape(-1).cumsum(0) - 1).view(k, -1)
+    _, start = parallel.global_rows(b)
+    full = _uniform((n_all, *shape), -noise_mag, noise_mag, generator, dev)
+    return full[order[live.slot, live.image + start].to(dev)]
 
 
 def _composite_matmul_batch(images: torch.Tensor, canvases: torch.Tensor,
@@ -366,9 +404,11 @@ def _composite_matmul_batch(images: torch.Tensor, canvases: torch.Tensor,
     b, h_img, w_img, _ = images.shape
     k = geom.ymin.shape[1]
     dev = images.device
-    bright = _uniform((b, k), -brightness_mag, brightness_mag, generator, dev)
+    bright = _uniform_rows((b, k), -brightness_mag, brightness_mag, generator,
+                           dev)
     region_any = torch.zeros((b, h_img, w_img), dtype=torch.bool, device=dev)
     live = _live_windows(geom, h_img, w_img, window)
+    noise = _window_noise(live, window, noise_mag, generator, dev)
     n = live.image.numel()
     if n == 0:
         return images, region_any
@@ -378,8 +418,6 @@ def _composite_matmul_batch(images: torch.Tensor, canvases: torch.Tensor,
     samples = warp_windows(canvases, table, window)            # [N, w, w, 3]
     win_geom = live.geom.to(dev)
     inside, region = _inside_region_masks(*win_geom.unbind(-1), window)
-    noise = _uniform((n, window, window, 3), -noise_mag, noise_mag,
-                     generator, dev)
     img = live.image.to(dev)
     val = torch.clamp(samples + noise
                       + bright[img, live.slot.to(dev)][:, None, None, None],
@@ -487,8 +525,15 @@ def apply_patches(images, boxes, boxes_valid, patch, scale, *,
       patch: [P, P, 3] patch in [-1, 1] (the trainable patch), ignored if
         per_image_patches ([B, P', P', 3]) is given.
       scale: scalar patch scale in [0, 1].
-      generator: source of the random draws not given in `draws`.
-      draws: fed-in draws (`EOTDraws`), for parity with the JAX package.
+      generator: source of the random draws not given in `draws`. Under an
+        active mesh (`parallel.use_mesh`) images is this rank's rows of the
+        global batch, and every draw of the matmul backend is made at the
+        global batch's shape from the replicated generator, this rank
+        keeping its rows: the ranks draw what one process draws for the
+        global batch. The gather backend draws per image, for this rank's
+        images alone.
+      draws: fed-in draws (`EOTDraws`, this rank's rows), for parity with
+        the JAX package.
       device: "cuda" (the default) or "cpu"; inputs are moved there.
       backend: 'matmul' (the two-pass warp) or 'gather'.
       window, canvas_res, rotation_mag, print_jitter: as in the JAX package.
@@ -510,9 +555,17 @@ def apply_patches(images, boxes, boxes_valid, patch, scale, *,
     src = (f32(per_image_patches) if per_image_patches is not None
            else patch.expand(b, *patch.shape))
     if print_jitter:
-        printed = color.random_print_adjust(
-            src, generator, gain=draws.print_gain if draws else None,
-            bias=draws.print_bias if draws else None)
+        # gain ~ N(.5, .1), then bias ~ N(0, .01), [B, 3] rows of the global
+        # batch's draws (`color.random_print_adjust`'s draws)
+        randn = lambda n: torch.randn((n, 3), generator=generator, device=dev,
+                                      dtype=src.dtype)
+        gain = draws.print_gain if draws else None
+        if gain is None:
+            gain = 0.5 + 0.1 * parallel.draw_rows(randn, b)
+        bias = draws.print_bias if draws else None
+        if bias is None:
+            bias = 0.01 * parallel.draw_rows(randn, b)
+        printed = color.random_print_adjust(src, generator, gain=gain, bias=bias)
     else:
         printed = torch.clamp(0.5 * src, -1.0, 1.0)
     match = color.histogram_match if use_histogram_match else color.brightness_match

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import parallel
 from ..ckpt import bridge
 from ..ops import anchors as anchors_lib
 from ..ops import iou_loss as iou_lib
@@ -68,7 +69,10 @@ def detection_loss(cls_outputs: Sequence[torch.Tensor],
     """Total per-batch detection loss (train_lib.py:530-729).
 
     cls_outputs / box_outputs: per level [B, H, W, A*C] / [B, H, W, A*4];
-    labels: batched AnchorLabels ([B, A] / [B, A, 4] / [B]).
+    labels: batched AnchorLabels ([B, A] / [B, A, 4] / [B]). Under an active
+    mesh (`parallel.use_mesh`) these are this rank's rows: the normaliser is
+    the global batch's, and the loss is this rank's share of the global one
+    (the ranks' losses sum to it).
     """
     del num_anchors
     b = cls_outputs[0].shape[0]
@@ -82,7 +86,10 @@ def detection_loss(cls_outputs: Sequence[torch.Tensor],
     one_hot = F.one_hot(torch.clamp_min(cls_t, 0), num_classes).to(cls_flat.dtype)
     one_hot = one_hot * positives[..., None]
 
-    normalizer = torch.sum(labels.num_positives) + 1.0
+    # the global batch's positives under an active mesh (JAX's SPMD sum), so
+    # that the ranks' losses sum to the global batch's
+    normalizer = parallel.reduce_sum(
+        torch.sum(labels.num_positives)) + 1.0
     cls_l = focal_loss(cls_flat, one_hot, alpha, gamma, normalizer,
                        label_smoothing)
     cls_l = torch.where(ignored[..., None], torch.zeros_like(cls_l), cls_l)

@@ -18,6 +18,14 @@ and `predict_mask` run the frozen net, whose fuseable blocks are the fused
 MBConv kernels on the card. Masks are consumed at the head's output
 resolution (`output_size`: half the min_level stride). Entry points run on
 the card unless `device="cpu"`.
+
+Data parallelism (`parallel.use_mesh`, JAX's step on a batch-sharded
+array): each rank steps on its rows of the global batch; train-mode
+BatchNorm normalises by the global batch's statistics (over
+`bn_axis_name`, or every data axis), each rank's loss is its share of the
+global mean, the gradients are summed over the ranks, and the metrics are
+the global batch's. `train` runs on `make_mesh_for_batch` with JAX's seeds,
+and only the main process writes `segmentation.pkl`.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import config as config_lib
+from .. import parallel
 from ..ckpt import bridge
 from ..ckpt import io as ckpt_io
 from ..data import pipeline
@@ -99,20 +108,22 @@ class SegTrainState:
 class SegmentationTrainer:
     """Train and eval steps of a segmentation-headed EfficientDet."""
 
-    def __init__(self, config, *, learning_rate: float = 1e-3, device=None):
+    def __init__(self, config, *, learning_rate: float = 1e-3,
+                 bn_axis_name: str | None = None, device=None):
         config = config_lib.Config(config.as_dict())
         config.heads = ["segmentation"]
         self.config = config
         self.spec = spec_from_config(config)
         self.learning_rate = learning_rate
         self.num_classes = self.spec.seg_num_classes
+        self.bn_axis_name = bn_axis_name
         self.device = resolve_device(device)
 
     def init_state(self, seed: int = 0, variables=None) -> SegTrainState:
         """A net drawn from `seed` (Flax's initializer families) or loaded
         from Flax `variables`, and a fresh Adam (the reference compiles
         with optimizer='adam', keras Adam at 1e-3, tf2/segmentation.py:79)."""
-        net = EfficientDetNet(self.spec)
+        net = EfficientDetNet(self.spec, bn_axis_name=self.bn_axis_name)
         if variables is not None:
             bridge.load_flax_variables(net, variables)
         else:
@@ -123,9 +134,15 @@ class SegmentationTrainer:
         return SegTrainState(net, opt, 0)
 
     def _loss(self, logits: torch.Tensor, masks: torch.Tensor):
-        """Mean per-pixel cross-entropy of NHWC logits and the accuracy."""
+        """Mean per-pixel cross-entropy of NHWC logits and the accuracy;
+        under an active mesh, this rank's shares of the global batch's means
+        (the ranks' shares sum to them)."""
         ce = F.cross_entropy(logits.permute(0, 3, 1, 2), masks)
         acc = (logits.argmax(-1) == masks).to(torch.float32).mean()
+        b = masks.shape[0]
+        global_b = parallel.global_rows(b)[0]
+        if global_b != b:
+            ce, acc = ce * (b / global_b), acc * (b / global_b)
         return ce, acc
 
     def _inputs(self, images, masks):
@@ -141,15 +158,17 @@ class SegmentationTrainer:
         (seg,) = state.net(images, training=True)
         loss, acc = self._loss(seg, masks)
         loss.backward()
+        parallel.all_reduce_grads(state.net.parameters())
         state.optimizer.step()
         state.step += 1
-        return state, {"loss": loss.detach(), "accuracy": acc}
+        loss, acc = parallel.reduce_sum(torch.stack([loss.detach(), acc])).unbind()
+        return state, {"loss": loss, "accuracy": acc}
 
     @torch.no_grad()
     def eval_step(self, state: SegTrainState, images, masks):
         images, masks = self._inputs(images, masks)
         (seg,) = state.net(images)
-        loss, acc = self._loss(seg, masks)
+        loss, acc = parallel.reduce_sum(torch.stack(self._loss(seg, masks))).unbind()
         return {"val_loss": loss, "val_accuracy": acc}
 
     @torch.no_grad()
@@ -166,23 +185,29 @@ def train(model_name: str = "efficientdet-d0", *, image_size: int = 128,
           seed: int = 0, config_override=None, device=None):
     """Train `steps` steps on synthetic masks; returns (state, the metrics
     of the last log, floats). With `model_dir`, logs to
-    `logs/metrics.jsonl` and saves the Flax variables as
-    `segmentation.pkl`."""
+    `logs/metrics.jsonl` and the main process saves the Flax variables as
+    `segmentation.pkl`.
+
+    Across the ranks of a process group (`parallel.initialize`), each rank
+    loads `batch_size / world` examples of its own stream, seeded
+    `seed + 1000 * rank` (JAX's seeds), on `make_mesh_for_batch`."""
     config = config_lib.get_efficientdet_config(model_name)
     config.image_size = image_size
     if config_override:
         config.update(config_override)
+    mesh = parallel.make_mesh_for_batch(batch_size, device=device)
     trainer = SegmentationTrainer(config, learning_rate=learning_rate,
                                   device=device)
     state = trainer.init_state(seed=seed)
+    parallel.replicate(mesh, state.net)
     mask_size = output_size(image_size, config.min_level)
-    dev = trainer.device
+    local_bs = parallel.local_batch_size(batch_size)
+    pseed = seed + 1000 * parallel.process_index()
     batches = pipeline.prefetch(
-        synthetic_seg_batches(batch_size, image_size, mask_size, seed=seed),
-        device_put_fn=lambda b: {k: torch.from_numpy(v).to(dev)
-                                 for k, v in b.items()})
-    val_batch = next(synthetic_seg_batches(batch_size, image_size, mask_size,
-                                           seed=seed + 1))
+        synthetic_seg_batches(local_bs, image_size, mask_size, seed=pseed),
+        device_put_fn=lambda b: parallel.shard_batch_auto(mesh, b))
+    val_batch = next(synthetic_seg_batches(local_bs, image_size, mask_size,
+                                           seed=pseed + 1))
 
     mlog = MetricLogger(os.path.join(model_dir, "logs")) if model_dir else None
     thr = Throughput()
@@ -190,11 +215,13 @@ def train(model_name: str = "efficientdet-d0", *, image_size: int = 128,
     metrics = {}
     for step in range(1, steps + 1):
         batch = next(batches)
-        state, metrics = trainer.train_step(state, batch["images"],
-                                            batch["masks"])
+        with parallel.use_mesh(mesh):
+            state, metrics = trainer.train_step(state, batch["images"],
+                                                batch["masks"])
         if step % log_every == 0 or step == steps:
-            val = trainer.eval_step(state, val_batch["images"],
-                                    val_batch["masks"])
+            with parallel.use_mesh(mesh):
+                val = trainer.eval_step(state, val_batch["images"],
+                                        val_batch["masks"])
             metrics = {k: float(v) for k, v in {**metrics, **val}.items()}
             thr.count(batch_size * log_every)
             logger.info(
@@ -204,12 +231,12 @@ def train(model_name: str = "efficientdet-d0", *, image_size: int = 128,
                 f"({thr.rate():.1f} img/s)")
             if mlog:
                 mlog.log(step, metrics, prefix="seg/")
-    if model_dir:
+    if model_dir and parallel.is_main_process():
         os.makedirs(model_dir, exist_ok=True)
         ckpt_io.save_pytree(os.path.join(model_dir, "segmentation"),
                             bridge.torch_to_flax(state.net))
-        if mlog:
-            mlog.close()
+    if mlog:
+        mlog.close()
     return state, metrics
 
 
@@ -226,6 +253,7 @@ def main(argv=None):
                    help="config override 'k=v,...' or yaml path")
     p.add_argument("--device", default=None, help="cuda (the default) or cpu")
     a = p.parse_args(argv)
+    parallel.initialize(a.device)
     state, metrics = train(a.model, image_size=a.image_size,
                            batch_size=a.batch_size, steps=a.steps,
                            learning_rate=a.lr, model_dir=a.model_dir,

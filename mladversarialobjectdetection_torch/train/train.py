@@ -20,8 +20,19 @@ train_lib.py:202-248) and checkpoints:
 The train step is `DetectorTrainer`'s: train-mode BatchNorm and every
 block unfused (cuDNN). TFRecord images decode on the host with PIL (CPU
 only); the synthetic branch needs neither PIL nor cv2. Entry points run
-on the card unless `device="cpu"`. `spatial > 1` (ROADMAP Queue 1
-item 6) raises; JAX's persistent compilation cache has no counterpart.
+on the card unless `device="cpu"`. JAX's persistent compilation cache has
+no counterpart.
+
+Across processes (`torchrun --nproc_per_node N -m
+mladversarialobjectdetection_torch.train.train ...`; `main` calls
+`parallel.initialize`), the driver runs JAX's data-parallel program (JAX
+train.py:84-213) on `make_train_mesh`: `batch_size / N` examples a rank,
+the TFRecord reader's file shard `(rank, N)` seeded `seed + rank` (the
+synthetic stream `seed + 1000 * rank`), the net from rank 0, the step
+reduced over the ranks (`train/trainer.py`), each rank's COCO evaluation on
+its own validation shard, and only the main process writing checkpoints.
+`spatial > 1` raises `NotImplementedError` before any work (ROADMAP Queue 1
+item 9).
 
 Usage:
     python -m mladversarialobjectdetection_torch.train.train \
@@ -36,6 +47,7 @@ import numpy as np
 import torch
 
 from .. import config as config_lib
+from .. import parallel
 from ..ckpt import bridge
 from ..ckpt import io as ckpt_io
 from ..data import pipeline
@@ -104,10 +116,8 @@ def train(model_name: str = "efficientdet-d0", *,
           prune_end: int | None = None, spatial: int = 1,
           grad_accum: int = 1, pretrained_ckpt: str | None = None,
           finetune_mode: str = "backbone", device=None) -> TrainState:
-    if spatial > 1:
-        raise NotImplementedError(
-            "spatial > 1 is not ported yet (ROADMAP Queue 1 item 6, "
-            "distribution)")
+    if spatial > 1:  # before any work: JAX row-shards the images there
+        raise NotImplementedError(parallel.SPATIAL_NOT_PORTED)
     config = config_lib.get_efficientdet_config(model_name)
     if image_size is not None:
         config.image_size = image_size
@@ -117,6 +127,7 @@ def train(model_name: str = "efficientdet-d0", *,
         # --hparams (reference tf2/train.py): dict, 'k=v,k=v' or yaml path
         config.update(config_override)
 
+    mesh = parallel.make_train_mesh(batch_size, device=device)
     trainer = DetectorTrainer(config, steps_per_epoch=steps_per_epoch,
                               grad_accum=grad_accum, device=device)
     state = trainer.init_state(seed=seed)
@@ -152,6 +163,10 @@ def train(model_name: str = "efficientdet-d0", *,
             f"from scratch (the reference resumes from latest_checkpoint "
             f"unconditionally, tf2/train.py:249-261; pass --resume)")
 
+    parallel.replicate(mesh, state.net)
+    if state.ema is not None:
+        parallel.replicate(mesh, state.ema)
+
     pruner = None
     if prune_sparsity:
         # prune during training (tf2/tfmot.py 'prune'): re-mask the kernels
@@ -163,16 +178,19 @@ def train(model_name: str = "efficientdet-d0", *,
                 end_step=(prune_end if prune_end is not None
                           else config.num_epochs * steps_per_epoch)))
 
+    rank, n_proc = parallel.process_index(), parallel.world_size()
+    local_bs = parallel.local_batch_size(batch_size)
+    shard = (rank, n_proc) if n_proc > 1 else None
     if train_pattern:
         reader = DetectionTFRecordReader(
             train_pattern, image_size=config.image_size,
             mean_rgb=config.mean_rgb, stddev_rgb=config.stddev_rgb,
-            max_instances=config.max_instances_per_image, seed=seed,
-            autoaugment_policy=config.get("autoaugment_policy"))
-        batches = reader.batches(batch_size)
+            max_instances=config.max_instances_per_image, seed=seed + rank,
+            shard=shard, autoaugment_policy=config.get("autoaugment_policy"))
+        batches = reader.batches(local_bs)
     else:
         logger.warning("no --train-pattern: using synthetic batches")
-        batches = _synthetic(batch_size, config, seed)
+        batches = _synthetic(local_bs, config, seed + 1000 * rank)
     dev = trainer.device
     batches = pipeline.prefetch(batches, device_put_fn=lambda b: {
         **b, "images": torch.from_numpy(b["images"]).to(dev)})
@@ -185,9 +203,10 @@ def train(model_name: str = "efficientdet-d0", *,
         metrics = None
         for _ in range(steps_per_epoch):
             batch = next(batches)
-            state, metrics = trainer.train_step(state, batch["images"],
-                                                batch["boxes"], batch["classes"],
-                                                batch["valid"])
+            with parallel.use_mesh(mesh):
+                state, metrics = trainer.train_step(
+                    state, batch["images"], batch["boxes"], batch["classes"],
+                    batch["valid"])
             if pruner is not None:
                 pruner.prune(state.net, state.step)
                 if state.ema is not None:  # the EMA follows the mask
@@ -200,19 +219,21 @@ def train(model_name: str = "efficientdet-d0", *,
         mlog.log(state.step, metrics, prefix="train/")
         logger.info(f"epoch {epoch}: loss={metrics['loss']:.4f} "
                     f"{thr.rate():.1f} img/s")
-        ckpt_io.save_pytree(os.path.join(model_dir, f"ckpt-{epoch}"),
-                            bridge.torch_to_flax(trainer.eval_variables(state)))
-        # full-state checkpoint for resume (optimizer and EMA included)
-        ckpt_io.save_state_bytes(latest, trainer.state_dict(state))
+        if parallel.is_main_process():  # one writer in a shared directory
+            ckpt_io.save_pytree(os.path.join(model_dir, f"ckpt-{epoch}"),
+                                bridge.torch_to_flax(trainer.eval_variables(state)))
+            # full-state checkpoint for resume (optimizer and EMA included)
+            ckpt_io.save_state_bytes(latest, trainer.state_dict(state))
         if val_pattern and (epoch + 1) % map_freq == 0:
             # skip_crowd=False: crowds ride the batch as ignore regions
-            # (COCOeval semantics), as in train/eval.py
+            # (COCOeval semantics), as in train/eval.py; each process
+            # scores its own validation shard, as JAX's
             val_reader = DetectionTFRecordReader(
                 val_pattern, image_size=config.image_size,
                 mean_rgb=config.mean_rgb, stddev_rgb=config.stddev_rgb,
                 max_instances=config.max_instances_per_image, shuffle=False,
-                skip_crowd=False)
-            res = evaluate_map(trainer, state, val_reader.batches(batch_size),
+                skip_crowd=False, shard=shard)
+            res = evaluate_map(trainer, state, val_reader.batches(local_bs),
                                eval_batches)
             mlog.log(state.step, res, prefix="eval/")
             logger.info(f"epoch {epoch}: {res}")
@@ -243,7 +264,8 @@ def main(argv=None):
                    help="step at which the sparsity ramp ends "
                         "(default: last training step)")
     p.add_argument("--spatial", type=int, default=1,
-                   help="spatial partitioning over cards (not ported yet)")
+                   help="shard each image's rows over this many cards: not "
+                        "ported yet, > 1 raises (ROADMAP Queue 1 item 9)")
     p.add_argument("--grad-accum", type=int, default=1,
                    help="split each step's batch into this many sequential "
                         "microbatches, one mean-gradient update per step "
@@ -259,6 +281,7 @@ def main(argv=None):
                         "TF-Hub fine-tune analog, train_lib.py:732-766)")
     p.add_argument("--device", default=None, help="cuda (the default) or cpu")
     a = p.parse_args(argv)
+    parallel.initialize(a.device)
     train(a.model, train_pattern=a.train_pattern, val_pattern=a.val_pattern,
           model_dir=a.model_dir, batch_size=a.batch_size,
           num_epochs=a.num_epochs, steps_per_epoch=a.steps_per_epoch,

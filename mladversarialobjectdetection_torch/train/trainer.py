@@ -18,6 +18,15 @@ cuDNN's (or ATen's on the CPU), as the JAX trainer's are XLA's: no Pallas
 kernel lies on this path. `config.mixed_precision` trains with bf16
 activations and float32 parameters, statistics and loss, by Flax's `dtype=`
 rules. Entry points run on the card unless `device="cpu"` is asked for.
+
+Data parallelism (`parallel.use_mesh`, JAX's step on a batch-sharded
+array): each rank steps on its rows of the global batch with the same
+state. Train-mode BatchNorm normalises by the global batch's statistics
+(over `bn_axis_name`, or every data axis), drop-connect draws at the global
+batch's shape, the losses divide by the global batch's positives, and the
+L2 term of the replicated parameters enters on the first rank only, so the
+ranks' losses sum to the global one; the gradients are summed over the
+ranks before the clip, and the update and the EMA stay replicated.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import parallel
 from ..ckpt import bridge
 from ..models.efficientdet import EfficientDetNet, spec_from_config
 from ..models.init import init_weights
@@ -53,10 +63,7 @@ class DetectorTrainer:
     def __init__(self, config, *, steps_per_epoch: int = 1000,
                  bn_axis_name: str | None = None, grad_accum: int = 1,
                  device=None):
-        if bn_axis_name is not None:
-            raise NotImplementedError(
-                "bn_axis_name is not ported yet (ROADMAP Queue 1 item 6, "
-                "distribution)")
+        self.bn_axis_name = bn_axis_name
         self.device = resolve_device(device)
         self.config = config
         self.spec = spec_from_config(config)
@@ -73,7 +80,7 @@ class DetectorTrainer:
     def init_state(self, seed: int = 0, variables=None) -> TrainState:
         """A detector drawn from `seed` (Flax's initializer families, not its
         draws) or loaded from Flax `variables`, its optimizer and EMA."""
-        net = EfficientDetNet(self.spec)
+        net = EfficientDetNet(self.spec, bn_axis_name=self.bn_axis_name)
         if variables is not None:
             bridge.load_flax_variables(net, variables)
         else:
@@ -106,7 +113,9 @@ class DetectorTrainer:
             iou_loss_type=cfg.get("iou_loss_type"),
             iou_loss_weight=float(cfg.get("iou_loss_weight") or 1.0))
         reg = losses_lib.l2_regularization(net, cfg.weight_decay)
-        return det_loss + reg, parts, reg
+        # the replicated parameters' L2 term counts once in the ranks' sum
+        return (det_loss + reg if parallel.is_first_rank() else det_loss,
+                parts, reg)
 
     def train_step(self, state: TrainState, images, gt_boxes, gt_classes,
                    gt_valid) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -136,6 +145,11 @@ class DetectorTrainer:
             for name, v in parts.items():
                 parts_sum[name] = (v.detach() if name not in parts_sum
                                    else parts_sum[name] + v.detach())
+        # the global batch's loss and parts (the L2 term is replicated)
+        loss_sum, *sums = parallel.reduce_sum(
+            torch.stack([loss_sum, *parts_sum.values()])).unbind()
+        parts_sum = dict(zip(parts_sum, sums))
+        parallel.all_reduce_grads(net.parameters())
         if k > 1:  # the mean of the microbatch gradients (JAX: g * (1 / k))
             inv = 1.0 / k
             with torch.no_grad():

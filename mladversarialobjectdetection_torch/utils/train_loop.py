@@ -22,6 +22,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..parallel import process_index
+
 
 class ReduceLROnPlateau:
     """Halve (by `factor`) the learning rate after `patience` epochs without
@@ -131,12 +133,17 @@ def load_loop_state(path: str, state_template: Dict[str, Any],
 class MetricLogger:
     """JSONL metric log, `<log_dir>/metrics.jsonl`, one record per call.
 
-    Non-finite values (asr on steps that skip the ASR pass) are written as
-    JSON null, so each line stays strict JSON."""
+    Across processes each writes its own file (JAX train_loop.py:101-107):
+    rank 0 `metrics.jsonl`, rank i `metrics.p{i}.jsonl`, so ranks sharing a
+    log directory never interleave lines. Non-finite values (asr on steps
+    that skip the ASR pass) are written as JSON null, so each line stays
+    strict JSON."""
 
     def __init__(self, log_dir: str):
         os.makedirs(log_dir, exist_ok=True)
-        self.path = os.path.join(log_dir, "metrics.jsonl")
+        rank = process_index()
+        self.path = os.path.join(
+            log_dir, "metrics.jsonl" if rank == 0 else f"metrics.p{rank}.jsonl")
         self._f = open(self.path, "a")
 
     def log(self, step: int, metrics: Dict[str, float], prefix: str = ""):

@@ -515,8 +515,13 @@ def test_train_driver_packed_entry_on_cpu(tmp_path, tiny_detector):
 
 def test_attacker_refuses_unported_options(pair):
     _, patk = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PatchAttacker(patk.config, patk.net, device="cpu", bn_axis_name="batch")
+    # bn_axis_name is ported: the victim is frozen, so it issues no
+    # collective; with packed_entry it raises, as JAX asserts
+    assert PatchAttacker(patk.config, patk.net, device="cpu",
+                         bn_axis_name="data").bn_axis_name == "data"
+    with pytest.raises(ValueError, match="cross-replica BN"):
+        PatchAttacker(patk.config, patk.net, device="cpu", bn_axis_name="data",
+                      packed_entry=1)
     # packed_entry is ported: a packed view of the victim, which stays as it is
     packed = PatchAttacker(patk.config, patk.net, device="cpu", packed_entry=1)
     assert packed.net.backbone.packed_blocks == 1 and packed.net.backbone is not \

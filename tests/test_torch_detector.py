@@ -15,6 +15,7 @@ import torch
 
 from mladversarialobjectdetection_tpu.inference.detector import Detector as JDetector
 from mladversarialobjectdetection_tpu.ops import preprocess as jpre
+from mladversarialobjectdetection_torch import parallel
 from mladversarialobjectdetection_torch.inference.detector import Detector
 from mladversarialobjectdetection_torch.ops import nms_cuda
 from mladversarialobjectdetection_torch.ops import preprocess as ppre
@@ -87,8 +88,11 @@ def test_unported_post_modes_raise():
     with pytest.raises(ValueError, match="post_mode"):
         Detector("efficientdet-lite0", params=PARAMS, device="cpu",
                  post_mode="per_anchor")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Detector("efficientdet-lite0", params=PARAMS, device="cpu", mesh=object())
+    # a mesh is ported (tests/test_torch_parallel.py); a spatial axis is not
+    spatial = parallel.Mesh(np.arange(2).reshape(1, 2), ("data", "spatial"),
+                            device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+        Detector("efficientdet-lite0", params=PARAMS, device="cpu", mesh=spatial)
     # a directory is read as an orbax checkpoint (ported), and refused without
     # orbax's metadata; packed_entry is ported (tests/test_torch_efficientnet_packed.py)
     with pytest.raises(FileNotFoundError, match="_METADATA"):
