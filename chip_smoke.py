@@ -290,6 +290,29 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    without TensorFlow, `Detector(ckpt_path=<tgz>)` serves b8 detections
    bit-equal to the victim `.pkl`'s and `attack.train.get_victim_variables`
    returns its variables bit-equal; read and convert seconds;
+24. data parallelism (`parallel/`): the mesh path in a world-size-1 NCCL
+   group against the plain steps (24a), two ranks on the one card through
+   gloo against one process (24b), the attack driver at two ranks (24c);
+25. spatial partitioning (`parallel/spatial.py`): two ranks on the one card
+   through gloo at mesh ('data', 'spatial') = (1, 2), each image's rows
+   split over them, against the one-process steps in this process:
+   25a: the lite4@640 fp32 b2 serve, host and device preprocessing, classes
+   equal, scores within 1e-5 and boxes within 1e-3 px, 25 fused forward
+   launches a rank a pass at halo-extended heights and NMS once;
+   25b: the b4 fp32 attack step (window 320, the live boxes): loss within
+   1e-4 relative, patch-gradient cosine >= 0.9999 and norm within 1e-4, the
+   patch after Adam within lr, the ranks' patches bit-equal, each warp
+   kernel once, NMS twice, 50 fused forward and 25 dx launches a rank; the
+   warp kernels and the fused forward and dx (every fifth block) against
+   their plain versions at rank 0's own inputs;
+   25c: the float64 b2 supervised step within 1e-8 of scale; the b8 fp32
+   step's peak memory a rank below 0.75x the one-process peak, no fused
+   launch;
+   25d: `attack.train.train(spatial=2)` for 2 steps in bf16 (score threshold
+   .0099: live slots), every warp kernel, NMS and the bf16 fused kernels
+   launched, the ranks' patches bit-equal; the ranks' peak memory and step
+   times (gloo stages the exchanges through the host: no rate of spatial
+   partitioning);
 13. card: the `nvidia-smi` name and power limit, and one JSON line with each
    kernel's launches, error, times and bound (cmconv's also with its
    ablation, the instance the plan did not pick, and its bound at 3xTF32;
@@ -297,7 +320,9 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    instances, each a row; NMS, cmconv and the fused forward also with phase
    20's launches per frame, and NMS and cmconv with their times there; NMS
    and the bf16 fused forward also with phase 21b's launches per
-   `evaluate_map` batch and their times at its inputs; `conv_int8` with
+   `evaluate_map` batch and their times at its inputs; NMS, the warp
+   kernels and the fused MBConv's float32 rows also with phase 25b's
+   launches a rank in the spatial attack step; `conv_int8` with
    phase 22b's launches in a b1 and a b8 fp32 int8 serve and phase 22a's
    times summed over a b8 serve's calls, `torch._int_mm` as its library
    time on the 1x1 convs, cuDNN's bf16 convs beside it).
@@ -504,6 +529,18 @@ DP_SERVE_SCORE_TOL = 1e-5  # 24b: Detector(mesh=) against one process
 DP_SERVE_BOX_TOL = 1e-3    # px, as tests/test_parallel.py:95-119
 DP_GRAD_COS = 0.9999    # 24b: the attack's patch gradient
 DP_TIMEOUT_S = 600.0    # 24b-c: the two ranks' join
+# phase 25: spatial partitioning (parallel/spatial.py), two ranks at mesh
+# ('data', 'spatial') = (1, 2) on the one card through gloo; each check
+# against the one-process step in this process, at the limits of 24b
+SP_HW = 640             # lite4's input side: 320 rows a rank
+SP_SERVE_BATCH = 2      # 25a: frames served, each image's rows over 2 ranks
+SP_ATTACK_BATCH = 4     # 25b: the fp32 attack step
+SP_LR = 1e-2            # the attacker's Adam lr: a pixel's first step
+SP_SUP64_BATCH = 2      # 25c: the float64 supervised step
+SP_SUP_F64_TOL = 1e-8   # of max(1, max|ref|) per leaf
+SP_SUP_BATCH = 8        # 25c: the fp32 step whose peak memory is read
+SP_PEAK_RATIO = 0.75    # a rank's peak against the one-process peak
+SP_TIMEOUT_S = 600.0    # 25: the two ranks' join
 EVAL_AP_TOL = 1e-3      # each COCO metric with the kernels vs the plain versions
 # kill and resume on the card: bit-equal expected (cuDNN deterministic, the
 # same kernels on the same inputs); where ATen's CUDA backward of a gather
@@ -3658,6 +3695,288 @@ def data_parallel_phase(dev, work: str) -> dict:
     return {"attack_p50_ms": (plain["p50_ms"], meshed["p50_ms"])}
 
 
+def sp_inputs() -> dict:
+    """Phase 25's batches, from a seeded numpy generator: 2 frames to serve,
+    the b4 attack images with phase 5's live boxes, the b2 float64 and b8
+    float32 supervised batches with their boxes."""
+    rng = np.random.default_rng(25)
+    hw = SP_HW
+    boxes, valid = make_live_slot_boxes(SP_ATTACK_BATCH, (hw, hw), 16)
+    return {"frames": [rng.integers(0, 256, (720, 1280, 3), dtype=np.uint8)
+                       for _ in range(SP_SERVE_BATCH)],
+            "images": rng.uniform(-1, 1, (SP_ATTACK_BATCH, hw, hw, 3)).astype(np.float32),
+            "boxes": boxes, "valid": valid,
+            "sup64": rng.uniform(-1, 1, (SP_SUP64_BATCH, hw, hw, 3)),
+            "gt64": random_gt(rng, SP_SUP64_BATCH, hw),
+            "sup32": rng.uniform(-1, 1, (SP_SUP_BATCH, hw, hw, 3)).astype(np.float32),
+            "gt32": random_gt(rng, SP_SUP_BATCH, hw)}
+
+
+def sp_serve(dev, frames, mesh=None) -> dict:
+    """The lite4@640 fp32 serve of `frames` (seed 0), host and device
+    preprocessing, each after one untimed call: the detections, the fused
+    forward and NMS launches, the heights of the fused forward's inputs and
+    the host milliseconds of the call."""
+    import torch
+    from mladversarialobjectdetection_torch.inference.detector import Detector
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
+    det = Detector("efficientdet-lite4", seed=0, device=dev, mesh=mesh)
+    out = {}
+    for label, kw in (("host", {}), ("device", {"device_preprocess": True})):
+        det.serve(frames, **kw)  # first-call costs: cuDNN plans, kernel loads
+        reset_path_counts()
+        with Capture([(mbconv_cuda, "mbconv_fwd_cuda")]) as cap:
+            t0 = time.perf_counter()
+            res = det.serve(frames, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        counts = path_counts()
+        out[label] = {"det": res, "fwd": counts["mbconv_fp32"], "nms": counts["nms"],
+                      "heights": sorted({a[0].shape[1] for a, _ in cap.args["mbconv_fwd_cuda"]}),
+                      "ms": ms}
+    return out
+
+
+def sp_attack_step(dev, inp, images, check: bool = False) -> dict:
+    """One fp32 attack step of phase 5's setup (state seed 1, window 320,
+    the live boxes) on `images` (this rank's rows under a spatial mesh),
+    with its launches; with `check`, the fused forward and dx (every fifth
+    block) and the four warp kernels against their plain versions at the
+    inputs this step gave them. `ms`: the host time of a second step (the
+    first pays the process's first-call costs)."""
+    import torch
+    from mladversarialobjectdetection_torch.attack.attacker import PatchAttacker
+    from mladversarialobjectdetection_torch.attack.train import get_victim
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda, warp_cuda
+    cfg = dp_lite4()
+    atk = PatchAttacker(cfg, get_victim(cfg, seed=0, device=dev), window=ATTACK_WINDOW,
+                        device=dev)
+    state = atk.init_state(1)
+    images = torch.as_tensor(images).to(dev)
+    override = (torch.from_numpy(inp["boxes"]).to(dev), torch.from_numpy(inp["valid"]).to(dev))
+    reset_path_counts()
+    with Capture([(warp_cuda, k) for k in WARP_KERNELS]
+                 + [(mbconv_cuda, "mbconv_fwd_cuda"), (mbconv_cuda, "mbconv_dx_cuda")]) as cap:
+        state, m = atk.train_step(state, images, boxes_override=override)
+        torch.cuda.synchronize()
+    out = {"loss": float(m.loss), "grad": state.patch.grad.detach().cpu().clone(),
+           "patch": state.patch.detach().cpu().clone(), "scale": float(state.scale.detach()),
+           "counts": path_counts(),
+           "heights": sorted({a[0].shape[1] for a, _ in cap.args["mbconv_fwd_cuda"]}),
+           "mbconv": dict(mbconv_cuda.DTYPE_LAUNCHES["float32"]),
+           "warp_errs": None, "mbconv_errs": None}
+    if check:
+        torch.set_grad_enabled(False)
+        try:
+            (canvases, table, w), _ = cap.args["pass1_fwd"][0]
+            (g_in, _, _), _ = cap.args["pass2_bwd"][0]
+            out["warp_errs"], _ = check_warp("phase 25b shard", canvases, table, w, g=g_in)
+            errs = []
+            for i, ((x, g, fb), kw) in enumerate(cap.args["mbconv_dx_cuda"]):
+                if i % 5 == 0:
+                    errs.append(check_mbconv(f"phase 25b block call {i} at H {x.shape[1]}",
+                                             x, g, fb, kw["act_type"], kw["residual"])[:2])
+            out["mbconv_errs"] = tuple(max(e[j] for e in errs) for j in range(2))
+        finally:
+            torch.set_grad_enabled(True)
+    out["ms"] = host_p50_ms(lambda: atk.train_step(state, images, boxes_override=override),
+                            iters=1, warmup=0)
+    return out
+
+
+def sp_supervised(dev, images, gt, float64: bool) -> dict:
+    """One lite4@640 supervised step (seed 0) on `images` (this rank's rows
+    under a spatial mesh): its loss, its fused launches (0: train mode runs
+    every block unfused) and its peak memory above what was allocated
+    before it (the trainer's state included); in float64 the net after it,
+    in float32 the host time of a second step (`ms`)."""
+    import gc
+    import torch
+    from mladversarialobjectdetection_torch.train.trainer import DetectorTrainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr = DetectorTrainer(dp_lite4(), steps_per_epoch=10, device=dev)
+    st = tr.init_state(seed=0)
+    if float64:
+        st.net.double()
+        st.net.compute_dtype = torch.float64
+        st.ema = {n: e.double() for n, e in st.ema.items()}
+    reset_path_counts()
+    st, m = tr.train_step(st, images, *gt)
+    torch.cuda.synchronize()
+    out = {"loss": float(m["loss"]),
+           "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "fused": path_counts()["mbconv_fp32"]}
+    if float64:
+        out["net"] = {k: v.detach().cpu() for k, v in st.net.state_dict().items()}
+    else:
+        out["ms"] = host_p50_ms(lambda: tr.train_step(st, images, *gt), iters=1, warmup=0)
+    del tr, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_rank(rank: int, work: str, device: str = "cuda") -> None:
+    """Phase 25 on one of two ranks (gloo, both on the one card), at mesh
+    ('data', 'spatial') = (1, 2): each image's rows split over the ranks.
+    Results to work/s{rank}.pt."""
+    import os
+    import torch
+    from mladversarialobjectdetection_torch import parallel
+    from mladversarialobjectdetection_torch.attack.train import train
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    inp = sp_inputs()
+    mesh = parallel.make_train_mesh(SP_ATTACK_BATCH, 2, image_h=SP_HW, device=dev)
+    mine = lambda x: parallel.shard_batch(mesh, x)  # this rank's rows, on the card
+    out = {"serve": sp_serve(dev, inp["frames"], mesh)}
+    with parallel.use_mesh(mesh):
+        out["attack"] = sp_attack_step(dev, inp, mine(inp["images"]),
+                                       check=dev.type == "cuda")
+        out["sup64"] = sp_supervised(dev, mine(inp["sup64"]), inp["gt64"], True)
+        out["sup32"] = sp_supervised(dev, mine(inp["sup32"]), inp["gt32"], False)
+    t0 = time.perf_counter()
+    reset_path_counts()
+    # a score threshold under the random victim's scores gives it live slots
+    st = train("efficientdet-lite4", synthetic=True, batch_size=DRIVER_BATCH, epochs=1,
+               steps_per_epoch=2, visualize_freq=0, spatial=2, device=dev,
+               save_dir=os.path.join(work, f"sdriver{rank}"),
+               config_override={"nms_configs": {"score_thresh": DEFEND_THRESH}})
+    torch.cuda.synchronize()
+    out["driver"] = {"patch": st.patch.detach().cpu(), "scale": float(st.scale.detach()),
+                     "s": time.perf_counter() - t0, "counts": path_counts()}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.save(out, os.path.join(work, f"s{rank}.pt"))
+
+
+def spatial_phase(dev, work: str, rank_fn=sp_rank) -> dict:
+    """Phase 25: spatial partitioning (`parallel/spatial.py`), two ranks at
+    mesh (1, 2) on the one card through gloo, each step against the
+    one-process step in this process. Returns the kernels' launches a rank
+    in the b4 attack step."""
+    import os
+    import torch
+    from mladversarialobjectdetection_torch.parallel import launch
+
+    t25 = time.perf_counter()
+    inp = sp_inputs()
+    ref = {"serve": sp_serve(dev, inp["frames"]),
+           "attack": sp_attack_step(dev, inp, inp["images"]),
+           "sup64": sp_supervised(dev, inp["sup64"], inp["gt64"], True),
+           "sup32": sp_supervised(dev, inp["sup32"], inp["gt32"], False)}
+    t0 = time.perf_counter()
+    launch.spawn(rank_fn, 2, (work, dev.type), init_method=f"file://{work}/sstore",
+                 backend="gloo", timeout_s=SP_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f"s{r}.pt"), weights_only=False)
+             for r in range(2)]
+    r0, r1 = ranks
+    # 25a: the serve
+    s_err = b_err = 0.0
+    for r in ranks:
+        for label in ("host", "device"):
+            got, want = r["serve"][label], ref["serve"][label]
+            if (got["fwd"], got["nms"]) != (MBCONV_PER_PASS, 1):
+                fail(f"phase 25a {label} serve: {got['fwd']} fused forward and "
+                     f"{got['nms']} NMS launches a rank, want {MBCONV_PER_PASS} and 1")
+            for field in ("classes", "valid", "valid_len"):
+                if not np.array_equal(getattr(got["det"], field), getattr(want["det"], field)):
+                    fail(f"phase 25a {label} serve: {field} differ from one process")
+            s_err = max(s_err, float(np.abs(got["det"].scores - want["det"].scores).max()))
+            b_err = max(b_err, float(np.abs(got["det"].boxes - want["det"].boxes).max()))
+            if s_err > DP_SERVE_SCORE_TOL or b_err > DP_SERVE_BOX_TOL:
+                fail(f"phase 25a {label} serve: scores within {s_err:.3g}, boxes within "
+                     f"{b_err:.3g} px of one process")
+    sv = r0["serve"]
+    print(f"phase 25a spatial serve, lite4@640 fp32 b{SP_SERVE_BATCH}, mesh (1, 2): host "
+          f"and device preprocessing, classes and valid equal to one process, scores "
+          f"within {s_err:.3g} and boxes within {b_err:.3g} px of it (limits "
+          f"{DP_SERVE_SCORE_TOL} / {DP_SERVE_BOX_TOL}); "
+          f"{sv['host']['fwd']} fused forward launches a rank a pass at heights "
+          f"{sv['host']['heights']} (one process: {ref['serve']['host']['heights']}); "
+          f"second serve {sv['host']['ms']:.1f} / {r1['serve']['host']['ms']:.1f} ms a "
+          f"rank (host path), {sv['device']['ms']:.1f} / {r1['serve']['device']['ms']:.1f} "
+          f"(device), one process {ref['serve']['host']['ms']:.1f} / "
+          f"{ref['serve']['device']['ms']:.1f}")
+    # 25b: the attack step
+    a0, a1, ar = r0["attack"], r1["attack"], ref["attack"]
+    loss_rel = abs(a0["loss"] - ar["loss"]) / abs(ar["loss"])
+    g, gr = a0["grad"].double().ravel(), ar["grad"].double().ravel()
+    cos = float(g @ gr / (g.norm() * gr.norm()))
+    norm_rel = abs(float(g.norm()) / float(gr.norm()) - 1.0)
+    patch_err = float((a0["patch"] - ar["patch"]).abs().max())
+    if not (loss_rel <= DP_LOSS_REL and cos >= DP_GRAD_COS and norm_rel <= DP_LOSS_REL
+            and patch_err <= SP_LR and torch.equal(a0["patch"], a1["patch"])):
+        fail(f"phase 25b attack: loss {loss_rel:.3g} relative, patch gradient cosine "
+             f"{cos:.7f}, norm {norm_rel:.3g} relative, patch {patch_err:.3g} off one "
+             f"process, ranks' patches equal {torch.equal(a0['patch'], a1['patch'])}")
+    want = dict.fromkeys(WARP_KERNELS, 1)
+    want.update(nms=2, mbconv_fwd=2 * MBCONV_PER_PASS, mbconv_dx=MBCONV_PER_PASS)
+    for r in ranks:
+        got = {**{k: r["attack"]["counts"][k] for k in (*WARP_KERNELS, "nms")},
+               **r["attack"]["mbconv"]}
+        if got != want:
+            fail(f"phase 25b attack: a rank launched {got}, want {want}")
+    print(f"phase 25b spatial attack step, b{SP_ATTACK_BATCH} fp32, window "
+          f"{ATTACK_WINDOW}, the live boxes: loss {loss_rel:.3g} relative to one process, "
+          f"patch gradient cosine {cos:.7f}, norm {norm_rel:.3g} relative, patch after "
+          f"Adam within {patch_err:.3g} (lr {SP_LR}), the ranks' patches bit-equal; a "
+          f"rank launched {want} (fused forward at heights {a0['heights']}); at rank "
+          f"0's own inputs the warp kernels within {a0['warp_errs']} of their plain "
+          f"passes and the fused forward / dx within {a0['mbconv_errs']} (every fifth "
+          f"block); second step {a0['ms']:.1f} / {a1['ms']:.1f} ms a rank, one process "
+          f"{ar['ms']:.1f}")
+    # 25c: the supervised step
+    s0 = r0["sup64"]
+    sup_err = dp_leaf_err(s0["net"], ref["sup64"]["net"])
+    sup_rel = abs(s0["loss"] - ref["sup64"]["loss"]) / abs(ref["sup64"]["loss"])
+    if sup_err > SP_SUP_F64_TOL or sup_rel > SP_SUP_F64_TOL:
+        fail(f"phase 25c supervised float64: {sup_err:.3g} of scale, loss {sup_rel:.3g} "
+             f"relative (limit {SP_SUP_F64_TOL})")
+    one = ref["sup32"]["peak_gb"]
+    peaks = [r["sup32"]["peak_gb"] for r in ranks]
+    fused = [r["sup32"]["fused"] for r in ranks] + [r["sup64"]["fused"] for r in ranks]
+    if any(fused):
+        fail(f"phase 25c: fused MBConv launches in a train step ({fused})")
+    if max(peaks) >= SP_PEAK_RATIO * one:
+        fail(f"phase 25c: a rank's b{SP_SUP_BATCH} fp32 supervised step peaks at "
+             f"{max(peaks):.3f} GB, not below {SP_PEAK_RATIO} x the one-process "
+             f"{one:.3f} GB")
+    print(f"phase 25c spatial supervised step: float64 b{SP_SUP64_BATCH} within "
+          f"{sup_err:.3g} of scale (loss {sup_rel:.3g}, limit {SP_SUP_F64_TOL}); fp32 "
+          f"b{SP_SUP_BATCH} peak {peaks[0]:.3f} / {peaks[1]:.3f} GB a rank against "
+          f"{one:.3f} GB in one process ({max(peaks) / one:.3f}x, limit {SP_PEAK_RATIO}); "
+          f"second step {r0['sup32']['ms']:.1f} / {r1['sup32']['ms']:.1f} ms a rank, one "
+          f"process {ref['sup32']['ms']:.1f}")
+    # 25d: the attack driver
+    d0, d1 = r0["driver"], r1["driver"]
+    if not (torch.equal(d0["patch"], d1["patch"]) and d0["scale"] == d1["scale"]):
+        fail("phase 25d: the ranks' patches differ after attack.train.train(spatial=2)")
+    if not {"logs/metrics.jsonl", "state-latest.msgpack"} <= set(
+            os.path.relpath(os.path.join(p, f), os.path.join(work, "sdriver0"))
+            for p, _, fs in os.walk(os.path.join(work, "sdriver0")) for f in fs):
+        fail("phase 25d: rank 0 wrote no metrics log or state")
+    launched_every("phase 25d", d0["counts"], ("pass1_fwd", "pass2_fwd", "pass2_bwd",
+                                               "pass1_bwd", "nms", "mbconv_fwd_bf16",
+                                               "mbconv_dx_bf16"))
+    print(f"phase 25d attack.train.train(spatial=2) at 2 ranks (b{DRIVER_BATCH}, bf16, "
+          f"score threshold {DEFEND_THRESH}, 2 steps and 5 val batches): the ranks' "
+          f"patches bit-equal, launches a rank "
+          f"{d0['counts']}; {d0['s']:.2f} s")
+    print(f"phase 25 took {time.perf_counter() - t25:.2f} s (the two ranks {spawn_s:.2f} "
+          f"s with their start); peak memory a rank {r0['peak_gb']:.2f} / "
+          f"{r1['peak_gb']:.2f} GB. Gloo stages every exchanged row and reduced "
+          f"statistic through the host, and the two ranks share one card: these times "
+          f"are no rate of spatial partitioning")
+    return {**{k: a0["counts"][k] for k in (*WARP_KERNELS, "nms")}, **a0["mbconv"],
+            **{f"{k}_driver": d0["counts"][k] for k in ("mbconv_fwd_bf16", "mbconv_dx_bf16")}}
+
+
 def main() -> int:
     import tempfile
     from pathlib import Path
@@ -5032,6 +5351,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         data_parallel_phase(dev, work)
 
+    # phase 25: spatial partitioning, two ranks on the one card
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        spatial = spatial_phase(dev, work)
+
     # phase 13: card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5050,7 +5375,8 @@ def main() -> int:
         "eval_ms": sup_eval["nms_ms"], "eval_bound_ms": sup_eval["nms_bound_ms"],
         "eval_max_abs_err": sup_eval["nms_err"],
         "defender_ms": defend_nms[0], "defender_plain_ms": defend_nms[1],
-        "defender_bound_ms": defend_nms[2], "defender_bound_by": defend_nms[3]}]
+        "defender_bound_ms": defend_nms[2], "defender_bound_by": defend_nms[3],
+        "spatial_step_launches_per_rank": spatial["nms"]}]
     for k in WARP_KERNELS:
         kern_ms, plain_ms, bound_ms, bound_by = warp_times[k]
         kernels.append({
@@ -5058,7 +5384,8 @@ def main() -> int:
             "source": "mladversarialobjectdetection_torch/csrc/warp.cu",
             "replaces": WARP_REPLACES[k], "launches": attack_launches[k],
             "max_abs_err": warp_errs[k], "ms": kern_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "spatial_step_launches_per_rank": spatial[k]})
     kernels.append({
         "name": "cmconv", "route": "cuda",
         "source": "mladversarialobjectdetection_torch/csrc/cmconv.cu",
@@ -5090,6 +5417,7 @@ def main() -> int:
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": tot["bound_by"], "library_ms": None,
             "unfused_ms": tot["unfused_ms"], "bound_tc_ms": tot["bound_tc_ms"],
+            "spatial_step_launches_per_rank": spatial[f"mbconv_{kind}"],
             **({"demo_launches_per_frame": demo["launches_per_frame"]["mbconv_fwd"]}
                if kind == "fwd" else {})})
     for kind in ("fwd", "dx"):  # the bf16 instances, per pass of the bf16 step
@@ -5103,6 +5431,7 @@ def main() -> int:
             "max_abs_err": mb16_errs[kind], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"], "library_ms": None,
             "unfused_ms": tot["unfused_ms"],
+            "spatial_driver_launches_per_rank": spatial[f"mbconv_{kind}_bf16_driver"],
             **({"eval_launches_per_batch": sup_eval["launches_per_batch"]["mbconv_fwd_bf16"],
                 "eval_ms": sup_eval["mbconv"]["ms"],
                 "eval_bound_ms": sup_eval["mbconv"]["bound_ms"],

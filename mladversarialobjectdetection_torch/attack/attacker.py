@@ -27,6 +27,14 @@ and scale gradients are summed over the ranks (an average would divide the
 data term by their number), so every rank takes the same Adam step; the
 metrics are the global batch's (the score std as sqrt(max(E[x^2] - E[x]^2,
 0)) in float32, the ASR from the summed counts).
+
+Spatial partitioning (a ('data', 'spatial') mesh, `parallel/spatial.py`):
+the images are this rank's rows; the victim gathers its outputs, so the
+boxes, scores, NMS and loss are the data shard's, alike on each rank of a
+spatial group. Each rank warps every window of its data shard and
+composites into its own rows (`eot.apply_patches(height=)`), so its patch
+gradient is a partial one: the loss enters the backward once in the group
+(`spatial.count_once`) and the gradients are summed over data x spatial.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ import torch
 
 from .. import parallel
 from ..models.efficientdet import DetSpec, spec_from_config
+from ..parallel import spatial
 from ..ops import eot
 from ..ops import nms as nms_ops
 from ..ops import postprocess
@@ -228,7 +237,7 @@ class PatchAttacker:
             images, boxes, boxes_valid, patch, scale, generator=generator,
             draws=eot_draws, device=self.device, tolerance=self.tolerance,
             window=self.window, use_histogram_match=self.use_histogram_match,
-            **self.eot_overrides)
+            height=self.image_hw[0], **self.eot_overrides)
         adv_boxes, adv_masked = self.second_pass_scores(patched)
         # amax shares the gradient evenly among tied maxima, as JAX's
         # reduce-max does (random-init scores tie near 0.01)
@@ -294,7 +303,7 @@ class PatchAttacker:
         loss, aux = self._loss_from_images(state.patch, state.scale, images,
                                            boxes, boxes_valid, state.generator,
                                            eot_draws)
-        loss.backward()
+        spatial.count_once(loss).backward()
         self._update(state)
         metrics = self._metrics(loss.detach(), state.scale.detach().clone(),
                                 aux, clean_scores, clean_valid,
@@ -333,7 +342,7 @@ class PatchAttacker:
             loss, aux = self._loss_from_images(
                 state.patch, state.scale, imgs, bx, bv, state.generator,
                 draws, tv_weight=1e-5 / k)
-            loss.backward()
+            spatial.count_once(loss).backward()
             lsum = lsum + loss.detach()
             sl_sum = sl_sum + aux["scale_losses"].sum()
             s_sum = s_sum + aux["max_scores"].sum()
@@ -433,7 +442,7 @@ class PatchAttacker:
             generator=self._eval_generator(state, batch_idx), draws=eot_draws,
             device=self.device, tolerance=self.tolerance, window=self.window,
             use_histogram_match=self.use_histogram_match,
-            **self.eot_overrides)
+            height=self.image_hw[0], **self.eot_overrides)
         adv_boxes, adv_masked = self.second_pass_scores(patched)
         _, adv_scores, adv_valid = self._nms(adv_boxes, adv_masked)
         # calc_asr's counts at each threshold, over the global batch

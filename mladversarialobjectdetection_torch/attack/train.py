@@ -35,8 +35,13 @@ train.py:95-195, 264-270) on `make_train_mesh`: each rank loads
 `ImageFolderSource.shard(rank, N)`; the state and the victim come from rank
 0 (`replicate`); the steps reduce over the ranks (`attack/attacker.py`); only
 the main process writes `state-latest.msgpack`, the patch directories and
-the plots, and every rank reads `resume`'s file. `spatial > 1` raises
-`NotImplementedError` before any work (ROADMAP Queue 1 item 9).
+the plots, and every rank reads `resume`'s file. `spatial > 1` (JAX
+train.py:95-100) lays the ranks out as a ('data', 'spatial') mesh whose
+'spatial' axis row-shards each image (`parallel/spatial.py`): the ranks of
+one spatial group load the same examples (their data shard's, its stream
+seeded `seed + 1000 * data index`) and each keeps its rows; with
+`packed_entry` it raises `NotImplementedError` before any work (ROADMAP
+Queue 1 item 10).
 
 Usage:
     python -m mladversarialobjectdetection_torch.attack.train --synthetic \\
@@ -58,6 +63,7 @@ from ..data import pipeline
 from ..models.efficientdet import EfficientDetNet, spec_from_config
 from ..models.init import init_weights
 from ..utils.device import resolve_device
+from ..utils.image import parse_image_size
 from ..utils.log import get_logger
 from ..utils import train_loop as train_loop_lib
 from ..utils.train_loop import MetricLogger, ReduceLROnPlateau, Throughput
@@ -149,7 +155,7 @@ def train(model_name: str = "efficientdet-lite4", *,
           grad_accum: int = 1, spatial: int = 1, resume: bool = False,
           packed_entry: int = 0, victim_variables=None, device=None):
     """Train an adversarial patch; returns the final `AttackState`."""
-    if spatial > 1:  # before any work: JAX row-shards the images there
+    if spatial > 1 and packed_entry:  # before any work
         raise NotImplementedError(parallel.SPATIAL_NOT_PORTED)
     device = resolve_device(device)
 
@@ -166,7 +172,8 @@ def train(model_name: str = "efficientdet-lite4", *,
     if config_override:
         config.update(config_override)
 
-    mesh = parallel.make_train_mesh(batch_size, device=device)
+    image_h = parse_image_size(config.image_size)[0]
+    mesh = parallel.make_train_mesh(batch_size, spatial, image_h, device=device)
     logger.info(f"mesh over {mesh.size} rank(s); global batch {batch_size}")
     victim_variables = victim_source(config, victim_ckpt, victim_variables)
     victim = get_victim(config, variables=victim_variables, device=device)
@@ -208,13 +215,13 @@ def train(model_name: str = "efficientdet-lite4", *,
         return (n_epochs + period - 1) // period
 
     # resume fast-forward (JAX train.py:167-195): both streams advanced to
-    # where the uninterrupted run would be. Each rank loads its share of the
-    # global batch from a stream of its own
-    rank, n_proc = parallel.process_index(), parallel.world_size()
-    local_bs = parallel.local_batch_size(batch_size)
+    # where the uninterrupted run would be. Each data shard loads its share
+    # of the global batch from a stream of its own
+    local_bs, shard = parallel.data_shard(mesh, batch_size)
+    n_shards = batch_size // local_bs
     if synthetic or img_dir is None:
         logger.info("using synthetic data")
-        pseed = seed + 1000 * rank
+        pseed = seed + 1000 * shard
         train_src = pipeline.synthetic_batches(local_bs, config.image_size,
                                                seed=pseed)
         val_src = pipeline.synthetic_batches(local_bs, config.image_size,
@@ -228,10 +235,10 @@ def train(model_name: str = "efficientdet-lite4", *,
     else:
         parts = pipeline.partition(config, img_dir, label_dir,
                                    batch_size=batch_size, filter_data=False,
-                                   seed=seed + rank)
-        if n_proc > 1:
-            parts["train"]["source"].shard(rank, n_proc)
-            parts["val"]["source"].shard(rank, n_proc)
+                                   seed=seed + shard)
+        if n_shards > 1:
+            parts["train"]["source"].shard(shard, n_shards)
+            parts["val"]["source"].shard(shard, n_shards)
         spe = steps_per_epoch or parts["train"]["length"]
         val_steps = parts["val"]["length"]
         train_src = parts["train"]["source"].repeat_batches(
@@ -250,7 +257,8 @@ def train(model_name: str = "efficientdet-lite4", *,
         for epoch in range(start_epoch, epochs):
             thr.start()
             for _ in range(spe):
-                batch = pipeline.augment_batch(next(train_iter), aug_gen)
+                batch = pipeline.augment_batch(next(train_iter), aug_gen,
+                                               height=image_h)
                 # the ASR pass (a second NMS) runs only on logged steps
                 logged = (step + 1) % 50 == 0
                 state, metrics = attacker.train_step(state, batch, with_asr=logged)
@@ -341,8 +349,8 @@ def main():
                    help="split each step's batch into this many sequential "
                         "microbatches with one summed-gradient update")
     p.add_argument("--spatial", type=int, default=1,
-                   help="shard each image's rows over this many cards: not "
-                        "ported yet, > 1 raises (ROADMAP Queue 1 item 9)")
+                   help="shard each image's rows over this many ranks (a "
+                        "('data', 'spatial') mesh; not with --packed-entry)")
     p.add_argument("--packed-entry", type=int, default=0,
                    help="victim entry blocks in the space-to-depth packed layout "
                         "(models/efficientnet_packed.py), the same weights; a "

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import parallel
+from ..parallel import spatial
 from ..ops.preprocess import preprocess_host
 from ..utils.image import parse_image_size
 from ..utils.log import get_logger
@@ -190,7 +191,8 @@ def partition(config, img_dir: str, label_dir: Optional[str],
 def augment_batch(images: torch.Tensor, generator: torch.Generator | None = None,
                   *, flip: torch.Tensor | None = None,
                   factor: torch.Tensor | None = None,
-                  delta: torch.Tensor | None = None) -> torch.Tensor:
+                  delta: torch.Tensor | None = None,
+                  height: int | None = None) -> torch.Tensor:
     """Train-time augmentations (reference train_data_generator.py:201-226).
 
     Random horizontal flip (p .5), RandomContrast(.2) as (x - channel mean)
@@ -198,7 +200,9 @@ def augment_batch(images: torch.Tensor, generator: torch.Generator | None = None
     as + delta with delta ~ U(-.2, .2), clip to [-1, 1]. images [B, H, W, 3];
     the draws flip [B] bool, factor [B] and delta [B] are fed in or drawn
     from `generator` (under an active mesh, this rank's rows of the global
-    batch's draws).
+    batch's draws). `height`: the images' global height; under a spatial
+    mesh that row-shards it, images are this rank's rows and the contrast's
+    channel mean sums over the spatial group.
     """
     b = images.shape[0]
     dev = images.device
@@ -212,7 +216,11 @@ def augment_batch(images: torch.Tensor, generator: torch.Generator | None = None
         delta = -0.2 + 0.4 * rand()
     col = lambda v: v.to(dev).reshape(b, 1, 1, 1)
     images = torch.where(col(flip), torch.flip(images, dims=(2,)), images)
-    mean = torch.mean(images, dim=(1, 2), keepdim=True)
+    if spatial.sharded(height):
+        mean = parallel.reduce_sum(images.sum(dim=(1, 2), keepdim=True),
+                                   parallel.SPATIAL_AXIS) / (height * images.shape[2])
+    else:
+        mean = torch.mean(images, dim=(1, 2), keepdim=True)
     images = (images - mean) * col(factor).to(images.dtype) + mean
     return torch.clamp(images + col(delta).to(images.dtype), -1.0, 1.0)
 

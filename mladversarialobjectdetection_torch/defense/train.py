@@ -46,8 +46,8 @@ train.py:53-142, 201-220) on `make_train_mesh`, as the attack driver does:
 rank`, the folder split seeded `seed + rank` and sharded by rank, the
 U-Net and the victim from rank 0, the steps reduced over the ranks
 (`defense/defender.py`), and only the main process writing files.
-`spatial > 1` raises `NotImplementedError` before any work (ROADMAP Queue 1
-item 9).
+`spatial > 1` raises `NotImplementedError` before any work: the defender
+under a spatial mesh is ROADMAP Queue 1 item 10.
 
 An untrained victim at score threshold .5 finds nobody, so the masker
 plants nothing: pass `config_override={"nms_configs": {"score_thresh":
@@ -295,7 +295,8 @@ def main():
                         "microbatches with one summed-gradient update")
     p.add_argument("--spatial", type=int, default=1,
                    help="shard each image's rows over this many cards: not "
-                        "ported yet, > 1 raises (ROADMAP Queue 1 item 9)")
+                        "ported yet for the defender, > 1 raises (ROADMAP "
+                        "Queue 1 item 10)")
     p.add_argument("--packed", type=int, nargs="?", const=3, default=0,
                    help="space-to-depth packed U-Net layout "
                         "(models/unet_packed.py), the same model and "

@@ -27,8 +27,15 @@ weights come from rank 0, every rank passes the whole batch to `serve` (or
 `serve_pipelined`), the batch is padded to a multiple of the data size by
 repeating its last frame, each rank preprocesses and serves its rows (on
 the host or the device path), and the detections are gathered, the padding
-stripped, so every rank returns the whole batch's. A mesh with a 'spatial'
-axis larger than 1 raises `NotImplementedError` (ROADMAP Queue 1 item 9).
+stripped, so every rank returns the whole batch's. A ('data', 'spatial')
+mesh (`make_serve_mesh(n, s)`) also splits each image's rows over the
+'spatial' axis, as JAX's (detector.py:84-92, 300-309): the model's input
+height must divide by s (JAX's error), each rank preprocesses its data
+rows' whole frames (on the host or the device) and keeps its rows of them,
+the forward runs row-sharded under the mesh (`parallel/spatial.py`) and
+ends with every anchor's outputs on each rank, and the detections are
+gathered over the data axes only. `packed_entry` and `quantize_int8` under
+such a mesh raise `NotImplementedError` (ROADMAP Queue 1 item 10).
 
 `quantize_int8` switches `serve`, `serve_raw`, `infer`, `serve_streams` and
 `serve_pipelined` to the W8A8 forward (`inference/quantize.Int8Serve`: the
@@ -43,6 +50,7 @@ TFLite file cannot be written from the port (`inference/export.py`).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import List, Mapping, Tuple
 
 import numpy as np
@@ -56,6 +64,7 @@ from ..models.efficientdet import EfficientDetNet, spec_from_config
 from ..models.init import init_weights
 from ..ops import postprocess
 from ..ops.preprocess import preprocess_device, preprocess_host
+from ..parallel import spatial
 from ..utils.device import resolve_device
 from ..utils.log import get_logger
 
@@ -121,7 +130,9 @@ class Detector:
         """
         if post_mode not in POST_MODES:
             raise ValueError(f"post_mode {post_mode!r}: want one of {POST_MODES}")
-        if mesh is not None:
+        self._spatial = (mesh is not None
+                         and mesh.shape.get(parallel.SPATIAL_AXIS, 1) > 1)
+        if self._spatial and packed_entry > 0:
             parallel.check_no_spatial(mesh)
         self.mesh = mesh
         self.device = resolve_device(device)
@@ -130,6 +141,13 @@ class Detector:
         if params:
             self.config.override(params, allow_new_keys=False)
         self.spec = spec_from_config(self.config)
+        if self._spatial:
+            n_sp = mesh.shape[parallel.SPATIAL_AXIS]
+            if self.spec.image_size[0] % n_sp != 0:
+                raise ValueError(
+                    f"spatial serving needs image height "
+                    f"{self.spec.image_size[0]} divisible by the "
+                    f"'{parallel.SPATIAL_AXIS}' mesh axis size {n_sp}")
         self.net = EfficientDetNet(self.spec, packed_entry=packed_entry).eval()
         if not ckpt_path:
             init_weights(self.net, torch.Generator().manual_seed(seed))
@@ -168,12 +186,25 @@ class Detector:
                 "combined": postprocess.postprocess_combined}[self.post_mode]
         return post(self._params_dict, cls_out, box_out, image_scales=scales)
 
+    def _in_mesh(self):
+        """The spatial mesh made active (the forward's collectives), or
+        nothing."""
+        return parallel.use_mesh(self.mesh) if self._spatial else contextlib.nullcontext()
+
+    def _own_rows(self, images: torch.Tensor) -> torch.Tensor:
+        """Whole preprocessed images -> this rank's rows of them under a
+        spatial mesh (the images themselves otherwise)."""
+        with self._in_mesh():
+            return spatial.local_rows(images, dim=1)
+
     @torch.no_grad()
     def serve_tensors(self, images: torch.Tensor, scales: torch.Tensor
                       ) -> postprocess.Detections:
-        """Preprocessed [B, H, W, 3] images and scales -> Detections on
-        device, on the int8 forward after `quantize_int8`."""
-        return self._post_detections(self._forward(images), scales)
+        """Preprocessed [B, H, W, 3] images (under a spatial mesh, this
+        rank's rows of them) and scales -> Detections on device, on the int8
+        forward after `quantize_int8`."""
+        with self._in_mesh():
+            return self._post_detections(self._forward(images), scales)
 
     def _serve_float_impl(self, images: torch.Tensor, scales: torch.Tensor
                           ) -> postprocess.Detections:
@@ -188,7 +219,7 @@ class Detector:
         images, scales = preprocess_device(raw, self.config.image_size,
                                            self.config.mean_rgb,
                                            self.config.stddev_rgb)
-        return self.serve_tensors(images, scales)
+        return self.serve_tensors(self._own_rows(images), scales)
 
     def preprocess(self, raw_frames) -> Tuple[np.ndarray, np.ndarray]:
         """Host preprocessing of raw frames: (images [B, H, W, 3], scales [B])."""
@@ -237,7 +268,7 @@ class Detector:
                 self.serve_raw(torch.from_numpy(raw).to(self.device)), len(frames))
         images, scales = self.preprocess(mine)
         return self._gather(
-            self.serve_tensors(torch.from_numpy(images).to(self.device),
+            self.serve_tensors(self._own_rows(torch.from_numpy(images)).to(self.device),
                                torch.from_numpy(scales).to(self.device)),
             len(frames))
 
@@ -326,7 +357,9 @@ class Detector:
 
         def put(item):
             images, scales, n = item
-            return (torch.from_numpy(images).to(self.device),
+            images = torch.from_numpy(images)
+            return (images.to(self.device) if scales is None
+                    else self._own_rows(images).to(self.device),
                     None if scales is None
                     else torch.from_numpy(scales).to(self.device), n)
 
@@ -349,6 +382,8 @@ class Detector:
         serve_streams and serve_pipelined; export() stays float."""
         from .quantize import DEFAULT_SKIP, Int8Serve
 
+        if self.mesh is not None:
+            parallel.check_no_spatial(self.mesh)
         frames = list(representative_frames)
         if not frames:
             raise ValueError("quantize_int8 needs representative frames")

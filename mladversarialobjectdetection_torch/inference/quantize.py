@@ -170,7 +170,10 @@ class _QConv:
             conv_int8_ops.dequant_scale(a_s, w_scale.numpy())).to(device)
         self.bias = None if bias is None else bias.to(device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, height: Optional[int] = None) -> torch.Tensor:
+        """`Conv2d.forward`'s signature; `height` unused: the int8 serve runs
+        under no spatial mesh (`Detector.quantize_int8` refuses one)."""
+        del height
         m = self.mod
         return conv_int8_ops.conv_int8(
             x.contiguous(), self.a_s, self.wq, self.scale, self.bias, stride=m.stride,

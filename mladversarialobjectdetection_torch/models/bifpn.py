@@ -14,6 +14,13 @@ Hazards reproduced explicitly:
   `jax.image.resize(method="nearest")`, whose source index differs from
   both PyTorch `nearest` modes: `nearest_source_index`.
 - `fastattn` fusion divides by `sum(relu(w)) + 1e-4` (bifpn.py:182-184).
+
+Under a spatial mesh (`parallel/spatial.py`) every module passes the global
+heights it knows statically: the pool takes its stride from the global
+height and fetches its halo (-inf beyond the image's edges), the upsample
+fetches the source rows of its output rows (none for an integer factor on
+aligned shards), and each level's tensors are in the layout its height
+gives, so a node sums inputs of one layout.
 """
 from __future__ import annotations
 
@@ -25,8 +32,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import spatial
 from .efficientnet import (BatchNorm, Conv2d, activation, checkpointed,
-                           pad_same, set_compute_dtype)
+                           pad_same, same_pads, set_compute_dtype)
 
 
 class FpnNode(NamedTuple):
@@ -93,13 +101,25 @@ def get_topology(fpn_name: Optional[str], min_level: int, max_level: int
     raise ValueError(f"unknown fpn name {fpn_name}")
 
 
-def _max_pool_to(x: torch.Tensor, th: int, tw: int) -> torch.Tensor:
-    """SAME max-pool of an NCHW map down to (th, tw) (bifpn.py:89-94).
+def _max_pool_to(x: torch.Tensor, th: int, tw: int,
+                 height: Optional[int] = None) -> torch.Tensor:
+    """SAME max-pool of an NCHW map down to (th, tw) (bifpn.py:89-94);
+    `height`: x's global height under a spatial mesh.
 
     Hazard: `nn.max_pool(padding="SAME")` pads with -inf and splits the
     padding as `same_pads` does; `max_pool2d(padding=...)` is symmetric.
     """
     h, w = x.shape[2], x.shape[3]
+    if height is not None and spatial.active() is not None:
+        sh, sw = (height - 1) // th + 1, (w - 1) // tw + 1
+        window = (sh + 1, sw + 1)
+        left, right = same_pads(w, window[1], sw)
+        pool = lambda xe: F.max_pool2d(
+            F.pad(xe, (left, right, 0, 0), value=float("-inf")), window,
+            stride=(sh, sw), padding=0)
+        return spatial.same_window(x, height, window[0], sh,
+                                   same_pads(height, window[0], sh)[0], pool,
+                                   fill=float("-inf"))
     sh = (h - 1) // th + 1
     sw = (w - 1) // tw + 1
     window = (sh + 1, sw + 1)
@@ -124,8 +144,23 @@ def nearest_source_index(n_in: int, n_out: int) -> np.ndarray:
         np.int64)
 
 
-def _nearest_upsample_to(x: torch.Tensor, th: int, tw: int) -> torch.Tensor:
-    """Nearest-neighbour resize of an NCHW map up to (th, tw) (bifpn.py:97-105)."""
+def _nearest_upsample_to(x: torch.Tensor, th: int, tw: int,
+                         height: Optional[int] = None) -> torch.Tensor:
+    """Nearest-neighbour resize of an NCHW map up to (th, tw) (bifpn.py:97-105);
+    `height`: x's global height under a spatial mesh, where each rank makes
+    its output rows from the source rows they read."""
+    if (height is not None and spatial.active() is not None
+            and (spatial.sharded(height) or spatial.sharded(th))):
+        src = (np.arange(th) // (th // height) if th % height == 0
+               else nearest_source_index(height, th))
+        need = lambda o_lo, o_hi: (int(src[o_lo]), int(src[o_hi - 1]) + 1)
+        x = spatial.window(x, height, th, need, lambda xe, o_lo, o_hi, lo: xe.index_select(
+            2, torch.from_numpy(src[o_lo:o_hi] - lo).to(x.device)))
+        w = x.shape[3]
+        if tw % w == 0:
+            return x.repeat_interleave(tw // w, dim=3)
+        return x.index_select(3, torch.from_numpy(
+            nearest_source_index(w, tw)).to(x.device))
     h, w = x.shape[2], x.shape[3]
     if th % h == 0 and tw % w == 0:
         return x.repeat_interleave(th // h, dim=2).repeat_interleave(
@@ -152,7 +187,7 @@ class ResampleFeatureMap(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         (h, w), (th, tw) = in_hw, target_hw
-        self.target_hw = target_hw
+        self.in_hw, self.target_hw = in_hw, target_hw
         if h > th and w > tw:
             self.mode = "pool"
         elif h <= th and w <= tw:
@@ -168,25 +203,26 @@ class ResampleFeatureMap(nn.Module):
                 self.bn = BatchNorm(target_num_channels)
         set_compute_dtype(self, dtype)
 
-    def _maybe_1x1(self, x: torch.Tensor, training: bool) -> torch.Tensor:
+    def _maybe_1x1(self, x: torch.Tensor, training: bool,
+                   height: int) -> torch.Tensor:
         if self.conv2d is not None:
             x = self.conv2d(x)
             if self.bn is not None:
-                x = self.bn(x, training)
+                x = self.bn(x, training, height)
         return x
 
     def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
-        th, tw = self.target_hw
+        h, (th, tw) = self.in_hw[0], self.target_hw
         if self.mode == "pool":
             if not self.conv_after_downsample:
-                x = self._maybe_1x1(x, training)
-            x = _max_pool_to(x, th, tw)
+                x = self._maybe_1x1(x, training, h)
+            x = _max_pool_to(x, th, tw, h)
             if self.conv_after_downsample:
-                x = self._maybe_1x1(x, training)
+                x = self._maybe_1x1(x, training, th)
             return x
-        x = self._maybe_1x1(x, training)
+        x = self._maybe_1x1(x, training, h)
         if self.mode == "upsample":
-            x = _nearest_upsample_to(x, th, tw)
+            x = _nearest_upsample_to(x, th, tw, h)
         return x
 
 
@@ -208,6 +244,7 @@ class FNode(nn.Module):
                  conv_bn_act_pattern: bool = False):
         super().__init__()
         self.inputs_offsets = tuple(inputs_offsets)
+        self.height = feat_hw[0]
         self.weight_method = weight_method
         self.act_type = act_type
         self.separable_conv = separable_conv
@@ -265,10 +302,10 @@ class FNode(nn.Module):
         if not self.conv_bn_act_pattern:
             new_node = activation(new_node, self.act_type)
         if self.separable_conv:
-            new_node = self.conv_pw(self.conv_dw(new_node))
+            new_node = self.conv_pw(self.conv_dw(new_node, self.height))
         else:
-            new_node = self.conv(new_node)
-        new_node = self.bn(new_node, training)
+            new_node = self.conv(new_node, self.height)
+        new_node = self.bn(new_node, training, self.height)
         if self.conv_bn_act_pattern:
             new_node = activation(new_node, self.act_type)
         return new_node

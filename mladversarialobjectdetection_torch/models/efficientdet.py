@@ -11,6 +11,13 @@ the net follows the JAX policy (efficientdet.py:107-109, :154-155): float32
 parameters, the images cast to bf16 at the entry, bf16 activations through
 the backbone (the fused blocks on the kernels' bf16 instance), the BiFPN and
 the heads, and the predictions cast back to float32.
+
+Under a mesh whose 'spatial' axis is larger than 1 (`parallel/spatial.py`),
+the images are this rank's rows, every module runs on the rows the layout
+rule gives its level (the global heights from `DetSpec.level_hw`), and each
+level's class and box outputs are gathered (`spatial.whole`): from there on
+anchors, postprocessing, NMS and the losses see every anchor. The
+segmentation head and `packed_entry` raise there (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -20,6 +27,8 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from .. import parallel
+from ..parallel import spatial
 from ..utils.image import get_feat_sizes, parse_image_size
 from . import bifpn, heads
 from .efficientnet import (BackboneSpec, EfficientNet, get_backbone_spec,
@@ -178,10 +187,11 @@ class EfficientDetNet(nn.Module):
         return view
 
     def pyramid(self, x: torch.Tensor, training: bool = False,
-                generator: Optional[torch.Generator] = None
-                ) -> List[torch.Tensor]:
-        """NCHW images -> NCHW features of levels min..max, before the BiFPN."""
-        endpoints = self.backbone(x, training, generator)
+                generator: Optional[torch.Generator] = None,
+                height: Optional[int] = None) -> List[torch.Tensor]:
+        """NCHW images -> NCHW features of levels min..max, before the BiFPN
+        (`height`: the images' global height under a spatial mesh)."""
+        endpoints = self.backbone(x, training, generator, height)
         feats = [endpoints[level - 1] for level in self._backbone_levels]
         for level in range(6, self.spec.max_level + 1):
             feats.append(getattr(self, f"resample_p{level}")(feats[-1], training))
@@ -198,16 +208,28 @@ class EfficientDetNet(nn.Module):
         module's own `training` flag: train-mode BatchNorm (batch
         statistics, running statistics moved in place), every backbone
         block unfused, and drop-connect drawn from `generator` where
-        `survival_prob` is set."""
+        `survival_prob` is set. Under a spatial mesh, `images` are this
+        rank's rows and the outputs every row's (see the module notes)."""
+        spec = self.spec
+        heights = levels = None
+        if spatial.active() is not None:
+            if self.packed_entry > 0 or "segmentation" in spec.heads:
+                raise NotImplementedError(parallel.SPATIAL_NOT_PORTED)
+            spatial.check_rows(images, spec.image_size[0], dim=1)
+            heights = [h for h, _ in spec.level_hw]
+            levels = heights[spec.min_level:spec.max_level + 1]
         x = images.to(self.compute_dtype).permute(0, 3, 1, 2)
-        fpn_feats = self.fpn_cells(self.pyramid(x, training, generator), training)
+        fpn_feats = self.fpn_cells(
+            self.pyramid(x, training, generator, heights and heights[0]), training)
         # float32 outputs, as Flax's (float64 nets keep float64)
         out_dtype = torch.promote_types(self.compute_dtype, torch.float32)
         nhwc = lambda o: o.permute(0, 2, 3, 1).to(out_dtype).contiguous()
+        whole = (lambda outs: [nhwc(o) for o in outs]) if levels is None else (
+            lambda outs: [nhwc(spatial.whole(o, h)) for o, h in zip(outs, levels)])
         outputs = []
-        if "object_detection" in self.spec.heads:
-            outputs.append([nhwc(o) for o in self.class_net(fpn_feats, training)])
-            outputs.append([nhwc(o) for o in self.box_net(fpn_feats, training)])
+        if "object_detection" in spec.heads:
+            outputs.append(whole(self.class_net(fpn_feats, training, levels)))
+            outputs.append(whole(self.box_net(fpn_feats, training, levels)))
         if "segmentation" in self.spec.heads:
             outputs.append(nhwc(self.seg_head(fpn_feats, training)))
         return tuple(outputs)

@@ -22,6 +22,16 @@ PyTorch's defaults differ:
   active mesh (`parallel.use_mesh`) with a process group, the statistics are
   the global batch's (`batch_stats`), as in JAX's SPMD step.
 
+Spatial partitioning (`parallel/spatial.py`): under a mesh whose 'spatial'
+axis is larger than 1, the modules take `height`, the global height of
+their input (None: not partitioned), and hold the rows the layout rule
+gives them. A conv that reads across rows fetches its halo from its
+neighbours (`Conv2d`, through `spatial.same_window`: SAME's zeros only at
+the image's edges), the fused blocks run on their input extended by k // 2
+rows and crop as many output rows at each interior cut, the statistics of a
+row-sharded tensor reduce over data x spatial, and squeeze-excite's mean
+sums over the spatial group.
+
 Mixed precision follows Flax's explicit `dtype=` (the JAX package's
 `EfficientNet(..., dtype=bf16)`), not `torch.autocast`, whose op lists
 round at other points: a module built with a compute dtype
@@ -45,6 +55,7 @@ from torch import nn
 
 from .. import parallel
 from ..ops import mbconv as mbconv_ops
+from ..parallel import spatial
 
 
 class BlockArgs(NamedTuple):
@@ -203,6 +214,11 @@ def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def out_height(height: Optional[int], stride: int) -> Optional[int]:
+    """The global height after a SAME op at `stride` (None stays None)."""
+    return None if height is None else -(-height // stride)
+
+
 def pad_same(x: torch.Tensor, kernel: Sequence[int], stride: Sequence[int],
              value: float = 0.0) -> torch.Tensor:
     """Pad an NCHW tensor as Flax `"SAME"` would, before a `padding=0` op."""
@@ -223,7 +239,9 @@ class Conv2d(nn.Conv2d):
     parameter changes (its storage or version); where gradients are on and
     a parameter requires one, they are cast with autograd on every call, and
     under `torch.export` (whose parameters have no storage) the cast is
-    traced as ops.
+    traced as ops. `height` (forward): x's global height under a spatial
+    mesh; a conv that reads across rows then runs on this rank's rows and
+    their halo (`spatial.same_window`).
     """
     compute_dtype: Optional[torch.dtype] = None
 
@@ -250,8 +268,11 @@ class Conv2d(nn.Conv2d):
                 self._cast = (key, *cast())
         return self._cast[1:]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, height: Optional[int] = None) -> torch.Tensor:
         cd = self.compute_dtype
+        if (height is not None and spatial.active() is not None
+                and (self.kernel_size[0] > 1 or self.stride[0] > 1)):
+            return self._forward_rows(x, height)
         if cd is None:
             return super().forward(pad_same(x, self.kernel_size, self.stride))
         weight, bias = self._in_dtype(cd)
@@ -259,22 +280,41 @@ class Conv2d(nn.Conv2d):
                      weight, None, self.stride, 0, self.dilation, self.groups)
         return y if bias is None else y + bias.view(1, -1, 1, 1)
 
+    def _forward_rows(self, x: torch.Tensor, height: int) -> torch.Tensor:
+        """The conv of this rank's rows of x (global height `height`) under a
+        spatial mesh: the rows SAME reads beyond its shard from its
+        neighbours, the columns padded here."""
+        cd = self.compute_dtype
+        if cd is None:
+            weight, bias, inner = self.weight, self.bias, self.bias
+        else:
+            (weight, bias), inner, x = self._in_dtype(cd), None, x.to(cd)
+        left, right = same_pads(x.shape[3], self.kernel_size[1], self.stride[1])
+        conv = lambda xe: F.conv2d(F.pad(xe, (left, right, 0, 0)), weight, inner,
+                                   self.stride, 0, self.dilation, self.groups)
+        k, stride = self.kernel_size[0], self.stride[0]
+        y = spatial.same_window(x, height, k, stride, same_pads(height, k, stride)[0], conv)
+        return y if cd is None or bias is None else y + bias.view(1, -1, 1, 1)
+
 
 def batch_stats(x: torch.Tensor, dims: Tuple[int, ...],
-                axis_name: Optional[str] = None):
+                axis_name: Optional[str] = None, height: Optional[int] = None):
     """Flax's train-mode statistics of x over `dims`: (E[x], E[x^2] - E[x]^2
     clipped at 0), in x's dtype. Under an active mesh with a process group
     (`parallel.use_mesh`) they are the global batch's, as JAX's SPMD step
     computes them: one all-reduce of [sum x, sum x^2] (2C values) over the
-    data axes (or `axis_name`, which must name one), with a sum's gradient,
-    divided by the global count. Equal batches on every rank."""
-    group = parallel.data_group(axis_name)
+    data axes (or `axis_name`, which must name one), and over 'spatial' too
+    where x is row-sharded (global height `height`), with a sum's gradient,
+    divided by the global count. Equal batches (and shards) on every rank."""
+    axes = spatial.stats_axes(axis_name, height)
+    group = (parallel.data_group(axes) if axes is axis_name
+             else parallel.axis_group(axes))
     if group is None:
         mu = x.mean(dim=dims)
         return mu, torch.clamp_min((x * x).mean(dim=dims) - mu * mu, 0.0)
     count = math.prod(x.shape[d] for d in dims) * group.size
     sums = parallel.all_reduce_sum(
-        torch.stack([x.sum(dim=dims), (x * x).sum(dim=dims)]), axis_name)
+        torch.stack([x.sum(dim=dims), (x * x).sum(dim=dims)]), axes)
     mu = sums[0] / count
     return mu, torch.clamp_min(sums[1] / count - mu * mu, 0.0)
 
@@ -282,15 +322,16 @@ def batch_stats(x: torch.Tensor, dims: Tuple[int, ...],
 def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                mean: torch.Tensor, var: torch.Tensor, *, training: bool,
                momentum: float = BN_MOMENTUM, eps: float = BN_EPSILON,
-               axis_name: Optional[str] = None):
+               axis_name: Optional[str] = None, height: Optional[int] = None):
     """Flax `nn.BatchNorm` over NCHW x; returns (y, new mean, new var).
 
     Train mode normalizes by the batch statistics (`batch_stats`: the global
-    batch's under an active mesh) and returns the running statistics moved
+    batch's under an active mesh; `height` x's global height under a spatial
+    one) and returns the running statistics moved
     toward them (Flax's `mutable=["batch_stats"]`); eval mode normalizes by
     `mean` / `var`, returns them unchanged and issues no collective."""
     if training:
-        mu, batch_var = batch_stats(x, (0, 2, 3), axis_name)
+        mu, batch_var = batch_stats(x, (0, 2, 3), axis_name, height)
         new_mean = momentum * mean + (1.0 - momentum) * mu.detach()
         new_var = momentum * var + (1.0 - momentum) * batch_var.detach()
     else:
@@ -384,14 +425,15 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, training: bool = False,
+                height: Optional[int] = None) -> torch.Tensor:
         cd = self.compute_dtype
         if cd is not None:
             x = x.to(torch.float32)
         y, new_mean, new_var = batch_norm(
             x, self.weight, self.bias, self.running_mean, self.running_var,
             training=training, momentum=self.momentum, eps=self.eps,
-            axis_name=self.axis_name)
+            axis_name=self.axis_name, height=height)
         if training and not recomputing():
             with torch.no_grad():
                 self.running_mean.copy_(new_mean)
@@ -440,8 +482,13 @@ class SqueezeExcite(nn.Module):
         self.reduce = Conv2d(channels, se_filters, 1, init="fan_out_normal")
         self.expand = Conv2d(se_filters, channels, 1, init="fan_out_normal")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        pooled = torch.mean(x, dim=(2, 3), keepdim=True)
+    def forward(self, x: torch.Tensor, height: Optional[int] = None) -> torch.Tensor:
+        if spatial.sharded(height):  # the mean over the spatial group's rows
+            pooled = parallel.all_reduce_sum(
+                x.sum(dim=(2, 3), keepdim=True), parallel.SPATIAL_AXIS
+            ) / (height * x.shape[3])
+        else:
+            pooled = torch.mean(x, dim=(2, 3), keepdim=True)
         s = activation(self.reduce(pooled), self.act_type)
         return torch.sigmoid(self.expand(s)) * x
 
@@ -469,6 +516,14 @@ class MBConvBlock(nn.Module):
 
     In training (`training=True`) every block runs `_forward_unfused`: the
     fused op computes frozen BatchNorm and has no weight gradient.
+
+    `height` (forward, positional after `generator`): x's global height
+    under a spatial mesh. A fused block on a row-sharded level runs the op on
+    x extended by k // 2 rows from each neighbour (none at the image's
+    edges), then crops the k // 2 output rows at each interior cut: those
+    rows alone read the kernel's zero padding at the extended edges. The op's
+    backward gives the extended rows' dx, which `spatial.rows` sends back to
+    their owners.
     """
 
     def __init__(self, args: BlockArgs, spec: BackboneSpec, in_channels: int):
@@ -522,29 +577,39 @@ class MBConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, training: bool = False,
                 survival_prob: Optional[float] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                height: Optional[int] = None) -> torch.Tensor:
         if training:
-            return self._forward_unfused(x, training, survival_prob, generator)
+            return self._forward_unfused(x, training, survival_prob, generator,
+                                         height)
         if not self.fuseable or getattr(_UNFUSED, "active", False):
-            return self._forward_unfused(x)
-        y = mbconv_ops.mbconv(mbconv_ops.nhwc(x.permute(0, 2, 3, 1)),
-                              self.folded(x.dtype), act_type=self.act_type,
-                              residual=self.residual)
-        return y.permute(0, 3, 1, 2)
+            return self._forward_unfused(x, False, None, None, height)
+        fb = self.folded(x.dtype)
+        kw = dict(act_type=self.act_type, residual=self.residual)
+        xs = x.permute(0, 2, 3, 1)
+        if not spatial.sharded(height):
+            return mbconv_ops.mbconv(mbconv_ops.nhwc(xs), fb, **kw).permute(0, 3, 1, 2)
+        sp, halo, rows = spatial.active(), self.args.kernel_size // 2, xs.shape[1]
+        spans = [(max(j * rows - halo, 0), min((j + 1) * rows + halo, height))
+                 for j in range(sp.size)]
+        xe = spatial.rows(xs, [a for a, _ in spans], [b for _, b in spans], dim=1)
+        y = mbconv_ops.mbconv(xe, fb, **kw)
+        return y.narrow(1, sp.index * rows - spans[sp.index][0], rows).permute(0, 3, 1, 2)
 
     def _forward_unfused(self, x: torch.Tensor, training: bool = False,
                          survival_prob: Optional[float] = None,
-                         generator: Optional[torch.Generator] = None
-                         ) -> torch.Tensor:
+                         generator: Optional[torch.Generator] = None,
+                         height: Optional[int] = None) -> torch.Tensor:
         inputs = x
+        h_out = out_height(height, self.args.strides[0])
         if self.args.expand_ratio != 1:
-            x = activation(self.bn0(self.expand_conv(x), training),
+            x = activation(self.bn0(self.expand_conv(x, height), training, height),
                            self.act_type)
-        x = activation(self.bn1(self.depthwise_conv(x), training),
+        x = activation(self.bn1(self.depthwise_conv(x, height), training, h_out),
                        self.act_type)
         if self.se is not None:
-            x = self.se(x)
-        x = self.bn2(self.project_conv(x), training)
+            x = self.se(x, h_out)
+        x = self.bn2(self.project_conv(x, h_out), training, h_out)
         if self.residual:
             if training and survival_prob:
                 if generator is None:  # Flax: no "dropout" rng
@@ -561,7 +626,9 @@ class EfficientNet(nn.Module):
     `dtype`: the compute dtype (None: float32; torch.bfloat16 as the JAX
     `EfficientNet(..., dtype)`); the endpoints come in it. `training` as
     Flax's argument: train-mode BatchNorm, every block unfused, and
-    drop-connect from `generator` where `spec.survival_prob` is set."""
+    drop-connect from `generator` where `spec.survival_prob` is set.
+    `height`: x's global height under a spatial mesh (see the module
+    notes)."""
 
     def __init__(self, spec: BackboneSpec, in_channels: int = 3,
                  dtype: Optional[torch.dtype] = None):
@@ -583,10 +650,12 @@ class EfficientNet(nn.Module):
         set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor, training: bool = False,
-                generator: Optional[torch.Generator] = None
-                ) -> List[torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                height: Optional[int] = None) -> List[torch.Tensor]:
         spec = self.spec
-        x = activation(self.stem_bn(self.stem_conv(x), training), spec.act_type)
+        x = self.stem_conv(x, height)
+        height = out_height(height, self.stem_conv.stride[0])
+        x = activation(self.stem_bn(x, training, height), spec.act_type)
         endpoints = []
         n_blocks = len(spec.blocks)
         for idx in range(n_blocks):
@@ -594,7 +663,8 @@ class EfficientNet(nn.Module):
             if spec.survival_prob:  # efficientnet.py:289-292
                 survival_prob = 1.0 - (1.0 - spec.survival_prob) * float(idx) / n_blocks
             x = getattr(self, f"blocks_{idx}")(x, training, survival_prob,
-                                               generator)
+                                               generator, height)
+            height = out_height(height, spec.blocks[idx].strides[0])
             if idx in self._reductions:
                 endpoints.append(x)
         return endpoints  # [reduction_1 .. reduction_5]

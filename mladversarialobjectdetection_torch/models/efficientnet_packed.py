@@ -300,10 +300,10 @@ class PackedEntryEfficientNet(EfficientNet):
         return x, stays_packed
 
     def forward(self, x: torch.Tensor, training: bool = False,
-                generator: Optional[torch.Generator] = None
-                ) -> List[torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                height: Optional[int] = None) -> List[torch.Tensor]:
         if self.packed_blocks <= 0:
-            return super().forward(x, training, generator)
+            return super().forward(x, training, generator, height)
         if x.shape[2] % 4 or x.shape[3] % 4:
             raise ValueError(f"the packed entry needs image H and W divisible "
                              f"by 4, got {tuple(x.shape[2:])}")

@@ -16,6 +16,7 @@ compute dtype (a bf16 pyramid is promoted, as `jnp.concatenate` does).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional, Sequence
 
@@ -45,15 +46,17 @@ class _SharedConv(nn.Module):
             self.conv = Conv2d(in_channels, features, 3, init="normal_0.01",
                                bias_value=bias_value)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, height: Optional[int] = None) -> torch.Tensor:
+        """`height`: x's global height under a spatial mesh (`Conv2d`)."""
         if self.separable:
-            return self.pw(self.dw(x))
-        return self.conv(x)
+            return self.pw(self.dw(x, height))
+        return self.conv(x, height)
 
 
 class PredictionNet(nn.Module):
     """Shared-conv / per-level-BN head body + prediction layer (heads.py:48-90),
-    in the compute dtype `dtype` (`efficientnet.set_compute_dtype`)."""
+    in the compute dtype `dtype` (`efficientnet.set_compute_dtype`).
+    `heights` (forward): each level's global height under a spatial mesh."""
 
     def __init__(self, output_features: int, num_filters: int,
                  num_levels: int, repeats: int = 4, act_type: str = "swish",
@@ -77,23 +80,24 @@ class PredictionNet(nn.Module):
                 self.add_module(f"bn_{i}_l{level_id}", BatchNorm(num_filters))
         set_compute_dtype(self, dtype)
 
-    def forward(self, inputs: Sequence[torch.Tensor],
-                training: bool = False) -> List[torch.Tensor]:
+    def forward(self, inputs: Sequence[torch.Tensor], training: bool = False,
+                heights: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
         outputs = []
         for level_id in range(self.num_levels):
             x = inputs[level_id]
+            h = None if heights is None else heights[level_id]
             for i in range(self.repeats):
                 original = x
-                conv = getattr(self, f"conv_{i}")
+                conv = functools.partial(getattr(self, f"conv_{i}"), height=h)
                 if self.grad_checkpoint and torch.is_grad_enabled():
                     x = checkpointed(conv, x)
                 else:
                     x = conv(x)
-                x = getattr(self, f"bn_{i}_l{level_id}")(x, training)
+                x = getattr(self, f"bn_{i}_l{level_id}")(x, training, h)
                 x = activation(x, self.act_type)
                 if i > 0 and self.survival_prob:
                     x = x + original  # no drop-connect, as heads.py:86-88
-            outputs.append(self.predict(x))
+            outputs.append(self.predict(x, h))
         return outputs
 
 

@@ -61,6 +61,7 @@ from torch import nn
 
 from .. import parallel
 from ..ops.cmconv import cmconv
+from ..parallel import spatial
 from .efficientnet import BN_MOMENTUM, Conv2d, checkpointed, set_compute_dtype
 from .efficientnet import BatchNorm as _BatchNorm
 from .efficientnet import _recompute, batch_norm, recomputing  # noqa: F401
@@ -289,7 +290,10 @@ class PatchNeutralizer(nn.Module):
         """[B, H, W, 3] -> update [B, H, W, 3] in (-1, 1), float32; H, W
         divisible by 16.
 
-        `generator` draws the dropout masks in train mode."""
+        `generator` draws the dropout masks in train mode. Under a spatial
+        mesh it raises (ROADMAP Queue 1 item 10)."""
+        if spatial.active() is not None:
+            raise NotImplementedError(parallel.SPATIAL_NOT_PORTED)
         x = images.permute(0, 3, 1, 2).contiguous()
         if self.dtype is not None:
             x = x.to(self.dtype)

@@ -47,8 +47,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import parallel
 from ..ops.cmconv import cmconv
 from ..ops.cmconv_cuda import MAX_CHANNELS as CMCONV_MAX_CHANNELS
+from ..parallel import spatial
 from .efficientnet import Conv2d, batch_stats, set_compute_dtype
 from .unet import (BN_MOMENTUM, HE_INIT, LECUN_INIT, BatchNorm, ConvBlock,
                    ConvTranspose, DeconvBlock, dropout, leaky_relu, recomputing)
@@ -341,7 +343,10 @@ class PackedPatchNeutralizer(nn.Module):
     def forward(self, images: torch.Tensor, training: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """[B, H, W, 3] -> update [B, H, W, 3] in (-1, 1), float32; H, W
-        divisible by 16. `generator` draws the dropout masks in train mode."""
+        divisible by 16. `generator` draws the dropout masks in train mode.
+        Under a spatial mesh it raises (ROADMAP Queue 1 item 10)."""
+        if spatial.active() is not None:
+            raise NotImplementedError(parallel.SPATIAL_NOT_PORTED)
         pl = self.packed_levels
         f = images.permute(0, 3, 1, 2).contiguous()
         if self.dtype is not None:

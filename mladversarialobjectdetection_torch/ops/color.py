@@ -50,28 +50,42 @@ def _rescale_back(img: torch.Tensor) -> torch.Tensor:
     return img * (255.0 / 127.0) - 1.0
 
 
-def brightness_match(src: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
-    """Shift `src`'s Y-channel mean to `tgt`'s, per image ([..., H, W, 3])."""
+def brightness_match(src: torch.Tensor, tgt: torch.Tensor,
+                     group_sum=None) -> torch.Tensor:
+    """Shift `src`'s Y-channel mean to `tgt`'s, per image ([..., H, W, 3]).
+    `group_sum` (a tensor's sum over the ranks that hold the other rows of
+    `tgt`, equal shards) makes the mean the whole image's."""
     src_yuv = rgb_to_yuv(_rescale_0_1(src))
     tgt_yuv = rgb_to_yuv(_rescale_0_1(tgt))
     y = src_yuv[..., 0]
-    shift = (torch.mean(tgt_yuv[..., 0], dim=(-2, -1), keepdim=True)
-             - torch.mean(y, dim=(-2, -1), keepdim=True))
+    tgt_y = tgt_yuv[..., 0]
+    if group_sum is None:
+        tgt_mean = torch.mean(tgt_y, dim=(-2, -1), keepdim=True)
+    else:
+        n = group_sum(torch.ones((), dtype=tgt_y.dtype, device=tgt_y.device))
+        tgt_mean = group_sum(torch.sum(tgt_y, dim=(-2, -1), keepdim=True)) / (
+            n * tgt_y.shape[-2] * tgt_y.shape[-1])
+    shift = tgt_mean - torch.mean(y, dim=(-2, -1), keepdim=True)
     y = torch.clamp(y + shift, 0.0, 1.0)
     out = torch.stack([y, src_yuv[..., 1], src_yuv[..., 2]], dim=-1)
     return _rescale_back(torch.clamp(yuv_to_rgb(out), 0.0, 1.0))
 
 
-def _equalize_histogram(y: torch.Tensor) -> torch.Tensor:
-    """256-bin CDF of one Y channel in [0, 1], binned as `jnp.histogram`."""
+def _equalize_histogram(y: torch.Tensor, group_sum=None) -> torch.Tensor:
+    """256-bin CDF of one Y channel in [0, 1], binned as `jnp.histogram`
+    (`group_sum`: the counts summed with the other rows' ranks)."""
     y = torch.clamp(y, 0.0, 1.0).reshape(-1)
     edges = torch.linspace(0.0, 1.0, 257, dtype=y.dtype, device=y.device)
     idx = torch.searchsorted(edges, y, right=True)
     idx = torch.where(y == edges[-1], edges.numel() - 1, idx)
     hist = torch.zeros(edges.numel(), dtype=torch.int64, device=y.device)
     hist = hist.index_add(0, idx, torch.ones_like(idx))[1:]
+    numel = y.numel()
+    if group_sum is not None:
+        hist = group_sum(hist)
+        numel = int(hist.sum())
     cdf = torch.cumsum(hist, 0)
-    return (cdf - cdf.min()).to(torch.float32) / float(y.numel() - 1)
+    return (cdf - cdf.min()).to(torch.float32) / float(numel - 1)
 
 
 def _interp(dx: torch.Tensor, dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -86,7 +100,8 @@ def _interp(dx: torch.Tensor, dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor
     return torch.where(x >= dx[-1], dy[-1], vals)
 
 
-def _histogram_match_one(src: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+def _histogram_match_one(src: torch.Tensor, tgt: torch.Tensor,
+                         group_sum=None) -> torch.Tensor:
     src_yuv = rgb_to_yuv(_rescale_0_1(src))
     tgt_yuv = rgb_to_yuv(_rescale_0_1(tgt))
     y_src = src_yuv[..., 0]
@@ -94,18 +109,20 @@ def _histogram_match_one(src: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
     floating = torch.from_numpy(np.clip(np.arange(
         0.0, 1.00001, 1.0 / 255.0, dtype=np.float32), 0.0, 1.0)).to(src.device)
     cdf_src = _equalize_histogram(y_src)
-    cdf_tgt = _equalize_histogram(tgt_yuv[..., 0])
+    cdf_tgt = _equalize_histogram(tgt_yuv[..., 0], group_sum)
     pxmap = _interp(cdf_tgt, floating, cdf_src)
     pxmap = _interp(floating, pxmap, y_src.reshape(-1).contiguous()).reshape(h, w)
     out = torch.stack([pxmap, src_yuv[..., 1], src_yuv[..., 2]], dim=-1)
     return _rescale_back(torch.clamp(yuv_to_rgb(out), 0.0, 1.0))
 
 
-def histogram_match(src: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
-    """Full histogram specification on the Y channel, per image."""
+def histogram_match(src: torch.Tensor, tgt: torch.Tensor,
+                    group_sum=None) -> torch.Tensor:
+    """Full histogram specification on the Y channel, per image
+    (`group_sum` as in `brightness_match`: the whole image's histogram)."""
     if src.dim() == 3:
-        return _histogram_match_one(src, tgt)
-    return torch.stack([histogram_match(s, t) for s, t in zip(src, tgt)])
+        return _histogram_match_one(src, tgt, group_sum)
+    return torch.stack([histogram_match(s, t, group_sum) for s, t in zip(src, tgt)])
 
 
 def random_print_adjust(patch: torch.Tensor, generator: torch.Generator | None

@@ -25,6 +25,13 @@ Randomness comes from an explicit `torch.Generator`, or is passed in as
 `EOTDraws`: torch cannot reproduce JAX's threefry draws, so the parity tests
 feed the JAX package's draws in. Which slots are live is read to the host
 once per call (`_live_windows`); slots dead in the whole batch cost nothing.
+
+Under a spatial mesh (`apply_patches(height=)`, `parallel/spatial.py`) the
+images are this rank's rows: the geometry, the draws and the warp of every
+window are the data shard's, alike on each rank of a spatial group; each
+rank composites into its own rows (a window's rows offset by the shard's
+first row, the rows outside it dropped), and the brightness and histogram
+matches read the whole image's Y channel through sums over the group.
 """
 from __future__ import annotations
 
@@ -32,8 +39,10 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import parallel
+from ..parallel import spatial
 from ..utils.device import resolve_device
 from . import color
 from .preprocess import linear_resize_matrix
@@ -392,7 +401,8 @@ def _window_noise(live: LiveWindows, window: int, noise_mag: float,
 def _composite_matmul_batch(images: torch.Tensor, canvases: torch.Tensor,
                             geom: PatchGeometry, *, noise_mag: float,
                             brightness_mag: float, window: int,
-                            generator: torch.Generator | None = None
+                            generator: torch.Generator | None = None,
+                            rows_of: Tuple[int, int] | None = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Windowed composite of every live slot over a batch (eot.py:298-387).
 
@@ -400,14 +410,17 @@ def _composite_matmul_batch(images: torch.Tensor, canvases: torch.Tensor,
     live windows are warped at once; then slot by slot, each window is
     pasted where the patch covers it (slot k + 1 over slot k), with fresh
     sensor noise per window and a brightness shift per (image, slot).
-    Returns (patched images, region masks [B, H, W] bool)."""
+    `rows_of` (first row, global height): images are those rows of taller
+    images, and each window writes only its rows among them. Returns
+    (patched images, region masks [B, H, W] bool)."""
     b, h_img, w_img, _ = images.shape
     k = geom.ymin.shape[1]
     dev = images.device
     bright = _uniform_rows((b, k), -brightness_mag, brightness_mag, generator,
                            dev)
     region_any = torch.zeros((b, h_img, w_img), dtype=torch.bool, device=dev)
-    live = _live_windows(geom, h_img, w_img, window)
+    live = _live_windows(geom, h_img if rows_of is None else rows_of[1], w_img,
+                         window)
     noise = _window_noise(live, window, noise_mag, generator, dev)
     n = live.image.numel()
     if n == 0:
@@ -426,6 +439,12 @@ def _composite_matmul_batch(images: torch.Tensor, canvases: torch.Tensor,
     rows = win_geom[:, 0].long()[:, None] + ar                   # [N, w]
     cols = win_geom[:, 1].long()[:, None] + ar
     out = images
+    if rows_of is not None:
+        # a row outside this shard goes to one of two scratch rows around
+        # it (written in any order, then dropped)
+        rows = torch.clamp(rows - rows_of[0], -1, h_img) + 1
+        out = F.pad(images, (0, 0, 0, 0, 1, 1))
+        region_any = F.pad(region_any, (0, 0, 1, 1))
     bounds = torch.searchsorted(live.slot, torch.unique(live.slot),
                                 right=True).tolist()
     start = 0
@@ -436,6 +455,8 @@ def _composite_matmul_batch(images: torch.Tensor, canvases: torch.Tensor,
         out = out.index_put(at, new)
         region_any = region_any.index_put(at, region_any[at] | region[start:end])
         start = end
+    if rows_of is not None:
+        out, region_any = out[:, 1:-1], region_any[:, 1:-1]
     return out, region_any
 
 
@@ -513,7 +534,7 @@ def apply_patches(images, boxes, boxes_valid, patch, scale, *,
                   use_histogram_match: bool = False,
                   backend: str = "matmul", window: Optional[int] = None,
                   canvas_res: int = 96, rotation_mag: float = DEG20,
-                  print_jitter: bool = True
+                  print_jitter: bool = True, height: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply the adversarial patch to every valid person box of a batch.
 
@@ -537,6 +558,9 @@ def apply_patches(images, boxes, boxes_valid, patch, scale, *,
       device: "cuda" (the default) or "cpu"; inputs are moved there.
       backend: 'matmul' (the two-pass warp) or 'gather'.
       window, canvas_res, rotation_mag, print_jitter: as in the JAX package.
+      height: the images' global height. Under a spatial mesh that
+        row-shards it, images holds this rank's rows and the result too (the
+        matmul backend only).
 
     Returns:
       (patched images [B, H, W, 3], region masks [B, H, W] bool).
@@ -549,6 +573,15 @@ def apply_patches(images, boxes, boxes_valid, patch, scale, *,
     boxes_valid = torch.as_tensor(boxes_valid, dtype=torch.bool).to(dev)
     b = images.shape[0]
     img_hw = (images.shape[1], images.shape[2])
+    rows_of, group_sum = None, None
+    if spatial.sharded(height):
+        if backend != "matmul":
+            raise ValueError("the gather backend draws per image: not under "
+                             "a spatial mesh")
+        sp = spatial.active()
+        img_hw = (height, images.shape[2])
+        rows_of = (sp.index * images.shape[1], height)
+        group_sum = lambda t: parallel.reduce_sum(t, parallel.SPATIAL_AXIS)
     window = min(window or default_window(img_hw), img_hw[0], img_hw[1])
     max_region = None if backend == "gather" else float(window)
 
@@ -569,7 +602,7 @@ def apply_patches(images, boxes, boxes_valid, patch, scale, *,
     else:
         printed = torch.clamp(0.5 * src, -1.0, 1.0)
     match = color.histogram_match if use_histogram_match else color.brightness_match
-    canvases = match(printed, images)
+    canvases = match(printed, images, group_sum)
     geom = make_patch_geometry(
         boxes, boxes_valid, scale, img_hw, tolerance=tolerance,
         min_patch_area=min_patch_area, random_scale_range=random_scale_range,
@@ -584,7 +617,7 @@ def apply_patches(images, boxes, boxes_valid, patch, scale, *,
         return _composite_matmul_batch(
             images, downsample_canvas(canvases, p0), geom,
             noise_mag=noise_mag, brightness_mag=brightness_mag,
-            window=window, generator=generator)
+            window=window, generator=generator, rows_of=rows_of)
     outs = [_composite_gather(images[i], canvases[i],
                               PatchGeometry(*(f[i] for f in geom)),
                               noise_mag=noise_mag,

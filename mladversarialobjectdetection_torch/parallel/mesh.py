@@ -21,10 +21,16 @@ their meaning, with these differences from JAX's single controller:
   device; `shard_batch_local` puts a rank's own rows on its device;
   `replicate` broadcasts from rank 0; `is_main_process` is rank 0;
   `local_batch_size` divides by the world size, with JAX's error.
-- **`spatial > 1`** (each image's rows over a 'spatial' axis) is not ported:
-  `make_train_mesh` keeps JAX's divisibility errors and then raises
-  `NotImplementedError`, and so does `make_serve_mesh` with `n_spatial > 1`
-  (ROADMAP Queue 1 item 9).
+- **`spatial > 1`**: `make_train_mesh` (after JAX's divisibility errors)
+  and `make_serve_mesh` return a ('data', 'spatial') mesh laid out
+  data-major, the ranks of one image's rows adjacent, as JAX's. Each image's
+  rows are split over the 'spatial' axis (`parallel/spatial.py`: the layout
+  rule, the halo exchange and the gradient rule); `shard_batch*` routes a
+  4-D image leaf whose height the axis divides by batch over the data axes
+  and by rows over 'spatial', every other leaf by batch. The defender, the
+  segmentation head, `packed_entry` and the int8 serve under such a mesh
+  raise `NotImplementedError` (`check_no_spatial`, ROADMAP Queue 1 item
+  10).
 
 The steps find the mesh through `use_mesh(mesh)` (JAX: the mesh of the
 arrays' shardings). Under an active mesh with a process group, every batch a
@@ -55,7 +61,9 @@ DATA_AXIS = "data"
 DCN_AXIS = "dcn"
 SPATIAL_AXIS = "spatial"
 SPATIAL_NOT_PORTED = ("spatial partitioning (a 'spatial' mesh axis larger "
-                      "than 1) is not ported yet (ROADMAP Queue 1 item 9)")
+                      "than 1) is not ported yet for the defender, the "
+                      "segmentation head, packed_entry and the int8 serve "
+                      "(ROADMAP Queue 1 item 10)")
 INIT_TIMEOUT_S = 600.0
 
 
@@ -252,8 +260,8 @@ def make_mesh_for_batch(batch_size: int, axis_name: str = DATA_AXIS, *,
 def make_train_mesh(batch_size: int, spatial: int = 1,
                     image_h: Optional[int] = None, *, device=None) -> Mesh:
     """The train drivers' mesh: data-parallel (`make_mesh_for_batch`). With
-    `spatial > 1`, JAX's divisibility checks, then `NotImplementedError`
-    (ROADMAP Queue 1 item 9)."""
+    `spatial > 1`, JAX's divisibility checks, then the ('data', 'spatial')
+    mesh of `make_serve_mesh`, whose 'spatial' axis row-shards the images."""
     if spatial <= 1:
         return make_mesh_for_batch(batch_size, device=device)
     n_dev = world_size()
@@ -274,21 +282,22 @@ def make_train_mesh(batch_size: int, spatial: int = 1,
 def make_serve_mesh(n_data: int, n_spatial: int,
                     devices: Optional[Sequence[int]] = None, *,
                     device=None) -> Mesh:
-    """2-D ('data', 'spatial') mesh; `n_spatial > 1` raises
-    `NotImplementedError` (ROADMAP Queue 1 item 9)."""
+    """2-D ('data', 'spatial') mesh, laid out data-major (the `n_spatial`
+    ranks of one image's rows adjacent); the batch shards over 'data', each
+    image's rows over 'spatial'. The model's input height must divide by
+    `n_spatial` (`Detector` checks)."""
     devices = _ranks(devices)
     need = n_data * n_spatial
     if len(devices) < need:
         raise ValueError(f"serve mesh ({n_data}, {n_spatial}) needs {need} "
                          f"devices, have {len(devices)}")
-    if n_spatial > 1:
-        raise NotImplementedError(SPATIAL_NOT_PORTED)
     return Mesh(np.asarray(devices[:need]).reshape(n_data, n_spatial),
                 (DATA_AXIS, SPATIAL_AXIS), device)
 
 
 def check_no_spatial(mesh: Mesh) -> None:
-    """Raise on a mesh whose 'spatial' axis is larger than 1."""
+    """Raise on a mesh whose 'spatial' axis is larger than 1: the paths not
+    ported under one (ROADMAP Queue 1 item 10)."""
     if mesh.shape.get(SPATIAL_AXIS, 1) > 1:
         raise NotImplementedError(SPATIAL_NOT_PORTED)
 
@@ -351,10 +360,10 @@ def shard_batch(mesh: Mesh, batch, axis_name: Optional[str] = None):
     tree of them), on the mesh's device: the rows `shard_batch` of the JAX
     package puts on this rank's device, split over every data axis (or over
     `axis_name`), process-major."""
-    check_no_spatial(mesh)
     axes = batch_sharding(mesh, axis_name).spec[0]
     n = mesh.axis_size(axes)
     i = mesh.axis_index(axes)
+    image_rows = _image_rows(mesh, axis_name)
 
     def put(x):
         b = x.shape[0]
@@ -362,17 +371,36 @@ def shard_batch(mesh: Mesh, batch, axis_name: Optional[str] = None):
             raise ValueError(f"a batch of {b} rows does not split over the "
                              f"{n} shards of mesh axes {axes}")
         rows = b // n
-        return _to_device(x[i * rows:(i + 1) * rows], mesh.device)
+        return _to_device(image_rows(x[i * rows:(i + 1) * rows]), mesh.device)
 
     return _tree_map(put, batch)
 
 
+def _image_rows(mesh: Mesh, axis_name: Optional[str]) -> Callable:
+    """x -> this rank's rows of x where `shard_batch` splits them over
+    'spatial' (a 4-D leaf whose height the axis divides, JAX mesh.py:
+    189-204), x itself otherwise."""
+    n_sp = mesh.shape.get(SPATIAL_AXIS, 1)
+    if axis_name is not None or n_sp <= 1:
+        return lambda x: x
+    j = mesh.axis_index(SPATIAL_AXIS)
+
+    def take(x):
+        if getattr(x, "ndim", 0) == 4 and x.shape[1] % n_sp == 0:
+            h = x.shape[1] // n_sp
+            return x[:, j * h:(j + 1) * h]
+        return x
+
+    return take
+
+
 def shard_batch_local(mesh: Mesh, local_batch, axis_name: Optional[str] = None):
-    """Multi-process input: this rank's own rows (each process loads
-    `local_batch_size(global)` examples), put on the mesh's device."""
-    check_no_spatial(mesh)
-    del axis_name  # the rows are this rank's already
-    return _tree_map(lambda x: _to_device(x, mesh.device), local_batch)
+    """Multi-process input: this rank's own examples (each process loads
+    its data shard's `data_shard(mesh)` examples; the ranks of one spatial
+    group load the same), put on the mesh's device, a 4-D image leaf cut to
+    this rank's rows as `shard_batch` cuts it."""
+    image_rows = _image_rows(mesh, axis_name)
+    return _tree_map(lambda x: _to_device(image_rows(x), mesh.device), local_batch)
 
 
 def shard_batch_auto(mesh: Mesh, batch, axis_name: Optional[str] = None):
@@ -386,6 +414,19 @@ def shard_batch_auto(mesh: Mesh, batch, axis_name: Optional[str] = None):
 def is_main_process() -> bool:
     """True on the rank that writes shared files (rank 0)."""
     return process_index() == 0
+
+
+def data_shard(mesh: Mesh, global_batch: int) -> Tuple[int, int]:
+    """(examples a rank loads, the index of its data shard) of a global
+    batch on `mesh`: the batch over the data axes, so the ranks of one
+    spatial group load the same examples (each keeps its rows of them).
+    On a mesh of data axes alone: (`local_batch_size`, the rank)."""
+    axes = data_axis_names(mesh)
+    n = mesh.axis_size(axes)
+    if global_batch % n != 0:
+        raise ValueError(f"global batch {global_batch} not divisible by "
+                         f"{n} data shards")
+    return global_batch // n, mesh.axis_index(axes)
 
 
 def local_batch_size(global_batch: int) -> int:
@@ -432,8 +473,6 @@ _ACTIVE: list = []  # a stack; process-wide, since autograd's backward
 @contextlib.contextmanager
 def use_mesh(mesh: Optional[Mesh]):
     """Make `mesh` the one the steps inside reduce over (None: none)."""
-    if mesh is not None:
-        check_no_spatial(mesh)
     _ACTIVE.append(mesh)
     try:
         yield mesh
@@ -453,26 +492,32 @@ class DataGroup(NamedTuple):
     index: int
 
 
-def data_group(axes=None) -> Optional[DataGroup]:
-    """The active mesh's group along `axes` (default: its data axes), or
-    None where there is nothing to reduce over (no active mesh, or no
-    process group). Naming an axis that is not a data axis raises."""
+def axis_group(axes=None) -> Optional[DataGroup]:
+    """The active mesh's group along `axes` (any of its axes; default: its
+    data axes), or None where there is nothing to reduce over (no active
+    mesh, or no process group)."""
     mesh = current_mesh()
     if mesh is None:
         if axes is not None:
             raise ValueError(f"axis {axes!r} names no axis: no mesh is active "
                              "(parallel.use_mesh)")
         return None
-    names = data_axis_names(mesh)
-    if axes is None:
-        axes = names
-    elif not set((axes,) if isinstance(axes, str) else axes) <= set(names):
-        raise ValueError(f"axis {axes!r} is not a data axis of the active "
-                         f"mesh {mesh.axis_names}")
+    axes = data_axis_names(mesh) if axes is None else mesh._axes(axes)
     if not _distributed():
         return None
     return DataGroup(mesh.group(axes), mesh.axis_size(axes),
                      mesh.axis_index(axes))
+
+
+def data_group(axes=None) -> Optional[DataGroup]:
+    """`axis_group` of data axes only (a BatchNorm's `axis_name`): naming
+    an axis that is not a data axis raises."""
+    mesh = current_mesh()
+    if mesh is not None and axes is not None and not set(
+            (axes,) if isinstance(axes, str) else axes) <= set(data_axis_names(mesh)):
+        raise ValueError(f"axis {axes!r} is not a data axis of the active "
+                         f"mesh {mesh.axis_names}")
+    return axis_group(axes)
 
 
 def _transport(t: torch.Tensor, group) -> torch.Tensor:
@@ -511,14 +556,15 @@ class _AllReduceSum(torch.autograd.Function):
 def all_reduce_sum(x: torch.Tensor, axes=None) -> torch.Tensor:
     """The sum of x over the active mesh's data group (or `axes`), with the
     gradient of a sum; x itself where there is no group."""
-    g = data_group(axes)
+    g = axis_group(axes)
     return x if g is None else _AllReduceSum.apply(x, g.group)
 
 
 @torch.no_grad()
 def reduce_sum(x: torch.Tensor, axes=None) -> torch.Tensor:
-    """The sum of x over the data group, without gradient (metrics)."""
-    g = data_group(axes)
+    """The sum of x over the data group (or `axes`), without gradient
+    (metrics)."""
+    g = axis_group(axes)
     return x if g is None else _sum(x.detach(), g.group)
 
 
@@ -568,10 +614,12 @@ def is_first_rank(axes=None) -> bool:
 
 @torch.no_grad()
 def all_reduce_grads(params, axes=None) -> None:
-    """Sum the gradients of `params` over the data group, one flat buffer per
-    dtype and device (a parameter without a gradient gets a zero one, as
-    optax sees it)."""
-    g = data_group(axes)
+    """Sum the gradients of `params` over every axis of the active mesh (or
+    `axes`): data x spatial, each rank's gradient of a replicated parameter
+    being a partial one. One flat buffer per dtype and device (a parameter
+    without a gradient gets a zero one, as optax sees it)."""
+    mesh = current_mesh()
+    g = axis_group(mesh.axis_names if axes is None and mesh is not None else axes)
     if g is None:
         return
     params = [p for p in params if p.requires_grad]

@@ -31,8 +31,12 @@ the TFRecord reader's file shard `(rank, N)` seeded `seed + rank` (the
 synthetic stream `seed + 1000 * rank`), the net from rank 0, the step
 reduced over the ranks (`train/trainer.py`), each rank's COCO evaluation on
 its own validation shard, and only the main process writing checkpoints.
-`spatial > 1` raises `NotImplementedError` before any work (ROADMAP Queue 1
-item 9).
+`spatial > 1` (JAX train.py:84-91) lays the ranks out as a ('data',
+'spatial') mesh whose 'spatial' axis row-shards each image
+(`parallel/spatial.py`): the ranks of one spatial group load the same
+examples (their data shard's: reader shard and seeds by data index) and
+each keeps its rows; the COCO evaluation runs each rank's validation shard
+whole, outside the mesh.
 
 Usage:
     python -m mladversarialobjectdetection_torch.train.train \
@@ -54,6 +58,7 @@ from ..data import pipeline
 from ..data.tfrecord import DetectionTFRecordReader
 from ..ops import postprocess
 from ..utils.coco_metric import COCOEvaluator
+from ..utils.image import parse_image_size
 from ..utils.log import get_logger
 from ..utils.train_loop import MetricLogger, Throughput
 from .trainer import DetectorTrainer, TrainState
@@ -116,8 +121,6 @@ def train(model_name: str = "efficientdet-d0", *,
           prune_end: int | None = None, spatial: int = 1,
           grad_accum: int = 1, pretrained_ckpt: str | None = None,
           finetune_mode: str = "backbone", device=None) -> TrainState:
-    if spatial > 1:  # before any work: JAX row-shards the images there
-        raise NotImplementedError(parallel.SPATIAL_NOT_PORTED)
     config = config_lib.get_efficientdet_config(model_name)
     if image_size is not None:
         config.image_size = image_size
@@ -127,7 +130,8 @@ def train(model_name: str = "efficientdet-d0", *,
         # --hparams (reference tf2/train.py): dict, 'k=v,k=v' or yaml path
         config.update(config_override)
 
-    mesh = parallel.make_train_mesh(batch_size, device=device)
+    mesh = parallel.make_train_mesh(
+        batch_size, spatial, parse_image_size(config.image_size)[0], device=device)
     trainer = DetectorTrainer(config, steps_per_epoch=steps_per_epoch,
                               grad_accum=grad_accum, device=device)
     state = trainer.init_state(seed=seed)
@@ -178,9 +182,9 @@ def train(model_name: str = "efficientdet-d0", *,
                 end_step=(prune_end if prune_end is not None
                           else config.num_epochs * steps_per_epoch)))
 
-    rank, n_proc = parallel.process_index(), parallel.world_size()
-    local_bs = parallel.local_batch_size(batch_size)
-    shard = (rank, n_proc) if n_proc > 1 else None
+    local_bs, rank = parallel.data_shard(mesh, batch_size)
+    n_shards = batch_size // local_bs
+    shard = (rank, n_shards) if n_shards > 1 else None
     if train_pattern:
         reader = DetectionTFRecordReader(
             train_pattern, image_size=config.image_size,
@@ -191,9 +195,8 @@ def train(model_name: str = "efficientdet-d0", *,
     else:
         logger.warning("no --train-pattern: using synthetic batches")
         batches = _synthetic(local_bs, config, seed + 1000 * rank)
-    dev = trainer.device
     batches = pipeline.prefetch(batches, device_put_fn=lambda b: {
-        **b, "images": torch.from_numpy(b["images"]).to(dev)})
+        **b, "images": parallel.shard_batch_local(mesh, b["images"])})
 
     os.makedirs(model_dir, exist_ok=True)
     mlog = MetricLogger(os.path.join(model_dir, "logs"))
@@ -264,8 +267,8 @@ def main(argv=None):
                    help="step at which the sparsity ramp ends "
                         "(default: last training step)")
     p.add_argument("--spatial", type=int, default=1,
-                   help="shard each image's rows over this many cards: not "
-                        "ported yet, > 1 raises (ROADMAP Queue 1 item 9)")
+                   help="shard each image's rows over this many ranks (a "
+                        "('data', 'spatial') mesh)")
     p.add_argument("--grad-accum", type=int, default=1,
                    help="split each step's batch into this many sequential "
                         "microbatches, one mean-gradient update per step "

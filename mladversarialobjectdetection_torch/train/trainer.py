@@ -27,6 +27,14 @@ batch's shape, the losses divide by the global batch's positives, and the
 L2 term of the replicated parameters enters on the first rank only, so the
 ranks' losses sum to the global one; the gradients are summed over the
 ranks before the clip, and the update and the EMA stay replicated.
+
+Spatial partitioning (a ('data', 'spatial') mesh, `parallel/spatial.py`):
+the images are this rank's rows of its data shard's images, the net runs
+row-sharded and gathers its outputs, so the labels, the losses and the
+metrics are the data shard's, alike on each rank of a spatial group. The
+loss enters the backward once in the group (`spatial.count_once`), the
+gradients are summed over data x spatial, and the statistics of row-sharded
+levels over data x spatial too (`efficientnet.batch_stats`).
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ import torch
 
 from .. import parallel
 from ..ckpt import bridge
+from ..parallel import spatial
 from ..models.efficientdet import EfficientDetNet, spec_from_config
 from ..models.init import init_weights
 from ..ops.anchors import Anchors
@@ -121,8 +130,9 @@ class DetectorTrainer:
                    gt_valid) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One supervised step; updates `state` in place and returns it.
 
-        images [B, H, W, 3]; gt_boxes [B, G, 4]; gt_classes [B, G] (0-based
-        model classes); gt_valid [B, G] bool. Metrics: loss, det_loss,
+        images [B, H, W, 3] (under a spatial mesh, this rank's rows);
+        gt_boxes [B, G, 4]; gt_classes [B, G] (0-based model classes);
+        gt_valid [B, G] bool. Metrics: loss, det_loss,
         reg_loss, cls_loss, box_loss (and box_iou_loss), device tensors."""
         images = torch.as_tensor(images).to(self.device)  # the net casts it
         labels = self.labels(gt_boxes, gt_classes, gt_valid)
@@ -139,7 +149,7 @@ class DetectorTrainer:
             rows = slice(i * mb, (i + 1) * mb)
             micro = labeler_lib.AnchorLabels(*(f[rows] for f in labels))
             loss, parts, reg = self._loss(net, images[rows], micro)
-            loss.backward()
+            spatial.count_once(loss).backward()
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
             reg_sum = reg.detach() if reg_sum is None else reg_sum + reg.detach()
             for name, v in parts.items():

@@ -88,11 +88,17 @@ def test_unported_post_modes_raise():
     with pytest.raises(ValueError, match="post_mode"):
         Detector("efficientdet-lite0", params=PARAMS, device="cpu",
                  post_mode="per_anchor")
-    # a mesh is ported (tests/test_torch_parallel.py); a spatial axis is not
+    # a mesh is ported (tests/test_torch_parallel.py), a spatial axis too
+    # (tests/test_torch_spatial.py); under one, the packed entry and the
+    # int8 serve are not
     spatial = parallel.Mesh(np.arange(2).reshape(1, 2), ("data", "spatial"),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        Detector("efficientdet-lite0", params=PARAMS, device="cpu", mesh=spatial)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+        Detector("efficientdet-lite0", params=PARAMS, device="cpu", mesh=spatial,
+                 packed_entry=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+        Detector("efficientdet-lite0", params=PARAMS, device="cpu",
+                 mesh=spatial).quantize_int8([np.zeros((8, 8, 3), np.uint8)])
     # a directory is read as an orbax checkpoint (ported), and refused without
     # orbax's metadata; packed_entry is ported (tests/test_torch_efficientnet_packed.py)
     with pytest.raises(FileNotFoundError, match="_METADATA"):

@@ -9,8 +9,9 @@ What is held:
 - the mesh module: each rank's `shard_batch` rows equal JAX's
   `addressable_shards` for `make_mesh(2)` and for the 2x2 ('dcn', 'data')
   mesh of 4 ranks; `local_batch_size`, `make_mesh_for_batch` and
-  `make_train_mesh` raise where JAX raises, with its messages; `spatial >
-  1` raises citing ROADMAP Queue 1 item 9;
+  `make_train_mesh` raise where JAX raises, with its messages; with
+  `spatial > 1` it and `make_serve_mesh` return the ('data', 'spatial')
+  mesh (its use: tests/test_torch_spatial.py);
 - the attack step at 2 ranks against the port's one-process step on the
   global batch (EOT unpinned: every draw is the global batch's): loss
   within 1e-4 relative, the patch gradient at cosine >= 0.9999 and its norm
@@ -229,10 +230,11 @@ def _steps_worker(rank, tmp):
                "train_mesh_batch": lambda: parallel.make_train_mesh(3, device="cpu"),
                "train_mesh_divide": lambda: parallel.make_train_mesh(4, 3, device="cpu"),
                "train_mesh_height": lambda: parallel.make_train_mesh(
-                   4, 2, image_h=63, device="cpu"),
-               "train_mesh_spatial": lambda: parallel.make_train_mesh(
-                   4, 2, image_h=64, device="cpu"),
-               "serve_mesh_spatial": lambda: parallel.make_serve_mesh(1, 2, device="cpu")})}
+                   4, 2, image_h=63, device="cpu")}),
+           "spatial_meshes": {name: (m.axis_names, m.shape) for name, m in (
+               ("train_mesh_spatial", parallel.make_train_mesh(
+                   4, 2, image_h=64, device="cpu")),
+               ("serve_mesh_spatial", parallel.make_serve_mesh(1, 2, device="cpu")))}}
     with parallel.use_mesh(mesh):
         out["attack"] = attack_step(inp, rows)
         out["attack_jax"] = attack_step(inp, rows, jax_case=True)
@@ -459,9 +461,10 @@ def test_divisibility_errors_are_jax_messages(runs):
         "ValueError", "--spatial 3 must divide the 2 devices")
     assert errors["train_mesh_height"] == (
         "ValueError", "image height 63 must be divisible by --spatial 2")
+    # spatial > 1 is ported: the ('data', 'spatial') mesh, data-major
     for name in ("train_mesh_spatial", "serve_mesh_spatial"):
-        kind, msg = errors[name]
-        assert kind == "NotImplementedError" and "ROADMAP Queue 1 item 9" in msg
+        axes, shape = runs["ranks"][0]["spatial_meshes"][name]
+        assert axes == ("data", "spatial") and shape == {"data": 1, "spatial": 2}
 
 
 def test_in_process_mesh_rules():
