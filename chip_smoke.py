@@ -24,7 +24,13 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    and every bf16 forward output within the roundings the bf16 function
    allows (`ops/mbconv.rounding_bound`: an e, d or output rounded the other
    way only where its float32 value lies within the sums' float32 error of a
-   bf16 boundary);
+   bf16 boundary); the bf16 forward there is the template's instance
+   (`mbconv_fwd_bf16_instance`); then the Hopper bf16 forward
+   (`csrc/mbconv_fwd_sm90.cu`, `check_sm90`) on the odd shapes its rule
+   takes (the others must run the instance), on lite4's 7 fused shapes at
+   b1, b8 and b24 and on their heights under phase 25's split: within
+   MBCONV_BF16_FWD_TOL, every output within the roundings, two launches
+   bit-equal, counted on it and not on the instance;
 2. NMS kernel vs plain: the NMS kernel against its plain PyTorch version on
    the card, at B=8, N=1024, M=100 (hard and gaussian) and on edge cases
    (NaN scores, an early exit after a few valid winners, the all-valid
@@ -49,8 +55,10 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    `serve_pipelined` with a partial last batch (host and device
    preprocessing), each against `serve` of the same batches;
 3b. bf16 serve: `Detector(params={"mixed_precision": True})` at b1 / b8:
-   25 launches of the bf16 forward instance per serve and none of the
-   float32 one, NMS once per serve, the outputs checked and timed;
+   25 bf16 forward launches per serve, all on the Hopper kernel (none on the
+   bf16 instance, none of the float32 one), NMS once per serve, the outputs
+   checked and timed; the b8 serve with device preprocessing also with
+   every bf16 forward on the bf16 instance, in turns (`sm90_ab`);
 4. warp kernels vs plain: the four EOT warp kernels (two forward passes and
    both transposes) against their plain versions on the card, on the
    lite4 window, on edge cases, on an image with 16 windows beside images
@@ -89,15 +97,18 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
 5b. bf16 attack step: phase 5's step with `config.mixed_precision` (the JAX
    driver's default and bench.py's attack workload: bf16 victim, float32
    patch, EOT composite, warp and loss): each warp kernel and NMS once a
-   step, 50 bf16 forward and 25 bf16 dx launches a step and no float32
-   MBConv launch; loss and patch checked; timed, profiled, peak memory;
+   step, 50 bf16 forward (all on the Hopper kernel) and 25 bf16 dx launches
+   a step and no float32 MBConv launch; loss and patch checked; timed,
+   profiled, peak memory; timed again with the bf16 forward on the bf16
+   instance, in turns (`sm90_ab`);
    then phase 5a's check on it (the fused bf16 victim against the unfused
    bf16 one, BF16_VICTIM_TOL, BF16_VICTIM_GRAD_COS and BF16_VICTIM_COS) and
    phase 6a's on the bf16 instances at the bf16 step's own inputs (with
    1a's rounding bound; bounds with the products at the bf16 rate; beside
-   cuDNN's unfused bf16 block);
+   cuDNN's unfused bf16 block; the Hopper forward in turns with the bf16
+   instance);
 7b. driver with its defaults (bf16): `attack.train.train` for 3 steps at
-   batch 12; only bf16 MBConv launches;
+   batch 12; only bf16 MBConv launches, every forward on the Hopper kernel;
 8. cmconv kernels vs plain: both instances of the channel-major 3x3 conv
    (`simt` and the 3xTF32 `tc`) against the plain version at every shape of
    the defender's path at full size (batch 24 at 640x640 and 320x320,
@@ -127,7 +138,7 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    step gave them, against their plain versions;
 9b. bf16 defender step: phase 9's step with `config.mixed_precision`
    (bf16 victim and U-Net): 15 bf16 cmconv launches a step and no float32
-   one, 25 bf16 fused MBConv forward and no dx, NMS and the two forward
+   one, 25 bf16 fused MBConv forward (on the Hopper kernel) and no dx, NMS and the two forward
    warp passes once; loss and metrics checked; timed, profiled, peak memory
    beside the fp32 step's; its `eval_step` and `recover` checked and timed;
 11, bf16: the bf16 instance on the 15 inputs the bf16 step gave it,
@@ -224,11 +235,12 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    21b: `train.evaluate_map` on the victim over 4 batches of 24 held-out
    `ScenePool` scenes (their own seed), NMS and the evaluation at score
    .0099 (the 12-step victim scores about .01): per batch 25 bf16 fused MBConv
-   forward and 1 NMS launches; AP, AP50, AP75 and the other 9 metrics within
+   forward (on the Hopper kernel) and 1 NMS launches; AP, AP50, AP75 and the other 9 metrics within
    EVAL_AP_TOL of the same evaluation with the plain versions of both ops
    on the card; AP and
    ms a batch; the NMS kernel and the 25 bf16 forward launches timed at an
-   eval batch's inputs beside their bounds and plain versions;
+   eval batch's inputs beside their bounds and plain versions (the forward
+   also beside the bf16 instance);
    21c: `segmentation.train` (heads ("segmentation",), batch 8, 3 steps):
    a finite loss and logits [8, 160, 160, 3]; p50 step ms, peak memory;
    21d: `grad_checkpoint` at the trainer's operating point
@@ -310,14 +322,17 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    launch;
    25d: `attack.train.train(spatial=2)` for 2 steps in bf16 (score threshold
    .0099: live slots), every warp kernel, NMS and the bf16 fused kernels
-   launched, the ranks' patches bit-equal; the ranks' peak memory and step
+   launched (every forward on the Hopper kernel), the ranks' patches
+   bit-equal; the ranks' peak memory and step
    times (gloo stages the exchanges through the host: no rate of spatial
    partitioning);
 13. card: the `nvidia-smi` name and power limit, and one JSON line with each
    kernel's launches, error, times and bound (cmconv's also with its
    ablation, the instance the plan did not pick, and its bound at 3xTF32;
-   cmconv's bf16 instance, and the fused MBConv's float32 and bf16
-   instances, each a row; NMS, cmconv and the fused forward also with phase
+   cmconv's bf16 instance, the fused MBConv's float32 and bf16 instances
+   and the Hopper bf16 forward (`mbconv_fwd_bf16_sm90`, the bf16 forward's
+   main path; the instance's forward row then has 0 launches on it and the
+   instance's times in turns with it), each a row; NMS, cmconv and the fused forward also with phase
    20's launches per frame, and NMS and cmconv with their times there; NMS
    and the bf16 fused forward also with phase 21b's launches per
    `evaluate_map` batch and their times at its inputs; NMS, the warp
@@ -789,7 +804,7 @@ def kernel_name(mangled: str) -> str:
 
 # libraries on the main path: a spill in their kernels fails phase 1
 MAIN_PATH_LIBS = ("nms", "warp", "cmconv", "cmconv_bf16", "cmconv_tc", "mbconv",
-                  "mbconv_dx", "mbconv_bf16", "mbconv_bf16_dx")
+                  "mbconv_dx", "mbconv_bf16", "mbconv_bf16_dx", "mbconv_fwd_sm90")
 
 
 def print_ptxas(libs) -> None:
@@ -1212,7 +1227,7 @@ def mbconv_case(dev, b, h, w, c, e, co, k, seed):
     return r(b, h, w, c), fb
 
 
-def check_mbconv(name, x, g, fb, act_type, residual):
+def check_mbconv(name, x, g, fb, act_type, residual, fwd=None):
     """Both fused MBConv kernels against the plain versions on the same CUDA
     tensors, each launched twice bit-equal, in x's dtype (float32, or bf16
     with a bf16 fold and the MBCONV_BF16_* tolerances; there every forward
@@ -1221,16 +1236,19 @@ def check_mbconv(name, x, g, fb, act_type, residual):
     dx fed the masks the kernel's masks instance wrote, and every mask that
     differs from the plain version's must lie within the kink tolerance of
     its kink. Returns (fwd error, dx error, (z0 flips, z1 flips, worst flip
-    distance of scale), the forward's `RoundingBound` or None)."""
+    distance of scale), the forward's `RoundingBound` or None). `fwd` is
+    the forward's wrapper, `mbconv_fwd_cuda` by default (bf16: the Hopper
+    kernel where its rule takes the shape)."""
     import torch
     from mladversarialobjectdetection_torch.ops import mbconv, mbconv_cuda
+    fwd = fwd or mbconv_cuda.mbconv_fwd_cuda
 
     bf16 = x.dtype == torch.bfloat16
     fwd_tol, dx_tol, kink_tol = ((MBCONV_BF16_FWD_TOL, MBCONV_BF16_DX_TOL,
                                   MBCONV_BF16_KINK_TOL) if bf16 else
                                  (MBCONV_FWD_TOL, MBCONV_DX_TOL, MBCONV_KINK_TOL))
     kw = dict(act_type=act_type, residual=residual)
-    y = mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw)
+    y = fwd(x, fb, **kw)
     dx = mbconv_cuda.mbconv_dx_cuda(x, g, fb, **kw)
     plain_y = mbconv.mbconv_plain(x, fb, **kw)
     rounding = mbconv.rounding_bound(y, x, fb, **kw) if bf16 else None
@@ -1259,7 +1277,7 @@ def check_mbconv(name, x, g, fb, act_type, residual):
     for what, err, limit in zip(("fwd", "dx"), errs, limits):
         if not err <= limit:
             fail(f"mbconv {what} {name}: kernel and plain differ by {err} > {limit}")
-    if not (torch.equal(mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw), y)
+    if not (torch.equal(fwd(x, fb, **kw), y)
             and torch.equal(mbconv_cuda.mbconv_dx_cuda(x, g, fb, **kw), dx)):
         fail(f"mbconv {name}: two launches differ")
     return errs + (flips, rounding)
@@ -1305,6 +1323,48 @@ def mbconv_bound(x_shape, e: int, co: int, k: int, residual: bool, dx: bool,
     tc_ms = (pixels * products / TC3_FLOP_PER_S + pixels * rest / FP32_FLOP_PER_S) * 1e3
     return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
             nbytes, ops, max(bytes_ms, tc_ms), ops_ms)
+
+
+# the heights of lite4@640's 7 fused block shapes (`ops/mbconv_sweep.LITE4_FUSED`:
+# H, W, C, E, Co, k, residual) on a rank of phase 25's two-way spatial split
+# (each shard plus one halo of k // 2 rows)
+LITE4_SPATIAL = [(81, 160, 32, 192, 32, 3, True), (42, 80, 56, 336, 56, 5, True),
+                 (21, 40, 112, 672, 112, 3, True), (22, 40, 160, 960, 160, 5, True),
+                 (11, 20, 272, 1632, 272, 5, True), (12, 20, 272, 1632, 448, 3, False)]
+
+
+def check_sm90(name, x, fb, act_type, residual):
+    """The Hopper bf16 forward (`csrc/mbconv_fwd_sm90.cu`) against the bf16
+    plain version on the same CUDA tensors: within MBCONV_BF16_FWD_TOL of
+    max(1, max|plain|), every output within `ops/mbconv.rounding_bound`, two
+    launches bit-equal, both counted on the Hopper kernel and none on the
+    bf16 instance. Returns (largest absolute error, RoundingBound, plan)."""
+    import torch
+    from mladversarialobjectdetection_torch.ops import mbconv, mbconv_cuda
+
+    kw = dict(act_type=act_type, residual=residual)
+    b, h, w, c = x.shape
+    e, co = fb.wp.shape
+    plan = mbconv_cuda.plan_fwd_sm90(h, w, c, e, co, fb.wd.shape[0], b)
+    if plan is None:
+        fail(f"mbconv sm90 {name}: the Hopper kernel's rule refuses the shape")
+    before = dict(mbconv_cuda.BF16_FWD_LAUNCHES)
+    y = mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw)
+    again = mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw)
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in mbconv_cuda.BF16_FWD_LAUNCHES.items()}
+    if got != {"sm90": 2, "instance": 0}:
+        fail(f"mbconv sm90 {name}: launches by kernel {got}")
+    if not torch.equal(y, again):
+        fail(f"mbconv sm90 {name}: two launches differ")
+    ref = mbconv.mbconv_plain(x, fb, **kw).float()
+    err = float((y.float() - ref).abs().max())
+    limit = MBCONV_BF16_FWD_TOL * max(1.0, float(ref.abs().max()))
+    rb = mbconv.rounding_bound(y, x, fb, **kw)
+    if not err <= limit or rb.outside:
+        fail(f"mbconv sm90 {name}: {err:.3g} from plain (limit {limit:.3g}), "
+             f"{rb.outside} outputs beyond the roundings ({rb})")
+    return err, rb, plan
 
 
 def same_detections(name, a, b, exact_scores: bool = True) -> float:
@@ -1504,6 +1564,13 @@ def mbconv_step_numbers(label, atk, cap, mb_errs):
                       lambda: mbconv_cuda.mbconv_dx_simt(x, g, fb, **kw))}
         times, simt_err = {}, {}
         for kind, (kern_fn, simt_fn) in fns.items():
+            if bf16 and kind == "fwd":
+                # the Hopper kernel and the template's bf16 instance, in turns
+                inst_fn = lambda: mbconv_cuda.mbconv_fwd_bf16_instance(x, fb, **kw)
+                t = [cuda_ms(kern_fn, iters=5), cuda_ms(inst_fn, iters=5),
+                     cuda_ms(inst_fn, iters=5), cuda_ms(kern_fn, iters=5)]
+                times[kind] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
+                continue
             if bf16:
                 times[kind] = (cuda_ms(kern_fn, iters=5), float("nan"))
                 continue
@@ -1538,10 +1605,16 @@ def mbconv_step_numbers(label, atk, cap, mb_errs):
             tot["ops_ms"] += ops_ms
             tot["unfused_ms"] += unf_ms
             p = plans[kind]
-            simt = ("" if bf16 else f", SIMT ablation {simt_ms:.4f} (off the kernel by "
+            simt = ((f", bf16 instance {simt_ms:.4f}" if kind == "fwd" else "") if bf16 else
+                    f", SIMT ablation {simt_ms:.4f} (off the kernel by "
                     f"{simt_err[kind]:.3g} of scale)")
-            line.append(f"{kind} kernel {kern_ms:.4f} ms (plan {p.th}x{p.tw} npw {p.npw} "
-                        f"split {p.split} slice {p.n_per_slice}){simt}, plain "
+            if bf16 and kind == "fwd":
+                p = mbconv_cuda.plan_fwd_sm90(h_, w_, c_, e, co, k, b_)
+                plan_s = (f"sm90 {p.th}x{p.tw} ec {p.ec} {p.minb} a SM wn {p.wn} "
+                          f"split {p.split}")
+            else:
+                plan_s = f"{p.th}x{p.tw} npw {p.npw} split {p.split} slice {p.n_per_slice}"
+            line.append(f"{kind} kernel {kern_ms:.4f} ms (plan {plan_s}){simt}, plain "
                         f"{plain_ms:.4f}, unfused "
                         f"{'fwd+dx ' if kind == 'dx' else ''}{unf_ms:.4f} (kernel / "
                         f"unfused {kern_ms / unf_ms:.3f}), bound {bound_ms:.6f} "
@@ -1557,6 +1630,12 @@ def mbconv_step_numbers(label, atk, cap, mb_errs):
                  f"roundings" if bf16 else ""))
     for kind, tot in mb_tot.items():
         tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
+        if bf16 and kind == "fwd":
+            tot["instance_ms"] = tot.pop("simt_ms")
+            print(f"  mbconv bf16 fwd per pass: the Hopper kernel {tot['ms']:.4f} ms against "
+                  f"the template's bf16 instance {tot['instance_ms']:.4f} ms in turns "
+                  f"({tot['instance_ms'] / tot['ms']:.2f}x), bound {tot['bound_ms']:.6f} ms "
+                  f"({tot['bound_ms'] / tot['ms']:.1%} of the kernel)")
         rates = ("bf16 products at 989 TFLOP/s, the rest at 67 TFLOP/s" if bf16 else
                  f"fp32, {tot['bound_ms'] / tot['ms']:.1%} of it; 3xTF32 bound "
                  f"{tot['bound_tc_ms']:.6f} ms, {tot['bound_tc_ms'] / tot['ms']:.1%}")
@@ -1588,6 +1667,50 @@ def check_fused_route(label, launches, route, fwd, dx, passes):
     if len(route.calls) != passes * UNFUSED_PER_PASS or any(route.calls):
         fail(f"{label}: {len(route.calls)} blocks ran unfused "
              f"({sum(route.calls)} of them fuseable) in {passes} passes")
+
+
+def sm90_route(label: str, bf16_fwd: int) -> dict:
+    """Fail unless the run since the last count reset sent its bf16_fwd bf16
+    fused forward launches to the Hopper kernel (`csrc/mbconv_fwd_sm90.cu`)
+    and none to the template's bf16 instance (every lite4 shape is one the
+    Hopper kernel takes). Returns the counts."""
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
+    got = dict(mbconv_cuda.BF16_FWD_LAUNCHES)
+    if got != {"sm90": bf16_fwd, "instance": 0}:
+        fail(f"{label}: bf16 fused forward launches by kernel {got}, want {bf16_fwd} of "
+             f"the Hopper kernel and none of the bf16 instance")
+    return got
+
+
+class InstanceRoute:
+    """In its block every bf16 fused forward runs the template's bf16
+    instance (`mbconv_bf16.cu`): the Hopper kernel's rule takes no shape.
+    The ablation that `sm90_ab` times in turns with the main path."""
+
+    def __enter__(self):
+        from mladversarialobjectdetection_torch.ops import mbconv_cuda
+        self.mod, self.orig = mbconv_cuda, mbconv_cuda.plan_fwd_sm90
+        mbconv_cuda.plan_fwd_sm90 = lambda *args, **kwargs: None
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.plan_fwd_sm90 = self.orig
+
+
+def sm90_ab(label: str, fn, iters: int = 5) -> tuple:
+    """The host p50 ms of fn (ending in a synchronize) with its bf16 fused
+    forwards on the Hopper kernel and on the bf16 instance, in turns
+    (Hopper, instance, instance, Hopper); printed and returned as (Hopper
+    ms, instance ms)."""
+    t = []
+    for on_instance in (False, True, True, False):
+        with InstanceRoute() if on_instance else contextlib.nullcontext():
+            t.append(host_p50_ms(fn, iters=iters, warmup=1))
+    new, old = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    print(f"  {label}: {new:.3f} ms with the Hopper bf16 forward, {old:.3f} ms with the "
+          f"bf16 instance (p50s in turns {[round(v, 3) for v in t]}): {old - new:.3f} ms, "
+          f"{old / new:.3f}x")
+    return new, old
 
 
 class InMemorySource:
@@ -2455,6 +2578,7 @@ def evaluate_map_phase(dev, vpath: str) -> dict:
     want.update(nms=EVAL_BATCHES, mbconv_fwd_bf16=EVAL_BATCHES * MBCONV_PER_PASS)
     if counts != want:
         fail(f"phase 21b: evaluate_map launched {counts}, want {want}")
+    sm90_route("phase 21b", EVAL_BATCHES * MBCONV_PER_PASS)
     with PlainNMS(), PlainMBConv():
         plain = sup.evaluate_map(tr, st, batches(), EVAL_BATCHES, score_thresh=DEFEND_THRESH)
     if path_counts() != want:
@@ -2467,7 +2591,7 @@ def evaluate_map_phase(dev, vpath: str) -> dict:
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by, nms_err = nms_numbers(
         boxes, scores, nkw, "evaluate_map per_class")
     fwd = cap.args["mbconv_fwd_cuda"][-MBCONV_PER_PASS:]
-    mb = dict.fromkeys(("ms", "plain_ms", "bytes_ms", "ops_ms"), 0.0)
+    mb = dict.fromkeys(("ms", "plain_ms", "bytes_ms", "ops_ms", "instance_ms"), 0.0)
     mb_err = 0.0
     with torch.no_grad():
         for (x, fb), kw in fwd:
@@ -2477,6 +2601,8 @@ def evaluate_map_phase(dev, vpath: str) -> dict:
             mb_err = max(mb_err, float((kern.float() - ref.float()).abs().max())
                          / max(1.0, float(ref.float().abs().max())))
             mb["ms"] += cuda_ms(lambda: mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw), iters=10)
+            mb["instance_ms"] += cuda_ms(
+                lambda: mbconv_cuda.mbconv_fwd_bf16_instance(x, fb, **kw), iters=5)
             mb["plain_ms"] += cuda_ms(lambda: mbconv.mbconv_plain(x, fb, **kw), iters=2,
                                       warmup=1)
             _, _, nbytes, _, _, ops_ms = mbconv_bound(
@@ -2500,14 +2626,18 @@ def evaluate_map_phase(dev, vpath: str) -> dict:
           f"limit {EVAL_AP_TOL}); "
           f"at the last batch's inputs: NMS {nms_ms:.4f} ms (bound {nms_bound_ms:.6f} ms, "
           f"{nms_bound_by}; plain {nms_plain_ms:.4f} ms), the 25 bf16 forward launches "
-          f"{mb['ms']:.4f} ms (bound {mb['bound_ms']:.6f} ms, {mb['bound_by']}; plain "
-          f"{mb['plain_ms']:.4f} ms), max error {mb_err:.3g} of scale")
+          f"{mb['ms']:.4f} ms on the Hopper kernel (bound {mb['bound_ms']:.6f} ms, "
+          f"{mb['bound_by']}; plain {mb['plain_ms']:.4f} ms; the template's bf16 instance "
+          f"{mb['instance_ms']:.4f} ms), max error {mb_err:.3g} of scale")
+    eval_ab = sm90_ab("evaluate_map, one batch",
+                      lambda: sup.evaluate_map(tr, st, batches(), 1,
+                                               score_thresh=DEFEND_THRESH))
     del tr, st, pool, cap, fwd
     torch.cuda.empty_cache()
     return {"launches_per_batch": {"nms": 1, "mbconv_fwd_bf16": MBCONV_PER_PASS},
             "ms_per_batch": 1e3 * eval_s / EVAL_BATCHES, "AP": res["AP"],
             "nms_ms": nms_ms, "nms_bound_ms": nms_bound_ms, "nms_err": nms_err,
-            "mbconv": mb, "mbconv_err": mb_err}
+            "mbconv": mb, "mbconv_err": mb_err, "sm90_ab_ms": eval_ab}
 
 
 def segmentation_phase(dev, work: str) -> None:
@@ -3848,8 +3978,10 @@ def sp_rank(rank: int, work: str, device: str = "cuda") -> None:
                save_dir=os.path.join(work, f"sdriver{rank}"),
                config_override={"nms_configs": {"score_thresh": DEFEND_THRESH}})
     torch.cuda.synchronize()
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
     out["driver"] = {"patch": st.patch.detach().cpu(), "scale": float(st.scale.detach()),
-                     "s": time.perf_counter() - t0, "counts": path_counts()}
+                     "s": time.perf_counter() - t0, "counts": path_counts(),
+                     "sm90": dict(mbconv_cuda.BF16_FWD_LAUNCHES)}
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     torch.save(out, os.path.join(work, f"s{rank}.pt"))
 
@@ -3964,6 +4096,10 @@ def spatial_phase(dev, work: str, rank_fn=sp_rank) -> dict:
     launched_every("phase 25d", d0["counts"], ("pass1_fwd", "pass2_fwd", "pass2_bwd",
                                                "pass1_bwd", "nms", "mbconv_fwd_bf16",
                                                "mbconv_dx_bf16"))
+    for r in (d0, d1):
+        if r["sm90"] != {"sm90": r["counts"]["mbconv_fwd_bf16"], "instance": 0}:
+            fail(f"phase 25d: a rank's bf16 fused forward launches by kernel {r['sm90']}, "
+                 f"want all {r['counts']['mbconv_fwd_bf16']} on the Hopper kernel")
     print(f"phase 25d attack.train.train(spatial=2) at 2 ranks (b{DRIVER_BATCH}, bf16, "
           f"score threshold {DEFEND_THRESH}, 2 steps and 5 val batches): the ranks' "
           f"patches bit-equal, launches a rank "
@@ -3974,7 +4110,9 @@ def spatial_phase(dev, work: str, rank_fn=sp_rank) -> dict:
           f"statistic through the host, and the two ranks share one card: these times "
           f"are no rate of spatial partitioning")
     return {**{k: a0["counts"][k] for k in (*WARP_KERNELS, "nms")}, **a0["mbconv"],
-            **{f"{k}_driver": d0["counts"][k] for k in ("mbconv_fwd_bf16", "mbconv_dx_bf16")}}
+            **{f"{k}_driver": d0["counts"][k] for k in ("mbconv_fwd_bf16", "mbconv_dx_bf16")},
+            "mbconv_fwd_sm90_driver": d0["sm90"]["sm90"],
+            "mbconv_fwd_instance_driver": d0["sm90"]["instance"]}
 
 
 def main() -> int:
@@ -4045,7 +4183,8 @@ def main() -> int:
         g = torch.randn((b, h, w, co), device=dev,
                         generator=torch.Generator(dev).manual_seed(i))
         errs = check_mbconv(f"bf16 {name}", x.bfloat16(), g.bfloat16(),
-                            fb.in_dtype(torch.bfloat16), act, res)
+                            fb.in_dtype(torch.bfloat16), act, res,
+                            fwd=mbconv_cuda.mbconv_fwd_bf16_instance)
         mb16_errs = {"fwd": max(mb16_errs["fwd"], errs[0]),
                      "dx": max(mb16_errs["dx"], errs[1])}
         pf = mbconv_cuda.plan_fwd(h, w, c, e, co, k, b, dtype=torch.bfloat16)
@@ -4061,6 +4200,37 @@ def main() -> int:
     print(f"phase 1a mbconv bf16 instances vs bf16 plain: {len(MBCONV_ODD)} shapes, "
           f"max errors {mb16_errs} (limits {MBCONV_BF16_FWD_TOL} and "
           f"{MBCONV_BF16_DX_TOL} of scale)")
+    # and the Hopper bf16 forward: the odd shapes its rule takes (the others
+    # must go to the instance), lite4's 7 fused shapes at b1, b8 and b24 and
+    # their heights under phase 25's spatial split
+    sm90_err, n_sm90, n_odd = 0.0, 0, 0
+    cases = [(f"odd {m[0]}", *m[1:]) for m in MBCONV_ODD]
+    from mladversarialobjectdetection_torch.ops.mbconv_sweep import LITE4_FUSED
+    cases += [(f"lite4 b{b} {s[0]}x{s[1]} C{s[2]} E{s[3]} Co{s[4]} k{s[5]}", b, *s, "relu6")
+              for b in (1, 8, 24) for s in LITE4_FUSED]
+    cases += [(f"spatial b2 {s[0]}x{s[1]} C{s[2]} k{s[5]}", 2, *s, "relu6") for s in LITE4_SPATIAL]
+    for i, (name, b, h, w, c, e, co, k, res, act) in enumerate(cases):
+        x, fb = mbconv_case(dev, b, h, w, c, e, co, k, seed=40 + i)
+        x, fb = x.bfloat16(), fb.in_dtype(torch.bfloat16)
+        if not mbconv_cuda.sm90_supported(h, w, c, e, co, k, b):
+            if not name.startswith("odd"):
+                fail(f"phase 1a: the Hopper kernel's rule refuses lite4's shape {name}")
+            before = dict(mbconv_cuda.BF16_FWD_LAUNCHES)
+            mbconv_cuda.mbconv_fwd_cuda(x, fb, act_type=act, residual=res)
+            if dict(mbconv_cuda.BF16_FWD_LAUNCHES) != dict(before, instance=before["instance"] + 1):
+                fail(f"phase 1a: {name} outside the Hopper kernel's rule did not run the instance")
+            n_odd += 1
+            print(f"  mbconv sm90 {name}: outside the rule (C {c}, E {e}, Co {co}), ran the "
+                  f"bf16 instance")
+            continue
+        err, rb, p = check_sm90(name, x, fb, act, res)
+        sm90_err, n_sm90 = max(sm90_err, err), n_sm90 + 1
+        print(f"  mbconv sm90 {name}: error {err:.3g}, outputs off plain {rb.flips}, "
+              f"none beyond the roundings; plan {p.th}x{p.tw} ec {p.ec} {p.minb} a SM "
+              f"wn {p.wn} split {p.split}, {p.blocks} blocks, {p.smem} B shared")
+    print(f"phase 1a mbconv sm90 (csrc/mbconv_fwd_sm90.cu) vs bf16 plain: {n_sm90} shapes, "
+          f"max error {sm90_err:.3g} (limit {MBCONV_BF16_FWD_TOL} of scale), every output "
+          f"within the roundings, two launches bit-equal; {n_odd} odd shapes on the instance")
     del x, g, fb
 
     # phase 2: kernel vs plain on the card
@@ -4265,6 +4435,7 @@ def main() -> int:
                       len(batches) * MBCONV_PER_PASS, 0, passes=len(batches))
     if serve_dtypes["bfloat16"]["mbconv_fwd"] != len(batches) * MBCONV_PER_PASS:
         fail(f"bf16 serve ran a float32 instance: {serve_dtypes}")
+    serve_sm90 = sm90_route("bf16 serve", len(batches) * MBCONV_PER_PASS)
     for b, res in bresults.items():
         if res.boxes.shape != (b, m, 4) or not all(
                 np.all(np.isfinite(getattr(res, f))) for f in res._fields) or not (
@@ -4277,6 +4448,8 @@ def main() -> int:
               f"device_preprocess=True {dms:.3f} ms/batch; valid_len "
               f"{bresults[b].valid_len.tolist()} (fp32 {results[b].valid_len.tolist()})")
     profile_device(lambda: bdet.serve(frames, device_preprocess=True), "bf16 serve b8")
+    serve_ab = sm90_ab("bf16 serve b8 (device preprocessing)",
+                       lambda: bdet.serve(frames, device_preprocess=True), iters=10)
     print(f"phase 3b bf16 serve: fused MBConv launches per dtype in {len(batches)} "
           f"serve calls {serve_dtypes}, NMS once per serve")
     del bdet, bresults
@@ -4504,6 +4677,7 @@ def main() -> int:
             "float32": {"mbconv_fwd": 0, "mbconv_dx": 0}}
     if bf16_mb != want:
         fail(f"bf16 attack step: fused MBConv launches per dtype {bf16_mb}, want {want}")
+    attack_sm90 = sm90_route("bf16 attack step", 2 * MBCONV_PER_PASS * ATTACK_STEPS)
     bpatch = bstate.patch.detach()
     if bpatch.dtype != torch.float32 or not np.isfinite(float(bm.loss)) or \
             not bool(torch.isfinite(bpatch).all()):
@@ -4519,6 +4693,7 @@ def main() -> int:
           f"({ATTACK_BATCH * 1e3 / bstep_ms:.2f} images/s; fp32 in phase 5 "
           f"{step_ms:.3f} ms)")
     profile_device(bstep, f"bf16 attack step b{ATTACK_BATCH}", top=10)
+    attack_ab = sm90_ab(f"bf16 attack step b{ATTACK_BATCH}", bstep)
 
     # phase 5a, bf16: the fused bf16 victim against the unfused bf16 one
     # (cuDNN's bf16 convs), which rounds after each conv, BN and activation
@@ -4537,7 +4712,9 @@ def main() -> int:
         bstep()
     torch.cuda.synchronize()
     torch.set_grad_enabled(False)
-    mb16_tot, mb16_errs = mbconv_step_numbers("phase 6a bf16", batk, cap, mb16_errs)
+    inst16_err = mb16_errs["fwd"]  # phase 1a's, on the odd shapes
+    mb16_tot, mb16_errs = mbconv_step_numbers("phase 6a bf16", batk, cap,
+                                              {"fwd": sm90_err, "dx": mb16_errs["dx"]})
     torch.set_grad_enabled(True)
     del cap, batk, bstate, bimages, bpatch, patch0, bstep, bm, boverride
     torch.cuda.empty_cache()
@@ -4564,6 +4741,7 @@ def main() -> int:
                 or per_dtype["bfloat16"]["mbconv_fwd"] < 3 * 2 * MBCONV_PER_PASS
                 or warp_cuda.LAUNCHES["pass1_bwd"] != 3):
             fail(f"bf16 driver: launches {per_dtype}, warp {warp_cuda.LAUNCHES}")
+        sm90_route("bf16 driver", per_dtype["bfloat16"]["mbconv_fwd"])
     print(f"phase 7b driver with its defaults (bf16): train(efficientdet-lite4, batch "
           f"12, 3 steps) in {bdriver_s:.2f} s, fused MBConv launches per dtype "
           f"{per_dtype}, warp {warp_cuda.LAUNCHES}, artifacts {dirs}")
@@ -4843,6 +5021,7 @@ def main() -> int:
             or bd_mb["bfloat16"]["mbconv_fwd"] != MBCONV_PER_PASS * DEFEND_STEPS
             or bd_mb["bfloat16"]["mbconv_dx"]):
         fail(f"bf16 defender steps: fused MBConv launches per dtype {bd_mb}")
+    sm90_route("bf16 defender step", MBCONV_PER_PASS * DEFEND_STEPS)
     if not warp_cuda.WINDOWS:
         fail("bf16 defender: the masker planted no patch")
     if not (np.isfinite(float(bdm.loss)) and 0 < float(bdm.mean_clean_score) < 1):
@@ -4861,6 +5040,7 @@ def main() -> int:
           f"({DEFEND_BATCH * 1e3 / bdstep_ms:.2f} images/s; fp32 {dstep_ms:.3f} ms in "
           f"phase 9)")
     profile_device(bdstep, f"bf16 defender step b{DEFEND_BATCH}", top=10)
+    defend_ab = sm90_ab(f"bf16 defender step b{DEFEND_BATCH}", bdstep)
     cmconv_cuda.reset_counts()
     nms_cuda.LAUNCHES = 0
     bem = bdfd.eval_step(bdstate, dimages, 1)
@@ -5420,23 +5600,45 @@ def main() -> int:
             "spatial_step_launches_per_rank": spatial[f"mbconv_{kind}"],
             **({"demo_launches_per_frame": demo["launches_per_frame"]["mbconv_fwd"]}
                if kind == "fwd" else {})})
+    tot = mb16_tot["fwd"]  # the Hopper bf16 forward, per pass of the bf16 step
+    kernels.append({
+        "name": "mbconv_fwd_bf16_sm90", "route": "cuda",
+        "source": "mladversarialobjectdetection_torch/csrc/mbconv_fwd_sm90.cu",
+        "replaces": MBCONV_REPLACES["fwd"], "launches": attack_sm90["sm90"],
+        "max_abs_err": mb16_errs["fwd"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"], "library_ms": None,
+        "unfused_ms": tot["unfused_ms"], "instance_ms": tot["instance_ms"],
+        "serve_launches": serve_sm90["sm90"],
+        "spatial_driver_launches_per_rank": spatial["mbconv_fwd_sm90_driver"],
+        "eval_launches_per_batch": sup_eval["launches_per_batch"]["mbconv_fwd_bf16"],
+        "eval_ms": sup_eval["mbconv"]["ms"], "eval_instance_ms": sup_eval["mbconv"]["instance_ms"],
+        "eval_bound_ms": sup_eval["mbconv"]["bound_ms"],
+        "eval_plain_ms": sup_eval["mbconv"]["plain_ms"],
+        "eval_max_abs_err": sup_eval["mbconv_err"],
+        # host p50 ms (Hopper forward, bf16 instance), in turns in one call
+        "ab_serve_b8_ms": serve_ab, "ab_attack_step_ms": attack_ab,
+        "ab_defender_step_ms": defend_ab, "ab_eval_batch_ms": sup_eval["sm90_ab_ms"]})
     for kind in ("fwd", "dx"):  # the bf16 instances, per pass of the bf16 step
         tot = mb16_tot[kind]
+        # the forward's instance is off lite4's path (0 launches there): its
+        # time is the ablation's, in turns with the Hopper kernel
         kernels.append({
             "name": f"mbconv_{kind}_bf16", "route": "cuda",
             "source": ("mladversarialobjectdetection_torch/csrc/mbconv_bf16.cu" if kind == "fwd"
                        else "mladversarialobjectdetection_torch/csrc/mbconv_bf16_dx.cu"),
             "replaces": MBCONV_REPLACES[kind],
-            "launches": bf16_mb["bfloat16"][f"mbconv_{kind}"],
-            "max_abs_err": mb16_errs[kind], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "launches": (attack_sm90["instance"] if kind == "fwd"
+                         else bf16_mb["bfloat16"]["mbconv_dx"]),
+            "max_abs_err": inst16_err if kind == "fwd" else mb16_errs["dx"],
+            "ms": tot["instance_ms"] if kind == "fwd" else tot["ms"],
+            "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"], "library_ms": None,
             "unfused_ms": tot["unfused_ms"],
-            "spatial_driver_launches_per_rank": spatial[f"mbconv_{kind}_bf16_driver"],
-            **({"eval_launches_per_batch": sup_eval["launches_per_batch"]["mbconv_fwd_bf16"],
-                "eval_ms": sup_eval["mbconv"]["ms"],
-                "eval_bound_ms": sup_eval["mbconv"]["bound_ms"],
-                "eval_plain_ms": sup_eval["mbconv"]["plain_ms"],
-                "eval_max_abs_err": sup_eval["mbconv_err"]} if kind == "fwd" else {})})
+            "spatial_driver_launches_per_rank": (
+                spatial["mbconv_fwd_instance_driver"] if kind == "fwd"
+                else spatial["mbconv_dx_bf16_driver"]),
+            **({"on_lite4_path": False, "eval_instance_ms": sup_eval["mbconv"]["instance_ms"]}
+               if kind == "fwd" else {})})
     c8, c8b = q8["numbers_fp32"], q8["numbers_bf16"]
     kernels.append({
         "name": "conv_int8", "route": "cuda",

@@ -29,6 +29,20 @@ instance.
 products as SIMT FMAs instead of 3xTF32 tensor-core products, the same
 plan); the main path never calls them, and they count in
 `ABLATION_LAUNCHES`.
+
+The bf16 forward has a kernel of its own written for Hopper,
+`csrc/mbconv_fwd_sm90.cu` (x staged once; each chunk's weights packed once
+per fold, `sm90_pack`, and streamed through an mbarrier ring, one TMA bulk
+copy a slot; a register-windowed depthwise; two blocks a SM where they
+fit). `mbconv_fwd_cuda` takes it for every bf16 input whose shape
+`sm90_supported` accepts (C, E
+and Co multiples of 8, k 3 or 5, and a `plan_fwd_sm90` that fits the
+budgets), and the template's bf16 instance (`mbconv_bf16.cu`) for every
+other bf16 shape: the choice is by shape alone, and neither is a fallback
+for the other. `BF16_FWD_LAUNCHES` counts the bf16 forward launches by
+kernel ("sm90", "instance"), beside `LAUNCHES` and `DTYPE_LAUNCHES`, which
+count both. `mbconv_fwd_bf16_instance` runs the instance on any bf16 shape:
+the ablation timed beside the new kernel, which the main path never calls.
 """
 from __future__ import annotations
 
@@ -46,6 +60,7 @@ DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}  # the instances
 ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
 DTYPE_LAUNCHES = {d: {"mbconv_fwd": 0, "mbconv_dx": 0} for d in DTYPES.values()}
 ABLATION_LAUNCHES = {"mbconv_fwd": 0, "mbconv_dx": 0}
+BF16_FWD_LAUNCHES = {"sm90": 0, "instance": 0}  # bf16 forward op calls, by kernel
 ACT_CODES = {"relu6": 0, "relu": 1, "swish": 2, "silu": 2, "swish_native": 2}
 assert set(ACT_CODES) == set(SUPPORTED_ACTS)
 
@@ -96,7 +111,7 @@ class Plan(NamedTuple):
 
 def reset_counts() -> None:
     """Set the launch counts (main path, per dtype and ablation) to 0."""
-    for counts in (LAUNCHES, ABLATION_LAUNCHES, *DTYPE_LAUNCHES.values()):
+    for counts in (LAUNCHES, ABLATION_LAUNCHES, BF16_FWD_LAUNCHES, *DTYPE_LAUNCHES.values()):
         for name in counts:
             counts[name] = 0
 
@@ -260,6 +275,176 @@ def plan_dx(H: int, W: int, C: int, E: int, Co: int, k: int, batch: int = 1,
     return _plan("dx", H, W, C, E, Co, k, batch, masks, _itemsize(dtype))
 
 
+# csrc/mbconv_fwd_sm90.cu: its instances, (TH, TW, EC, MPW, NPW, STAGES,
+# MINB) of MLAD_SM90_CONFIGS: the output tile, E per chunk, each warp's
+# share of the project's sum in m-tiles (16 pixels) by n-tiles (8
+# channels), the slots of the ring, and the blocks an SM holds (2: at most
+# 128 registers and SM90_MAX_SMEM2 bytes a block)
+SM90_CONFIGS = ((16, 16, 32, 2, 4, 3, 2), (16, 8, 32, 1, 7, 3, 2), (8, 8, 32, 4, 3, 2, 2),
+                (8, 8, 64, 4, 3, 2, 1), (8, 8, 32, 4, 7, 2, 1))
+SM90_WARPS = 8            # a block's 256 threads
+SM90_MAX_SMEM2 = 115712   # each of two blocks on an SM: 228 KB, 1 KB reserved a block
+SM90_BAR_BYTES = 128
+SM90_SPLITS = (1, 2, 3, 4, 8, 16)  # the splits of E the planner weighs (and the sweep times)
+SM90_MAX_REGS = {1: 255, 2: 128}  # per thread under __launch_bounds__(256, MINB)
+# registers per thread of each instance at k = 3 and 5, ptxas's counts on
+# the H100 (chip_smoke.py phase 1 prints them); none spills
+SM90_REGS = {(16, 16, 32, 2, 4, 3, 2): (118, 114), (16, 8, 32, 1, 7, 3, 2): (109, 110),
+             (8, 8, 32, 4, 3, 2, 2): (124, 125), (8, 8, 64, 4, 3, 2, 1): (159, 161),
+             (8, 8, 32, 4, 7, 2, 1): (224, 226)}
+# The cost model's constants (`_sm90_basis`): a block's fixed us, a chunk's
+# fixed us, us per MFLOP of a chunk's products and of its depthwise, us per
+# MB of a split's reduction, and the stretch of a block's time with two
+# blocks on an SM. Fitted by
+# `python3 -m mladversarialobjectdetection_torch.ops.mbconv_sweep` (every
+# plan at lite4@640's 7 fused shapes, b1 and b24) on an NVIDIA H100 80GB
+# HBM3 at 700 W.
+SM90_COST = (3.1122, 1.0051, 0.6853, 6.5977, 0.3222, 1.30)
+
+
+class Sm90Plan(NamedTuple):
+    """One launch of the Hopper bf16 forward: instance (th, tw, ec, mpw,
+    npw, stages, minb), `wn` warps along the output channels, E split over
+    `split` blocks of `e_per_split` channels; the staged x tile's rows, the
+    block's shared memory (bytes), an estimate of its registers per thread,
+    its blocks, and the cost model's time (us)."""
+    th: int
+    tw: int
+    ec: int
+    mpw: int
+    npw: int
+    stages: int
+    minb: int
+    wn: int
+    split: int
+    e_per_split: int
+    nhp: int
+    smem: int
+    regs: int
+    blocks: int
+    cost_us: float
+
+
+def sm90_region_rows(hgt: int, wid: int, th: int, tw: int, k: int) -> int:
+    """The largest image-clipped halo region of a th x tw tile, in pixels,
+    padded to 16 (the rows of the staged x tile; `region_rows`)."""
+    h = k // 2
+    my = max(min(y + th + h, hgt) - max(y - h, 0) for y in range(0, hgt, th))
+    mx = max(min(x + tw + h, wid) - max(x - h, 0) for x in range(0, wid, tw))
+    return _round(my * mx, 16)
+
+
+def sm90_smem_bytes(k, th, tw, ec, stages, c, co, nhp) -> int:
+    """A block's shared memory (`smem_bytes` of the source): the barriers,
+    the staged rows' positions and offsets, the x tile, the ring, e and d. A slot holds
+    We [round16(C)][EC + 8] and Wp [EC][round16(Co) + 8] in bf16, then be,
+    bd and wd [k * k] of the chunk in float32; bf16 rows pad by 8."""
+    slot = (2 * (_round(c, 16) * (ec + 8) + ec * (_round(co, 16) + 8))
+            + 4 * (2 + k * k) * ec)
+    return (SM90_BAR_BYTES + 8 * nhp + 2 * nhp * (_round(c, 16) + 8) + stages * slot
+            + 2 * (ec + 8) * ((th + k - 1) * (tw + k - 1) + _round(th * tw, 16)))
+
+
+def _sm90_wn(cfg, co: int):
+    """The warps along the output channels (a divisor of the 8) that fits
+    the instance's accumulator and leaves the fewest fragments to the
+    busiest warp, or None."""
+    th, tw, _, mpw, npw = cfg[:5]
+    nw, nt, mtp = SM90_WARPS, co // 8, _ceil(th * tw, 16)
+    best = None
+    for wn in (d for d in range(1, nw + 1) if nw % d == 0):
+        wm = nw // wn
+        if _ceil(nt, wn) > npw or _ceil(mtp, wm) > mpw:
+            continue
+        load = _ceil(mtp, wm) * _ceil(nt, wn)
+        if best is None or load < best[0]:
+            best = (load, wn)
+    return None if best is None else best[1]
+
+
+def _sm90_terms(cfg, b, hgt, wid, c, e, co, k, split):
+    """What a plan's time depends on: (waves of blocks over the SMs, chunks
+    a block, MFLOP of a chunk's products (the expand over the clipped halo's
+    rows, the project), MFLOP of its depthwise, MB a split's reduction reads
+    and writes, blocks a SM)."""
+    th, tw, ec = cfg[:3]
+    minb = cfg[6]
+    h = k // 2
+    tiles = _ceil(hgt, th) * _ceil(wid, tw)
+    rows = sum(_round(ry * rx, 16) for ry in _clipped(hgt, th, h)
+               for rx in _clipped(wid, tw, h)) / tiles
+    tensor = 2 * ec * (rows * _round(c, 16) + th * tw * co) / 1e6
+    fp = 2 * ec * th * tw * k * k / 1e6
+    reduce_mb = (split + 2) * b * hgt * wid * co * 4 / 1e6 if split > 1 else 0.0
+    waves = _ceil(tiles * b * split, SMS * minb)
+    return waves, _ceil(_round(_ceil(e, split), ec), ec), tensor, fp, reduce_mb, minb
+
+
+def _sm90_basis(terms, two_blocks):
+    """The cost model's basis: time = this . SM90_COST[:5]. Waves times a
+    block's time (stretched where two blocks share an SM), a block's time
+    its fixed cost and its chunks' (fixed, products, depthwise); then a
+    split's reduction."""
+    waves, chunks, tensor, fp, reduce_mb, minb = terms
+    m = waves * (two_blocks if minb == 2 else 1.0)
+    return (m, m * chunks, m * chunks * tensor, m * chunks * fp, reduce_mb)
+
+
+def _sm90_cost_us(cfg, b, hgt, wid, c, e, co, k, split):
+    """The cost model's time (us) of a plan, and its blocks."""
+    terms = _sm90_terms(cfg, b, hgt, wid, c, e, co, k, split)
+    cost = sum(x * y for x, y in zip(_sm90_basis(terms, SM90_COST[5]), SM90_COST))
+    th, tw = cfg[:2]
+    return cost, _ceil(hgt, th) * _ceil(wid, tw) * b * split
+
+
+def sm90_plans(H: int, W: int, C: int, E: int, Co: int, k: int, batch: int = 1):
+    """Every plan of the Hopper bf16 forward for x [batch, H, W, C] (E, Co,
+    k) that fits its budgets: each instance whose accumulator holds Co, that
+    fits 227 KB of shared memory (113 KB with two blocks a SM) and ptxas's
+    registers in the budget, with each
+    split of E into whole chunks. None where C, E or Co is not a multiple of
+    8 (16-byte bulk copies of whole rows) or k is not 3 or 5."""
+    if C % 8 or E % 8 or Co % 8 or k not in (3, 5) or min(H, W, C, E, Co, batch) < 1:
+        return []
+    plans = []
+    for cfg in SM90_CONFIGS:
+        th, tw, ec, mpw, npw, stages, minb = cfg
+        wn = _sm90_wn(cfg, Co)
+        if wn is None:
+            continue
+        nhp = sm90_region_rows(H, W, th, tw, k)
+        smem = sm90_smem_bytes(k, th, tw, ec, stages, C, Co, nhp)
+        regs = SM90_REGS[cfg][k == 5]
+        if smem > (MAX_SMEM if minb == 1 else SM90_MAX_SMEM2) or regs > SM90_MAX_REGS[minb]:
+            continue
+        for split in SM90_SPLITS:
+            eps = _round(_ceil(E, split), ec)
+            if (split - 1) * eps >= E:
+                continue
+            cost, blocks = _sm90_cost_us(cfg, batch, H, W, C, E, Co, k, split)
+            plans.append(Sm90Plan(th, tw, ec, mpw, npw, stages, minb, wn, split, eps, nhp,
+                                  smem, regs, blocks, cost))
+    return plans
+
+
+@functools.lru_cache(maxsize=None)
+def plan_fwd_sm90(H: int, W: int, C: int, E: int, Co: int, k: int, batch: int = 1):
+    """The Hopper bf16 forward's plan for x [batch, H, W, C] (E, Co, k): the
+    cost model's fastest of `sm90_plans`, or None where there is none (the
+    shape then runs the template's bf16 instance). A split of E is taken only
+    where the model says it pays for its reduction; where the grid has fewer
+    blocks than SMs and none does, the plan leaves SMs idle."""
+    plans = sm90_plans(H, W, C, E, Co, k, batch)
+    return min(plans, key=lambda p: p.cost_us) if plans else None
+
+
+def sm90_supported(H: int, W: int, C: int, E: int, Co: int, k: int, batch: int = 1) -> bool:
+    """Whether the bf16 forward of this shape runs the Hopper kernel (else
+    the template's bf16 instance)."""
+    return plan_fwd_sm90(H, W, C, E, Co, k, batch) is not None
+
+
 @functools.lru_cache(maxsize=None)
 def _entry(lib: str, name: str):
     """A C entry of csrc/<lib>.cu, built on first use."""
@@ -345,6 +530,71 @@ def _launch(kind, variant, ptrs, shape, e, co, k, act_type, residual, out, plan,
     else:
         LAUNCHES[f"mbconv_{kind}"] += 1
         DTYPE_LAUNCHES[variant][f"mbconv_{kind}"] += 1
+        if kind == "fwd" and variant == "bfloat16":
+            BF16_FWD_LAUNCHES["instance"] += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm90_entry():
+    """The C entry of csrc/mbconv_fwd_sm90.cu, built on first use."""
+    fn = _build.load("mbconv_fwd_sm90").mlad_mbconv_fwd_sm90
+    fn.argtypes = [_P] * 3 + [_I] * 16 + [_P, _P, _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def sm90_pack(fb: FoldedBlock, ec: int) -> torch.Tensor:
+    """The Hopper kernel's weights: for each chunk of ec expanded channels,
+    the slot image it copies into shared memory in one piece, uint8
+    [ceil(E / ec), slot bytes]: We[:, chunk] as [round16(C)][ec + 8] bf16,
+    Wp[chunk, :] as [ec][round16(Co) + 8] bf16, then be, bd and wd [k * k]
+    of the chunk [ec each] in float32; zero in the padding and past E."""
+    (c, e), co, k = fb.we.shape, fb.wp.shape[1], fb.wd.shape[0]
+    n = _ceil(e, ec)
+    c16, lp = _round(c, 16), _round(co, 16) + 8
+    we = fb.we.new_zeros((c16, n * ec))
+    we[:c, :e] = fb.we
+    we = torch.nn.functional.pad(we.view(c16, n, ec).permute(1, 0, 2), (0, 8))
+    wp = fb.wp.new_zeros((n * ec, lp))
+    wp[:e, :co] = fb.wp
+    f = fb.be.new_zeros((2 + k * k, n * ec))
+    f[0, :e], f[1, :e], f[2:, :e] = fb.be, fb.bd, fb.wd.reshape(k * k, e)
+    parts = (we.reshape(n, -1), wp.view(n, -1), f.view(-1, n, ec).permute(1, 0, 2).reshape(n, -1))
+    return torch.cat([t.contiguous().view(torch.uint8) for t in parts], dim=1)
+
+
+def _sm90_packed(fb: FoldedBlock, ec: int) -> torch.Tensor:
+    """`sm90_pack(fb, ec)`, cached on the fold's We tensor while the five
+    weight tensors keep their storage and version (a frozen fold packs
+    once)."""
+    key = (ec,) + tuple((t.data_ptr(), t._version) for t in fb[:5])
+    cache = getattr(fb.we, "_mlad_sm90_packs", None)
+    if cache is None or cache[0] != key:
+        cache = (key, sm90_pack(fb, ec))
+        fb.we._mlad_sm90_packs = cache
+    return cache[1]
+
+
+def _launch_sm90(x, fb, e, co, k, act_type, residual, plan: Sm90Plan):
+    b, h, w, c = x.shape
+    out = torch.empty((b, h, w, co), dtype=x.dtype, device=x.device)
+    ws = None
+    if plan.split > 1:
+        ws = torch.empty((plan.split, b, h, w, co), dtype=torch.float32, device=x.device)
+    packed = _sm90_packed(fb, plan.ec)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _sm90_entry()(x.data_ptr(), packed.data_ptr(), fb.bp.data_ptr(), b, h, w, c, e, co, k,
+                            ACT_CODES[act_type], int(residual), plan.th, plan.tw, plan.ec,
+                            plan.npw, plan.wn, plan.split, plan.e_per_split, out.data_ptr(),
+                            ws.data_ptr() if ws is not None else None, stream)
+    if err != 0:
+        raise RuntimeError(f"mbconv_fwd_sm90 kernel launch failed: cudaError_t {err} (x "
+                           f"{tuple(x.shape)}, E {e}, Co {co}, k {k}, {plan})")
+    LAUNCHES["mbconv_fwd"] += 1
+    DTYPE_LAUNCHES["bfloat16"]["mbconv_fwd"] += 1
+    BF16_FWD_LAUNCHES["sm90"] += 1
     return out
 
 
@@ -354,11 +604,15 @@ def _variant(x, simt):
     return "simt" if simt else DTYPES[x.dtype]
 
 
-def _fwd(x, fb, act_type, residual, plan, simt):
+def _fwd(x, fb, act_type, residual, plan, simt, instance=False):
     if x.dim() != 4:
         raise ValueError(f"want x [B, H, W, C], got {tuple(x.shape)}")
     e, co, k = _check([x], fb, x.shape[3], act_type, residual)
     b, h, w, c = x.shape
+    if x.dtype == torch.bfloat16 and not (simt or instance or plan):
+        p90 = plan_fwd_sm90(h, w, c, e, co, k, b)
+        if p90 is not None:
+            return _launch_sm90(x, fb, e, co, k, act_type, residual, p90)
     plan = plan or plan_fwd(h, w, c, e, co, k, b, dtype=x.dtype)
     out = torch.empty((b, h, w, co), dtype=x.dtype, device=x.device)
     ptrs = [t.data_ptr() for t in (x, *fb)]
@@ -392,8 +646,18 @@ def _dx(x, g, fb, act_type, residual, masks_out, plan, simt):
 def mbconv_fwd_cuda(x: torch.Tensor, fb: FoldedBlock, *, act_type: str,
                     residual: bool) -> torch.Tensor:
     """`ops/mbconv.mbconv_plain` as one op call: y [B, H, W, Co] in x's
-    dtype."""
+    dtype. bf16 runs the Hopper kernel where `sm90_supported` takes the
+    shape, the template's bf16 instance elsewhere."""
     return _fwd(x, fb, act_type, residual, None, False)
+
+
+def mbconv_fwd_bf16_instance(x: torch.Tensor, fb: FoldedBlock, *, act_type: str,
+                             residual: bool) -> torch.Tensor:
+    """The bf16 forward on the template's bf16 instance (`mbconv_bf16.cu`)
+    whatever the shape: the ablation timed beside the Hopper kernel."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the bf16 instance takes bf16 x, got {x.dtype}")
+    return _fwd(x, fb, act_type, residual, None, False, instance=True)
 
 
 def mbconv_dx_cuda(x: torch.Tensor, g: torch.Tensor, fb: FoldedBlock, *,

@@ -913,6 +913,73 @@ def test_mbconv_bf16_wrapper_rejects_other_dtypes(cuda):
     assert sum(mbconv_cuda.LAUNCHES.values()) == 0
 
 
+def _sm90_cases():
+    """(id, B, H, W, C, E, Co, k, residual, act): the MBCONV_CASES the Hopper
+    bf16 forward's rule takes, and lite4@640's 7 fused shapes at b2."""
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
+    from mladversarialobjectdetection_torch.ops.mbconv_sweep import LITE4_FUSED
+    cases = [m for m in MBCONV_CASES if mbconv_cuda.sm90_supported(*m[2:8], m[1])]
+    cases += [(f"lite4_{s[0]}x{s[1]}_c{s[2]}_co{s[4]}_k{s[5]}", 2, *s, "relu6")
+              for s in LITE4_FUSED]
+    return cases
+
+
+SM90_CASES = _sm90_cases()
+
+
+@pytest.mark.parametrize("name,b,h,w,c,e,co,k,residual,act", SM90_CASES,
+                         ids=[m[0] for m in SM90_CASES])
+def test_mbconv_sm90_matches_plain(cuda, name, b, h, w, c, e, co, k, residual, act):
+    """The Hopper bf16 forward (csrc/mbconv_fwd_sm90.cu) against the bf16
+    plain version: within chip_smoke.py's MBCONV_BF16_FWD_TOL of max(1,
+    max|plain|), every output within `rounding_bound`, two launches
+    bit-equal, both counted on it and none on the bf16 instance."""
+    import chip_smoke
+    from mladversarialobjectdetection_torch.ops import mbconv as pmb
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
+    x, fb = _mbconv_case(cuda, b, h, w, c, e, co, k, seed=b * 1000 + c)
+    x, fb = x.to(torch.bfloat16), fb.in_dtype(torch.bfloat16)
+    kw = dict(act_type=act, residual=residual)
+    mbconv_cuda.reset_counts()
+    y = mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw)
+    again = mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw)
+    torch.cuda.synchronize()
+    assert mbconv_cuda.BF16_FWD_LAUNCHES == {"sm90": 2, "instance": 0}
+    assert mbconv_cuda.DTYPE_LAUNCHES["bfloat16"] == {"mbconv_fwd": 2, "mbconv_dx": 0}
+    assert y.dtype == torch.bfloat16 and torch.equal(y, again)
+    y_plain = pmb.mbconv_plain(x, fb, **kw)
+    _close(y.float(), y_plain.float(), "mbconv sm90 fwd", chip_smoke.MBCONV_BF16_FWD_TOL)
+    bound = pmb.rounding_bound(y, x, fb, **kw)
+    assert bound.outside == 0, bound
+
+
+def test_mbconv_sm90_rule_sends_other_shapes_to_the_instance(cuda):
+    """C, E or Co off a multiple of 8 runs the template's bf16 instance,
+    counted apart; `mbconv_fwd_bf16_instance` runs the instance on a shape
+    the Hopper kernel takes, and the two agree within the bf16 tolerance."""
+    import chip_smoke
+    from mladversarialobjectdetection_torch.ops import mbconv as pmb
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
+    kw = dict(act_type="relu", residual=False)
+    x, fb = _mbconv_case(cuda, 3, 12, 10, 13, 78, 20, 3)
+    x, fb = x.to(torch.bfloat16), fb.in_dtype(torch.bfloat16)
+    assert not mbconv_cuda.sm90_supported(12, 10, 13, 78, 20, 3, 3)
+    mbconv_cuda.reset_counts()
+    y = mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw)
+    torch.cuda.synchronize()
+    assert mbconv_cuda.BF16_FWD_LAUNCHES == {"sm90": 0, "instance": 1}
+    _close(y.float(), pmb.mbconv_plain(x, fb, **kw).float(), "mbconv bf16 instance",
+           chip_smoke.MBCONV_BF16_FWD_TOL)
+    x, fb = _mbconv_case(cuda, 2, 16, 16, 24, 144, 24, 3)
+    x, fb = x.to(torch.bfloat16), fb.in_dtype(torch.bfloat16)
+    mbconv_cuda.reset_counts()
+    inst = mbconv_cuda.mbconv_fwd_bf16_instance(x, fb, **kw)
+    new = mbconv_cuda.mbconv_fwd_cuda(x, fb, **kw)
+    torch.cuda.synchronize()
+    assert mbconv_cuda.BF16_FWD_LAUNCHES == {"sm90": 1, "instance": 1}
+    _close(new.float(), inst.float(), "mbconv sm90 vs instance", 2 * chip_smoke.MBCONV_BF16_FWD_TOL)
+
+
 def test_warp_pass1_fwd_at_unit_and_wider_radius(cuda):
     """pass1_fwd runs its r = 1 instance (no division) and the divided one
     within one launch: both against the plain pass within WARP_TOL, and a

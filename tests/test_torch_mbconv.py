@@ -493,6 +493,197 @@ def test_3xtf32_forward_within_tolerance_and_flips_near_kinks(shape):
 
 
 # ---------------------------------------------------------------------------
+# the Hopper bf16 forward (csrc/mbconv_fwd_sm90.cu): its plan, its dispatch
+# rule and its order of sums, on the CPU
+# ---------------------------------------------------------------------------
+
+def _lite4_sm90_shapes(batch):
+    """(B, H, W, C, E, Co, k) of lite4@640's 7 fused shapes at `batch`, and at
+    b1 also their heights under a two-way spatial split (each shard plus a
+    halo of k // 2 rows: 81, 42, 21, 22, 11, 12)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke  # noqa: E402  no JAX
+    from mladversarialobjectdetection_torch.ops.mbconv_sweep import LITE4_FUSED
+    shapes = [(batch, *s[:6]) for s in LITE4_FUSED]
+    assert sorted(set(s[1:] for s in shapes)) == sorted(set(b[:6] for b in _lite4_blocks()))
+    if batch == 1:
+        shapes += [(batch, *s[:6]) for s in chip_smoke.LITE4_SPATIAL]
+    return shapes
+
+
+@pytest.mark.parametrize("batch", [1, 8, 24])
+def test_sm90_plans_fit_and_cover(batch):
+    """Every lite4 plan names a built instance, fits 227 KB of shared memory
+    and the register budget, holds Co in the warps' accumulators, stages the
+    largest clipped halo region, covers each output pixel and each E channel
+    exactly once, and at b1 gives at least 132 blocks unless no plan with as
+    many is faster by the cost model (then SMs idle: the tiles are fewer
+    than the SMs and a split of E only adds waves and a reduction)."""
+    for b, h, w, c, e, co, k in _lite4_sm90_shapes(batch):
+        shape = (b, h, w, c, e, co, k)
+        p = mbconv_cuda.plan_fwd_sm90(h, w, c, e, co, k, b)
+        assert p is not None, shape
+        assert p[:7] in mbconv_cuda.SM90_CONFIGS
+        assert p.smem == mbconv_cuda.sm90_smem_bytes(k, p.th, p.tw, p.ec, p.stages, c, co, p.nhp)
+        assert p.smem <= (mbconv_cuda.MAX_SMEM if p.minb == 1 else mbconv_cuda.SM90_MAX_SMEM2)
+        assert p.regs <= mbconv_cuda.SM90_MAX_REGS[p.minb], (shape, p)
+        nw = mbconv_cuda.SM90_WARPS
+        assert nw % p.wn == 0
+        assert -(-co // 8 // p.wn) <= p.npw and -(-(p.th * p.tw // 16) // (nw // p.wn)) <= p.mpw
+        hh = k // 2
+        rows = max((min(y + p.th + hh, h) - max(y - hh, 0)) * (min(x + p.tw + hh, w) - max(x - hh, 0))
+                   for y in range(0, h, p.th) for x in range(0, w, p.tw))
+        assert rows <= p.nhp and p.nhp % 16 == 0 and p.nhp - rows < 16
+        seen = np.zeros(e, int)
+        for s in range(p.split):
+            assert s * p.e_per_split < e  # no empty split
+            seen[s * p.e_per_split:(s + 1) * p.e_per_split] += 1
+        assert (seen == 1).all() and p.e_per_split % p.ec == 0
+        assert p.split in mbconv_cuda.SM90_SPLITS
+        cover = np.zeros((h, w), int)
+        for y0 in range(0, h, p.th):
+            for x0 in range(0, w, p.tw):
+                cover[y0:y0 + p.th, x0:x0 + p.tw] += 1
+        assert (cover == 1).all()
+        assert p.blocks == -(-h // p.th) * -(-w // p.tw) * b * p.split
+        if b == 1 and p.blocks < mbconv_cuda.SMS:
+            fuller = [q for q in mbconv_cuda.sm90_plans(h, w, c, e, co, k, b)
+                      if q.blocks >= mbconv_cuda.SMS]
+            assert all(q.cost_us >= p.cost_us for q in fuller), (shape, p)
+
+
+def test_sm90_dispatch_rule():
+    """Every lite4 bf16 shape (and its spatial heights) goes to the Hopper
+    kernel; C, E or Co off a multiple of 8, a k of 7, or a C whose x tile
+    and ring overflow shared memory go to the template's bf16 instance."""
+    for b in (1, 8, 24):
+        for shape in _lite4_sm90_shapes(b):
+            assert mbconv_cuda.sm90_supported(*shape[1:], shape[0]), shape
+    for h, w, c, e, co, k in [(12, 10, 13, 78, 20, 3), (12, 12, 30, 180, 700, 3),
+                              (10, 10, 700, 1400, 700, 3), (8, 8, 16, 100, 16, 3),
+                              (8, 8, 16, 96, 20, 3), (8, 8, 16, 96, 16, 7),
+                              (20, 20, 2048, 4096, 2048, 5)]:
+        assert not mbconv_cuda.sm90_supported(h, w, c, e, co, k, 1), (h, w, c, e, co, k)
+        assert mbconv_cuda.plan_fwd_sm90(h, w, c, e, co, k, 1) is None
+
+
+def test_sm90_wrapper_refuses_before_any_build(monkeypatch):
+    """A bf16 CPU tensor of a shape the Hopper kernel takes is refused before
+    any build, and nothing is counted."""
+    from mladversarialobjectdetection_torch import _build
+
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    x, fb, _ = _np_case(16, 96, 16, 3, 8, 8)
+    assert mbconv_cuda.sm90_supported(8, 8, 16, 96, 16, 3, 2)
+    before = (dict(mbconv_cuda.LAUNCHES), dict(mbconv_cuda.BF16_FWD_LAUNCHES))
+    for fwd in (mbconv_cuda.mbconv_fwd_cuda, mbconv_cuda.mbconv_fwd_bf16_instance):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fwd(x.bfloat16(), fb.in_dtype(torch.bfloat16), act_type="relu6", residual=True)
+    with pytest.raises(TypeError, match="bf16 x"):
+        mbconv_cuda.mbconv_fwd_bf16_instance(x, fb, act_type="relu6", residual=True)
+    assert (dict(mbconv_cuda.LAUNCHES), dict(mbconv_cuda.BF16_FWD_LAUNCHES)) == before
+
+
+@pytest.mark.parametrize("c,e,co,k,ec", [(32, 192, 32, 3, 32), (56, 336, 56, 5, 64), (24, 88, 40, 5, 32)],
+                         ids=["stage2", "stage3_ec64", "e_past_chunks"])
+def test_sm90_pack_layout(c, e, co, k, ec):
+    """`sm90_pack`'s slot images hold We[:, chunk] [round16(C)][ec + 8],
+    Wp[chunk, :] [ec][round16(Co) + 8] (bf16), then be, bd and wd [k * k]
+    of the chunk (float32), zero in every pad and past E; the kernel copies
+    a slot in one piece, so its size is a multiple of 16 bytes."""
+    _, fb, _ = _np_case(c, e, co, k, 4, 4)
+    fb = fb.in_dtype(torch.bfloat16)
+    packed = mbconv_cuda.sm90_pack(fb, ec)
+    n, c16, lp = -(-e // ec), -(-c // 16) * 16, -(-co // 16) * 16 + 8
+    nb_we, nb_wp = 2 * c16 * (ec + 8), 2 * ec * lp
+    assert packed.dtype == torch.uint8 and packed.shape == (n, nb_we + nb_wp + 4 * (2 + k * k) * ec)
+    assert packed.shape[1] % 16 == 0
+    for j in range(n):
+        e0, ev = j * ec, min(ec, e - j * ec)
+        row = packed[j]
+        we = row[:nb_we].view(torch.bfloat16).view(c16, ec + 8)
+        wp = row[nb_we:nb_we + nb_wp].view(torch.bfloat16).view(ec, lp)
+        f = row[nb_we + nb_wp:].view(torch.float32).view(2 + k * k, ec)
+        assert torch.equal(we[:c, :ev], fb.we[:, e0:e0 + ev])
+        assert torch.equal(wp[:ev, :co], fb.wp[e0:e0 + ev])
+        assert torch.equal(f[0, :ev], fb.be[e0:e0 + ev]) and torch.equal(f[1, :ev], fb.bd[e0:e0 + ev])
+        assert torch.equal(f[2:, :ev], fb.wd.reshape(k * k, e)[:, e0:e0 + ev])
+        zero = torch.ones_like(we, dtype=torch.bool)
+        zero[:c, :ev] = False
+        assert not we[zero].float().any()
+        zero = torch.ones_like(wp, dtype=torch.bool)
+        zero[:ev, :co] = False
+        assert not wp[zero].float().any() and not f[:, ev:].any()
+    # cached on the fold while its tensors keep their storage and version
+    assert mbconv_cuda._sm90_packed(fb, ec) is mbconv_cuda._sm90_packed(fb, ec)
+    fb.be.add_(1.0)
+    assert torch.equal(mbconv_cuda._sm90_packed(fb, ec), mbconv_cuda.sm90_pack(fb, ec))
+
+
+def _bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """Round to bf16 (nearest even) from float32, kept in t's dtype."""
+    return t.float().bfloat16().to(t.dtype)
+
+
+def _sm90_order(x, fb, act, residual, ec, split, dtype):
+    """The Hopper kernel's forward, emulated in `dtype` in its order: z0 over
+    C in ascending steps of 16 from zero, then be; e = bf16(act(z0)), zero
+    outside the image; z1 = bd, then the taps row by row; d = bf16(act(z1));
+    the project per chunk of ec channels in steps of 16, a split's chunks in
+    order, the splits' partials in split order, then bp and the residual;
+    one rounding to bf16."""
+    f = lambda t: t.to(dtype)
+    xf, we, be, wd, bd, wp, bp = (f(t) for t in (x, *fb))
+    c, (e, co), k = xf.shape[-1], wp.shape, wd.shape[0]
+    z0 = torch.zeros((*xf.shape[:-1], e), dtype=dtype)
+    for k0 in range(0, c, 16):
+        z0 = z0 + xf[..., k0:k0 + 16] @ we[k0:k0 + 16]
+    ev = _bf16_round(pmb.act(z0 + be, act))
+    hh = k // 2
+    ep = torch.nn.functional.pad(ev, (0, 0, hh, hh, hh, hh))
+    z1 = torch.zeros_like(ev) + bd
+    height, width = ev.shape[1:3]
+    for i in range(k):
+        for j in range(k):
+            z1 = z1 + ep[:, i:i + height, j:j + width, :] * wd[i, j]
+    d = _bf16_round(pmb.act(z1, act))
+    eps = mbconv_cuda._round(-(-e // split), ec)
+    y = None
+    for s in range(split):
+        part = torch.zeros((*xf.shape[:-1], co), dtype=dtype)
+        for e0 in range(s * eps, min(e, (s + 1) * eps), ec):
+            for k0 in range(e0, min(e0 + ec, e), 16):
+                k1 = min(k0 + 16, e)
+                part = part + d[..., k0:k1] @ wp[k0:k1]
+        y = part if y is None else y + part
+    y = y + bp
+    return (y + xf if residual else y).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("split", [1, 3], ids=["whole", "split3"])
+@pytest.mark.parametrize("shape", [(32, 192, 32, 3, 16, 16, 2, 32), (272, 1632, 272, 5, 20, 20, 1, 32)],
+                         ids=["stage2_like", "20x20x1632"])
+def test_sm90_order_within_rounding_bound(shape, split, dtype):
+    """The Hopper kernel's order of sums and roundings, emulated (float64, and
+    float32 whose adds round), stays within `ops/mbconv.rounding_bound` of
+    `mbconv_plain` and within chip_smoke.py's MBCONV_BF16_FWD_TOL (2^-6 of
+    max(1, max|plain|)) of it."""
+    c, e, co, k, h, w, b, ec = shape
+    x, fb, _ = _np_case(c, e, co, k, h, w, b=b, seed=13)
+    xb, fbb = x.bfloat16(), fb.in_dtype(torch.bfloat16)
+    y = _sm90_order(xb, fbb, "relu6", True, ec, split, dtype)
+    bound = pmb.rounding_bound(y, xb, fbb, act_type="relu6", residual=True)
+    assert bound.outside == 0, bound
+    ref = pmb.mbconv_plain(xb, fbb, act_type="relu6", residual=True).float()
+    err = float((y.float() - ref).abs().max())
+    assert err <= 2.0 ** -6 * max(1.0, float(ref.abs().max())), err
+
+
+# ---------------------------------------------------------------------------
 # bf16: the plain versions against the Pallas kernels' bf16 instance
 # ---------------------------------------------------------------------------
 
