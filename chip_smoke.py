@@ -30,7 +30,14 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    takes (the others must run the instance), on lite4's 7 fused shapes at
    b1, b8 and b24 and on their heights under phase 25's split: within
    MBCONV_BF16_FWD_TOL, every output within the roundings, two launches
-   bit-equal, counted on it and not on the instance;
+   bit-equal, counted on it and not on the instance; then the Hopper bf16
+   input gradient (`csrc/mbconv_dx_sm90.cu`, `check_sm90_dx`) on the same
+   shapes and on the spatial heights at phase 25d's batch: dx within
+   MBCONV_BF16_DX_TOL of max|plain| of the plain dx fed the kernel's own
+   masks, every element and mask within `ops/mbconv.dx_rounding_bound`, the
+   mask flips against `dx_masks` counted, two launches bit-equal, counted on
+   it and not on the instance (the odd shapes outside its rule on the
+   instance);
 2. NMS kernel vs plain: the NMS kernel against its plain PyTorch version on
    the card, at B=8, N=1024, M=100 (hard and gaussian) and on edge cases
    (NaN scores, an early exit after a few valid winners, the all-valid
@@ -98,17 +105,19 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    driver's default and bench.py's attack workload: bf16 victim, float32
    patch, EOT composite, warp and loss): each warp kernel and NMS once a
    step, 50 bf16 forward (all on the Hopper kernel) and 25 bf16 dx launches
-   a step and no float32 MBConv launch; loss and patch checked; timed,
-   profiled, peak memory; timed again with the bf16 forward on the bf16
-   instance, in turns (`sm90_ab`);
+   a step (every dx on the Hopper dx) and no float32 MBConv launch; loss and
+   patch checked; timed, profiled, peak memory; timed again with the bf16
+   forward on the bf16 instance, in turns (`sm90_ab`);
    then phase 5a's check on it (the fused bf16 victim against the unfused
    bf16 one, BF16_VICTIM_TOL, BF16_VICTIM_GRAD_COS and BF16_VICTIM_COS) and
    phase 6a's on the bf16 instances at the bf16 step's own inputs (with
-   1a's rounding bound; bounds with the products at the bf16 rate; beside
-   cuDNN's unfused bf16 block; the Hopper forward in turns with the bf16
-   instance);
+   1a's rounding bounds; bounds with the products at the bf16 rate; beside
+   cuDNN's unfused bf16 block; the Hopper forward and dx each in turns with
+   its bf16 instance); then the step timed with the bf16 dx on the Hopper
+   kernel and on its instance, in turns (`sm90_ab(kind="dx")`);
 7b. driver with its defaults (bf16): `attack.train.train` for 3 steps at
-   batch 12; only bf16 MBConv launches, every forward on the Hopper kernel;
+   batch 12; only bf16 MBConv launches, every forward and dx on the Hopper
+   kernels;
 8. cmconv kernels vs plain: both instances of the channel-major 3x3 conv
    (`simt` and the 3xTF32 `tc`) against the plain version at every shape of
    the defender's path at full size (batch 24 at 640x640 and 320x320,
@@ -291,8 +300,8 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    23b: `PatchAttacker(packed_entry=10)` at b24, window 320, the live
    regime, fp32 and bf16, from the unpacked attacker's state: the loss with
    fixed draws within PACKED_LOSS_REL, the patch gradient at cosine >=
-   PACKED_COS, 38 fused forward and 19 dx launches a step; step p50,
-   images/s and peak memory of both;
+   PACKED_COS, 38 fused forward and 19 dx launches a step (bf16: every dx
+   on the Hopper dx); step p50, images/s and peak memory of both;
    23c: one `PatchAttackDefender(packed_entry=10)` step at b24, fp32: loss
    and mean clean score within PACKED_DEFENDER_REL of the unpacked step's,
    19 fused forward launches;
@@ -322,7 +331,7 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    launch;
    25d: `attack.train.train(spatial=2)` for 2 steps in bf16 (score threshold
    .0099: live slots), every warp kernel, NMS and the bf16 fused kernels
-   launched (every forward on the Hopper kernel), the ranks' patches
+   launched (every forward and dx on the Hopper kernels), the ranks' patches
    bit-equal; the ranks' peak memory and step
    times (gloo stages the exchanges through the host: no rate of spatial
    partitioning);
@@ -804,7 +813,8 @@ def kernel_name(mangled: str) -> str:
 
 # libraries on the main path: a spill in their kernels fails phase 1
 MAIN_PATH_LIBS = ("nms", "warp", "cmconv", "cmconv_bf16", "cmconv_tc", "mbconv",
-                  "mbconv_dx", "mbconv_bf16", "mbconv_bf16_dx", "mbconv_fwd_sm90")
+                  "mbconv_dx", "mbconv_bf16", "mbconv_bf16_dx", "mbconv_fwd_sm90",
+                  "mbconv_dx_sm90")
 
 
 def print_ptxas(libs) -> None:
@@ -1227,7 +1237,7 @@ def mbconv_case(dev, b, h, w, c, e, co, k, seed):
     return r(b, h, w, c), fb
 
 
-def check_mbconv(name, x, g, fb, act_type, residual, fwd=None):
+def check_mbconv(name, x, g, fb, act_type, residual, fwd=None, dx_fn=None, dx_bound=False):
     """Both fused MBConv kernels against the plain versions on the same CUDA
     tensors, each launched twice bit-equal, in x's dtype (float32, or bf16
     with a bf16 fold and the MBCONV_BF16_* tolerances; there every forward
@@ -1238,10 +1248,14 @@ def check_mbconv(name, x, g, fb, act_type, residual, fwd=None):
     its kink. Returns (fwd error, dx error, (z0 flips, z1 flips, worst flip
     distance of scale), the forward's `RoundingBound` or None). `fwd` is
     the forward's wrapper, `mbconv_fwd_cuda` by default (bf16: the Hopper
-    kernel where its rule takes the shape)."""
+    kernel where its rule takes the shape), `dx_fn` dx's, `mbconv_dx_cuda`
+    by default (bf16: the Hopper dx where its rule takes the shape). With
+    `dx_bound` (bf16, relu6 / relu), dx and its masks must also lie within
+    `ops/mbconv.dx_rounding_bound`."""
     import torch
     from mladversarialobjectdetection_torch.ops import mbconv, mbconv_cuda
     fwd = fwd or mbconv_cuda.mbconv_fwd_cuda
+    dx_fn = dx_fn or mbconv_cuda.mbconv_dx_cuda
 
     bf16 = x.dtype == torch.bfloat16
     fwd_tol, dx_tol, kink_tol = ((MBCONV_BF16_FWD_TOL, MBCONV_BF16_DX_TOL,
@@ -1249,7 +1263,7 @@ def check_mbconv(name, x, g, fb, act_type, residual, fwd=None):
                                  (MBCONV_FWD_TOL, MBCONV_DX_TOL, MBCONV_KINK_TOL))
     kw = dict(act_type=act_type, residual=residual)
     y = fwd(x, fb, **kw)
-    dx = mbconv_cuda.mbconv_dx_cuda(x, g, fb, **kw)
+    dx = dx_fn(x, g, fb, **kw)
     plain_y = mbconv.mbconv_plain(x, fb, **kw)
     rounding = mbconv.rounding_bound(y, x, fb, **kw) if bf16 else None
     if rounding is not None and rounding.outside:
@@ -1259,11 +1273,16 @@ def check_mbconv(name, x, g, fb, act_type, residual, fwd=None):
     if act_type in ("relu6", "relu"):
         b, h, w, _ = x.shape
         masks = torch.empty((2, b, h, w, fb.we.shape[1]), dtype=torch.uint8, device=x.device)
-        mbconv_cuda.mbconv_dx_cuda(x, g, fb, masks_out=masks, **kw)
+        dx_fn(x, g, fb, masks_out=masks, **kw)
         plain_masks, z0, z1 = mbconv.dx_masks(x, fb, act_type=act_type)
         flips = mbconv.kink_flips(masks, plain_masks, z0, z1, act_type)
         del plain_masks, z0, z1
         plain_dx = mbconv.mbconv_dx_plain(x, g, fb, masks=masks, **kw)
+        if dx_bound:
+            db = mbconv.dx_rounding_bound(dx, x, g, fb, masks=masks, **kw)
+            if db.outside or db.mask_faults:
+                fail(f"mbconv dx {name}: {db.outside} elements beyond the roundings of the "
+                     f"bf16 function, {db.mask_faults} masks beyond the sums' error ({db})")
         del masks
         if not flips[2] <= kink_tol:
             fail(f"mbconv dx {name}: a mask flip lies {flips[2]} of scale from its "
@@ -1278,7 +1297,7 @@ def check_mbconv(name, x, g, fb, act_type, residual, fwd=None):
         if not err <= limit:
             fail(f"mbconv {what} {name}: kernel and plain differ by {err} > {limit}")
     if not (torch.equal(fwd(x, fb, **kw), y)
-            and torch.equal(mbconv_cuda.mbconv_dx_cuda(x, g, fb, **kw), dx)):
+            and torch.equal(dx_fn(x, g, fb, **kw), dx)):
         fail(f"mbconv {name}: two launches differ")
     return errs + (flips, rounding)
 
@@ -1365,6 +1384,53 @@ def check_sm90(name, x, fb, act_type, residual):
         fail(f"mbconv sm90 {name}: {err:.3g} from plain (limit {limit:.3g}), "
              f"{rb.outside} outputs beyond the roundings ({rb})")
     return err, rb, plan
+
+
+def check_sm90_dx(name, x, g, fb, act_type, residual):
+    """The Hopper bf16 input gradient (`csrc/mbconv_dx_sm90.cu`) against the
+    bf16 plain dx on the same CUDA tensors: for relu6 / relu the first launch
+    writes the kernel's masks, dx is held to the plain dx fed them, every
+    element and every mask within `ops/mbconv.dx_rounding_bound` and each
+    mask flip against `dx_masks` counted; within MBCONV_BF16_DX_TOL of
+    max|plain|; two launches bit-equal, both counted on the Hopper kernel
+    and none on the bf16 instance. Returns (largest absolute error,
+    DxRoundingBound, (z0 flips, z1 flips, worst flip distance of scale),
+    plan)."""
+    import torch
+    from mladversarialobjectdetection_torch.ops import mbconv, mbconv_cuda
+
+    kw = dict(act_type=act_type, residual=residual)
+    b, h, w, c = x.shape
+    e, co = fb.wp.shape
+    plan = mbconv_cuda.plan_dx_sm90(h, w, c, e, co, fb.wd.shape[0], b)
+    if plan is None:
+        fail(f"mbconv dx sm90 {name}: the Hopper dx's rule refuses the shape")
+    relu = act_type in ("relu6", "relu")
+    masks = torch.empty((2, b, h, w, e), dtype=torch.uint8, device=x.device) if relu else None
+    before = dict(mbconv_cuda.BF16_DX_LAUNCHES)
+    dx = mbconv_cuda.mbconv_dx_cuda(x, g, fb, masks_out=masks, **kw)
+    again = mbconv_cuda.mbconv_dx_cuda(x, g, fb, **kw)
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in mbconv_cuda.BF16_DX_LAUNCHES.items()}
+    if got != {"sm90": 2, "instance": 0}:
+        fail(f"mbconv dx sm90 {name}: launches by kernel {got}")
+    if not torch.equal(dx, again):
+        fail(f"mbconv dx sm90 {name}: two launches differ")
+    flips = (0, 0, 0.0)
+    if relu:
+        plain_masks, z0, z1 = mbconv.dx_masks(x, fb, act_type=act_type)
+        flips = mbconv.kink_flips(masks, plain_masks, z0, z1, act_type)
+        del plain_masks, z0, z1
+    ref = mbconv.mbconv_dx_plain(x, g, fb, masks=masks, **kw).float()
+    err = float((dx.float() - ref).abs().max())
+    limit = MBCONV_BF16_DX_TOL * float(ref.abs().max())
+    del ref
+    db = mbconv.dx_rounding_bound(dx, x, g, fb, masks=masks, **kw)
+    if not err <= limit or db.outside or db.mask_faults or not flips[2] <= MBCONV_BF16_KINK_TOL:
+        fail(f"mbconv dx sm90 {name}: {err:.3g} from plain (limit {limit:.3g}), "
+             f"{db.outside} elements beyond the roundings, {db.mask_faults} masks beyond the "
+             f"sums' error ({db}), mask flips {flips}")
+    return err, db, flips, plan
 
 
 def same_detections(name, a, b, exact_scores: bool = True) -> float:
@@ -1535,7 +1601,8 @@ def mbconv_step_numbers(label, atk, cap, mb_errs):
             fail(f"{label} block {idx}: the dx call's x is not the forward's")
         kw = dict(act_type=kw["act_type"], residual=kw["residual"])
         bf16 = x.dtype == torch.bfloat16
-        errs = check_mbconv(f"{label} block {idx} step inputs", x, g, fb, **kw)
+        errs = check_mbconv(f"{label} block {idx} step inputs", x, g, fb, **kw,
+                            dx_bound=bf16)
         mb_errs = {"fwd": max(mb_errs["fwd"], errs[0]), "dx": max(mb_errs["dx"], errs[1])}
         mb_flips = [mb_flips[0] + errs[2][0], mb_flips[1] + errs[2][1],
                     max(mb_flips[2], errs[2][2])]
@@ -1563,16 +1630,15 @@ def mbconv_step_numbers(label, atk, cap, mb_errs):
                "dx": (lambda: mbconv_cuda.mbconv_dx_cuda(x, g, fb, **kw),
                       lambda: mbconv_cuda.mbconv_dx_simt(x, g, fb, **kw))}
         times, simt_err = {}, {}
+        inst_fns = {"fwd": lambda: mbconv_cuda.mbconv_fwd_bf16_instance(x, fb, **kw),
+                    "dx": lambda: mbconv_cuda.mbconv_dx_bf16_instance(x, g, fb, **kw)}
         for kind, (kern_fn, simt_fn) in fns.items():
-            if bf16 and kind == "fwd":
-                # the Hopper kernel and the template's bf16 instance, in turns
-                inst_fn = lambda: mbconv_cuda.mbconv_fwd_bf16_instance(x, fb, **kw)
-                t = [cuda_ms(kern_fn, iters=5), cuda_ms(inst_fn, iters=5),
-                     cuda_ms(inst_fn, iters=5), cuda_ms(kern_fn, iters=5)]
-                times[kind] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
-                continue
             if bf16:
-                times[kind] = (cuda_ms(kern_fn, iters=5), float("nan"))
+                # the Hopper kernel and the template's bf16 instance, in turns
+                inst_fn = inst_fns[kind]
+                t = [cuda_ms(kern_fn, iters=5), cuda_ms(inst_fn, iters=3),
+                     cuda_ms(inst_fn, iters=3), cuda_ms(kern_fn, iters=5)]
+                times[kind] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
                 continue
             ref = kern_fn()
             simt_err[kind] = float((simt_fn() - ref).abs().max()) / max(
@@ -1605,11 +1671,12 @@ def mbconv_step_numbers(label, atk, cap, mb_errs):
             tot["ops_ms"] += ops_ms
             tot["unfused_ms"] += unf_ms
             p = plans[kind]
-            simt = ((f", bf16 instance {simt_ms:.4f}" if kind == "fwd" else "") if bf16 else
+            simt = (f", bf16 instance {simt_ms:.4f}" if bf16 else
                     f", SIMT ablation {simt_ms:.4f} (off the kernel by "
                     f"{simt_err[kind]:.3g} of scale)")
-            if bf16 and kind == "fwd":
-                p = mbconv_cuda.plan_fwd_sm90(h_, w_, c_, e, co, k, b_)
+            if bf16:
+                p = (mbconv_cuda.plan_fwd_sm90 if kind == "fwd" else mbconv_cuda.plan_dx_sm90)(
+                    h_, w_, c_, e, co, k, b_)
                 plan_s = (f"sm90 {p.th}x{p.tw} ec {p.ec} {p.minb} a SM wn {p.wn} "
                           f"split {p.split}")
             else:
@@ -1630,9 +1697,9 @@ def mbconv_step_numbers(label, atk, cap, mb_errs):
                  f"roundings" if bf16 else ""))
     for kind, tot in mb_tot.items():
         tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
-        if bf16 and kind == "fwd":
+        if bf16:
             tot["instance_ms"] = tot.pop("simt_ms")
-            print(f"  mbconv bf16 fwd per pass: the Hopper kernel {tot['ms']:.4f} ms against "
+            print(f"  mbconv bf16 {kind} per pass: the Hopper kernel {tot['ms']:.4f} ms against "
                   f"the template's bf16 instance {tot['instance_ms']:.4f} ms in turns "
                   f"({tot['instance_ms'] / tot['ms']:.2f}x), bound {tot['bound_ms']:.6f} ms "
                   f"({tot['bound_ms'] / tot['ms']:.1%} of the kernel)")
@@ -1669,47 +1736,59 @@ def check_fused_route(label, launches, route, fwd, dx, passes):
              f"({sum(route.calls)} of them fuseable) in {passes} passes")
 
 
-def sm90_route(label: str, bf16_fwd: int) -> dict:
-    """Fail unless the run since the last count reset sent its bf16_fwd bf16
-    fused forward launches to the Hopper kernel (`csrc/mbconv_fwd_sm90.cu`)
-    and none to the template's bf16 instance (every lite4 shape is one the
-    Hopper kernel takes). Returns the counts."""
+# kind: the bf16 forward (`csrc/mbconv_fwd_sm90.cu`) or the bf16 input
+# gradient (`csrc/mbconv_dx_sm90.cu`): its launch counts by kernel and its
+# planner, which the instance routes replace
+SM90_KINDS = {"fwd": ("BF16_FWD_LAUNCHES", "plan_fwd_sm90", "forward"),
+              "dx": ("BF16_DX_LAUNCHES", "plan_dx_sm90", "input gradient")}
+
+
+def sm90_route(label: str, n: int, kind: str = "fwd") -> dict:
+    """Fail unless the run since the last count reset sent its n bf16 fused
+    forward (kind "dx": input gradient) launches to the Hopper kernel and
+    none to the template's bf16 instance (every lite4 shape is one the
+    Hopper kernels take). Returns the counts."""
     from mladversarialobjectdetection_torch.ops import mbconv_cuda
-    got = dict(mbconv_cuda.BF16_FWD_LAUNCHES)
-    if got != {"sm90": bf16_fwd, "instance": 0}:
-        fail(f"{label}: bf16 fused forward launches by kernel {got}, want {bf16_fwd} of "
+    counts, _, what = SM90_KINDS[kind]
+    got = dict(getattr(mbconv_cuda, counts))
+    if got != {"sm90": n, "instance": 0}:
+        fail(f"{label}: bf16 fused {what} launches by kernel {got}, want {n} of "
              f"the Hopper kernel and none of the bf16 instance")
     return got
 
 
 class InstanceRoute:
-    """In its block every bf16 fused forward runs the template's bf16
-    instance (`mbconv_bf16.cu`): the Hopper kernel's rule takes no shape.
-    The ablation that `sm90_ab` times in turns with the main path."""
+    """In its block every bf16 fused forward (kind "dx": input gradient)
+    runs the template's bf16 instance (`mbconv_bf16.cu`, `mbconv_bf16_dx.cu`):
+    the Hopper kernel's rule takes no shape. The ablation that `sm90_ab`
+    times in turns with the main path."""
+
+    def __init__(self, kind: str = "fwd"):
+        self.planner = SM90_KINDS[kind][1]
 
     def __enter__(self):
         from mladversarialobjectdetection_torch.ops import mbconv_cuda
-        self.mod, self.orig = mbconv_cuda, mbconv_cuda.plan_fwd_sm90
-        mbconv_cuda.plan_fwd_sm90 = lambda *args, **kwargs: None
+        self.mod, self.orig = mbconv_cuda, getattr(mbconv_cuda, self.planner)
+        setattr(mbconv_cuda, self.planner, lambda *args, **kwargs: None)
         return self
 
     def __exit__(self, *exc):
-        self.mod.plan_fwd_sm90 = self.orig
+        setattr(self.mod, self.planner, self.orig)
 
 
-def sm90_ab(label: str, fn, iters: int = 5) -> tuple:
+def sm90_ab(label: str, fn, iters: int = 5, kind: str = "fwd") -> tuple:
     """The host p50 ms of fn (ending in a synchronize) with its bf16 fused
-    forwards on the Hopper kernel and on the bf16 instance, in turns
-    (Hopper, instance, instance, Hopper); printed and returned as (Hopper
-    ms, instance ms)."""
+    forwards (kind "dx": input gradients) on the Hopper kernel and on the
+    bf16 instance, in turns (Hopper, instance, instance, Hopper); printed and
+    returned as (Hopper ms, instance ms)."""
     t = []
     for on_instance in (False, True, True, False):
-        with InstanceRoute() if on_instance else contextlib.nullcontext():
+        with InstanceRoute(kind) if on_instance else contextlib.nullcontext():
             t.append(host_p50_ms(fn, iters=iters, warmup=1))
     new, old = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-    print(f"  {label}: {new:.3f} ms with the Hopper bf16 forward, {old:.3f} ms with the "
-          f"bf16 instance (p50s in turns {[round(v, 3) for v in t]}): {old - new:.3f} ms, "
-          f"{old / new:.3f}x")
+    print(f"  {label}: {new:.3f} ms with the Hopper bf16 {SM90_KINDS[kind][2]}, {old:.3f} ms "
+          f"with the bf16 instance (p50s in turns {[round(v, 3) for v in t]}): "
+          f"{old - new:.3f} ms, {old / new:.3f}x")
     return new, old
 
 
@@ -3395,6 +3474,10 @@ def packed_attack_phase(dev) -> dict:
             row[f"{name} launches"] = dict(
                 nms=nms_cuda.LAUNCHES,
                 **{k: dict(v) for k, v in mbconv_cuda.DTYPE_LAUNCHES.items()})
+            if mixed:  # every bf16 dx on the Hopper kernel
+                row[f"{name} dx_sm90"] = sm90_route(
+                    f"phase 23b {label} {name}",
+                    PACKED_MBCONV_PER_PASS if name == "packed" else MBCONV_PER_PASS, kind="dx")
             row[f"{name} peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
             row[f"{name} ms"] = host_p50_ms(step, iters=5, warmup=1)
         rel = abs(row["packed loss"] - row["unpacked loss"]) / abs(row["unpacked loss"])
@@ -3981,7 +4064,8 @@ def sp_rank(rank: int, work: str, device: str = "cuda") -> None:
     from mladversarialobjectdetection_torch.ops import mbconv_cuda
     out["driver"] = {"patch": st.patch.detach().cpu(), "scale": float(st.scale.detach()),
                      "s": time.perf_counter() - t0, "counts": path_counts(),
-                     "sm90": dict(mbconv_cuda.BF16_FWD_LAUNCHES)}
+                     "sm90": dict(mbconv_cuda.BF16_FWD_LAUNCHES),
+                     "sm90_dx": dict(mbconv_cuda.BF16_DX_LAUNCHES)}
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     torch.save(out, os.path.join(work, f"s{rank}.pt"))
 
@@ -4100,6 +4184,9 @@ def spatial_phase(dev, work: str, rank_fn=sp_rank) -> dict:
         if r["sm90"] != {"sm90": r["counts"]["mbconv_fwd_bf16"], "instance": 0}:
             fail(f"phase 25d: a rank's bf16 fused forward launches by kernel {r['sm90']}, "
                  f"want all {r['counts']['mbconv_fwd_bf16']} on the Hopper kernel")
+        if r["sm90_dx"] != {"sm90": r["counts"]["mbconv_dx_bf16"], "instance": 0}:
+            fail(f"phase 25d: a rank's bf16 dx launches by kernel {r['sm90_dx']}, "
+                 f"want all {r['counts']['mbconv_dx_bf16']} on the Hopper dx")
     print(f"phase 25d attack.train.train(spatial=2) at 2 ranks (b{DRIVER_BATCH}, bf16, "
           f"score threshold {DEFEND_THRESH}, 2 steps and 5 val batches): the ranks' "
           f"patches bit-equal, launches a rank "
@@ -4112,7 +4199,9 @@ def spatial_phase(dev, work: str, rank_fn=sp_rank) -> dict:
     return {**{k: a0["counts"][k] for k in (*WARP_KERNELS, "nms")}, **a0["mbconv"],
             **{f"{k}_driver": d0["counts"][k] for k in ("mbconv_fwd_bf16", "mbconv_dx_bf16")},
             "mbconv_fwd_sm90_driver": d0["sm90"]["sm90"],
-            "mbconv_fwd_instance_driver": d0["sm90"]["instance"]}
+            "mbconv_fwd_instance_driver": d0["sm90"]["instance"],
+            "mbconv_dx_sm90_driver": d0["sm90_dx"]["sm90"],
+            "mbconv_dx_instance_driver": d0["sm90_dx"]["instance"]}
 
 
 def main() -> int:
@@ -4184,7 +4273,8 @@ def main() -> int:
                         generator=torch.Generator(dev).manual_seed(i))
         errs = check_mbconv(f"bf16 {name}", x.bfloat16(), g.bfloat16(),
                             fb.in_dtype(torch.bfloat16), act, res,
-                            fwd=mbconv_cuda.mbconv_fwd_bf16_instance)
+                            fwd=mbconv_cuda.mbconv_fwd_bf16_instance,
+                            dx_fn=mbconv_cuda.mbconv_dx_bf16_instance)
         mb16_errs = {"fwd": max(mb16_errs["fwd"], errs[0]),
                      "dx": max(mb16_errs["dx"], errs[1])}
         pf = mbconv_cuda.plan_fwd(h, w, c, e, co, k, b, dtype=torch.bfloat16)
@@ -4231,6 +4321,38 @@ def main() -> int:
     print(f"phase 1a mbconv sm90 (csrc/mbconv_fwd_sm90.cu) vs bf16 plain: {n_sm90} shapes, "
           f"max error {sm90_err:.3g} (limit {MBCONV_BF16_FWD_TOL} of scale), every output "
           f"within the roundings, two launches bit-equal; {n_odd} odd shapes on the instance")
+    # and the Hopper bf16 input gradient on the same shapes, and on the
+    # spatial heights at phase 25d's batch too
+    dx90_err, n_dx90, n_odd = 0.0, 0, 0
+    cases += [(f"spatial b{DRIVER_BATCH} {s[0]}x{s[1]} C{s[2]} k{s[5]}", DRIVER_BATCH, *s, "relu6")
+              for s in LITE4_SPATIAL]
+    for i, (name, b, h, w, c, e, co, k, res, act) in enumerate(cases):
+        x, fb = mbconv_case(dev, b, h, w, c, e, co, k, seed=40 + i)
+        g = torch.randn((b, h, w, co), device=dev,
+                        generator=torch.Generator(dev).manual_seed(i)) * 0.1
+        x, g, fb = x.bfloat16(), g.bfloat16(), fb.in_dtype(torch.bfloat16)
+        if not mbconv_cuda.sm90_dx_supported(h, w, c, e, co, k, b):
+            if not name.startswith("odd"):
+                fail(f"phase 1a: the Hopper dx's rule refuses lite4's shape {name}")
+            before = dict(mbconv_cuda.BF16_DX_LAUNCHES)
+            mbconv_cuda.mbconv_dx_cuda(x, g, fb, act_type=act, residual=res)
+            if dict(mbconv_cuda.BF16_DX_LAUNCHES) != dict(before, instance=before["instance"] + 1):
+                fail(f"phase 1a: {name} outside the Hopper dx's rule did not run the instance")
+            n_odd += 1
+            print(f"  mbconv dx sm90 {name}: outside the rule (C {c}, E {e}, Co {co}), ran the "
+                  f"bf16 instance")
+            continue
+        err, db, flips, p = check_sm90_dx(name, x, g, fb, act, res)
+        dx90_err, n_dx90 = max(dx90_err, err), n_dx90 + 1
+        print(f"  mbconv dx sm90 {name}: error {err:.3g}, elements off plain {db.flips}, none "
+              f"beyond the roundings (gd near a bf16 boundary {db.gd_near}, ge {db.ge_near}; "
+              f"{db.dx_open} of {x.numel()} may take more than one value); mask flips z0 "
+              f"{flips[0]}, z1 {flips[1]} (at most {flips[2]:.3g} of scale from the kink, none "
+              f"beyond the sums' error); plan {p.th}x{p.tw} ec {p.ec} {p.minb} a SM wn {p.wn} "
+              f"split {p.split}, {p.blocks} blocks, {p.smem} B shared")
+    print(f"phase 1a mbconv dx sm90 (csrc/mbconv_dx_sm90.cu) vs bf16 plain: {n_dx90} shapes, "
+          f"max error {dx90_err:.3g} (limit {MBCONV_BF16_DX_TOL} of scale), every element and "
+          f"mask within the roundings, two launches bit-equal; {n_odd} odd shapes on the instance")
     del x, g, fb
 
     # phase 2: kernel vs plain on the card
@@ -4678,6 +4800,7 @@ def main() -> int:
     if bf16_mb != want:
         fail(f"bf16 attack step: fused MBConv launches per dtype {bf16_mb}, want {want}")
     attack_sm90 = sm90_route("bf16 attack step", 2 * MBCONV_PER_PASS * ATTACK_STEPS)
+    attack_dx90 = sm90_route("bf16 attack step", MBCONV_PER_PASS * ATTACK_STEPS, kind="dx")
     bpatch = bstate.patch.detach()
     if bpatch.dtype != torch.float32 or not np.isfinite(float(bm.loss)) or \
             not bool(torch.isfinite(bpatch).all()):
@@ -4713,9 +4836,13 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.set_grad_enabled(False)
     inst16_err = mb16_errs["fwd"]  # phase 1a's, on the odd shapes
+    inst16_dx_err = mb16_errs["dx"]
     mb16_tot, mb16_errs = mbconv_step_numbers("phase 6a bf16", batk, cap,
-                                              {"fwd": sm90_err, "dx": mb16_errs["dx"]})
+                                              {"fwd": sm90_err, "dx": dx90_err})
     torch.set_grad_enabled(True)
+    # phase 5b's step again with its bf16 dx on the Hopper kernel and on the
+    # instance, in turns (after 5a and 6a: the steps move the patch)
+    attack_dx_ab = sm90_ab(f"bf16 attack step b{ATTACK_BATCH}", bstep, kind="dx")
     del cap, batk, bstate, bimages, bpatch, patch0, bstep, bm, boverride
     torch.cuda.empty_cache()
 
@@ -4742,6 +4869,7 @@ def main() -> int:
                 or warp_cuda.LAUNCHES["pass1_bwd"] != 3):
             fail(f"bf16 driver: launches {per_dtype}, warp {warp_cuda.LAUNCHES}")
         sm90_route("bf16 driver", per_dtype["bfloat16"]["mbconv_fwd"])
+        sm90_route("bf16 driver", per_dtype["bfloat16"]["mbconv_dx"], kind="dx")
     print(f"phase 7b driver with its defaults (bf16): train(efficientdet-lite4, batch "
           f"12, 3 steps) in {bdriver_s:.2f} s, fused MBConv launches per dtype "
           f"{per_dtype}, warp {warp_cuda.LAUNCHES}, artifacts {dirs}")
@@ -5514,7 +5642,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         t23 = time.perf_counter()
         packed_serve_phase(dev)
-        packed_attack_phase(dev)
+        packed_attack = packed_attack_phase(dev)
         packed_defender_phase(dev)
         with tempfile.TemporaryDirectory() as work:
             tf_checkpoint_phase(dev, vpath, work)
@@ -5618,27 +5746,34 @@ def main() -> int:
         # host p50 ms (Hopper forward, bf16 instance), in turns in one call
         "ab_serve_b8_ms": serve_ab, "ab_attack_step_ms": attack_ab,
         "ab_defender_step_ms": defend_ab, "ab_eval_batch_ms": sup_eval["sm90_ab_ms"]})
+    tot = mb16_tot["dx"]  # the Hopper bf16 input gradient, per pass of the bf16 step
+    kernels.append({
+        "name": "mbconv_dx_bf16_sm90", "route": "cuda",
+        "source": "mladversarialobjectdetection_torch/csrc/mbconv_dx_sm90.cu",
+        "replaces": MBCONV_REPLACES["dx"], "launches": attack_dx90["sm90"],
+        "max_abs_err": mb16_errs["dx"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"], "library_ms": None,
+        "unfused_ms": tot["unfused_ms"], "instance_ms": tot["instance_ms"],
+        "packed_attack_launches": packed_attack["bf16"]["packed dx_sm90"]["sm90"],
+        "spatial_driver_launches_per_rank": spatial["mbconv_dx_sm90_driver"],
+        # host p50 ms (Hopper dx, bf16 instance), in turns in one call
+        "ab_attack_step_ms": attack_dx_ab})
     for kind in ("fwd", "dx"):  # the bf16 instances, per pass of the bf16 step
         tot = mb16_tot[kind]
-        # the forward's instance is off lite4's path (0 launches there): its
-        # time is the ablation's, in turns with the Hopper kernel
+        # both instances are off lite4's path (0 launches there): their time
+        # is the ablation's, in turns with the Hopper kernels
         kernels.append({
             "name": f"mbconv_{kind}_bf16", "route": "cuda",
             "source": ("mladversarialobjectdetection_torch/csrc/mbconv_bf16.cu" if kind == "fwd"
                        else "mladversarialobjectdetection_torch/csrc/mbconv_bf16_dx.cu"),
             "replaces": MBCONV_REPLACES[kind],
-            "launches": (attack_sm90["instance"] if kind == "fwd"
-                         else bf16_mb["bfloat16"]["mbconv_dx"]),
-            "max_abs_err": inst16_err if kind == "fwd" else mb16_errs["dx"],
-            "ms": tot["instance_ms"] if kind == "fwd" else tot["ms"],
-            "plain_ms": tot["plain_ms"],
+            "launches": (attack_sm90 if kind == "fwd" else attack_dx90)["instance"],
+            "max_abs_err": inst16_err if kind == "fwd" else inst16_dx_err,
+            "ms": tot["instance_ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"], "library_ms": None,
-            "unfused_ms": tot["unfused_ms"],
-            "spatial_driver_launches_per_rank": (
-                spatial["mbconv_fwd_instance_driver"] if kind == "fwd"
-                else spatial["mbconv_dx_bf16_driver"]),
-            **({"on_lite4_path": False, "eval_instance_ms": sup_eval["mbconv"]["instance_ms"]}
-               if kind == "fwd" else {})})
+            "unfused_ms": tot["unfused_ms"], "on_lite4_path": False,
+            "spatial_driver_launches_per_rank": spatial[f"mbconv_{kind}_instance_driver"],
+            **({"eval_instance_ms": sup_eval["mbconv"]["instance_ms"]} if kind == "fwd" else {})})
     c8, c8b = q8["numbers_fp32"], q8["numbers_bf16"]
     kernels.append({
         "name": "conv_int8", "route": "cuda",

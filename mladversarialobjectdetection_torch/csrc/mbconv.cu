@@ -99,7 +99,12 @@
 //
 // The dx kernel recomputes e on the tile with a halo of 2h and z1, g . Wp^T
 // and gd with a halo of h (fused_mbconv.py:282-339), saving nothing but x in
-// the forward. This file builds the forward's entry, `mlad_mbconv_fwd`;
+// the forward. The main path runs the float32 instances everywhere; in bf16
+// it runs the Hopper kernels, mbconv_fwd_sm90.cu and mbconv_dx_sm90.cu, at
+// every shape their rules take (C, E and Co multiples of 8 whose plan fits:
+// all of lite4's), and this template's bf16 instances only elsewhere
+// (ops/mbconv_cuda.py picks by shape); chip_smoke.py times the instances
+// beside the Hopper kernels. This file builds the forward's entry, `mlad_mbconv_fwd`;
 // with MLAD_MBCONV_PART defined, mbconv_dx.cu (1, `mlad_mbconv_dx`) and
 // mbconv_simt_fwd.cu / mbconv_simt_dx.cu (2 / 3, the ablation) and
 // mbconv_bf16.cu / mbconv_bf16_dx.cu (4 / 5, `mlad_mbconv_fwd_bf16`,

@@ -35,7 +35,8 @@ kernel's layout.
   and the output once (the residual added in float32 before it); in dx, g
   on entry, gd = (g . Wp^T) act'(z1) and ge act'(z0). The relu masks come
   from the float32 z0 and z1. `rounding_bound` holds a kernel's bf16
-  forward to where those roundings may go.
+  forward to where those roundings may go, `dx_rounding_bound` its input
+  gradient.
 - `FusedMBConv` / `mbconv`: the op. Forward: the custom op
   `mlad::mbconv_fwd` (`ops/library.py`, which `torch.export` traces): the
   CUDA kernel for CUDA tensors (which launches or raises), the plain
@@ -301,14 +302,131 @@ def mbconv_dx_plain(x: torch.Tensor, g: torch.Tensor, fb: FoldedBlock, *,
             raise ValueError(f"masks replace the 0/1 act' of relu6 / relu, not {act_type}")
         dz0, dz1 = (m.to(x.dtype) for m in masks)
     gd = rnd(torch.matmul(g, fb.wp.t()) * dz1)
+    gx = torch.matmul(rnd(depthwise_t(gd, fb.wd) * dz0), fb.we.t())
+    return (gx + g if residual else gx).to(cd)
+
+
+def depthwise_t(gd: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
+    """The transpose of the k x k SAME depthwise on gd [B, H, W, E]: from
+    zero, the taps row by row (ky, then kx ascending), multiply and add
+    apart."""
+    k = wd.shape[0]
+    h = k // 2
+    height, width = gd.shape[1], gd.shape[2]
     gp = F.pad(gd, (0, 0, h, h, h, h))
     ge = torch.zeros_like(gd)
     for i in range(k):
         for j in range(k):
             ge += (gp[:, 2 * h - i:2 * h - i + height, 2 * h - j:2 * h - j + width, :]
-                   * fb.wd[i, j])
-    gx = torch.matmul(rnd(ge * dz0), fb.we.t())
-    return (gx + g if residual else gx).to(cd)
+                   * wd[i, j])
+    return ge
+
+
+class DxRoundingBound(NamedTuple):
+    """A bf16 kernel's input gradient held to the bf16 function's roundings."""
+    flips: int    # elements of dx that differ from `mbconv_dx_plain`'s
+    outside: int  # elements no choice of those roundings reaches: faults
+    gd_near: int  # gd within the sums' float32 error of a bf16 boundary
+    ge_near: int  # ge likewise
+    dx_open: int  # elements of dx whose interval holds more than one bf16 value
+    mask_faults: int  # given masks: those no z0 or z1 within the sums' error reaches
+
+
+def _dact_interval(z: torch.Tensor, rad: torch.Tensor, act_type: str):
+    """(mid, radius) holding act' over [z - rad, z + rad]: relu6 / relu's
+    step is 1 inside (0, 6) / (0, inf), so the interval is [0, 1] where it
+    straddles a kink; swish's derivative has slope at most 0.5 in magnitude
+    (its `expf` form within 2^-18 of the value)."""
+    if act_type in ("relu6", "relu"):
+        top = 6.0 if act_type == "relu6" else float("inf")
+        hi = ((z + rad > 0.0) & (z - rad < top)).to(z.dtype)
+        lo = ((z - rad > 0.0) & (z + rad < top)).to(z.dtype)
+        return (lo + hi) / 2, (hi - lo) / 2
+    d = dact(z, act_type)
+    return d, 0.5 * rad + 2.0 ** -18 * d.abs() + 1e-30
+
+
+def _times(a, b):
+    """(mid, radius) of the product of two intervals given as (mid, radius)."""
+    return a[0] * b[0], a[0].abs() * b[1] + a[1] * b[0].abs() + a[1] * b[1]
+
+
+def dx_rounding_bound(dx: torch.Tensor, x: torch.Tensor, g: torch.Tensor, fb: FoldedBlock, *,
+                      act_type: str, residual: bool,
+                      masks: torch.Tensor | None = None) -> DxRoundingBound:
+    """Hold a bf16 kernel's input gradient dx to the bf16 function of
+    `mbconv_dx_plain`, as `rounding_bound` holds a forward.
+
+    The kernel sums z0, z1, g . Wp^T, the depthwise transpose and ge . We^T
+    in float32 in other orders, so gd, ge and dx may round the other way
+    where their float32 values lie within those sums' error of a bf16
+    boundary. Intervals carry every such choice: z0 and z1 as in
+    `rounding_bound`; act'(z0) and act'(z1) over them (`_dact_interval`),
+    or exact from `masks` (a kernel's own relu6 / relu masks, each held to
+    its interval first); gd = bf16((g .
+    Wp^T) act'(z1)) and ge = bf16(dwconv^T(gd) act'(z0)) as the bf16
+    roundings of their ends; dx = ge . We^T (+ g) within its slack. An
+    element of dx outside [bf16(lo), bf16(hi)] is counted in `outside`, a
+    given mask that differs from the plain version's where its z lies
+    farther from the kink than the sums' error in `mask_faults`."""
+    xf, f, rnd = _operands(x, fb)
+    gf = rnd(g.to(torch.float32))
+    c, (e, co), k = xf.shape[-1], f.wp.shape, f.wd.shape[0]
+    pad = 1.0 + 2.0 ** -16  # the radii's own float32 rounding
+    wa = f.wd.abs()
+    z0 = torch.matmul(xf, f.we) + f.be
+    r0 = _sum_slack(c + 1, torch.matmul(xf.abs(), f.we.abs()) + f.be.abs()) * pad
+    e_lo, e_hi = (rnd(a) for a in _act_interval(z0, r0, act_type))
+    dz0 = _dact_interval(z0, r0, act_type)
+    del z0, r0
+    e_mid, e_rad, e_abs = _mid_rad(e_lo, e_hi)
+    del e_lo, e_hi
+    fa = f._replace(wd=wa, bd=f.bd.abs())
+    z1 = depthwise_z1(e_mid, f)
+    r1 = (depthwise_z1(e_rad, fa._replace(bd=torch.zeros_like(f.bd)))
+          + _sum_slack(k * k + 1, depthwise_z1(e_abs, fa))) * pad
+    del e_mid, e_rad, e_abs
+    dz1 = _dact_interval(z1, r1, act_type)
+    del z1, r1
+    mask_faults = 0
+    if masks is not None:  # each mask within its interval, then exact
+        zero = torch.zeros(masks.shape[1:], dtype=torch.float32, device=x.device)
+        for m, (mid, rad) in zip(masks, (dz0, dz1)):
+            m = m.to(torch.float32)
+            mask_faults += int(((m < mid - rad) | (m > mid + rad)).sum())
+        dz0, dz1 = (masks[0].to(torch.float32), zero), (masks[1].to(torch.float32), zero)
+    gw = torch.matmul(gf, f.wp.t())
+    gw = (gw, _sum_slack(co, torch.matmul(gf.abs(), f.wp.abs().t())) * pad)
+    mid, rad = _times(gw, dz1)
+    del gw, dz1
+    gd_lo, gd_hi = rnd(mid - rad * pad), rnd(mid + rad * pad)
+    gd_near = int((gd_lo != gd_hi).sum())
+    gd_mid, gd_rad, gd_abs = _mid_rad(gd_lo, gd_hi)
+    del gd_lo, gd_hi, mid, rad
+    t = (depthwise_t(gd_mid, f.wd),
+         (depthwise_t(gd_rad, wa) + _sum_slack(k * k, depthwise_t(gd_abs, wa))) * pad)
+    del gd_mid, gd_rad, gd_abs
+    mid, rad = _times(t, dz0)
+    del t, dz0
+    ge_lo, ge_hi = rnd(mid - rad * pad), rnd(mid + rad * pad)
+    ge_near = int((ge_lo != ge_hi).sum())
+    ge_mid, ge_rad, ge_abs = _mid_rad(ge_lo, ge_hi)
+    del ge_lo, ge_hi, mid, rad
+    dx_mid = torch.matmul(ge_mid, f.we.t())
+    dx_abs = torch.matmul(ge_abs, f.we.abs().t())
+    if residual:
+        dx_mid, dx_abs = dx_mid + gf, dx_abs + gf.abs()
+    dx_rad = (torch.matmul(ge_rad, f.we.abs().t()) + _sum_slack(e + 1, dx_abs)) * pad
+    del ge_mid, ge_rad, ge_abs, dx_abs
+    lo, hi = rnd(dx_mid - dx_rad), rnd(dx_mid + dx_rad)
+    del dx_mid, dx_rad
+    df = dx.to(torch.float32)
+    outside = int(((df < lo) | (df > hi)).sum())
+    dx_open = int((lo != hi).sum())
+    del lo, hi, df
+    plain = mbconv_dx_plain(x, g, fb, act_type=act_type, residual=residual, masks=masks)
+    flips = int((dx != plain).sum())
+    return DxRoundingBound(flips, outside, gd_near, ge_near, dx_open, mask_faults)
 
 
 def dx_masks(x: torch.Tensor, fb: FoldedBlock, *, act_type: str):

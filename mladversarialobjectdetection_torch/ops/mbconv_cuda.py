@@ -43,6 +43,17 @@ for the other. `BF16_FWD_LAUNCHES` counts the bf16 forward launches by
 kernel ("sm90", "instance"), beside `LAUNCHES` and `DTYPE_LAUNCHES`, which
 count both. `mbconv_fwd_bf16_instance` runs the instance on any bf16 shape:
 the ablation timed beside the new kernel, which the main path never calls.
+
+The bf16 input gradient has one too, `csrc/mbconv_dx_sm90.cu` (the x tile
+with a halo of 2h and the g tile with a halo of h staged once; the chunks'
+weights, `sm90_pack`'s slot images, through the same kind of mbarrier ring;
+both depthwise passes register-windowed; 16 warps, or two blocks of 8 a
+SM).
+`mbconv_dx_cuda` takes it for every bf16 input whose shape
+`sm90_dx_supported` accepts (`plan_dx_sm90`), the template's bf16 instance
+(`mbconv_bf16_dx.cu`) elsewhere, by shape alone; `BF16_DX_LAUNCHES` counts
+the bf16 dx launches by kernel, and `mbconv_dx_bf16_instance` is its
+ablation.
 """
 from __future__ import annotations
 
@@ -61,6 +72,7 @@ ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
 DTYPE_LAUNCHES = {d: {"mbconv_fwd": 0, "mbconv_dx": 0} for d in DTYPES.values()}
 ABLATION_LAUNCHES = {"mbconv_fwd": 0, "mbconv_dx": 0}
 BF16_FWD_LAUNCHES = {"sm90": 0, "instance": 0}  # bf16 forward op calls, by kernel
+BF16_DX_LAUNCHES = {"sm90": 0, "instance": 0}  # bf16 dx op calls, by kernel
 ACT_CODES = {"relu6": 0, "relu": 1, "swish": 2, "silu": 2, "swish_native": 2}
 assert set(ACT_CODES) == set(SUPPORTED_ACTS)
 
@@ -111,7 +123,8 @@ class Plan(NamedTuple):
 
 def reset_counts() -> None:
     """Set the launch counts (main path, per dtype and ablation) to 0."""
-    for counts in (LAUNCHES, ABLATION_LAUNCHES, BF16_FWD_LAUNCHES, *DTYPE_LAUNCHES.values()):
+    for counts in (LAUNCHES, ABLATION_LAUNCHES, BF16_FWD_LAUNCHES, BF16_DX_LAUNCHES,
+                   *DTYPE_LAUNCHES.values()):
         for name in counts:
             counts[name] = 0
 
@@ -325,10 +338,11 @@ class Sm90Plan(NamedTuple):
     cost_us: float
 
 
-def sm90_region_rows(hgt: int, wid: int, th: int, tw: int, k: int) -> int:
-    """The largest image-clipped halo region of a th x tw tile, in pixels,
-    padded to 16 (the rows of the staged x tile; `region_rows`)."""
-    h = k // 2
+def sm90_region_rows(hgt: int, wid: int, th: int, tw: int, k: int, halo: int | None = None) -> int:
+    """The largest image-clipped region of a th x tw tile with a halo of
+    `halo` (k // 2 by default), in pixels, padded to 16 (the rows of a staged
+    tile; `region_rows`)."""
+    h = k // 2 if halo is None else halo
     my = max(min(y + th + h, hgt) - max(y - h, 0) for y in range(0, hgt, th))
     mx = max(min(x + tw + h, wid) - max(x - h, 0) for x in range(0, wid, tw))
     return _round(my * mx, 16)
@@ -345,12 +359,12 @@ def sm90_smem_bytes(k, th, tw, ec, stages, c, co, nhp) -> int:
             + 2 * (ec + 8) * ((th + k - 1) * (tw + k - 1) + _round(th * tw, 16)))
 
 
-def _sm90_wn(cfg, co: int):
-    """The warps along the output channels (a divisor of the 8) that fits
-    the instance's accumulator and leaves the fewest fragments to the
-    busiest warp, or None."""
+def _sm90_wn(cfg, co: int, nw: int = SM90_WARPS):
+    """The warps along the output channels (a divisor of the block's nw)
+    that fits the instance's accumulator and leaves the fewest fragments to
+    the busiest warp, or None."""
     th, tw, _, mpw, npw = cfg[:5]
-    nw, nt, mtp = SM90_WARPS, co // 8, _ceil(th * tw, 16)
+    nt, mtp = co // 8, _ceil(th * tw, 16)
     best = None
     for wn in (d for d in range(1, nw + 1) if nw % d == 0):
         wm = nw // wn
@@ -445,6 +459,142 @@ def sm90_supported(H: int, W: int, C: int, E: int, Co: int, k: int, batch: int =
     return plan_fwd_sm90(H, W, C, E, Co, k, batch) is not None
 
 
+# csrc/mbconv_dx_sm90.cu, the Hopper bf16 input gradient: its instances,
+# (TH, TW, EC, MPW, NPW, STAGES, MINB, NW) of MLAD_DX_SM90_CONFIGS, as
+# SM90_CONFIGS with the block's warps NW; MPW by NPW is each warp's share
+# of the dx sum (pixels by C)
+DX_SM90_CONFIGS = ((16, 16, 32, 1, 4, 2, 1, 16), (8, 8, 16, 1, 7, 2, 2, 8),
+                   (8, 8, 32, 1, 4, 2, 1, 16), (8, 8, 16, 1, 5, 2, 1, 16),
+                   (4, 8, 16, 1, 5, 2, 1, 16))
+
+
+def dx_reg_cap(minb: int, nw: int) -> int:
+    """Registers a thread may use under __launch_bounds__(32 nw, minb): the
+    SM's 65536 over the threads of minb blocks, at most 255."""
+    return min(255, 65536 // (32 * nw * minb) // 8 * 8)
+
+
+# registers per thread of each instance at k = 3 and 5, ptxas's counts on
+# the H100 (chip_smoke.py phase 1 prints them); none spills
+DX_SM90_REGS = {(16, 16, 32, 1, 4, 2, 1, 16): (128, 128), (8, 8, 16, 1, 7, 2, 2, 8): (116, 126),
+                (8, 8, 32, 1, 4, 2, 1, 16): (127, 128), (8, 8, 16, 1, 5, 2, 1, 16): (127, 128),
+                (4, 8, 16, 1, 5, 2, 1, 16): (127, 128)}
+# the dx cost model's constants, as SM90_COST (`_sm90_basis`; its terms
+# `_dx_sm90_terms`), fitted by `python3 -m
+# mladversarialobjectdetection_torch.ops.mbconv_sweep --kind dx` (every
+# plan at lite4@640's 7 fused shapes, b1 and b24) on an NVIDIA H100 80GB
+# HBM3 at 700 W
+DX_SM90_COST = (3.4724, 1.3139, 0.8263, 7.9258, 0.4118, 1.40)
+
+
+class Sm90DxPlan(NamedTuple):
+    """One launch of the Hopper bf16 input gradient: instance (th, tw, ec,
+    mpw, npw, stages, minb, nw), `wn` of its nw warps along C, E split over
+    `split` blocks of `e_per_split` channels; the staged x tile's rows (halo
+    2h) and g tile's (halo h), the block's shared memory (bytes), ptxas's
+    registers per thread, its blocks, and the cost model's time (us)."""
+    th: int
+    tw: int
+    ec: int
+    mpw: int
+    npw: int
+    stages: int
+    minb: int
+    nw: int
+    wn: int
+    split: int
+    e_per_split: int
+    n2p: int
+    n1p: int
+    smem: int
+    regs: int
+    blocks: int
+    cost_us: float
+
+
+def dx_sm90_smem_bytes(k, th, tw, ec, stages, c, co, n2p, n1p) -> int:
+    """A block's shared memory (`smem_bytes` of mbconv_dx_sm90.cu): the
+    barriers, the staged rows' positions and offsets, the x and g tiles, the
+    ring of `sm90_pack` slots, e and ge (bf16), act'(z1) / gd and act'(z0)
+    (float32); bf16 rows pad by 8, float32 rows by 4."""
+    h = k // 2
+    slot = (2 * (_round(c, 16) * (ec + 8) + ec * (_round(co, 16) + 8))
+            + 4 * (2 + k * k) * ec)
+    return (SM90_BAR_BYTES + 8 * (n2p + n1p)
+            + 2 * (n2p * (_round(c, 16) + 8) + n1p * (_round(co, 16) + 8)) + stages * slot
+            + 2 * (ec + 8) * ((th + 4 * h) * (tw + 4 * h) + th * tw)
+            + 4 * (ec + 4) * ((th + 2 * h) * (tw + 2 * h) + th * tw))
+
+
+def _dx_sm90_terms(cfg, b, hgt, wid, c, e, co, k, split):
+    """What a dx plan's time depends on, as `_sm90_terms`: (waves, chunks a
+    block, MFLOP of a chunk's products (the expand over the clipped x rows,
+    g . Wp^T over the clipped g rows, ge . We^T), MFLOP of its two depthwise
+    passes, MB of a split's reduction, blocks a SM)."""
+    th, tw, ec = cfg[:3]
+    minb = cfg[6]
+    h = k // 2
+    tiles = _ceil(hgt, th) * _ceil(wid, tw)
+
+    def rows(halo, pad):  # mean clipped region of a tile
+        return sum(_round(ry * rx, 16) if pad else ry * rx for ry in _clipped(hgt, th, halo)
+                   for rx in _clipped(wid, tw, halo)) / tiles
+
+    tensor = 2 * ec * (rows(2 * h, True) * _round(c, 16) + rows(h, True) * _round(co, 16)
+                       + th * tw * c) / 1e6
+    fp = 2 * ec * (rows(h, False) + th * tw) * k * k / 1e6
+    reduce_mb = (split + 2) * b * hgt * wid * c * 4 / 1e6 if split > 1 else 0.0
+    waves = _ceil(tiles * b * split, SMS * minb)
+    return waves, _ceil(_round(_ceil(e, split), ec), ec), tensor, fp, reduce_mb, minb
+
+
+def sm90_dx_plans(H: int, W: int, C: int, E: int, Co: int, k: int, batch: int = 1):
+    """Every plan of the Hopper bf16 input gradient for x [batch, H, W, C]
+    (E, Co, k) that fits its budgets, as `sm90_plans`: each instance whose
+    accumulator holds C, that fits 227 KB of shared memory (113 KB with two
+    blocks a SM) and ptxas's registers, at each split of E into whole
+    chunks. None where C, E or Co is not a multiple of 8 or k is not 3 or 5."""
+    if C % 8 or E % 8 or Co % 8 or k not in (3, 5) or min(H, W, C, E, Co, batch) < 1:
+        return []
+    plans = []
+    for cfg in DX_SM90_CONFIGS:
+        th, tw, ec, mpw, npw, stages, minb, nw = cfg
+        wn = _sm90_wn(cfg, C, nw)
+        if wn is None:
+            continue
+        n2p = sm90_region_rows(H, W, th, tw, k, halo=2 * (k // 2))
+        n1p = sm90_region_rows(H, W, th, tw, k)
+        smem = dx_sm90_smem_bytes(k, th, tw, ec, stages, C, Co, n2p, n1p)
+        regs = DX_SM90_REGS[cfg][k == 5]
+        if smem > (MAX_SMEM if minb == 1 else SM90_MAX_SMEM2) or regs > dx_reg_cap(minb, nw):
+            continue
+        for split in SM90_SPLITS:
+            eps = _round(_ceil(E, split), ec)
+            if (split - 1) * eps >= E:
+                continue
+            terms = _dx_sm90_terms(cfg, batch, H, W, C, E, Co, k, split)
+            cost = sum(a * b for a, b in zip(_sm90_basis(terms, DX_SM90_COST[5]), DX_SM90_COST))
+            blocks = _ceil(H, th) * _ceil(W, tw) * batch * split
+            plans.append(Sm90DxPlan(th, tw, ec, mpw, npw, stages, minb, nw, wn, split, eps, n2p,
+                                    n1p, smem, regs, blocks, cost))
+    return plans
+
+
+@functools.lru_cache(maxsize=None)
+def plan_dx_sm90(H: int, W: int, C: int, E: int, Co: int, k: int, batch: int = 1):
+    """The Hopper bf16 input gradient's plan for x [batch, H, W, C] (E, Co,
+    k): the cost model's fastest of `sm90_dx_plans`, or None where there is
+    none (the shape then runs the template's bf16 instance)."""
+    plans = sm90_dx_plans(H, W, C, E, Co, k, batch)
+    return min(plans, key=lambda p: p.cost_us) if plans else None
+
+
+def sm90_dx_supported(H: int, W: int, C: int, E: int, Co: int, k: int, batch: int = 1) -> bool:
+    """Whether the bf16 input gradient of this shape runs the Hopper kernel
+    (else the template's bf16 instance)."""
+    return plan_dx_sm90(H, W, C, E, Co, k, batch) is not None
+
+
 @functools.lru_cache(maxsize=None)
 def _entry(lib: str, name: str):
     """A C entry of csrc/<lib>.cu, built on first use."""
@@ -530,8 +680,8 @@ def _launch(kind, variant, ptrs, shape, e, co, k, act_type, residual, out, plan,
     else:
         LAUNCHES[f"mbconv_{kind}"] += 1
         DTYPE_LAUNCHES[variant][f"mbconv_{kind}"] += 1
-        if kind == "fwd" and variant == "bfloat16":
-            BF16_FWD_LAUNCHES["instance"] += 1
+        if variant == "bfloat16":
+            (BF16_FWD_LAUNCHES if kind == "fwd" else BF16_DX_LAUNCHES)["instance"] += 1
     return out
 
 
@@ -565,15 +715,17 @@ def sm90_pack(fb: FoldedBlock, ec: int) -> torch.Tensor:
 
 
 def _sm90_packed(fb: FoldedBlock, ec: int) -> torch.Tensor:
-    """`sm90_pack(fb, ec)`, cached on the fold's We tensor while the five
-    weight tensors keep their storage and version (a frozen fold packs
-    once)."""
-    key = (ec,) + tuple((t.data_ptr(), t._version) for t in fb[:5])
+    """`sm90_pack(fb, ec)`, cached on the fold's We tensor per ec while the
+    five weight tensors keep their storage and version (a frozen fold packs
+    once for each chunk width its forward and dx plans use)."""
+    key = tuple((t.data_ptr(), t._version) for t in fb[:5])
     cache = getattr(fb.we, "_mlad_sm90_packs", None)
     if cache is None or cache[0] != key:
-        cache = (key, sm90_pack(fb, ec))
+        cache = (key, {})
         fb.we._mlad_sm90_packs = cache
-    return cache[1]
+    if ec not in cache[1]:
+        cache[1][ec] = sm90_pack(fb, ec)
+    return cache[1][ec]
 
 
 def _launch_sm90(x, fb, e, co, k, act_type, residual, plan: Sm90Plan):
@@ -595,6 +747,38 @@ def _launch_sm90(x, fb, e, co, k, act_type, residual, plan: Sm90Plan):
     LAUNCHES["mbconv_fwd"] += 1
     DTYPE_LAUNCHES["bfloat16"]["mbconv_fwd"] += 1
     BF16_FWD_LAUNCHES["sm90"] += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm90_dx_entry():
+    """The C entry of csrc/mbconv_dx_sm90.cu, built on first use."""
+    fn = _build.load("mbconv_dx_sm90").mlad_mbconv_dx_sm90
+    fn.argtypes = [_P] * 3 + [_I] * 16 + [_P, _P, _P, _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_sm90_dx(x, g, fb, e, co, k, act_type, residual, plan: Sm90DxPlan, masks_out):
+    b, h, w, c = x.shape
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    ws = None
+    if plan.split > 1:
+        ws = torch.empty((plan.split, b, h, w, c), dtype=torch.float32, device=x.device)
+    packed = _sm90_packed(fb, plan.ec)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _sm90_dx_entry()(x.data_ptr(), g.data_ptr(), packed.data_ptr(), b, h, w, c, e, co,
+                               k, ACT_CODES[act_type], int(residual), plan.th, plan.tw, plan.ec,
+                               plan.npw, plan.wn, plan.split, plan.e_per_split, out.data_ptr(),
+                               ws.data_ptr() if ws is not None else None,
+                               masks_out.data_ptr() if masks_out is not None else None, stream)
+    if err != 0:
+        raise RuntimeError(f"mbconv_dx_sm90 kernel launch failed: cudaError_t {err} (x "
+                           f"{tuple(x.shape)}, E {e}, Co {co}, k {k}, {plan})")
+    LAUNCHES["mbconv_dx"] += 1
+    DTYPE_LAUNCHES["bfloat16"]["mbconv_dx"] += 1
+    BF16_DX_LAUNCHES["sm90"] += 1
     return out
 
 
@@ -620,7 +804,7 @@ def _fwd(x, fb, act_type, residual, plan, simt, instance=False):
                    residual, out, plan)
 
 
-def _dx(x, g, fb, act_type, residual, masks_out, plan, simt):
+def _dx(x, g, fb, act_type, residual, masks_out, plan, simt, instance=False):
     if x.dim() != 4 or g.dim() != 4 or g.shape[:3] != x.shape[:3]:
         raise ValueError(f"want x [B, H, W, C] and g [B, H, W, Co], got "
                          f"{tuple(x.shape)} and {tuple(g.shape)}")
@@ -635,6 +819,10 @@ def _dx(x, g, fb, act_type, residual, masks_out, plan, simt):
                 or not masks_out.is_contiguous() or masks_out.device != x.device):
             raise ValueError(f"masks_out must be a contiguous uint8 [2, {b}, {h}, "
                              f"{w}, {e}] tensor on {x.device}")
+    if x.dtype == torch.bfloat16 and not (simt or instance or plan):
+        p90 = plan_dx_sm90(h, w, c, e, co, k, b)
+        if p90 is not None:
+            return _launch_sm90_dx(x, g, fb, e, co, k, act_type, residual, p90, masks_out)
     plan = plan or plan_dx(h, w, c, e, co, k, b, masks=masks_out is not None,
                            dtype=x.dtype)
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
@@ -666,8 +854,21 @@ def mbconv_dx_cuda(x: torch.Tensor, g: torch.Tensor, fb: FoldedBlock, *,
     """`ops/mbconv.mbconv_dx_plain` as one op call: dx [B, H, W, C] in x's
     dtype. Given `masks_out` (uint8 [2, B, H, W, E], relu6 / relu), the masks
     instance also writes act'(z0) != 0 and act'(z1) != 0 into it; the main
-    path passes none."""
+    path passes none. bf16 runs the Hopper kernel where `sm90_dx_supported`
+    takes the shape (it writes the masks too), the template's bf16 instance
+    elsewhere."""
     return _dx(x, g, fb, act_type, residual, masks_out, None, False)
+
+
+def mbconv_dx_bf16_instance(x: torch.Tensor, g: torch.Tensor, fb: FoldedBlock, *,
+                            act_type: str, residual: bool,
+                            masks_out: torch.Tensor | None = None) -> torch.Tensor:
+    """The bf16 input gradient on the template's bf16 instance
+    (`mbconv_bf16_dx.cu`) whatever the shape: the ablation timed beside the
+    Hopper kernel."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the bf16 instance takes bf16 x, got {x.dtype}")
+    return _dx(x, g, fb, act_type, residual, masks_out, None, False, instance=True)
 
 
 def mbconv_fwd_simt(x: torch.Tensor, fb: FoldedBlock, *, act_type: str,

@@ -854,8 +854,10 @@ def test_mbconv_ablation_matches_kernel(cuda, name, b, h, w, c, e, co, k, residu
 @pytest.mark.parametrize("name,b,h,w,c,e,co,k,residual,act", MBCONV_CASES,
                          ids=[m[0] for m in MBCONV_CASES])
 def test_mbconv_bf16_kernels_match_plain(cuda, name, b, h, w, c, e, co, k, residual, act):
-    """The bf16 instances against the bf16 plain versions (chip_smoke.py's
-    tolerances), only bf16 launches counted, two launches bit-equal."""
+    """The bf16 main path (the Hopper kernels where their rules take the
+    shape, the bf16 instances elsewhere) against the bf16 plain versions
+    (chip_smoke.py's tolerances), only bf16 launches counted, two launches
+    bit-equal."""
     import chip_smoke
     from mladversarialobjectdetection_torch.ops import mbconv as pmb
     from mladversarialobjectdetection_torch.ops import mbconv_cuda
@@ -980,6 +982,133 @@ def test_mbconv_sm90_rule_sends_other_shapes_to_the_instance(cuda):
     _close(new.float(), inst.float(), "mbconv sm90 vs instance", 2 * chip_smoke.MBCONV_BF16_FWD_TOL)
 
 
+def _sm90_dx_cases():
+    """(id, B, H, W, C, E, Co, k, residual, act): the MBCONV_CASES the Hopper
+    bf16 dx's rule takes, and lite4@640's 7 fused shapes at b2."""
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
+    from mladversarialobjectdetection_torch.ops.mbconv_sweep import LITE4_FUSED
+    cases = [m for m in MBCONV_CASES if mbconv_cuda.sm90_dx_supported(*m[2:8], m[1])]
+    cases += [(f"lite4_{s[0]}x{s[1]}_c{s[2]}_co{s[4]}_k{s[5]}", 2, *s, "relu6")
+              for s in LITE4_FUSED]
+    return cases
+
+
+SM90_DX_CASES = _sm90_dx_cases()
+
+
+@pytest.mark.parametrize("name,b,h,w,c,e,co,k,residual,act", SM90_DX_CASES,
+                         ids=[m[0] for m in SM90_DX_CASES])
+def test_mbconv_dx_sm90_matches_plain(cuda, name, b, h, w, c, e, co, k, residual, act):
+    """The Hopper bf16 dx (csrc/mbconv_dx_sm90.cu) against the bf16 plain dx
+    fed its own masks (relu6 / relu): within chip_smoke.py's
+    MBCONV_BF16_DX_TOL of max|plain|, every element and mask within
+    `dx_rounding_bound`, two launches bit-equal, both counted on it and none
+    on the bf16 instance."""
+    import chip_smoke
+    from mladversarialobjectdetection_torch.ops import mbconv as pmb
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
+    x, fb = _mbconv_case(cuda, b, h, w, c, e, co, k, seed=b * 1000 + c)
+    x, fb = x.to(torch.bfloat16), fb.in_dtype(torch.bfloat16)
+    gy = (torch.randn((b, h, w, co), generator=torch.Generator().manual_seed(3)) * 0.1).to(
+        cuda, torch.bfloat16)
+    kw = dict(act_type=act, residual=residual)
+    relu = act in ("relu6", "relu")
+    masks = torch.full((2, b, h, w, e), 7, dtype=torch.uint8, device=cuda) if relu else None
+    mbconv_cuda.reset_counts()
+    dx = mbconv_cuda.mbconv_dx_cuda(x, gy, fb, masks_out=masks, **kw)
+    again = mbconv_cuda.mbconv_dx_cuda(x, gy, fb, **kw)
+    torch.cuda.synchronize()
+    assert mbconv_cuda.BF16_DX_LAUNCHES == {"sm90": 2, "instance": 0}
+    assert mbconv_cuda.DTYPE_LAUNCHES["bfloat16"] == {"mbconv_fwd": 0, "mbconv_dx": 2}
+    assert dx.dtype == torch.bfloat16 and torch.equal(dx, again)
+    if relu:
+        assert int(masks.max()) <= 1
+    dx_plain = pmb.mbconv_dx_plain(x, gy, fb, masks=masks, **kw)
+    err = float((dx.float() - dx_plain.float()).abs().max())
+    assert err <= chip_smoke.MBCONV_BF16_DX_TOL * float(dx_plain.float().abs().max()), err
+    bound = pmb.dx_rounding_bound(dx, x, gy, fb, masks=masks, **kw)
+    assert bound.outside == 0 and bound.mask_faults == 0, bound
+
+
+def test_mbconv_dx_sm90_rule_sends_other_shapes_to_the_instance(cuda):
+    """C, E or Co off a multiple of 8 runs the template's bf16 dx instance,
+    counted apart; `mbconv_dx_bf16_instance` runs the instance on a shape
+    the Hopper dx takes, and the two agree within the bf16 tolerance."""
+    import chip_smoke
+    from mladversarialobjectdetection_torch.ops import mbconv as pmb
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
+    kw = dict(act_type="relu", residual=False)
+    x, fb = _mbconv_case(cuda, 3, 12, 10, 13, 78, 20, 3)
+    x, fb = x.to(torch.bfloat16), fb.in_dtype(torch.bfloat16)
+    gy = torch.randn((3, 12, 10, 20), generator=torch.Generator().manual_seed(4)).to(
+        cuda, torch.bfloat16)
+    assert not mbconv_cuda.sm90_dx_supported(12, 10, 13, 78, 20, 3, 3)
+    mbconv_cuda.reset_counts()
+    dx = mbconv_cuda.mbconv_dx_cuda(x, gy, fb, **kw)
+    torch.cuda.synchronize()
+    assert mbconv_cuda.BF16_DX_LAUNCHES == {"sm90": 0, "instance": 1}
+    plain = pmb.mbconv_dx_plain(x, gy, fb, **kw).float()
+    assert float((dx.float() - plain).abs().max()) <= (
+        chip_smoke.MBCONV_BF16_DX_TOL * float(plain.abs().max()))
+    x, fb = _mbconv_case(cuda, 2, 16, 16, 24, 144, 24, 3)
+    x, fb = x.to(torch.bfloat16), fb.in_dtype(torch.bfloat16)
+    gy = torch.randn((2, 16, 16, 24), generator=torch.Generator().manual_seed(5)).to(
+        cuda, torch.bfloat16)
+    mbconv_cuda.reset_counts()
+    inst = mbconv_cuda.mbconv_dx_bf16_instance(x, gy, fb, **kw)
+    new = mbconv_cuda.mbconv_dx_cuda(x, gy, fb, **kw)
+    torch.cuda.synchronize()
+    assert mbconv_cuda.BF16_DX_LAUNCHES == {"sm90": 1, "instance": 1}
+    err = float((new.float() - inst.float()).abs().max())
+    assert err <= 2 * chip_smoke.MBCONV_BF16_DX_TOL * float(inst.float().abs().max()), err
+
+
+def test_bf16_attack_patch_gradient_sm90_dx_matches_instance(cuda):
+    """A tiny bf16 lite0 attack loss: its patch gradient with every fused dx
+    on the Hopper kernel against the same with every dx on the bf16
+    instance (chip_smoke.InstanceRoute("dx")), at cosine >= 0.9999 and with
+    norms within 1e-3: the two differ by bf16 roundings of gd, ge and dx."""
+    import chip_smoke
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
+    cfg = pconfig.get_efficientdet_config("efficientdet-lite0")
+    cfg.override({"image_size": 64, "fpn_num_filters": 16,
+                  "fpn_cell_repeats": 1, "box_class_repeats": 1,
+                  "nms_configs": {"iou_thresh": 0.5, "score_thresh": 0.5,
+                                  "pre_nms_topk": 64, "max_output_size": 16},
+                  "max_boxes_per_image": 4})
+    cfg.mixed_precision = True
+    atk = PatchAttacker(cfg, get_victim(cfg, seed=0, device=cuda), patch_size=32, device=cuda)
+    state = atk.init_state(seed=0)
+    images = torch.rand((2, 64, 64, 3), generator=torch.Generator().manual_seed(2)
+                        ).to(cuda) * 2 - 1
+    boxes = torch.zeros((2, 4, 4))
+    boxes[:, 0] = torch.tensor([4.0, 4.0, 60.0, 60.0])
+    valid = torch.zeros((2, 4), dtype=torch.bool)
+    valid[:, 0] = True
+    override = (boxes.to(cuda), valid.to(cuda))
+
+    def patch_grad():
+        patch = state.patch.detach().clone().requires_grad_(True)
+        scale = state.scale.detach().clone().requires_grad_(True)
+        loss, _ = atk._loss_from_images(patch, scale, images, *override,
+                                        torch.Generator(cuda).manual_seed(7))
+        loss.backward()
+        return patch.grad.double().flatten()
+
+    mbconv_cuda.reset_counts()
+    new = patch_grad()
+    assert mbconv_cuda.BF16_DX_LAUNCHES["sm90"] > 0
+    assert mbconv_cuda.BF16_DX_LAUNCHES["instance"] == 0
+    mbconv_cuda.reset_counts()
+    with chip_smoke.InstanceRoute("dx"):
+        old = patch_grad()
+    assert mbconv_cuda.BF16_DX_LAUNCHES["sm90"] == 0
+    assert mbconv_cuda.BF16_DX_LAUNCHES["instance"] > 0
+    cos = float(new @ old / (new.norm() * old.norm()))
+    assert cos >= 0.9999, cos
+    assert abs(float(new.norm() / old.norm()) - 1.0) <= 1e-3
+
+
 def test_warp_pass1_fwd_at_unit_and_wider_radius(cuda):
     """pass1_fwd runs its r = 1 instance (no division) and the divided one
     within one launch: both against the plain pass within WARP_TOL, and a
@@ -1078,9 +1207,9 @@ def test_backbone_dispatches_fuseable_blocks_to_kernels(cuda):
     unfused = []
     orig = MBConvBlock._forward_unfused
 
-    def spy(self, x):
+    def spy(self, x, *args, **kwargs):
         unfused.append(self.fuseable)
-        return orig(self, x)
+        return orig(self, x, *args, **kwargs)
 
     MBConvBlock._forward_unfused = spy
     try:

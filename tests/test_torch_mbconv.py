@@ -684,6 +684,288 @@ def test_sm90_order_within_rounding_bound(shape, split, dtype):
 
 
 # ---------------------------------------------------------------------------
+# the Hopper bf16 input gradient (csrc/mbconv_dx_sm90.cu): its plan, its
+# dispatch rule, its wrapper's refusals and its order of sums, on the CPU
+# ---------------------------------------------------------------------------
+
+DX_SPATIAL_BATCHES = (1, 2, 4, 12, 24)  # a rank's batches in phase 25 and beside it
+
+
+def _dx_sm90_shapes(batch):
+    """(B, H, W, C, E, Co, k) of lite4@640's 7 fused shapes at `batch` and
+    their heights under phase 25's two-way spatial split (81, 42, 21, 22,
+    11, 12 rows)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke  # noqa: E402  no JAX
+    from mladversarialobjectdetection_torch.ops.mbconv_sweep import LITE4_FUSED
+    return [(batch, *s[:6]) for s in LITE4_FUSED + chip_smoke.LITE4_SPATIAL]
+
+
+@pytest.mark.parametrize("batch", DX_SPATIAL_BATCHES)
+def test_dx_sm90_plans_fit_and_cover(batch):
+    """Every lite4 dx plan names a built instance, fits 227 KB of shared
+    memory (113 KB with two blocks a SM) and the register budget (65536
+    over the SM's threads, at most 255 a thread) with the x
+    and g tiles staged once, holds C in the warps' accumulators, stages the
+    largest clipped x region (halo 2h) and g region (halo h), covers each
+    output pixel and each E channel exactly once, and at b1 gives at least
+    132 blocks unless no plan with as many is faster by the cost model."""
+    for b, h, w, c, e, co, k in _dx_sm90_shapes(batch):
+        shape = (b, h, w, c, e, co, k)
+        p = mbconv_cuda.plan_dx_sm90(h, w, c, e, co, k, b)
+        assert p is not None, shape
+        assert p[:8] in mbconv_cuda.DX_SM90_CONFIGS
+        assert p.smem == mbconv_cuda.dx_sm90_smem_bytes(k, p.th, p.tw, p.ec, p.stages, c, co,
+                                                        p.n2p, p.n1p)
+        assert p.smem <= (mbconv_cuda.MAX_SMEM if p.minb == 1 else mbconv_cuda.SM90_MAX_SMEM2)
+        assert p.regs <= mbconv_cuda.dx_reg_cap(p.minb, p.nw) <= 65536 // (32 * p.nw * p.minb)
+        nw = p.nw
+        assert nw in (8, 16) and p.minb * nw <= 16 and nw % p.wn == 0
+        assert -(-c // 8 // p.wn) <= p.npw and -(-(p.th * p.tw // 16) // (nw // p.wn)) <= p.mpw
+        for halo, staged in ((2 * (k // 2), p.n2p), (k // 2, p.n1p)):
+            rows = max((min(y + p.th + halo, h) - max(y - halo, 0))
+                       * (min(x + p.tw + halo, w) - max(x - halo, 0))
+                       for y in range(0, h, p.th) for x in range(0, w, p.tw))
+            assert rows <= staged and staged % 16 == 0 and staged - rows < 16, (shape, p)
+        seen = np.zeros(e, int)
+        for s in range(p.split):
+            assert s * p.e_per_split < e  # no empty split
+            seen[s * p.e_per_split:(s + 1) * p.e_per_split] += 1
+        assert (seen == 1).all() and p.e_per_split % p.ec == 0
+        assert p.split in mbconv_cuda.SM90_SPLITS
+        cover = np.zeros((h, w), int)
+        for y0 in range(0, h, p.th):
+            for x0 in range(0, w, p.tw):
+                cover[y0:y0 + p.th, x0:x0 + p.tw] += 1
+        assert (cover == 1).all()
+        assert p.blocks == -(-h // p.th) * -(-w // p.tw) * b * p.split
+        if b == 1 and p.blocks < mbconv_cuda.SMS:
+            fuller = [q for q in mbconv_cuda.sm90_dx_plans(h, w, c, e, co, k, b)
+                      if q.blocks >= mbconv_cuda.SMS]
+            assert all(q.cost_us >= p.cost_us for q in fuller), (shape, p)
+    # (th, tw, ec, npw) names one instance: the C entry dispatches on them
+    keys = [(c[0], c[1], c[2], c[4]) for c in mbconv_cuda.DX_SM90_CONFIGS]
+    assert len(set(keys)) == len(keys)
+
+
+class _Routes:
+    """Lets `mbconv_dx_cuda` through its device checks on CPU tensors and
+    records which kernel each call would launch."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+
+        def check(data, fb, c, act_type, residual):
+            return fb.wp.shape[0], fb.wp.shape[1], fb.wd.shape[0]
+
+        monkeypatch.setattr(mbconv_cuda, "_check", check)
+        monkeypatch.setattr(mbconv_cuda, "_launch_sm90_dx",
+                            lambda x, *a: self.calls.append(("sm90", x.dtype)))
+        monkeypatch.setattr(mbconv_cuda, "_launch",
+                            lambda kind, variant, *a, **kw: self.calls.append((variant, kind)))
+
+
+def test_dx_sm90_dispatch_rule(monkeypatch):
+    """Every lite4 bf16 dx shape, and its spatial heights at phase 25's
+    batches, goes to the Hopper kernel; C, E or Co off a multiple of 8, a k
+    of 7, or tiles that overflow shared memory go to the template's bf16
+    instance; float32 never takes the Hopper kernel, and the instance's
+    wrapper never does either."""
+    for b in DX_SPATIAL_BATCHES:
+        for shape in _dx_sm90_shapes(b):
+            assert mbconv_cuda.sm90_dx_supported(*shape[1:], shape[0]), shape
+    for h, w, c, e, co, k in [(12, 10, 13, 78, 20, 3), (8, 8, 16, 100, 16, 3),
+                              (8, 8, 16, 96, 20, 3), (8, 8, 16, 96, 16, 7),
+                              (10, 10, 700, 1400, 700, 3), (20, 20, 2048, 4096, 2048, 5)]:
+        assert not mbconv_cuda.sm90_dx_supported(h, w, c, e, co, k, 1), (h, w, c, e, co, k)
+        assert mbconv_cuda.plan_dx_sm90(h, w, c, e, co, k, 1) is None
+    routes = _Routes(monkeypatch)
+    kw = dict(act_type="relu6", residual=True)
+    x, fb, g = _np_case(16, 96, 16, 3, 8, 8)
+    assert mbconv_cuda.sm90_dx_supported(8, 8, 16, 96, 16, 3, 2)
+    xb, gb, fbb = x.bfloat16(), g.bfloat16(), fb.in_dtype(torch.bfloat16)
+    mbconv_cuda.mbconv_dx_cuda(xb, gb, fbb, **kw)
+    mbconv_cuda.mbconv_dx_cuda(x, g, fb, **kw)
+    mbconv_cuda.mbconv_dx_bf16_instance(xb, gb, fbb, **kw)
+    x13, fb13, g13 = _np_case(13, 78, 20, 3, 12, 10)
+    mbconv_cuda.mbconv_dx_cuda(x13.bfloat16(), g13.bfloat16(), fb13.in_dtype(torch.bfloat16),
+                               act_type="relu", residual=False)
+    assert routes.calls == [("sm90", torch.bfloat16), ("float32", "dx"), ("bfloat16", "dx"),
+                            ("bfloat16", "dx")]
+
+
+def test_dx_sm90_wrapper_refuses_before_any_build(monkeypatch):
+    """CPU tensors, float16, mixed dtypes and a bad `masks_out` are refused
+    before any build, and nothing is counted."""
+    from mladversarialobjectdetection_torch import _build
+
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    x, fb, g = _np_case(16, 96, 16, 3, 8, 8)
+    xb, gb, fbb = x.bfloat16(), g.bfloat16(), fb.in_dtype(torch.bfloat16)
+    kw = dict(act_type="relu6", residual=True)
+    before = (dict(mbconv_cuda.LAUNCHES), dict(mbconv_cuda.BF16_DX_LAUNCHES))
+    for dx in (mbconv_cuda.mbconv_dx_cuda, mbconv_cuda.mbconv_dx_bf16_instance):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            dx(xb, gb, fbb, **kw)
+        with pytest.raises(TypeError):
+            dx(x.half(), g.half(), fbb, **kw)
+        with pytest.raises(TypeError):
+            dx(xb, g, fbb, **kw)
+    with pytest.raises(TypeError, match="bf16 x"):
+        mbconv_cuda.mbconv_dx_bf16_instance(x, g, fb, **kw)
+    monkeypatch.setattr(mbconv_cuda, "_check", lambda data, fb, c, act, res: (96, 16, 3))
+    good = torch.zeros((2, 2, 8, 8, 96), dtype=torch.uint8)
+    for bad in (good.float(), good[:, :1], good[..., :95], good.transpose(2, 3)):
+        with pytest.raises(ValueError, match="masks_out"):
+            mbconv_cuda.mbconv_dx_cuda(xb, gb, fbb, masks_out=bad, **kw)
+    with pytest.raises(ValueError, match="masks_out"):
+        mbconv_cuda.mbconv_dx_cuda(xb, gb, fbb, masks_out=good, act_type="swish", residual=True)
+    assert (dict(mbconv_cuda.LAUNCHES), dict(mbconv_cuda.BF16_DX_LAUNCHES)) == before
+
+
+def test_sm90_packs_cached_per_chunk_width():
+    """The forward and the dx of one fold may plan other chunk widths: each
+    width's pack is made once and kept beside the others."""
+    _, fb, _ = _np_case(32, 192, 32, 3, 4, 4)
+    fb = fb.in_dtype(torch.bfloat16)
+    p16, p32 = mbconv_cuda._sm90_packed(fb, 16), mbconv_cuda._sm90_packed(fb, 32)
+    assert mbconv_cuda._sm90_packed(fb, 16) is p16 and mbconv_cuda._sm90_packed(fb, 32) is p32
+    assert torch.equal(p16, mbconv_cuda.sm90_pack(fb, 16))
+    fb.bd.add_(1.0)  # a new version: both repack
+    assert torch.equal(mbconv_cuda._sm90_packed(fb, 32), mbconv_cuda.sm90_pack(fb, 32))
+
+
+def _dx_sm90_order(x, g, fb, act, residual, ec, split, dtype):
+    """The Hopper dx kernel emulated in `dtype` in its order: z0 over C in
+    ascending steps of 16 from zero, then be; e = bf16(act(z0)), zero
+    outside the image; z1 = bd, then the taps row by row; g . Wp^T over Co in
+    steps of 16; gd = bf16(that * act'(z1)); ge = bf16(dwconv^T(gd) *
+    act'(z0)), the taps from zero, ky then kx ascending; dx per chunk of ec
+    channels in steps of 16, a split's chunks in order, the splits' partials
+    in split order, then g. Returns (dx in bf16, the masks [2, B, H, W, E]
+    uint8, z0, z1)."""
+    f = lambda t: t.to(dtype)
+    xf, we, be, wd, bd, wp, _ = (f(t) for t in (x, *fb))
+    gf = f(g)
+    c, (e, co), k = xf.shape[-1], wp.shape, wd.shape[0]
+    z0 = torch.zeros((*xf.shape[:-1], e), dtype=dtype)
+    for k0 in range(0, c, 16):
+        z0 = z0 + xf[..., k0:k0 + 16] @ we[k0:k0 + 16]
+    z0 = z0 + be
+    ev = _bf16_round(pmb.act(z0, act))
+    hh = k // 2
+    ep = torch.nn.functional.pad(ev, (0, 0, hh, hh, hh, hh))
+    z1 = torch.zeros_like(ev) + bd
+    height, width = ev.shape[1:3]
+    for i in range(k):
+        for j in range(k):
+            z1 = z1 + ep[:, i:i + height, j:j + width, :] * wd[i, j]
+    gw = torch.zeros((*gf.shape[:-1], e), dtype=dtype)
+    for k0 in range(0, co, 16):
+        gw = gw + gf[..., k0:k0 + 16] @ wp[:, k0:k0 + 16].t()
+    gd = _bf16_round(gw * pmb.dact(z1, act))
+    ge = _bf16_round(pmb.depthwise_t(gd, wd) * pmb.dact(z0, act))
+    eps = mbconv_cuda._round(-(-e // split), ec)
+    dx = None
+    for s in range(split):
+        part = torch.zeros_like(xf)
+        for e0 in range(s * eps, min(e, (s + 1) * eps), ec):
+            for k0 in range(e0, min(e0 + ec, e), 16):
+                k1 = min(k0 + 16, e)
+                part = part + ge[..., k0:k1] @ we[:, k0:k1].t()
+        dx = part if dx is None else dx + part
+    masks = torch.stack([pmb.dact(z0, act) != 0, pmb.dact(z1, act) != 0]).to(torch.uint8)
+    return (dx + gf if residual else dx).to(torch.bfloat16), masks, z0, z1
+
+
+def _tile_masks_agree(z0, z1, x, fb, act, th, tw):
+    """Each tile of a th x tw plan recomputes z0 on its image-clipped region
+    with a halo of 2h and z1 on the one with a halo of h (e zero outside the
+    image), as the kernel does, in float32: every value it computes is
+    bit-equal to the whole image's, so a centre pixel's masks are the ones
+    its neighbours' halos use."""
+    f32 = torch.float32
+    xf, we, be, wd, bd = (t.to(f32) for t in (x, *fb[:4]))
+    c, e, k = xf.shape[-1], we.shape[1], wd.shape[0]
+    hh = k // 2
+    height, width = xf.shape[1:3]
+    for y0 in range(0, height, th):
+        for x0 in range(0, width, tw):
+            ya, yb = max(y0 - 2 * hh, 0), min(y0 + th + 2 * hh, height)
+            xa, xb = max(x0 - 2 * hh, 0), min(x0 + tw + 2 * hh, width)
+            zt = torch.zeros((xf.shape[0], yb - ya, xb - xa, e), dtype=f32)
+            for k0 in range(0, c, 16):
+                zt = zt + xf[:, ya:yb, xa:xb, k0:k0 + 16] @ we[k0:k0 + 16]
+            zt = zt + be
+            assert torch.equal(zt, z0[:, ya:yb, xa:xb])
+            canvas = torch.zeros((xf.shape[0], th + 4 * hh, tw + 4 * hh, e), dtype=f32)
+            oy, ox = ya - (y0 - 2 * hh), xa - (x0 - 2 * hh)
+            canvas[:, oy:oy + yb - ya, ox:ox + xb - xa] = _bf16_round(pmb.act(zt, act))
+            z1t = torch.zeros((xf.shape[0], th + 2 * hh, tw + 2 * hh, e), dtype=f32) + bd
+            for i in range(k):
+                for j in range(k):
+                    z1t = z1t + canvas[:, i:i + th + 2 * hh, j:j + tw + 2 * hh] * wd[i, j]
+            ya, yb = max(y0 - hh, 0), min(y0 + th + hh, height)
+            xa, xb = max(x0 - hh, 0), min(x0 + tw + hh, width)
+            oy, ox = ya - (y0 - hh), xa - (x0 - hh)
+            assert torch.equal(z1t[:, oy:oy + yb - ya, ox:ox + xb - xa], z1[:, ya:yb, xa:xb])
+
+
+@pytest.mark.parametrize("act", ["relu6", "swish"])
+def test_dx_rounding_bound_counts_faults(act):
+    """The plain bf16 dx lies within its own rounding bound; one element
+    moved by a few bf16 ulps where no near gd or ge reaches is counted, and
+    so is a flipped relu mask whose z lies far from its kink."""
+    x, fb, g = _np_case(16, 96, 16, 5, 9, 11)
+    xb, gb, fbb = x.bfloat16(), g.bfloat16(), fb.in_dtype(torch.bfloat16)
+    kw = dict(act_type=act, residual=True)
+    dx = pmb.mbconv_dx_plain(xb, gb, fbb, **kw)
+    bound = pmb.dx_rounding_bound(dx, xb, gb, fbb, **kw)
+    assert (bound.flips, bound.outside, bound.mask_faults) == (0, 0, 0)
+    assert bound.gd_near > 0 and bound.dx_open < dx.numel()
+    moved = dx.clone()
+    moved.view(-1)[5] = (moved.view(-1)[5].float() * (1 + 2 ** -4) + 0.05).to(torch.bfloat16)
+    assert pmb.dx_rounding_bound(moved, xb, gb, fbb, **kw)[:2] == (1, 1)
+    if act == "relu6":
+        masks, z0, _ = pmb.dx_masks(xb, fbb, act_type=act)
+        far = int((z0 - 3.0).abs().flatten().argmin())  # z0 near 3: far from both kinks
+        masks[0].view(-1)[far] ^= 1
+        assert pmb.dx_rounding_bound(dx, xb, gb, fbb, masks=masks, **kw).mask_faults == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("split", [1, 3], ids=["whole", "split3"])
+@pytest.mark.parametrize("shape", [(32, 192, 32, 3, 12, 16, 2, 16, 8, 8),
+                                   (272, 1632, 272, 5, 11, 20, 1, 16, 4, 8)],
+                         ids=["stage2_like", "20x20x1632_spatial"])
+def test_dx_sm90_order_within_rounding_bound(shape, split, dtype):
+    """The Hopper dx kernel's order of sums and roundings, emulated (float64,
+    and float32 whose adds round), stays within `ops/mbconv.dx_rounding_bound`
+    of `mbconv_dx_plain` fed the emulation's own masks and within
+    chip_smoke.py's MBCONV_BF16_DX_TOL (2^-6 of max|plain|) of it; its masks
+    differ from the plain version's only within the kink tolerance; and in
+    float32 a tile's halo computes the same z0 and z1 as the tile that owns
+    the pixel."""
+    c, e, co, k, h, w, b, ec, th, tw = shape
+    x, fb, g = _np_case(c, e, co, k, h, w, b=b, seed=17)
+    xb, gb, fbb = x.bfloat16(), (g * 0.1).bfloat16(), fb.in_dtype(torch.bfloat16)
+    kw = dict(act_type="relu6", residual=True)
+    dx, masks, z0, z1 = _dx_sm90_order(xb, gb, fbb, "relu6", True, ec, split, dtype)
+    bound = pmb.dx_rounding_bound(dx, xb, gb, fbb, masks=masks, **kw)
+    assert bound.outside == 0 and bound.mask_faults == 0, bound
+    ref = pmb.mbconv_dx_plain(xb, gb, fbb, masks=masks, **kw).float()
+    err = float((dx.float() - ref).abs().max())
+    assert err <= 2.0 ** -6 * float(ref.abs().max()), err
+    plain_masks, pz0, pz1 = pmb.dx_masks(xb, fbb, act_type="relu6")
+    assert pmb.kink_flips(masks, plain_masks, pz0, pz1, "relu6")[2] <= 2.0 ** -8
+    if dtype == torch.float32 and split == 1:
+        _tile_masks_agree(z0, z1, xb, fbb, "relu6", th, tw)
+
+
+# ---------------------------------------------------------------------------
 # bf16: the plain versions against the Pallas kernels' bf16 instance
 # ---------------------------------------------------------------------------
 
