@@ -123,9 +123,15 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    the defender's path at full size (batch 24 at 640x640 and 320x320,
    forward with bias and input gradient), within WARP_TOL of the output's
    scale; two launches bit-equal; the wrapper runs the plan's instance; then
-   the bf16 instance (`csrc/cmconv_bf16.cu`) at the same shapes against the
-   bf16 plain version, with the U-Net's kernels (bf16 values in float32):
-   bit-equal, within BF16_CMCONV_TOL of scale, and no float32 launch;
+   the bf16 Hopper instance (`csrc/cmconv_bf16_sm90.cu`, the plan's pick) on
+   CMCONV_BF16_CASES (the path's shapes at full size, the packed U-Net's
+   12 -> 32, 32 -> 32, 32 -> 12, the test file's edge cases and heights 322,
+   162, 13 and 1), with the U-Net's kernels (bf16 values in float32) and
+   general float32 ones, with and without a bias: every element within
+   `ops/cmconv.cmconv_rounding_bound` of the float64 sum and within
+   BF16_CMCONV_TOL of the plain version's scale, two launches bit-equal,
+   no float32 launch; and the SIMT instance (`csrc/cmconv_bf16.cu`) at the
+   path's shapes bit-equal to the bf16 plain version;
 9. defender step: `PatchAttackDefender.train_step` against efficientdet-lite4
    at 640 (full width and depth, seeded weights, fp32, TF32 off), U-Net
    n_filters 8, batch 24, score threshold .0099 so that the random victim's
@@ -146,16 +152,22 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    (the masker's windows) and NMS (the victim pass) on the inputs the same
    step gave them, against their plain versions;
 9b. bf16 defender step: phase 9's step with `config.mixed_precision`
-   (bf16 victim and U-Net): 15 bf16 cmconv launches a step and no float32
-   one, 25 bf16 fused MBConv forward (on the Hopper kernel) and no dx, NMS and the two forward
-   warp passes once; loss and metrics checked; timed, profiled, peak memory
-   beside the fp32 step's; its `eval_step` and `recover` checked and timed;
-11, bf16: the bf16 instance on the 15 inputs the bf16 step gave it,
-   against the bf16 plain version (bit-equal), each launch timed beside its
-   bound with 2-byte x, bias and output and the products at the bf16
-   tensor-core rate (the kernels hold bf16 values: checked), beside the
-   bound at fp32 FMAs, the plain time and `F.conv2d` in bf16 (cuDNN) on the
-   same tensors;
+   (bf16 victim and U-Net): 15 bf16 cmconv launches a step, all on the
+   Hopper instance, and no float32 one, 25 bf16 fused MBConv forward (on the
+   Hopper kernel) and no dx, NMS and the two forward warp passes once; loss
+   and metrics checked; timed, profiled, peak memory beside the fp32 step's;
+   the step and `recover` with their cmconv on the Hopper instance and on
+   the SIMT instance in turns (`cmconv_ab`: host p50 and device busy ms);
+   its `eval_step` and `recover` (8 Hopper cmconv launches each) checked and
+   timed;
+11, bf16: the bf16 instances on the 15 inputs the bf16 step gave them: the
+   Hopper instance within the rounding bound, for the step's kernels and
+   the same kernels made general float32, two launches bit-equal; the SIMT
+   instance bit-equal to the bf16 plain version; each launch timed on both
+   in turns beside its bound with 2-byte x, bias and output and the products
+   at the bf16 tensor-core rate (the kernels hold bf16 values: checked),
+   beside the bound at fp32 FMAs, the plain time and `F.conv2d` in bf16
+   (cuDNN) on the same tensors;
 9c. packed defender (`packed=1, 2, 3`, fp32, phase 9's victim, weights and
    images): its `recover` against the unpacked `recover` within
    RECOVER_TOL of the pre-tanh logits' scale; one train-mode pass's
@@ -215,8 +227,8 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    frontier step's inputs (the b24 live regime) against the plain passes,
    timed beside their bounds;
    19c: the production soak's attack stage (3 steps) and defender stage (2
-   steps of 15 bf16 cmconv launches, 1 NMS and 25 bf16 MBConv forward, one
-   eval of 2 batches): recovery PSNR and ADR finite, or NaN only where the
+   steps of 15 bf16 cmconv launches, all on the Hopper instance, 1 NMS and 25
+   bf16 MBConv forward, one eval of 2 batches): recovery PSNR and ADR finite, or NaN only where the
    defender defines NaN (the case printed), `soak.json`'s keys, the
    antipatch file read back equal;
 20. the video demos' device path (`demo/`) at lite4@640, seeded weights,
@@ -338,7 +350,10 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
 13. card: the `nvidia-smi` name and power limit, and one JSON line with each
    kernel's launches, error, times and bound (cmconv's also with its
    ablation, the instance the plan did not pick, and its bound at 3xTF32;
-   cmconv's bf16 instance, the fused MBConv's float32 and bf16 instances
+   cmconv's bf16 Hopper instance with its per-launch times, the SIMT
+   instance's in turns and the defender step's and `recover`'s host and
+   device ms on each, and the SIMT instance (0 launches on the path), the
+   fused MBConv's float32 and bf16 instances
    and the Hopper bf16 forward (`mbconv_fwd_bf16_sm90`, the bf16 forward's
    main path; the instance's forward row then has 0 launches on it and the
    instance's times in turns with it), each a row; NMS, cmconv and the fused forward also with phase
@@ -598,6 +613,8 @@ CONV_INT8_ODD = [
 # the cmconv instances (ops/cmconv_cuda.ENTRIES) and their kernels' names
 CMCONV_INSTANCES = ("simt", "tc")
 CMCONV_KERNEL = {"simt": "cmconv3x3_kernel", "tc": "cmconv3x3_tc_kernel"}
+# the bf16 instances: the Hopper kernel the plan picks and the SIMT instance
+CMCONV_BF16_KERNEL = {"sm90": "cmconv3x3_bf16_sm90_kernel", "simt": "cmconv3x3_kernel"}
 # (role, C, Co, side) of every cmconv launch of a defender step at 640x640,
 # n_filters 8: the forward convs of conv0, conv1, deconv2.convblock and
 # deconv3.convblock, then their input gradients (C and Co swapped), all but
@@ -609,6 +626,22 @@ CMCONV_SHAPES = (
     + [("dx", 8, 8, 640), ("dx", 8, 16, 640), ("dx", 16, 16, 320),
        ("dx", 16, 32, 320), ("dx", 16, 16, 320), ("dx", 16, 8, 320),
        ("dx", 8, 8, 640)])
+# (name, B, C, Co, H, W) of phase 8's bf16 cases: the path's shapes at full size (each
+# (C, Co, side) of CMCONV_SHAPES once), the packed U-Net's level-1 convs at b24 on the
+# 320 grid, the edge cases of tests/test_torch_cuda.py (W 37, 33, 9, 1, 36; x off 16-byte
+# alignment) and heights off every tile height: 322 and 162, a two-way row shard of 640
+# and 320 with a halo row each side, and 13 and 1
+CMCONV_BF16_CASES = (
+    [(f"path {c}->{co} at {side}", DEFEND_BATCH, c, co, side, side)
+     for c, co, side in dict.fromkeys((c, co, side) for _, c, co, side in CMCONV_SHAPES)]
+    + [(f"packed {c}->{co} at 320", DEFEND_BATCH, c, co, 320, 320)
+       for c, co in ((12, 32), (32, 32), (32, 12))]
+    + [("ragged_13x37", 2, 8, 8, 13, 37), ("1x1", 3, 8, 16, 1, 1), ("b1", 1, 16, 16, 24, 40),
+       ("c1", 2, 1, 8, 20, 20), ("c32_co32", 1, 32, 32, 17, 33), ("co1", 2, 8, 1, 9, 9),
+       ("co3", 2, 5, 3, 10, 11), ("co20", 1, 12, 20, 8, 70), ("w_even_not_8", 2, 8, 8, 12, 36),
+       ("misaligned_x", 2, 8, 16, 9, 24)]
+    + [("h322 8->8", DEFEND_BATCH, 8, 8, 322, 640), ("h162 16->32", DEFEND_BATCH, 16, 32, 162, 320),
+       ("h13 3->8", 2, 3, 8, 13, 640), ("h1 32->16", 2, 32, 16, 1, 320)])
 
 
 def fail(msg: str) -> None:
@@ -812,7 +845,7 @@ def kernel_name(mangled: str) -> str:
 
 
 # libraries on the main path: a spill in their kernels fails phase 1
-MAIN_PATH_LIBS = ("nms", "warp", "cmconv", "cmconv_bf16", "cmconv_tc", "mbconv",
+MAIN_PATH_LIBS = ("nms", "warp", "cmconv", "cmconv_bf16", "cmconv_bf16_sm90", "cmconv_tc", "mbconv",
                   "mbconv_dx", "mbconv_bf16", "mbconv_bf16_dx", "mbconv_fwd_sm90",
                   "mbconv_dx_sm90")
 
@@ -1167,6 +1200,102 @@ def check_cmconv_bf16(name, kern, plain) -> float:
     if not torch.equal(kern, plain):
         fail(f"{name}: not bit-equal to the plain version (max error {err})")
     return err
+
+
+def check_cmconv_sm90(name, x, w, bias, kern, plain) -> float:
+    """The Hopper bf16 instance against the bf16 function: within
+    BF16_CMCONV_TOL of the plain version's scale, and every element within
+    `ops/cmconv.cmconv_rounding_bound` of the float64 sum (its float32 sums
+    of each weight's bf16 hi and lo terms run in another order than the plain
+    version's, so it is not bit-equal to it)."""
+    from mladversarialobjectdetection_torch.ops import cmconv
+
+    if kern.dtype != plain.dtype or kern.shape != plain.shape:
+        fail(f"{name}: kernel {kern.dtype} {tuple(kern.shape)}, plain "
+             f"{plain.dtype} {tuple(plain.shape)}")
+    err = float((kern.float() - plain.float()).abs().max())
+    scale = max(1.0, float(plain.float().abs().max()))
+    if not err <= BF16_CMCONV_TOL * scale:
+        fail(f"{name}: kernel and plain differ by {err} > {BF16_CMCONV_TOL} * {scale}")
+    over = (kern.double() - cmconv.cmconv_sum64(x, w, bias)).abs() - \
+        cmconv.cmconv_rounding_bound(x, w, bias)
+    outside = int((over > 0).sum())
+    if outside:
+        fail(f"{name}: {outside} elements outside cmconv_rounding_bound (by up to "
+             f"{float(over.max())})")
+    return err
+
+
+def cmconv_sm90_route(label: str, n: int) -> None:
+    """Fail unless the run since the last count reset sent its n bf16 cmconv
+    launches to the Hopper instance and none to the SIMT instance."""
+    from mladversarialobjectdetection_torch.ops import cmconv_cuda
+    got = {k: v for k, v in cmconv_cuda.PLAN_LAUNCHES.items() if k.endswith("_bf16")}
+    if got != {"simt_bf16": 0, "sm90_bf16": n}:
+        fail(f"{label}: bf16 cmconv launches by instance {got}, want {n} of the Hopper "
+             f"instance and none of the SIMT instance")
+
+
+class CmconvInstanceRoute:
+    """In its block every bf16 cmconv runs the SIMT instance (`csrc/cmconv_bf16.cu`):
+    the ablation that `cmconv_ab` times in turns with the Hopper instance."""
+
+    def __enter__(self):
+        import torch
+        from mladversarialobjectdetection_torch.ops import cmconv_cuda
+        self.orig = cmconv_cuda.plan
+
+        def simt(c, co, h, w, dtype=torch.float32):
+            pick = self.orig(c, co, h, w, dtype)
+            return pick._replace(instance="simt") if dtype == torch.bfloat16 else pick
+        cmconv_cuda.plan = simt
+        return self
+
+    def __exit__(self, *exc):
+        from mladversarialobjectdetection_torch.ops import cmconv_cuda
+        cmconv_cuda.plan = self.orig
+
+
+def device_busy_ms(fn, sessions: int = 3):
+    """Device ms (the sum of every kernel's time, torch.profiler) of one call
+    of fn after a warm-up call; None where no session saw device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        if busy > 0:
+            return busy / 1e3
+    return None
+
+
+def cmconv_ab(label: str, fn, iters: int = 5) -> dict:
+    """fn (ending in a synchronize) with its bf16 cmconv launches on the
+    Hopper instance and on the SIMT instance, in turns (Hopper, instance,
+    instance, Hopper): host p50 ms and device busy ms of each, printed and
+    returned as {"host_ms": (Hopper, instance), "busy_ms": (Hopper,
+    instance)}."""
+    host, busy = [], []
+    for on_instance in (False, True, True, False):
+        with CmconvInstanceRoute() if on_instance else contextlib.nullcontext():
+            host.append(host_p50_ms(fn, iters=iters, warmup=1))
+            busy.append(device_busy_ms(fn))
+    out = {"host_ms": ((host[0] + host[3]) / 2, (host[1] + host[2]) / 2)}
+    out["busy_ms"] = (None if None in busy else
+                      ((busy[0] + busy[3]) / 2, (busy[1] + busy[2]) / 2))
+    print(f"  {label}, bf16 cmconv on the Hopper instance vs the SIMT instance in turns: host "
+          f"p50 {out['host_ms'][0]:.3f} vs {out['host_ms'][1]:.3f} ms (turns "
+          f"{[round(v, 3) for v in host]}); device busy "
+          + ("not measured" if out["busy_ms"] is None else
+             f"{out['busy_ms'][0]:.3f} vs {out['busy_ms'][1]:.3f} ms (turns "
+             f"{[round(v, 3) for v in busy]}), {out['busy_ms'][1] - out['busy_ms'][0]:.3f} ms"))
+    return out
 
 
 def calibrate_bn(unet, images) -> None:
@@ -1947,7 +2076,8 @@ def resume_err(label, ref, res) -> float:
 
 def path_counts() -> dict:
     """The launch counts of every kernel of the workflows' path, the MBConv
-    and cmconv ones split by dtype."""
+    and cmconv ones split by dtype (`cmconv_bf16_simt`: the bf16 ones the
+    plan sent to the SIMT instance, none on any path)."""
     from mladversarialobjectdetection_torch.ops import (
         cmconv_cuda, mbconv_cuda, nms_cuda, warp_cuda)
     mb = mbconv_cuda.DTYPE_LAUNCHES
@@ -1956,6 +2086,7 @@ def path_counts() -> dict:
                 mbconv_dx_bf16=mb["bfloat16"]["mbconv_dx"],
                 mbconv_fp32=sum(mb["float32"].values()),
                 cmconv_bf16=cmconv_cuda.DTYPE_LAUNCHES["bfloat16"],
+                cmconv_bf16_simt=cmconv_cuda.PLAN_LAUNCHES["simt_bf16"],
                 cmconv_fp32=cmconv_cuda.DTYPE_LAUNCHES["float32"])
 
 
@@ -2007,7 +2138,7 @@ def attack_step_launches(label: str, calls) -> None:
         want.update(nms=1 + bool(kw.get("with_asr")),
                     mbconv_fwd_bf16=2 * MBCONV_PER_PASS,
                     mbconv_dx_bf16=MBCONV_PER_PASS, mbconv_fp32=0,
-                    cmconv_bf16=0, cmconv_fp32=0)
+                    cmconv_bf16=0, cmconv_bf16_simt=0, cmconv_fp32=0)
         if got != want:
             fail(f"{label}: a train step launched {got}, want {want}")
 
@@ -2233,10 +2364,13 @@ def soak_phases(dev, vpath: str, work: str) -> None:
                                           "mbconv_dx_bf16", "cmconv_bf16"))
     attack_step_launches("phase 19c attack", asteps.calls)
     for _, got in dsteps.calls:
-        if (got["cmconv_bf16"], got["cmconv_fp32"], got["nms"],
+        if (got["cmconv_bf16"], got["cmconv_bf16_simt"], got["cmconv_fp32"], got["nms"],
                 got["mbconv_fwd_bf16"], got["mbconv_fp32"]) != (
-                    CMCONV_PER_STEP, 0, 1, MBCONV_PER_PASS, 0):
+                    CMCONV_PER_STEP, 0, 0, 1, MBCONV_PER_PASS, 0):
             fail(f"phase 19c: a defender step launched {got}")
+    if scounts["cmconv_bf16_simt"]:
+        fail(f"phase 19c: {scounts['cmconv_bf16_simt']} bf16 cmconv launches on the SIMT "
+             f"instance")
     if len(dsteps.calls) != 2 or len(devals.calls) != 2:
         fail(f"phase 19c: {len(dsteps.calls)} defender steps, {len(devals.calls)} evals")
     row = record["defense_trajectory"][-1]
@@ -4900,30 +5034,52 @@ def main() -> int:
               f"{errs}, two launches bit-equal, plan {pick}")
     print(f"phase 8 cmconv instances vs plain: {len(CMCONV_SHAPES)} shapes within "
           f"{WARP_TOL} of scale, max error {cm_err}")
-    # the bf16 instance at the bf16 step's shapes: bf16 x and bias, the
-    # kernel's bf16 values in float32 (as the bf16 U-Net hands them)
+    # the bf16 instances. The plan's pick, the Hopper instance, on every case of
+    # CMCONV_BF16_CASES with the kernel's bf16 values in float32 (as the bf16 U-Net hands
+    # them) and with general float32 weights, with and without a bias: within the rounding
+    # bound, two launches bit-equal; the SIMT instance at the path's shapes with bf16
+    # values and a bias: bit-equal to the bf16 plain version
     cm16_err = 0.0
     f32_before = cmconv_cuda.DTYPE_LAUNCHES["float32"]
-    for role, c, co, side in CMCONV_SHAPES:
-        x = torch.randn((DEFEND_BATCH, c, side, side), device=dev,
-                        generator=gen).bfloat16()
-        w = (torch.randn((3, 3, c, co), device=dev, generator=gen) * 0.3).bfloat16().float()
-        bias = (torch.randn((co,), device=dev, generator=gen).bfloat16()
-                if role == "fwd" else None)
-        plain = cmconv.cmconv_plain(x, w, bias)
-        kern = cmconv_cuda.cmconv3x3_cuda(x, w, bias)
-        cm16_err = max(cm16_err, check_cmconv_bf16(
-            f"cmconv bf16 {role} {c}->{co} at {side}", kern, plain))
-        if not torch.equal(cmconv_cuda.cmconv3x3_instance(x, w, bias, "simt"), kern):
-            fail(f"cmconv bf16 {role} {c}->{co} at {side}: two launches differ")
-        print(f"  cmconv bf16 {role} {c}->{co} b{DEFEND_BATCH} {side}x{side}: "
-              f"bit-equal to the bf16 plain version, two launches bit-equal")
+    plan_before = dict(cmconv_cuda.PLAN_LAUNCHES)
+    n16 = 0
+    for name, b, c, co, h, wd in CMCONV_BF16_CASES:
+        off = 1 if name == "misaligned_x" else 0
+        flat = torch.randn((b * c * h * wd + off,), device=dev, generator=gen).bfloat16()
+        x = flat[off:].view(b, c, h, wd)
+        wg = torch.randn((3, 3, c, co), device=dev, generator=gen) * 0.3
+        bias = torch.randn((co,), device=dev, generator=gen).bfloat16()
+        for wkind, w in (("bf16 w", wg.bfloat16().float()), ("float32 w", wg)):
+            for bb in (bias, None):
+                label = f"cmconv bf16 {name} {wkind}{' +bias' if bb is not None else ''}"
+                plain = cmconv.cmconv_plain(x, w, bb)
+                kern = cmconv_cuda.cmconv3x3_cuda(x, w, bb)
+                cm16_err = max(cm16_err, check_cmconv_sm90(label, x, w, bb, kern, plain))
+                if not torch.equal(cmconv_cuda.cmconv3x3_cuda(x, w, bb), kern):
+                    fail(f"{label}: two launches differ")
+                n16 += 2
+        if name.startswith("path"):
+            w = wg.bfloat16().float()
+            check_cmconv_bf16(f"cmconv bf16 SIMT instance {name}",
+                              cmconv_cuda.cmconv3x3_instance(x, w, bias, "simt"),
+                              cmconv.cmconv_plain(x, w, bias))
+        print(f"  cmconv bf16 {name} b{b} {h}x{wd}: Hopper instance "
+              f"{cmconv_cuda.plan(c, co, h, wd, torch.bfloat16)} within the rounding bound "
+              f"(bf16 and float32 w, with and without a bias), two launches bit-equal"
+              + ("; SIMT instance bit-equal to the plain version" if name.startswith("path")
+                 else ""))
     if cmconv_cuda.DTYPE_LAUNCHES["float32"] != f32_before:
         fail("a bf16 cmconv call launched the float32 instance")
-    del x, w, bias, kern, plain
+    if cmconv_cuda.PLAN_LAUNCHES != dict(plan_before,
+                                         sm90_bf16=plan_before["sm90_bf16"] + n16):
+        fail(f"phase 8: bf16 launches by instance {cmconv_cuda.PLAN_LAUNCHES}, want {n16} "
+             f"more on the Hopper instance")
+    del x, w, wg, bias, kern, plain, flat
     torch.set_grad_enabled(True)
-    print(f"phase 8 cmconv bf16 instance vs bf16 plain: {len(CMCONV_SHAPES)} shapes "
-          f"bit-equal (tolerance {BF16_CMCONV_TOL} of scale), max error {cm16_err}")
+    print(f"phase 8 cmconv bf16 Hopper instance: {len(CMCONV_BF16_CASES)} cases, {n16} "
+          f"launches, every element within cmconv_rounding_bound, max error {cm16_err} "
+          f"(tolerance {BF16_CMCONV_TOL} of scale); SIMT instance bit-equal to the bf16 "
+          f"plain version at the path's shapes")
 
     # phase 9: the defender step, lite4@640, b24, fp32
     t0 = time.perf_counter()
@@ -5145,6 +5301,8 @@ def main() -> int:
                 cmconv_bf16=CMCONV_PER_STEP * DEFEND_STEPS, cmconv_fp32=0)
     if bdefend_launches != want:
         fail(f"{DEFEND_STEPS} bf16 defender steps launched {bdefend_launches}; want {want}")
+    cmconv_sm90_route("bf16 defender steps", CMCONV_PER_STEP * DEFEND_STEPS)
+    bdefend_launches["cmconv_bf16_sm90"] = cmconv_cuda.PLAN_LAUNCHES["sm90_bf16"]
     if (sum(bd_mb["float32"].values())
             or bd_mb["bfloat16"]["mbconv_fwd"] != MBCONV_PER_PASS * DEFEND_STEPS
             or bd_mb["bfloat16"]["mbconv_dx"]):
@@ -5169,11 +5327,15 @@ def main() -> int:
           f"phase 9)")
     profile_device(bdstep, f"bf16 defender step b{DEFEND_BATCH}", top=10)
     defend_ab = sm90_ab(f"bf16 defender step b{DEFEND_BATCH}", bdstep)
+    defend_cm_ab = cmconv_ab(f"bf16 defender step b{DEFEND_BATCH}", bdstep)
     cmconv_cuda.reset_counts()
     nms_cuda.LAUNCHES = 0
     bem = bdfd.eval_step(bdstate, dimages, 1)
+    torch.cuda.synchronize()
+    cmconv_sm90_route("bf16 eval_step", 8)
     brec = bdfd.recover(bdstate, dimages)
     torch.cuda.synchronize()
+    cmconv_sm90_route("bf16 eval_step and recover", 16)
     if (cmconv_cuda.DTYPE_LAUNCHES["bfloat16"], cmconv_cuda.DTYPE_LAUNCHES["float32"],
             nms_cuda.LAUNCHES) != (16, 0, 3):
         fail(f"bf16 eval_step + recover launched cmconv {cmconv_cuda.DTYPE_LAUNCHES}, "
@@ -5189,14 +5351,19 @@ def main() -> int:
           f"{float(bem.recovery_psnr):.4f} dB, p50 {beval_ms:.3f} ms (fp32 "
           f"{eval_ms:.3f}); bf16 recover b{DEFEND_BATCH} p50 {brecover_ms:.3f} ms "
           f"({DEFEND_BATCH * 1e3 / brecover_ms:.2f} images/s; fp32 {recover_ms:.3f})")
+    recover_cm_ab = cmconv_ab(f"bf16 recover b{DEFEND_BATCH}",
+                              lambda: bdfd.recover(bdstate, dimages))
     del brec
 
-    # phase 11, bf16: the bf16 instance on the 15 inputs the bf16 step gave
-    # it, against the bf16 plain version, timed beside its bound (2-byte x,
-    # bias and output; the products at the bf16 tensor-core rate, since the
-    # U-Net's kernels hold bf16 values and one bf16 product of them is
-    # exact), the fp32-FMA bound that the instance's SIMT sums meet, the
-    # plain time and F.conv2d in bf16 (cuDNN)
+    # phase 11, bf16: the bf16 instances on the 15 inputs the bf16 step gave
+    # them: the Hopper instance within the rounding bound (the U-Net's
+    # kernels, bf16 values in float32, and the same kernels made general
+    # float32), two launches bit-equal; the SIMT instance bit-equal to the
+    # bf16 plain version; each timed in turns (Hopper, SIMT, SIMT, Hopper)
+    # beside its bound (2-byte x, bias and output; the products at the bf16
+    # tensor-core rate, since the kernels hold bf16 values and one bf16
+    # product of them is exact), the fp32-FMA bound that the SIMT instance's
+    # SIMT sums meet, the plain time and F.conv2d in bf16 (cuDNN)
     with Capture([(cmconv_cuda, "cmconv3x3_cuda")]) as cap:
         bdstep()
     torch.cuda.synchronize()
@@ -5205,23 +5372,39 @@ def main() -> int:
         fail(f"captured {len(calls)} cmconv calls in a bf16 step, dtypes "
              f"{sorted({str(x.dtype) for x, _, _ in calls})}")
     torch.set_grad_enabled(False)
-    cm16_tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
-                    ops_ms=0.0, bound_simt_ms=0.0)
+    cm16_tot = dict(ms=0.0, instance_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                    bytes_ms=0.0, ops_ms=0.0, bound_simt_ms=0.0)
     cm16_fwd = dict(cm16_tot)
+    cm16_rows = []
+    gen11 = torch.Generator(dev).manual_seed(11)
     for i, (x, w, bias) in enumerate(calls):
         role = "fwd" if i < 8 else "dx"
         c, co = w.shape[2], w.shape[3]
         if not torch.equal(w, w.bfloat16().float()):
             fail(f"cmconv bf16 step call {i}: the kernel holds values off bf16")
+        # the same kernel made general float32: each weight moved off its bf16 value
+        wg = w + (torch.rand(w.shape, device=dev, generator=gen11) - 0.5) * 2.0 ** -9 * w.abs()
+        for wkind, w_ in (("the step's w", w), ("general float32 w", wg)):
+            label = f"cmconv bf16 step call {i} {wkind}"
+            plain = cmconv.cmconv_plain(x, w_, bias)
+            kern = cmconv_cuda.cmconv3x3_cuda(x, w_, bias)
+            cm16_err = max(cm16_err, check_cmconv_sm90(label, x, w_, bias, kern, plain))
+            if not torch.equal(cmconv_cuda.cmconv3x3_cuda(x, w_, bias), kern):
+                fail(f"{label}: two launches differ")
+            if w_ is w:
+                kern_step = kern
         plain = cmconv.cmconv_plain(x, w, bias)
-        kern = cmconv_cuda.cmconv3x3_cuda(x, w, bias)
-        cm16_err = max(cm16_err, check_cmconv_bf16(f"cmconv bf16 step call {i}", kern,
-                                                   plain))
+        check_cmconv_bf16(f"cmconv bf16 step call {i}, the SIMT instance",
+                          cmconv_cuda.cmconv3x3_instance(x, w, bias, "simt"), plain)
         w_oihw = w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous()
         lib = torch.nn.functional.conv2d(x, w_oihw, bias, padding=1)
-        lib_err = float((lib.float() - kern.float()).abs().max())
-        t = {"ms": kernel_device_ms(lambda: cmconv_cuda.cmconv3x3_instance(
-            x, w, bias, "simt"), CMCONV_KERNEL["simt"], iters=5)}
+        lib_err = float((lib.float() - kern_step.float()).abs().max())
+        turns = {"sm90": [], "simt": []}
+        for inst in ("sm90", "simt", "simt", "sm90"):
+            turns[inst].append(kernel_device_ms(
+                lambda: cmconv_cuda.cmconv3x3_instance(x, w, bias, inst),
+                CMCONV_BF16_KERNEL[inst], iters=5))
+        t = {"ms": sum(turns["sm90"]) / 2, "instance_ms": sum(turns["simt"]) / 2}
         t["plain_ms"] = cuda_ms(lambda: cmconv.cmconv_plain(x, w, bias), iters=2,
                                 warmup=1)
         t["library_ms"] = cuda_ms(lambda: torch.nn.functional.conv2d(
@@ -5235,26 +5418,31 @@ def main() -> int:
             cm16_tot[k] += t[k]
             if role == "fwd":
                 cm16_fwd[k] += t[k]
+        pick = cmconv_cuda.plan(c, co, x.shape[2], x.shape[3], torch.bfloat16)
+        cm16_rows.append(dict(call=i, role=role, c=c, co=co, shape=list(x.shape),
+                              bias=bias is not None, tile_h=pick.tile_h, **t))
         print(f"  cmconv bf16 step call {i:2d} {role} {c}->{co} {tuple(x.shape)}"
-              f"{' +bias' if bias is not None else ''}: {t['ms']:.4f} ms "
-              f"({t['bound_ms'] / t['ms']:.1%} of its bound, "
-              f"{t['bound_simt_ms'] / t['ms']:.1%} of the fp32-FMA one); plain "
-              f"{t['plain_ms']:.4f} ms, F.conv2d bf16 {t['library_ms']:.4f} ms (differs "
-              f"by {lib_err:.3g}); bound {t['bound_ms']:.6f} ms ({bound_by}: {nbytes} B, "
-              f"{ops} ops at the bf16 rate), at fp32 FMAs {t['bound_simt_ms']:.6f} ms")
+              f"{' +bias' if bias is not None else ''}: Hopper {t['ms']:.4f} ms (tile "
+              f"{pick.tile_h}x64, Co {pick.cob}; turns {[round(v, 4) for v in turns['sm90']]}, "
+              f"{t['bound_ms'] / t['ms']:.1%} of its bound), SIMT instance "
+              f"{t['instance_ms']:.4f} ms (turns {[round(v, 4) for v in turns['simt']]}, "
+              f"{t['instance_ms'] / t['ms']:.2f}x); plain {t['plain_ms']:.4f} ms, F.conv2d "
+              f"bf16 {t['library_ms']:.4f} ms (differs by {lib_err:.3g}); bound "
+              f"{t['bound_ms']:.6f} ms ({bound_by}: {nbytes} B, {ops} ops at the bf16 rate), "
+              f"at fp32 FMAs {t['bound_simt_ms']:.6f} ms")
     cm16_bound_by = ("bytes" if cm16_tot["bytes_ms"] >= cm16_tot["ops_ms"]
                      else "operations")
     for label, tot in ((f"per step ({CMCONV_PER_STEP} launches)", cm16_tot),
                        ("over the 8 forward launches (recover, eval_step)", cm16_fwd)):
-        print(f"phase 11 cmconv bf16 at the bf16 step's inputs, {label}: "
-              f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, F.conv2d bf16 "
-              f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.6f} ms (bytes "
-              f"{tot['bytes_ms']:.6f}, operations at the bf16 rate {tot['ops_ms']:.6f}; "
-              f"{tot['bound_ms'] / tot['ms']:.1%}), at fp32 FMAs "
-              f"{tot['bound_simt_ms']:.6f} ms; fp32 instance "
-              f"{cm_tot['ms'] if 'per step' in label else cm_fwd['ms']:.4f} ms; max "
+        print(f"phase 11 cmconv bf16 at the bf16 step's inputs, {label}: Hopper instance "
+              f"{tot['ms']:.4f} ms ({tot['bound_ms'] / tot['ms']:.1%} of the bound), SIMT "
+              f"instance {tot['instance_ms']:.4f} ms in turns ({tot['instance_ms'] / tot['ms']:.2f}x), "
+              f"plain {tot['plain_ms']:.4f} ms, F.conv2d bf16 {tot['library_ms']:.4f} ms, bound "
+              f"{tot['bound_ms']:.6f} ms (bytes {tot['bytes_ms']:.6f}, operations at the bf16 "
+              f"rate {tot['ops_ms']:.6f}), at fp32 FMAs {tot['bound_simt_ms']:.6f} ms; fp32 "
+              f"instance {cm_tot['ms'] if 'per step' in label else cm_fwd['ms']:.4f} ms; max "
               f"error {cm16_err}")
-    del cap, calls, x, w, bias, kern, lib, plain, bdfd, bdstate, params0
+    del cap, calls, x, w, wg, bias, kern, kern_step, lib, plain, bdfd, bdstate, params0
     torch.set_grad_enabled(True)
     torch.cuda.empty_cache()
 
@@ -5519,6 +5707,8 @@ def main() -> int:
                 fail(f"defense driver {opts}: step {dfinal.step}, artifacts {arts}")
             if cm[want_cm[0]] != want_cm[1] or cm[other] or sum(mb[other].values()):
                 fail(f"defense driver {opts}: cmconv launches {cm}, MBConv {mb}")
+            if want_cm[0] == "bfloat16":
+                cmconv_sm90_route(f"defense driver {opts}", want_cm[1])
         print(f"phase 12 defense driver {opts}: train(efficientdet-lite4, batch 12, 3 "
               f"steps) in {odriver_s:.2f} s, cmconv launches per dtype {cm}, fused "
               f"MBConv per dtype {mb}, artifact {arts}")
@@ -5708,13 +5898,31 @@ def main() -> int:
         "demo_recover_bound_ms": demo["cmconv"]["bound_ms"],
         "demo_max_abs_err": demo["cmconv_err"]})
     kernels.append({
+        "name": "cmconv_bf16_sm90", "route": "cuda",
+        "source": "mladversarialobjectdetection_torch/csrc/cmconv_bf16_sm90.cu",
+        "replaces": "tools/proto_cmconv.py:28",
+        "launches": bdefend_launches["cmconv_bf16_sm90"], "max_abs_err": cm16_err,
+        "ms": cm16_tot["ms"], "plain_ms": cm16_tot["plain_ms"],
+        "bound_ms": cm16_tot["bound_ms"], "bound_by": cm16_bound_by,
+        "library_ms": cm16_tot["library_ms"], "instance_ms": cm16_tot["instance_ms"],
+        "fwd_ms": cm16_fwd["ms"], "fwd_instance_ms": cm16_fwd["instance_ms"],
+        "fwd_bound_ms": cm16_fwd["bound_ms"], "per_launch": cm16_rows,
+        # (Hopper instance, SIMT instance), in turns in one call
+        "ab_defender_step_host_ms": defend_cm_ab["host_ms"],
+        "ab_defender_step_busy_ms": defend_cm_ab["busy_ms"],
+        "ab_recover_host_ms": recover_cm_ab["host_ms"],
+        "ab_recover_busy_ms": recover_cm_ab["busy_ms"]})
+    # the SIMT instance is off the path (0 launches there): its time is the
+    # ablation's, in turns with the Hopper instance
+    kernels.append({
         "name": "cmconv_bf16", "route": "cuda",
         "source": "mladversarialobjectdetection_torch/csrc/cmconv_bf16.cu",
         "replaces": "tools/proto_cmconv.py:28",
-        "launches": bdefend_launches["cmconv_bf16"], "max_abs_err": cm16_err,
-        "ms": cm16_tot["ms"], "plain_ms": cm16_tot["plain_ms"],
+        "launches": bdefend_launches["cmconv_bf16"] - bdefend_launches["cmconv_bf16_sm90"],
+        "max_abs_err": 0.0, "ms": cm16_tot["instance_ms"], "plain_ms": cm16_tot["plain_ms"],
         "bound_ms": cm16_tot["bound_ms"], "bound_by": cm16_bound_by,
-        "library_ms": cm16_tot["library_ms"], "bound_simt_ms": cm16_tot["bound_simt_ms"]})
+        "library_ms": cm16_tot["library_ms"], "bound_simt_ms": cm16_tot["bound_simt_ms"],
+        "on_defender_path": False})
     for kind in ("fwd", "dx"):  # per pass of the 25 fuseable blocks
         tot = mb_tot[kind]
         kernels.append({

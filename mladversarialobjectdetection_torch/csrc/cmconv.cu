@@ -1,5 +1,6 @@
 // Channel-major 3x3 SAME convolution for small channel counts: the SIMT
-// instance, float32 and bf16 (the tensor-core instance is cmconv_tc.cu).
+// instance, float32 and bf16 (the tensor-core instances are cmconv_tc.cu,
+// float32, and cmconv_bf16_sm90.cu, bf16).
 //
 // Replaces the Pallas TPU kernel `_kernel` of tools/proto_cmconv.py (called
 // through `cmconv`). It computes what `cmconv_plain` of
@@ -62,8 +63,13 @@
 // overlap loads with work only across the two blocks of an SM (two chunks
 // of C at C = 8).
 //
-//   6. The bf16 instance (cmconv_bf16.cu includes this file and builds
-//      `mlad_cmconv3x3_bf16`) is the TPU kernel's own signature
+//   6. The bf16 SIMT instance (cmconv_bf16.cu includes this file and builds
+//      `mlad_cmconv3x3_bf16`) is the ablation of the bf16 main path, which
+//      runs the Hopper instance cmconv_bf16_sm90.cu (the products on the bf16
+//      tensor cores, each float32 weight as bf16 hi + lo terms, a
+//      channels-last halo tile staged once, persistent blocks: the notes are
+//      there); this SIMT instance's float32 FMAs alone take 2.6x the bf16
+//      byte bound. It is the TPU kernel's own signature
 //      (proto_cmconv.py:57): x and out bf16, w float32, sums in float32,
 //      the sum rounded once to bf16 (to nearest even); a bias, bf16, is
 //      then added in bf16 (rounded again), as Flax's bf16 `nn.Conv` adds

@@ -1,7 +1,8 @@
-// Helpers shared by the Hopper bf16 MBConv kernels, mbconv_fwd_sm90.cu (the forward) and
-// mbconv_dx_sm90.cu (the input gradient): the limits of a block, the activations, bf16 packing,
-// the PTX wrappers (mbarriers, bulk and 16-byte asynchronous copies, ldmatrix, bf16 mma.sync) and
-// the bounded mbarrier wait. Each source includes it into its own translation unit.
+// Helpers shared by the Hopper bf16 kernels, mbconv_fwd_sm90.cu (the MBConv forward),
+// mbconv_dx_sm90.cu (its input gradient) and cmconv_bf16_sm90.cu (the 3x3 conv): the limits of
+// a block, the activations, bf16 packing, the PTX wrappers (mbarriers, bulk and 16-byte
+// asynchronous copies, ldmatrix, stmatrix, bf16 mma.sync) and the bounded mbarrier wait. Each
+// source includes it into its own translation unit.
 #pragma once
 
 #include <cstdint>
@@ -97,16 +98,39 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  ldsm_x4(r, smem_addr(p));
 }
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
+}
+
+// two 8x8 b16 matrices stored transposed: lanes 0-7 give the row addresses of the first, 8-15
+// of the second; memory row j of a matrix takes column j of the fragments (r0, then r1)
+__device__ __forceinline__ void stsm_x2_trans(const void* p, uint32_t r0, uint32_t r1) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x2.trans.shared.b16 [%0], {%1, %2};\n" ::"r"(
+                   smem_addr(p)),
+               "r"(r0), "r"(r1)
+               : "memory");
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,

@@ -21,8 +21,15 @@ as Flax's bf16 `nn.Conv` adds it after the conv's bf16 output.
   (`BF16_TOL`): they are not bit-equal to it, since the SIMT
   instances sum with FMAs (in the same c, dy, dx order) and the
   tensor-core instance with 3xTF32 products.
+- `cmconv_rounding_bound`: the bf16 function's allowed distance from the
+  float64 sum (`cmconv_sum64`), element by element, for a kernel whose
+  float32 sums run in another order than the plain version's: the bf16
+  main-path instance (`csrc/cmconv_bf16_sm90.cu`) sums each weight's bf16
+  hi and lo terms' products on the tensor cores, chunk by chunk, so it is
+  not bit-equal to the plain version even where w holds bf16 values.
 - `CMConv3x3` / `cmconv`: the differentiable op. Forward: the CUDA kernel
-  (`ops/cmconv_cuda.py`, `csrc/cmconv.cu` / `cmconv_tc.cu`, the instance
+  (`ops/cmconv_cuda.py`; float32 `csrc/cmconv.cu` / `cmconv_tc.cu`, bf16
+  `csrc/cmconv_bf16_sm90.cu` / `cmconv_bf16.cu`, the instance
   `cmconv_cuda.plan` picks) for CUDA tensors, which launches
   or raises, the plain version for CPU tensors. Input gradient: the same
   kernel (or plain version) on the output gradient with the weights flipped
@@ -44,6 +51,9 @@ import torch.nn.functional as F
 # 2^-7 of its scale max(1, max|plain|); with a bias the sum and the bias
 # add each round, two ulps
 BF16_TOL = 2.0 ** -6
+# one float32 add of a tensor core: at most this unit of its larger operand
+# (2^-23, so that an adder that truncates passes, not only one that rounds)
+TC_ADD_UNIT = 2.0 ** -23
 
 
 def cmconv_plain(x: torch.Tensor, w: torch.Tensor,
@@ -65,6 +75,61 @@ def cmconv_plain(x: torch.Tensor, w: torch.Tensor,
     if bias is not None:
         acc = acc + bias.view(1, co, 1, 1)
     return acc
+
+
+def cmconv_sum64(x: torch.Tensor, w: torch.Tensor,
+                 bias: torch.Tensor | None = None) -> torch.Tensor:
+    """The float64 sum of the conv (x [B, C, H, W], w [3, 3, C, Co]) plus the
+    bias, [B, Co, H, W] float64: the reference `cmconv_rounding_bound` is a
+    distance from."""
+    out = F.conv2d(x.double(), w.double().permute(3, 2, 0, 1), padding=1)
+    if bias is not None:
+        out = out + bias.double().view(1, -1, 1, 1)
+    return out
+
+
+def _round_bf16(v: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32 (nearest) -> bf16 (nearest): one rounding to bf16
+    where v is a float32 value."""
+    return v.float().bfloat16()
+
+
+def cmconv_rounding_bound(x: torch.Tensor, w: torch.Tensor,
+                          bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Each output element's allowed distance (float64, [B, Co, H, W]) from
+    `cmconv_sum64(x, w, bias)` for the bf16 function (bf16 x, float32 w) of a
+    kernel that splits each weight into bf16 terms hi = bf16(w) and lo =
+    bf16(w - hi), sums the 2 * 9 * C exact products x * hi, x * lo in float32
+    in one fixed order, rounds the sum once to bf16 and adds the bf16 bias in
+    bf16 (rounded again).
+
+    The float32 sum s' lies within E of the exact s: each tensor-core add
+    loses at most TC_ADD_UNIT of its larger operand, and an add that
+    aligns a block of products to its largest and then normalises loses at
+    most that for each term and once more for the block, so at most
+    2 * n * TC_ADD_UNIT * S with n = 18 C and S the sum of |x| (|hi| + |lo|);
+    plus the split's residual, the sum of |x| |w - hi - lo| (at most 2^-16 of
+    the sum of |x w|), computed exactly. Rounding to bf16 is monotone, so the
+    output lies between bf16(s - E) and bf16(s + E), each then plus the bias
+    in bf16; the distance is that interval's farther end from s + bias. A
+    float32 slack of 2^-22 |s| (and 2^-126 n for flushed subnormals) covers
+    the rounding of s - E and s + E to float32 on the way to bf16."""
+    c = x.shape[1]
+    xa = x.double().abs()
+    hi = w.bfloat16()
+    lo = (w - hi.float()).bfloat16()
+    resid = (w.double() - hi.double() - lo.double()).abs()
+    s = cmconv_sum64(x, w)
+    terms = cmconv_sum64(xa, hi.double().abs() + lo.double().abs())
+    n = 2 * 9 * c
+    err = (2 * n * TC_ADD_UNIT * terms + cmconv_sum64(xa, resid)
+           + 2.0 ** -22 * s.abs() + n * 2.0 ** -126)
+    low, high = _round_bf16(s - err), _round_bf16(s + err)
+    ref = s
+    if bias is not None:
+        low, high = low + bias.view(1, -1, 1, 1), high + bias.view(1, -1, 1, 1)
+        ref = s + bias.double().view(1, -1, 1, 1)
+    return torch.maximum(ref - low.double(), high.double() - ref)
 
 
 def _conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None):

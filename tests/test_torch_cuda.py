@@ -24,10 +24,13 @@ version's within MBCONV_KINK_TOL of its kink; two launches bit-equal; the
 kernels' SIMT ablation against them; their bf16 instances against the bf16
 plain versions within chip_smoke.py's MBCONV_BF16_* tolerances (the reasons
 there), with only bf16 launches counted; and the backbone's dispatch counts
-on the card. The bf16 cmconv instance against the bf16 plain version:
-bit-equal where the kernel holds bf16 values (the U-Net's), within
-`ops/cmconv.BF16_TOL` otherwise; the bf16, packed and remat defenders'
-launches on the card; the packed backbone entry's lite4@640 serve against
+on the card. The bf16 cmconv instances: the plan's pick, the Hopper
+instance (`csrc/cmconv_bf16_sm90.cu`), every element within
+`ops/cmconv.cmconv_rounding_bound` of the float64 sum and within
+`ops/cmconv.BF16_TOL` of the plain version's scale, two launches bit-equal;
+the SIMT instance bit-equal to the bf16 plain version where the kernel holds
+bf16 values (the U-Net's), within BF16_TOL otherwise; the bf16, packed and
+remat defenders' launches on the card; the packed backbone entry's lite4@640 serve against
 the unpacked one (19 fused forward launches a serve).
 """
 import copy
@@ -575,12 +578,20 @@ def test_cmconv_wrapper_rejects_bad_inputs(cuda):
     _assert_cmconv(cuda, x, wt, bias)  # the context still works
 
 
-# the bf16 instance (csrc/cmconv_bf16.cu) against the bf16 plain version:
-# with a kernel of bf16 values each product is exact in float32, the sums
-# run in the same order, so the output is bit-equal; with any float32
-# kernel within one rounding of the sum (`cmconv.BF16_TOL`, two bf16 ulps
-# of scale with the bias's second rounding)
+# the bf16 instances against the bf16 function. The plan's pick, the Hopper
+# instance (csrc/cmconv_bf16_sm90.cu), sums each weight's bf16 hi and lo
+# terms' exact products on the tensor cores in its own K order: every
+# element within `cmconv.cmconv_rounding_bound` of the float64 sum, for
+# kernels of bf16 values (the U-Net's) and general float32 ones, and within
+# one rounding of the plain version (`cmconv.BF16_TOL`, two bf16 ulps of
+# scale with the bias's second rounding). The SIMT instance `simt`
+# (csrc/cmconv_bf16.cu): with a kernel of bf16 values each product is exact
+# in float32 and the sums run in the plain version's order, so its output is
+# bit-equal; with any float32 kernel within BF16_TOL
 CMCONV_BF16_EXTRA = [("w_even_not_8", 2, 8, 8, 12, 36), ("misaligned_x", 2, 8, 16, 9, 24)]
+# heights off the Hopper instance's 8-, 6-, 4- and 2-row tiles (a spatial
+# shard's halo-extended rows), at each tile height
+CMCONV_ODD_HEIGHTS = (1, 13, 162, 322)
 
 
 def _cmconv_bf16_case(cuda, b, c, co, h, w, seed=0, offset=0):
@@ -592,25 +603,38 @@ def _cmconv_bf16_case(cuda, b, c, co, h, w, seed=0, offset=0):
     return x, wt, bias
 
 
+def _assert_within_rounding_bound(name, out, x, wt, bias):
+    err = (out.double() - pcmconv.cmconv_sum64(x, wt, bias)).abs()
+    bound = pcmconv.cmconv_rounding_bound(x, wt, bias)
+    outside = int((err > bound).sum())
+    assert outside == 0, f"{name}: {outside} elements outside cmconv_rounding_bound"
+
+
 def _assert_cmconv_bf16(cuda, x, wt, bias):
     f32_before = cmconv_cuda.DTYPE_LAUNCHES["float32"]
     before = cmconv_cuda.DTYPE_LAUNCHES["bfloat16"]
+    plan_before = dict(cmconv_cuda.PLAN_LAUNCHES)
     for w_ in (wt.bfloat16().float(), wt):
         for b_ in (bias, None):
             out = cmconv_cuda.cmconv3x3_cuda(x, w_, b_)
             plain = pcmconv.cmconv_plain(x, w_, b_)
             assert out.dtype == torch.bfloat16 and out.shape == plain.shape
             _close(out.float(), plain.float(), "cmconv bf16", pcmconv.BF16_TOL)
-            if w_ is not wt:
-                assert torch.equal(out, plain)
+            _assert_within_rounding_bound("cmconv bf16 sm90", out, x, w_, b_)
             assert torch.equal(cmconv_cuda.cmconv3x3_cuda(x, w_, b_), out)
+            simt = cmconv_cuda.cmconv3x3_instance(x, w_, b_, "simt")
+            _close(simt.float(), plain.float(), "cmconv bf16 simt", pcmconv.BF16_TOL)
+            if w_ is not wt:
+                assert torch.equal(simt, plain)
     torch.cuda.synchronize()
     assert cmconv_cuda.DTYPE_LAUNCHES["bfloat16"] == before + 8
     assert cmconv_cuda.DTYPE_LAUNCHES["float32"] == f32_before
-    inst = cmconv_cuda.INSTANCE_LAUNCHES["simt_bf16"]
-    assert torch.equal(cmconv_cuda.cmconv3x3_instance(x, wt, bias, "simt"),
+    assert cmconv_cuda.PLAN_LAUNCHES == dict(plan_before,
+                                             sm90_bf16=plan_before["sm90_bf16"] + 8)
+    inst = cmconv_cuda.INSTANCE_LAUNCHES["sm90_bf16"]
+    assert torch.equal(cmconv_cuda.cmconv3x3_instance(x, wt, bias, "sm90"),
                        cmconv_cuda.cmconv3x3_cuda(x, wt, bias))
-    assert cmconv_cuda.INSTANCE_LAUNCHES["simt_bf16"] == inst + 1
+    assert cmconv_cuda.INSTANCE_LAUNCHES["sm90_bf16"] == inst + 1
 
 
 @pytest.mark.parametrize("c,co", CMCONV_PATH, ids=[f"{c}to{co}" for c, co in CMCONV_PATH])
@@ -623,6 +647,13 @@ def test_cmconv_bf16_matches_plain_at_path_shapes(cuda, c, co):
 def test_cmconv_bf16_edge_cases(cuda, name, b, c, co, h, w):
     offset = 1 if name == "misaligned_x" else 0
     _assert_cmconv_bf16(cuda, *_cmconv_bf16_case(cuda, b, c, co, h, w, 7, offset))
+
+
+@pytest.mark.parametrize("h", CMCONV_ODD_HEIGHTS)
+@pytest.mark.parametrize("c,co", [(8, 8), (16, 16), (32, 16), (16, 32), (32, 32)],
+                         ids=["8to8", "16to16", "32to16", "16to32", "32to32"])
+def test_cmconv_bf16_odd_heights(cuda, c, co, h):
+    _assert_cmconv_bf16(cuda, *_cmconv_bf16_case(cuda, 2, c, co, h, 64, seed=h + c + co))
 
 
 def test_cmconv_bf16_wrapper_refuses_float16_and_mixed_dtypes(cuda):
@@ -638,10 +669,12 @@ def test_cmconv_bf16_wrapper_refuses_float16_and_mixed_dtypes(cuda):
 
 
 def test_cmconv_bf16_autograd_on_card_matches_cpu(cuda):
-    """The bf16 op on the card (forward and input gradient through the bf16
-    instance, weight gradient by cuDNN in bf16) against the same op on the
-    CPU: forward and dx bit-equal (kernels of bf16 values), dw and db within
-    two bf16 ulps of scale."""
+    """The bf16 op on the card (forward and input gradient through the
+    Hopper instance, weight gradient by cuDNN in bf16) against the same op on
+    the CPU (the plain version): forward and dx each within
+    `cmconv_rounding_bound` of its float64 sum (dx: the conv of g with w
+    flipped and C / Co swapped) and within one bf16 rounding of scale of the
+    CPU's; dw and db within two bf16 ulps of scale."""
     x, wt, bias = _cmconv_bf16_case(torch.device("cpu"), 2, 16, 8, 20, 36, seed=3)
     wt = wt.bfloat16().float()
     g = torch.randn((2, 8, 20, 36), generator=torch.Generator().manual_seed(4)).bfloat16()
@@ -654,8 +687,9 @@ def test_cmconv_bf16_autograd_on_card_matches_cpu(cuda):
         n = cmconv_cuda.DTYPE_LAUNCHES["bfloat16"] - before
         assert n == (2 if dev.type == "cuda" else 0)
         res.append([out.detach().cpu()] + [a.grad.cpu() for a in args])
-    assert torch.equal(res[1][0], res[0][0]) and torch.equal(res[1][1], res[0][1])
-    for name, a, b in zip(("dw", "db"), res[1][2:], res[0][2:]):
+    _assert_within_rounding_bound("forward", res[1][0], x, wt, bias)
+    _assert_within_rounding_bound("dx", res[1][1], g, wt.flip(0, 1).transpose(2, 3), None)
+    for name, a, b in zip(("out", "dx", "dw", "db"), res[1], res[0]):
         _close(a.float(), b.float(), name, pcmconv.BF16_TOL)
 
 
@@ -742,6 +776,9 @@ def test_defender_variants_on_card(cuda, variant):
     torch.cuda.synchronize()
     assert cmconv_cuda.DTYPE_LAUNCHES[dtype] == want[0] + 2 * want[1]
     assert cmconv_cuda.LAUNCHES == want[0] + 2 * want[1]
+    key = "sm90_bf16" if bf16 else "simt"  # every bf16 launch on the Hopper instance
+    assert cmconv_cuda.PLAN_LAUNCHES == dict(dict.fromkeys(cmconv_cuda.PLAN_LAUNCHES, 0),
+                                             **{key: want[0] + 2 * want[1]})
     assert np.isfinite(float(m.loss)) and np.isfinite(float(em.loss))
     assert rec.dtype == torch.float32 and rec.shape == images.shape
     assert float(rec.abs().max()) <= 1.0
