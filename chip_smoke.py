@@ -580,6 +580,21 @@ SP_SUP_F64_TOL = 1e-8   # of max(1, max|ref|) per leaf
 SP_SUP_BATCH = 8        # 25c: the fp32 step whose peak memory is read
 SP_PEAK_RATIO = 0.75    # a rank's peak against the one-process peak
 SP_TIMEOUT_S = 600.0    # 25: the two ranks' join
+# phase 25e: the defender under the same mesh, lite4@640 at full width and
+# depth, U-Net n_filters 8, each run against one process in this process.
+# The victim's pass and NMS run in every step; their boxes are replaced by
+# the live boxes at score .9 (a random victim's near-tied scores would let
+# conv rounding move the masker; 25b pins the attack's boxes alike)
+SPD_BATCH = 8           # the fp32 and bf16 steps, eval_step and recover
+SPD_DRIVER_BATCH = 12   # defense.train.train(spatial=2), bf16, 2 steps
+SPD_LOSS_REL = 1e-4     # a step's loss and eval's loss, PSNR and ADR, relative
+SPD_GRAD_COS = 0.9999   # the fp32 U-Net gradient summed over the ranks
+# bf16: tests/test_torch_spatial_defense.py reads cosine 0.99999399 between
+# the bf16 step at (1, 2) and one process on the CPU and holds it to this
+# limit; one run of this phase on an H100 80GB HBM3 at 700 W read 0.99997441
+SPD_BF16_GRAD_COS = 0.999
+SPD_RECOVER_TOL = 2e-4  # recover's rows, of max(1, max|ref|)
+SPD_HEIGHTS = [SP_HW // 4 + 2, SP_HW // 2 + 2]  # cmconv shards plus 2 halo rows
 EVAL_AP_TOL = 1e-3      # each COCO metric with the kernels vs the plain versions
 # kill and resume on the card: bit-equal expected (cuDNN deterministic, the
 # same kernels on the same inputs); where ATen's CUDA backward of a gather
@@ -4045,7 +4060,8 @@ def data_parallel_phase(dev, work: str) -> dict:
 def sp_inputs() -> dict:
     """Phase 25's batches, from a seeded numpy generator: 2 frames to serve,
     the b4 attack images with phase 5's live boxes, the b2 float64 and b8
-    float32 supervised batches with their boxes."""
+    float32 supervised batches with their boxes, 25e's b8 defender images
+    and their live boxes."""
     rng = np.random.default_rng(25)
     hw = SP_HW
     boxes, valid = make_live_slot_boxes(SP_ATTACK_BATCH, (hw, hw), 16)
@@ -4056,7 +4072,9 @@ def sp_inputs() -> dict:
             "sup64": rng.uniform(-1, 1, (SP_SUP64_BATCH, hw, hw, 3)),
             "gt64": random_gt(rng, SP_SUP64_BATCH, hw),
             "sup32": rng.uniform(-1, 1, (SP_SUP_BATCH, hw, hw, 3)).astype(np.float32),
-            "gt32": random_gt(rng, SP_SUP_BATCH, hw)}
+            "gt32": random_gt(rng, SP_SUP_BATCH, hw),
+            "d_images": rng.uniform(-1, 1, (SPD_BATCH, hw, hw, 3)).astype(np.float32),
+            "d_live": make_live_slot_boxes(SPD_BATCH, (hw, hw), 16, seed=1)}
 
 
 def sp_serve(dev, frames, mesh=None) -> dict:
@@ -4166,6 +4184,116 @@ def sp_supervised(dev, images, gt, float64: bool) -> dict:
     return out
 
 
+def spd_defender(dev, inp, bf16: bool):
+    """Phase 25e's defender: lite4@640 (victim seed 0) at score threshold
+    DEFEND_THRESH, U-Net n_filters 8, fp32 or bf16. Its victim pass and NMS
+    run on every call; their boxes are replaced by 25e's live boxes at
+    score .9."""
+    import torch
+    from mladversarialobjectdetection_torch.attack.train import get_victim
+    from mladversarialobjectdetection_torch.defense.defender import PatchAttackDefender
+    cfg = dp_lite4(DEFEND_THRESH)
+    cfg.mixed_precision = bf16
+    eval_patch = np.random.default_rng(0).uniform(-1, 1, (640, 640, 3)).astype(np.float32)
+    dfd = PatchAttackDefender(cfg, get_victim(cfg, seed=0, device=dev),
+                              eval_patch=eval_patch, eval_scale=0.4, device=dev)
+    boxes, valid = (torch.from_numpy(a).to(dev) for a in inp["d_live"])
+    victim_pass = dfd.odet_boxes
+
+    def pinned(images, score_thresh=None):
+        victim_pass(images, score_thresh)
+        return boxes, torch.full(valid.shape, 0.9, device=dev), valid
+
+    dfd.odet_boxes = pinned
+    return dfd
+
+
+def spd_cmconv_errs(label: str, calls) -> float:
+    """Every captured cmconv launch of a step held against the plain version
+    at its shard's inputs: fp32 within WARP_TOL of scale (`kernel_err`), bf16
+    every element within `cmconv_rounding_bound` (`check_cmconv_sm90`). The
+    launches made here are outside every counted run."""
+    import torch
+    from mladversarialobjectdetection_torch.ops import cmconv, cmconv_cuda
+    err = 0.0
+    with torch.no_grad():
+        for i, ((x, w, bias), _) in enumerate(calls):
+            kern = cmconv_cuda.cmconv3x3_cuda(x, w, bias)
+            plain = cmconv.cmconv_plain(x, w, bias)
+            name = f"phase 25e {label} cmconv call {i} on {tuple(x.shape)}"
+            err = max(err, check_cmconv_sm90(name, x, w, bias, kern, plain)
+                      if x.dtype == torch.bfloat16 else kernel_err(name, kern, plain))
+    return err
+
+
+def spd_steps(dev, inp, images, check: bool = False) -> dict:
+    """Phase 25e's steps on `images` (this rank's rows under the mesh), fp32
+    and bf16, each from the U-Net seed 3: one step's loss, U-Net gradient
+    (summed over the ranks), launches and peak memory above what was
+    allocated before the defender was built; a second step's host ms and
+    cmconv calls (their heights; with `check`, each held against the plain
+    version). At fp32 also `eval_step` and `recover` from a fresh state."""
+    import gc
+    import torch
+    from mladversarialobjectdetection_torch.ops import cmconv_cuda
+    out = {}
+    for label, bf16 in (("fp32", False), ("bf16", True)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        dfd = spd_defender(dev, inp, bf16)
+        state = dfd.init_state(3)
+        reset_path_counts()
+        state, m = dfd.train_step(state, images)
+        torch.cuda.synchronize()
+        r = {"peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+             "loss": float(m.loss), "counts": path_counts(),
+             "plan": dict(cmconv_cuda.PLAN_LAUNCHES),
+             "grad": torch.cat([p.grad.detach().double().ravel()
+                                for p in state.unet.parameters()]).cpu()}
+        with Capture([(cmconv_cuda, "cmconv3x3_cuda")]) as cap:
+            t0 = time.perf_counter()
+            dfd.train_step(state, images)
+            torch.cuda.synchronize()
+            r["ms"] = (time.perf_counter() - t0) * 1e3
+        calls = cap.args["cmconv3x3_cuda"]
+        r["heights"] = sorted({a[0].shape[2] for a, _ in calls})
+        if check:
+            r["err"] = spd_cmconv_errs(label, calls)
+        del cap, calls
+        if not bf16:
+            fresh = dfd.init_state(3)
+            reset_path_counts()
+            em = dfd.eval_step(fresh, images, 0)
+            r["recover"] = dfd.recover(fresh, images).cpu()
+            torch.cuda.synchronize()
+            r["eval"] = {k: float(v) for k, v in em._asdict().items()}
+            r["eval_counts"] = path_counts()
+        out[label] = r
+        del dfd, state
+    return out
+
+
+def spd_driver(dev, work: str, rank: int) -> dict:
+    """25e: `defense.train.train(spatial=2)` on this rank, b12 bf16, 2
+    synthetic steps and 5 val batches: its U-Net, launches and seconds."""
+    import os
+    import torch
+    from mladversarialobjectdetection_torch.defense.train import train as defense_train
+    from mladversarialobjectdetection_torch.ops import cmconv_cuda
+    t0 = time.perf_counter()
+    reset_path_counts()
+    st = defense_train("efficientdet-lite4", synthetic=True, batch_size=SPD_DRIVER_BATCH,
+                       epochs=1, steps_per_epoch=2, bf16=True, spatial=2, device=dev,
+                       save_dir=os.path.join(work, f"ddriver{rank}"),
+                       config_override={"nms_configs": {"score_thresh": DEFEND_THRESH}})
+    torch.cuda.synchronize()
+    return {"unet": {k: v.detach().cpu() for k, v in st.unet.state_dict().items()},
+            "s": time.perf_counter() - t0, "counts": path_counts(),
+            "plan": dict(cmconv_cuda.PLAN_LAUNCHES)}
+
+
 def sp_rank(rank: int, work: str, device: str = "cuda") -> None:
     """Phase 25 on one of two ranks (gloo, both on the one card), at mesh
     ('data', 'spatial') = (1, 2): each image's rows split over the ranks.
@@ -4201,7 +4329,113 @@ def sp_rank(rank: int, work: str, device: str = "cuda") -> None:
                      "sm90": dict(mbconv_cuda.BF16_FWD_LAUNCHES),
                      "sm90_dx": dict(mbconv_cuda.BF16_DX_LAUNCHES)}
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # 25e: the defender
+    t0 = time.perf_counter()
+    with parallel.use_mesh(mesh):
+        out["defender"] = spd_steps(dev, inp, mine(inp["d_images"]), check=True)
+    out["ddriver"] = spd_driver(dev, work, rank)
+    out["defender_s"] = time.perf_counter() - t0
     torch.save(out, os.path.join(work, f"s{rank}.pt"))
+
+
+def spatial_defender_checks(ranks, ref, work: str) -> dict:
+    """Phase 25e's checks, each rank against one process: the steps' losses
+    and summed gradients, their launches (15 cmconv on shards of SPD_HEIGHTS,
+    all fp32 or all on the Hopper bf16 instance; 25 fused forward, 2 warp
+    forwards and 1 NMS), a rank's peak memory, eval_step, recover's rows and
+    the driver. Returns each step's launches on rank 0."""
+    import os
+    import torch
+    r0, r1 = (r["defender"] for r in ranks)
+    lines = []
+    for label, cos_min in (("fp32", SPD_GRAD_COS), ("bf16", SPD_BF16_GRAD_COS)):
+        bf16 = label == "bf16"
+        want = dict.fromkeys(WARP_KERNELS, 0)
+        want.update(pass1_fwd=1, pass2_fwd=1, nms=1,
+                    mbconv_fwd_bf16=MBCONV_PER_PASS if bf16 else 0, mbconv_dx_bf16=0,
+                    mbconv_fp32=0 if bf16 else MBCONV_PER_PASS,
+                    cmconv_bf16=CMCONV_PER_STEP if bf16 else 0, cmconv_bf16_simt=0,
+                    cmconv_fp32=0 if bf16 else CMCONV_PER_STEP)
+        for i, r in enumerate((r0, r1)):
+            got = r[label]
+            if got["counts"] != want:
+                fail(f"phase 25e {label} step: rank {i} launched {got['counts']}, want {want}")
+            if got["heights"] != SPD_HEIGHTS:
+                fail(f"phase 25e {label} step: rank {i}'s cmconv launches at heights "
+                     f"{got['heights']}, want {SPD_HEIGHTS}")
+            if bf16 and got["plan"]["sm90_bf16"] != CMCONV_PER_STEP:
+                fail(f"phase 25e bf16 step: rank {i}'s cmconv launches by instance "
+                     f"{got['plan']}, want all {CMCONV_PER_STEP} on the Hopper instance")
+        a, b, one = r0[label], r1[label], ref[label]
+        loss_rel = abs(a["loss"] - one["loss"]) / abs(one["loss"])
+        cos = float(a["grad"] @ one["grad"] / (a["grad"].norm() * one["grad"].norm()))
+        if not (loss_rel <= SPD_LOSS_REL and cos >= cos_min and a["loss"] == b["loss"]
+                and torch.equal(a["grad"], b["grad"])):
+            fail(f"phase 25e {label} step: loss {loss_rel:.3g} relative (limit "
+                 f"{SPD_LOSS_REL}), U-Net gradient cosine {cos:.8f} (limit {cos_min}), "
+                 f"ranks alike {a['loss'] == b['loss'] and torch.equal(a['grad'], b['grad'])}")
+        lines.append(f"{label}: loss {loss_rel:.3g} relative to one process, U-Net gradient "
+                     f"cosine {cos:.8f} (limit {cos_min}), the ranks alike; a rank launched "
+                     f"{ {k: v for k, v in a['counts'].items() if v} }, cmconv at heights "
+                     f"{a['heights']} (one process {one['heights']}), each held against the "
+                     f"plain version at its shard's inputs: max error {a['err']:.3g} / "
+                     f"{b['err']:.3g}; peak {a['peak_gb']:.3f} / {b['peak_gb']:.3f} GB a rank, "
+                     f"one process {one['peak_gb']:.3f} GB "
+                     f"({max(a['peak_gb'], b['peak_gb']) / one['peak_gb']:.3f}x); second step "
+                     f"{a['ms']:.1f} / {b['ms']:.1f} ms a rank, one process {one['ms']:.1f}")
+    peak = max(r0["fp32"]["peak_gb"], r1["fp32"]["peak_gb"]) / ref["fp32"]["peak_gb"]
+    if peak >= SP_PEAK_RATIO:
+        fail(f"phase 25e: a rank's b{SPD_BATCH} fp32 defender step peaks at {peak:.3f}x "
+             f"the one-process step, not below {SP_PEAK_RATIO}")
+    # eval_step and recover
+    em = ref["fp32"]["eval"]
+    want = dict.fromkeys(WARP_KERNELS, 0)
+    want.update(pass1_fwd=1, pass2_fwd=1, nms=3, mbconv_fwd_bf16=0, mbconv_dx_bf16=0,
+                mbconv_fp32=3 * MBCONV_PER_PASS, cmconv_bf16=0, cmconv_bf16_simt=0,
+                cmconv_fp32=CMCONV_PER_STEP + 1)  # 8 forward in each
+    for i, r in enumerate((r0, r1)):
+        got = r["fp32"]
+        if got["eval_counts"] != want:
+            fail(f"phase 25e eval_step and recover: rank {i} launched {got['eval_counts']}, "
+                 f"want {want}")
+        for k in ("loss", "recovery_psnr", "adr"):
+            a, one = got["eval"][k], em[k]
+            same = (np.isnan(a) and np.isnan(one)) or abs(a - one) <= SPD_LOSS_REL * abs(one)
+            if not same:
+                fail(f"phase 25e eval_step: rank {i}'s {k} {a} against one process's {one}")
+    rec = torch.cat([r0["fp32"]["recover"], r1["fp32"]["recover"]], dim=1)
+    one = ref["fp32"]["recover"]
+    rec_err = float((rec - one).abs().max()) / max(1.0, float(one.abs().max()))
+    if rec_err > SPD_RECOVER_TOL:
+        fail(f"phase 25e recover: the ranks' rows within {rec_err:.3g} of scale of one "
+             f"process (limit {SPD_RECOVER_TOL})")
+    # the driver
+    d0, d1 = (r["ddriver"] for r in ranks)
+    if any(not torch.equal(v, d1["unet"][k]) for k, v in d0["unet"].items()):
+        fail("phase 25e: the ranks' U-Nets differ after defense.train.train(spatial=2)")
+    main_files = set(os.path.relpath(os.path.join(p, f), os.path.join(work, "ddriver0"))
+                     for p, _, fs in os.walk(os.path.join(work, "ddriver0")) for f in fs)
+    if not ({"logs/metrics.jsonl", "state-latest.msgpack"} <= main_files
+            and any(f.endswith("antipatch.pkl") for f in main_files)):
+        fail(f"phase 25e: rank 0 of the driver wrote {sorted(main_files)}")
+    rank1_files = [os.path.join(p, f) for p, _, fs in os.walk(os.path.join(work, "ddriver1"))
+                   for f in fs]
+    if [os.path.basename(f) for f in rank1_files] != ["metrics.p1.jsonl"]:
+        fail(f"phase 25e: rank 1 of the driver wrote {rank1_files}")
+    launched_every("phase 25e driver", d0["counts"], ("pass1_fwd", "pass2_fwd", "nms",
+                                                      "mbconv_fwd_bf16", "cmconv_bf16"))
+    if d0["counts"]["cmconv_fp32"] or d0["plan"]["sm90_bf16"] != d0["counts"]["cmconv_bf16"]:
+        fail(f"phase 25e driver: cmconv launches {d0['counts']}, by instance {d0['plan']}")
+    print("phase 25e spatial defender, lite4@640 b" + str(SPD_BATCH) + ", U-Net n_filters "
+          "8, mesh (1, 2), the live boxes: " + "; ".join(lines)
+          + f"; eval_step loss {em['loss']:.6f}, PSNR {em['recovery_psnr']:.4f} dB, ADR "
+          f"{em['adr']} as one process's (a rank launched "
+          f"{ {k: v for k, v in r0['fp32']['eval_counts'].items() if v} } for eval_step "
+          f"and recover), recover's rows within {rec_err:.3g} of scale; "
+          f"defense.train.train(spatial=2) at b{SPD_DRIVER_BATCH} bf16 (2 steps, 5 val "
+          f"batches): the ranks' U-Nets bit-equal, rank 0 alone wrote files, launches a "
+          f"rank {d0['counts']} in {d0['s']:.2f} s")
+    return {label: r0[label]["counts"] for label in ("fp32", "bf16")}
 
 
 def spatial_phase(dev, work: str, rank_fn=sp_rank) -> dict:
@@ -4219,6 +4453,9 @@ def spatial_phase(dev, work: str, rank_fn=sp_rank) -> dict:
            "attack": sp_attack_step(dev, inp, inp["images"]),
            "sup64": sp_supervised(dev, inp["sup64"], inp["gt64"], True),
            "sup32": sp_supervised(dev, inp["sup32"], inp["gt32"], False)}
+    t0 = time.perf_counter()
+    ref["defender"] = spd_steps(dev, inp, inp["d_images"])
+    ref_defender_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     launch.spawn(rank_fn, 2, (work, dev.type), init_method=f"file://{work}/sstore",
                  backend="gloo", timeout_s=SP_TIMEOUT_S)
@@ -4325,6 +4562,10 @@ def spatial_phase(dev, work: str, rank_fn=sp_rank) -> dict:
           f"score threshold {DEFEND_THRESH}, 2 steps and 5 val batches): the ranks' "
           f"patches bit-equal, launches a rank "
           f"{d0['counts']}; {d0['s']:.2f} s")
+    spd = spatial_defender_checks(ranks, ref["defender"], work)
+    print(f"phase 25e took {ref_defender_s + max(r['defender_s'] for r in ranks):.2f} s "
+          f"(one process {ref_defender_s:.2f} s, then a rank's share of the two ranks' "
+          f"run {r0['defender_s']:.2f} / {r1['defender_s']:.2f} s)")
     print(f"phase 25 took {time.perf_counter() - t25:.2f} s (the two ranks {spawn_s:.2f} "
           f"s with their start); peak memory a rank {r0['peak_gb']:.2f} / "
           f"{r1['peak_gb']:.2f} GB. Gloo stages every exchanged row and reduced "
@@ -4335,7 +4576,7 @@ def spatial_phase(dev, work: str, rank_fn=sp_rank) -> dict:
             "mbconv_fwd_sm90_driver": d0["sm90"]["sm90"],
             "mbconv_fwd_instance_driver": d0["sm90"]["instance"],
             "mbconv_dx_sm90_driver": d0["sm90_dx"]["sm90"],
-            "mbconv_dx_instance_driver": d0["sm90_dx"]["instance"]}
+            "mbconv_dx_instance_driver": d0["sm90_dx"]["instance"], "defender": spd}
 
 
 def main() -> int:
@@ -5874,7 +6115,8 @@ def main() -> int:
         "eval_max_abs_err": sup_eval["nms_err"],
         "defender_ms": defend_nms[0], "defender_plain_ms": defend_nms[1],
         "defender_bound_ms": defend_nms[2], "defender_bound_by": defend_nms[3],
-        "spatial_step_launches_per_rank": spatial["nms"]}]
+        "spatial_step_launches_per_rank": spatial["nms"],
+        "spatial_defender_step_launches_per_rank": spatial["defender"]["fp32"]["nms"]}]
     for k in WARP_KERNELS:
         kern_ms, plain_ms, bound_ms, bound_by = warp_times[k]
         kernels.append({
@@ -5883,7 +6125,8 @@ def main() -> int:
             "replaces": WARP_REPLACES[k], "launches": attack_launches[k],
             "max_abs_err": warp_errs[k], "ms": kern_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "spatial_step_launches_per_rank": spatial[k]})
+            "spatial_step_launches_per_rank": spatial[k],
+            "spatial_defender_step_launches_per_rank": spatial["defender"]["fp32"][k]})
     kernels.append({
         "name": "cmconv", "route": "cuda",
         "source": "mladversarialobjectdetection_torch/csrc/cmconv.cu",
@@ -5896,7 +6139,9 @@ def main() -> int:
         "demo_launches_per_frame": demo["launches_per_frame"]["cmconv"],
         "demo_recover_ms": demo["cmconv"]["ms"],
         "demo_recover_bound_ms": demo["cmconv"]["bound_ms"],
-        "demo_max_abs_err": demo["cmconv_err"]})
+        "demo_max_abs_err": demo["cmconv_err"],
+        "spatial_defender_step_launches_per_rank":
+            spatial["defender"]["fp32"]["cmconv_fp32"]})
     kernels.append({
         "name": "cmconv_bf16_sm90", "route": "cuda",
         "source": "mladversarialobjectdetection_torch/csrc/cmconv_bf16_sm90.cu",
@@ -5911,7 +6156,9 @@ def main() -> int:
         "ab_defender_step_host_ms": defend_cm_ab["host_ms"],
         "ab_defender_step_busy_ms": defend_cm_ab["busy_ms"],
         "ab_recover_host_ms": recover_cm_ab["host_ms"],
-        "ab_recover_busy_ms": recover_cm_ab["busy_ms"]})
+        "ab_recover_busy_ms": recover_cm_ab["busy_ms"],
+        "spatial_defender_step_launches_per_rank":
+            spatial["defender"]["bf16"]["cmconv_bf16"]})
     # the SIMT instance is off the path (0 launches there): its time is the
     # ablation's, in turns with the Hopper instance
     kernels.append({
@@ -5934,7 +6181,9 @@ def main() -> int:
             "bound_by": tot["bound_by"], "library_ms": None,
             "unfused_ms": tot["unfused_ms"], "bound_tc_ms": tot["bound_tc_ms"],
             "spatial_step_launches_per_rank": spatial[f"mbconv_{kind}"],
-            **({"demo_launches_per_frame": demo["launches_per_frame"]["mbconv_fwd"]}
+            **({"demo_launches_per_frame": demo["launches_per_frame"]["mbconv_fwd"],
+                "spatial_defender_step_launches_per_rank":
+                    spatial["defender"]["fp32"]["mbconv_fp32"]}
                if kind == "fwd" else {})})
     tot = mb16_tot["fwd"]  # the Hopper bf16 forward, per pass of the bf16 step
     kernels.append({
@@ -5946,6 +6195,8 @@ def main() -> int:
         "unfused_ms": tot["unfused_ms"], "instance_ms": tot["instance_ms"],
         "serve_launches": serve_sm90["sm90"],
         "spatial_driver_launches_per_rank": spatial["mbconv_fwd_sm90_driver"],
+        "spatial_defender_step_launches_per_rank":
+            spatial["defender"]["bf16"]["mbconv_fwd_bf16"],
         "eval_launches_per_batch": sup_eval["launches_per_batch"]["mbconv_fwd_bf16"],
         "eval_ms": sup_eval["mbconv"]["ms"], "eval_instance_ms": sup_eval["mbconv"]["instance_ms"],
         "eval_bound_ms": sup_eval["mbconv"]["bound_ms"],

@@ -41,7 +41,7 @@ train.py:95-100) lays the ranks out as a ('data', 'spatial') mesh whose
 one spatial group load the same examples (their data shard's, its stream
 seeded `seed + 1000 * data index`) and each keeps its rows; with
 `packed_entry` it raises `NotImplementedError` before any work (ROADMAP
-Queue 1 item 10).
+Queue 1 item 10b).
 
 Usage:
     python -m mladversarialobjectdetection_torch.attack.train --synthetic \\

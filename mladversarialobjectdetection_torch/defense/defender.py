@@ -33,6 +33,17 @@ BatchNorm normalises by the global batch's statistics
 (`efficientnet.batch_stats`); each rank's loss is its images' sum and the
 gradients are summed over the ranks, so every rank takes the same Adam
 step; the metrics and the eval sums are the global batch's.
+
+Spatial partitioning (a ('data', 'spatial') mesh, `parallel/spatial.py`):
+the images are this rank's rows. The victim gathers its outputs, so the
+boxes, scores and NMS are the data shard's, alike on each rank of a spatial
+group; the masker plants into this rank's rows (`defense/masker.py`); the
+U-Net runs row-sharded (`models/unet.py`). Each rank's loss is its rows'
+part of each image's mean (its sum over the image's global element count),
+so the parts sum to the loss over data x spatial, and the U-Net's gradients
+are summed over data x spatial. The eval's PSNR sums each image's squared
+error and pixel count over the spatial group before the image's mean;
+`recover` returns this rank's rows.
 """
 from __future__ import annotations
 
@@ -51,6 +62,7 @@ from ..models.unet import PatchNeutralizer
 from ..models.unet_packed import PackedPatchNeutralizer
 from ..ops import nms as nms_ops
 from ..ops import postprocess
+from ..parallel import spatial
 from ..utils.device import resolve_device
 from . import masker as masker_lib
 
@@ -199,21 +211,28 @@ class PatchAttackDefender:
         return nms_boxes, res.scores, res.valid & cond
 
     # -- loss ----------------------------------------------------------------
-    @staticmethod
-    def _loss(unet: torch.nn.Module, patched, targets, training: bool,
+    def _loss(self, unet: torch.nn.Module, patched, targets, training: bool,
               generator=None):
         """sum over images of mean((targets - 2 * unet(patched))^2); returns
-        (loss, updates)."""
-        updates = unet(patched, training=training, generator=generator)
+        (loss, updates). Under a spatial mesh, this rank's rows' part of it:
+        each image's sum over its rows here, over the image's global count."""
+        height = self.image_hw[0]
+        updates = unet(patched, training=training, generator=generator,
+                       height=height)
         b = patched.shape[0]
         diff = targets.reshape(b, -1) - (2.0 * updates).reshape(b, -1)
-        return torch.sum(torch.mean(diff ** 2, dim=1)), updates
+        if spatial.sharded(height):
+            per_image = torch.sum(diff ** 2, dim=1) / (
+                diff.shape[1] * spatial.active().size)
+        else:
+            per_image = torch.mean(diff ** 2, dim=1)
+        return torch.sum(per_image), updates
 
     def _mask(self, state, images, boxes, valid, draws):
         return masker_lib.apply_masker(
             images, boxes[:, :self.max_boxes], valid[:, :self.max_boxes],
             training=True, generator=state.generator, draws=draws,
-            device=self.device)
+            device=self.device, height=self.image_hw[0])
 
     @staticmethod
     def _update(state: DefenderState) -> None:
@@ -258,8 +277,8 @@ class PatchAttackDefender:
         else:
             mean_adv = torch.zeros((), device=self.device)
         state.step += 1
-        return state, DefenderMetrics(parallel.reduce_sum(loss.detach()),
-                                      _masked_mean(clean_scores, clean_valid),
+        loss = parallel.reduce_sum(spatial.reduce_sum(loss.detach()))
+        return state, DefenderMetrics(loss, _masked_mean(clean_scores, clean_valid),
                                       mean_adv, self._nan(), self._nan())
 
     def _train_step_accum(self, state: DefenderState, images, with_adv_scores,
@@ -268,7 +287,9 @@ class PatchAttackDefender:
         sequential microbatches, each with its own detector pass, masker and
         dropout draws, the BatchNorm statistics moving through them in turn;
         gradients summed (the loss is a sum over images), one Adam update.
-        Score means accumulate as numerator / denominator pairs."""
+        Score means accumulate as numerator / denominator pairs. The batch
+        splits, not the rows: under a spatial mesh each microbatch is this
+        rank's rows of its images."""
         k = self.grad_accum
         b = images.shape[0]
         if b % k != 0:
@@ -298,6 +319,7 @@ class PatchAttackDefender:
                 den_a = den_a + torch.sum(am)
         self._update(state)
         state.step += 1
+        lsum = spatial.reduce_sum(lsum)
         lsum, num_c, den_c, num_a, den_a = parallel.reduce_sum(
             torch.stack([lsum, num_c, den_c, num_a, den_a])).unbind()
         mean_adv = num_a / (den_a + 1e-7) if with_adv_scores else zero()
@@ -327,7 +349,7 @@ class PatchAttackDefender:
             training=False, adv_patch=self.eval_patch,
             adv_scale=self.eval_scale, return_region=True,
             generator=self._eval_generator(state, batch_idx),
-            draws=masker_draws, device=self.device)
+            draws=masker_draws, device=self.device, height=self.image_hw[0])
         # second detector pass at score_thresh 0 (attack_detection.py:186-187)
         _, adv_scores, adv_valid = self.odet_boxes(patched, score_thresh=0.0)
         loss, updates = self._loss(state.unet, patched, targets, False)
@@ -340,6 +362,11 @@ class PatchAttackDefender:
         reg = region.to(torch.float32)[..., None]
         se = torch.sum(((recovered - images) ** 2) * reg, dim=(1, 2, 3))
         n_px = torch.sum(reg, dim=(1, 2, 3)) * 3.0
+        # each image's sums over its rows on the spatial group's ranks, and
+        # the loss's parts (one reduction under a spatial mesh)
+        b = se.shape[0]
+        sums = spatial.reduce_sum(torch.cat([se, n_px, loss[None]]))
+        se, n_px, loss = sums[:b], sums[b:2 * b], sums[2 * b]
         has_region = n_px > 0
         mse = se / torch.clamp_min(n_px, 1.0)
         psnr_i = 10.0 * torch.log10(4.0 / torch.clamp_min(mse, 1e-12))
@@ -374,7 +401,9 @@ class PatchAttackDefender:
 
     @torch.no_grad()
     def recover(self, state: DefenderState, images: torch.Tensor) -> torch.Tensor:
-        """Neutralize patches: clip(image + 2 * unet(image)) (demo_v2.py:151-169)."""
+        """Neutralize patches: clip(image + 2 * unet(image)) (demo_v2.py:151-169).
+        Under a spatial mesh, images and the result are this rank's rows
+        (`spatial.gather_rows` makes them whole)."""
         images = torch.as_tensor(images, dtype=torch.float32).to(self.device)
-        updates = state.unet(images, training=False)
+        updates = state.unet(images, training=False, height=self.image_hw[0])
         return torch.clamp(images + 2.0 * updates, -1.0, 1.0)

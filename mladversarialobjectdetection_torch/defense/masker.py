@@ -15,6 +15,12 @@ card the windows go through the CUDA warp kernels (forward passes only: the
 images need no gradient). The random draws come from an explicit
 `torch.Generator`, or are fed in as `MaskerDraws` (the parity tests replay
 the JAX package's threefry draws).
+
+Under a spatial mesh (`height`: the images' global height, which the layout
+rule row-shards), images are this rank's rows: each rank fetches the train
+crops' rows from their owners (`spatial.rows`) before the batch's crops are
+gathered, and `eot.apply_patches` composites every window into this rank's
+rows, so the patched images, targets and region are this rank's rows.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import torch
 
 from .. import parallel
 from ..ops import eot
+from ..parallel import spatial
 from ..utils.device import resolve_device
 
 TRAIN_CROP = 240
@@ -48,7 +55,8 @@ def make_train_patches(images: torch.Tensor, crop: int = TRAIN_CROP, *,
                        generator: torch.Generator | None = None,
                        perm: torch.Tensor | None = None,
                        flip_lr: torch.Tensor | None = None,
-                       flip_ud: torch.Tensor | None = None) -> torch.Tensor:
+                       flip_ud: torch.Tensor | None = None,
+                       height: int | None = None) -> torch.Tensor:
     """Self-supervised patch sources: shuffled batch crops with random flips
     (attack_detection.py:487-492). images [B, H, W, 3] -> [B, c, c, 3].
 
@@ -57,10 +65,19 @@ def make_train_patches(images: torch.Tensor, crop: int = TRAIN_CROP, *,
     every rank's crops are gathered, `perm` and the flips are drawn at the
     global batch's shape, and this rank keeps its rows, so the ranks plant
     what one process plants for the global batch. Fed-in draws are this
-    rank's rows (`perm`'s entries index the global batch)."""
+    rank's rows (`perm`'s entries index the global batch). Under a spatial
+    mesh that row-shards the images' global `height`, each rank fetches the
+    crops' rows [0, crop) first, so every rank of a spatial group holds the
+    same crops."""
     b, h, w, _ = images.shape
-    crop = min(crop, h, w)
     dev = images.device
+    if spatial.sharded(height):
+        crop = min(crop, height, w)
+        n = spatial.active().size
+        top = spatial.rows(images, [0] * n, [crop] * n, dim=1)
+    else:
+        crop = min(crop, h, w)
+        top = images
     if perm is None:
         perm = parallel.draw_rows(
             lambda n: torch.randperm(n, generator=generator, device=dev), b)
@@ -69,7 +86,7 @@ def make_train_patches(images: torch.Tensor, crop: int = TRAIN_CROP, *,
         flip_lr = parallel.draw_rows(coin, b)
     if flip_ud is None:
         flip_ud = parallel.draw_rows(coin, b)
-    crops = parallel.all_gather_rows(images[:, :crop, :crop, :].contiguous())
+    crops = parallel.all_gather_rows(top[:, :crop, :crop, :].contiguous())
     crops = crops[perm.to(dev)]
     col = lambda m: m.to(dev).reshape(b, 1, 1, 1)
     crops = torch.where(col(flip_lr), crops.flip(2), crops)
@@ -86,8 +103,10 @@ def apply_masker(images, boxes, boxes_valid, *, training: bool,
     images [B, H, W, 3]; boxes [B, K, 4], boxes_valid [B, K]. targets[b] =
     images[b] - patched[b] inside the patched regions, else 0;
     `return_region=True` adds the [B, H, W] bool region mask. `eot_kwargs`
-    pass through to `eot.apply_patches`, with the JAX package's training
-    hooks `train_patches` and `adv_scale_override`."""
+    pass through to `eot.apply_patches` (`height` too: under a spatial mesh
+    the images' global height, images and results this rank's rows), with
+    the JAX package's training hooks `train_patches` and
+    `adv_scale_override`."""
     dev = resolve_device(device)
     images = torch.as_tensor(images, dtype=torch.float32).to(dev)
     draws = draws or MaskerDraws()
@@ -96,7 +115,8 @@ def apply_masker(images, boxes, boxes_valid, *, training: bool,
         if train_patches is None:
             train_patches = make_train_patches(
                 images, generator=generator, perm=draws.perm,
-                flip_lr=draws.flip_lr, flip_ud=draws.flip_ud)
+                flip_lr=draws.flip_lr, flip_ud=draws.flip_ud,
+                height=eot_kwargs.get("height"))
         patched, region = eot.apply_patches(
             images, boxes, boxes_valid,
             torch.zeros_like(train_patches[0]),  # unused placeholder

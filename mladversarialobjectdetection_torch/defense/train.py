@@ -42,12 +42,16 @@ Across processes (`torchrun --nproc_per_node N -m
 mladversarialobjectdetection_torch.defense.train ...`; `main` calls
 `parallel.initialize`), the driver runs JAX's data-parallel program (JAX
 train.py:53-142, 201-220) on `make_train_mesh`, as the attack driver does:
-`batch_size / N` images a rank, synthetic streams seeded `seed + 1000 *
-rank`, the folder split seeded `seed + rank` and sharded by rank, the
+`batch_size / N` images a data shard, synthetic streams seeded `seed + 1000
+* shard`, the folder split seeded `seed + shard` and sharded by shard, the
 U-Net and the victim from rank 0, the steps reduced over the ranks
-(`defense/defender.py`), and only the main process writing files.
-`spatial > 1` raises `NotImplementedError` before any work: the defender
-under a spatial mesh is ROADMAP Queue 1 item 10.
+(`defense/defender.py`), and only the main process writing files (beside
+each other rank's `logs/metrics.p{rank}.jsonl`). `spatial > 1` (JAX
+train.py:53-58) lays the ranks out as a ('data', 'spatial') mesh whose
+'spatial' axis row-shards each image (`parallel/spatial.py`): the ranks of
+one spatial group load the same examples (their data shard's stream) and
+keep their rows; the U-Net, the masker and the victim run on those rows. In
+one process it raises the mesh's `ValueError` before any work.
 
 An untrained victim at score threshold .5 finds nobody, so the masker
 plants nothing: pass `config_override={"nms_configs": {"score_thresh":
@@ -74,6 +78,7 @@ from ..ckpt import io as ckpt_io
 from ..ckpt.convert_defense import load_antipatch, save_antipatch_h5
 from ..data import pipeline
 from ..utils.device import resolve_device
+from ..utils.image import parse_image_size
 from ..utils.log import get_logger
 from ..utils import train_loop as train_loop_lib
 from ..utils.train_loop import MetricLogger, ReduceLROnPlateau, Throughput
@@ -120,8 +125,6 @@ def train(model_name: str = "efficientdet-lite4", *,
           resume: bool = False, packed: int = 0, victim_variables=None,
           device=None):
     """Train the defender U-Net; returns the final `DefenderState`."""
-    if spatial > 1:  # before any work: JAX row-shards the images there
-        raise NotImplementedError(parallel.SPATIAL_NOT_PORTED)
     # weights only (the reference's initial_weights, attack_detection.py:54-55)
     unet_vars = load_antipatch(initial_weights) if initial_weights else None
     device = resolve_device(device)
@@ -134,6 +137,8 @@ def train(model_name: str = "efficientdet-lite4", *,
         config.mixed_precision = True
     if config_override:
         config.update(config_override)
+    image_h = parse_image_size(config.image_size)[0]
+    mesh = parallel.make_train_mesh(batch_size, spatial, image_h, device=device)
 
     if eval_patch:
         patch_np, scale = artifacts.load_patch_dir(
@@ -144,7 +149,6 @@ def train(model_name: str = "efficientdet-lite4", *,
             -1, 1, size=(640, 640, 3)).astype(np.float32)
         scale = 0.4
 
-    mesh = parallel.make_train_mesh(batch_size, device=device)
     victim_variables = victim_source(config, victim_ckpt, victim_variables)
     victim = get_victim(config, variables=victim_variables, device=device)
     defender = PatchAttackDefender(config, victim, eval_patch=patch_np,
@@ -168,12 +172,13 @@ def train(model_name: str = "efficientdet-lite4", *,
                     f"(epoch {start_epoch}, step {step})")
     parallel.replicate(mesh, [state.unet, defender.net])
     # resume fast-forward (JAX train.py:114-140): both streams advanced to
-    # where the uninterrupted run would be
-    rank, n_proc = parallel.process_index(), parallel.world_size()
-    local_bs = parallel.local_batch_size(batch_size)
+    # where the uninterrupted run would be. Each data shard loads its share
+    # of the global batch from a stream of its own
+    local_bs, shard = parallel.data_shard(mesh, batch_size)
+    n_shards = batch_size // local_bs
     if synthetic or img_dir is None:
         logger.info("using synthetic data")
-        pseed = seed + 1000 * rank
+        pseed = seed + 1000 * shard
         train_src = pipeline.synthetic_batches(local_bs, config.image_size,
                                                seed=pseed)
         val_src = pipeline.synthetic_batches(local_bs, config.image_size,
@@ -186,10 +191,10 @@ def train(model_name: str = "efficientdet-lite4", *,
     else:
         parts = pipeline.partition(config, img_dir, label_dir,
                                    batch_size=batch_size, filter_data=True,
-                                   seed=seed + rank)
-        if n_proc > 1:
-            parts["train"]["source"].shard(rank, n_proc)
-            parts["val"]["source"].shard(rank, n_proc)
+                                   seed=seed + shard)
+        if n_shards > 1:
+            parts["train"]["source"].shard(shard, n_shards)
+            parts["val"]["source"].shard(shard, n_shards)
         spe = steps_per_epoch or parts["train"]["length"]
         val_steps = parts["val"]["length"]
         train_src = parts["train"]["source"].repeat_batches(
@@ -207,7 +212,8 @@ def train(model_name: str = "efficientdet-lite4", *,
         for epoch in range(start_epoch, epochs):
             thr.start()
             for _ in range(spe):
-                batch = pipeline.augment_batch(next(train_iter), aug_gen)
+                batch = pipeline.augment_batch(next(train_iter), aug_gen,
+                                               height=image_h)
                 # real adversarial scores on logged steps only (an extra
                 # detector pass), as the reference logs them
                 logged = (step + 1) % 50 == 0
@@ -294,9 +300,10 @@ def main():
                    help="split each step's batch into this many sequential "
                         "microbatches with one summed-gradient update")
     p.add_argument("--spatial", type=int, default=1,
-                   help="shard each image's rows over this many cards: not "
-                        "ported yet for the defender, > 1 raises (ROADMAP "
-                        "Queue 1 item 10)")
+                   help="shard each image's rows over this many ranks of a "
+                        "('data', 'spatial') mesh: the U-Net, the masker and "
+                        "the victim run on each rank's rows (must divide the "
+                        "ranks and the image height)")
     p.add_argument("--packed", type=int, nargs="?", const=3, default=0,
                    help="space-to-depth packed U-Net layout "
                         "(models/unet_packed.py), the same model and "

@@ -35,7 +35,7 @@ rows' whole frames (on the host or the device) and keeps its rows of them,
 the forward runs row-sharded under the mesh (`parallel/spatial.py`) and
 ends with every anchor's outputs on each rank, and the detections are
 gathered over the data axes only. `packed_entry` and `quantize_int8` under
-such a mesh raise `NotImplementedError` (ROADMAP Queue 1 item 10).
+such a mesh raise `NotImplementedError` (ROADMAP Queue 1 item 10b).
 
 `quantize_int8` switches `serve`, `serve_raw`, `infer`, `serve_streams` and
 `serve_pipelined` to the W8A8 forward (`inference/quantize.Int8Serve`: the

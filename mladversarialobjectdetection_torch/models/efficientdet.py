@@ -17,7 +17,7 @@ the images are this rank's rows, every module runs on the rows the layout
 rule gives its level (the global heights from `DetSpec.level_hw`), and each
 level's class and box outputs are gathered (`spatial.whole`): from there on
 anchors, postprocessing, NMS and the losses see every anchor. The
-segmentation head and `packed_entry` raise there (ROADMAP Queue 1 item 10).
+segmentation head and `packed_entry` raise there (ROADMAP Queue 1 item 10b).
 """
 from __future__ import annotations
 

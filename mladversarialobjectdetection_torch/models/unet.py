@@ -42,6 +42,19 @@ types are; the head's tanh is taken in it and then cast to float32. The
 cached casts of the convs' weights keep their autograd edge: they are
 recast on every call while gradients are on and the weights require one.
 
+Spatial partitioning (`parallel/spatial.py`, JAX's GSPMD row sharding of
+the U-Net's convs): under a mesh whose 'spatial' axis is larger than 1, the
+modules take `height`, their input's global height, and hold the rows the
+layout rule gives each level. The 3x3 convs read one row from each
+neighbour: `CMConv2d` runs its kernel on its shard extended by one row at
+each side (zeros at the image's edges) and crops one output row at each
+side (`spatial.halo_rows`), `Conv2d` through `spatial.same_window`; the
+transposed conv reads one input row above its shard (`ConvTranspose`); the
+max pool is local, gathered where the pooled level is replicated; the 1x1
+convs are local; the BatchNorms of a row-sharded level take their
+statistics over data x spatial; the dropout masks are drawn at the global
+shape (`spatial.draw_rows`).
+
 `remat` (JAX unet.py:126-139, `nn.remat` of every ConvBlock and
 DeconvBlock) recomputes each block in the backward pass instead of storing
 its activations (`torch.utils.checkpoint`, non-reentrant). The recompute
@@ -49,20 +62,23 @@ must be the same function: it draws its dropout masks from a generator
 restored to the state the block's first pass started from (checkpoint's
 `preserve_rng_state` restores only the global generators, not the explicit
 one the masks come from), and its BatchNorms do not move their running
-statistics a second time (Flax is functional and moves them once).
+statistics a second time (Flax is functional and moves them once). Under
+a spatial mesh the recompute runs the same halo exchanges and statistics'
+all-reduces on every rank, in the same order.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .. import parallel
 from ..ops.cmconv import cmconv
 from ..parallel import spatial
-from .efficientnet import BN_MOMENTUM, Conv2d, checkpointed, set_compute_dtype
+from .efficientnet import (BN_MOMENTUM, Conv2d, checkpointed, out_height,
+                           set_compute_dtype)
 from .efficientnet import BatchNorm as _BatchNorm
 from .efficientnet import _recompute, batch_norm, recomputing  # noqa: F401
 
@@ -81,15 +97,18 @@ class BatchNorm(_BatchNorm):
     FLAX_INNER_BN = False
 
 
-def dropout(x: torch.Tensor, rate: float,
-            generator: torch.Generator | None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            height: Optional[int] = None) -> torch.Tensor:
     """Flax `nn.Dropout` in train mode: keep each unit with probability
     1 - rate and scale it by 1 / (1 - rate). Under an active mesh the mask
-    is this rank's rows of the global batch's draw (`parallel.draw_rows`)."""
+    is this rank's rows of the global batch's draw at x's global `height`
+    (`spatial.draw_rows`)."""
     keep = 1.0 - rate
-    mask = parallel.draw_rows(
-        lambda n: torch.rand((n, *x.shape[1:]), generator=generator,
-                             device=x.device), x.shape[0]) < keep
+    c, w = x.shape[1], x.shape[3]
+    mask = spatial.draw_rows(
+        lambda n, h: torch.rand((n, c, h, w), generator=generator,
+                                device=x.device),
+        x.shape[0], x.shape[2] if height is None else height) < keep
     return torch.where(mask, x / _weak(keep, x), torch.zeros_like(x))
 
 
@@ -111,9 +130,14 @@ class CMConv2d(Conv2d):
     """A 3x3 stride-1 SAME conv run by `ops/cmconv.cmconv` (the CUDA kernel
     on the card); the weight stays OIHW like every other conv of the port.
     At bf16 the op takes the bf16 input, the kernel rounded to bf16 and held
-    in float32 (the TPU kernel's float32 w), and the bias in bf16."""
+    in float32 (the TPU kernel's float32 w), and the bias in bf16. Under a
+    spatial mesh (`height`: x's global height) the kernel runs on x's shard
+    and a halo row at each side (`spatial.halo_rows`)."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, height: Optional[int] = None) -> torch.Tensor:
+        return spatial.halo_rows(x, height, 1, self._conv)
+
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
         if cd is None:
             return cmconv(x.contiguous(), self.weight.permute(2, 3, 1, 0),
@@ -135,16 +159,27 @@ class ConvTranspose(Conv2d):
                  bias: bool = True, init: str = HE_INIT):
         super().__init__(in_channels, out_channels, 3, bias=bias, init=init)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h, w = x.shape[-2:]
+    def forward(self, x: torch.Tensor, height: Optional[int] = None) -> torch.Tensor:
+        """x [B, Ci, h, w] -> [B, Co, 2h, 2w]. Under a spatial mesh
+        (`height`: x's global height) output rows [2lo, 2hi) read input rows
+        [lo - 1, hi): this rank's and one row above (`spatial.window`)."""
+        if height is None or spatial.active() is None:
+            return self._rows(x, 0, 2 * x.shape[2], 0)
+        return spatial.window(x, height, 2 * height,
+                              lambda o_lo, o_hi: (o_lo // 2 - 1, o_hi // 2),
+                              self._rows)
+
+    def _rows(self, xe: torch.Tensor, o_lo: int, o_hi: int, lo: int) -> torch.Tensor:
+        """Output rows [o_lo, o_hi) from xe, the input's rows from `lo` on."""
+        crop = (slice(None), slice(None), slice(o_lo - 2 * lo, o_hi - 2 * lo),
+                slice(0, 2 * xe.shape[3]))
         cd = self.compute_dtype
         if cd is None:
             weight = self.weight.flip(2, 3).transpose(0, 1)
-            y = F.conv_transpose2d(x, weight, self.bias, stride=2)
-            return y[..., :2 * h, :2 * w]
+            return F.conv_transpose2d(xe, weight, self.bias, stride=2)[crop]
         weight, bias = self._in_dtype(cd)
-        y = F.conv_transpose2d(x.to(cd), weight.flip(2, 3).transpose(0, 1),
-                               None, stride=2)[..., :2 * h, :2 * w]
+        y = F.conv_transpose2d(xe.to(cd), weight.flip(2, 3).transpose(0, 1),
+                               None, stride=2)[crop]
         return y if bias is None else y + bias.view(1, -1, 1, 1)
 
 
@@ -166,19 +201,29 @@ class ConvBlock(nn.Module):
         self.maxpool = maxpool
 
     def forward(self, x: torch.Tensor, training: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                height: Optional[int] = None):
         for j in (1, 2):
-            x = getattr(self, f"cnv{j}")(x)
+            x = getattr(self, f"cnv{j}")(x, height)
             if self.batchnorm:
-                x = getattr(self, f"bn{j}")(x, training)
+                x = getattr(self, f"bn{j}")(x, training, height)
             x = leaky_relu(x)
         drop = self.dropout and training
         if self.maxpool:
-            f = F.max_pool2d(x, 2, 2)
+            f = max_pool(x, height)
             if drop:
-                f = dropout(f, self.dropout, generator)
+                f = dropout(f, self.dropout, generator, out_height(height, 2))
             return x, f  # (skip, downsampled)
-        return dropout(x, self.dropout, generator) if drop else x
+        return dropout(x, self.dropout, generator, height) if drop else x
+
+
+def max_pool(x: torch.Tensor, height: Optional[int] = None) -> torch.Tensor:
+    """2x2/2 max pool; under a spatial mesh (`height`: x's global height)
+    local to each shard, gathered where the pooled level is replicated."""
+    pool = lambda xe: F.max_pool2d(xe, 2, 2)
+    if height is None or spatial.active() is None:
+        return pool(x)
+    return spatial.same_window(x, height, 2, 2, 0, pool)
 
 
 class AttentionBlock(nn.Module):
@@ -194,11 +239,11 @@ class AttentionBlock(nn.Module):
         self.bn3 = BatchNorm(1, eps=BN_EPS)
 
     def forward(self, up_in: torch.Tensor, skip_in: torch.Tensor,
-                training: bool = False) -> torch.Tensor:
-        g = self.bn1(self.cnv1(up_in), training)
-        x = self.bn2(self.cnv2(skip_in), training)
+                training: bool = False, height: Optional[int] = None) -> torch.Tensor:
+        g = self.bn1(self.cnv1(up_in), training, height)
+        x = self.bn2(self.cnv2(skip_in), training, height)
         x = leaky_relu(g + x)
-        x = torch.sigmoid(self.bn3(self.conv3(x), training))
+        x = torch.sigmoid(self.bn3(self.conv3(x), training, height))
         return skip_in * x
 
 
@@ -220,14 +265,17 @@ class DeconvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor,
                 training: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        x = self.cnv(x)
+                generator: torch.Generator | None = None,
+                height: Optional[int] = None) -> torch.Tensor:
+        """`height`: x's global height (the skip's is twice it)."""
+        up = None if height is None else 2 * height
+        x = self.cnv(x, height)
         if self.use_attention:
-            skip = self.attention(x, skip, training)
+            skip = self.attention(x, skip, training, up)
         x = torch.cat([x, skip], dim=1)
         if self.dropout and training:
-            x = dropout(x, self.dropout, generator)
-        return self.convblock(x, training)
+            x = dropout(x, self.dropout, generator, up)
+        return self.convblock(x, training, height=up)
 
 
 def remat_call(block: nn.Module, tensors, training: bool,
@@ -250,12 +298,25 @@ def remat_call(block: nn.Module, tensors, training: bool,
     return checkpointed(run, *tensors)
 
 
+def global_height(images: torch.Tensor, height: Optional[int]) -> Optional[int]:
+    """The global height of NHWC `images` under the active spatial mesh
+    (`height`, or their rows times the spatial group's size), checked
+    against the rows they hold; None without a spatial mesh."""
+    sp = spatial.active()
+    if sp is None:
+        return None
+    height = images.shape[1] * sp.size if height is None else int(height)
+    spatial.check_rows(images, height, dim=1)
+    return height
+
+
 class PatchNeutralizer(nn.Module):
     """Attention U-Net + 1x1 tanh head (generator.py:17-96).
 
     The output is the defender's "update": 2 * output added to the input
     image neutralizes the patches it finds (attack_detection.py:190).
-    `dtype` and `remat`: see the module notes; the output is float32."""
+    `dtype` and `remat`: see the module notes; the output is float32
+    (float64 where the U-Net computes in float64)."""
 
     def __init__(self, n_filters: int = 8, dropout: float = 0.2,
                  batchnorm: bool = True, remat: bool = False,
@@ -279,30 +340,36 @@ class PatchNeutralizer(nn.Module):
         self.dtype = None if dtype == torch.float32 else dtype
         set_compute_dtype(self, self.dtype)
 
-    def _block(self, name: str, tensors, training, generator):
+    def _block(self, name: str, tensors, training, generator, height):
         block = getattr(self, name)
         if self.remat and torch.is_grad_enabled():
-            return remat_call(block, tensors, training, generator)
-        return block(*tensors, training, generator)
+            return remat_call(functools.partial(block, height=height), tensors,
+                              training, generator)
+        return block(*tensors, training, generator, height)
 
     def forward(self, images: torch.Tensor, training: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        """[B, H, W, 3] -> update [B, H, W, 3] in (-1, 1), float32; H, W
-        divisible by 16.
+                generator: torch.Generator | None = None,
+                height: Optional[int] = None) -> torch.Tensor:
+        """[B, H, W, 3] -> update [B, H, W, 3] in (-1, 1); H, W divisible
+        by 16.
 
         `generator` draws the dropout masks in train mode. Under a spatial
-        mesh it raises (ROADMAP Queue 1 item 10)."""
-        if spatial.active() is not None:
-            raise NotImplementedError(parallel.SPATIAL_NOT_PORTED)
+        mesh, images are this rank's rows of images `height` rows high
+        (default: its rows times the spatial group's size), and so is the
+        update."""
+        height = global_height(images, height)
         x = images.permute(0, 3, 1, 2).contiguous()
         if self.dtype is not None:
             x = x.to(self.dtype)
         skips = []
         for i in range(4):
-            skip, x = self._block(f"conv{i}", (x,), training, generator)
+            skip, x = self._block(f"conv{i}", (x,), training, generator, height)
             skips.append(skip)
-        x = self._block("conv4", (x,), training, generator)
+            height = out_height(height, 2)
+        x = self._block("conv4", (x,), training, generator, height)
         for i, skip in enumerate(reversed(skips)):
-            x = self._block(f"deconv{i}", (x, skip), training, generator)
-        y = torch.tanh(self.output(x)).to(torch.float32)
+            x = self._block(f"deconv{i}", (x, skip), training, generator, height)
+            height = None if height is None else 2 * height
+        y = torch.tanh(self.output(x))
+        y = y.to(torch.promote_types(y.dtype, torch.float32))
         return y.permute(0, 2, 3, 1)

@@ -29,6 +29,17 @@ module at every packed depth (PERF.md), where the TPU gained.
   float32, with [C] parameters and running statistics as before.
 - 1x1 convs -> per phase (`packed_1x1`, a grouped conv of 4 groups).
 
+Spatial partitioning (`parallel/spatial.py`; `models/unet.py` says how the
+unpacked stages run): `height` is each tensor's own global height (a packed
+level's is half its image's). `space_to_depth` / `depth_to_space` are local
+on even shard heights (gathered or sliced where the packed level is
+replicated and the image level is not), the packed 3x3 conv runs on its
+shard and one packed row from each neighbour (`spatial.halo_rows`; cmconv or
+`F.conv2d`, as above), the sub-pixel transposed conv reads one input row
+above its shard, `phase_max` and the 1x1 convs are local, `PackedBN` takes
+its statistics over data x spatial for a row-sharded level, and the dropout
+masks are drawn over the global packed shape.
+
 Dropout in the packed deconv blocks draws its masks over the packed shape,
 so its masks differ from the unpacked module's by design (the same iid
 Bernoulli distribution; JAX unet_packed.py:30-33). `dtype` follows
@@ -47,13 +58,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .. import parallel
 from ..ops.cmconv import cmconv
 from ..ops.cmconv_cuda import MAX_CHANNELS as CMCONV_MAX_CHANNELS
 from ..parallel import spatial
 from .efficientnet import Conv2d, batch_stats, set_compute_dtype
 from .unet import (BN_MOMENTUM, HE_INIT, LECUN_INIT, BatchNorm, ConvBlock,
-                   ConvTranspose, DeconvBlock, dropout, leaky_relu, recomputing)
+                   ConvTranspose, DeconvBlock, dropout, global_height,
+                   leaky_relu, recomputing)
 
 
 # -- packed layout helpers ---------------------------------------------------
@@ -71,6 +82,25 @@ def depth_to_space(y: torch.Tensor) -> torch.Tensor:
     c = c4 // 4
     y = y.reshape(b, 2, 2, c, h, w)
     return y.permute(0, 3, 4, 1, 5, 2).reshape(b, c, 2 * h, 2 * w)
+
+
+def packed_rows(x: torch.Tensor, height: Optional[int]) -> torch.Tensor:
+    """`space_to_depth` of x (global height `height`) under the active
+    spatial mesh: local where the packed level is row-sharded too, of the
+    gathered image where only the image level is."""
+    if spatial.sharded(height) and not spatial.sharded(height // 2):
+        x = spatial.gather_rows(x)
+    return space_to_depth(x)
+
+
+def unpacked_rows(y: torch.Tensor, height: Optional[int]) -> torch.Tensor:
+    """`depth_to_space` of y to an image of global height `height` under the
+    active spatial mesh: local where the packed level is row-sharded too,
+    this rank's rows of the whole image where only the image level is."""
+    x = depth_to_space(y)
+    if spatial.sharded(height) and not spatial.sharded(height // 2):
+        x = spatial.local_rows(x)
+    return x
 
 
 def _phase_tap_table() -> np.ndarray:
@@ -128,27 +158,40 @@ def _cast(dtype, *tensors):
 
 
 def packed_conv3(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-                 dtype: Optional[torch.dtype]) -> torch.Tensor:
+                 dtype: Optional[torch.dtype],
+                 height: Optional[int] = None) -> torch.Tensor:
     """3x3 SAME conv in the packed domain: x [B, 4Ci, h, w], `kernel` the
     original [3, 3, Ci, Co] (HWIO), `bias` [Co] -> [B, 4Co, h, w]. The block
     kernel and the tiled bias are cast to `dtype` (None: as they are), the
-    conv computed in it and the bias added in it."""
+    conv computed in it and the bias added in it. Under a spatial mesh
+    (`height`: x's global height) it runs on x's shard and a halo row at
+    each side (`spatial.halo_rows`)."""
     wp = pack_conv3_kernel(kernel)
     x, wp, bp = _cast(dtype, x, wp, bias.repeat(4))
     if max(wp.shape[2], wp.shape[3]) <= CMCONV_MAX_CHANNELS:
         # cmconv takes w in float32: bf16 values held in float32 at bf16
-        return cmconv(x.contiguous(), wp.to(torch.float32), bp)
-    y = F.conv2d(x, wp.permute(3, 2, 0, 1), None, padding=1)
-    return y + bp.view(1, -1, 1, 1)
+        wf = wp.to(torch.float32)
+        return spatial.halo_rows(x, height, 1,
+                                 lambda xe: cmconv(xe.contiguous(), wf, bp))
+    conv = lambda xe: F.conv2d(xe, wp.permute(3, 2, 0, 1), None, padding=1)
+    return spatial.halo_rows(x, height, 1, conv) + bp.view(1, -1, 1, 1)
 
 
 def packed_convT(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-                 dtype: Optional[torch.dtype]) -> torch.Tensor:
+                 dtype: Optional[torch.dtype],
+                 height: Optional[int] = None) -> torch.Tensor:
     """ConvTranspose(stride 2, k3, SAME) from unpacked x [B, Ci, h, w] to the
-    packed output [B, 4Co, h, w]; `kernel` the Flax [3, 3, Ci, Co]."""
+    packed output [B, 4Co, h, w]; `kernel` the Flax [3, 3, Ci, Co]. Output
+    row r reads input rows r - 1 and r: under a spatial mesh (`height`: x's
+    global height) this rank's and one row above (`spatial.window`)."""
     wp = pack_convT_kernel(kernel)
     x, wp, bp = _cast(dtype, x, wp, bias.repeat(4))
-    y = F.conv2d(F.pad(x, (1, 0, 1, 0)), wp.permute(3, 2, 0, 1), None)
+    conv = lambda xe, *_: F.conv2d(F.pad(xe, (1, 0, 0, 0)), wp.permute(3, 2, 0, 1),
+                                   None)
+    if height is None or spatial.active() is None:
+        y = conv(F.pad(x, (0, 0, 1, 0)))
+    else:
+        y = spatial.window(x, height, height, lambda lo, hi: (lo - 1, hi), conv)
     return y + bp.view(1, -1, 1, 1)
 
 
@@ -193,13 +236,14 @@ class PackedBN(BatchNorm):
     keep float64), with Flax's fast variance, momentum .99 and eps 1e-3; the
     output in the compute dtype (None: x's)."""
 
-    def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, training: bool = False,
+                height: Optional[int] = None) -> torch.Tensor:
         out_dtype = x.dtype if self.compute_dtype is None else self.compute_dtype
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if training:
             b, c4, h, w = xf.shape
             xr = xf.reshape(b, 4, c4 // 4, h, w)
-            mu, var = batch_stats(xr, (0, 1, 3, 4), self.axis_name)
+            mu, var = batch_stats(xr, (0, 1, 3, 4), self.axis_name, height)
             if not recomputing():
                 with torch.no_grad():
                     self.running_mean.copy_(BN_MOMENTUM * self.running_mean
@@ -233,20 +277,23 @@ class PackedConvBlock(nn.Module):
         self.maxpool = maxpool
 
     def forward(self, xp: torch.Tensor, training: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                height: Optional[int] = None):
+        """`height`: xp's global (packed) height, the pooled output's too."""
         for j in (1, 2):
             conv = getattr(self, f"cnv{j}")
-            xp = packed_conv3(xp, _hwio(conv), conv.bias, conv.compute_dtype)
+            xp = packed_conv3(xp, _hwio(conv), conv.bias, conv.compute_dtype,
+                              height)
             if self.batchnorm:
-                xp = getattr(self, f"bn{j}")(xp, training)
+                xp = getattr(self, f"bn{j}")(xp, training, height)
             xp = leaky_relu(xp)
         drop = self.dropout and training
         if self.maxpool:
             f = phase_max(xp)
             if drop:
-                f = dropout(f, self.dropout, generator)
+                f = dropout(f, self.dropout, generator, height)
             return xp, f
-        return dropout(xp, self.dropout, generator) if drop else xp
+        return dropout(xp, self.dropout, generator, height) if drop else xp
 
 
 class PackedAttention(nn.Module):
@@ -263,13 +310,13 @@ class PackedAttention(nn.Module):
         self.bn3 = PackedBN(1)
 
     def forward(self, up_p: torch.Tensor, skip_p: torch.Tensor,
-                training: bool = False) -> torch.Tensor:
+                training: bool = False, height: Optional[int] = None) -> torch.Tensor:
         conv1x1 = lambda conv, x: packed_1x1(x, _hwio(conv), conv.bias,
                                              conv.compute_dtype)
-        g = self.bn1(conv1x1(self.cnv1, up_p), training)
-        x = self.bn2(conv1x1(self.cnv2, skip_p), training)
+        g = self.bn1(conv1x1(self.cnv1, up_p), training, height)
+        x = self.bn2(conv1x1(self.cnv2, skip_p), training, height)
         x = leaky_relu(g + x)
-        x = torch.sigmoid(self.bn3(conv1x1(self.conv3, x), training))  # [B, 4, h, w]
+        x = torch.sigmoid(self.bn3(conv1x1(self.conv3, x), training, height))  # [B, 4, h, w]
         b, c4, h, w = skip_p.shape
         gated = skip_p.reshape(b, 4, c4 // 4, h, w) * x[:, :, None]
         return gated.reshape(b, c4, h, w)
@@ -291,16 +338,18 @@ class PackedDeconvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, skip_p: torch.Tensor,
                 training: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                height: Optional[int] = None) -> torch.Tensor:
+        """`height`: x's global height, the packed output's too."""
         up_p = packed_convT(x, _hwio(self.cnv), self.cnv.bias,
-                            self.cnv.compute_dtype)
-        skip_p = self.attention(up_p, skip_p, training)
+                            self.cnv.compute_dtype, height)
+        skip_p = self.attention(up_p, skip_p, training, height)
         xp = phase_concat(up_p, skip_p)
         if self.dropout and training:
             # the unpacked module's mask distribution, drawn over the packed
             # shape (arrangement differs)
-            xp = dropout(xp, self.dropout, generator)
-        return self.convblock(xp, training)
+            xp = dropout(xp, self.dropout, generator, height)
+        return self.convblock(xp, training, height=height)
 
 
 class PackedPatchNeutralizer(nn.Module):
@@ -341,28 +390,36 @@ class PackedPatchNeutralizer(nn.Module):
         set_compute_dtype(self, self.dtype)
 
     def forward(self, images: torch.Tensor, training: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        """[B, H, W, 3] -> update [B, H, W, 3] in (-1, 1), float32; H, W
-        divisible by 16. `generator` draws the dropout masks in train mode.
-        Under a spatial mesh it raises (ROADMAP Queue 1 item 10)."""
-        if spatial.active() is not None:
-            raise NotImplementedError(parallel.SPATIAL_NOT_PORTED)
+                generator: torch.Generator | None = None,
+                height: Optional[int] = None) -> torch.Tensor:
+        """[B, H, W, 3] -> update [B, H, W, 3] in (-1, 1), float32 (float64
+        where the U-Net computes in float64); H, W divisible by 16.
+        `generator` draws the dropout masks in train mode. Under a spatial
+        mesh, images are this rank's rows of images `height` rows high
+        (default: its rows times the spatial group's size), and so is the
+        update."""
         pl = self.packed_levels
+        top = global_height(images, height)
         f = images.permute(0, 3, 1, 2).contiguous()
         if self.dtype is not None:
             f = f.to(self.dtype)
+        h = lambda level: None if top is None else top >> level  # level's height
         skips = []
         for i in range(4):
             block = getattr(self, f"conv{i}")
-            skip, f = block(space_to_depth(f) if i < pl else f, training,
-                            generator)
+            if i < pl:  # the packed level's height is the pooled one's
+                skip, f = block(packed_rows(f, h(i)), training, generator, h(i + 1))
+            else:
+                skip, f = block(f, training, generator, h(i))
             skips.append(skip)
-        f = self.conv4(f, training, generator)
+        f = self.conv4(f, training, generator, h(4))
         for i, skip in enumerate(reversed(skips)):
             level = 3 - i
-            f = getattr(self, f"deconv{i}")(f, skip, training, generator)
+            f = getattr(self, f"deconv{i}")(f, skip, training, generator,
+                                            h(level + 1))
             if level < pl and level > 0:
-                f = depth_to_space(f)
+                f = unpacked_rows(f, h(level))
         yp = packed_1x1(f, _hwio(self.output), self.output.bias, self.dtype)
-        return depth_to_space(torch.tanh(yp)).to(torch.float32).permute(0, 2, 3, 1)
+        y = unpacked_rows(torch.tanh(yp), top)
+        return y.to(torch.promote_types(y.dtype, torch.float32)).permute(0, 2, 3, 1)
 

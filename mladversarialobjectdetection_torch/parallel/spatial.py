@@ -31,6 +31,10 @@ through the host, as `mesh._transport` does) or NCCL:
 - `local_rows(x)`: replicated to sharded, a slice (autograd's backward of a
   slice places the gradient into zeros).
 
+**Random draws** (`draw_rows`) are made at the global batch's and the
+global height's shape from the replicated generator, and each rank keeps its
+rows of both, so the ranks draw what one process draws.
+
 **The gradient rule.** On a replicated tensor each rank holds a partial
 gradient and the true one is their sum over the spatial group. So a loss
 computed on replicated values (after `gather_rows`) counts once in the
@@ -117,6 +121,30 @@ def count_once(loss: torch.Tensor) -> torch.Tensor:
     the group computes alike on replicated values counts once."""
     sp = active()
     return loss if sp is None or sp.index == 0 else loss * 0.0
+
+
+def reduce_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum of t over the active spatial group, without gradient (the
+    parts of a sum each rank of the group holds one of); t itself without
+    one."""
+    if active() is None:
+        return t
+    return mesh_lib.reduce_sum(t, mesh_lib.SPATIAL_AXIS)
+
+
+def draw_rows(draw: Callable[[int, int], torch.Tensor], b: int,
+              height: int, dim: int = 2) -> torch.Tensor:
+    """`draw(n, h)` makes a random tensor of n rows along dim 0 and h along
+    `dim`; returns this rank's b rows of the global batch's draw
+    (`mesh.draw_rows`) at the global `height`, cut to this rank's rows of
+    that height where the layout shards it: the ranks of a replicated
+    generator draw what one process draws."""
+    out = mesh_lib.draw_rows(lambda n: draw(n, height), b)
+    if not sharded(height):
+        return out
+    sp = active()
+    h = height // sp.size
+    return out.narrow(dim, sp.index * h, h)
 
 
 def stats_axes(axis_name, height: Optional[int]):
@@ -367,3 +395,20 @@ def same_window(x: torch.Tensor, height: int, kernel: int, stride: int, top: int
     need = lambda o_lo, o_hi: (o_lo * stride - top, (o_hi - 1) * stride - top + kernel)
     return window(x, height, out_height, need, lambda xe, *_: op(xe),
                   fill=fill, dim=dim)
+
+
+def halo_rows(x: torch.Tensor, height: Optional[int], halo: int,
+              op: Callable[[torch.Tensor], torch.Tensor], *,
+              dim: int = 2) -> torch.Tensor:
+    """A stride-1 op that reads `halo` rows on each side and pads its own
+    input's edges with zeros (a 3x3 SAME conv kernel), under the active
+    spatial group: where x (global height `height`) is row-sharded, op runs
+    on x extended by `halo` rows from each neighbour (zeros beyond the
+    image's edges) and its output loses `halo` rows at each side, so only
+    the dropped rows read the op's own padding. `op(x)` otherwise."""
+    if not sharded(height):
+        return op(x)
+    sp = active()
+    h = x.shape[dim]
+    xe = rows(x, sp.index * h - halo, (sp.index + 1) * h + halo, 0.0, dim)
+    return op(xe).narrow(dim, halo, h)

@@ -422,12 +422,15 @@ def test_defense_entry_points_refuse_cpu_fallback(monkeypatch, tiny_cfg):
     dict(img_dir="x", spatial=2), dict(victim_ckpt=os.path.dirname(__file__)),
     dict(initial_weights="antipatch.h5"), dict(spatial=2)])
 def test_train_driver_refuses_unported_options(tmp_path, option):
-    """Each raises before any work: `spatial > 1` is not ported; the orbax
-    and .h5 intakes are (tests/test_torch_convert.py), and refuse a
-    directory without orbax's metadata and a missing .h5 file."""
+    """Each raises before any work: `spatial > 1` in one process is JAX's
+    error (the axis must divide the devices; at 2 ranks it runs,
+    tests/test_torch_spatial_defense.py); the orbax and .h5 intakes are
+    ported (tests/test_torch_convert.py), and refuse a directory without
+    orbax's metadata and a missing .h5 file."""
     error, match = {"victim_ckpt": (FileNotFoundError, "_METADATA"),
                     "initial_weights": (OSError, "antipatch.h5")}.get(
-                        next(iter(option)), (NotImplementedError, "ROADMAP"))
+                        next(iter(option)),
+                        (ValueError, "--spatial 2 must divide the 1 devices"))
     with pytest.raises(error, match=match):
         dtrain.train("efficientdet-lite0", device="cpu", save_dir=str(tmp_path),
                      **option)
