@@ -347,6 +347,27 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    bit-equal; the ranks' peak memory and step
    times (gloo stages the exchanges through the host: no rate of spatial
    partitioning);
+   25e: the defender under the same mesh (its steps, eval_step, recover,
+   `defense.train.train(spatial=2)`);
+   25f: the rest under the same mesh, each against one process: the
+   `packed_entry=2` serve at b2 (scores within 1e-5, boxes within 1e-3 px,
+   25 fused forward launches a rank, the NMS kernel against the plain
+   version on a rank's candidates), the packed b4 fp32 attack step (loss
+   within 1e-4 relative, patch-gradient cosine >= 0.9999, the warp and
+   fused kernels against their plain versions at a rank's inputs) and the
+   packed b8 bf16 step (its peak memory a rank against one process's; every
+   fifth Hopper forward and dx against the plain versions); `quantize_int8`
+   at b8 (the activation scales bit-equal, every `conv_int8` launch of a
+   rank bit-equal to the plain version at its halo-extended inputs, the
+   head outputs at most 1% off by more than 1e-4); the b4 segmentation
+   step in float64 (loss and summed gradient within 1e-8 of scale) and fp32
+   (loss within 1e-4 relative, the summed gradient no farther from the
+   float64 one than twice one process's: the fp32 step is ill-conditioned,
+   ROADMAP Queue 3 item 22; a rank's peak memory); the gather backend's rows
+   within 1e-6, the regions equal; `attack.train.train(spatial=2,
+   packed_entry=2)` for 2 steps (the ranks' patches bit-equal, rank 0 alone
+   writing files); every kernel's launches a rank against the expected
+   counts;
 13. card: the `nvidia-smi` name and power limit, and one JSON line with each
    kernel's launches, error, times and bound (cmconv's also with its
    ablation, the instance the plan did not pick, and its bound at 3xTF32;
@@ -559,7 +580,7 @@ EVAL_BATCHES = 4        # evaluate_map: 4 batches of 24 held-out scenes
 # through gloo (NCCL refuses two ranks on one device; parallel's helpers stage
 # the CUDA tensors through the host for gloo). The two-rank times check the
 # path; they are not a scaling figure.
-DP_STEPS = 5            # 24a: timed steps of each path
+DP_STEPS = 2            # 24a: timed steps of each path
 DP_SUP_BATCH = 4        # 24b: the float64 supervised step, 2 a rank
 DP_SUP_F64_TOL = 1e-9   # of max(1, max|ref|) per leaf (phase 14 read 6.52e-12)
 DP_SERVE_FRAMES = 5     # 24b: Detector(mesh=), padded to 6, 3 a rank
@@ -595,6 +616,17 @@ SPD_GRAD_COS = 0.9999   # the fp32 U-Net gradient summed over the ranks
 SPD_BF16_GRAD_COS = 0.999
 SPD_RECOVER_TOL = 2e-4  # recover's rows, of max(1, max|ref|)
 SPD_HEIGHTS = [SP_HW // 4 + 2, SP_HW // 2 + 2]  # cmconv shards plus 2 halo rows
+# phase 25f: the packed entry, the int8 serve, the segmentation step, the
+# gather backend and the packed attack driver under the same mesh, each run
+# against one process in this process
+SPR_PACKED = 2          # packed_entry of 25f's serve, attack steps and driver
+SPR_PEAK_BATCH = 8      # the bf16 packed attack step whose peak memory is read
+SPR_INT8_BATCH = 8      # the int8 serve: frames calibrated on and served
+SPR_SEG_BATCH = 4       # the fp32 segmentation step
+SPR_DRIVER_BATCH = 4    # attack.train.train(spatial=2, packed_entry=2), 2 steps
+SPR_GATHER_TOL = 1e-6   # the gather backend's rows against one process
+SPR_INT8_SHARE = 0.01   # the int8 head outputs: at most 1% off by more than
+SPR_INT8_ATOL = 1e-4    # 1e-4 (ROADMAP Queue 3 item 28)
 EVAL_AP_TOL = 1e-3      # each COCO metric with the kernels vs the plain versions
 # kill and resume on the card: bit-equal expected (cuDNN deterministic, the
 # same kernels on the same inputs); where ATen's CUDA backward of a gather
@@ -1290,7 +1322,7 @@ def device_busy_ms(fn, sessions: int = 3):
     return None
 
 
-def cmconv_ab(label: str, fn, iters: int = 5) -> dict:
+def cmconv_ab(label: str, fn, iters: int = 3) -> dict:
     """fn (ending in a synchronize) with its bf16 cmconv launches on the
     Hopper instance and on the SIMT instance, in turns (Hopper, instance,
     instance, Hopper): host p50 ms and device busy ms of each, printed and
@@ -1920,7 +1952,7 @@ class InstanceRoute:
         setattr(self.mod, self.planner, self.orig)
 
 
-def sm90_ab(label: str, fn, iters: int = 5, kind: str = "fwd") -> tuple:
+def sm90_ab(label: str, fn, iters: int = 3, kind: str = "fwd") -> tuple:
     """The host p50 ms of fn (ending in a synchronize) with its bf16 fused
     forwards (kind "dx": input gradients) on the Hopper kernel and on the
     bf16 instance, in turns (Hopper, instance, instance, Hopper); printed and
@@ -3079,10 +3111,11 @@ def int8_numbers(calls) -> dict:
     for i, call in enumerate(calls):
         x, a_s, wq, scale, bias, kw = int8_call(call)
         check_conv_int8(f"phase 22a serve conv {i}", x, a_s, wq, scale, bias, kw)
-        ms = cuda_ms(lambda: ci.conv_int8_cuda(x, a_s, wq, scale, bias, **kw), iters=5)
+        ms = cuda_ms(lambda: ci.conv_int8_cuda(x, a_s, wq, scale, bias, **kw), iters=3,
+                     warmup=1)
         tot["ms"] += ms
         tot["plain_ms"] += cuda_ms(lambda: ci.conv_int8_plain(x, a_s, wq, scale, bias, **kw),
-                                   iters=1, warmup=1)
+                                   iters=1, warmup=0)  # the check ran it
         _, _, _, _, bytes_ms, ops_ms = conv_int8_bound(x, wq, bias, kw)
         tot["bytes_ms"] += bytes_ms
         tot["ops_ms"] += ops_ms
@@ -3093,7 +3126,7 @@ def int8_numbers(calls) -> dict:
         xb, wb = x.to(torch.bfloat16), wq.to(torch.bfloat16)
         tot["cudnn_bf16_ms"] += cuda_ms(lambda: F.conv2d(
             pad_same(xb, wq.shape[2:], stride if isinstance(stride, tuple) else (stride,) * 2),
-            wb, None, stride, 0, 1, kw.get("groups", 1)), iters=5)
+            wb, None, stride, 0, 1, kw.get("groups", 1)), iters=3, warmup=1)
         if wq.shape[2:] == (1, 1) and kw.get("groups", 1) == 1:
             tot["n_1x1"] += 1
             xq = ci.quantize_plain(x, a_s).permute(0, 2, 3, 1).reshape(-1, x.shape[1]).contiguous()
@@ -3103,7 +3136,7 @@ def int8_numbers(calls) -> dict:
             except RuntimeError:
                 continue  # shapes cuBLASLt's int8 product refuses
             tot["n_intmm"] += 1
-            tot["intmm_ms"] += cuda_ms(lambda: torch._int_mm(xq, wt), iters=5)
+            tot["intmm_ms"] += cuda_ms(lambda: torch._int_mm(xq, wt), iters=3, warmup=1)
             tot["intmm_kernel_ms"] += ms
         tot["n"] += 1
     tot["bound_ms"] = max(tot["bytes_ms"], tot["ops_ms"])
@@ -3234,9 +3267,9 @@ def int8_export_phase(dev, vpath: str, work: str) -> dict:
         for mode in ("float", "int8"):
             det._int8 = int8 if mode == "int8" else None
             for b, batch in batches.items():
-                ms = host_p50_ms(lambda: det.serve(batch), iters=7)
+                ms = host_p50_ms(lambda: det.serve(batch), iters=3, warmup=1)
                 dms = host_p50_ms(lambda: det.serve_tensors(images_d[:b], scales_d[:b]),
-                                  iters=10)
+                                  iters=5, warmup=1)
                 out["serve"][f"{label} {mode} b{b}"] = (ms, dms)
                 print(f"  serve {label} {mode} b{b}: p50 {ms:.3f} ms/batch "
                       f"({b * 1e3 / ms:.2f} images/s); device part (forward + "
@@ -3291,8 +3324,8 @@ def int8_export_phase(dev, vpath: str, work: str) -> dict:
             if counts["nms"] != 1 or counts[key] != MBCONV_PER_PASS:
                 fail(f"phase 22c {label}: the program launched {counts}")
             same_detections(f"phase 22c {label} driver vs Detector.serve", got, ref)
-            live_ms = host_p50_ms(lambda: det.serve(frames[:1]), iters=10)
-            drv_ms = host_p50_ms(lambda: drv.serve(frames[:1]), iters=10)
+            live_ms = host_p50_ms(lambda: det.serve(frames[:1]), iters=5)
+            drv_ms = host_p50_ms(lambda: drv.serve(frames[:1]), iters=5)
         finally:
             det._int8 = int8
         out[f"export_{label}"] = dict(export_s=export_s, load_s=load_s, live_ms=live_ms,
@@ -3531,9 +3564,9 @@ def packed_serve_phase(dev) -> dict:
         for name, det in (("packed", pdet), ("unpacked", udet)):
             for b, batch in batches.items():
                 row[f"{name} b{b}"] = (
-                    host_p50_ms(lambda: det.serve(batch), iters=7),
+                    host_p50_ms(lambda: det.serve(batch), iters=3, warmup=1),
                     host_p50_ms(lambda: det.serve_tensors(images_d[:b], scales_d[:b]),
-                                iters=10))
+                                iters=5, warmup=1))
             torch.cuda.reset_peak_memory_stats(dev)
             det.serve_tensors(images_d, scales_d)
             torch.cuda.synchronize()
@@ -3548,11 +3581,11 @@ def packed_serve_phase(dev) -> dict:
             backbone._kernels.clear()
             return pdet.serve_tensors(images_d, scales_d)
 
-        row["rebuilt b8"] = host_p50_ms(rebuilt, iters=10)
+        row["rebuilt b8"] = host_p50_ms(rebuilt, iters=5)
         with torch.no_grad():
             row["build_ms"] = cuda_ms(lambda: (backbone._kernels.clear(),
                                                backbone.packed_kernels(pdet.net.compute_dtype)),
-                                      iters=10)
+                                      iters=5)
         out[label] = row
         print(f"phase 23a packed serve {label} (lite4@640, packed_entry {PACKED_ENTRY}, "
               f"built in {build_s:.2f} s): head outputs within {err:.3g} of the unpacked "
@@ -3628,7 +3661,7 @@ def packed_attack_phase(dev) -> dict:
                     f"phase 23b {label} {name}",
                     PACKED_MBCONV_PER_PASS if name == "packed" else MBCONV_PER_PASS, kind="dx")
             row[f"{name} peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-            row[f"{name} ms"] = host_p50_ms(step, iters=5, warmup=1)
+            row[f"{name} ms"] = host_p50_ms(step, iters=3, warmup=1)
         rel = abs(row["packed loss"] - row["unpacked loss"]) / abs(row["unpacked loss"])
         cos = cosine(row.pop("packed grad"), row.pop("unpacked grad"))
         got = row["packed launches"]
@@ -4074,23 +4107,33 @@ def sp_inputs() -> dict:
             "sup32": rng.uniform(-1, 1, (SP_SUP_BATCH, hw, hw, 3)).astype(np.float32),
             "gt32": random_gt(rng, SP_SUP_BATCH, hw),
             "d_images": rng.uniform(-1, 1, (SPD_BATCH, hw, hw, 3)).astype(np.float32),
-            "d_live": make_live_slot_boxes(SPD_BATCH, (hw, hw), 16, seed=1)}
+            "d_live": make_live_slot_boxes(SPD_BATCH, (hw, hw), 16, seed=1),
+            "pk_images": rng.uniform(-1, 1, (SPR_PEAK_BATCH, hw, hw, 3)).astype(np.float32),
+            "pk_live": make_live_slot_boxes(SPR_PEAK_BATCH, (hw, hw), 16, seed=2),
+            "q_frames": [rng.integers(0, 256, (720, 1280, 3), dtype=np.uint8)
+                         for _ in range(SPR_INT8_BATCH)],
+            "seg_images": rng.uniform(-1, 1, (SPR_SEG_BATCH, hw, hw, 3)).astype(np.float32),
+            "seg_masks": rng.integers(0, 3, (SPR_SEG_BATCH, hw // 4, hw // 4)),
+            "g_patch": rng.uniform(-1, 1, (64, 64, 3)).astype(np.float32)}
 
 
-def sp_serve(dev, frames, mesh=None) -> dict:
+def sp_serve(dev, frames, mesh=None, packed_entry: int = 0, check: bool = False) -> dict:
     """The lite4@640 fp32 serve of `frames` (seed 0), host and device
     preprocessing, each after one untimed call: the detections, the fused
     forward and NMS launches, the heights of the fused forward's inputs and
-    the host milliseconds of the call."""
+    the host milliseconds of the call; with `check`, the NMS kernel against
+    the plain version on the candidates each serve gave it."""
     import torch
     from mladversarialobjectdetection_torch.inference.detector import Detector
-    from mladversarialobjectdetection_torch.ops import mbconv_cuda
-    det = Detector("efficientdet-lite4", seed=0, device=dev, mesh=mesh)
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda, nms, nms_cuda
+    det = Detector("efficientdet-lite4", seed=0, device=dev, mesh=mesh,
+                   packed_entry=packed_entry)
     out = {}
     for label, kw in (("host", {}), ("device", {"device_preprocess": True})):
         det.serve(frames, **kw)  # first-call costs: cuDNN plans, kernel loads
         reset_path_counts()
-        with Capture([(mbconv_cuda, "mbconv_fwd_cuda")]) as cap:
+        with Capture([(mbconv_cuda, "mbconv_fwd_cuda"),
+                      (nms_cuda, "batched_nms_cuda")]) as cap:
             t0 = time.perf_counter()
             res = det.serve(frames, **kw)
             torch.cuda.synchronize()
@@ -4099,10 +4142,16 @@ def sp_serve(dev, frames, mesh=None) -> dict:
         out[label] = {"det": res, "fwd": counts["mbconv_fp32"], "nms": counts["nms"],
                       "heights": sorted({a[0].shape[1] for a, _ in cap.args["mbconv_fwd_cuda"]}),
                       "ms": ms}
+        if check:
+            (boxes, scores), nkw = cap.args["batched_nms_cuda"][0]
+            out[label]["nms_err"] = compare_nms(
+                f"phase 25f {label} serve NMS", nms_cuda.batched_nms_cuda(boxes, scores, **nkw),
+                nms.batched_nms(boxes, scores, **nkw))
     return out
 
 
-def sp_attack_step(dev, inp, images, check: bool = False) -> dict:
+def sp_attack_step(dev, inp, images, check: bool = False, packed_entry: int = 0,
+                   label: str = "phase 25b") -> dict:
     """One fp32 attack step of phase 5's setup (state seed 1, window 320,
     the live boxes) on `images` (this rank's rows under a spatial mesh),
     with its launches; with `check`, the fused forward and dx (every fifth
@@ -4115,7 +4164,7 @@ def sp_attack_step(dev, inp, images, check: bool = False) -> dict:
     from mladversarialobjectdetection_torch.ops import mbconv_cuda, warp_cuda
     cfg = dp_lite4()
     atk = PatchAttacker(cfg, get_victim(cfg, seed=0, device=dev), window=ATTACK_WINDOW,
-                        device=dev)
+                        packed_entry=packed_entry, device=dev)
     state = atk.init_state(1)
     images = torch.as_tensor(images).to(dev)
     override = (torch.from_numpy(inp["boxes"]).to(dev), torch.from_numpy(inp["valid"]).to(dev))
@@ -4135,11 +4184,11 @@ def sp_attack_step(dev, inp, images, check: bool = False) -> dict:
         try:
             (canvases, table, w), _ = cap.args["pass1_fwd"][0]
             (g_in, _, _), _ = cap.args["pass2_bwd"][0]
-            out["warp_errs"], _ = check_warp("phase 25b shard", canvases, table, w, g=g_in)
+            out["warp_errs"], _ = check_warp(f"{label} shard", canvases, table, w, g=g_in)
             errs = []
             for i, ((x, g, fb), kw) in enumerate(cap.args["mbconv_dx_cuda"]):
                 if i % 5 == 0:
-                    errs.append(check_mbconv(f"phase 25b block call {i} at H {x.shape[1]}",
+                    errs.append(check_mbconv(f"{label} block call {i} at H {x.shape[1]}",
                                              x, g, fb, kw["act_type"], kw["residual"])[:2])
             out["mbconv_errs"] = tuple(max(e[j] for e in errs) for j in range(2))
         finally:
@@ -4335,6 +4384,8 @@ def sp_rank(rank: int, work: str, device: str = "cuda") -> None:
         out["defender"] = spd_steps(dev, inp, mine(inp["d_images"]), check=True)
     out["ddriver"] = spd_driver(dev, work, rank)
     out["defender_s"] = time.perf_counter() - t0
+    # 25f: the packed entry, int8, segmentation, the gather backend
+    out["rest"] = spr_run(dev, inp, work, mesh, rank)
     torch.save(out, os.path.join(work, f"s{rank}.pt"))
 
 
@@ -4438,6 +4489,373 @@ def spatial_defender_checks(ranks, ref, work: str) -> dict:
     return {label: r0[label]["counts"] for label in ("fp32", "bf16")}
 
 
+def spr_peak(dev, inp, images, check: bool = False) -> dict:
+    """25f: one packed (`SPR_PACKED`) bf16 attack step at b`SPR_PEAK_BATCH`
+    on `images` (this rank's rows under the mesh), state seed 1, the live
+    boxes: its loss, launches (by Hopper kernel too) and peak memory above
+    what was allocated before the victim was built, and a second step's
+    host ms; with `check`, every fifth Hopper forward and dx call against the
+    plain versions at the inputs this step gave them."""
+    import gc
+    import torch
+    from mladversarialobjectdetection_torch.attack.attacker import PatchAttacker
+    from mladversarialobjectdetection_torch.attack.train import get_victim
+    from mladversarialobjectdetection_torch.ops import mbconv_cuda
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dp_lite4()
+    cfg.mixed_precision = True
+    atk = PatchAttacker(cfg, get_victim(cfg, seed=0, device=dev), window=ATTACK_WINDOW,
+                        packed_entry=SPR_PACKED, device=dev)
+    state = atk.init_state(1)
+    images = torch.as_tensor(images).to(dev)
+    override = tuple(torch.from_numpy(a).to(dev) for a in inp["pk_live"])
+    reset_path_counts()
+    with Capture([(mbconv_cuda, "mbconv_fwd_cuda"), (mbconv_cuda, "mbconv_dx_cuda")]) as cap:
+        state, m = atk.train_step(state, images, with_asr=False, boxes_override=override)
+        torch.cuda.synchronize()
+    out = {"loss": float(m.loss), "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "counts": path_counts(), "sm90": dict(mbconv_cuda.BF16_FWD_LAUNCHES),
+           "sm90_dx": dict(mbconv_cuda.BF16_DX_LAUNCHES), "errs": None}
+    if check:
+        torch.set_grad_enabled(False)
+        try:
+            fwd = [check_sm90(f"phase 25f bf16 forward call {i} at H {x.shape[1]}", x, fb,
+                              kw["act_type"], kw["residual"])[0]
+                   for i, ((x, fb), kw) in enumerate(cap.args["mbconv_fwd_cuda"]) if i % 5 == 0]
+            dx = [check_sm90_dx(f"phase 25f bf16 dx call {i} at H {x.shape[1]}", x, g, fb,
+                                kw["act_type"], kw["residual"])[0]
+                  for i, ((x, g, fb), kw) in enumerate(cap.args["mbconv_dx_cuda"]) if i % 5 == 0]
+            out["errs"] = (max(fwd), max(dx))
+        finally:
+            torch.set_grad_enabled(True)
+    del cap
+    out["ms"] = host_p50_ms(lambda: atk.train_step(state, images, with_asr=False,
+                                                   boxes_override=override), iters=1, warmup=0)
+    del atk, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def spr_int8(dev, frames, work: str, mesh=None) -> dict:
+    """25f: `Detector.quantize_int8` on `frames` (lite4@640 fp32, seed 0),
+    then the int8 forward of the same frames, preprocessed on the host (this
+    rank's rows under `mesh`): the activation scales, the launches and calls
+    of `conv_int8`, and the head outputs. One process writes its outputs to
+    `work`; a rank holds its own against them (at most SPR_INT8_SHARE off by
+    more than SPR_INT8_ATOL) and every `conv_int8` call it made bit-equal to
+    the plain version at its inputs."""
+    import gc
+    import os
+    import torch
+    from mladversarialobjectdetection_torch.inference.detector import Detector
+    from mladversarialobjectdetection_torch.ops import conv_int8 as ci
+    det = Detector("efficientdet-lite4", seed=0, device=dev, mesh=mesh)
+    det.quantize_int8(frames)
+    images = torch.from_numpy(det.preprocess(frames)[0])
+    x = det._own_rows(images).to(dev)
+    with torch.no_grad(), det._in_mesh():
+        det._int8(x)  # first-call costs
+        torch.cuda.synchronize()
+        reset_path_counts()
+        ci.reset_counts()
+        with Capture([(ci, "conv_int8_cuda")]) as cap:
+            cls, box = det._int8(x)
+            torch.cuda.synchronize()
+    flat = torch.cat([o.reshape(o.shape[0], -1) for o in cls + box], 1)
+    out = {"scales": dict(det._int8.act_scales), "launches": ci.LAUNCHES, "calls": ci.CALLS,
+           "counts": path_counts(),
+           "halo_calls": sum(isinstance(kw.get("padding"), tuple)
+                             for _, kw in cap.args["conv_int8_cuda"])}
+    path = os.path.join(work, "int8_ref.pt")
+    if mesh is None:
+        torch.save(flat.cpu(), path)
+    else:
+        ref = torch.load(path).to(dev)
+        diff = (flat - ref).abs()
+        out.update(share=float((diff > SPR_INT8_ATOL).double().mean()),
+                   max_err=float(diff.max()))
+        del ref, diff
+        with torch.no_grad():
+            for i, call in enumerate(cap.args["conv_int8_cuda"]):
+                x_, a_s, wq, scale, bias, kw = int8_call(call)
+                check_conv_int8(f"phase 25f int8 conv {i} on {tuple(x_.shape)} "
+                                f"({kw.get('padding')})", x_, a_s, wq, scale, bias, kw)
+    del cap, det, flat, cls, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def spr_seg(dev, images, masks, float64: bool) -> dict:
+    """25f: one lite4@640 segmentation step (seed 0) on `images` (this rank's
+    rows under the mesh) and the data shard's masks, fp32 or float64: its
+    loss, the gradient summed over the ranks, its fused launches (0: train
+    mode), its peak memory above what was allocated before the trainer was
+    built; in fp32 a second step's host ms."""
+    import gc
+    import torch
+    from mladversarialobjectdetection_torch.train.segmentation import SegmentationTrainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr = SegmentationTrainer(dp_lite4(), device=dev)
+    st = tr.init_state(seed=0)
+    images = torch.as_tensor(images).to(dev)
+    if float64:
+        st.net.double()
+        st.net.compute_dtype = torch.float64
+        images = images.double()
+    reset_path_counts()
+    st, m = tr.train_step(st, images, masks)
+    torch.cuda.synchronize()
+    out = {"loss": float(m["loss"]), "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "counts": path_counts(),
+           "grad": torch.cat([p.grad.detach().double().ravel()
+                              for p in st.net.parameters()]).cpu()}
+    if not float64:
+        out["ms"] = host_p50_ms(lambda: tr.train_step(st, images, masks), iters=1, warmup=0)
+    del tr, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def spr_gather(dev, inp, images) -> tuple:
+    """25f: `eot.apply_patches(backend="gather")` on `images` (this rank's
+    rows under the mesh) and the live boxes: (patched rows, region rows)."""
+    import torch
+    from mladversarialobjectdetection_torch.ops import eot
+    out, region = eot.apply_patches(
+        images, inp["boxes"], inp["valid"], inp["g_patch"], 0.4, backend="gather",
+        generator=torch.Generator(dev).manual_seed(5), device=dev, height=SP_HW)
+    return out.cpu(), region.cpu()
+
+
+def spr_driver(dev, work: str, rank: int) -> dict:
+    """25f: `attack.train.train(spatial=2, packed_entry=SPR_PACKED)` on this
+    rank, b`SPR_DRIVER_BATCH` bf16, 2 synthetic steps: its patch, launches
+    and seconds."""
+    import os
+    import torch
+    from mladversarialobjectdetection_torch.attack.train import train
+    t0 = time.perf_counter()
+    reset_path_counts()
+    st = train("efficientdet-lite4", synthetic=True, batch_size=SPR_DRIVER_BATCH, epochs=1,
+               steps_per_epoch=2, visualize_freq=0, spatial=2, packed_entry=SPR_PACKED,
+               device=dev, save_dir=os.path.join(work, f"pdriver{rank}"),
+               config_override={"nms_configs": {"score_thresh": DEFEND_THRESH}})
+    torch.cuda.synchronize()
+    return {"patch": st.patch.detach().cpu(), "scale": float(st.scale.detach()),
+            "s": time.perf_counter() - t0, "counts": path_counts()}
+
+
+def spr_run(dev, inp, work: str, mesh=None, rank: int = 0) -> dict:
+    """Phase 25f's runs: on this rank under `mesh` (each kernel then held
+    against its plain version at the rank's inputs, and the driver), or in
+    one process without a mesh."""
+    import contextlib
+    import torch
+    from mladversarialobjectdetection_torch import parallel
+    ranked = mesh is not None
+    t0 = time.perf_counter()
+    mine = ((lambda x: parallel.shard_batch(mesh, x)) if ranked
+            else (lambda x: torch.from_numpy(x).to(dev)))
+    out = {"serve": sp_serve(dev, inp["frames"], mesh, packed_entry=SPR_PACKED, check=ranked),
+           "int8": spr_int8(dev, inp["q_frames"], work, mesh)}
+    with parallel.use_mesh(mesh) if ranked else contextlib.nullcontext():
+        out["attack"] = sp_attack_step(dev, inp, mine(inp["images"]), check=ranked,
+                                       packed_entry=SPR_PACKED, label="phase 25f")
+        out["peak"] = spr_peak(dev, inp, mine(inp["pk_images"]), check=ranked)
+        out["seg"] = spr_seg(dev, mine(inp["seg_images"]), inp["seg_masks"], False)
+        out["seg64"] = spr_seg(dev, mine(inp["seg_images"]), inp["seg_masks"], True)
+        out["gather"] = spr_gather(dev, inp, mine(inp["images"]))
+    if ranked:
+        out["driver"] = spr_driver(dev, work, rank)
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def spatial_rest_checks(ranks, ref, work: str) -> dict:
+    """Phase 25f's checks, each rank against one process, and each rank's
+    launches against the expected counts. Returns rank 0's launches of each
+    run."""
+    import os
+    import torch
+    r0, r1 = (r["rest"] for r in ranks)
+    lines = []
+    # the packed serve
+    s_err = b_err = 0.0
+    for r in (r0, r1):
+        for label in ("host", "device"):
+            got, want = r["serve"][label], ref["serve"][label]
+            if (got["fwd"], got["nms"]) != (MBCONV_PER_PASS, 1):
+                fail(f"phase 25f packed {label} serve: {got['fwd']} fused forward and "
+                     f"{got['nms']} NMS launches a rank, want {MBCONV_PER_PASS} and 1")
+            for field in ("classes", "valid", "valid_len"):
+                if not np.array_equal(getattr(got["det"], field), getattr(want["det"], field)):
+                    fail(f"phase 25f packed {label} serve: {field} differ from one process")
+            s_err = max(s_err, float(np.abs(got["det"].scores - want["det"].scores).max()))
+            b_err = max(b_err, float(np.abs(got["det"].boxes - want["det"].boxes).max()))
+    if s_err > DP_SERVE_SCORE_TOL or b_err > DP_SERVE_BOX_TOL:
+        fail(f"phase 25f packed serve: scores within {s_err:.3g}, boxes within {b_err:.3g} px "
+             f"of one process")
+    sv = r0["serve"]["host"]
+    lines.append(f"the packed_entry={SPR_PACKED} b{SP_SERVE_BATCH} serve (host and device "
+                 f"preprocessing): scores within {s_err:.3g}, boxes within {b_err:.3g} px of "
+                 f"one process, {sv['fwd']} fused forward launches a rank a pass at heights "
+                 f"{sv['heights']}, the NMS kernel within {sv['nms_err']:.3g} of the plain "
+                 f"version at a rank's candidates; second serve {sv['ms']:.1f} / "
+                 f"{r1['serve']['host']['ms']:.1f} ms a rank, one process "
+                 f"{ref['serve']['host']['ms']:.1f}")
+    # the packed fp32 attack step
+    a0, a1, ar = r0["attack"], r1["attack"], ref["attack"]
+    loss_rel = abs(a0["loss"] - ar["loss"]) / abs(ar["loss"])
+    g, gr = a0["grad"].double().ravel(), ar["grad"].double().ravel()
+    cos = float(g @ gr / (g.norm() * gr.norm()))
+    if not (loss_rel <= DP_LOSS_REL and cos >= DP_GRAD_COS
+            and torch.equal(a0["patch"], a1["patch"])):
+        fail(f"phase 25f packed attack: loss {loss_rel:.3g} relative, patch gradient cosine "
+             f"{cos:.7f}, ranks' patches equal {torch.equal(a0['patch'], a1['patch'])}")
+    want = dict.fromkeys(WARP_KERNELS, 1)
+    want.update(nms=2, mbconv_fwd=2 * MBCONV_PER_PASS, mbconv_dx=MBCONV_PER_PASS)
+    for r in (r0, r1):
+        got = {**{k: r["attack"]["counts"][k] for k in (*WARP_KERNELS, "nms")},
+               **r["attack"]["mbconv"]}
+        if got != want:
+            fail(f"phase 25f packed attack: a rank launched {got}, want {want}")
+    lines.append(f"the packed b{SP_ATTACK_BATCH} fp32 attack step: loss {loss_rel:.3g} "
+                 f"relative, patch gradient cosine {cos:.7f}, the ranks' patches bit-equal; "
+                 f"a rank launched {want} (fused forward at heights {a0['heights']}); the "
+                 f"warp kernels within {a0['warp_errs']} and the fused forward / dx within "
+                 f"{a0['mbconv_errs']} of their plain versions at rank 0's inputs; second "
+                 f"step {a0['ms']:.1f} / {a1['ms']:.1f} ms a rank, one process {ar['ms']:.1f}")
+    # the packed bf16 step's peak
+    p0, p1, pr = r0["peak"], r1["peak"], ref["peak"]
+    want = dict.fromkeys(WARP_KERNELS, 1)
+    want.update(nms=1, mbconv_fwd_bf16=2 * MBCONV_PER_PASS, mbconv_dx_bf16=MBCONV_PER_PASS,
+                mbconv_fp32=0, cmconv_bf16=0, cmconv_bf16_simt=0, cmconv_fp32=0)
+    for r in (p0, p1):
+        if r["counts"] != want:
+            fail(f"phase 25f packed bf16 step: a rank launched {r['counts']}, want {want}")
+        if (r["sm90"]["instance"], r["sm90_dx"]["instance"]) != (0, 0):
+            fail(f"phase 25f packed bf16 step: bf16 launches by kernel {r['sm90']}, "
+                 f"{r['sm90_dx']}, want all on the Hopper kernels")
+    bloss_rel = abs(p0["loss"] - pr["loss"]) / abs(pr["loss"])
+    if not (bloss_rel <= PACKED_LOSS_REL and p0["loss"] == p1["loss"]):
+        fail(f"phase 25f packed bf16 step: loss {bloss_rel:.3g} relative to one process "
+             f"(limit {PACKED_LOSS_REL}), ranks alike {p0['loss'] == p1['loss']}")
+    peak = max(p0["peak_gb"], p1["peak_gb"]) / pr["peak_gb"]
+    lines.append(f"the packed b{SPR_PEAK_BATCH} bf16 attack step: loss {bloss_rel:.3g} "
+                 f"relative, a rank launched { {k: v for k, v in p0['counts'].items() if v} } "
+                 f"(all bf16 MBConv on the Hopper kernels), every fifth Hopper forward / dx "
+                 f"within {p0['errs']} of the plain versions; peak {p0['peak_gb']:.3f} / "
+                 f"{p1['peak_gb']:.3f} GB a rank, one process {pr['peak_gb']:.3f} GB "
+                 f"({peak:.3f}x); second step {p0['ms']:.1f} / {p1['ms']:.1f} ms a rank, one "
+                 f"process {pr['ms']:.1f}")
+    # the int8 serve
+    q0, q1, qr = r0["int8"], r1["int8"], ref["int8"]
+    for i, q in enumerate((q0, q1)):
+        if q["scales"] != qr["scales"]:
+            fail(f"phase 25f int8: rank {i}'s activation scales differ from one process's")
+        if q["calls"] != qr["calls"] or q["launches"] != 2 * qr["calls"]:
+            fail(f"phase 25f int8: rank {i} made {q['calls']} conv_int8 calls and "
+                 f"{q['launches']} launches, one process {qr['calls']} calls")
+        if any(q["counts"].values()):
+            fail(f"phase 25f int8: rank {i} launched {q['counts']} beside conv_int8")
+        if not q["share"] <= SPR_INT8_SHARE:
+            fail(f"phase 25f int8: rank {i}'s head outputs {q['share']:.4g} off by more than "
+                 f"{SPR_INT8_ATOL} (limit {SPR_INT8_SHARE})")
+    lines.append(f"quantize_int8 at b{SPR_INT8_BATCH}: the {len(q0['scales'])} activation "
+                 f"scales bit-equal to one process's; a rank made {q0['calls']} conv_int8 "
+                 f"calls ({q0['launches']} launches; {q0['halo_calls']} on halo-extended "
+                 f"rows), each bit-equal to the plain version at its inputs; the head "
+                 f"outputs {q0['share']:.4g} / {q1['share']:.4g} off by more than "
+                 f"{SPR_INT8_ATOL} (max {q0['max_err']:.3g} / {q1['max_err']:.3g})")
+    # the segmentation step: the function in float64 (within 1e-8 of scale,
+    # 25c's rule); the fp32 step is ill-conditioned (train-mode BatchNorm's
+    # E[x^2] - E[x]^2 in float32, ROADMAP Queue 3 item 22), so its gradient is
+    # held to the float64 one: no farther than twice one process's own
+    cos = lambda a, b: float(a @ b / (a.norm() * b.norm()))
+    g0, g1, gr, gr64 = r0["seg"], r1["seg"], ref["seg"], ref["seg64"]
+    h0, h1 = r0["seg64"], r1["seg64"]
+    seg64_rel = abs(h0["loss"] - gr64["loss"]) / abs(gr64["loss"])
+    seg64_err = float((h0["grad"] - gr64["grad"]).abs().max()) / max(
+        1.0, float(gr64["grad"].abs().max()))
+    if not (seg64_rel <= SP_SUP_F64_TOL and seg64_err <= SP_SUP_F64_TOL
+            and torch.equal(h0["grad"], h1["grad"])):
+        fail(f"phase 25f float64 segmentation step: loss {seg64_rel:.3g} relative, gradient "
+             f"within {seg64_err:.3g} of scale (limit {SP_SUP_F64_TOL}), ranks alike "
+             f"{torch.equal(h0['grad'], h1['grad'])}")
+    seg_rel = abs(g0["loss"] - gr["loss"]) / abs(gr["loss"])
+    seg_cos = cos(g0["grad"], gr["grad"])
+    own, mine = 1.0 - cos(gr["grad"], gr64["grad"]), 1.0 - cos(g0["grad"], gr64["grad"])
+    if not (seg_rel <= DP_LOSS_REL and mine <= 2 * own and g0["loss"] == g1["loss"]
+            and torch.equal(g0["grad"], g1["grad"])):
+        fail(f"phase 25f segmentation step: loss {seg_rel:.3g} relative, gradient cosine "
+             f"{1 - mine:.8f} to the float64 one (one process's {1 - own:.8f}), ranks alike "
+             f"{torch.equal(g0['grad'], g1['grad'])}")
+    if any(g["counts"]["mbconv_fp32"] or g["counts"]["mbconv_fwd_bf16"]
+           for g in (g0, g1, h0, h1)):
+        fail(f"phase 25f segmentation step: fused launches in a train step {g0['counts']}")
+    seg_peak = max(g0["peak_gb"], g1["peak_gb"]) / gr["peak_gb"]
+    lines.append(f"the b{SPR_SEG_BATCH} segmentation step: float64 loss {seg64_rel:.3g} "
+                 f"relative, gradient within {seg64_err:.3g} of scale; fp32 loss "
+                 f"{seg_rel:.3g} relative, gradient cosine {seg_cos:.8f} to one process's "
+                 f"fp32 and {1 - mine:.8f} to the float64 one (one process's fp32 "
+                 f"{1 - own:.8f}), the ranks alike, no fused launch; fp32 peak "
+                 f"{g0['peak_gb']:.3f} / {g1['peak_gb']:.3f} GB a rank, one process "
+                 f"{gr['peak_gb']:.3f} GB ({seg_peak:.3f}x); second step {g0['ms']:.1f} / "
+                 f"{g1['ms']:.1f} ms a rank, one process {gr['ms']:.1f}")
+    # the gather backend
+    out, region = ref["gather"]
+    h = SP_HW // 2
+    g_err = 0.0
+    for i, r in enumerate((r0, r1)):
+        got_out, got_region = r["gather"]
+        if not torch.equal(got_region, region[:, i * h:(i + 1) * h]):
+            fail(f"phase 25f gather backend: rank {i}'s regions differ from one process's")
+        g_err = max(g_err, float((got_out - out[:, i * h:(i + 1) * h]).abs().max()))
+    if not (g_err <= SPR_GATHER_TOL and bool(region.any())):
+        fail(f"phase 25f gather backend: rows within {g_err:.3g} (limit {SPR_GATHER_TOL}), "
+             f"{int(region.sum())} region pixels")
+    lines.append(f"the gather backend: a rank's rows within {g_err:.3g} of one process's, the "
+                 f"regions equal ({int(region.sum())} pixels)")
+    # the packed driver
+    d0, d1 = r0["driver"], r1["driver"]
+    if not (torch.equal(d0["patch"], d1["patch"]) and d0["scale"] == d1["scale"]):
+        fail("phase 25f: the ranks' patches differ after attack.train.train(spatial=2, "
+             f"packed_entry={SPR_PACKED})")
+    main_files = set(os.path.relpath(os.path.join(p, f), os.path.join(work, "pdriver0"))
+                     for p, _, fs in os.walk(os.path.join(work, "pdriver0")) for f in fs)
+    if not {"logs/metrics.jsonl", "state-latest.msgpack"} <= main_files:
+        fail(f"phase 25f driver: rank 0 wrote {sorted(main_files)}")
+    rank1_files = [os.path.basename(f) for p, _, fs in os.walk(os.path.join(work, "pdriver1"))
+                   for f in fs]
+    if rank1_files != ["metrics.p1.jsonl"]:
+        fail(f"phase 25f driver: rank 1 wrote {rank1_files}")
+    launched_every("phase 25f driver", d0["counts"], ("pass1_fwd", "pass2_fwd", "pass2_bwd",
+                                                      "pass1_bwd", "nms", "mbconv_fwd_bf16",
+                                                      "mbconv_dx_bf16"))
+    lines.append(f"attack.train.train(spatial=2, packed_entry={SPR_PACKED}) at "
+                 f"b{SPR_DRIVER_BATCH} bf16 (2 steps and 5 val batches): the ranks' patches "
+                 f"bit-equal, rank 0 alone wrote files, launches a rank {d0['counts']} in "
+                 f"{d0['s']:.2f} s")
+    print("phase 25f spatial partitioning of the rest, lite4@640, mesh (1, 2): "
+          + "; ".join(lines))
+    print(f"phase 25f took {ref['s'] + max(r0['s'], r1['s']):.2f} s (one process "
+          f"{ref['s']:.2f} s, then a rank's share of the two ranks' run {r0['s']:.2f} / "
+          f"{r1['s']:.2f} s)")
+    return {"serve": sv["fwd"], "serve_nms": sv["nms"], "attack": r0["attack"]["counts"],
+            "attack_mbconv": r0["attack"]["mbconv"], "peak": p0["counts"],
+            "int8": q0["launches"], "driver": d0["counts"],
+            "peak_ratio": peak, "seg_peak_ratio": seg_peak}
+
+
 def spatial_phase(dev, work: str, rank_fn=sp_rank) -> dict:
     """Phase 25: spatial partitioning (`parallel/spatial.py`), two ranks at
     mesh (1, 2) on the one card through gloo, each step against the
@@ -4456,6 +4874,7 @@ def spatial_phase(dev, work: str, rank_fn=sp_rank) -> dict:
     t0 = time.perf_counter()
     ref["defender"] = spd_steps(dev, inp, inp["d_images"])
     ref_defender_s = time.perf_counter() - t0
+    ref["rest"] = spr_run(dev, inp, work)
     t0 = time.perf_counter()
     launch.spawn(rank_fn, 2, (work, dev.type), init_method=f"file://{work}/sstore",
                  backend="gloo", timeout_s=SP_TIMEOUT_S)
@@ -4563,6 +4982,7 @@ def spatial_phase(dev, work: str, rank_fn=sp_rank) -> dict:
           f"patches bit-equal, launches a rank "
           f"{d0['counts']}; {d0['s']:.2f} s")
     spd = spatial_defender_checks(ranks, ref["defender"], work)
+    spr = spatial_rest_checks(ranks, ref["rest"], work)
     print(f"phase 25e took {ref_defender_s + max(r['defender_s'] for r in ranks):.2f} s "
           f"(one process {ref_defender_s:.2f} s, then a rank's share of the two ranks' "
           f"run {r0['defender_s']:.2f} / {r1['defender_s']:.2f} s)")
@@ -4576,7 +4996,8 @@ def spatial_phase(dev, work: str, rank_fn=sp_rank) -> dict:
             "mbconv_fwd_sm90_driver": d0["sm90"]["sm90"],
             "mbconv_fwd_instance_driver": d0["sm90"]["instance"],
             "mbconv_dx_sm90_driver": d0["sm90_dx"]["sm90"],
-            "mbconv_dx_instance_driver": d0["sm90_dx"]["instance"], "defender": spd}
+            "mbconv_dx_instance_driver": d0["sm90_dx"]["instance"], "defender": spd,
+            "rest": spr}
 
 
 def main() -> int:
@@ -4810,9 +5231,9 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = tf32
         torch.backends.cuda.matmul.allow_tf32 = tf32
         for b, batch in batches.items():
-            serve_ms = host_p50_ms(lambda: det.serve(batch), iters=10)
+            serve_ms = host_p50_ms(lambda: det.serve(batch), iters=5)
             dev_ms = host_p50_ms(lambda: det.serve_tensors(
-                images_d[:b], scales_d[:b]), iters=10)
+                images_d[:b], scales_d[:b]), iters=5)
             print(f"  serve b{b} cudnn.allow_tf32={tf32} "
                   f"matmul.allow_tf32={tf32}: p50 {serve_ms:.3f} ms/batch "
                   f"({b * 1e3 / serve_ms:.2f} images/s); device part "
@@ -4875,7 +5296,7 @@ def main() -> int:
         fail(f"serve(device_preprocess=True): {mbconv_cuda.LAUNCHES}, "
              f"valid_len {res.valid_len}")
     for b, batch in batches.items():
-        ms = host_p50_ms(lambda: det.serve(batch, device_preprocess=True), iters=10)
+        ms = host_p50_ms(lambda: det.serve(batch, device_preprocess=True), iters=5)
         print(f"  serve b{b} device_preprocess=True: p50 {ms:.3f} ms/batch "
               f"({b * 1e3 / ms:.2f} images/s)")
     print(f"  preprocess_device vs host: max difference {pre_err:.3g} (normalized "
@@ -4906,7 +5327,8 @@ def main() -> int:
                 same_detections(f"serve_pipelined frame {start + i}", out[start + i],
                                 [a[i] for a in ref])
         ms = host_p50_ms(lambda: list(det.serve_pipelined(
-            iter(stream_frames), batch_size=8, device_preprocess=device_pre)), iters=3)
+            iter(stream_frames), batch_size=8, device_preprocess=device_pre)), iters=3,
+            warmup=0)  # the check above ran it
         print(f"  serve_pipelined b8 device_preprocess={device_pre}: "
               f"{len(stream_frames)} frames in {ms:.3f} ms p50")
     print(f"phase 3a serving: post modes per_class, combined, tflite and "
@@ -4939,8 +5361,8 @@ def main() -> int:
                 np.array_equal(res.valid.sum(1), res.valid_len)):
             fail(f"bf16 serve b{b}: {res.boxes.shape}, valid_len {res.valid_len}")
     for b, batch in batches.items():
-        ms = host_p50_ms(lambda: bdet.serve(batch), iters=10)
-        dms = host_p50_ms(lambda: bdet.serve(batch, device_preprocess=True), iters=10)
+        ms = host_p50_ms(lambda: bdet.serve(batch), iters=5)
+        dms = host_p50_ms(lambda: bdet.serve(batch, device_preprocess=True), iters=5)
         print(f"  bf16 serve b{b}: p50 {ms:.3f} ms/batch ({b * 1e3 / ms:.2f} images/s); "
               f"device_preprocess=True {dms:.3f} ms/batch; valid_len "
               f"{bresults[b].valid_len.tolist()} (fp32 {results[b].valid_len.tolist()})")
@@ -5031,7 +5453,7 @@ def main() -> int:
           f"{attack_copies}, {windows_seen} windows warped; loss "
           f"{float(metrics.loss):.6f}, scale {scale:.6f}, asr with the ASR "
           f"pass {float(m_asr.asr):.4f}; peak memory {peak_gb:.3f} GB")
-    step_ms = host_p50_ms(step, iters=5, warmup=1)
+    step_ms = host_p50_ms(step, iters=3, warmup=1)
     print(f"  attack step b{ATTACK_BATCH} p50 {step_ms:.3f} ms "
           f"({ATTACK_BATCH * 1e3 / step_ms:.2f} images/s)")
     profile_device(step, f"attack step b{ATTACK_BATCH}", top=10)
@@ -5186,7 +5608,7 @@ def main() -> int:
     print(f"phase 5b bf16 attack step: launches in {ATTACK_STEPS} steps {bf16_launches}, "
           f"fused MBConv per dtype {bf16_mb}; loss {float(bm.loss):.6f}, scale "
           f"{float(bstate.scale.detach()):.6f}; peak memory {bpeak_gb:.3f} GB")
-    bstep_ms = host_p50_ms(bstep, iters=5, warmup=1)
+    bstep_ms = host_p50_ms(bstep, iters=3, warmup=1)
     print(f"  bf16 attack step b{ATTACK_BATCH} p50 {bstep_ms:.3f} ms "
           f"({ATTACK_BATCH * 1e3 / bstep_ms:.2f} images/s; fp32 in phase 5 "
           f"{step_ms:.3f} ms)")
@@ -5372,7 +5794,7 @@ def main() -> int:
           f"{defend_windows // DEFEND_STEPS} windows planted "
           f"per step; loss {float(dm.loss):.6f}, mean clean score "
           f"{float(dm.mean_clean_score):.6f}; peak memory {dpeak_gb:.3f} GB")
-    dstep_ms = host_p50_ms(dstep, iters=5, warmup=1)
+    dstep_ms = host_p50_ms(dstep, iters=3, warmup=1)
     print(f"  defender step b{DEFEND_BATCH} p50 {dstep_ms:.3f} ms "
           f"({DEFEND_BATCH * 1e3 / dstep_ms:.2f} images/s)")
     profile_device(dstep, f"defender step b{DEFEND_BATCH}", top=10)
@@ -5403,7 +5825,7 @@ def main() -> int:
              f"{tuple(rec.shape)}")
     eval_ms = host_p50_ms(lambda: dfd.eval_step(dstate, dimages, 1), iters=3,
                           warmup=1)
-    recover_ms = host_p50_ms(lambda: dfd.recover(dstate, dimages), iters=5)
+    recover_ms = host_p50_ms(lambda: dfd.recover(dstate, dimages), iters=3)
     print(f"phase 10 eval_step: loss {float(em.loss):.6f}, recovery PSNR "
           f"{float(em.recovery_psnr):.4f} dB, ADR {float(em.adr)} (NaN: no "
           f"clean score above .55 at random weights), p50 {eval_ms:.3f} ms; "
@@ -5562,7 +5984,7 @@ def main() -> int:
           f"{warp_cuda.WINDOWS // DEFEND_STEPS} windows planted per step; loss "
           f"{float(bdm.loss):.6f}, mean clean score {float(bdm.mean_clean_score):.6f}; "
           f"peak memory {bdpeak_gb:.3f} GB (fp32 {dpeak_gb:.3f} GB)")
-    bdstep_ms = host_p50_ms(bdstep, iters=5, warmup=1)
+    bdstep_ms = host_p50_ms(bdstep, iters=3, warmup=1)
     print(f"  bf16 defender step b{DEFEND_BATCH} p50 {bdstep_ms:.3f} ms "
           f"({DEFEND_BATCH * 1e3 / bdstep_ms:.2f} images/s; fp32 {dstep_ms:.3f} ms in "
           f"phase 9)")
@@ -5587,7 +6009,7 @@ def main() -> int:
         fail(f"bf16 recover: {brec.dtype}")
     beval_ms = host_p50_ms(lambda: bdfd.eval_step(bdstate, dimages, 1), iters=3,
                            warmup=1)
-    brecover_ms = host_p50_ms(lambda: bdfd.recover(bdstate, dimages), iters=5)
+    brecover_ms = host_p50_ms(lambda: bdfd.recover(bdstate, dimages), iters=3)
     print(f"  bf16 eval_step: loss {float(bem.loss):.6f}, recovery PSNR "
           f"{float(bem.recovery_psnr):.4f} dB, p50 {beval_ms:.3f} ms (fp32 "
           f"{eval_ms:.3f}); bf16 recover b{DEFEND_BATCH} p50 {brecover_ms:.3f} ms "
@@ -5807,8 +6229,8 @@ def main() -> int:
             fail(f"packed {level}: cmconv and NMS launches {got} in {DEFEND_STEPS} steps")
         if not np.isfinite(float(pm.loss)):
             fail(f"packed {level} metrics {pm}")
-        pstep_ms = host_p50_ms(pstep, iters=5, warmup=1)
-        precover_ms = host_p50_ms(lambda: pdfd.recover(pstate, dimages), iters=5)
+        pstep_ms = host_p50_ms(pstep, iters=3, warmup=1)
+        precover_ms = host_p50_ms(lambda: pdfd.recover(pstate, dimages), iters=3)
         packed_rows[level] = (pstep_ms, ppeak_gb, precover_ms)
         print(f"  packed {level}: train step p50 {pstep_ms:.3f} ms "
               f"({DEFEND_BATCH * 1e3 / pstep_ms:.2f} images/s), peak memory "
@@ -5877,7 +6299,7 @@ def main() -> int:
     if cmconv_cuda.LAUNCHES != CMCONV_PER_STEP + 8:
         fail(f"remat step: {cmconv_cuda.LAUNCHES} cmconv launches, want "
              f"{CMCONV_PER_STEP} + 8 (the recompute's forwards)")
-    rstep_ms = host_p50_ms(rstep, iters=5, warmup=1)
+    rstep_ms = host_p50_ms(rstep, iters=3, warmup=1)
     torch.cuda.reset_peak_memory_stats(dev)
     dstep()
     torch.cuda.synchronize()
@@ -6116,7 +6538,9 @@ def main() -> int:
         "defender_ms": defend_nms[0], "defender_plain_ms": defend_nms[1],
         "defender_bound_ms": defend_nms[2], "defender_bound_by": defend_nms[3],
         "spatial_step_launches_per_rank": spatial["nms"],
-        "spatial_defender_step_launches_per_rank": spatial["defender"]["fp32"]["nms"]}]
+        "spatial_defender_step_launches_per_rank": spatial["defender"]["fp32"]["nms"],
+        "spatial_packed_step_launches_per_rank": spatial["rest"]["attack"]["nms"],
+        "spatial_packed_serve_launches_per_rank": spatial["rest"]["serve_nms"]}]
     for k in WARP_KERNELS:
         kern_ms, plain_ms, bound_ms, bound_by = warp_times[k]
         kernels.append({
@@ -6126,7 +6550,8 @@ def main() -> int:
             "max_abs_err": warp_errs[k], "ms": kern_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "spatial_step_launches_per_rank": spatial[k],
-            "spatial_defender_step_launches_per_rank": spatial["defender"]["fp32"][k]})
+            "spatial_defender_step_launches_per_rank": spatial["defender"]["fp32"][k],
+            "spatial_packed_step_launches_per_rank": spatial["rest"]["attack"][k]})
     kernels.append({
         "name": "cmconv", "route": "cuda",
         "source": "mladversarialobjectdetection_torch/csrc/cmconv.cu",
@@ -6181,9 +6606,12 @@ def main() -> int:
             "bound_by": tot["bound_by"], "library_ms": None,
             "unfused_ms": tot["unfused_ms"], "bound_tc_ms": tot["bound_tc_ms"],
             "spatial_step_launches_per_rank": spatial[f"mbconv_{kind}"],
+            "spatial_packed_step_launches_per_rank":
+                spatial["rest"]["attack_mbconv"][f"mbconv_{kind}"],
             **({"demo_launches_per_frame": demo["launches_per_frame"]["mbconv_fwd"],
                 "spatial_defender_step_launches_per_rank":
-                    spatial["defender"]["fp32"]["mbconv_fp32"]}
+                    spatial["defender"]["fp32"]["mbconv_fp32"],
+                "spatial_packed_serve_launches_per_rank": spatial["rest"]["serve"]}
                if kind == "fwd" else {})})
     tot = mb16_tot["fwd"]  # the Hopper bf16 forward, per pass of the bf16 step
     kernels.append({
@@ -6197,6 +6625,8 @@ def main() -> int:
         "spatial_driver_launches_per_rank": spatial["mbconv_fwd_sm90_driver"],
         "spatial_defender_step_launches_per_rank":
             spatial["defender"]["bf16"]["mbconv_fwd_bf16"],
+        "spatial_packed_bf16_step_launches_per_rank": spatial["rest"]["peak"]["mbconv_fwd_bf16"],
+        "spatial_packed_driver_launches_per_rank": spatial["rest"]["driver"]["mbconv_fwd_bf16"],
         "eval_launches_per_batch": sup_eval["launches_per_batch"]["mbconv_fwd_bf16"],
         "eval_ms": sup_eval["mbconv"]["ms"], "eval_instance_ms": sup_eval["mbconv"]["instance_ms"],
         "eval_bound_ms": sup_eval["mbconv"]["bound_ms"],
@@ -6215,6 +6645,8 @@ def main() -> int:
         "unfused_ms": tot["unfused_ms"], "instance_ms": tot["instance_ms"],
         "packed_attack_launches": packed_attack["bf16"]["packed dx_sm90"]["sm90"],
         "spatial_driver_launches_per_rank": spatial["mbconv_dx_sm90_driver"],
+        "spatial_packed_bf16_step_launches_per_rank": spatial["rest"]["peak"]["mbconv_dx_bf16"],
+        "spatial_packed_driver_launches_per_rank": spatial["rest"]["driver"]["mbconv_dx_bf16"],
         # host p50 ms (Hopper dx, bf16 instance), in turns in one call
         "ab_attack_step_ms": attack_dx_ab})
     for kind in ("fwd", "dx"):  # the bf16 instances, per pass of the bf16 step
@@ -6244,7 +6676,8 @@ def main() -> int:
         "kernel_ms_on_library_convs": c8["intmm_kernel_ms"],
         "cudnn_bf16_ms": c8["cudnn_bf16_ms"], "conv_calls_per_serve": c8["n"],
         "bf16_ms": c8b["ms"], "bf16_bound_ms": c8b["bound_ms"],
-        "bf16_launches": q8["serve"]["bf16"]["launches"]})
+        "bf16_launches": q8["serve"]["bf16"]["launches"],
+        "spatial_int8_serve_launches_per_rank": spatial["rest"]["int8"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

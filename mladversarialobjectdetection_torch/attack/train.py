@@ -40,8 +40,7 @@ train.py:95-100) lays the ranks out as a ('data', 'spatial') mesh whose
 'spatial' axis row-shards each image (`parallel/spatial.py`): the ranks of
 one spatial group load the same examples (their data shard's, its stream
 seeded `seed + 1000 * data index`) and each keeps its rows; with
-`packed_entry` it raises `NotImplementedError` before any work (ROADMAP
-Queue 1 item 10b).
+`packed_entry` the victim's packed entry runs on packed row shards.
 
 Usage:
     python -m mladversarialobjectdetection_torch.attack.train --synthetic \\
@@ -155,8 +154,6 @@ def train(model_name: str = "efficientdet-lite4", *,
           grad_accum: int = 1, spatial: int = 1, resume: bool = False,
           packed_entry: int = 0, victim_variables=None, device=None):
     """Train an adversarial patch; returns the final `AttackState`."""
-    if spatial > 1 and packed_entry:  # before any work
-        raise NotImplementedError(parallel.SPATIAL_NOT_PORTED)
     device = resolve_device(device)
 
     config = config_lib.get_efficientdet_config(model_name)

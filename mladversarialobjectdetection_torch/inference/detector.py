@@ -32,10 +32,12 @@ mesh (`make_serve_mesh(n, s)`) also splits each image's rows over the
 'spatial' axis, as JAX's (detector.py:84-92, 300-309): the model's input
 height must divide by s (JAX's error), each rank preprocesses its data
 rows' whole frames (on the host or the device) and keeps its rows of them,
-the forward runs row-sharded under the mesh (`parallel/spatial.py`) and
-ends with every anchor's outputs on each rank, and the detections are
-gathered over the data axes only. `packed_entry` and `quantize_int8` under
-such a mesh raise `NotImplementedError` (ROADMAP Queue 1 item 10b).
+the forward runs row-sharded under the mesh (`parallel/spatial.py`), with
+`packed_entry` too, and ends with every anchor's outputs on each rank, and
+the detections are gathered over the data axes only. `quantize_int8` under
+such a mesh calibrates on whole frames on every rank (as JAX's on its
+unsharded host batches), so every rank holds one process's scales, and the
+int8 convs then run on each rank's rows and their halo.
 
 `quantize_int8` switches `serve`, `serve_raw`, `infer`, `serve_streams` and
 `serve_pipelined` to the W8A8 forward (`inference/quantize.Int8Serve`: the
@@ -132,8 +134,6 @@ class Detector:
             raise ValueError(f"post_mode {post_mode!r}: want one of {POST_MODES}")
         self._spatial = (mesh is not None
                          and mesh.shape.get(parallel.SPATIAL_AXIS, 1) > 1)
-        if self._spatial and packed_entry > 0:
-            parallel.check_no_spatial(mesh)
         self.mesh = mesh
         self.device = resolve_device(device)
         self.post_mode = post_mode
@@ -379,17 +379,18 @@ class Detector:
         in batches of 8 as serve() inputs). Head `predict` layers,
         BatchNorm, activations and postprocessing stay float
         (`inference/quantize.py`). Affects serve, serve_raw, infer,
-        serve_streams and serve_pipelined; export() stays float."""
+        serve_streams and serve_pipelined; export() stays float. Under a
+        mesh every rank calibrates on all the frames, whole, outside the
+        mesh: each holds the scales one process computes."""
         from .quantize import DEFAULT_SKIP, Int8Serve
 
-        if self.mesh is not None:
-            parallel.check_no_spatial(self.mesh)
         frames = list(representative_frames)
         if not frames:
             raise ValueError("quantize_int8 needs representative frames")
         batches = [self.preprocess(frames[i:i + 8])[0] for i in range(0, len(frames), 8)]
-        self._int8 = Int8Serve(self.net, batches,
-                               skip_patterns=skip_patterns or DEFAULT_SKIP)
+        with parallel.use_mesh(None):  # whole frames, whatever mesh is active
+            self._int8 = Int8Serve(self.net, batches,
+                                   skip_patterns=skip_patterns or DEFAULT_SKIP)
 
     def export(self, out_path: str, fmt: str = "exported_program", batch_size: int = 1,
                quantize: str | None = None, representative_frames=None) -> None:

@@ -19,7 +19,12 @@ PyTorch's idiom:
   kernel on the card, the plain version on the CPU) and dequantises to the
   conv's output dtype (its compute dtype, or x's), plus its bias; BatchNorm,
   activations, residuals and postprocessing stay float;
-- the heads' `predict` convs are skipped by default (`DEFAULT_SKIP`).
+- the heads' `predict` convs are skipped by default (`DEFAULT_SKIP`);
+- under a spatial mesh (`parallel/spatial.py`) a quantised conv that reads
+  across rows runs on this rank's rows and the halo SAME reads from its
+  neighbours (`spatial.same_window`), the int8 conv taking no row padding
+  and SAME's columns: a fetched row quantises with the same scale to its
+  owner's int8 values, so the sums are exact. Calibration runs unsharded.
 
 Every dict is keyed by the Flax path of the conv (`class_net/conv_0/pw`,
 `ckpt/bridge.flax_paths`), so `act_scales` and `qkernels` compare with
@@ -45,6 +50,7 @@ from torch import nn
 from ..ckpt import bridge
 from ..models import efficientnet
 from ..ops import conv_int8 as conv_int8_ops
+from ..parallel import spatial
 from ..utils.log import get_logger
 
 logger = get_logger(__name__)
@@ -171,13 +177,20 @@ class _QConv:
         self.bias = None if bias is None else bias.to(device)
 
     def forward(self, x: torch.Tensor, height: Optional[int] = None) -> torch.Tensor:
-        """`Conv2d.forward`'s signature; `height` unused: the int8 serve runs
-        under no spatial mesh (`Detector.quantize_int8` refuses one)."""
-        del height
+        """`Conv2d.forward`'s signature: `height`, x's global height under a
+        spatial mesh, where a conv that reads across rows runs on this
+        rank's rows and their halo (as `Conv2d._forward_rows`)."""
         m = self.mod
-        return conv_int8_ops.conv_int8(
-            x.contiguous(), self.a_s, self.wq, self.scale, self.bias, stride=m.stride,
-            padding="SAME", groups=m.groups, out_dtype=m.compute_dtype or x.dtype)
+        conv = lambda xe, padding: conv_int8_ops.conv_int8(
+            xe.contiguous(), self.a_s, self.wq, self.scale, self.bias, stride=m.stride,
+            padding=padding, groups=m.groups, out_dtype=m.compute_dtype or x.dtype)
+        k, stride = m.kernel_size[0], m.stride[0]
+        if height is None or spatial.active() is None or (k == 1 and stride == 1):
+            return conv(x, "SAME")
+        cols = efficientnet.same_pads(x.shape[3], m.kernel_size[1], m.stride[1])
+        return spatial.same_window(x, height, k, stride,
+                                   efficientnet.same_pads(height, k, stride)[0],
+                                   lambda xe: conv(xe, ((0, 0), cols)))
 
 
 class Int8Serve:

@@ -16,8 +16,9 @@ Under a mesh whose 'spatial' axis is larger than 1 (`parallel/spatial.py`),
 the images are this rank's rows, every module runs on the rows the layout
 rule gives its level (the global heights from `DetSpec.level_hw`), and each
 level's class and box outputs are gathered (`spatial.whole`): from there on
-anchors, postprocessing, NMS and the losses see every anchor. The
-segmentation head and `packed_entry` raise there (ROADMAP Queue 1 item 10b).
+anchors, postprocessing, NMS and the losses see every anchor. The packed
+entry runs on packed row shards (`models/efficientnet_packed.py`), and the
+segmentation head on the row-sharded levels, its logits gathered alike.
 """
 from __future__ import annotations
 
@@ -27,7 +28,6 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from .. import parallel
 from ..parallel import spatial
 from ..utils.image import get_feat_sizes, parse_image_size
 from . import bifpn, heads
@@ -213,8 +213,6 @@ class EfficientDetNet(nn.Module):
         spec = self.spec
         heights = levels = None
         if spatial.active() is not None:
-            if self.packed_entry > 0 or "segmentation" in spec.heads:
-                raise NotImplementedError(parallel.SPATIAL_NOT_PORTED)
             spatial.check_rows(images, spec.image_size[0], dim=1)
             heights = [h for h, _ in spec.level_hw]
             levels = heights[spec.min_level:spec.max_level + 1]
@@ -230,6 +228,7 @@ class EfficientDetNet(nn.Module):
         if "object_detection" in spec.heads:
             outputs.append(whole(self.class_net(fpn_feats, training, levels)))
             outputs.append(whole(self.box_net(fpn_feats, training, levels)))
-        if "segmentation" in self.spec.heads:
-            outputs.append(nhwc(self.seg_head(fpn_feats, training)))
+        if "segmentation" in spec.heads:
+            seg = self.seg_head(fpn_feats, training, levels)
+            outputs.append(nhwc(seg if levels is None else spatial.whole(seg, 2 * levels[0])))
         return tuple(outputs)

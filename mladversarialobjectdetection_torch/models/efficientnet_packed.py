@@ -39,6 +39,21 @@ So:
   (`space_to_depth`);
 - squeeze-excite pools over the phases too (`packed_se`).
 
+Spatial partitioning (`parallel/spatial.py`): under a mesh whose 'spatial'
+axis is larger than 1, `forward` takes `height`, the images' global height,
+and every packed tensor is laid out by the layout rule on its global
+*packed* height (one packed row is two rows of its unpacked level), every
+unpacked one on its image height. The stem and the packed depthwise convs
+read rows across the shard edge and take them from their neighbours
+(`spatial.same_window` in packed rows: the stem's stride-4 5x5 conv padded
+(0, 1), the stride-1 and stride-2 grouped convs); the 1x1 convs, BatchNorm,
+`space_to_depth` and `depth_to_space` stay local, since a level's shard
+packs into its packed shard; `packed_se` pools over the spatial group; the
+blocks past the packed range take their global heights, so the fused ones
+run on halo-extended shards. A level whose shard does not pack into a
+packed shard (odd rows a rank, or packed shards under `spatial.MAX_HALO`
+rows) raises `ValueError`.
+
 Mixed precision follows the JAX module (:368-371, :169-172, :236-245): the
 input is cast once to the compute dtype (`stem_conv.compute_dtype`), each
 conv runs in x's dtype with its kernel cast to it, each BatchNorm computes in
@@ -59,8 +74,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
+from ..parallel import spatial
 from .efficientnet import (BackboneSpec, BatchNorm, EfficientNet, MBConvBlock,
-                           SqueezeExcite, activation, drop_connect)
+                           SqueezeExcite, activation, drop_connect, out_height)
 from .unet_packed import depth_to_space, space_to_depth
 
 
@@ -162,44 +179,90 @@ def packed_1x1(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _unphases(F.conv2d(_phases(xp), w.to(xp.dtype)), xp.shape[0])
 
 
-def packed_bn(bn: BatchNorm, xp: torch.Tensor, training: bool) -> torch.Tensor:
+def packed_bn(bn: BatchNorm, xp: torch.Tensor, training: bool,
+              height: Optional[int] = None) -> torch.Tensor:
     """The unpacked `BatchNorm` on a packed tensor: statistics over (B,
-    phase, h, w), [C] parameters and running statistics (JAX :195-245)."""
-    return _unphases(bn(_phases(xp), training), xp.shape[0])
+    phase, h, w), [C] parameters and running statistics (JAX :195-245);
+    `height`: xp's global packed height under a spatial mesh."""
+    return _unphases(bn(_phases(xp), training, height), xp.shape[0])
 
 
-def packed_dw_s1(xp: torch.Tensor, kp: torch.Tensor) -> torch.Tensor:
+def _on_rows(height: Optional[int]) -> bool:
+    """Whether a conv of an input of global `height` runs on rows under an
+    active spatial group."""
+    return height is not None and spatial.active() is not None
+
+
+def packed_dw_s1(xp: torch.Tensor, kp: torch.Tensor,
+                 height: Optional[int] = None) -> torch.Tensor:
     """Stride-1 depthwise conv of a packed tensor, `kp` from
-    `pack_dw_kernel_s1`; stays packed."""
-    pad = (kp.shape[-1] - 1) // 2
-    y = F.conv2d(pm_to_cm(xp), kp.to(xp.dtype), padding=pad,
-                 groups=xp.shape[1] // 4)
-    return cm_to_pm(y)
+    `pack_dw_kernel_s1`; stays packed. `height`: xp's global packed height
+    under a spatial mesh (its rows and a packed halo row a side)."""
+    pk = kp.shape[-1]
+    pad, groups, kp = (pk - 1) // 2, xp.shape[1] // 4, kp.to(xp.dtype)
+    if not _on_rows(height):
+        return cm_to_pm(F.conv2d(pm_to_cm(xp), kp, padding=pad, groups=groups))
+    conv = lambda xe: F.conv2d(F.pad(xe, (pad, pad, 0, 0)), kp, groups=groups)
+    return cm_to_pm(spatial.same_window(pm_to_cm(xp), height, pk, 1, pad, conv))
 
 
 def packed_dw_s2(xp: torch.Tensor, kp: torch.Tensor, pad_lo: int,
-                 pad_hi: int) -> torch.Tensor:
+                 pad_hi: int, height: Optional[int] = None) -> torch.Tensor:
     """Stride-2 depthwise conv of a packed tensor, `kp` from
-    `pack_dw_kernel_s2`: the unpacked half-resolution output."""
-    pads = (pad_lo, pad_hi, pad_lo, pad_hi)
-    return F.conv2d(F.pad(pm_to_cm(xp), pads), kp.to(xp.dtype),
-                    groups=xp.shape[1] // 4)
+    `pack_dw_kernel_s2`: the unpacked half-resolution output, as many rows
+    as xp has packed rows. `height`: xp's global packed height under a
+    spatial mesh."""
+    groups, kp = xp.shape[1] // 4, kp.to(xp.dtype)
+    if not _on_rows(height):
+        pads = (pad_lo, pad_hi, pad_lo, pad_hi)
+        return F.conv2d(F.pad(pm_to_cm(xp), pads), kp, groups=groups)
+    conv = lambda xe: F.conv2d(F.pad(xe, (pad_lo, pad_hi, 0, 0)), kp, groups=groups)
+    return spatial.same_window(pm_to_cm(xp), height, kp.shape[-1], 1, pad_lo, conv)
 
 
-def packed_stem(x: torch.Tensor, kp: torch.Tensor) -> torch.Tensor:
-    """The stride-2 stem on unpacked images, written packed."""
-    return F.conv2d(F.pad(x, (0, 1, 0, 1)), kp.to(x.dtype), stride=4)
+def packed_stem(x: torch.Tensor, kp: torch.Tensor,
+                height: Optional[int] = None) -> torch.Tensor:
+    """The stride-2 stem on unpacked images, written packed. `height`: the
+    images' global height under a spatial mesh (packed output row o reads
+    image rows [4o, 4o + 5), the row past the last one a zero)."""
+    kp = kp.to(x.dtype)
+    if not _on_rows(height):
+        return F.conv2d(F.pad(x, (0, 1, 0, 1)), kp, stride=4)
+    conv = lambda xe: F.conv2d(F.pad(xe, (0, 1, 0, 0)), kp, stride=4)
+    return spatial.same_window(x, height, kp.shape[-1], 4, 0, conv)
 
 
-def packed_se(se: SqueezeExcite, xp: torch.Tensor) -> torch.Tensor:
+def packed_se(se: SqueezeExcite, xp: torch.Tensor,
+              height: Optional[int] = None) -> torch.Tensor:
     """Squeeze-excite of a packed tensor: the mean over the phases and the
-    map, the module's own convs, the gate on every phase (JAX :263-283)."""
+    map, the module's own convs, the gate on every phase (JAX :263-283).
+    `height`: xp's global packed height; where the layout shards it, the
+    mean sums over the spatial group's rows."""
     b, c4, h, w = xp.shape
     x5 = xp.reshape(b, 4, c4 // 4, h, w)
-    pooled = x5.mean(dim=(1, 3, 4))[:, :, None, None]
-    s = activation(se.reduce(pooled), se.act_type)
+    if spatial.sharded(height):
+        pooled = parallel.all_reduce_sum(
+            x5.sum(dim=(1, 3, 4)), parallel.SPATIAL_AXIS) / (4 * height * w)
+    else:
+        pooled = x5.mean(dim=(1, 3, 4))
+    s = activation(se.reduce(pooled[:, :, None, None]), se.act_type)
     gate = torch.sigmoid(se.expand(s)).to(xp.dtype)
     return (x5 * gate[:, None]).reshape(b, c4, h, w)
+
+
+def check_packable(height: Optional[int]) -> None:
+    """Raise unless a level of global `height` rows packs shard by shard
+    under the active spatial group: where the layout shards the level, its
+    packed rows must shard too (each rank's rows even, the packed shards
+    at least `spatial.MAX_HALO` rows)."""
+    sp = spatial.active()
+    if (height is not None and sp is not None and spatial.is_sharded(height, sp.size)
+            and not spatial.is_sharded(height // 2, sp.size)):
+        raise ValueError(
+            f"packed_entry under --spatial {sp.size}: a level of {height} rows "
+            f"({height // sp.size} a rank) cannot be packed; its {height // 2} "
+            f"packed rows do not split into {sp.size} shards of at least "
+            f"{spatial.MAX_HALO} rows")
 
 
 class PackedEntryEfficientNet(EfficientNet):
@@ -263,32 +326,35 @@ class PackedEntryEfficientNet(EfficientNet):
     # -- forward -------------------------------------------------------------
     def _packed_block(self, idx: int, xp: torch.Tensor, training: bool,
                       survival_prob: Optional[float],
-                      generator: Optional[torch.Generator]
+                      generator: Optional[torch.Generator],
+                      height: Optional[int] = None
                       ) -> Tuple[torch.Tensor, bool]:
         """Block `idx` on a packed input (JAX :286-355): (output, whether it
-        is still packed: a stride-2 block leaves the layout)."""
+        is still packed: a stride-2 block leaves the layout). `height`: the
+        global height of the block's unpacked input under a spatial mesh."""
         block: MBConvBlock = getattr(self, f"blocks_{idx}")
         act = block.act_type
+        hp = None if height is None else height // 2  # packed rows; the s2 output's
         inputs = xp
         if block.args.expand_ratio != 1:
             xp = packed_1x1(xp, block.expand_conv.weight)
-            xp = activation(packed_bn(block.bn0, xp, training), act)
+            xp = activation(packed_bn(block.bn0, xp, training, hp), act)
         stays_packed = block.args.strides[0] == 1
         if stays_packed:
-            x = packed_dw_s1(xp, self._dw_kernel(idx, xp.dtype))
-            x = activation(packed_bn(block.bn1, x, training), act)
+            x = packed_dw_s1(xp, self._dw_kernel(idx, xp.dtype), hp)
+            x = activation(packed_bn(block.bn1, x, training, hp), act)
             if block.se is not None:
-                x = packed_se(block.se, x)
+                x = packed_se(block.se, x, hp)
             x = packed_bn(block.bn2, packed_1x1(x, block.project_conv.weight),
-                          training)
+                          training, hp)
         else:
-            x = packed_dw_s2(xp, *self._dw_kernel(idx, xp.dtype))
-            x = activation(block.bn1(x, training), act)
+            x = packed_dw_s2(xp, *self._dw_kernel(idx, xp.dtype), hp)
+            x = activation(block.bn1(x, training, hp), act)
             if block.se is not None:
-                x = block.se(x)
+                x = block.se(x, hp)
             # the project conv as a plain conv (JAX's lax conv, not its module)
             x = block.bn2(F.conv2d(x, block.project_conv.weight.to(x.dtype)),
-                          training)
+                          training, hp)
             # the unpacked blocks after it take channels-last activations
             x = x.contiguous(memory_format=torch.channels_last)
         if block.residual:
@@ -304,15 +370,20 @@ class PackedEntryEfficientNet(EfficientNet):
                 height: Optional[int] = None) -> List[torch.Tensor]:
         if self.packed_blocks <= 0:
             return super().forward(x, training, generator, height)
-        if x.shape[2] % 4 or x.shape[3] % 4:
+        image_h = x.shape[2] if height is None else height
+        if image_h % 4 or x.shape[3] % 4:
             raise ValueError(f"the packed entry needs image H and W divisible "
-                             f"by 4, got {tuple(x.shape[2:])}")
+                             f"by 4, got {(image_h, x.shape[3])}")
         spec = self.spec
         cd = self.stem_conv.compute_dtype
         if cd is not None:  # cast once at the entry (JAX :368-371)
             x = x.to(cd)
-        x = packed_stem(x, self._stem_kernel(x.dtype)).contiguous()
-        x = activation(packed_bn(self.stem_bn, x, training), spec.act_type)
+        x = packed_stem(x, self._stem_kernel(x.dtype), height).contiguous()
+        height = out_height(height, 2)  # the stem's unpacked rows
+        check_packable(height)
+        x = activation(packed_bn(self.stem_bn, x, training,
+                                 None if height is None else height // 2),
+                       spec.act_type)
         packed = True
         endpoints = []
         n_blocks = len(spec.blocks)
@@ -322,15 +393,17 @@ class PackedEntryEfficientNet(EfficientNet):
                 survival_prob = 1.0 - (1.0 - spec.survival_prob) * float(idx) / n_blocks
             if idx < self.packed_blocks:
                 if not packed:  # pack a later segment again
+                    check_packable(height)
                     x = space_to_depth(x).contiguous()
                 x, packed = self._packed_block(idx, x, training, survival_prob,
-                                               generator)
+                                               generator, height)
             else:
                 if packed:
                     x = depth_to_space(x).contiguous(memory_format=torch.channels_last)
                     packed = False
                 x = getattr(self, f"blocks_{idx}")(x, training, survival_prob,
-                                                   generator)
+                                                   generator, height)
+            height = out_height(height, spec.blocks[idx].strides[0])
             if idx in self._reductions:
                 endpoints.append(depth_to_space(x) if packed else x)
         return endpoints

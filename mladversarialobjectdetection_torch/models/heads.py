@@ -13,6 +13,10 @@ Flax's stride-2 `ConvTranspose` (`models/unet.ConvTranspose`, not
 BatchNorm, and predicts per-pixel classes at half the min_level stride.
 It has no `dtype` in JAX, so it computes in float32 whatever the net's
 compute dtype (a bf16 pyramid is promoted, as `jnp.concatenate` does).
+Under a spatial mesh every module takes its level's global height
+(`parallel/spatial.py`): the transposed convs read one row above their
+shard, the crop to a skip's rows is taken on global heights, and the
+statistics of a row-sharded level reduce over data x spatial.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import List, Optional, Sequence
 import torch
 from torch import nn
 
+from ..parallel import spatial
 from .efficientnet import (BatchNorm, Conv2d, activation, checkpointed,
                            set_compute_dtype)
 from .unet import ConvTranspose
@@ -148,18 +153,35 @@ class SegmentationHead(nn.Module):
             chans = num_filters + skip_ch
         self.predict = ConvTranspose(chans, num_classes, init=LECUN_INIT)
 
-    def forward(self, feats: Sequence[torch.Tensor],
-                training: bool = False) -> torch.Tensor:
-        """NCHW features of levels min..max -> NCHW logits."""
+    def forward(self, feats: Sequence[torch.Tensor], training: bool = False,
+                heights: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """NCHW features of levels min..max -> NCHW logits. `heights`: each
+        level's global height under a spatial mesh; the logits are then in
+        the layout of their global height, twice the first level's."""
         dtype = self.predict.weight.dtype
         x = feats[-1].to(dtype)
-        skips = list(reversed(feats[:-1]))
-        for i, skip in enumerate(skips):
-            x = getattr(self, f"up_{i}")(x)
+        heights = [None] * len(feats) if heights is None else list(heights)
+        h = heights[-1]
+        for i, (skip, hs) in enumerate(zip(reversed(feats[:-1]), reversed(heights[:-1]))):
+            x = getattr(self, f"up_{i}")(x, h)
             # the (s-1)//2+1 pyramid is not an exact power-of-two chain at
-            # small sizes: crop the upsample to the skip's shape
-            x = x[..., :skip.shape[2], :skip.shape[3]]
-            x = getattr(self, f"bn_{i}")(x, training)
+            # small sizes: crop the upsample to the skip's shape (its global
+            # rows under a spatial mesh)
+            x = x[..., :skip.shape[3]]
+            if hs is None:
+                x = x[:, :, :skip.shape[2]]
+            elif 2 * h != hs:
+                x = _crop_rows(x, 2 * h, hs)
+            x = getattr(self, f"bn_{i}")(x, training, hs)
             x = activation(x, self.act_type)
             x = torch.cat([x, skip.to(dtype)], dim=1)
-        return self.predict(x)
+            h = hs
+        return self.predict(x, h)
+
+
+def _crop_rows(x: torch.Tensor, height: int, rows: int) -> torch.Tensor:
+    """The first `rows` global rows of x (global height `height`, in its
+    layout), in their own layout: under a spatial mesh the two heights
+    differ by a row, so at most one of them is row-sharded."""
+    x = spatial.whole(x, height)[:, :, :rows]
+    return spatial.local_rows(x) if spatial.sharded(rows) else x

@@ -161,12 +161,14 @@ class ConvTranspose(Conv2d):
 
     def forward(self, x: torch.Tensor, height: Optional[int] = None) -> torch.Tensor:
         """x [B, Ci, h, w] -> [B, Co, 2h, 2w]. Under a spatial mesh
-        (`height`: x's global height) output rows [2lo, 2hi) read input rows
-        [lo - 1, hi): this rank's and one row above (`spatial.window`)."""
+        (`height`: x's global height) output rows [o_lo, o_hi) read input
+        rows [(o_lo - 1) // 2, (o_hi + 1) // 2): for a sharded x's rows
+        [2lo, 2hi), its own and one row above; a replicated x's output may
+        split at an odd row (`spatial.window`)."""
         if height is None or spatial.active() is None:
             return self._rows(x, 0, 2 * x.shape[2], 0)
         return spatial.window(x, height, 2 * height,
-                              lambda o_lo, o_hi: (o_lo // 2 - 1, o_hi // 2),
+                              lambda o_lo, o_hi: ((o_lo - 1) // 2, (o_hi + 1) // 2),
                               self._rows)
 
     def _rows(self, xe: torch.Tensor, o_lo: int, o_hi: int, lo: int) -> torch.Tensor:

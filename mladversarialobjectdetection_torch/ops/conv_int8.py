@@ -10,7 +10,9 @@ inference/quantize.py:160-178`), in NCHW:
 
 with wq [Co, C/groups, kh, kw] int8 (OIHW), `scale` and `bias` [Co] float32,
 stride 1 or 2 (or a pair), Flax `"SAME"` (`models/efficientnet.same_pads`) or
-`"VALID"` padding, and groups 1 or C = Co (depthwise). `activation_scale`
+`"VALID"` padding or explicit zero pads `((top, bottom), (left, right))`
+(a row shard's halo-extended rows take none, its columns SAME's), and
+groups 1 or C = Co (depthwise). `activation_scale`
 computes a_s as JAX does and `dequant_scale` the product a_s * w_scale in
 float32, once, on the host.
 
@@ -53,6 +55,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 Stride = Union[int, Sequence[int]]
+Padding = Union[str, Sequence[Sequence[int]]]  # a mode or ((top, bottom), (left, right))
 
 
 def reset_counts() -> None:
@@ -78,12 +81,31 @@ def _pair(v: Stride) -> Tuple[int, int]:
     return t if len(t) == 2 else (t[0], t[0])
 
 
-def geometry(h: int, w: int, kh: int, kw: int, stride: Stride, padding: str):
+def explicit_pads(padding: Padding) -> Optional[Tuple[int, int, int, int]]:
+    """(top, bottom, left, right) of explicit pads; None for a mode. Raises
+    on anything else."""
+    if isinstance(padding, str):
+        if padding not in PADDINGS:
+            raise ValueError(f"padding {padding!r}: want one of {PADDINGS}")
+        return None
+    try:
+        (top, bottom), (left, right) = padding
+        pads = tuple(int(p) for p in (top, bottom, left, right))
+    except (TypeError, ValueError):
+        pads = None
+    if pads is None or min(pads) < 0:
+        raise ValueError(f"padding {padding!r}: want one of {PADDINGS} or "
+                         f"((top, bottom), (left, right)) of non-negative ints")
+    return pads
+
+
+def geometry(h: int, w: int, kh: int, kw: int, stride: Stride, padding: Padding):
     """(pads (top, bottom, left, right), (OH, OW)) of one conv."""
-    if padding not in PADDINGS:
-        raise ValueError(f"padding {padding!r}: want one of {PADDINGS}")
+    pads = explicit_pads(padding)
     sh, sw = _pair(stride)
-    if padding == "SAME":
+    if pads is not None:
+        top, bottom, left, right = pads
+    elif padding == "SAME":
         top, bottom = same_pads(h, kh, sh)
         left, right = same_pads(w, kw, sw)
     else:
@@ -112,7 +134,7 @@ def quantize_plain(x: torch.Tensor, a_s: float) -> torch.Tensor:
 
 
 def sums_plain(xq: torch.Tensor, wq: torch.Tensor, *, stride: Stride = 1,
-               padding: str = "SAME", groups: int = 1) -> torch.Tensor:
+               padding: Padding = "SAME", groups: int = 1) -> torch.Tensor:
     """The exact int32 sums of the int8 conv of xq [B, C, H, W] with wq."""
     if xq.dtype != torch.int8 or wq.dtype != torch.int8:
         raise TypeError(f"int8 operands, got {xq.dtype} and {wq.dtype}")
@@ -151,13 +173,12 @@ def _check(x, a_s, wq, scale, bias, padding, groups, out_dtype):
     if not a_s > 0.0:
         raise ValueError(f"activation scale {a_s} must be positive")
     _check_groups(x.shape[1], wq, groups)
-    if padding not in PADDINGS:
-        raise ValueError(f"padding {padding!r}: want one of {PADDINGS}")
+    explicit_pads(padding)
 
 
 def conv_int8_plain(x: torch.Tensor, a_s: float, wq: torch.Tensor, scale: torch.Tensor,
                     bias: Optional[torch.Tensor] = None, *, stride: Stride = 1,
-                    padding: str = "SAME", groups: int = 1,
+                    padding: Padding = "SAME", groups: int = 1,
                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The int8 conv in plain PyTorch (see the module notes)."""
     out_dtype = out_dtype or x.dtype
@@ -214,7 +235,7 @@ def _launch(x, a_s, wq, scale, bias, stride, padding, groups, out_dtype) -> torc
 
 def conv_int8_cuda(x: torch.Tensor, a_s: float, wq: torch.Tensor, scale: torch.Tensor,
                    bias: Optional[torch.Tensor] = None, *, stride: Stride = 1,
-                   padding: str = "SAME", groups: int = 1,
+                   padding: Padding = "SAME", groups: int = 1,
                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """`conv_int8_plain` as the kernel: two launches on PyTorch's stream."""
     out_dtype = out_dtype or x.dtype
@@ -223,7 +244,7 @@ def conv_int8_cuda(x: torch.Tensor, a_s: float, wq: torch.Tensor, scale: torch.T
 
 
 def sums_cuda(x: torch.Tensor, a_s: float, wq: torch.Tensor, *, stride: Stride = 1,
-              padding: str = "SAME", groups: int = 1) -> torch.Tensor:
+              padding: Padding = "SAME", groups: int = 1) -> torch.Tensor:
     """The kernel's int32 sums of the quantised x with wq (no dequantisation),
     for holding them to `sums_plain(quantize_plain(x, a_s), wq)`."""
     scale = torch.ones((wq.shape[0],), dtype=torch.float32, device=x.device)
@@ -233,7 +254,7 @@ def sums_cuda(x: torch.Tensor, a_s: float, wq: torch.Tensor, *, stride: Stride =
 
 def conv_int8(x: torch.Tensor, a_s: float, wq: torch.Tensor, scale: torch.Tensor,
               bias: Optional[torch.Tensor] = None, *, stride: Stride = 1,
-              padding: str = "SAME", groups: int = 1,
+              padding: Padding = "SAME", groups: int = 1,
               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The int8 conv: the kernel for CUDA tensors, the plain version for CPU
     tensors."""

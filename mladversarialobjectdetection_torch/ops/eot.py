@@ -31,7 +31,10 @@ images are this rank's rows: the geometry, the draws and the warp of every
 window are the data shard's, alike on each rank of a spatial group; each
 rank composites into its own rows (a window's rows offset by the shard's
 first row, the rows outside it dropped), and the brightness and histogram
-matches read the whole image's Y channel through sums over the group.
+matches read the whole image's Y channel through sums over the group. The
+gather backend, which draws per pixel of an image, gathers the rows, runs
+on the data shard's whole images and returns this rank's rows of both
+outputs.
 """
 from __future__ import annotations
 
@@ -559,8 +562,7 @@ def apply_patches(images, boxes, boxes_valid, patch, scale, *,
       backend: 'matmul' (the two-pass warp) or 'gather'.
       window, canvas_res, rotation_mag, print_jitter: as in the JAX package.
       height: the images' global height. Under a spatial mesh that
-        row-shards it, images holds this rank's rows and the result too (the
-        matmul backend only).
+        row-shards it, images holds this rank's rows and the results too.
 
     Returns:
       (patched images [B, H, W, 3], region masks [B, H, W] bool).
@@ -574,10 +576,18 @@ def apply_patches(images, boxes, boxes_valid, patch, scale, *,
     b = images.shape[0]
     img_hw = (images.shape[1], images.shape[2])
     rows_of, group_sum = None, None
+    if spatial.sharded(height) and backend == "gather":
+        # per-image draws at the whole image's shape: run whole, keep my rows
+        out, region = apply_patches(
+            spatial.gather_rows(images, dim=1), boxes, boxes_valid, patch, scale,
+            generator=generator, draws=draws, device=device, tolerance=tolerance,
+            min_patch_area=min_patch_area, noise_mag=noise_mag,
+            brightness_mag=brightness_mag, random_scale_range=random_scale_range,
+            per_image_patches=per_image_patches,
+            use_histogram_match=use_histogram_match, backend=backend, window=window,
+            canvas_res=canvas_res, rotation_mag=rotation_mag, print_jitter=print_jitter)
+        return spatial.local_rows(out, dim=1), spatial.local_rows(region, dim=1)
     if spatial.sharded(height):
-        if backend != "matmul":
-            raise ValueError("the gather backend draws per image: not under "
-                             "a spatial mesh")
         sp = spatial.active()
         img_hw = (height, images.shape[2])
         rows_of = (sp.index * images.shape[1], height)

@@ -1,9 +1,8 @@
 """Data parallelism and spatial partitioning over `torch.distributed` (the
 JAX package's `parallel`)."""
 from .mesh import (DATA_AXIS, DCN_AXIS, SPATIAL_AXIS,  # noqa: F401
-                   SPATIAL_NOT_PORTED, Mesh,
-                   NamedSharding, all_gather_rows, all_reduce_grads,
-                   all_reduce_sum, axis_group, batch_sharding, check_no_spatial,
+                   Mesh, NamedSharding, all_gather_rows, all_reduce_grads,
+                   all_reduce_sum, axis_group, batch_sharding,
                    current_mesh, data_shard,
                    data_axis_names, data_group, draw_rows, global_rows,
                    image_sharding, initialize, is_first_rank,

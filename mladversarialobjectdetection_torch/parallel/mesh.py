@@ -27,9 +27,7 @@ their meaning, with these differences from JAX's single controller:
   rows are split over the 'spatial' axis (`parallel/spatial.py`: the layout
   rule, the halo exchange and the gradient rule); `shard_batch*` routes a
   4-D image leaf whose height the axis divides by batch over the data axes
-  and by rows over 'spatial', every other leaf by batch. The segmentation
-  head, `packed_entry` and the int8 serve under such a mesh raise
-  `NotImplementedError` (`check_no_spatial`, ROADMAP Queue 1 item 10b).
+  and by rows over 'spatial', every other leaf by batch.
 
 The steps find the mesh through `use_mesh(mesh)` (JAX: the mesh of the
 arrays' shardings). Under an active mesh with a process group, every batch a
@@ -59,11 +57,6 @@ from ..utils.device import resolve_device
 DATA_AXIS = "data"
 DCN_AXIS = "dcn"
 SPATIAL_AXIS = "spatial"
-SPATIAL_NOT_PORTED = ("spatial partitioning (a 'spatial' mesh axis larger "
-                      "than 1) is not ported yet for the packed backbone "
-                      "entry (packed_entry), quantize_int8 and the int8 "
-                      "serve, and the segmentation head (ROADMAP Queue 1 "
-                      "item 10b)")
 INIT_TIMEOUT_S = 600.0
 
 
@@ -293,13 +286,6 @@ def make_serve_mesh(n_data: int, n_spatial: int,
                          f"devices, have {len(devices)}")
     return Mesh(np.asarray(devices[:need]).reshape(n_data, n_spatial),
                 (DATA_AXIS, SPATIAL_AXIS), device)
-
-
-def check_no_spatial(mesh: Mesh) -> None:
-    """Raise on a mesh whose 'spatial' axis is larger than 1: the paths not
-    ported under one (ROADMAP Queue 1 item 10b)."""
-    if mesh.shape.get(SPATIAL_AXIS, 1) > 1:
-        raise NotImplementedError(SPATIAL_NOT_PORTED)
 
 
 # ---------------------------------------------------------------------------

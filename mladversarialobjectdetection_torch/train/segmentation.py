@@ -24,8 +24,15 @@ array): each rank steps on its rows of the global batch; train-mode
 BatchNorm normalises by the global batch's statistics (over
 `bn_axis_name`, or every data axis), each rank's loss is its share of the
 global mean, the gradients are summed over the ranks, and the metrics are
-the global batch's. `train` runs on `make_mesh_for_batch` with JAX's seeds,
-and only the main process writes `segmentation.pkl`.
+the global batch's. Under a ('data', 'spatial') mesh
+(`make_train_mesh(b, spatial)`, `parallel/spatial.py`) the images are this
+rank's rows and the masks its data shard's whole masks (JAX's
+`shard_batch` routes no 3-D leaf by rows): the net gathers its logits, so
+the loss is the data shard's on each rank of a spatial group and enters
+the backward once in it (`spatial.count_once`), the gradients are summed
+over data x spatial and the statistics of row-sharded levels reduce over
+both. `train` runs on `make_mesh_for_batch` with JAX's seeds, and only the
+main process writes `segmentation.pkl`.
 """
 from __future__ import annotations
 
@@ -45,6 +52,7 @@ from ..ckpt import io as ckpt_io
 from ..data import pipeline
 from ..models.efficientdet import EfficientDetNet, spec_from_config
 from ..models.init import init_weights
+from ..parallel import spatial
 from ..utils.device import resolve_device
 from ..utils.log import get_logger
 from ..utils.train_loop import MetricLogger, Throughput
@@ -151,13 +159,14 @@ class SegmentationTrainer:
 
     def train_step(self, state: SegTrainState, images, masks
                    ) -> Tuple[SegTrainState, Dict[str, torch.Tensor]]:
-        """One step: images [B, H, W, 3], masks [B, h, w] class ids at the
-        head's resolution. Metrics: loss, accuracy (device tensors)."""
+        """One step: images [B, H, W, 3] (under a spatial mesh, this rank's
+        rows), masks [B, h, w] class ids at the head's resolution. Metrics:
+        loss, accuracy (device tensors)."""
         images, masks = self._inputs(images, masks)
         state.optimizer.zero_grad(set_to_none=True)
         (seg,) = state.net(images, training=True)
         loss, acc = self._loss(seg, masks)
-        loss.backward()
+        spatial.count_once(loss).backward()
         parallel.all_reduce_grads(state.net.parameters())
         state.optimizer.step()
         state.step += 1

@@ -484,14 +484,12 @@ def test_train_driver_on_cpu(tmp_path, tiny_detector):
 def test_train_driver_refuses_unported_options(tmp_path, option):
     """Each option raises before any work: `spatial > 1` in one process is
     JAX's error (the axis must divide the devices; at 2 ranks it runs,
-    tests/test_torch_spatial.py), with `packed_entry` it is not ported (ROADMAP
-    Queue 1 item 10); a directory as `victim_ckpt` is read as an orbax
-    checkpoint, and one without orbax's metadata is refused."""
+    tests/test_torch_spatial.py, and with `packed_entry` too,
+    tests/test_torch_spatial_rest.py); a directory as `victim_ckpt` is read
+    as an orbax checkpoint, and one without orbax's metadata is refused."""
     kw = dict(mixed_precision=False, device="cpu", save_dir=str(tmp_path))
     kw.update(option)
     error, match = ((FileNotFoundError, "_METADATA") if "victim_ckpt" in option
-                    else (NotImplementedError, "ROADMAP Queue 1 item 10")
-                    if "packed_entry" in option
                     else (ValueError, "--spatial 2 must divide the 1 devices"))
     with pytest.raises(error, match=match):
         ptrain.train("efficientdet-lite0", **kw)

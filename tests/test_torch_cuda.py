@@ -1538,13 +1538,19 @@ def test_grad_checkpoint_on_card_matches_no_checkpointing(cuda):
 
 # (B, C, H, W, Co, k, stride, padding, depthwise): dense 1x1 and 3x3, the
 # stem's stride 2, depthwise k3 / k5 at odd sizes, VALID, C not a multiple of
-# 4, the pooled [B, C, 1, 1] case
+# 4, the pooled [B, C, 1, 1] case; then explicit pads at lite4@640's int8
+# convs on a rank's rows under a two-way spatial split, the halo rows in
+# place (no row padding) and SAME's columns: the stem, a k3 stride-2 and a
+# k5 depthwise
 CONV_INT8_CASES = [(2, 13, 9, 11, 20, 1, 1, "SAME", False),
                    (1, 3, 64, 64, 32, 3, 2, "SAME", False),
                    (2, 48, 13, 37, 48, 3, 2, "SAME", True),
                    (2, 40, 15, 15, 40, 5, 1, "SAME", True),
                    (2, 16, 9, 9, 24, 3, 1, "VALID", False),
-                   (3, 7, 1, 1, 9, 1, 1, "SAME", False)]
+                   (3, 7, 1, 1, 9, 1, 1, "SAME", False),
+                   (1, 3, 321, 640, 32, 3, 2, ((0, 0), (0, 1)), False),
+                   (2, 144, 81, 160, 144, 3, 2, ((0, 0), (0, 1)), True),
+                   (2, 192, 44, 80, 192, 5, 1, ((0, 0), (2, 2)), True)]
 
 
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])

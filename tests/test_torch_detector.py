@@ -89,16 +89,26 @@ def test_unported_post_modes_raise():
         Detector("efficientdet-lite0", params=PARAMS, device="cpu",
                  post_mode="per_anchor")
     # a mesh is ported (tests/test_torch_parallel.py), a spatial axis too
-    # (tests/test_torch_spatial.py); under one, the packed entry and the
-    # int8 serve are not
+    # (tests/test_torch_spatial.py), and under one the packed entry and the
+    # int8 serve (across ranks: tests/test_torch_spatial_rest.py); without a
+    # process group the mesh's collectives are the identity, so each serves
+    # as the detector without a mesh
     spatial = parallel.Mesh(np.arange(2).reshape(1, 2), ("data", "spatial"),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        Detector("efficientdet-lite0", params=PARAMS, device="cpu", mesh=spatial,
-                 packed_entry=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        Detector("efficientdet-lite0", params=PARAMS, device="cpu",
-                 mesh=spatial).quantize_int8([np.zeros((8, 8, 3), np.uint8)])
+    frame = [np.random.default_rng(1).integers(0, 256, (48, 80, 3), dtype=np.uint8)]
+    got = Detector("efficientdet-lite0", params=PARAMS, device="cpu", mesh=spatial,
+                   packed_entry=2).serve(frame)
+    want = Detector("efficientdet-lite0", params=PARAMS, device="cpu",
+                    packed_entry=2).serve(frame)
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+    meshed = Detector("efficientdet-lite0", params=PARAMS, device="cpu", mesh=spatial)
+    plain = Detector("efficientdet-lite0", params=PARAMS, device="cpu")
+    for det in (meshed, plain):
+        det.quantize_int8(frame * 2)
+    assert meshed._int8.act_scales == plain._int8.act_scales
+    for a, b in zip(meshed.serve(frame), plain.serve(frame)):
+        assert np.array_equal(a, b)
     # a directory is read as an orbax checkpoint (ported), and refused without
     # orbax's metadata; packed_entry is ported (tests/test_torch_efficientnet_packed.py)
     with pytest.raises(FileNotFoundError, match="_METADATA"):

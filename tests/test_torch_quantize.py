@@ -71,6 +71,11 @@ CONV_CASES = [
     ("dw 5x5 s2 odd", 1, 10, 15, 13, 10, 5, 2, "SAME", True),
     ("dw 3x3 valid", 1, 7, 8, 8, 7, 3, 1, "VALID", True),
     ("1x1 pooled", 3, 9, 1, 1, 5, 1, 1, "SAME", False),
+    # explicit pads: a row shard's halo rows in place, SAME's columns (the
+    # spatial int8 serve), and uneven pads on both axes
+    ("3x3 halo rows", 2, 8, 11, 9, 12, 3, 1, ((0, 0), (1, 1)), False),
+    ("3x3 s2 halo rows", 1, 6, 13, 10, 4, 3, 2, ((0, 0), (0, 1)), False),
+    ("dw 5x5 uneven", 2, 7, 11, 9, 7, 5, 1, ((2, 1), (0, 2)), True),
 ]
 
 
@@ -151,6 +156,8 @@ def test_conv_int8_rejects_what_it_does_not_compute():
         conv_int8.conv_int8(x, 0.1, w, one, groups=2)
     with pytest.raises(ValueError, match="padding"):
         conv_int8.conv_int8(x, 0.1, w[:, :1], one, groups=4, padding="CIRCULAR")
+    with pytest.raises(ValueError, match="padding"):
+        conv_int8.conv_int8(x, 0.1, w[:, :1], one, groups=4, padding=((0, -1), (1, 1)))
     with pytest.raises(TypeError):
         conv_int8.conv_int8(x, 0.1, w.float(), one)
     with pytest.raises(ValueError, match="CUDA"):
