@@ -274,23 +274,29 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    `write_records` (raw image bytes: no PIL here): payloads equal to the
    pure-python framing's, and a flipped CRC raises;
 22. export and quantize (lite4@640, seeded weights), with phase 16's victim:
-   22a: the int8 conv kernel (`csrc/conv_int8.cu`) against `conv_int8_plain`
-   on odd shapes (a 1x1 map, 13x37, C not a multiple of 4, stride 2 at odd
-   sizes, k5 depthwise, the pooled [B, C, 1, 1] case, a bias, bf16 x and
-   output, VALID, Co over many tiles) and then at every conv call of a b8
-   int8 serve, fp32 and bf16: the int32 sums and the outputs bit-equal, two
-   launches bit-equal; each serve call timed beside its bound (int8 products
-   at 1,979 TOPS, bytes at 3.35 TB/s), the plain version, `torch._int_mm` on
-   the 1x1 convs and cuDNN's bf16 conv of the same shape; what `F.conv2d`
-   does with int8 CUDA tensors, as a record;
+   22a: the int8 conv kernel (`csrc/conv_int8_sm90.cu`) and its SIMT
+   ablation (`csrc/conv_int8.cu`) against `conv_int8_plain` on odd shapes
+   (a 1x1 map, 13x37, C not a multiple of 4, stride 2 at odd sizes, k5
+   depthwise, the pooled [B, C, 1, 1] case, a bias, bf16 x and output,
+   VALID, Co over many tiles, K and M tails, explicit pads on halo rows,
+   the b1 level-7 5x5 map) and then at every conv call of a b8 int8 serve,
+   fp32 and bf16: the int32 sums and the outputs bit-equal, two launches
+   bit-equal, one launch a call of the Hopper kernel; each serve call timed
+   by CUDA events on a queue filled ahead (device time, not the wrappers'
+   host work) with both instances in turns (Hopper, SIMT, SIMT, Hopper)
+   beside its bound (int8 products at 1,979 TOPS, bytes at 3.35 TB/s),
+   split as the stem, the 1x1 convs and the depthwise convs, the plain
+   version, `torch._int_mm` on the 1x1 convs and cuDNN's bf16 conv of the
+   same shape; what `F.conv2d` does with int8 CUDA tensors, as a record;
    22b: `Detector.quantize_int8` on 16 seeded 720x1280 frames, fp32 and
    bf16: every eligible conv quantised (no `predict`), a b1 and a b8 serve
-   with conv_int8 at two launches a conv call (the heads' shared convs at
-   each level), NMS once a serve, no fused MBConv launch; b8 detections
-   equal to those of the same detector on `conv_int8_plain`; against the
-   float serve the largest score difference and the top detection's
-   agreement; p50 at b1 and b8 of the float and int8 serves in both
-   dtypes, peak memory and the device's busy share;
+   with conv_int8 at one launch a conv call, all of the Hopper kernel (the
+   heads' shared convs at each level), NMS once a serve, no fused MBConv
+   launch; b8 detections equal to those of the same detector on
+   `conv_int8_plain`; against the float serve the largest score difference
+   and the top detection's agreement; p50 at b1 and b8 of the float and
+   int8 serves in both dtypes, peak memory and the device's busy share; the
+   b8 int8 device part's busy ms with each conv_int8 instance in turns;
    22c: `Detector.export` (the float program after `quantize_int8`) fp32
    and bf16 at b1: the graph holds the NMS op once and the fused MBConv op
    25 times; `ExportedProgramDriver.serve` launches them and equals
@@ -357,8 +363,8 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    fused kernels against their plain versions at a rank's inputs) and the
    packed b8 bf16 step (its peak memory a rank against one process's; every
    fifth Hopper forward and dx against the plain versions); `quantize_int8`
-   at b8 (the activation scales bit-equal, every `conv_int8` launch of a
-   rank bit-equal to the plain version at its halo-extended inputs, the
+   at b8 (the activation scales bit-equal, one Hopper `conv_int8` launch a
+   call, each bit-equal to the plain version at its halo-extended inputs, the
    head outputs at most 1% off by more than 1e-4); the b4 segmentation
    step in float64 (loss and summed gradient within 1e-8 of scale) and fp32
    (loss within 1e-4 relative, the summed gradient no farther from the
@@ -382,10 +388,12 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    and the bf16 fused forward also with phase 21b's launches per
    `evaluate_map` batch and their times at its inputs; NMS, the warp
    kernels and the fused MBConv's float32 rows also with phase 25b's
-   launches a rank in the spatial attack step; `conv_int8` with
-   phase 22b's launches in a b1 and a b8 fp32 int8 serve and phase 22a's
-   times summed over a b8 serve's calls, `torch._int_mm` as its library
-   time on the 1x1 convs, cuDNN's bf16 convs beside it).
+   launches a rank in the spatial attack step; `conv_int8` (the Hopper
+   kernel) with phase 22b's launches in a b1 and a b8 fp32 int8 serve and
+   phase 22a's times summed over a b8 serve's calls, split as stem, 1x1 and
+   depthwise beside their bounds, `torch._int_mm` as its library time on
+   the 1x1 convs, cuDNN's bf16 convs beside it; `conv_int8_simt`, the
+   ablation, with 0 launches on the path and its times in turns).
 
 The last line is `{"ok": true, "device": {...}}`. Without a card, or without
 the rest of the repository beside it, the script exits non-zero and prints
@@ -656,7 +664,18 @@ CONV_INT8_ODD = [
     ("VALID 3x3", 2, 16, 9, 9, 24, 3, 1, "VALID", False, False, "float32"),
     ("Co 700 over 11 tiles, K 612", 1, 272, 10, 10, 700, 3, 1, "SAME", False, True,
      "float32"),
+    ("K tail C 40, M tail 169", 1, 40, 13, 13, 56, 1, 1, "SAME", False, True, "bfloat16"),
+    ("M tail 432", 3, 40, 12, 12, 24, 1, 1, "SAME", False, False, "float32"),
+    ("Co 300 over two 160-channel tiles", 1, 32, 130, 130, 300, 1, 1, "SAME", False, True,
+     "float32"),
+    ("stem on halo rows", 1, 3, 321, 640, 32, 3, 2, ((0, 0), (0, 1)), False, True,
+     "float32"),
+    ("k3 s2 depthwise on halo rows", 2, 144, 81, 160, 144, 3, 2, ((0, 0), (0, 1)), True,
+     True, "bfloat16"),
+    ("b1 level-7 5x5 1x1", 1, 224, 5, 5, 224, 1, 1, "SAME", False, True, "float32"),
+    ("b1 level-7 5x5 depthwise", 1, 224, 5, 5, 224, 3, 1, "SAME", True, True, "bfloat16"),
 ]
+CONV_INT8_INSTANCES = ("sm90", "simt")  # the path's kernel, then its ablation
 # the cmconv instances (ops/cmconv_cuda.ENTRIES) and their kernels' names
 CMCONV_INSTANCES = ("simt", "tc")
 CMCONV_KERNEL = {"simt": "cmconv3x3_kernel", "tc": "cmconv3x3_tc_kernel"}
@@ -689,6 +708,14 @@ CMCONV_BF16_CASES = (
        ("misaligned_x", 2, 8, 16, 9, 24)]
     + [("h322 8->8", DEFEND_BATCH, 8, 8, 322, 640), ("h162 16->32", DEFEND_BATCH, 16, 32, 162, 320),
        ("h13 3->8", 2, 3, 8, 13, 640), ("h1 32->16", 2, 32, 16, 1, 320)])
+
+
+START = time.perf_counter()
+
+
+def mark(label: str) -> None:
+    """Print the seconds since the script started, at the start of a phase."""
+    print(f"[{time.perf_counter() - START:.1f} s] {label}", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -782,6 +809,28 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def queued_ms(fn, iters: int = 3, warmup: int = 1) -> float:
+    """Mean device milliseconds per call of fn by CUDA events, the stream's
+    queue filled ahead: a spin kernel of about a millisecond holds the card
+    while the host enqueues the calls, so the events time the calls back to
+    back (with the gaps between launches) and not the host's work between
+    them, as `cuda_ms` does where a call is shorter than its host work."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
 def host_p50_ms(fn, iters: int, warmup: int = 2) -> float:
     """Median host milliseconds of fn() followed by a device synchronize."""
     import torch
@@ -806,6 +855,7 @@ def profile_device(fn, label: str, top: int = 6, sessions: int = 3):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    start = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     for _ in range(sessions):
@@ -827,7 +877,9 @@ def profile_device(fn, label: str, top: int = 6, sessions: int = 3):
     launches = sum(e.count for e in kernels)
     print(f"  profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%, idle "
-          f"{100 - 100 * busy_us / wall_us:.1f}%), {launches} kernel launches")
+          f"{100 - 100 * busy_us / wall_us:.1f}%), {launches} kernel launches; the "
+          f"profile took {time.perf_counter() - start:.1f} s with its warm-up call and "
+          f"the trace's processing")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms {e.count:5d}x "
               f"{e.key[:90]}")
@@ -3047,6 +3099,21 @@ class PlainInt8:
         self.mod.conv_int8 = self.orig
 
 
+class SimtInt8:
+    """In its block every int8 conv of the int8 serve launches the SIMT
+    ablation (`conv_int8.cu`, instance "simt"), not the Hopper kernel."""
+
+    def __enter__(self):
+        from mladversarialobjectdetection_torch.ops import conv_int8
+        self.mod, self.orig = conv_int8, conv_int8.conv_int8_cuda
+        orig = self.orig
+        conv_int8.conv_int8_cuda = lambda *a, **kw: orig(*a, instance="simt", **kw)
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.conv_int8_cuda = self.orig
+
+
 def int8_call(call):
     """(x, a_s, wq, scale, bias, keywords) of a captured `conv_int8_cuda` call."""
     (x, a_s, wq, scale, *rest), kw = call
@@ -3074,70 +3141,96 @@ def conv_int8_bound(x, wq, bias, kw):
             nbytes, ops, bytes_ms, ops_ms)
 
 
-def check_conv_int8(name, x, a_s, wq, scale, bias, kw) -> None:
-    """The kernel's int32 sums and output bit-equal to the plain version's,
-    and two launches bit-equal; fails otherwise."""
+def check_conv_int8(name, x, a_s, wq, scale, bias, kw, instances=("sm90",)) -> None:
+    """Each instance's int32 sums and output bit-equal to the plain
+    version's, and two launches bit-equal; the Hopper instance one launch a
+    call. Fails otherwise."""
     import torch
     from mladversarialobjectdetection_torch.ops import conv_int8 as ci
     geo = {k: kw[k] for k in ("stride", "padding", "groups") if k in kw}
-    sums = ci.sums_cuda(x, a_s, wq, **geo)
     plain_sums = ci.sums_plain(ci.quantize_plain(x, a_s), wq, **geo)
-    y = ci.conv_int8_cuda(x, a_s, wq, scale, bias, **kw)
-    y2 = ci.conv_int8_cuda(x, a_s, wq, scale, bias, **kw)
     plain = ci.conv_int8_plain(x, a_s, wq, scale, bias, **kw)
-    torch.cuda.synchronize()
-    if not torch.equal(sums, plain_sums):
-        fail(f"{name}: int32 sums differ from the plain version's in "
-             f"{int((sums != plain_sums).sum())} places")
-    if y.dtype != plain.dtype or not torch.equal(y, plain):
-        fail(f"{name}: output differs from the plain version's by "
-             f"{float((y.float() - plain.float()).abs().max())}")
-    if not torch.equal(y, y2):
-        fail(f"{name}: two launches differ")
+    for inst in instances:
+        launches = ci.INSTANCE_LAUNCHES[inst]
+        sums = ci.sums_cuda(x, a_s, wq, instance=inst, **geo)
+        y = ci.conv_int8_cuda(x, a_s, wq, scale, bias, instance=inst, **kw)
+        y2 = ci.conv_int8_cuda(x, a_s, wq, scale, bias, instance=inst, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(sums, plain_sums):
+            fail(f"{name}: {inst} int32 sums differ from the plain version's in "
+                 f"{int((sums != plain_sums).sum())} places")
+        if y.dtype != plain.dtype or not torch.equal(y, plain):
+            fail(f"{name}: {inst} output differs from the plain version's by "
+                 f"{float((y.float() - plain.float()).abs().max())}")
+        if not torch.equal(y, y2):
+            fail(f"{name}: two {inst} launches differ")
+        if inst == "sm90" and ci.INSTANCE_LAUNCHES[inst] != launches + 3:
+            fail(f"{name}: {ci.INSTANCE_LAUNCHES[inst] - launches} Hopper launches in 3 calls")
+
+
+def int8_part(wq, kw) -> str:
+    """The part of the int8 serve a conv belongs to: stem, 1x1 or depthwise."""
+    if kw.get("groups", 1) != 1:
+        return "depthwise"
+    return "1x1" if tuple(wq.shape[2:]) == (1, 1) else "stem"
 
 
 def int8_numbers(calls) -> dict:
     """The int8 conv kernel at a serve's own inputs (its captured calls):
-    each call held bit-equal to the plain version, then timed by CUDA events
-    beside its bound, the plain version, `torch._int_mm` (cuBLASLt's int8
-    product: the 1x1 convs only) and cuDNN's bf16 conv of the same shape."""
+    each call held bit-equal to the plain version with both instances, then
+    timed by CUDA events on a queue filled ahead (`queued_ms`: device time,
+    not the wrappers' host work) with the Hopper kernel and the SIMT
+    ablation in turns (Hopper, SIMT, SIMT, Hopper; each the mean of its two
+    turns) beside its bound, the plain version (`cuda_ms`), `torch._int_mm`
+    (cuBLASLt's int8 product on x quantised beforehand: the 1x1 convs only)
+    and cuDNN's bf16 conv of the same shape on x padded beforehand, both
+    timed as the kernel; summed in all and by part (stem, 1x1, depthwise)."""
     import torch
     import torch.nn.functional as F
     from mladversarialobjectdetection_torch.models.efficientnet import pad_same
     from mladversarialobjectdetection_torch.ops import conv_int8 as ci
-    tot = dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0, intmm_ms=0.0,
-               intmm_kernel_ms=0.0, cudnn_bf16_ms=0.0, n_1x1=0, n_intmm=0, n=0,
-               dense_ms=0.0, depthwise_ms=0.0, dense_bound_ms=0.0, depthwise_bound_ms=0.0)
+    parts = ("stem", "1x1", "depthwise")
+    tot = dict(ms=0.0, simt_ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0, intmm_ms=0.0,
+               intmm_kernel_ms=0.0, cudnn_bf16_ms=0.0, n_intmm=0, n=0,
+               **{f"{p}_{k}": 0.0 for p in parts for k in ("ms", "simt_ms", "bound_ms")},
+               **{f"n_{p}": 0 for p in parts})
     for i, call in enumerate(calls):
         x, a_s, wq, scale, bias, kw = int8_call(call)
-        check_conv_int8(f"phase 22a serve conv {i}", x, a_s, wq, scale, bias, kw)
-        ms = cuda_ms(lambda: ci.conv_int8_cuda(x, a_s, wq, scale, bias, **kw), iters=3,
-                     warmup=1)
+        check_conv_int8(f"phase 22a serve conv {i}", x, a_s, wq, scale, bias, kw,
+                        CONV_INT8_INSTANCES)
+        turns = {inst: 0.0 for inst in CONV_INT8_INSTANCES}
+        for inst in ("sm90", "simt", "simt", "sm90"):
+            turns[inst] += queued_ms(lambda: ci.conv_int8_cuda(x, a_s, wq, scale, bias,
+                                                               instance=inst, **kw)) / 2
+        ms, simt_ms = turns["sm90"], turns["simt"]
         tot["ms"] += ms
+        tot["simt_ms"] += simt_ms
         tot["plain_ms"] += cuda_ms(lambda: ci.conv_int8_plain(x, a_s, wq, scale, bias, **kw),
                                    iters=1, warmup=0)  # the check ran it
         _, _, _, _, bytes_ms, ops_ms = conv_int8_bound(x, wq, bias, kw)
         tot["bytes_ms"] += bytes_ms
         tot["ops_ms"] += ops_ms
-        part = "depthwise" if kw.get("groups", 1) != 1 else "dense"
+        part = int8_part(wq, kw)
+        tot[f"n_{part}"] += 1
         tot[f"{part}_ms"] += ms
+        tot[f"{part}_simt_ms"] += simt_ms
         tot[f"{part}_bound_ms"] += max(bytes_ms, ops_ms)
         stride = kw.get("stride", 1)
         xb, wb = x.to(torch.bfloat16), wq.to(torch.bfloat16)
-        tot["cudnn_bf16_ms"] += cuda_ms(lambda: F.conv2d(
-            pad_same(xb, wq.shape[2:], stride if isinstance(stride, tuple) else (stride,) * 2),
-            wb, None, stride, 0, 1, kw.get("groups", 1)), iters=3, warmup=1)
-        if wq.shape[2:] == (1, 1) and kw.get("groups", 1) == 1:
-            tot["n_1x1"] += 1
+        xb = pad_same(xb, wq.shape[2:], stride if isinstance(stride, tuple) else (stride,) * 2)
+        tot["cudnn_bf16_ms"] += queued_ms(lambda: F.conv2d(xb, wb, None, stride, 0, 1,
+                                                           kw.get("groups", 1)))
+        if part == "1x1":
             xq = ci.quantize_plain(x, a_s).permute(0, 2, 3, 1).reshape(-1, x.shape[1]).contiguous()
             wt = wq[:, :, 0, 0].t().contiguous()
             try:
                 torch._int_mm(xq, wt)
             except RuntimeError:
-                continue  # shapes cuBLASLt's int8 product refuses
-            tot["n_intmm"] += 1
-            tot["intmm_ms"] += cuda_ms(lambda: torch._int_mm(xq, wt), iters=3, warmup=1)
-            tot["intmm_kernel_ms"] += ms
+                xq = None  # shapes cuBLASLt's int8 product refuses
+            if xq is not None:
+                tot["n_intmm"] += 1
+                tot["intmm_ms"] += queued_ms(lambda: torch._int_mm(xq, wt))
+                tot["intmm_kernel_ms"] += ms
         tot["n"] += 1
     tot["bound_ms"] = max(tot["bytes_ms"], tot["ops_ms"])
     tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
@@ -3184,7 +3277,8 @@ def int8_export_phase(dev, vpath: str, work: str) -> dict:
             a_s, (torch.rand(co, generator=g) * 0.01 + 1e-3).numpy())).to(dev)
         bias = torch.randn(co, generator=g).to(dev) if has_bias else None
         check_conv_int8(f"phase 22a {name}", x, a_s, wq, scale, bias,
-                        dict(stride=s, padding=pad, groups=c if dw else 1, out_dtype=dtype))
+                        dict(stride=s, padding=pad, groups=c if dw else 1, out_dtype=dtype),
+                        CONV_INT8_INSTANCES)
     a8 = torch.full((1, 64, 2, 2), 100, dtype=torch.int8, device=dev)
     w8 = torch.full((1, 64, 1, 1), 100, dtype=torch.int8, device=dev)
     try:
@@ -3193,9 +3287,10 @@ def int8_export_phase(dev, vpath: str, work: str) -> dict:
         fconv = f"returns {r.dtype} {r.flatten()[:2].tolist()} where the sum is 640000"
     except Exception as e:  # a record of what PyTorch does, not a route
         fconv = f"raises {type(e).__name__}: {str(e).splitlines()[0][:120]}"
-    print(f"phase 22a conv_int8 kernel vs plain: {len(CONV_INT8_ODD)} odd shapes "
-          f"({', '.join(c[0] for c in CONV_INT8_ODD)}): int32 sums and outputs "
-          f"bit-equal, two launches bit-equal; F.conv2d on int8 CUDA tensors {fconv}")
+    print(f"phase 22a conv_int8 kernels ({', '.join(CONV_INT8_INSTANCES)}) vs plain: "
+          f"{len(CONV_INT8_ODD)} odd shapes ({', '.join(c[0] for c in CONV_INT8_ODD)}): "
+          f"int32 sums and outputs bit-equal, two launches bit-equal, one Hopper launch a "
+          f"call; F.conv2d on int8 CUDA tensors {fconv}")
 
     # 22b: the int8 serve at lite4@640, fp32 and bf16
     rng = np.random.default_rng(2222)
@@ -3229,10 +3324,11 @@ def int8_export_phase(dev, vpath: str, work: str) -> dict:
         counts = path_counts()
         want = dict.fromkeys(counts, 0)
         want["nms"] = len(batches)
-        if counts != want or ci.CALLS != len(batches) * calls or ci.LAUNCHES != 2 * ci.CALLS:
+        if (counts != want or ci.CALLS != len(batches) * calls or ci.LAUNCHES != ci.CALLS
+                or ci.INSTANCE_LAUNCHES != {"sm90": ci.CALLS, "simt": 0}):
             fail(f"phase 22b {label}: launches {counts} (want {want}), conv_int8 "
-                 f"{ci.LAUNCHES} launches in {ci.CALLS} calls (want {len(batches) * calls} "
-                 f"calls)")
+                 f"{ci.LAUNCHES} launches {ci.INSTANCE_LAUNCHES} in {ci.CALLS} calls (want "
+                 f"{len(batches) * calls} calls, one Hopper launch each)")
         launches = ci.LAUNCHES
         with PlainInt8():
             ci.reset_counts()
@@ -3249,7 +3345,8 @@ def int8_export_phase(dev, vpath: str, work: str) -> dict:
               f"convs of {len(eligible)} eligible, {len(shared)} head convs shared by "
               f"{levels} levels: {calls} conv calls a serve; calibration on "
               f"{INT8_CALIB_FRAMES} frames {calib_s:.2f} s): in b1 + b8 conv_int8 "
-              f"{launches} launches ({launches // len(batches)} a serve, two a call), NMS "
+              f"{launches} launches ({launches // len(batches)} a serve, one a call, all of "
+              f"the Hopper kernel), NMS "
               f"{counts['nms']}, fused MBConv 0; b8 detections equal to the plain int8 "
               f"route's (valid_len {res[8].valid_len.tolist()}); against the float "
               f"serve: largest score difference {score_diff:.4g}, top detection agrees "
@@ -3281,22 +3378,40 @@ def int8_export_phase(dev, vpath: str, work: str) -> dict:
             print(f"  {label} {mode} b8 device part: peak memory {peak:.3f} GB")
             profile_device(lambda: det.serve_tensors(images_d, scales_d),
                            f"{label} {mode} device part b8")
+            if mode == "int8":  # the Hopper kernel against its ablation, in turns
+                busy = []
+                for simt in (False, True, True, False):
+                    with SimtInt8() if simt else contextlib.nullcontext():
+                        busy.append(device_busy_ms(
+                            lambda: det.serve_tensors(images_d, scales_d)))
+                ab = (None if None in busy else
+                      ((busy[0] + busy[3]) / 2, (busy[1] + busy[2]) / 2))
+                out["serve"][f"{label} int8 b8 busy"] = ab
+                print(f"  {label} int8 b8 device part, device busy with conv_int8 on the "
+                      f"Hopper kernel vs the SIMT ablation in turns: " +
+                      ("not measured" if ab is None else
+                       f"{ab[0]:.3f} vs {ab[1]:.3f} ms ({ab[1] - ab[0]:.3f} ms; turns "
+                       f"{[round(v, 3) for v in busy]})"))
         det._int8 = int8
         del images_d, scales_d
     # 22a continued: the kernel at every conv call of a b8 serve
     for label in ("fp32", "bf16"):
         tot = int8_numbers(out.pop(f"calls_{label}"))
         out[f"numbers_{label}"] = tot
+        split = "; ".join(
+            f"{tot[f'n_{p}']} {p} {tot[f'{p}_ms']:.4f} (SIMT {tot[f'{p}_simt_ms']:.4f}, bound "
+            f"{tot[f'{p}_bound_ms']:.6f})" for p in ("stem", "1x1", "depthwise"))
         print(f"phase 22a conv_int8 at the {tot['n']} conv calls of a {label} b8 int8 "
-              f"serve: every call's sums and output bit-equal to the plain version's; "
-              f"{tot['ms']:.4f} ms in all (dense {tot['dense_ms']:.4f}, depthwise "
-              f"{tot['depthwise_ms']:.4f}), bound {tot['bound_ms']:.6f} ms "
+              f"serve: every call's sums and output bit-equal to the plain version's with "
+              f"both instances, one Hopper launch a call; in turns the Hopper kernel "
+              f"{tot['ms']:.4f} ms in all, the SIMT ablation {tot['simt_ms']:.4f} ms "
+              f"({tot['simt_ms'] / tot['ms']:.2f}x); bound {tot['bound_ms']:.6f} ms "
               f"({tot['bound_by']}: bytes {tot['bytes_ms']:.6f}, int8 operations "
-              f"{tot['ops_ms']:.6f}; dense {tot['dense_bound_ms']:.6f}, depthwise "
-              f"{tot['depthwise_bound_ms']:.6f}), plain {tot['plain_ms']:.4f} ms, "
-              f"cuDNN bf16 convs of the same shapes {tot['cudnn_bf16_ms']:.4f} ms; the "
-              f"{tot['n_1x1']} 1x1 convs: torch._int_mm {tot['intmm_ms']:.4f} ms on "
-              f"{tot['n_intmm']} of them against the kernel's {tot['intmm_kernel_ms']:.4f}")
+              f"{tot['ops_ms']:.6f}; the kernel at {100 * tot['bound_ms'] / tot['ms']:.1f}%); "
+              f"{split}; plain {tot['plain_ms']:.4f} ms, cuDNN bf16 convs of the same "
+              f"shapes {tot['cudnn_bf16_ms']:.4f} ms; torch._int_mm {tot['intmm_ms']:.4f} ms "
+              f"on {tot['n_intmm']} of the {tot['n_1x1']} 1x1 convs against the kernel's "
+              f"{tot['intmm_kernel_ms']:.4f}")
 
     # 22c: export, fp32 and bf16, and the artifact driver
     for label, det in dets.items():
@@ -3990,8 +4105,6 @@ def data_parallel_phase(dev, work: str) -> dict:
                 st, m = tr.train_step(st, images, *gt)
                 net = {k: v.detach().cpu().clone() for k, v in st.net.state_dict().items()}
                 p50 = host_p50_ms(lambda: tr.train_step(st, images, *gt), DP_STEPS, 1)
-                profile_device(lambda: tr.train_step(st, images, *gt),
-                               f"phase 24a supervised b{SUP_BATCH} step, {label}")
             sup[label] = (net, float(m["loss"]), p50)
             del tr, st
         sup_err = dp_leaf_err(sup["mesh"][0], sup["plain"][0])
@@ -4567,7 +4680,7 @@ def spr_int8(dev, frames, work: str, mesh=None) -> dict:
             torch.cuda.synchronize()
     flat = torch.cat([o.reshape(o.shape[0], -1) for o in cls + box], 1)
     out = {"scales": dict(det._int8.act_scales), "launches": ci.LAUNCHES, "calls": ci.CALLS,
-           "counts": path_counts(),
+           "instances": dict(ci.INSTANCE_LAUNCHES), "counts": path_counts(),
            "halo_calls": sum(isinstance(kw.get("padding"), tuple)
                              for _, kw in cap.args["conv_int8_cuda"])}
     path = os.path.join(work, "int8_ref.pt")
@@ -4762,9 +4875,11 @@ def spatial_rest_checks(ranks, ref, work: str) -> dict:
     for i, q in enumerate((q0, q1)):
         if q["scales"] != qr["scales"]:
             fail(f"phase 25f int8: rank {i}'s activation scales differ from one process's")
-        if q["calls"] != qr["calls"] or q["launches"] != 2 * qr["calls"]:
+        if (q["calls"] != qr["calls"] or q["launches"] != qr["calls"]
+                or q["instances"] != {"sm90": qr["calls"], "simt": 0}):
             fail(f"phase 25f int8: rank {i} made {q['calls']} conv_int8 calls and "
-                 f"{q['launches']} launches, one process {qr['calls']} calls")
+                 f"{q['launches']} launches {q['instances']}, one process {qr['calls']} "
+                 f"calls (want one Hopper launch a call)")
         if any(q["counts"].values()):
             fail(f"phase 25f int8: rank {i} launched {q['counts']} beside conv_int8")
         if not q["share"] <= SPR_INT8_SHARE:
@@ -4772,8 +4887,9 @@ def spatial_rest_checks(ranks, ref, work: str) -> dict:
                  f"{SPR_INT8_ATOL} (limit {SPR_INT8_SHARE})")
     lines.append(f"quantize_int8 at b{SPR_INT8_BATCH}: the {len(q0['scales'])} activation "
                  f"scales bit-equal to one process's; a rank made {q0['calls']} conv_int8 "
-                 f"calls ({q0['launches']} launches; {q0['halo_calls']} on halo-extended "
-                 f"rows), each bit-equal to the plain version at its inputs; the head "
+                 f"calls ({q0['launches']} launches, all of the Hopper kernel; "
+                 f"{q0['halo_calls']} on halo-extended rows), each bit-equal to the plain "
+                 f"version at its inputs; the head "
                  f"outputs {q0['share']:.4g} / {q1['share']:.4g} off by more than "
                  f"{SPR_INT8_ATOL} (max {q0['max_err']:.3g} / {q1['max_err']:.3g})")
     # the segmentation step: the function in float64 (within 1e-8 of scale,
@@ -5036,6 +5152,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
 
     # phase 1: build
+    mark("phase 1")
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s, "
@@ -5151,6 +5268,7 @@ def main() -> int:
           f"mask within the roundings, two launches bit-equal; {n_odd} odd shapes on the instance")
     del x, g, fb
 
+    mark("phase 2")
     # phase 2: kernel vs plain on the card
     rng = np.random.default_rng(0)
     max_err = 0.0
@@ -5172,6 +5290,7 @@ def main() -> int:
           f"max score error {max_err}; fast division equal to div.rn on "
           f"{div_pairs} pairs of each of its two ranges")
 
+    mark("phase 3")
     # phase 3: serve lite4@640 at full width
     t0 = time.perf_counter()
     det = Detector("efficientdet-lite4", seed=0, device="cuda")
@@ -5388,6 +5507,7 @@ def main() -> int:
     print(f"phase 4 warp kernels vs plain: {n_cases} cases within {WARP_TOL} "
           f"of scale, two launches bit-equal; max errors {warp_errs}")
 
+    mark("phase 5")
     # phase 5: the attack step, lite4@640, b24, fp32, live regime
     t0 = time.perf_counter()
     cfg = config_lib.get_efficientdet_config("efficientdet-lite4")
@@ -5551,6 +5671,7 @@ def main() -> int:
           f"{warp_cuda.WINDOWS} windows warped, artifacts {dirs}, "
           f"{len(records)} log records")
 
+    mark("phase 5b")
     # phase 5b: the bf16 attack step (config.mixed_precision, the JAX attack
     # driver's default and bench.py's attack workload): lite4@640, b24, the
     # live regime; bf16 victim, float32 patch, EOT composite, warp and loss
@@ -5672,6 +5793,7 @@ def main() -> int:
           f"{per_dtype}, warp {warp_cuda.LAUNCHES}, artifacts {dirs}")
     del final
 
+    mark("phase 8")
     # phase 8: both cmconv instances and the plan's pick vs plain at the
     # path's shapes, full size
     torch.set_grad_enabled(False)
@@ -5744,6 +5866,7 @@ def main() -> int:
           f"(tolerance {BF16_CMCONV_TOL} of scale); SIMT instance bit-equal to the bf16 "
           f"plain version at the path's shapes")
 
+    mark("phase 9")
     # phase 9: the defender step, lite4@640, b24, fp32
     t0 = time.perf_counter()
     dcfg = config_lib.get_efficientdet_config("efficientdet-lite4")
@@ -5926,6 +6049,7 @@ def main() -> int:
     torch.set_grad_enabled(True)
     torch.cuda.empty_cache()
 
+    mark("phase 9b")
     # phase 9b: the bf16 defender step (config.mixed_precision, the JAX
     # driver's --bf16): bf16 victim and U-Net, float32 parameters and loss;
     # lite4@640, b24, n_filters 8, the phase 9 images
@@ -6314,6 +6438,7 @@ def main() -> int:
     del dfd, dstate, dimages
     torch.cuda.empty_cache()
 
+    mark("phase 12")
     # phase 12: the defense driver, 3 steps at batch 12
     with tempfile.TemporaryDirectory() as tmp:
         nms_cuda.LAUNCHES = 0
@@ -6379,6 +6504,7 @@ def main() -> int:
 
     # phases 14-18: the supervised trainer, its checkpoint, and both drivers
     # killed and resumed
+    mark("phase 14")
     trainer_card_vs_cpu(dev, config_lib)
     t0 = time.perf_counter()
     pool = ScenePool(np.random.default_rng(0), n_batches=TRAIN_POOL_BATCHES,
@@ -6391,6 +6517,7 @@ def main() -> int:
     del pool
     torch.cuda.empty_cache()
 
+    mark("phase 16")
     # phase 16: eval_variables -> torch_to_flax -> save_pytree, served back by
     # Detector(ckpt_path=) against the victim in memory
     with tempfile.TemporaryDirectory() as ckdir:
@@ -6474,6 +6601,7 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as work:
             soak_phases(dev, vpath, work)
 
+        mark("phase 21")
         # phase 21: the rest of the supervised trainer; 21d first, while
         # the card holds nothing else (the fp32 b24 step peaks near 80 GB)
         torch.cuda.empty_cache()
@@ -6484,12 +6612,14 @@ def main() -> int:
             segmentation_phase(dev, work)
             tfrecord_native_phase(work)
 
+        mark("phase 22")
         # phase 22: export and quantize (the int8 conv kernel, the int8
         # serve, torch.export and its driver, the inspector, eval --artifact)
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory() as work:
             q8 = int8_export_phase(dev, vpath, work)
 
+        mark("phase 23")
         # phase 23: the packed backbone entry (serve, attack step, defender
         # step) beside the unpacked one, and the victim as a TF tarball
         torch.cuda.empty_cache()
@@ -6501,10 +6631,12 @@ def main() -> int:
             tf_checkpoint_phase(dev, vpath, work)
         print(f"phase 23 took {time.perf_counter() - t23:.2f} s")
 
+    mark("phase 20")
     # phase 20: the video demos' device path
     with tempfile.TemporaryDirectory() as work:
         demo = demo_phase(dev, work)
 
+    mark("phase 24")
     # phase 24: data parallelism, last, so that no process group outlives it
     import gc
     gc.collect()
@@ -6512,12 +6644,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         data_parallel_phase(dev, work)
 
+    mark("phase 25")
     # phase 25: spatial partitioning, two ranks on the one card
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work:
         spatial = spatial_phase(dev, work)
 
+    mark("phase 13")
     # phase 13: card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -6666,18 +6800,34 @@ def main() -> int:
             "spatial_driver_launches_per_rank": spatial[f"mbconv_{kind}_instance_driver"],
             **({"eval_instance_ms": sup_eval["mbconv"]["instance_ms"]} if kind == "fwd" else {})})
     c8, c8b = q8["numbers_fp32"], q8["numbers_bf16"]
+    parts = ("stem", "1x1", "depthwise")
+    common = {"replaces": CONV_INT8_REPLACES, "max_abs_err": 0.0, "plain_ms": c8["plain_ms"],
+              "bound_ms": c8["bound_ms"], "bound_by": c8["bound_by"],
+              "library_ms": c8["intmm_ms"],
+              "library_covers": f"torch._int_mm on {c8['n_intmm']} of the {c8['n_1x1']} 1x1 "
+                                f"convs",
+              "cudnn_bf16_ms": c8["cudnn_bf16_ms"], "conv_calls_per_serve": c8["n"],
+              "bf16_bound_ms": c8b["bound_ms"],
+              **{f"{p}_bound_ms": c8[f"{p}_bound_ms"] for p in parts}}
     kernels.append({
         "name": "conv_int8", "route": "cuda",
-        "source": "mladversarialobjectdetection_torch/csrc/conv_int8.cu",
-        "replaces": CONV_INT8_REPLACES, "launches": q8["serve"]["fp32"]["launches"],
-        "max_abs_err": 0.0, "ms": c8["ms"], "plain_ms": c8["plain_ms"],
-        "bound_ms": c8["bound_ms"], "bound_by": c8["bound_by"], "library_ms": c8["intmm_ms"],
-        "library_covers": f"torch._int_mm on {c8['n_intmm']} of the {c8['n_1x1']} 1x1 convs",
-        "kernel_ms_on_library_convs": c8["intmm_kernel_ms"],
-        "cudnn_bf16_ms": c8["cudnn_bf16_ms"], "conv_calls_per_serve": c8["n"],
-        "bf16_ms": c8b["ms"], "bf16_bound_ms": c8b["bound_ms"],
+        "source": "mladversarialobjectdetection_torch/csrc/conv_int8_sm90.cu",
+        "launches": q8["serve"]["fp32"]["launches"], "ms": c8["ms"], **common,
+        **{f"{p}_ms": c8[f"{p}_ms"] for p in parts},
+        "simt_ms": c8["simt_ms"], "kernel_ms_on_library_convs": c8["intmm_kernel_ms"],
+        "bf16_ms": c8b["ms"], "bf16_simt_ms": c8b["simt_ms"],
         "bf16_launches": q8["serve"]["bf16"]["launches"],
+        # device busy ms of the b8 int8 device part, Hopper kernel vs SIMT, in turns
+        "b8_busy_ms": q8["serve"]["fp32 int8 b8 busy"],
+        "bf16_b8_busy_ms": q8["serve"]["bf16 int8 b8 busy"],
         "spatial_int8_serve_launches_per_rank": spatial["rest"]["int8"]})
+    # the SIMT instance is off every path (0 launches there): its time is the
+    # ablation's, in turns with the Hopper kernel
+    kernels.append({
+        "name": "conv_int8_simt", "route": "cuda",
+        "source": "mladversarialobjectdetection_torch/csrc/conv_int8.cu", "launches": 0,
+        "ms": c8["simt_ms"], **common, **{f"{p}_ms": c8[f"{p}_simt_ms"] for p in parts},
+        "bf16_ms": c8b["simt_ms"], "on_lite4_path": False})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

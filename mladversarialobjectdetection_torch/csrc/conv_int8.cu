@@ -1,5 +1,7 @@
-// int8 x int8 -> int32 convolution with float dequantisation: the conv of
-// the W8A8 serve (mladversarialobjectdetection_torch/inference/quantize.py).
+// int8 x int8 -> int32 convolution with float dequantisation: the first
+// design of the W8A8 serve's conv (mladversarialobjectdetection_torch/
+// inference/quantize.py), now the ablation (instance "simt") of its Hopper
+// redesign, conv_int8_sm90.cu, which every path launches.
 //
 // Replaces no Pallas kernel. The JAX package runs this conv as XLA's int8
 // `lax.conv_general_dilated(..., preferred_element_type=int32)`
@@ -47,8 +49,10 @@
 //   3. Depthwise conv (g = C = Co): one thread per output, the taps summed
 //      in int32, the reads along W coalesced.
 //
-// The redesign is an implicit GEMM on the tensor cores (mma.sync s8
-// m16n8k32 or wgmma), ROADMAP "Levers after the ports".
+// The redesign, conv_int8_sm90.cu, is one launch a call with the
+// quantisation fused into the loads: an implicit GEMM on the tensor cores
+// (mma.sync s8 m16n8k32) for the dense convs, a shared-memory halo tile for
+// the depthwise ones.
 
 #include <cuda_bf16.h>
 

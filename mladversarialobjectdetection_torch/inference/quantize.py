@@ -165,13 +165,16 @@ def extract_biases(variables, paths: Iterable[str]) -> Dict[str, Optional[torch.
 
 
 class _QConv:
-    """One quantised conv on the device: its int8 forward."""
+    """One quantised conv on the device: its int8 forward. A dense conv's
+    weights are also packed here, once, into the kernel's layout
+    (`conv_int8.pack_int8_weights`)."""
 
     def __init__(self, mod: nn.Module, a_s: float, wq: torch.Tensor, w_scale: torch.Tensor,
                  bias: Optional[torch.Tensor], device):
         self.mod = mod
         self.a_s = a_s
         self.wq = wq.to(device).contiguous()
+        self.packed = conv_int8_ops.pack_int8_weights(self.wq) if mod.groups == 1 else None
         self.scale = torch.from_numpy(
             conv_int8_ops.dequant_scale(a_s, w_scale.numpy())).to(device)
         self.bias = None if bias is None else bias.to(device)
@@ -183,7 +186,8 @@ class _QConv:
         m = self.mod
         conv = lambda xe, padding: conv_int8_ops.conv_int8(
             xe.contiguous(), self.a_s, self.wq, self.scale, self.bias, stride=m.stride,
-            padding=padding, groups=m.groups, out_dtype=m.compute_dtype or x.dtype)
+            padding=padding, groups=m.groups, out_dtype=m.compute_dtype or x.dtype,
+            packed=self.packed)
         k, stride = m.kernel_size[0], m.stride[0]
         if height is None or spatial.active() is None or (k == 1 and stride == 1):
             return conv(x, "SAME")

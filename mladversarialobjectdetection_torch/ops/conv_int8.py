@@ -1,5 +1,5 @@
-"""The int8 convolution of the W8A8 serve (`csrc/conv_int8.cu`), its plain
-version and its wrapper.
+"""The int8 convolution of the W8A8 serve (`csrc/conv_int8_sm90.cu`, its
+ablation `csrc/conv_int8.cu`), its plain version and its wrapper.
 
 One conv of JAX's int8 interceptor (`mladversarialobjectdetection_tpu/
 inference/quantize.py:160-178`), in NCHW:
@@ -22,15 +22,23 @@ float32, once, on the host.
   it sums in int8 and wraps. The quantisation divides by a tensor on x's
   device, never by a Python scalar: PyTorch's CUDA division by a host scalar
   multiplies by its reciprocal, which rounds otherwise.
-- `conv_int8_cuda`: the kernel (two launches: the quantisation, then the
-  conv), bit-equal to the plain version (integer sums are exact in any order;
-  the kernel's epilogue keeps the multiply and the add apart). It takes
-  CUDA tensors only and launches or raises; it never falls back.
+- `conv_int8_cuda`: the kernel, bit-equal to the plain version (integer
+  sums are exact in any order; the kernel's epilogue keeps the multiply and
+  the add apart). Instance `"sm90"` (the default, every path's) is one
+  launch a call with the quantisation fused in: s8 tensor-core products for
+  groups 1, a shared-memory halo tile for depthwise convs. Its dense convs
+  read the weights packed once by `pack_int8_weights` (`packed=`; packed on
+  the fly where none is given). Instance `"simt"` is the first design, two
+  launches a call (the quantisation, then `__dp4a` or int32 sums), kept as
+  the ablation. It takes CUDA tensors only and launches or raises; it never
+  falls back.
 - `conv_int8`: the CUDA route for CUDA tensors, the plain version for CPU
   tensors.
+- `pack_int8_weights` and `sums_packed_plain`: the dense kernel's weight
+  layout and its implicit GEMM in its own K order, in plain PyTorch.
 
-`LAUNCHES` counts the kernel launches of `conv_int8_cuda` (two a call) and
-`CALLS` its calls.
+`LAUNCHES` counts the kernel launches of `conv_int8_cuda`, `CALLS` its
+calls and `INSTANCE_LAUNCHES` the launches again by instance.
 """
 from __future__ import annotations
 
@@ -45,8 +53,15 @@ import torch.nn.functional as F
 from .. import _build
 from ..models.efficientnet import same_pads
 
-LAUNCHES = 0  # kernel launches of conv_int8_cuda in this process (2 a call)
+LAUNCHES = 0  # kernel launches of conv_int8_cuda in this process
 CALLS = 0     # calls of conv_int8_cuda in this process
+# instance -> (library, C entry, launches a call)
+INSTANCES = {"sm90": ("conv_int8_sm90", "mlad_conv_int8_sm90", 1),
+             "simt": ("conv_int8", "mlad_conv_int8", 2)}
+INSTANCE_LAUNCHES = dict.fromkeys(INSTANCES, 0)  # launches by instance
+C_STEP = 4    # the dense kernel's channels a word: C is padded to it in each tap
+K_STEP = 64   # K of one step of the dense kernel: a packed row is padded to it
+CO_STEP = 32  # the packed weights' rows are padded to it
 PADDINGS = ("SAME", "VALID")
 OUT_DTYPES = (torch.float32, torch.bfloat16)
 _KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
@@ -61,6 +76,8 @@ Padding = Union[str, Sequence[Sequence[int]]]  # a mode or ((top, bottom), (left
 def reset_counts() -> None:
     global LAUNCHES, CALLS
     LAUNCHES = CALLS = 0
+    for k in INSTANCE_LAUNCHES:
+        INSTANCE_LAUNCHES[k] = 0
 
 
 def activation_scale(amax: float) -> float:
@@ -146,6 +163,55 @@ def sums_plain(xq: torch.Tensor, wq: torch.Tensor, *, stride: Stride = 1,
     return torch.round(y).to(torch.int32)
 
 
+def _round_up(n: int, step: int) -> int:
+    return -(-n // step) * step
+
+
+def packed_shape(shape: Sequence[int]) -> Tuple[int, int]:
+    """The packed weights' shape for weights of `shape` [Co, C, kh, kw]."""
+    co, c, kh, kw = (int(v) for v in shape)
+    return _round_up(co, CO_STEP), _round_up(kh * kw * _round_up(c, C_STEP), K_STEP)
+
+
+def pack_int8_weights(wq: torch.Tensor) -> torch.Tensor:
+    """The dense kernel's weights: wq [Co, C, kh, kw] int8 (groups 1) as
+    [Co padded to CO_STEP, Kp] int8, Kp = kh*kw*Cp padded to K_STEP and
+    Cp = C padded to C_STEP. Row co holds tap t = i*kw + j's channels at
+    columns t*Cp .. t*Cp + C - 1, zeros elsewhere: K-major in the kernel's K
+    order (tap, then channel)."""
+    if wq.dtype != torch.int8 or wq.dim() != 4:
+        raise TypeError(f"wq [Co, C, kh, kw] int8, got {wq.dtype} {tuple(wq.shape)}")
+    co, c, kh, kw = wq.shape
+    cp = _round_up(c, C_STEP)
+    packed = torch.zeros(packed_shape(wq.shape), dtype=torch.int8, device=wq.device)
+    packed[:co, :kh * kw * cp].view(co, kh * kw, cp)[:, :, :c] = (
+        wq.permute(0, 2, 3, 1).reshape(co, kh * kw, c))
+    return packed
+
+
+def sums_packed_plain(xq: torch.Tensor, packed: torch.Tensor, shape: Sequence[int], *,
+                      stride: Stride = 1, padding: Padding = "SAME") -> torch.Tensor:
+    """The dense kernel's implicit GEMM in its own K order: the packed
+    weights (`pack_int8_weights` of weights of `shape` [Co, C, kh, kw]) times
+    the unfolded, channel-padded xq [B, C, H, W] with K padded as the
+    weights are, a float64 product (exact: 127^2 times K stays far below
+    2^53) rounded to int32 [B, Co, OH, OW]."""
+    co, c, kh, kw = (int(v) for v in shape)
+    b, cx, h, w = xq.shape
+    if xq.dtype != torch.int8 or cx != c:
+        raise TypeError(f"xq [B, {c}, H, W] int8, got {xq.dtype} {tuple(xq.shape)}")
+    if tuple(packed.shape) != packed_shape(shape):
+        raise ValueError(f"packed weights {tuple(packed.shape)} are not those of {tuple(shape)}")
+    cp = _round_up(c, C_STEP)
+    (top, bottom, left, right), (oh, ow) = geometry(h, w, kh, kw, stride, padding)
+    xp = F.pad(xq.to(torch.float64), (left, right, top, bottom, 0, cp - c))
+    cols = F.unfold(xp, (kh, kw), stride=_pair(stride))  # [B, Cp*kh*kw, L], (c, tap) order
+    cols = cols.view(b, cp, kh * kw, oh * ow).transpose(1, 2).reshape(b, kh * kw * cp, oh * ow)
+    cols = F.pad(cols, (0, 0, 0, packed.shape[1] - kh * kw * cp))  # K's padding, zeros
+    y = packed[:co].to(torch.float64) @ cols
+    return torch.round(y).to(torch.int32).view(b, co, oh, ow)
+
+
 def dequantize_plain(acc: torch.Tensor, scale: torch.Tensor,
                      bias: Optional[torch.Tensor], out_dtype: torch.dtype) -> torch.Tensor:
     """(acc.float() * scale + bias) in out_dtype, the multiply and the add
@@ -179,8 +245,11 @@ def _check(x, a_s, wq, scale, bias, padding, groups, out_dtype):
 def conv_int8_plain(x: torch.Tensor, a_s: float, wq: torch.Tensor, scale: torch.Tensor,
                     bias: Optional[torch.Tensor] = None, *, stride: Stride = 1,
                     padding: Padding = "SAME", groups: int = 1,
-                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """The int8 conv in plain PyTorch (see the module notes)."""
+                    out_dtype: Optional[torch.dtype] = None,
+                    packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The int8 conv in plain PyTorch (see the module notes). It reads wq;
+    `packed`, the kernel's copy of it, is taken so that a kernel call runs
+    here as it stands, and is not read."""
     out_dtype = out_dtype or x.dtype
     _check(x, a_s, wq, scale, bias, padding, groups, out_dtype)
     acc = sums_plain(quantize_plain(x, a_s), wq, stride=stride, padding=padding,
@@ -189,19 +258,26 @@ def conv_int8_plain(x: torch.Tensor, a_s: float, wq: torch.Tensor, scale: torch.
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """The C entry of `csrc/conv_int8.cu`, built on first use."""
-    fn = _build.load("conv_int8").mlad_conv_int8
-    fn.argtypes = [_P, _I, ctypes.c_float, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                   _I, _I, _I, _I, _I, _P, _P, _I, _P]
+def _kernel(instance: str):
+    """The C entry of an instance, built on first use."""
+    lib, name, _ = INSTANCES[instance]
+    fn = getattr(_build.load(lib), name)
+    ints = [_I] * 14  # B, C, H, W, Co, kh, kw, sh, sw, pt, pl, OH, OW, depthwise
+    if instance == "sm90":  # x, x_bf16, a_s, w, w_rows, scale, bias, ..., out, kind, stream
+        fn.argtypes = [_P, _I, ctypes.c_float, _P, _I, _P, _P, *ints, _P, _I, _P]
+    else:  # x, x_bf16, a_s, w, scale, bias, ..., scratch, out, kind, stream
+        fn.argtypes = [_P, _I, ctypes.c_float, _P, _P, _P, *ints, _P, _P, _I, _P]
     fn.restype = _I
     return fn
 
 
-def _launch(x, a_s, wq, scale, bias, stride, padding, groups, out_dtype) -> torch.Tensor:
-    """Both kernels on PyTorch's current stream; `out_dtype` int32 writes
-    the raw sums."""
+def _launch(x, a_s, wq, scale, bias, stride, padding, groups, out_dtype, instance,
+            packed) -> torch.Tensor:
+    """One call of `instance` on PyTorch's current stream; `out_dtype`
+    int32 writes the raw sums."""
     global LAUNCHES, CALLS
+    if instance not in INSTANCES:
+        raise ValueError(f"no conv_int8 instance {instance!r}; have {sorted(INSTANCES)}")
     tensors = [x, wq, scale] + ([] if bias is None else [bias])
     if not all(t.is_cuda for t in tensors):
         raise ValueError("conv_int8_cuda takes CUDA tensors; use conv_int8_plain on the CPU")
@@ -215,20 +291,34 @@ def _launch(x, a_s, wq, scale, bias, stride, padding, groups, out_dtype) -> torc
     sh, sw = _pair(stride)
     depthwise = groups != 1
     dev = x.device
-    nbytes = b * c * h * w if depthwise else b * h * w * 4 * (-(-c // 4))
-    scratch = torch.empty((nbytes,), dtype=torch.int8, device=dev)
     out = torch.empty((b, co, oh, ow), device=dev, dtype=out_dtype)
-    fn = _kernel()
+    geo = (b, c, h, w, co, kh, kw, sh, sw, top, left, oh, ow, int(depthwise))
+    bias_ptr = None if bias is None else bias.data_ptr()
+    fn = _kernel(instance)
+    if instance == "sm90":
+        wk = wq
+        if not depthwise:
+            wk = pack_int8_weights(wq) if packed is None else packed
+            want = packed_shape(wq.shape)
+            if (wk.dtype != torch.int8 or tuple(wk.shape) != want or wk.device != dev
+                    or not wk.is_contiguous()):
+                raise ValueError(f"packed weights {wk.dtype} {tuple(wk.shape)} on {wk.device}: "
+                                 f"want pack_int8_weights(wq), int8 {want} on {dev}")
+        args = (wk.data_ptr(), wk.shape[0], scale.data_ptr(), bias_ptr, *geo)
+    else:
+        nbytes = b * c * h * w if depthwise else b * h * w * 4 * (-(-c // 4))
+        scratch = torch.empty((nbytes,), dtype=torch.int8, device=dev)
+        args = (wq.data_ptr(), scale.data_ptr(), bias_ptr, *geo, scratch.data_ptr())
     with torch.cuda.device(dev):
-        err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), a_s, wq.data_ptr(),
-                 scale.data_ptr(), None if bias is None else bias.data_ptr(), b, c, h, w, co,
-                 kh, kw, sh, sw, top, left, oh, ow, int(depthwise), scratch.data_ptr(),
-                 out.data_ptr(), _KIND[out_dtype], torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), a_s, *args, out.data_ptr(),
+                 _KIND[out_dtype], torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"conv_int8 kernel launch failed: cudaError_t {err} "
+        raise RuntimeError(f"conv_int8 {instance} kernel launch failed: cudaError_t {err} "
                            f"(x {tuple(x.shape)}, wq {tuple(wq.shape)}, stride {stride}, "
                            f"{padding}, groups {groups})")
-    LAUNCHES += 2
+    n = INSTANCES[instance][2]
+    LAUNCHES += n
+    INSTANCE_LAUNCHES[instance] += n
     CALLS += 1
     return out
 
@@ -236,31 +326,36 @@ def _launch(x, a_s, wq, scale, bias, stride, padding, groups, out_dtype) -> torc
 def conv_int8_cuda(x: torch.Tensor, a_s: float, wq: torch.Tensor, scale: torch.Tensor,
                    bias: Optional[torch.Tensor] = None, *, stride: Stride = 1,
                    padding: Padding = "SAME", groups: int = 1,
-                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """`conv_int8_plain` as the kernel: two launches on PyTorch's stream."""
+                   out_dtype: Optional[torch.dtype] = None, instance: str = "sm90",
+                   packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`conv_int8_plain` as the kernel of `instance` on PyTorch's stream."""
     out_dtype = out_dtype or x.dtype
     _check(x, a_s, wq, scale, bias, padding, groups, out_dtype)
-    return _launch(x, a_s, wq, scale, bias, stride, padding, groups, out_dtype)
+    return _launch(x, a_s, wq, scale, bias, stride, padding, groups, out_dtype, instance,
+                   packed)
 
 
 def sums_cuda(x: torch.Tensor, a_s: float, wq: torch.Tensor, *, stride: Stride = 1,
-              padding: Padding = "SAME", groups: int = 1) -> torch.Tensor:
+              padding: Padding = "SAME", groups: int = 1,
+              instance: str = "sm90") -> torch.Tensor:
     """The kernel's int32 sums of the quantised x with wq (no dequantisation),
     for holding them to `sums_plain(quantize_plain(x, a_s), wq)`."""
     scale = torch.ones((wq.shape[0],), dtype=torch.float32, device=x.device)
     _check(x, a_s, wq, scale, None, padding, groups, torch.float32)
-    return _launch(x, a_s, wq, scale, None, stride, padding, groups, torch.int32)
+    return _launch(x, a_s, wq, scale, None, stride, padding, groups, torch.int32, instance,
+                   None)
 
 
 def conv_int8(x: torch.Tensor, a_s: float, wq: torch.Tensor, scale: torch.Tensor,
               bias: Optional[torch.Tensor] = None, *, stride: Stride = 1,
               padding: Padding = "SAME", groups: int = 1,
-              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+              out_dtype: Optional[torch.dtype] = None,
+              packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The int8 conv: the kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    tensors. `packed`: `pack_int8_weights(wq)`, made once by the caller."""
     if x.is_cuda:
         return conv_int8_cuda(x, a_s, wq, scale, bias, stride=stride, padding=padding,
-                              groups=groups, out_dtype=out_dtype)
+                              groups=groups, out_dtype=out_dtype, packed=packed)
     if x.device.type == "cpu":
         return conv_int8_plain(x, a_s, wq, scale, bias, stride=stride, padding=padding,
                                groups=groups, out_dtype=out_dtype)

@@ -1541,7 +1541,10 @@ def test_grad_checkpoint_on_card_matches_no_checkpointing(cuda):
 # 4, the pooled [B, C, 1, 1] case; then explicit pads at lite4@640's int8
 # convs on a rank's rows under a two-way spatial split, the halo rows in
 # place (no row padding) and SAME's columns: the stem, a k3 stride-2 and a
-# k5 depthwise
+# k5 depthwise; then the tails of the Hopper kernel's tiles: K (C 40 in one
+# 64-wide step, 24 channels of it zeros) and M (169 and 432 pixels, off 64)
+# tails, Co 700 over many 32-channel tiles and Co 300 over two 160-channel
+# tiles, and lite4's b1 level-7 5x5 map (1x1 and depthwise)
 CONV_INT8_CASES = [(2, 13, 9, 11, 20, 1, 1, "SAME", False),
                    (1, 3, 64, 64, 32, 3, 2, "SAME", False),
                    (2, 48, 13, 37, 48, 3, 2, "SAME", True),
@@ -1550,16 +1553,24 @@ CONV_INT8_CASES = [(2, 13, 9, 11, 20, 1, 1, "SAME", False),
                    (3, 7, 1, 1, 9, 1, 1, "SAME", False),
                    (1, 3, 321, 640, 32, 3, 2, ((0, 0), (0, 1)), False),
                    (2, 144, 81, 160, 144, 3, 2, ((0, 0), (0, 1)), True),
-                   (2, 192, 44, 80, 192, 5, 1, ((0, 0), (2, 2)), True)]
+                   (2, 192, 44, 80, 192, 5, 1, ((0, 0), (2, 2)), True),
+                   (1, 40, 13, 13, 56, 1, 1, "SAME", False),
+                   (3, 40, 12, 12, 24, 1, 1, "SAME", False),
+                   (2, 64, 8, 8, 700, 1, 1, "SAME", False),
+                   (1, 32, 130, 130, 300, 1, 1, "SAME", False),
+                   (1, 224, 5, 5, 224, 1, 1, "SAME", False),
+                   (1, 224, 5, 5, 224, 3, 1, "SAME", True)]
 
 
+@pytest.mark.parametrize("instance", ["sm90", "simt"])
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", CONV_INT8_CASES)
-def test_conv_int8_kernel_bit_equal_to_plain(cuda, case, out_dtype):
-    """The int8 conv kernel against `conv_int8_plain` on the card: the int32
-    sums and the dequantised output bit-equal (integer sums are exact; the
-    epilogue keeps the multiply and the add apart), two launches bit-equal,
-    two launches a call counted."""
+def test_conv_int8_kernel_bit_equal_to_plain(cuda, case, out_dtype, instance):
+    """Each int8 conv instance against `conv_int8_plain` on the card: the
+    int32 sums and the dequantised output bit-equal (integer sums are exact;
+    the epilogue keeps the multiply and the add apart), two launches
+    bit-equal; the Hopper instance one launch a call (the SIMT one two), on
+    weights packed by the caller or by the wrapper."""
     from mladversarialobjectdetection_torch.ops import conv_int8 as ci
     b, c, h, w, co, k, s, pad, dw = case
     g = torch.Generator().manual_seed(sum(case[:6]))
@@ -1573,22 +1584,27 @@ def test_conv_int8_kernel_bit_equal_to_plain(cuda, case, out_dtype):
         a_s, (torch.rand(co, generator=g) * 0.01 + 1e-3).numpy())).to(cuda)
     bias = torch.randn(co, generator=g).to(cuda)
     groups = c if dw else 1
+    packed = ci.pack_int8_weights(wq) if instance == "sm90" and not dw else None
     kw = dict(stride=s, padding=pad, groups=groups, out_dtype=getattr(torch, out_dtype))
-    before = ci.LAUNCHES
-    sums = ci.sums_cuda(x, a_s, wq, stride=s, padding=pad, groups=groups)
+    ci.reset_counts()
+    sums = ci.sums_cuda(x, a_s, wq, stride=s, padding=pad, groups=groups, instance=instance)
     assert torch.equal(sums, ci.sums_plain(ci.quantize_plain(x, a_s), wq, stride=s,
                                            padding=pad, groups=groups))
-    y = ci.conv_int8_cuda(x, a_s, wq, scale, bias, **kw)
-    assert ci.LAUNCHES == before + 4
+    y = ci.conv_int8_cuda(x, a_s, wq, scale, bias, instance=instance, packed=packed, **kw)
+    per_call = 1 if instance == "sm90" else 2
+    assert ci.CALLS == 2 and ci.LAUNCHES == 2 * per_call
+    assert ci.INSTANCE_LAUNCHES[instance] == ci.LAUNCHES
     assert torch.equal(y, ci.conv_int8_plain(x, a_s, wq, scale, bias, **kw))
-    assert torch.equal(y, ci.conv_int8_cuda(x, a_s, wq, scale, bias, **kw))
+    assert torch.equal(y, ci.conv_int8_cuda(x, a_s, wq, scale, bias, instance=instance,
+                                            packed=packed, **kw))
     torch.cuda.synchronize()
 
 
 def test_int8_serve_on_card_equals_the_plain_route(cuda, monkeypatch):
     """`Detector.quantize_int8` at lite0@64 on the card: NMS once a serve,
-    no fused MBConv launch, two int8 launches per quantised conv call, and
-    detections equal to the same detector's on `conv_int8_plain`."""
+    no fused MBConv launch, one int8 launch per quantised conv call, all of
+    the Hopper instance, and detections equal to the same detector's on
+    `conv_int8_plain`."""
     from mladversarialobjectdetection_torch.ops import conv_int8 as ci
     from mladversarialobjectdetection_torch.ops import mbconv_cuda
     det = Detector("efficientdet-lite0", params=DEMO_PARAMS, device=cuda)
@@ -1603,7 +1619,8 @@ def test_int8_serve_on_card_equals_the_plain_route(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert nms_cuda.LAUNCHES == before + 1
     assert mbconv_cuda.LAUNCHES["mbconv_fwd"] == 0
-    assert ci.CALLS >= n_convs and ci.LAUNCHES == 2 * ci.CALLS
+    assert ci.CALLS >= n_convs and ci.LAUNCHES == ci.CALLS
+    assert ci.INSTANCE_LAUNCHES == {"sm90": ci.CALLS, "simt": 0}
     monkeypatch.setattr(ci, "conv_int8", ci.conv_int8_plain)
     ci.reset_counts()
     want = det.serve(frames[:2])
