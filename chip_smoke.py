@@ -72,8 +72,10 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    with none, and on the b24 live regime's windows, within WARP_TOL of the
    output's scale, and at the frontier's window 448 (16 windows of one
    image, regions of 300 px, the b24 live regime at scale .6); two
-   launches of each kernel must be bit-equal, and an image with no window
-   must get an exactly zero canvas gradient;
+   launches of each kernel must be bit-equal, pass 2's forward bit-equal to
+   its ablation (`pass2_fwd_ablation`, the thread-per-output kernel) here
+   and wherever it is checked, and an image with no window must get an
+   exactly zero canvas gradient;
 5. attack step: `PatchAttacker.train_step` on efficientdet-lite4 at 640,
    full width and depth, seeded weights, fp32 (TF32 off), batch 24, window
    320, 256 NMS candidates, in the benchmark's "live" regime (1-5 person
@@ -91,7 +93,10 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
 6. warp kernels in the step: each kernel on the inputs a step gave it,
    against its plain version, timed beside its bound (the input positions
    that a non-zero tap reads, each read once, and the output written once)
-   and the plain time, with the windows at r = 1 counted;
+   and the plain time, with the windows at r = 1 counted; pass 2's forward
+   and its ablation in turns in one profiler session (`pass2_turns`), each
+   beside the bound; the ablation never launched on the path (phases 5,
+   5b, 9, 9b, 19a, 19b);
 6a. fused MBConv kernels in the step: the forward of the 25 blocks of the
    gradient-carrying pass and their 25 dx launches, on the inputs the step
    gave them, against the plain versions (as in 1a, the mask flips counted),
@@ -150,7 +155,8 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    and over the 8 forward launches (`recover`'s and `eval_step`'s); the
    cuDNN weight gradient of the same convs; the two forward warp kernels
    (the masker's windows) and NMS (the victim pass) on the inputs the same
-   step gave them, against their plain versions;
+   step gave them, against their plain versions, the warp kernels timed
+   beside their bounds (pass 2's in turns with its ablation);
 9b. bf16 defender step: phase 9's step with `config.mixed_precision`
    (bf16 victim and U-Net): 15 bf16 cmconv launches a step, all on the
    Hopper instance, and no float32 one, 25 bf16 fused MBConv forward (on the
@@ -225,7 +231,7 @@ CUDA toolkit; imports nothing of JAX. Phases, each of which fails the run:
    batches x 4 draws, the scale bit-equal to its pin in every evaluation,
    `frontier.json`'s keys; then the warp kernels at window 448 on a
    frontier step's inputs (the b24 live regime) against the plain passes,
-   timed beside their bounds;
+   timed beside their bounds (pass 2's in turns with its ablation);
    19c: the production soak's attack stage (3 steps) and defender stage (2
    steps of 15 bf16 cmconv launches, all on the Hopper instance, 1 NMS and 25
    bf16 MBConv forward, one eval of 2 batches): recovery PSNR and ADR finite, or NaN only where the
@@ -919,6 +925,47 @@ def kernel_device_ms(fn, kernel: str, iters: int = 10, sessions: int = 3) -> flo
     return ms
 
 
+def kernel_turns_ms(fns: dict, iters: int = 10, sessions: int = 3) -> dict:
+    """{key: mean device ms per launch} of the CUDA kernel whose name
+    contains `key`, launched by fns[key], from one torch.profiler session in
+    which the calls run in turns: each `iters` times in order, then again in
+    the reverse order (A, B, B, A). A session that records no device time of
+    one of them is tried again; after `sessions` such ones each is timed by
+    CUDA events in the same turns (host work between launches included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    order = list(fns) + list(fns)[::-1]
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for key in order:
+                for _ in range(iters):
+                    fns[key]()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        out = {}
+        for key in fns:
+            hits = [e for e in events if key in e.key]
+            total_us = sum(e.self_device_time_total for e in hits)
+            count = sum(e.count for e in hits)
+            if count and total_us > 0:
+                out[key] = total_us / 1e3 / count
+        if len(out) == len(fns):
+            return out
+        print(f"  profiler session {attempt} of {sessions} saw no device time of "
+              f"{sorted(set(fns) - set(out))}")
+    times = {key: [] for key in fns}
+    for key in order:
+        times[key].append(cuda_ms(fns[key], iters=max(iters, 10)))
+    print(f"  {list(fns)}: timed by CUDA events instead, in turns (host work "
+          f"between launches included)")
+    return {key: sum(v) / len(v) for key, v in times.items()}
+
+
 def kernel_name(mangled: str) -> str:
     """The `*_kernel` component of an Itanium-mangled entry name, with its
     integer and bool template arguments: `mbconv_fwd_kernel<3,8,8,8,1,1>`."""
@@ -1157,6 +1204,7 @@ def check_warp(name, canvases, table, w, g=None):
     for k, a, b in zip(WARP_KERNELS, again, (t, out, dt, dc)):
         if not torch.equal(a, b):
             fail(f"warp {name} {k}: two launches differ")
+    check_pass2_ablation(name, t, table, out)
     empty = sorted(set(range(n_img)) - set(table[:, 7].long().tolist()))
     if empty and bool(dc[empty].any()):
         fail(f"warp {name} pass1_bwd: an image with no window got a gradient")
@@ -1182,7 +1230,38 @@ def check_warp_fwd(name, canvases, table, w, t_in, chunk: int = 16):
     if not (torch.equal(warp_cuda.pass1_fwd(canvases, table, w), t)
             and torch.equal(warp_cuda.pass2_fwd(t_in, table), out)):
         fail(f"warp {name}: two launches of a forward kernel differ")
+    check_pass2_ablation(name, t_in, table, out)
     return errs
+
+
+def check_pass2_ablation(name, t, table, out) -> None:
+    """pass2_fwd's output `out` bit-equal to its ablation's on the same t:
+    the same taps summed in the same order, plus taps that are zero."""
+    import torch
+    from mladversarialobjectdetection_torch.ops import warp_cuda
+
+    if not torch.equal(warp_cuda.pass2_fwd_ablation(t, table), out):
+        fail(f"warp {name} pass2_fwd: differs from its ablation, the thread-per-output kernel")
+
+
+def no_ablation(label: str) -> None:
+    """The run since the last count reset launched no warp ablation."""
+    from mladversarialobjectdetection_torch.ops import warp_cuda
+
+    if any(warp_cuda.ABLATION_LAUNCHES.values()):
+        fail(f"{label}: the path launched the pass 2 ablation "
+             f"{warp_cuda.ABLATION_LAUNCHES}")
+
+
+def pass2_turns(t, table, iters: int = 10):
+    """(kernel ms, ablation ms): the device ms per launch of pass2_fwd's
+    kernel and of its ablation on the same inputs, in turns."""
+    from mladversarialobjectdetection_torch.ops import warp_cuda
+
+    ms = kernel_turns_ms({"pass2_fwd_kernel": lambda: warp_cuda.pass2_fwd(t, table),
+                          "pass2_fwd_per_output_kernel":
+                              lambda: warp_cuda.pass2_fwd_ablation(t, table)}, iters)
+    return ms["pass2_fwd_kernel"], ms["pass2_fwd_per_output_kernel"]
 
 
 def warp_taps(table, n_img: int, p0: int, w: int):
@@ -2311,6 +2390,7 @@ def soak_phases(dev, vpath: str, work: str) -> None:
                                record=record, out_json=out, device=dev)
     torch.cuda.synchronize()
     counts = path_counts()
+    no_ablation("phase 19a")
     launched_every("phase 19a", counts, (*WARP_KERNELS, "nms", "mbconv_fwd_bf16",
                                          "mbconv_dx_bf16"))
     if len(steps.calls) != 6 or [bool(kw.get("with_asr")) for kw, _ in steps.calls] \
@@ -2368,6 +2448,7 @@ def soak_phases(dev, vpath: str, work: str) -> None:
                     seed=0, record=record, out_json=fout, device=dev)
     torch.cuda.synchronize()
     fcounts = path_counts()
+    no_ablation("phase 19b")
     fwindows = warp_cuda.WINDOWS
     launched_every("phase 19b", fcounts, (*WARP_KERNELS, "nms", "mbconv_fwd_bf16",
                                           "mbconv_dx_bf16"))
@@ -2416,14 +2497,22 @@ def soak_phases(dev, vpath: str, work: str) -> None:
                           lambda: eot.pass1_bwd(dt_in, table, n_img)),
         }
         for k, (kern_fn, plain_fn) in calls.items():
-            kern_ms = kernel_device_ms(kern_fn, f"{k}_kernel")
+            if k == "pass2_fwd":
+                kern_ms, ablation_ms = pass2_turns(t_in, table)
+            else:
+                kern_ms = kernel_device_ms(kern_fn, f"{k}_kernel")
             plain_ms = cuda_ms(plain_fn, iters=3, warmup=1)
             bound_ms, bound_by, nbytes, ops = bounds[k]
             print(f"  warp {k} at window {w}, a frontier step's {table.shape[0]} "
-                  f"windows (scale .6, p0 {p0}, {n_img} canvases): kernel "
+                  f"windows (scale .6, p0 {p0}, {n_img} canvases, "
+                  f"{int((table[:, 6] == 1).sum())} at r = 1): kernel "
                   f"{kern_ms:.4f} ms on the card, plain {plain_ms:.4f} ms, bound "
                   f"{bound_ms:.6f} ms ({bound_by}: {nbytes} B, {ops} fp32 ops), "
                   f"{bound_ms / kern_ms:.1%} of the bound; max error {errs[k]:.3g}")
+            if k == "pass2_fwd":
+                print(f"  warp pass2_fwd's ablation in turns with it: {ablation_ms:.4f} "
+                      f"ms, {bound_ms / ablation_ms:.1%} of the bound; the kernel "
+                      f"{ablation_ms / kern_ms:.3f}x faster")
     del cap, canvases, t_in, g_in, dt_in, atk, st, val4
     print(f"phase 19b warp kernels at window {FRONTIER_WINDOW} on a frontier step's "
           f"inputs: within {WARP_TOL} of the plain passes, two launches bit-equal, in "
@@ -5540,6 +5629,7 @@ def main() -> int:
             _, metrics = step()
     torch.cuda.synchronize()
     attack_launches = dict(warp_cuda.LAUNCHES, nms=nms_cuda.LAUNCHES)
+    no_ablation("phase 5")
     attack_mb = dict(mbconv_cuda.LAUNCHES)
     attack_copies = mbconv.LAYOUT_COPIES - copies0
     windows_seen = warp_cuda.WINDOWS
@@ -5611,7 +5701,10 @@ def main() -> int:
     }
     warp_times = {}
     for k, (kern_fn, plain_fn) in calls.items():
-        kern_ms = kernel_device_ms(kern_fn, f"{k}_kernel")
+        if k == "pass2_fwd":
+            kern_ms, ablation_ms = pass2_turns(t_in, table)
+        else:
+            kern_ms = kernel_device_ms(kern_fn, f"{k}_kernel")
         wrapper_ms = cuda_ms(kern_fn, iters=20)
         plain_ms = cuda_ms(plain_fn, iters=3, warmup=1)
         bound_ms, bound_by, nbytes, ops = bounds[k]
@@ -5622,6 +5715,10 @@ def main() -> int:
               f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
               f"{nbytes} B, {ops} fp32 ops), {bound_ms / kern_ms:.1%} of the "
               f"bound; {attack_launches[k] // ATTACK_STEPS} launch per step")
+        if k == "pass2_fwd":
+            print(f"  warp pass2_fwd's ablation (the thread-per-output kernel) in "
+                  f"turns with it: {ablation_ms:.4f} ms, {bound_ms / ablation_ms:.1%} "
+                  f"of the bound; the kernel {ablation_ms / kern_ms:.3f}x faster")
     print(f"phase 6 warp kernels at the step's inputs: {int((table[:, 6] == 1).sum())} "
           f"of {table.shape[0]} windows at r = 1 (the kernels' instance without the "
           f"hat's division); non-zero taps pass 1 {taps[0]}, pass 2 {taps[1]}; input "
@@ -5704,6 +5801,7 @@ def main() -> int:
             _, bm = bstep()
     torch.cuda.synchronize()
     bf16_launches = dict(warp_cuda.LAUNCHES, nms=nms_cuda.LAUNCHES)
+    no_ablation("phase 5b")
     bf16_mb = {k: dict(v) for k, v in mbconv_cuda.DTYPE_LAUNCHES.items()}
     bpeak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     if bf16_launches != dict.fromkeys(bf16_launches, ATTACK_STEPS):
@@ -5897,6 +5995,7 @@ def main() -> int:
     torch.cuda.synchronize()
     defend_launches = dict(warp_cuda.LAUNCHES, nms=nms_cuda.LAUNCHES,
                            cmconv=cmconv_cuda.LAUNCHES)
+    no_ablation("phase 9")
     check_fused_route("defender step", dict(mbconv_cuda.LAUNCHES), unfused,
                       MBCONV_PER_PASS * DEFEND_STEPS, 0, passes=DEFEND_STEPS)
     defend_windows = warp_cuda.WINDOWS
@@ -6034,13 +6133,21 @@ def main() -> int:
     (t_in, _), _ = cap.args["pass2_fwd"][0]
     errs = check_warp_fwd("defender step inputs", canvases, table, win_w, t_in)
     warp_errs = {k: max(warp_errs[k], errs.get(k, 0.0)) for k in WARP_KERNELS}
-    dwarp_ms = {k: kernel_device_ms(fn, f"{k}_kernel", iters=5) for k, fn in (
-        ("pass1_fwd", lambda: warp_cuda.pass1_fwd(canvases, table, win_w)),
-        ("pass2_fwd", lambda: warp_cuda.pass2_fwd(t_in, table)))}
+    d_img, d_p0 = canvases.shape[0], canvases.shape[1]
+    dbounds = warp_bounds(d_img, table.shape[0], d_p0, win_w,
+                          warp_taps(table, d_img, d_p0, win_w))
+    dwarp_ms = {"pass1_fwd": kernel_device_ms(
+        lambda: warp_cuda.pass1_fwd(canvases, table, win_w), "pass1_fwd_kernel", iters=5)}
+    dwarp_ms["pass2_fwd"], dablation_ms = pass2_turns(t_in, table, iters=5)
     print(f"  warp forward kernels at the defender step's {table.shape[0]} "
-          f"windows (p0 {canvases.shape[1]}, w {win_w}, {canvases.shape[0]} "
-          f"canvases): max errors {errs}, two launches bit-equal; kernel "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in dwarp_ms.items()))
+          f"windows (p0 {d_p0}, w {win_w}, {d_img} canvases, "
+          f"{int((table[:, 6] == 1).sum())} at r = 1): max errors {errs}, two launches "
+          f"bit-equal; kernel " + ", ".join(
+              f"{k} {v:.4f} ms, bound {dbounds[k][0]:.6f} ms ({dbounds[k][1]}: "
+              f"{dbounds[k][2]} B), {dbounds[k][0] / v:.1%} of it"
+              for k, v in dwarp_ms.items())
+          + f"; pass2_fwd's ablation in turns with it {dablation_ms:.4f} ms, "
+          f"{dbounds['pass2_fwd'][0] / dablation_ms:.1%} of the bound")
     (nms_boxes, nms_scores), nms_kw = cap.args["batched_nms_cuda"][0]
     defend_nms = nms_numbers(nms_boxes, nms_scores, nms_kw, "defender victim pass")
     max_err = max(max_err, defend_nms[-1])
@@ -6079,6 +6186,7 @@ def main() -> int:
     bdefend_launches = dict(warp_cuda.LAUNCHES, nms=nms_cuda.LAUNCHES,
                             cmconv_bf16=cmconv_cuda.DTYPE_LAUNCHES["bfloat16"],
                             cmconv_fp32=cmconv_cuda.DTYPE_LAUNCHES["float32"])
+    no_ablation("phase 9b")
     bd_mb = {k: dict(v) for k, v in mbconv_cuda.DTYPE_LAUNCHES.items()}
     check_fused_route("bf16 defender step", dict(mbconv_cuda.LAUNCHES), unfused,
                       MBCONV_PER_PASS * DEFEND_STEPS, 0, passes=DEFEND_STEPS)

@@ -26,9 +26,9 @@
 //     running the grid in order; Hopper runs blocks in no order, so the
 //     transposes gather instead of scatter;
 //   - the hat is zero beyond r, so an output visits only the taps around
-//     its centre c (about 2r + 1, not p0 or w): [floor(c - r) - 1,
-//     ceil(c + r) + 1] in pass 2, [floor(c - r), ceil(c + r)] in pass 1 and
-//     the transposes (`taps_near`). For the transposes' outputs the
+//     its centre c (about 2r + 1, not p0 or w): [floor(c - r), ceil(c + r)]
+//     (`taps_near`; pass 2 walks the union of 4 pixels' intervals, the
+//     ablation [floor(c - r) - 1, ceil(c + r) + 1]). For the transposes' outputs the
 //     interval is solved from the slope of the affine index (a in y for
 //     pass 2^T, g_x in x for pass 1^T) by its sign, and is the full range
 //     when the slope is 0 (`taps_along`);
@@ -40,7 +40,28 @@
 //
 // The forward passes. Bytes bound them on an H100 (pass 2 at the attack step
 // writes 86 MB, pass 1 26 MB).
-//   - pass 2: one thread per output element (all three channels);
+//   - pass 2: one CTA per (window n, tile of 64 columns x by 16 rows y), a
+//     thread per 4 adjacent pixels of a row, a half-warp per row. A thread
+//     per output pixel that read its window's 8 floats from device memory,
+//     walked two taps that are zero for certain, divided in every hat and
+//     wrote its 3 floats with scalar stores ran at 47-52% of its byte bound
+//     (kept as `pass2_fwd_per_output_kernel`, the ablation: no path calls
+//     it). Here the window is read once into shared memory; a window with
+//     r = 1 runs the hat without its division (`hat<true>`); a thread walks
+//     the union of its 4 pixels' `taps_near` intervals (an empty one adds
+//     nothing to it; a thread whose union is empty evaluates no hat) and
+//     reads each tap's 4 pixels of t (12 floats) with three 16-byte loads,
+//     from L1; its 12 outputs go through shared memory so that each 16-byte
+//     store of a half-warp writes 256 contiguous bytes, whole sectors (each
+//     thread storing its own 48 bytes was slower). Where w is not a multiple
+//     of 4 or a pointer is not 16-byte aligned the same kernel runs with
+//     scalar loads and stores. Staging a tile's band of t in shared memory,
+//     a prefetch of the next tap's row, a CTA that walks several row tiles,
+//     tiles of 32 or 128 columns and a register cap that spills were each
+//     slower on the card (PERF.md). The sums keep i ascending, one
+//     accumulator a channel, and the normaliser stays a product with 1 / N2;
+//     a tap that is zero for a pixel adds +0 to its sums, which leaves a
+//     float sum unchanged, so the outputs equal the ablation's bit for bit;
 //   - pass 1: one CTA per (window n, block of 4 canvas rows i). A thread per
 //     output that read its window's 8 floats and its canvas row from device
 //     memory, walked two taps that are zero for certain and divided in
@@ -133,7 +154,7 @@ __device__ __forceinline__ float affine(float alpha, float m, float beta,
 }
 
 // hat(c - k) = max(0, 1 - |c - k| / r), as ops/eot.py `_hat`. At r = 1 the
-// division is exact, so the kUnit instance (pass 1 and the transposes)
+// division is exact, so the kUnit instance (every kernel but the ablation)
 // leaves it out and gets the same float
 template <bool kUnit = false>
 __device__ __forceinline__ float hat(float c, int k, float r) {
@@ -143,7 +164,7 @@ __device__ __forceinline__ float hat(float c, int k, float r) {
 }
 
 // [lo, hi] within [0, n): the taps k whose hat(c - k) can be non-zero,
-// widened by one on each side
+// widened by one on each side (the pass 2 ablation's)
 __device__ __forceinline__ void taps_around(float c, float r, int n, int& lo,
                                             int& hi) {
   const float l = floorf(__fsub_rn(c, r)) - 1.0f;
@@ -152,7 +173,7 @@ __device__ __forceinline__ void taps_around(float c, float r, int n, int& lo,
   hi = static_cast<int>(fminf(fmaxf(h, -1.0f), static_cast<float>(n - 1)));
 }
 
-// Pass 1's and the transposes' intervals hold no margin beyond the real one: their
+// The other kernels' intervals hold no margin beyond the real one: their
 // floor and ceil already take in the rounding of the affine index (well
 // under a thousandth of a step), and each end may hold a zero tap. The CPU
 // tests hold their float32 twins in ops/warp_cuda.py to every non-zero tap
@@ -271,9 +292,141 @@ pass1_fwd_kernel(const float* __restrict__ canvas,
   }
 }
 
+// pass 2: a CTA per (window n, tile of kTileX columns x by kTileY rows y), a
+// thread per kQuad adjacent pixels (y, x0 .. x0 + 3) of a row, a half-warp
+// per row of the tile. The union of the pixels' `taps_near` intervals, i
+// ascending: each tap reads the quad's 12 floats of t row i and adds hat * t
+// to each pixel's sums (+0 where the tap is outside that pixel's interval).
+// kVec: w % 4 == 0 and t, out 16-byte aligned, so the 12 floats are three
+// float4s, and a half-warp's row of outputs (768 bytes) goes through shared
+// memory so that each store instruction writes whole sectors.
+constexpr int kQuad = 4;
+constexpr int kTileX = 64;
+constexpr int kQuadsX = kTileX / kQuad;  // 16: a half-warp
+constexpr int kTileY = kThreads / kQuadsX;
+
+// the quad's outputs o[3 * k + c] of pixel (y, x0 + k), k < nx
+template <bool kUnit, bool kVec>
+__device__ __forceinline__ void pass2_fwd_quad(const float* __restrict__ t,
+                                               const Window& q, int n, int y,
+                                               int x0, int nx, int p0, int w,
+                                               float (&o)[kQuad * 3]) {
+  float u[kQuad];
+  int lo = p0, hi = -1;
+#pragma unroll
+  for (int k = 0; k < kQuad; ++k) {
+    u[k] = affine(q.a, static_cast<float>(y), q.b, static_cast<float>(x0 + k),
+                  q.cu);
+    int l, h;
+    taps_near(u[k], q.r, p0, l, h);
+    if (k < nx && l <= h) {
+      lo = min(lo, l);
+      hi = max(hi, h);
+    }
+  }
+  float acc[kQuad * 3], s[kQuad];
+#pragma unroll
+  for (int k = 0; k < kQuad; ++k) {
+    acc[3 * k] = acc[3 * k + 1] = acc[3 * k + 2] = s[k] = 0.0f;
+  }
+  const float* col = t + (static_cast<int64_t>(n) * p0 * w + x0) * 3;
+  for (int i = lo; i <= hi; ++i) {
+    const float* src = col + static_cast<int64_t>(i) * w * 3;
+    float v[kQuad * 3];
+    if (kVec) {
+      const float4* src4 = reinterpret_cast<const float4*>(src);
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        const float4 f = __ldg(src4 + m);
+        v[4 * m] = f.x;
+        v[4 * m + 1] = f.y;
+        v[4 * m + 2] = f.z;
+        v[4 * m + 3] = f.w;
+      }
+    } else {
+#pragma unroll
+      for (int m = 0; m < kQuad * 3; ++m) {
+        v[m] = 0.0f;
+        if (m < 3 * nx) v[m] = __ldg(src + m);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kQuad; ++k) {
+      const float h = hat<kUnit>(u[k], i, q.r);
+      acc[3 * k] += h * v[3 * k];
+      acc[3 * k + 1] += h * v[3 * k + 1];
+      acc[3 * k + 2] += h * v[3 * k + 2];
+      s[k] += h;
+    }
+  }
+  if (lo > hi) return;  // no tap: o stays 0, as 0 * (1 / N2) is +0
+#pragma unroll
+  for (int k = 0; k < kQuad; ++k) {
+    const float inv = __fdiv_rn(1.0f, fmaxf(s[k], kNormFloor));
+    o[3 * k] = acc[3 * k] * inv;
+    o[3 * k + 1] = acc[3 * k + 1] * inv;
+    o[3 * k + 2] = acc[3 * k + 2] * inv;
+  }
+}
+
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 pass2_fwd_kernel(const float* __restrict__ t, const float* __restrict__ table,
-                 int64_t total, int p0, int w, float* __restrict__ out) {
+                 int p0, int w, float* __restrict__ out) {
+  __shared__ Window q_s;
+  __shared__ float4 stage[kThreads * 3];  // each thread's 12 outputs, 12 KB
+  const int n = blockIdx.x;
+  const int lane_x = threadIdx.x % kQuadsX;
+  const int xt = blockIdx.y * kTileX;
+  const int x0 = xt + lane_x * kQuad;
+  const int y = blockIdx.z * kTileY + threadIdx.x / kQuadsX;
+  const int nx = min(kQuad, w - x0);  // pixels of the quad inside w
+  if (threadIdx.x == 0) q_s = load_window(table, n);
+  __syncthreads();
+  const Window q = q_s;
+  float o[kQuad * 3];
+#pragma unroll
+  for (int m = 0; m < kQuad * 3; ++m) o[m] = 0.0f;
+  if (y < w && nx > 0) {
+    if (q.r == 1.0f) {
+      pass2_fwd_quad<true, kVec>(t, q, n, y, x0, nx, p0, w, o);
+    } else {
+      pass2_fwd_quad<false, kVec>(t, q, n, y, x0, nx, p0, w, o);
+    }
+  }
+  float* row = out + ((static_cast<int64_t>(n) * w + y) * w + xt) * 3;
+  if (!kVec) {
+    if (y >= w) return;
+#pragma unroll
+    for (int m = 0; m < kQuad * 3; ++m) {
+      if (m < 3 * nx) row[3 * kQuad * lane_x + m] = o[m];
+    }
+    return;
+  }
+  // the half-warp's row of 16 quads, in order, then float4 m * 16 + lane_x
+  // of it from each thread: 256 contiguous bytes a half-warp a store
+  float4* mine = stage + 3 * threadIdx.x;
+  mine[0] = make_float4(o[0], o[1], o[2], o[3]);
+  mine[1] = make_float4(o[4], o[5], o[6], o[7]);
+  mine[2] = make_float4(o[8], o[9], o[10], o[11]);
+  __syncwarp();
+  if (y >= w) return;
+  const float4* half = stage + 3 * (threadIdx.x - lane_x);
+  const int count = min(kTileX, w - xt) * 3 / 4;  // float4s of the row (w % 4 == 0)
+  float4* dst = reinterpret_cast<float4*>(row);
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    const int f = m * kQuadsX + lane_x;
+    if (f < count) dst[f] = half[f];
+  }
+}
+
+// pass 2's first kernel, a thread per output pixel: the ablation timed
+// beside pass2_fwd_kernel, which no path calls
+__global__ void __launch_bounds__(kThreads)
+pass2_fwd_per_output_kernel(const float* __restrict__ t,
+                            const float* __restrict__ table, int64_t total,
+                            int p0, int w, float* __restrict__ out) {
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   const int x = static_cast<int>(idx % w);
@@ -588,11 +741,33 @@ extern "C" int mlad_warp_pass1_fwd(const float* canvas, const float* table,
 extern "C" int mlad_warp_pass2_fwd(const float* t, const float* table,
                                    int n_win, int p0, int w, float* out,
                                    void* stream) {
+  const int tiles_x = (w + kTileX - 1) / kTileX;
+  const int tiles_y = (w + kTileY - 1) / kTileY;
+  if (!shapes_ok(n_win, p0, w) || tiles_x > 65535 || tiles_y > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(n_win, tiles_x, tiles_y);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = w % kQuad == 0 &&
+                   ((reinterpret_cast<uintptr_t>(t) |
+                     reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  if (vec) {
+    pass2_fwd_kernel<true><<<grid, kThreads, 0, s>>>(t, table, p0, w, out);
+  } else {
+    pass2_fwd_kernel<false><<<grid, kThreads, 0, s>>>(t, table, p0, w, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the same, by the ablation (a thread per output pixel)
+extern "C" int mlad_warp_pass2_fwd_ablation(const float* t, const float* table,
+                                            int n_win, int p0, int w,
+                                            float* out, void* stream) {
   if (!shapes_ok(n_win, p0, w)) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t total = static_cast<int64_t>(n_win) * w * w;
-  pass2_fwd_kernel<<<blocks_for(total), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(t, table, total, p0,
-                                                          w, out);
+  pass2_fwd_per_output_kernel<<<blocks_for(total), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      t, table, total, p0, w, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,14 +18,18 @@ table order with the live columns of each window's rows
 (`pass1_bwd_ranges`). A live range covers every position that a non-zero
 hat reads, widened by one on each side; the kernels still evaluate every
 hat and skip the zeros, so a wide range costs time, never a tap.
-`taps_near` and `taps_along` are float32 twins of the kernels' own
-intervals (pass 1's and the transposes'), for the tests.
+`taps_near`, `taps_along` and `pass2_fwd_taps` are float32 twins of the
+kernels' own intervals, and `hat` of their hat, for the tests.
 The wrappers
-take only contiguous float32 CUDA tensors (the kernels read single floats,
-so no alignment beyond a float's is needed), launch on PyTorch's current
+take only contiguous float32 CUDA tensors (the kernels read single floats;
+pass 2's forward takes 16-byte loads and stores where w % 4 == 0 and its
+pointers allow, single floats elsewhere), launch on PyTorch's current
 stream, allocate their outputs and nothing else, and raise on any refusal;
 none falls back to the plain version. `LAUNCHES` counts the launches of each
 kernel and `WINDOWS` the windows the pass-1 forward kernel has warped.
+`pass2_fwd_ablation` launches pass 2's first kernel (a thread per output
+pixel), bit-equal to `pass2_fwd`: no path calls it, and it counts in
+`ABLATION_LAUNCHES` alone.
 """
 from __future__ import annotations
 
@@ -40,9 +44,11 @@ from .. import _build
 # kernel launches made by the wrappers in this process, per kernel
 LAUNCHES = {"pass1_fwd": 0, "pass2_fwd": 0, "pass2_bwd": 0, "pass1_bwd": 0}
 WINDOWS = 0  # windows warped by pass1_fwd launches in this process
+ABLATION_LAUNCHES = {"pass2_fwd_ablation": 0}  # launches of the ablation
 
 TABLE_COLS = 8
 STRIP = 32  # output columns of a pass2_bwd CTA (csrc/warp.cu kStrip)
+QUAD = 4    # adjacent output pixels of a pass2_fwd thread (csrc/warp.cu kQuad)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,17 +57,19 @@ _I = ctypes.c_int
 def reset_counts() -> None:
     """Set every launch count and the window count to 0."""
     global WINDOWS
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ABLATION_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
     WINDOWS = 0
 
 
 @functools.lru_cache(maxsize=None)
 def _kernels():
-    """The four C entries of `csrc/warp.cu`, built on first use."""
+    """The C entries of `csrc/warp.cu`, built on first use."""
     lib = _build.load("warp")
     sigs = {"pass1_fwd": [_P, _P, _I, _I, _I, _I, _P, _P],
             "pass2_fwd": [_P, _P, _I, _I, _I, _P, _P],
+            "pass2_fwd_ablation": [_P, _P, _I, _I, _I, _P, _P],
             "pass2_bwd": [_P, _P, _I, _I, _I, _P, _P],
             "pass1_bwd": [_P, _P, _I, _I, _I, _I, _P, _P]}
     fns = {}
@@ -112,6 +120,33 @@ def taps_near(c, r, n: int):
     c, r = np.asarray(c, np.float32), np.asarray(r, np.float32)
     return (np.clip(np.floor(c - r), 0, n).astype(np.int64),
             np.clip(np.ceil(c + r), -1, n - 1).astype(np.int64))
+
+
+def pass2_fwd_taps(table_row, p0: int, w: int):
+    """(lo, hi) [w, ceil(w / QUAD)]: the float32 twin of the interval that
+    csrc/warp.cu `pass2_fwd_kernel` walks for the QUAD pixels (y, x0 ..
+    x0 + QUAD - 1) of a thread, window `table_row` (8 floats): the union of
+    their non-empty `taps_near` intervals around u = (a*y + b*x) + cu, the
+    pixels past w left out; empty (lo > hi) where every one is."""
+    f32 = np.float32
+    a, b, cu, r = (f32(table_row[c]) for c in (3, 4, 5, 6))
+    y = np.arange(w, dtype=f32)[:, None]
+    x = np.arange(-(-w // QUAD) * QUAD, dtype=f32)[None, :]
+    lo, hi = taps_near((a * y + b * x) + cu, r, p0)
+    live = (lo <= hi) & (x < w)
+    lo = np.where(live, lo, p0).reshape(w, -1, QUAD).min(-1)
+    hi = np.where(live, hi, -1).reshape(w, -1, QUAD).max(-1)
+    return lo, hi
+
+
+def hat(c, k, r, unit: bool = False):
+    """The float32 twin of csrc/warp.cu `hat<unit>`: max(0, 1 - |c - k| / r),
+    with |c - k| in place of the quotient where `unit` (the kernels' r = 1
+    instance)."""
+    f32 = np.float32
+    d = np.abs(np.asarray(c, f32) - np.asarray(k, f32))
+    q = d if unit else d / np.asarray(r, f32)
+    return np.maximum(f32(0), f32(1) - q)
 
 
 def taps_along(slope, base, target, r, n: int):
@@ -184,9 +219,9 @@ def pass1_bwd_ranges(table, n_images: int, p0: int, w: int):
 
 
 def _launch(name: str, x: torch.Tensor, table: torch.Tensor, out_shape,
-            *sizes, appendix=()) -> torch.Tensor:
+            *sizes, appendix=(), counts=LAUNCHES) -> torch.Tensor:
     """Copy the checked table, with its int32 appendix, to x's card in one
-    transfer, launch kernel `name`, count it."""
+    transfer, launch kernel `name`, count it in `counts`."""
     dev = x.device
     out = torch.empty(out_shape, dtype=torch.float32, device=dev)
     fn = _kernels()[name]
@@ -203,7 +238,7 @@ def _launch(name: str, x: torch.Tensor, table: torch.Tensor, out_shape,
     if err != 0:
         raise RuntimeError(f"warp {name} kernel launch failed: cudaError_t "
                            f"{err} (sizes {sizes})")
-    LAUNCHES[name] += 1
+    counts[name] += 1
     return out
 
 
@@ -221,14 +256,25 @@ def pass1_fwd(canvases: torch.Tensor, table: torch.Tensor, w: int) -> torch.Tens
     return out
 
 
-def pass2_fwd(t: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """t [N, p0, w, 3] -> out [N, w, w, 3] (`eot.pass2_fwd`)."""
+def _pass2_fwd(entry: str, counts, t: torch.Tensor, table: torch.Tensor
+               ) -> torch.Tensor:
     _check_data("t", t, 4)
     n, p0, w, _ = t.shape
     check_table(table)
     if table.shape[0] != n:
         raise ValueError(f"t has {n} windows, the table {table.shape[0]}")
-    return _launch("pass2_fwd", t, table, (n, w, w, 3), n, p0, w)
+    return _launch(entry, t, table, (n, w, w, 3), n, p0, w, counts=counts)
+
+
+def pass2_fwd(t: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """t [N, p0, w, 3] -> out [N, w, w, 3] (`eot.pass2_fwd`)."""
+    return _pass2_fwd("pass2_fwd", LAUNCHES, t, table)
+
+
+def pass2_fwd_ablation(t: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """`pass2_fwd` by its first kernel, a thread per output pixel: bit-equal,
+    timed beside it; no path calls it."""
+    return _pass2_fwd("pass2_fwd_ablation", ABLATION_LAUNCHES, t, table)
 
 
 def pass2_bwd(g: torch.Tensor, table: torch.Tensor, p0: int) -> torch.Tensor:

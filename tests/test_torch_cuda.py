@@ -12,7 +12,9 @@ nor the JAX package, so on a machine with a card and no JAX it runs as
 JAX with. NMS kernel vs plain: indices, valid, valid_len and boxes exactly
 equal, scores within 1e-6. Warp kernels vs plain: within WARP_TOL of the
 output's scale, since the weights are the same float32 values and only the
-order of the sums differs; two launches bit-equal (no atomics). cmconv
+order of the sums differs; two launches bit-equal (no atomics); pass 2's
+forward also bit-equal to its ablation, the thread-per-output kernel, which
+sums the same taps in the same order plus taps that are zero. cmconv
 kernels (both instances, `simt` and `tc`, and the plan's pick) vs plain:
 within CMCONV_TOL of the output's scale (the SIMT instance sums with FMAs,
 the tensor-core one with 3xTF32 products, each in one fixed order, where
@@ -340,6 +342,10 @@ def _warp_cases():
             r, 4, 16, 96, 448, images=np.full(16, 2))),
         ("w448_size_300", 448, warp_windows_case(r, 3, 6, 96, 448, size=300.0)),
         ("b24_live_regime_w448_scale_.6", 448, live_regime_case(r, 448, 0.6)),
+        # w past the last 32-column tile and past a multiple of 4 (pass 2's
+        # forward by single floats); every window at r = 1, rotated
+        ("w203_ragged_tiles", 203, warp_windows_case(r, 2, 4, 96, 203)),
+        ("w384_all_r1", 384, warp_windows_case(r, 3, 6, 96, 384, size=220.0)),
     ]
 
 
@@ -363,6 +369,12 @@ def test_warp_kernels_match_plain(cuda, name, w, case):
     _close(t, peot.pass1_fwd(canvases, table, w), "pass1_fwd")
     out = warp_cuda.pass2_fwd(t, table)
     _close(out, peot.pass2_fwd(t, table), "pass2_fwd")
+    ablation = dict(warp_cuda.ABLATION_LAUNCHES)
+    assert torch.equal(warp_cuda.pass2_fwd_ablation(t, table), out)
+    assert warp_cuda.ABLATION_LAUNCHES["pass2_fwd_ablation"] == \
+        ablation["pass2_fwd_ablation"] + 1
+    if name == "w384_all_r1":
+        assert (table[:, 6] == 1).all()
     g = torch.randn((n, w, w, 3), generator=torch.Generator(cuda).manual_seed(0),
                     device=cuda)
     dt = warp_cuda.pass2_bwd(g, table, p0)
@@ -381,6 +393,20 @@ def test_warp_kernels_match_plain(cuda, name, w, case):
     assert torch.equal(warp_cuda.pass2_fwd(t, table), out)
     assert torch.equal(warp_cuda.pass2_bwd(g, table, p0), dt)
     assert torch.equal(warp_cuda.pass1_bwd(dt, table, n_img), dc)
+
+
+def test_pass2_fwd_unaligned_t(cuda):
+    """t 4 bytes past a 16-byte boundary at w % 4 == 0: the kernel takes
+    single floats there, bit-equal to the 16-byte path and the ablation."""
+    canvases, table = warp_windows_case(np.random.default_rng(7), 2, 3, 96, 320)
+    t = warp_cuda.pass1_fwd(canvases.to(cuda), table, 320)
+    shifted = torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape)
+    shifted.copy_(t)
+    assert shifted.data_ptr() % 16 == 4 and shifted.is_contiguous()
+    out = warp_cuda.pass2_fwd(t, table)
+    assert torch.equal(warp_cuda.pass2_fwd(shifted, table), out)
+    assert torch.equal(warp_cuda.pass2_fwd_ablation(shifted, table), out)
+    _close(out, peot.pass2_fwd(t, table), "pass2_fwd")
 
 
 def test_warp_autograd_on_card_matches_plain(cuda):
@@ -447,6 +473,7 @@ def test_attack_step_on_card_goes_through_kernels(cuda):
                               boxes_override=(boxes.to(cuda), valid.to(cuda)))
     torch.cuda.synchronize()
     assert warp_cuda.LAUNCHES == {k: 1 for k in warp_cuda.LAUNCHES}
+    assert warp_cuda.ABLATION_LAUNCHES == {"pass2_fwd_ablation": 0}
     assert warp_cuda.WINDOWS == 3
     assert nms_cuda.LAUNCHES == nms_before + 1
     assert np.isfinite(float(m.loss))

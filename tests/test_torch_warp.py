@@ -1,7 +1,10 @@
 """The host side of the warp kernels, on the CPU.
 
 `csrc/warp.cu`'s `pass1_fwd_kernel` sums each output over the taps of its
-`taps_near` interval alone. Its `pass2_bwd_kernel` and `pass1_bwd_kernel` visit only the
+`taps_near` interval alone, and `pass2_fwd_kernel` each of a thread's 4
+pixels over the union of their intervals (`pass2_fwd_taps`); both drop the
+hat's division where r = 1 (`hat(unit=True)`). Its `pass2_bwd_kernel` and
+`pass1_bwd_kernel` visit only the
 rows and columns that `ops/warp_cuda.py` marks live, and within them only the
 taps of their `taps_along` and `taps_near` intervals, so a range that misses a
 non-zero tap would lose it without a trace. These tests hold the host ranges
@@ -57,6 +60,11 @@ RANGE_CASES = [
     ("p32_w200", random_table(10, 3, 5, 32, 200), 32, 200),
     ("live_regime_b24", chip_smoke.live_regime_table()[:12], 96, 320),
 ]
+# pass 2's forward also at the frontier's window, every window at r = 1, and
+# at a w whose last quad is ragged
+PASS2_FWD_CASES = RANGE_CASES + [
+    ("w448_r1", random_table(12, 2, 3, 96, 448, size=300.0), 96, 448),
+    ("p32_w150", random_table(13, 2, 3, 32, 150), 32, 150)]
 
 
 def _within(k, lo, hi):
@@ -142,6 +150,63 @@ def test_pass1_fwd_taps_near_covers_every_nonzero_tap(name, table, p0, w):
         width = np.maximum(hi - lo + 1, 0)
         assert (width <= (hat > 0).sum(-1) + 2).all(), (
             f"window {k}: taps_near wider than the non-zero taps and one on each side")
+
+
+@pytest.mark.parametrize("name,table,p0,w", PASS2_FWD_CASES,
+                         ids=[c[0] for c in PASS2_FWD_CASES])
+def test_pass2_fwd_taps_cover_every_nonzero_tap(name, table, p0, w):
+    """`pass2_fwd_kernel` sums the QUAD pixels of a thread over the union of
+    their taps_near intervals and nothing else: every non-zero weight of the
+    plain pass 2 lies inside its quad's interval, and the interval holds no
+    margin, at most one zero tap past each end of the quad's non-zero taps."""
+    if name == "w448_r1":
+        assert (table[:, 6] == 1).all()
+    quads = -(-w // warp_cuda.QUAD)
+    pad = quads * warp_cuda.QUAD - w
+    for k in range(table.shape[0]):
+        nz = eot._pass2_weights(table[k:k + 1], p0, w)[0] > 0             # [y, x, i]
+        nz = torch.nn.functional.pad(nz, (0, 0, 0, pad)).view(
+            w, quads, warp_cuda.QUAD, p0).any(2).numpy()                 # [y, quad, i]
+        lo, hi = warp_cuda.pass2_fwd_taps(table[k].numpy(), p0, w)      # [y, quad]
+        has = nz.any(-1)
+        first = np.argmax(nz, -1)
+        last = p0 - 1 - np.argmax(nz[..., ::-1], -1)
+        assert ((first >= lo) & (last <= hi))[has].all(), (
+            f"window {k}: a non-zero tap outside its quad's interval")
+        extent = np.where(has, last - first + 1, 0)
+        assert (np.maximum(hi - lo + 1, 0) <= extent + 2).all(), (
+            f"window {k}: an interval wider than its quad's non-zero taps and one on each side")
+    if name == "wholly_outside":
+        lo, hi = warp_cuda.pass2_fwd_taps(table[0].numpy(), p0, w)
+        assert (lo > hi).all()
+
+
+@pytest.mark.parametrize("name,table,p0,w", PASS2_FWD_CASES,
+                         ids=[c[0] for c in PASS2_FWD_CASES])
+def test_unit_hat_equals_divided_hat(name, table, p0, w):
+    """At r = 1 the kernels' hat without its division (`hat<true>`) is the
+    divided hat and the plain version's `_hat`, bit for bit: on the d = u - i
+    of the case's windows (every pixel, the taps around u) and on a grid of d
+    through [-3, 3] with the float32 neighbours of 0, +-1 and +-2."""
+    q = table.numpy()
+    y, x = np.meshgrid(np.arange(w, dtype=np.float32), np.arange(w, dtype=np.float32),
+                       indexing="ij")
+    u = np.concatenate([((q[k, 3] * y + q[k, 4] * x) + q[k, 5]).ravel()
+                        for k in range(q.shape[0])])
+    c = np.concatenate([u] * 5)
+    i = np.concatenate([np.floor(u) + off for off in (-2, -1, 0, 1, 2)]).astype(np.float32)
+    edges = np.float32([0, 1, -1, 2, -2])
+    grid = np.concatenate([np.linspace(-3, 3, 60001, dtype=np.float32),
+                           np.nextafter(edges, np.float32(np.inf)),
+                           np.nextafter(edges, np.float32(-np.inf)), edges])
+    c, i = np.concatenate([c, grid]), np.concatenate([i, np.zeros_like(grid)])
+    unit = warp_cuda.hat(c, i, 1.0, unit=True)
+    divided = warp_cuda.hat(c, i, 1.0)
+    plain = eot._hat(torch.from_numpy(c - i), 1.0).numpy()
+    assert unit.dtype == divided.dtype == plain.dtype == np.float32
+    assert np.array_equal(unit.view(np.int32), divided.view(np.int32))
+    assert np.array_equal(unit.view(np.int32), plain.view(np.int32))
+    assert (unit > 0).any() and (unit == 0).any()
 
 
 def test_taps_along_full_range_at_slope_zero():
